@@ -1,0 +1,279 @@
+"""Command-line driver of the port (counterpart of
+``mcmc_ammsb_tpu/cli.py``, main path only).
+
+The same flag names, ``resolve_fast_defaults`` semantics and log lines
+(config echo, ``ppx[i] = ...`` with the link/non-link quadruple, the
+stats table) as the JAX CLI; SIGINT drains the loop. ``--device cuda``
+(the default) runs on the GPU and fails when there is none — it never
+falls back to the CPU. A flag that selects an engine the port lacks
+exits non-zero and names the ROADMAP item that will port it.
+
+Usage:
+    python -m mcmc_ammsb_tpu_torch.cli --synthetic 317080,7 -k 256 \\
+        -x 2000 -i 500 --device cuda
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import signal
+import sys
+
+import torch
+
+from mcmc_ammsb_tpu_torch.config import (Config, EdgeSetBackend, PhiImpl,
+                                         RngBackend, SampleStrategy)
+from mcmc_ammsb_tpu_torch.data import (Graph, generate_sets,
+                                       load_snap_edges, synthetic_edges)
+from mcmc_ammsb_tpu_torch.learner import Learner, check_ported
+
+log = logging.getLogger("mcmc_ammsb_tpu_torch")
+
+#: Flags of the JAX CLI whose engines are not ported yet:
+#: (argparse dest, the only accepted value, ROADMAP queue 1 item).
+_UNPORTED = (
+    ("mesh", "", "item 14 (multi-GPU)"),
+    ("num_chains", 1, "item 12 (chains)"),
+    ("model", "ammsb", "item 11 (full MMSB)"),
+    ("checkpoint", "", "item 6 (checkpoints)"),
+    ("restore", "", "item 6 (checkpoints)"),
+    ("profile", False, "item 13 (profiling)"),
+)
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="mcmc_ammsb_tpu_torch",
+        description="a-MMSB SG-MCMC sampler, PyTorch + CUDA port")
+    p.add_argument("--file", "-f", help="graph data file (SNAP edge list)")
+    p.add_argument("--synthetic", type=str, default=None,
+                   metavar="N,AVG_DEG",
+                   help="use a synthetic random graph instead of --file")
+    p.add_argument("--heldout-ratio", "-r", type=float, default=0.01)
+    p.add_argument("--alpha", type=float, default=0.0)
+    p.add_argument("-a", dest="a", type=float, default=0.0315)
+    p.add_argument("-b", dest="b", type=float, default=1024.0)
+    p.add_argument("-c", dest="c", type=float, default=0.5)
+    p.add_argument("--epsilon", "-e", type=float, default=1e-7)
+    p.add_argument("--eta0", type=float, default=1.0)
+    p.add_argument("--eta1", type=float, default=1.0)
+    p.add_argument("-k", dest="K", type=int, default=32)
+    p.add_argument("--mini_batch", "-m", type=int, default=32)
+    p.add_argument("--neighbors", "-n", type=int, default=32)
+    p.add_argument("--ppx-interval", "-i", type=int, default=100)
+    p.add_argument("--max-iters", "-x", type=int, default=100)
+    p.add_argument("--sample", "-s", default="Node",
+                   help="Node|NodeLink|NodeNonLink (the BF family is not "
+                        "ported yet)")
+    p.add_argument("--phi-seed", type=int, nargs=2, default=(42, 43))
+    p.add_argument("--beta-seed", type=int, nargs=2, default=(44, 45))
+    p.add_argument("--neighbor-seed", type=int, nargs=2, default=(56, 57))
+    p.add_argument("--phi-impl", choices=[m.value for m in PhiImpl],
+                   default=PhiImpl.JNP.value)
+    p.add_argument("--edgeset", choices=[m.value for m in EdgeSetBackend],
+                   default=EdgeSetBackend.AUTO.value)
+    p.add_argument("--rng", choices=[m.value for m in RngBackend],
+                   default=RngBackend.NATIVE.value)
+    p.add_argument("--pi-dtype", choices=["float32", "bfloat16"],
+                   default="float32")
+    p.add_argument("--calc-train-ppx", action="store_true")
+    p.add_argument("--steps-per-call", type=int, default=0,
+                   help="steps between host readbacks; 0 = auto (1000 "
+                        "with device sampling)")
+    p.add_argument("--device-sampling",
+                   action=argparse.BooleanOptionalAction, default=None,
+                   help="sample minibatches on the device (default: on "
+                        "for the Node family; host sampling is not "
+                        "ported yet)")
+    p.add_argument("--shared-neighbors",
+                   action=argparse.BooleanOptionalAction, default=None,
+                   help="one shared n-neighbor draw per step (default: "
+                        "follows --device-sampling; private draws are not "
+                        "ported yet)")
+    p.add_argument("--window", type=int, default=0,
+                   help="T-step window engine (one gather, one CUDA "
+                        "kernel launch, one scatter per window); 0 = auto "
+                        "[12 on the fast path], -1 = off")
+    p.add_argument("--node-coin", choices=["random", "alternate"],
+                   default="random")
+    p.add_argument("--ds-link-rounds", type=int, default=2)
+    p.add_argument("--ds-nonlink-rounds", type=int, default=1)
+    p.add_argument("--ds-link-cap", type=int, default=0)
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="compute device; cuda fails when no GPU is "
+                        "present (no silent CPU fallback)")
+    # engines of the JAX CLI that the port does not have yet (_UNPORTED)
+    p.add_argument("--mesh", type=str, default="")
+    p.add_argument("--num-chains", type=int, default=1)
+    p.add_argument("--model", choices=["ammsb", "mmsb"], default="ammsb")
+    p.add_argument("--checkpoint", type=str, default="")
+    p.add_argument("--restore", type=str, default="")
+    p.add_argument("--profile", action="store_true")
+    return p
+
+
+_NODE_FAMILY = (SampleStrategy.NODE, SampleStrategy.NODE_LINK,
+                SampleStrategy.NODE_NON_LINK)
+_BF_FAMILY = (SampleStrategy.BF, SampleStrategy.BF_LINK,
+              SampleStrategy.BF_NON_LINK)
+
+
+def resolve_fast_defaults(args) -> None:
+    """Resolve auto flags to the fast path (in place), as the JAX CLI
+    does: device sampling + shared neighbor draws + 1000-step chunks +
+    window 12 whenever the configuration supports them."""
+    strategy = SampleStrategy.parse(args.sample)
+    native_jnp = (args.rng == RngBackend.NATIVE.value
+                  and args.phi_impl == PhiImpl.JNP.value)
+    fast_ok = strategy in _NODE_FAMILY and native_jnp
+    if args.device_sampling is None:
+        args.device_sampling = (fast_ok
+                                or (strategy in _BF_FAMILY and native_jnp))
+    if args.shared_neighbors is None:
+        args.shared_neighbors = fast_ok and bool(args.device_sampling)
+    if args.steps_per_call <= 0:
+        args.steps_per_call = (max(1000, args.ppx_interval)
+                               if args.device_sampling
+                               else max(1, min(200, args.ppx_interval)))
+        log.info("steps_per_call auto-set to %d", args.steps_per_call)
+    if (args.window == 0 and args.device_sampling
+            and args.shared_neighbors):
+        args.window = 12
+        args.window_auto = True
+        log.info("window auto-set to 12 (T-step fused windows; "
+                 "--window -1 disables)")
+    if args.window < 0:
+        args.window = 0
+
+
+def config_from_args(args) -> Config:
+    return Config(
+        K=args.K, alpha=args.alpha, a=args.a, b=args.b, c=args.c,
+        epsilon=args.epsilon, eta0=args.eta0, eta1=args.eta1,
+        mini_batch_size=args.mini_batch, num_node_sample=args.neighbors,
+        strategy=SampleStrategy.parse(args.sample),
+        heldout_ratio=args.heldout_ratio,
+        calc_train_ppx=args.calc_train_ppx,
+        device_sampling=args.device_sampling,
+        shared_neighbors=args.shared_neighbors,
+        ppx_interval=args.ppx_interval,
+        phi_seed=tuple(args.phi_seed), beta_seed=tuple(args.beta_seed),
+        neighbor_seed=tuple(args.neighbor_seed),
+        phi_impl=PhiImpl(args.phi_impl),
+        edgeset_backend=EdgeSetBackend(args.edgeset),
+        rng_backend=RngBackend(args.rng),
+        pi_dtype=args.pi_dtype,
+        steps_per_call=args.steps_per_call,
+        window=args.window,
+        node_coin=args.node_coin,
+        ds_link_rounds=args.ds_link_rounds,
+        ds_nonlink_rounds=args.ds_nonlink_rounds,
+        ds_link_cap=args.ds_link_cap,
+    )
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(levelname).1s %(asctime)s %(name)s] %(message)s",
+        stream=sys.stderr)
+    args = build_arg_parser().parse_args(argv)
+    log.info(" ".join(sys.argv if argv is None else argv))
+    for dest, accepted, item in _UNPORTED:
+        if getattr(args, dest) != accepted:
+            log.fatal("--%s is not ported yet (ROADMAP queue 1 %s)",
+                      dest.replace("_", "-"), item)
+            return 2
+    resolve_fast_defaults(args)
+    cfg = config_from_args(args)
+    try:
+        check_ported(cfg)
+    except NotImplementedError as e:
+        log.fatal("%s", e)
+        return 2
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        log.fatal("--device cuda: no CUDA device is available (pass "
+                  "--device cpu to run on the CPU)")
+        return 1
+    device = torch.device(args.device)
+    log.info("torch %s on %s", torch.__version__,
+             torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
+
+    # --- dataset ----------------------------------------------------------
+    if args.synthetic:
+        nn, deg = (int(x) for x in args.synthetic.split(","))
+        n, u, v = synthetic_edges(nn, deg, seed=1)
+    elif args.file:
+        n, u, v = load_snap_edges(args.file)
+    else:
+        log.fatal("one of --file / --synthetic is required")
+        return 1
+    split = generate_sets(n, u, v, args.heldout_ratio)
+    graph = Graph.from_edges(n, split.training_u, split.training_v)
+    cfg = cfg.finalize(n, split.total_edges, graph.max_fan_out)
+    if getattr(args, "window_auto", False) and cfg.max_batch_nodes > 64:
+        # hub-degree-padded batches: the correction scales with T*B
+        log.info("window auto-disabled: max_batch_nodes=%d > 64",
+                 cfg.max_batch_nodes)
+        cfg = cfg.replace(window=0)
+    log.info("Loaded %s (N=%d, E=%d, training max fan out = %d)",
+             args.file or args.synthetic, cfg.N, cfg.E, cfg.max_fan_out)
+    log.info("config: %s", cfg)
+    try:
+        learner = Learner(cfg, graph, split, device)
+    except NotImplementedError as e:
+        log.fatal("%s", e)
+        return 2
+
+    # --- SIGINT drain -----------------------------------------------------
+    signaled = {"flag": False}
+
+    def handler(_sig, _frm):
+        signaled["flag"] = True
+
+    previous = signal.signal(signal.SIGINT, handler)
+    try:
+        _train(args, cfg, learner, signaled)
+    finally:
+        signal.signal(signal.SIGINT, previous)
+    return 0
+
+
+def _train(args, cfg: Config, learner: Learner, signaled: dict) -> None:
+    log.info("ppx[0] = %s", learner.heldout_perplexity())
+
+    def log_eval(i, ppx, st):
+        log.info("ppx[%d] = %s", i, ppx)
+        log.info("  links: %d (ll %.4f)  non-links: %d (ll %.4f)",
+                 st["link_count"], st["link_likelihood"],
+                 st["non_link_count"], st["non_link_likelihood"])
+
+    fused_evals = cfg.steps_per_call > cfg.ppx_interval
+    i = 0
+    start_step = learner.state.step_count
+    while i < args.max_iters and not signaled["flag"]:
+        if fused_evals and args.max_iters - i >= cfg.ppx_interval:
+            # whole eval periods, about steps_per_call steps per call;
+            # SIGINT is checked between calls
+            take = min(args.max_iters - i, cfg.steps_per_call)
+            take -= take % cfg.ppx_interval
+            for ev in learner.run_with_ppx(take, cfg.ppx_interval):
+                log_eval(ev["step"] - start_step, ev["ppx"], ev)
+            i += take
+        else:
+            step = min(args.max_iters - i, cfg.ppx_interval)
+            learner.run(step)
+            i += step
+            if not signaled["flag"]:
+                log_eval(i, learner.heldout_perplexity(),
+                         learner.last_ppx_stats)
+    if signaled["flag"]:
+        log.info("FORCED TERMINATE")
+    learner.print_stats(lambda s: log.info("%s", s))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,184 @@
+"""Graph ETL: SNAP loading, renumbering, train/held-out split, CSR
+adjacency — the numpy paths of ``mcmc_ammsb_tpu/data.py``, copied (see
+config.py for why the port does not import them).
+
+  * ``load_snap_edges``  — parse an edge list, canonicalize, renumber
+                           vertices to [0, N), dedup, shuffle.
+  * ``synthetic_edges``  — uniform random test/benchmark graph.
+  * ``generate_sets``    — training / held-out split plus an equal count
+                           of "fake" held-out non-edges.
+  * ``Graph``            — CSR adjacency + max fan-out.
+
+The native C++ parser, the power-law / SBM generators and the dataset
+cache are not ported yet (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import gzip
+import io
+from typing import Tuple
+
+import numpy as np
+
+from mcmc_ammsb_tpu_torch.types import (VERTEX_DTYPE, canonicalize,
+                                        pack_edges, unpack_edges)
+
+
+@dataclasses.dataclass
+class Graph:
+    """Undirected graph in CSR form."""
+
+    num_nodes: int
+    edges_u: np.ndarray  # [E] int32, canonical u < v
+    edges_v: np.ndarray  # [E] int32
+    offsets: np.ndarray  # [N+1] int64 CSR row offsets
+    cols: np.ndarray     # [2E] int32, sorted within each row
+
+    @classmethod
+    def from_edges(cls, num_nodes: int, u: np.ndarray,
+                   v: np.ndarray) -> "Graph":
+        u = np.asarray(u, VERTEX_DTYPE)
+        v = np.asarray(v, VERTEX_DTYPE)
+        src = np.concatenate([u, v])
+        dst = np.concatenate([v, u])
+        order = np.lexsort((dst, src))
+        src, dst = src[order], dst[order]
+        counts = np.bincount(src, minlength=num_nodes)
+        offsets = np.zeros(num_nodes + 1, np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        return cls(num_nodes, u, v, offsets, dst)
+
+    @property
+    def num_edges(self) -> int:
+        return len(self.edges_u)
+
+    @property
+    def degrees(self) -> np.ndarray:
+        return np.diff(self.offsets)
+
+    @property
+    def max_fan_out(self) -> int:
+        return int(self.degrees.max()) if self.num_nodes else 0
+
+    def neighbors_of(self, u: int) -> np.ndarray:
+        return self.cols[self.offsets[u]: self.offsets[u + 1]]
+
+    def has_edge(self, u: int, v: int) -> bool:
+        row = self.neighbors_of(u)
+        i = np.searchsorted(row, v)
+        return bool(i < len(row) and row[i] == v)
+
+
+def load_snap_edges(path: str, shuffle_seed: int = 0
+                    ) -> Tuple[int, np.ndarray, np.ndarray]:
+    """Parse a SNAP edge-list file (``#`` comment lines, then ``u v``
+    pairs; ``.gz`` is read through gzip). Returns (N, u, v)."""
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "rt") as f:
+        text = f.read()
+    lines = [ln for ln in text.splitlines()
+             if ln and not ln.lstrip().startswith("#")]
+    raw = np.loadtxt(io.StringIO("\n".join(lines)), dtype=np.int64,
+                     ndmin=2)
+    return renumber_dedup_shuffle(raw[:, 0], raw[:, 1], shuffle_seed)
+
+
+def renumber_dedup_shuffle(
+    a: np.ndarray, b: np.ndarray, shuffle_seed: int = 0
+) -> Tuple[int, np.ndarray, np.ndarray]:
+    """Vertex renumber to [0, N), self-loop drop, dedup, shuffle."""
+    keep = a != b
+    a, b = a[keep], b[keep]
+    uniq, inv = np.unique(np.concatenate([a, b]), return_inverse=True)
+    n = len(uniq)
+    a = inv[: len(a)].astype(VERTEX_DTYPE)
+    b = inv[len(b):].astype(VERTEX_DTYPE)
+    u, v = canonicalize(a, b)
+    packed = np.unique(pack_edges(u, v))
+    rng = np.random.RandomState(shuffle_seed)
+    rng.shuffle(packed)
+    u, v = unpack_edges(packed)
+    return n, u, v
+
+
+def synthetic_edges(num_nodes: int, avg_degree: int, seed: int = 0
+                    ) -> Tuple[int, np.ndarray, np.ndarray]:
+    """Uniform random graph, the same draws as the JAX package's."""
+    rng = np.random.RandomState(seed)
+    m = num_nodes * avg_degree // 2
+    a = rng.randint(0, num_nodes, size=2 * m)
+    b = rng.randint(0, num_nodes, size=2 * m)
+    n, u, v = renumber_dedup_shuffle(a, b, shuffle_seed=seed)
+    u, v = u[:m], v[:m]
+    order = np.random.RandomState(seed + 1).permutation(len(u))
+    return n, u[order], v[order]
+
+
+@dataclasses.dataclass
+class DataSplit:
+    """Training / held-out split plus the held-out evaluation edge list
+    (heldout_len real edges followed by as many sampled non-edges)."""
+
+    num_nodes: int
+    training_u: np.ndarray
+    training_v: np.ndarray
+    heldout_u: np.ndarray      # real held-out edges only
+    heldout_v: np.ndarray
+    heldout_edges_u: np.ndarray  # real + fake, evaluation population
+    heldout_edges_v: np.ndarray
+    total_edges: int             # E = |unique edges| pre-split
+
+
+def generate_sets(num_nodes: int, u: np.ndarray, v: np.ndarray,
+                  heldout_ratio: float, seed: int = 12345) -> DataSplit:
+    """Split shuffled unique edges into training/held-out + fake
+    non-edges: training_len = ceil((1 - ratio/2) * E); fakes are uniform
+    non-edges excluded from every real edge and from each other."""
+    e = len(u)
+    training_len = int(np.ceil((1.0 - heldout_ratio / 2.0) * e))
+    heldout_len = e - training_len
+    heldout_u, heldout_v = u[:heldout_len], v[:heldout_len]
+    training_u, training_v = u[heldout_len:], v[heldout_len:]
+
+    existing = set(pack_edges(u, v).tolist())
+    rng = np.random.RandomState(seed)
+    fake_u = np.empty(heldout_len, VERTEX_DTYPE)
+    fake_v = np.empty(heldout_len, VERTEX_DTYPE)
+    count = 0
+    rounds = 0
+    while count < heldout_len:
+        rounds += 1
+        if rounds > 200:
+            raise ValueError(
+                f"generate_sets: found only {count}/{heldout_len} fake "
+                "non-edges after 200 rejection rounds — the graph is "
+                "too dense for this heldout_ratio")
+        need = heldout_len - count
+        ra = rng.randint(0, num_nodes, size=2 * need + 16)
+        rb = rng.randint(0, num_nodes, size=2 * need + 16)
+        keep = ra != rb
+        cu, cv = canonicalize(ra[keep], rb[keep])
+        for x, y in zip(cu, cv):
+            key = int(pack_edges(x, y))
+            if key in existing:
+                continue
+            existing.add(key)
+            fake_u[count], fake_v[count] = x, y
+            count += 1
+            if count == heldout_len:
+                break
+
+    return DataSplit(
+        num_nodes=num_nodes,
+        training_u=training_u,
+        training_v=training_v,
+        heldout_u=heldout_u,
+        heldout_v=heldout_v,
+        heldout_edges_u=np.concatenate([heldout_u, fake_u]).astype(
+            VERTEX_DTYPE),
+        heldout_edges_v=np.concatenate([heldout_v, fake_v]).astype(
+            VERTEX_DTYPE),
+        total_edges=e,
+    )

@@ -1,0 +1,29 @@
+"""Build the port's state from the JAX package's, so that both packages
+can run the same computation from the same numbers (the parity tests)."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mcmc_ammsb_tpu_torch.config import Config
+from mcmc_ammsb_tpu_torch.learner import TrainState
+
+
+def state_from_numpy(arrays: dict, cfg: Config, device) -> TrainState:
+    """``arrays`` maps the JAX ``TrainState`` field names to numpy
+    arrays; its RNG keys and other fields the port keeps elsewhere are
+    ignored. Tensors are copies: the port updates pi in place."""
+    def tensor(name):
+        return torch.tensor(np.asarray(arrays[name], np.float32),
+                            device=device)
+
+    if tuple(np.shape(arrays["pi"])) != (cfg.N, cfg.K):
+        raise ValueError(f"pi has shape {np.shape(arrays['pi'])}, the "
+                         f"config says ({cfg.N}, {cfg.K})")
+    return TrainState(
+        pi=tensor("pi"), phi_sum=tensor("phi_sum"), theta=tensor("theta"),
+        beta=tensor("beta"), step_count=int(arrays["step_count"]),
+        beta_count=int(arrays["beta_count"]),
+        ppx_per_edge=tensor("ppx_per_edge"),
+        ppx_count=int(arrays["ppx_count"]))

@@ -1,0 +1,88 @@
+"""Seeded operands for checking one window of the window engine.
+
+``window_case`` draws, with numpy, the state and the hoisted operands
+of one T-step window at a chosen shape, with rows that collide across
+the window's steps on purpose (nodes and neighbors come from a small
+node pool), masked node and edge lanes, and padded lanes that carry the
+sentinel N. The same arrays drive the port's plain version and its CUDA
+kernel (``chip_smoke.py``) and the JAX package's window cores (the CPU
+parity tests).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mcmc_ammsb_tpu_torch.config import Config
+from mcmc_ammsb_tpu_torch.learner import DeviceBatch, TrainState
+
+
+def window_case(seed: int, t_win: int, b_cap: int, n_smpl: int,
+                e_cap: int, k: int) -> dict:
+    """numpy arrays of one window: the state fields (pi, phi_sum, theta,
+    beta, step_count, beta_count) and the operand tuple's fields."""
+    r = np.random.default_rng(seed)
+    n_nodes = 2 * b_cap + n_smpl          # small pool: many collisions
+    f32 = np.float32
+    pi = r.gamma(1.0, size=(n_nodes, k)).astype(f32)
+    pi /= pi.sum(-1, keepdims=True)
+    nodes = np.full((t_win, b_cap), n_nodes, np.int32)
+    node_mask = np.zeros((t_win, b_cap), bool)
+    lanes_u = np.zeros((t_win, e_cap), np.int32)
+    lanes_v = np.zeros((t_win, e_cap), np.int32)
+    edge_mask = np.zeros((t_win, e_cap), bool)
+    nbrs = np.zeros((t_win, 1, n_smpl), np.int32)
+    for t in range(t_win):
+        n_valid = b_cap if t == 0 else int(r.integers(2, b_cap + 1))
+        nodes[t, :n_valid] = r.choice(n_nodes, n_valid, replace=False)
+        node_mask[t, :n_valid] = True
+        n_edges = int(r.integers(1, e_cap + 1))
+        lanes_u[t, :n_edges] = r.integers(0, n_valid, n_edges)
+        lanes_v[t, :n_edges] = r.integers(0, n_valid, n_edges)
+        edge_mask[t, :n_edges] = True
+        nbrs[t, 0] = r.choice(n_nodes, n_smpl, replace=False)
+    pick = np.arange(t_win)[:, None]
+    theta = (r.gamma(1.0, size=(k, 2)) + 0.1).astype(f32)
+    return dict(
+        n_nodes=n_nodes,
+        pi=pi,
+        phi_sum=(1.0 + k * r.random(n_nodes)).astype(f32),
+        theta=theta,
+        beta=theta[:, 1] / (theta[:, 0] + theta[:, 1]),
+        step_count=int(r.integers(1, 500)),
+        beta_count=int(r.integers(0, 500)),
+        edges_u=nodes[pick, lanes_u], edges_v=nodes[pick, lanes_v],
+        edge_mask=edge_mask, nodes=nodes, node_mask=node_mask,
+        weight=r.choice([float(n_nodes), 7.5], t_win).astype(f32),
+        neighbors=nbrs,
+        y_phi=r.random((t_win, b_cap, n_smpl)) < 0.3,
+        phi_noise=r.standard_normal((t_win, b_cap, k)).astype(f32),
+        beta_noise=r.standard_normal((t_win, k, 2)).astype(f32),
+        y_edges=r.random((t_win, e_cap)) < 0.5,
+        lanes_u=lanes_u, lanes_v=lanes_v)
+
+
+def window_case_config(case: dict) -> Config:
+    t_win, b_cap, n_smpl = case["y_phi"].shape
+    return Config(K=case["pi"].shape[1], window=t_win,
+                  mini_batch_size=b_cap - 1, num_node_sample=n_smpl,
+                  device_sampling=True, shared_neighbors=True).finalize(
+        case["n_nodes"], 1000, b_cap - 1)
+
+
+def window_case_torch(case: dict, device):
+    """The case as the port's (TrainState, operand tuple) on ``device``."""
+    def t(name):
+        return torch.as_tensor(case[name], device=device)
+
+    state = TrainState(pi=t("pi").clone(), phi_sum=t("phi_sum").clone(),
+                       theta=t("theta"), beta=t("beta"),
+                       step_count=case["step_count"],
+                       beta_count=case["beta_count"],
+                       ppx_per_edge=torch.zeros(1, device=device),
+                       ppx_count=0)
+    batch = DeviceBatch(*(t(f) for f in DeviceBatch._fields))
+    xs = (batch, t("neighbors"), t("y_phi"), t("phi_noise"),
+          t("beta_noise"), t("y_edges"), t("lanes_u"), t("lanes_v"))
+    return state, xs

@@ -1,0 +1,22 @@
+"""The port never imports JAX: with ``jax`` made unimportable, the
+package and its CLI still import (the GPU machine has no JAX)."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_without_jax():
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "import mcmc_ammsb_tpu_torch, mcmc_ammsb_tpu_torch.cli\n"
+            "import mcmc_ammsb_tpu_torch.testing\n"
+            "import mcmc_ammsb_tpu_torch.interop\n"
+            "assert not any(m == 'jax' or m.startswith(('jax.', "
+            "'mcmc_ammsb_tpu.')) or m == 'mcmc_ammsb_tpu' "
+            "for m, v in sys.modules.items() if v is not None)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

@@ -1,0 +1,162 @@
+"""The port's step math (mcmc_ammsb_tpu_torch/ops) against the JAX
+package's ops on the same seeded numpy arrays. Tolerance rtol 1e-5,
+atol 1e-7 unless a test says otherwise; the row scatter is exact."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mcmc_ammsb_tpu import config as jax_config_mod
+from mcmc_ammsb_tpu.ops import beta as jax_beta
+from mcmc_ammsb_tpu.ops import perplexity as jax_ppx
+from mcmc_ammsb_tpu.ops import phi as jax_phi
+from mcmc_ammsb_tpu.ops import rowops as jax_rowops
+from mcmc_ammsb_tpu.ops.edgeset import build_edge_set as jax_build_edge_set
+from mcmc_ammsb_tpu_torch import config
+from mcmc_ammsb_tpu_torch.ops import beta, perplexity, phi, rowops
+from mcmc_ammsb_tpu_torch.ops.edgeset import build_edge_set
+
+from torch_parity import assert_close, jax_config
+
+RTOL, ATOL = 1e-5, 1e-7
+N, K, B, NS, E = 100, 16, 9, 8, 12
+
+
+@pytest.fixture(scope="module")
+def cfg():
+    return config.Config(K=K, mini_batch_size=B - 1,
+                         num_node_sample=NS).finalize(N, 400, 10)
+
+
+def _pi(r, rows, k=K):
+    pi = r.gamma(1.0, size=(rows, k)).astype(np.float32)
+    return pi / pi.sum(-1, keepdims=True)
+
+
+def test_config_matches_jax_package():
+    """The copied Config has the JAX Config's fields and defaults."""
+    mine = {f.name: f.default for f in dataclasses.fields(config.Config)}
+    ref = {f.name: f.default
+           for f in dataclasses.fields(jax_config_mod.Config)}
+    assert mine.keys() == ref.keys()
+    for name, default in ref.items():
+        got = mine[name]
+        if hasattr(default, "value"):            # enums: compare values
+            got, default = got.value, default.value
+        assert got == default, name
+
+
+def test_row_normalize():
+    x = np.random.default_rng(0).random((7, K), np.float32) + 0.1
+    rows, sums = rowops.row_normalize(torch.from_numpy(x))
+    jrows, jsums = jax_rowops.row_normalize(jnp.asarray(x))
+    assert_close(rows, jrows, RTOL, ATOL)
+    assert_close(sums, jsums, RTOL, ATOL)
+
+
+@pytest.mark.parametrize("form", ["shared_nbr_mask", "private"])
+def test_phi_update_core(cfg, form):
+    """phi_update_core, shared neighbor rows with the self-collision
+    mask and private per-node rows."""
+    r = np.random.default_rng(1)
+    pi_n = _pi(r, B)
+    phis = (1.0 + K * r.random(B)).astype(np.float32)
+    nb_rows = 1 if form.startswith("shared") else B
+    pi_nb = _pi(r, nb_rows * NS).reshape(nb_rows, NS, K)
+    y = r.random((B, NS)) < 0.3
+    beta_v = r.uniform(0.1, 0.9, K).astype(np.float32)
+    noise = r.standard_normal((B, K)).astype(np.float32)
+    mask = r.random((B, NS)) > 0.1 if form.startswith("shared") else None
+    step = 37
+    got = phi.phi_update_core(
+        cfg, *(torch.from_numpy(a) for a in (pi_n, phis, pi_nb, y, beta_v)),
+        step, torch.from_numpy(noise),
+        None if mask is None else torch.from_numpy(mask))
+    want = jax_phi.phi_update_core(
+        jax_config(cfg), *(jnp.asarray(a) for a in (pi_n, phis, pi_nb, y,
+                                                      beta_v)),
+        jnp.asarray(step, jnp.int32), jnp.asarray(noise),
+        None if mask is None else jnp.asarray(mask))
+    assert_close(got[0], want[0], RTOL, ATOL, "rows")
+    assert_close(got[1], want[1], RTOL, ATOL, "sums")
+
+
+def test_scatter_rows_exact():
+    """Masked lanes (sentinel N) are dropped; the kept rows land exactly
+    where the JAX scatter puts them."""
+    r = np.random.default_rng(2)
+    pi = _pi(r, N)
+    phi_sum = r.random(N).astype(np.float32)
+    nodes = r.choice(N, B, replace=False).astype(np.int32)
+    mask = np.ones(B, bool)
+    mask[[2, 5, 8]] = False
+    nodes[~mask] = N
+    rows = r.random((B, K), np.float32)
+    sums = r.random(B).astype(np.float32)
+    got = phi.scatter_rows(torch.from_numpy(pi.copy()),
+                           torch.from_numpy(phi_sum.copy()),
+                           *(torch.from_numpy(a) for a in (nodes, mask, rows,
+                                                           sums)))
+    want = jax_phi.scatter_rows(*(jnp.asarray(a) for a in (
+        pi, phi_sum, nodes, mask, rows, sums)))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+def test_beta_gradients_and_theta_step(cfg):
+    r = np.random.default_rng(3)
+    theta = (r.gamma(1.0, size=(K, 2)) + 0.5).astype(np.float32)
+    beta_v = theta[:, 1] / theta.sum(-1)
+    pi_u, pi_v = _pi(r, E), _pi(r, E)
+    y = r.random(E) < 0.5
+    emask = r.random(E) > 0.2
+    grads = beta.beta_gradients_core(
+        cfg, *(torch.from_numpy(a) for a in (theta, beta_v, pi_u, pi_v, y,
+                                             emask)))
+    jgrads = jax_beta.beta_gradients_core(
+        jax_config(cfg), *(jnp.asarray(a) for a in (theta, beta_v, pi_u,
+                                                    pi_v, y, emask)))
+    assert_close(grads, jgrads, RTOL, ATOL, "grads")
+
+    noise = r.standard_normal((K, 2)).astype(np.float32)
+    scale = np.float32(N * 3.5)
+    got = beta.theta_step(cfg, torch.from_numpy(theta), grads,
+                          torch.tensor(scale), 11, torch.from_numpy(noise))
+    want = jax_beta.theta_step(jax_config(cfg), jnp.asarray(theta), jgrads,
+                               jnp.asarray(scale), jnp.asarray(11, jnp.int32),
+                               jnp.asarray(noise))
+    assert_close(got[0], want[0], RTOL, ATOL, "theta")
+    assert_close(got[1], want[1], RTOL, ATOL, "beta")
+
+
+def test_perplexity_step(cfg, small_dataset):
+    """Two successive calls (the running average) on the conftest
+    graph's held-out population, labels from the adjacency edge set."""
+    n, split, _ = small_dataset
+    r = np.random.default_rng(4)
+    pi = _pi(r, n)
+    beta_v = r.uniform(0.05, 0.95, K).astype(np.float32)
+    hu, hv = split.heldout_edges_u, split.heldout_edges_v
+    ho = build_edge_set(config.EdgeSetBackend.ADJACENCY, n, split.heldout_u,
+                        split.heldout_v, "cpu")
+    jho = jax_build_edge_set(jax_config_mod.EdgeSetBackend.ADJACENCY, n,
+                             split.heldout_u, split.heldout_v)
+    jcfg = jax_config(cfg)
+    avg = np.zeros(len(hu), np.float32)
+    javg = jnp.asarray(avg)
+    tavg = torch.from_numpy(avg)
+    for count in (1, 2):
+        res = perplexity.perplexity_step(
+            cfg, torch.from_numpy(pi), torch.from_numpy(beta_v), ho,
+            torch.from_numpy(hu), torch.from_numpy(hv), tavg, count)
+        jres = jax_ppx.perplexity_step(
+            jcfg, jnp.asarray(pi), jnp.asarray(beta_v), jho,
+            jnp.asarray(hu), jnp.asarray(hv), javg,
+            jnp.asarray(count, jnp.int32))
+        for a, b in zip(res, jres):
+            assert_close(a, b, RTOL, ATOL)
+        tavg, javg = res.ppx_per_edge, jres.ppx_per_edge
+        pi = _pi(r, n)

@@ -1,0 +1,150 @@
+"""The port's main path as a whole against the JAX package's.
+
+The two packages draw different random numbers, so the JAX package
+draws everything state-independent — the minibatches and the hoisted
+operand tuple, recomputed here with its own functions exactly as
+learner.py:488-536 builds it — and both packages run the same steps
+from the same initial state: windows + tail steps, then the held-out
+perplexity, over eval intervals that are not multiples of the window.
+"""
+
+from functools import partial
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mcmc_ammsb_tpu import learner as jax_learner
+from mcmc_ammsb_tpu.config import EdgeSetBackend as JaxEdgeSetBackend
+from mcmc_ammsb_tpu.ops import phi as jax_phi
+from mcmc_ammsb_tpu.ops.device_sampling import sample_minibatches_device
+from mcmc_ammsb_tpu.ops.edgeset import build_edge_set as jax_build_edge_set
+from mcmc_ammsb_tpu.ops.neighbor import sample_neighbors as jax_neighbors
+from mcmc_ammsb_tpu.ops.window import windowed_scan as jax_windowed_scan
+from mcmc_ammsb_tpu.rng import native as jax_rng
+from mcmc_ammsb_tpu_torch import config, learner
+from mcmc_ammsb_tpu_torch.interop import state_from_numpy
+from mcmc_ammsb_tpu_torch.ops.edgeset import build_edge_set
+
+from torch_parity import assert_close, jax_config
+
+INTERVAL, EVALS, WINDOW = 10, 2, 4        # 2 windows + 2 tail steps each
+
+
+def _jax_hoist(jcfg, edge_set, state, batches):
+    """The operand tuple of learner.train_steps_scan (learner.py:488-536),
+    native RNG with shared neighbor draws."""
+    s_len, b = batches.nodes.shape
+    steps = state.step_count + jnp.arange(s_len, dtype=jnp.int32)
+    nbr_keys = jax.vmap(
+        lambda s: jax.random.fold_in(state.neighbor_key, s))(steps)
+    sentinel = jnp.full((1,), jcfg.N, jnp.int32)
+    neighbors = jax.vmap(lambda k: jax_neighbors(
+        k, sentinel, jcfg.N, jcfg.num_node_sample))(nbr_keys)
+    y_phi = edge_set.has_edges(batches.nodes[:, :, None], neighbors)
+    y_edges = edge_set.has_edges(batches.edges_u, batches.edges_v)
+    lanes_u = jnp.argmax(batches.edges_u[:, :, None]
+                         == batches.nodes[:, None, :],
+                         axis=-1).astype(jnp.int32)
+    lanes_v = jnp.argmax(batches.edges_v[:, :, None]
+                         == batches.nodes[:, None, :],
+                         axis=-1).astype(jnp.int32)
+    phi_noise = jax.vmap(lambda s: jax_rng.randn(
+        jax.random.fold_in(state.phi_key, s), (b, jcfg.K)))(steps)
+    beta_noise = jax.vmap(lambda s: jax_rng.randn(
+        jax.random.fold_in(state.beta_key, s), (jcfg.K, 2)))(steps)
+    return (batches, neighbors, y_phi, phi_noise, beta_noise, y_edges,
+            lanes_u, lanes_v)
+
+
+def _to_torch(xs):
+    batch = learner.DeviceBatch(*(torch.tensor(np.asarray(a))
+                                  for a in xs[0]))
+    return (batch, *(torch.tensor(np.asarray(a)) for a in xs[1:]))
+
+
+@pytest.fixture(scope="module")
+def slice_setup(small_dataset):
+    n, split, graph = small_dataset
+    cfg = config.Config(
+        K=16, mini_batch_size=8, num_node_sample=8, device_sampling=True,
+        shared_neighbors=True, window=WINDOW, window_impl="jnp",
+        steps_per_call=INTERVAL, ppx_interval=INTERVAL).finalize(
+        n, split.total_edges, graph.max_fan_out)
+    return n, split, graph, cfg
+
+
+def test_slice_matches_jax(slice_setup):
+    """state_from_numpy -> run_hoisted -> heldout_perplexity_step against
+    JAX's windowed_scan (jnp core) with its tail steps and
+    heldout_perplexity_step, two 10-step intervals at window 4.
+
+    pi, phi_sum, theta and beta agree at rtol 5e-5, atol 1e-8; ppx at
+    rtol 1e-5. The state bound is loosened from rtol 1e-5: torch's and
+    XLA's CPU matmuls sum in different orders, and the chain feeds those
+    last-bit differences back into every later step. Measured maximum
+    elementwise relative error after interval 0 / 1: theta 5.2e-6 /
+    2.56e-5, beta 6.6e-7 / 1.8e-6, pi 2.0e-7 / 3.8e-7, ppx 2.0e-7 /
+    1.0e-7. (The gap keeps growing with the run, as any reordering of
+    float32 sums does: theta 2.4e-4 after four intervals.)"""
+    n, split, graph, cfg = slice_setup
+    jcfg = jax_config(cfg)
+    jtr = jax_build_edge_set(JaxEdgeSetBackend.ADJACENCY, n, graph.edges_u,
+                             graph.edges_v)
+    jho = jax_build_edge_set(JaxEdgeSetBackend.ADJACENCY, n,
+                             split.heldout_u, split.heldout_v)
+    adjacency = (jnp.asarray(graph.offsets, jnp.int32),
+                 jnp.asarray(graph.cols, jnp.int32))
+    hu, hv = split.heldout_edges_u, split.heldout_edges_v
+    body = partial(jax_learner._hoisted_step_body, jcfg,
+                   jax_phi.phi_update_core)
+
+    @jax.jit
+    def jax_interval(state, key):
+        ds = sample_minibatches_device(jcfg, jtr, jho, key, INTERVAL,
+                                       adjacency)
+        batches = jax_learner.DeviceBatch(*ds)
+        xs = _jax_hoist(jcfg, jtr, state, batches)
+        state = jax_windowed_scan(jcfg, state, xs, body)
+        state, res = jax_learner.heldout_perplexity_step(
+            jcfg, jho, jnp.asarray(hu), jnp.asarray(hv), state)
+        return state, xs, res
+
+    jstate = jax_learner.init_state(jcfg, len(hu))
+    tstate = state_from_numpy(
+        {f: np.asarray(v) for f, v in jstate._asdict().items()
+         if v is not None}, cfg, "cpu")
+    tho = build_edge_set(config.EdgeSetBackend.ADJACENCY, n,
+                         split.heldout_u, split.heldout_v, "cpu")
+    for i in range(EVALS):
+        jstate, xs, jres = jax_interval(jstate,
+                                        jax.random.PRNGKey(100 + i))
+        tstate = learner.run_hoisted(cfg, tstate, _to_torch(xs))
+        tstate, tres = learner.heldout_perplexity_step(
+            cfg, tho, torch.from_numpy(hu), torch.from_numpy(hv), tstate)
+        assert tstate.step_count == int(jstate.step_count)
+        assert tstate.beta_count == int(jstate.beta_count)
+        for f in ("pi", "phi_sum", "theta", "beta"):
+            assert_close(getattr(tstate, f), getattr(jstate, f), 5e-5,
+                         1e-8, f"interval {i}: {f}")
+        assert_close(torch.exp(tres.neg_avg_log),
+                     np.exp(np.asarray(jres.neg_avg_log)), 1e-5, 0.0,
+                     f"interval {i}: ppx")
+
+
+def test_learner_run_with_ppx_trains_on_cpu(slice_setup):
+    """The port's own Learner on the CPU: device sampling, hoisting,
+    windows of 4 with tail steps; the ppx series is finite and ends
+    below ppx[0]."""
+    n, split, graph, cfg = slice_setup
+    lrn = learner.Learner(cfg.replace(steps_per_call=100), graph, split,
+                          "cpu")
+    p0 = lrn.heldout_perplexity()
+    series = lrn.run_with_ppx(203, 50)
+    assert [e["step"] for e in series] == [51, 101, 151, 201]
+    assert lrn.state.step_count == 204            # 3 tail steps trained
+    ppx = [e["ppx"] for e in series]
+    assert np.isfinite([p0, *ppx]).all()
+    assert ppx[-1] < p0

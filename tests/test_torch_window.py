@@ -1,0 +1,131 @@
+"""The port's window engine (mcmc_ammsb_tpu_torch/ops/window.py) against
+the JAX package's (mcmc_ammsb_tpu/ops/window.py) on the same seeded
+operands: the bookkeeping exactly, the plain window core against the
+JAX jnp core and against the Pallas kernel in interpret mode (the way
+tests/test_window.py runs it on the CPU). The CUDA kernel itself is
+checked against the plain core on the card by chip_smoke.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mcmc_ammsb_tpu.ops import window as jax_window
+from mcmc_ammsb_tpu_torch import testing
+from mcmc_ammsb_tpu_torch.ops import window
+
+from torch_parity import assert_close, jax_config, jax_window_case
+
+# (T, B, n, E, K): a collision-heavy tiny window, the odd shape
+# (m, n, K, T) = (5, 7, 12, 3) and the m > n shape (13, 3, 24, 5)
+SHAPES = [(4, 9, 8, 8, 16), (3, 6, 7, 5, 12), (5, 14, 3, 13, 24)]
+
+
+def _both(seed, shape):
+    case = testing.window_case(seed, *shape)
+    cfg = testing.window_case_config(case)
+    return case, cfg, jax_config(cfg)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_window_bookkeeping_exact(shape):
+    """_last_write_wins, _correction_codes, _window_gather and
+    _window_scatter equal the JAX package's exactly, padded lanes
+    (sentinel N) included."""
+    case, cfg, jcfg = _both(1, shape)
+    state, xs = testing.window_case_torch(case, "cpu")
+    js, jxs = jax_window_case(case)
+    batch, nbrs = xs[0], xs[1][:, 0, :]
+    jbatch, jnbrs = jxs[0], jxs[1][:, 0, :]
+    t_win = shape[0]
+
+    keep = window._last_write_wins(batch.nodes, batch.node_mask, t_win)
+    jkeep = jax_window._last_write_wins(jbatch.nodes, jbatch.node_mask,
+                                        t_win)
+    np.testing.assert_array_equal(keep.numpy(), np.asarray(jkeep))
+    codes = window._correction_codes(cfg, batch.nodes, batch.node_mask,
+                                     nbrs)
+    jcodes = jax_window._correction_codes(jcfg, jbatch.nodes,
+                                          jbatch.node_mask, jnbrs)
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(jcodes)[..., 0])
+    assert (codes > 0).any(), "the case must collide inside the window"
+
+    g, sums = window._window_gather(cfg, state, batch, nbrs)
+    jg, jsums = jax_window._window_gather(jcfg, js, jbatch, jnbrs)
+    np.testing.assert_array_equal(g.numpy(), np.asarray(jg))
+    np.testing.assert_array_equal(sums.numpy(), np.asarray(jsums))
+
+    rng = np.random.default_rng(2)
+    rows = rng.random((t_win * shape[1], shape[4]), np.float32)
+    rsums = rng.random(t_win * shape[1], np.float32)
+    pi, phi_sum = window._window_scatter(
+        cfg, state, batch, keep, torch.from_numpy(rows),
+        torch.from_numpy(rsums))
+    jpi, jphi = jax_window._window_scatter(jcfg, js, jbatch, jkeep,
+                                           jnp.asarray(rows),
+                                           jnp.asarray(rsums))
+    np.testing.assert_array_equal(pi.numpy(), np.asarray(jpi))
+    np.testing.assert_array_equal(phi_sum.numpy(), np.asarray(jphi))
+
+
+@pytest.mark.parametrize("jax_core", ["jnp", "pallas_interpret"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_window_core_torch_matches_jax(shape, jax_core):
+    """window_core_torch == _window_core_jnp / the Pallas kernel
+    (interpret mode) on one collision-heavy window.
+
+    Tolerance atol 1e-8 and rtol 5e-5, loosened from the rtol 1e-5 of
+    JAX's own pallas-versus-jnp check (tests/test_window.py:125-130):
+    torch's and XLA's CPU matmuls sum in different orders, and a theta
+    element that comes out of the SGRLD step's abs() of a cancellation
+    differs at rtol 2.07e-5 here (the largest elementwise error measured
+    over seeds 3, 5, 7 x these shapes; all else stays under 4e-6)."""
+    case, cfg, jcfg = _both(3, shape)
+    state, xs = testing.window_case_torch(case, "cpu")
+    js, jxs = jax_window_case(case)
+    batch, nbrs = xs[0], xs[1][:, 0, :]
+    g, sums = window._window_gather(cfg, state, batch, nbrs)
+    mcode = window._correction_codes(cfg, batch.nodes, batch.node_mask,
+                                     nbrs)
+    got = window.window_core_torch(cfg, state, xs, g, sums, mcode)
+
+    jmcode = jnp.asarray(mcode.numpy())[..., None]
+    core = (jax_window._window_core_jnp if jax_core == "jnp"
+            else jax_window._window_core_pallas)
+    want = core(jcfg, js, jxs, jnp.asarray(g.numpy()),
+                jnp.asarray(sums.numpy()), jmcode)
+    for a, b, name in zip(got, want, ("rows", "sums", "theta", "beta")):
+        assert_close(a, b, rtol=5e-5, atol=1e-8, what=name)
+
+
+def test_window_core_cuda_rejects_cpu_tensors():
+    """The kernel wrapper never runs on the CPU: on a CPU tensor it
+    raises (windowed_scan picks the plain version by device)."""
+    case, cfg, _ = _both(4, SHAPES[0])
+    state, xs = testing.window_case_torch(case, "cpu")
+    batch, nbrs = xs[0], xs[1][:, 0, :]
+    g, sums = window._window_gather(cfg, state, batch, nbrs)
+    mcode = window._correction_codes(cfg, batch.nodes, batch.node_mask,
+                                     nbrs)
+    with pytest.raises(ValueError, match="CUDA"):
+        window.window_core_cuda(cfg, state, xs, g, sums, mcode)
+
+
+@pytest.mark.cuda
+def test_window_core_cuda_matches_plain_on_gpu():
+    """On a GPU: the kernel against the plain version at the bench shape
+    (rtol 1e-5, atol 1e-8 normwise, as chip_smoke.py checks it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    case = testing.window_case(0, 12, 33, 32, 32, 256)
+    cfg = testing.window_case_config(case)
+    state, xs = testing.window_case_torch(case, "cuda")
+    batch, nbrs = xs[0], xs[1][:, 0, :]
+    g, sums = window._window_gather(cfg, state, batch, nbrs)
+    mcode = window._correction_codes(cfg, batch.nodes, batch.node_mask,
+                                     nbrs)
+    got = window.window_core_cuda(cfg, state, xs, g, sums, mcode)
+    want = window.window_core_torch(cfg, state, xs, g, sums, mcode)
+    for a, b in zip(got, want):
+        err = float((a - b).abs().max())
+        assert err <= 1e-8 + 1e-5 * float(b.abs().max())
