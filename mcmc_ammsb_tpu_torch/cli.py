@@ -1,5 +1,6 @@
 """Command-line driver of the port (counterpart of
-``mcmc_ammsb_tpu/cli.py``, main path only).
+``mcmc_ammsb_tpu/cli.py``: the device-sampled single-chain a-MMSB, with
+``--phi-impl jnp`` or ``pallas``, and the full MMSB, ``--model mmsb``).
 
 The same flag names, ``resolve_fast_defaults`` semantics and log lines
 (config echo, ``ppx[i] = ...`` with the link/non-link quadruple, the
@@ -11,6 +12,10 @@ exits non-zero and names the ROADMAP item that will port it.
 Usage:
     python -m mcmc_ammsb_tpu_torch.cli --synthetic 317080,7 -k 256 \\
         -x 2000 -i 500 --device cuda
+    python -m mcmc_ammsb_tpu_torch.cli --phi-impl pallas --device-sampling \\
+        --synthetic 317080,7 -k 256 -x 1000 -i 500 --device cuda
+    python -m mcmc_ammsb_tpu_torch.cli --model mmsb --window 12 \\
+        --synthetic 317080,7 -k 64 -x 1000 -i 500 --device cuda
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from mcmc_ammsb_tpu_torch.config import (Config, EdgeSetBackend, PhiImpl,
 from mcmc_ammsb_tpu_torch.data import (Graph, generate_sets,
                                        load_snap_edges, synthetic_edges)
 from mcmc_ammsb_tpu_torch.learner import Learner, check_ported
+from mcmc_ammsb_tpu_torch.models.mmsb import FullMMSBLearner
 
 log = logging.getLogger("mcmc_ammsb_tpu_torch")
 
@@ -35,7 +41,6 @@ log = logging.getLogger("mcmc_ammsb_tpu_torch")
 _UNPORTED = (
     ("mesh", "", "item 14 (multi-GPU)"),
     ("num_chains", 1, "item 12 (chains)"),
-    ("model", "ammsb", "item 11 (full MMSB)"),
     ("checkpoint", "", "item 6 (checkpoints)"),
     ("restore", "", "item 6 (checkpoints)"),
     ("profile", False, "item 13 (profiling)"),
@@ -89,8 +94,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--shared-neighbors",
                    action=argparse.BooleanOptionalAction, default=None,
                    help="one shared n-neighbor draw per step (default: "
-                        "follows --device-sampling; private draws are not "
-                        "ported yet)")
+                        "on with device sampling on the jnp fast path; "
+                        "--no-shared-neighbors draws n neighbors per node)")
     p.add_argument("--window", type=int, default=0,
                    help="T-step window engine (one gather, one CUDA "
                         "kernel launch, one scatter per window); 0 = auto "
@@ -103,10 +108,19 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="compute device; cuda fails when no GPU is "
                         "present (no silent CPU fallback)")
+    p.add_argument("--model", choices=["ammsb", "mmsb"], default="ammsb",
+                   help="model family: 'ammsb' = the assortative MMSB "
+                        "(diagonal beta + epsilon background); 'mmsb' = "
+                        "full [K,K] block matrix (models/mmsb.py)")
+    p.add_argument("--mmsb-prior-diag", type=float, nargs=2, default=None,
+                   metavar=("ETA0", "ETA1"),
+                   help="full-MMSB: per-cell prior for DIAGONAL theta_B "
+                        "cells (assortative regularization)")
+    p.add_argument("--mmsb-noise-scale", type=float, default=1.0,
+                   help="full-MMSB: SGRLD noise temperature (<1 tempers)")
     # engines of the JAX CLI that the port does not have yet (_UNPORTED)
     p.add_argument("--mesh", type=str, default="")
     p.add_argument("--num-chains", type=int, default=1)
-    p.add_argument("--model", choices=["ammsb", "mmsb"], default="ammsb")
     p.add_argument("--checkpoint", type=str, default="")
     p.add_argument("--restore", type=str, default="")
     p.add_argument("--profile", action="store_true")
@@ -120,9 +134,11 @@ _BF_FAMILY = (SampleStrategy.BF, SampleStrategy.BF_LINK,
 
 
 def resolve_fast_defaults(args) -> None:
-    """Resolve auto flags to the fast path (in place), as the JAX CLI
-    does: device sampling + shared neighbor draws + 1000-step chunks +
-    window 12 whenever the configuration supports them."""
+    """Resolve auto flags to the fast path (in place), by the JAX CLI's
+    rule (mcmc_ammsb_tpu/cli.py:297-375): device sampling + shared
+    neighbor draws + 1000-step chunks whenever the configuration supports
+    them, and T-step windows for the a-MMSB only (an MMSB run windows
+    only with an explicit --window N)."""
     strategy = SampleStrategy.parse(args.sample)
     native_jnp = (args.rng == RngBackend.NATIVE.value
                   and args.phi_impl == PhiImpl.JNP.value)
@@ -137,8 +153,11 @@ def resolve_fast_defaults(args) -> None:
                                if args.device_sampling
                                else max(1, min(200, args.ppx_interval)))
         log.info("steps_per_call auto-set to %d", args.steps_per_call)
+    # The JAX rule's chain clauses (no auto window for the non-flat chain
+    # engines, T = 96 // C past 8 chains) come with the chain engines
+    # (ROADMAP item 12): the port refuses --num-chains before this point.
     if (args.window == 0 and args.device_sampling
-            and args.shared_neighbors):
+            and args.shared_neighbors and args.model == "ammsb"):
         args.window = 12
         args.window_auto = True
         log.info("window auto-set to 12 (T-step fused windows; "
@@ -170,6 +189,9 @@ def config_from_args(args) -> Config:
         ds_link_rounds=args.ds_link_rounds,
         ds_nonlink_rounds=args.ds_nonlink_rounds,
         ds_link_cap=args.ds_link_cap,
+        mmsb_prior_diag=(tuple(args.mmsb_prior_diag)
+                         if args.mmsb_prior_diag else None),
+        mmsb_noise_scale=args.mmsb_noise_scale,
     )
 
 
@@ -222,11 +244,15 @@ def main(argv=None) -> int:
     log.info("Loaded %s (N=%d, E=%d, training max fan out = %d)",
              args.file or args.synthetic, cfg.N, cfg.E, cfg.max_fan_out)
     log.info("config: %s", cfg)
+    engine = FullMMSBLearner if args.model == "mmsb" else Learner
     try:
-        learner = Learner(cfg, graph, split, device)
+        learner = engine(cfg, graph, split, device)
     except NotImplementedError as e:
         log.fatal("%s", e)
         return 2
+    except ValueError as e:           # the learner's config guards
+        log.fatal("%s", e)
+        return 1
 
     # --- SIGINT drain -----------------------------------------------------
     signaled = {"flag": False}
@@ -247,9 +273,10 @@ def _train(args, cfg: Config, learner: Learner, signaled: dict) -> None:
 
     def log_eval(i, ppx, st):
         log.info("ppx[%d] = %s", i, ppx)
-        log.info("  links: %d (ll %.4f)  non-links: %d (ll %.4f)",
-                 st["link_count"], st["link_likelihood"],
-                 st["non_link_count"], st["non_link_likelihood"])
+        if "link_count" in st:      # the a-MMSB's evaluation counts them
+            log.info("  links: %d (ll %.4f)  non-links: %d (ll %.4f)",
+                     st["link_count"], st["link_likelihood"],
+                     st["non_link_count"], st["non_link_likelihood"])
 
     fused_evals = cfg.steps_per_call > cfg.ppx_interval
     i = 0

@@ -116,6 +116,36 @@ def synthetic_edges(num_nodes: int, avg_degree: int, seed: int = 0
     return n, u[order], v[order]
 
 
+def synthetic_sbm_edges(num_nodes: int, num_communities: int,
+                        p_in: float = 0.05, p_out: float = 0.001,
+                        seed: int = 0) -> Tuple[int, np.ndarray, np.ndarray]:
+    """Planted-partition (stochastic block model) graph, the same draws
+    as the JAX package's: equal communities, intra-community edges at
+    ``p_in``, inter at ``p_out`` (sampled by pair counts, not O(N^2)).
+    A uniform random graph carries no structure to learn; this one
+    does."""
+    rng = np.random.RandomState(seed)
+    sizes = np.full(num_communities, num_nodes // num_communities)
+    sizes[: num_nodes % num_communities] += 1
+    labels = np.repeat(np.arange(num_communities), sizes)
+    rng.shuffle(labels)
+    chunks = []
+    for c in range(num_communities):
+        m = np.where(labels == c)[0]
+        s = len(m)
+        count = rng.binomial(s * (s - 1) // 2, p_in)
+        if count:
+            chunks.append((m[rng.randint(0, s, count)],
+                           m[rng.randint(0, s, count)]))
+    count = rng.binomial(num_nodes * (num_nodes - 1) // 2, p_out)
+    if count:
+        chunks.append((rng.randint(0, num_nodes, count),
+                       rng.randint(0, num_nodes, count)))
+    return renumber_dedup_shuffle(np.concatenate([c[0] for c in chunks]),
+                                  np.concatenate([c[1] for c in chunks]),
+                                  shuffle_seed=seed + 1)
+
+
 @dataclasses.dataclass
 class DataSplit:
     """Training / held-out split plus the held-out evaluation edge list

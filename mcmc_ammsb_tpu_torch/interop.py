@@ -8,22 +8,42 @@ import torch
 
 from mcmc_ammsb_tpu_torch.config import Config
 from mcmc_ammsb_tpu_torch.learner import TrainState
+from mcmc_ammsb_tpu_torch.models.mmsb import MMSBState
+
+
+def _tensors(arrays: dict, cfg: Config, device):
+    if tuple(np.shape(arrays["pi"])) != (cfg.N, cfg.K):
+        raise ValueError(f"pi has shape {np.shape(arrays['pi'])}, the "
+                         f"config says ({cfg.N}, {cfg.K})")
+
+    def tensor(name):
+        return torch.tensor(np.asarray(arrays[name], np.float32),
+                            device=device)
+
+    return tensor
 
 
 def state_from_numpy(arrays: dict, cfg: Config, device) -> TrainState:
     """``arrays`` maps the JAX ``TrainState`` field names to numpy
     arrays; its RNG keys and other fields the port keeps elsewhere are
     ignored. Tensors are copies: the port updates pi in place."""
-    def tensor(name):
-        return torch.tensor(np.asarray(arrays[name], np.float32),
-                            device=device)
-
-    if tuple(np.shape(arrays["pi"])) != (cfg.N, cfg.K):
-        raise ValueError(f"pi has shape {np.shape(arrays['pi'])}, the "
-                         f"config says ({cfg.N}, {cfg.K})")
+    tensor = _tensors(arrays, cfg, device)
     return TrainState(
         pi=tensor("pi"), phi_sum=tensor("phi_sum"), theta=tensor("theta"),
         beta=tensor("beta"), step_count=int(arrays["step_count"]),
         beta_count=int(arrays["beta_count"]),
+        ppx_per_edge=tensor("ppx_per_edge"),
+        ppx_count=int(arrays["ppx_count"]))
+
+
+def mmsb_state_from_numpy(arrays: dict, cfg: Config, device) -> MMSBState:
+    """The same for the JAX package's ``MMSBState`` (``theta_b`` [K, K, 2],
+    ``b`` [K, K], the ``theta_count`` counter)."""
+    tensor = _tensors(arrays, cfg, device)
+    return MMSBState(
+        pi=tensor("pi"), phi_sum=tensor("phi_sum"),
+        theta_b=tensor("theta_b"), b=tensor("b"),
+        step_count=int(arrays["step_count"]),
+        theta_count=int(arrays["theta_count"]),
         ppx_per_edge=tensor("ppx_per_edge"),
         ppx_count=int(arrays["ppx_count"]))

@@ -17,6 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 
@@ -61,3 +63,25 @@ def build(name: str) -> Path:
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu`` once per process."""
     return ctypes.CDLL(str(build(name)))
+
+
+def pointer(x, dtype, device) -> int:
+    """``x``'s device address for a kernel argument; raises unless ``x``
+    is a contiguous ``dtype`` tensor on ``device``."""
+    if x.dtype != dtype or not x.is_contiguous() or x.device != device:
+        raise ValueError(f"kernel operand: {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}, wants contiguous {dtype} on {device}")
+    return x.data_ptr()
+
+
+def smem_limit(device) -> int:
+    """Bytes of shared memory one thread block may use on ``device``
+    (232,448 on an H100)."""
+    props = torch.cuda.get_device_properties(device)
+    return getattr(props, "shared_memory_per_block_optin", 232448)
+
+
+def check_launch(err: int, what: str) -> None:
+    """Raise for a launcher's non-zero cudaGetLastError()."""
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")

@@ -1,16 +1,19 @@
 """Learner: state, the hoisted training loop, evaluation (counterpart of
-``mcmc_ammsb_tpu/learner.py``, main path only).
+``mcmc_ammsb_tpu/learner.py``, device-sampled paths).
 
 One training chunk is
 
   1. ``sample_minibatches_device`` draws S minibatches on the device;
   2. ``hoist_operands`` computes everything that does not depend on the
-     state for all S steps: shared neighbor draws, edge labels, the
-     edge-endpoint lane maps and the phi/theta noise;
+     state for all S steps: neighbor draws (one shared draw per step, or
+     one private draw per node), edge labels, the edge-endpoint lane maps
+     and the phi/theta noise;
   3. ``run_hoisted`` runs the S steps: in windows of ``cfg.window``
      through ``ops/window.windowed_scan`` (one gather, one window-kernel
      launch, one scatter per window), the remainder through
-     ``_hoisted_step_body``.
+     ``_hoisted_step_body``. With ``--phi-impl pallas`` (private draws,
+     no windows) every step's phi update is one launch of the by-index
+     phi kernel (``ops/phi_pallas``).
 
 JAX's ``lax.scan`` becomes a Python loop; its donated state buffers
 become in-place updates of ``pi`` and ``phi_sum``. The TPU tunnel
@@ -35,6 +38,7 @@ from mcmc_ammsb_tpu_torch.data import DataSplit, Graph
 from mcmc_ammsb_tpu_torch.ops import beta as beta_ops
 from mcmc_ammsb_tpu_torch.ops import perplexity as ppx_ops
 from mcmc_ammsb_tpu_torch.ops import phi as phi_ops
+from mcmc_ammsb_tpu_torch.ops import phi_pallas
 from mcmc_ammsb_tpu_torch.ops.device_sampling import (
     Adjacency, sample_minibatches_device)
 from mcmc_ammsb_tpu_torch.ops.edgeset import EdgeSet, build_edge_set
@@ -75,15 +79,12 @@ def check_ported(cfg: Config) -> None:
         (not cfg.device_sampling, "host-sampled training (item 7)"),
         (cfg.rng_backend != RngBackend.NATIVE,
          "the reference RNG (item 10)"),
-        (cfg.phi_impl != PhiImpl.JNP, "--phi-impl pallas (item 8)"),
         (cfg.strategy not in (SampleStrategy.NODE,
                               SampleStrategy.NODE_LINK,
                               SampleStrategy.NODE_NON_LINK),
          "the device BF family (item 9)"),
         (cfg.pi_dtype != "float32", "bfloat16 pi storage (item 4)"),
         (cfg.calc_train_ppx, "training perplexity (item 4)"),
-        (not cfg.shared_neighbors,
-         "private per-node neighbor draws (item 7)"),
         (cfg.phi_disable_noise, "the noise-free golden-test mode (item 4)"),
         (cfg.window > 1 and cfg.window_correction != "always",
          "window_correction='auto' (item 5)"),
@@ -94,27 +95,56 @@ def check_ported(cfg: Config) -> None:
                 f"{what} is not ported yet (ROADMAP queue 1)")
 
 
-def init_state(cfg: Config, heldout_size: int, device,
-               dtype=torch.float32) -> TrainState:
-    """theta ~ Gamma(eta0, eta1), beta = theta1/(theta0+theta1); pi rows
-    ~ Gamma(eta0, eta1) normalized, phi_sum = the raw row sums. The pi
-    rows are drawn on the host in blocks and written into the device
-    buffer block by block, so peak memory is pi plus one block."""
-    draws = rng.host_gamma_rng(cfg)
+def check_learner_config(cfg: Config) -> None:
+    """The JAX Learner's guards (mcmc_ammsb_tpu/learner.py:859-881)."""
+    jnp_native = (cfg.rng_backend == RngBackend.NATIVE
+                  and cfg.phi_impl == PhiImpl.JNP)
+    if cfg.shared_neighbors and not jnp_native:
+        raise ValueError(
+            "shared_neighbors requires rng_backend=native and "
+            "phi_impl=jnp (the per-node phi kernel takes per-node "
+            "neighbor rows)")
+    if cfg.pi_dtype != "float32" and not jnp_native:
+        raise ValueError("pi_dtype=bfloat16 requires rng_backend=native "
+                         "and phi_impl=jnp")
+    if cfg.window > 1 and not (cfg.shared_neighbors and jnp_native):
+        raise ValueError("window > 1 (the T-step window engine) requires "
+                         "shared_neighbors, rng_backend=native and "
+                         "phi_impl=jnp")
 
-    def gamma(shape):
-        g = draws.standard_gamma(cfg.eta0, shape, dtype=np.float32)
-        return torch.from_numpy(g * np.float32(cfg.eta1)).to(device)
 
-    theta = gamma((cfg.K, 2)).to(dtype)
+def gamma_draws(cfg: Config, draws: np.random.Generator, shape,
+                device) -> torch.Tensor:
+    """Gamma(eta0, eta1) draws of ``shape`` from the host init stream."""
+    g = draws.standard_gamma(cfg.eta0, shape, dtype=np.float32)
+    return torch.from_numpy(g * np.float32(cfg.eta1)).to(device)
+
+
+def gamma_rows(cfg: Config, draws: np.random.Generator, device,
+               dtype=torch.float32):
+    """pi [N, K]: rows ~ Gamma(eta0, eta1) normalized, and phi_sum [N],
+    the raw row sums. The rows are drawn on the host in blocks and
+    written into the device buffer block by block, so peak memory is pi
+    plus one block."""
     pi = torch.empty(cfg.N, cfg.K, dtype=dtype, device=device)
     phi_sum = torch.empty(cfg.N, dtype=dtype, device=device)
     block = max(1, (1 << 24) // max(cfg.K, 1))
     for start in range(0, cfg.N, block):
-        g = gamma((min(block, cfg.N - start), cfg.K)).to(dtype)
+        g = gamma_draws(cfg, draws, (min(block, cfg.N - start), cfg.K),
+                        device).to(dtype)
         s = g.sum(dim=-1)
         pi[start:start + g.shape[0]] = g / s[:, None]
         phi_sum[start:start + g.shape[0]] = s
+    return pi, phi_sum
+
+
+def init_state(cfg: Config, heldout_size: int, device,
+               dtype=torch.float32) -> TrainState:
+    """theta ~ Gamma(eta0, eta1), beta = theta1/(theta0+theta1); pi and
+    phi_sum from ``gamma_rows``."""
+    draws = rng.host_gamma_rng(cfg)
+    theta = gamma_draws(cfg, draws, (cfg.K, 2), device).to(dtype)
+    pi, phi_sum = gamma_rows(cfg, draws, device, dtype)
     return TrainState(
         pi=pi, phi_sum=phi_sum, theta=theta,
         beta=theta[:, 1] / (theta[:, 0] + theta[:, 1]),
@@ -127,19 +157,23 @@ def init_state(cfg: Config, heldout_size: int, device,
 # The hoisted training loop
 # ---------------------------------------------------------------------------
 
-def hoist_operands(cfg: Config, edge_set: EdgeSet, batches: DeviceBatch,
-                   streams: rng.Streams):
-    """Everything state-independent for S steps, drawn in one block:
-    the operand tuple of the JAX package's train_steps_scan,
-    (batches, neighbors, y_phi, phi_noise, beta_noise, y_edges,
-     lanes_u, lanes_v), with one shared neighbor draw per step."""
+def hoist_common(cfg: Config, edge_set: EdgeSet, batches: DeviceBatch,
+                 streams: rng.Streams):
+    """The state-independent operands of S steps that both model
+    families hoist: (neighbors, y_phi, y_edges, lanes_u, lanes_v,
+    phi_noise). Neighbors are one shared draw per step [S, 1, n] with
+    ``cfg.shared_neighbors``, else one private draw per node [S, B, n]."""
     s_len, b = batches.nodes.shape
     dev = batches.nodes.device
-    # one draw per step around the sentinel "node" N, which never
-    # collides with a draw
-    sentinel = torch.full((s_len, 1), cfg.N, dtype=torch.int32, device=dev)
-    neighbors = sample_neighbors(streams.neighbor, sentinel, cfg.N,
-                                 cfg.num_node_sample)        # [S, 1, n]
+    if cfg.shared_neighbors:
+        # one draw per step around the sentinel "node" N, which never
+        # collides with a draw
+        draw_for = torch.full((s_len, 1), cfg.N, dtype=torch.int32,
+                              device=dev)
+    else:
+        draw_for = batches.nodes
+    neighbors = sample_neighbors(streams.neighbor, draw_for, cfg.N,
+                                 cfg.num_node_sample)
     y_phi = edge_set.has_edges(batches.nodes[:, :, None], neighbors)
     y_edges = edge_set.has_edges(batches.edges_u, batches.edges_v)
     # Edge endpoints are a subset of the batch nodes, so the beta stage
@@ -153,7 +187,19 @@ def hoist_operands(cfg: Config, edge_set: EdgeSet, batches: DeviceBatch,
                             == batches.nodes[:, None, :]).to(torch.int32),
                            dim=-1).to(torch.int32)
     phi_noise = rng.randn(streams.phi, (s_len, b, cfg.K), dev)
-    beta_noise = rng.randn(streams.beta, (s_len, cfg.K, 2), dev)
+    return neighbors, y_phi, y_edges, lanes_u, lanes_v, phi_noise
+
+
+def hoist_operands(cfg: Config, edge_set: EdgeSet, batches: DeviceBatch,
+                   streams: rng.Streams):
+    """Everything state-independent for S steps, drawn in one block:
+    the operand tuple of the JAX package's train_steps_scan,
+    (batches, neighbors, y_phi, phi_noise, beta_noise, y_edges,
+     lanes_u, lanes_v)."""
+    neighbors, y_phi, y_edges, lanes_u, lanes_v, phi_noise = hoist_common(
+        cfg, edge_set, batches, streams)
+    beta_noise = rng.randn(streams.beta, (batches.nodes.shape[0], cfg.K, 2),
+                           batches.nodes.device)
     return (batches, neighbors, y_phi, phi_noise, beta_noise, y_edges,
             lanes_u, lanes_v)
 
@@ -170,16 +216,27 @@ def run_hoisted(cfg: Config, state: TrainState, xs) -> TrainState:
 
 
 def _hoisted_step_body(cfg: Config, s: TrainState, x) -> TrainState:
-    """One SGRLD step on its hoisted operands (shared neighbor rows)."""
+    """One SGRLD step on its hoisted operands: neighbor rows [1, n] shared
+    by the step's nodes, or [B, n] private ones."""
     batch, nbrs, y_n, n_phi, n_beta, y_e, lane_u, lane_v = x
-    # padded lanes carry the sentinel N: clamp as JAX's gather does
-    nodes = batch.nodes.long().clamp(max=cfg.N - 1)
-    pi_n = s.pi[nodes].float()
-    phis = s.phi_sum[nodes]
-    pi_nb = s.pi[nbrs.long()].float()                        # [1, n, K]
-    nbr_mask = nbrs != batch.nodes[:, None]                  # [B, n]
-    rows, sums = phi_ops.phi_update_core(
-        cfg, pi_n, phis, pi_nb, y_n, s.beta, s.step_count, n_phi, nbr_mask)
+    if cfg.phi_impl == PhiImpl.PALLAS:
+        # the by-index phi entry reads the rows itself: no [B, n, K]
+        # buffer, no separate gather
+        rows, sums = phi_pallas.phi_update_rows(
+            cfg, s.pi, s.phi_sum, s.beta, batch.nodes, nbrs, y_n,
+            s.step_count, n_phi)
+    else:
+        # padded lanes carry the sentinel N: clamp as JAX's gather does
+        nodes = batch.nodes.long().clamp(max=cfg.N - 1)
+        pi_nb = s.pi[nbrs.long()].float()            # [1, n, K] / [B, n, K]
+        # shared draws exclude a neighbor that is the node itself (the
+        # count-aware N/n_valid scale); private draws pass no mask, as in
+        # JAX, so a rare self-draw left by the fix-up rounds keeps N/n
+        nbr_mask = (nbrs != batch.nodes[:, None] if cfg.shared_neighbors
+                    else None)
+        rows, sums = phi_ops.phi_update_core(
+            cfg, s.pi[nodes].float(), s.phi_sum[nodes], pi_nb, y_n, s.beta,
+            s.step_count, n_phi, nbr_mask)
     pi, phi_sum = phi_ops.scatter_rows(s.pi, s.phi_sum, batch.nodes,
                                        batch.node_mask, rows, sums)
     beta_count = s.beta_count + 1
@@ -203,23 +260,6 @@ def train_steps_fused(cfg: Config, edge_set: EdgeSet, heldout_set: EdgeSet,
                                    streams.sample, num_steps, adjacency)
     xs = hoist_operands(cfg, edge_set, DeviceBatch(*ds), streams)
     return run_hoisted(cfg, state, xs)
-
-
-def train_steps_fused_ppx(cfg: Config, edge_set: EdgeSet,
-                          heldout_set: EdgeSet, state: TrainState,
-                          heldout_u: torch.Tensor, heldout_v: torch.Tensor,
-                          num_evals: int, interval: int,
-                          adjacency: Adjacency, streams: rng.Streams
-                          ) -> Tuple[TrainState, List[ppx_ops.PpxResult]]:
-    """num_evals x (interval steps + one held-out ppx evaluation)."""
-    results = []
-    for _ in range(num_evals):
-        state = train_steps_fused(cfg, edge_set, heldout_set, state,
-                                  interval, adjacency, streams)
-        state, res = heldout_perplexity_step(cfg, heldout_set, heldout_u,
-                                             heldout_v, state)
-        results.append(res)
-    return state, results
 
 
 def heldout_perplexity_step(cfg: Config, heldout_set: EdgeSet,
@@ -251,10 +291,16 @@ def _read_stats(res: ppx_ops.PpxResult) -> dict:
 # ---------------------------------------------------------------------------
 
 class Learner:
-    """Owns config, graph structures, device state and RNG streams."""
+    """Owns config, graph structures, device state and RNG streams.
+
+    The model lives in four methods, which ``models/mmsb.FullMMSBLearner``
+    overrides: ``_check`` (the config guards), ``_init_state``,
+    ``_train_chunk`` (device-sampled steps) and ``_evaluate`` with
+    ``_read_stats`` (one held-out evaluation)."""
 
     def __init__(self, cfg: Config, graph: Graph, split: DataSplit,
                  device="cpu"):
+        self._check(cfg)
         check_ported(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
@@ -278,14 +324,31 @@ class Learner:
             torch.as_tensor(graph.cols, dtype=torch.int32,
                             device=self.device))
         self.streams = rng.make_streams(cfg, self.device)
-        self.state = init_state(cfg, len(split.heldout_edges_u),
-                                self.device)
+        self.state = self._init_state(len(split.heldout_edges_u))
         self.timers = StageTimers()
         self.last_ppx_stats = {}
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # -- the model ---------------------------------------------------------
+
+    _check = staticmethod(check_learner_config)
+    _read_stats = staticmethod(_read_stats)
+
+    def _init_state(self, heldout_size: int):
+        return init_state(self.cfg, heldout_size, self.device)
+
+    def _train_chunk(self, state, num_steps: int):
+        return train_steps_fused(self.cfg, self.training_set,
+                                 self.heldout_set, state, num_steps,
+                                 self.adjacency, self.streams)
+
+    def _evaluate(self, state):
+        """(state, the evaluation's numbers, still on the device)."""
+        return heldout_perplexity_step(self.cfg, self.heldout_set,
+                                       self.heldout_u, self.heldout_v, state)
 
     # -- training ----------------------------------------------------------
 
@@ -300,9 +363,7 @@ class Learner:
         while done < max_iters:
             take = min(spc, max_iters - done)
             with self.timers.stage("device_step"):
-                self.state = train_steps_fused(
-                    self.cfg, self.training_set, self.heldout_set,
-                    self.state, take, self.adjacency, self.streams)
+                self.state = self._train_chunk(self.state, take)
             done += take
         self._sync()
 
@@ -322,11 +383,12 @@ class Learner:
             while evals_left:
                 take = min(group, evals_left)
                 with self.timers.stage("device_step"):
-                    self.state, results = train_steps_fused_ppx(
-                        self.cfg, self.training_set, self.heldout_set,
-                        self.state, self.heldout_u, self.heldout_v, take,
-                        interval, self.adjacency, self.streams)
-                    stats = [_read_stats(r) for r in results]
+                    results = []
+                    for _ in range(take):
+                        self.state = self._train_chunk(self.state, interval)
+                        self.state, res = self._evaluate(self.state)
+                        results.append(res)
+                    stats = [self._read_stats(r) for r in results]
                     self._sync()
                 now = time.perf_counter()
                 first = self.state.step_count - take * interval
@@ -346,10 +408,8 @@ class Learner:
             raise RuntimeError("no held-out edges: heldout_ratio too "
                                "small for this graph")
         with self.timers.stage("ppx"):
-            self.state, res = heldout_perplexity_step(
-                self.cfg, self.heldout_set, self.heldout_u, self.heldout_v,
-                self.state)
-            stats = _read_stats(res)
+            self.state, res = self._evaluate(self.state)
+            stats = self._read_stats(res)
         self.last_ppx_stats = {k: v for k, v in stats.items() if k != "ppx"}
         return stats["ppx"]
 

@@ -42,16 +42,14 @@ def index_operands(xs, idx):
     return (batch, *(a[idx] for a in xs[1:]))
 
 
-def windowed_scan(cfg: Config, state, xs, body):
-    """Run the hoisted steps ``xs`` in windows of ``cfg.window``; the
-    steps left over at the end go through ``body(state, x) -> state``.
-
-    ``xs`` is the operand tuple of ``learner.hoist_operands``:
-    (batches, neighbors [S,1,n], y_phi, phi_noise, beta_noise,
-     y_edges, lanes_u, lanes_v)."""
+def iter_windows(cfg: Config, xs, nbrs):
+    """Yield ``(xs_t, mcode, keep)`` for each whole window of
+    ``cfg.window`` steps of the hoisted operands ``xs``: the window's
+    operands, its correction codes [T, B+n] and its last-write-wins mask
+    [T, B]. ``nbrs`` [S, n] are the steps' shared neighbor draws. The
+    steps after the last whole window are the caller's."""
     t_win = cfg.window
-    s_len = xs[1].shape[0]
-    n_win = s_len // t_win
+    n_win = nbrs.shape[0] // t_win
     for w in range(n_win):
         if w % _WINDOWS_PER_BATCH == 0:
             # the correction codes and the last-write-wins masks depend
@@ -62,24 +60,35 @@ def windowed_scan(cfg: Config, state, xs, body):
             steps = slice(w * t_win, w_end * t_win)
             nodes = xs[0].nodes[steps].reshape(w_end - w, t_win, -1)
             mask = xs[0].node_mask[steps].reshape(w_end - w, t_win, -1)
-            nbrs_w = xs[1][steps, 0, :].reshape(w_end - w, t_win, -1)
+            nbrs_w = nbrs[steps].reshape(w_end - w, t_win, -1)
             mcodes = _correction_codes(cfg, nodes, mask, nbrs_w)
             keeps = _last_write_wins(nodes, mask, t_win)
-        xs_t = index_operands(xs, slice(w * t_win, (w + 1) * t_win))
+        yield (index_operands(xs, slice(w * t_win, (w + 1) * t_win)),
+               mcodes[w % _WINDOWS_PER_BATCH], keeps[w % _WINDOWS_PER_BATCH])
+
+
+def windowed_scan(cfg: Config, state, xs, body):
+    """Run the hoisted steps ``xs`` in windows of ``cfg.window``; the
+    steps left over at the end go through ``body(state, x) -> state``.
+
+    ``xs`` is the operand tuple of ``learner.hoist_operands``:
+    (batches, neighbors [S,1,n], y_phi, phi_noise, beta_noise,
+     y_edges, lanes_u, lanes_v)."""
+    t_win = cfg.window
+    for xs_t, mcode, keep in iter_windows(cfg, xs, xs[1][:, 0, :]):
         batch = xs_t[0]
-        nbrs = xs_t[1][:, 0, :]                              # [T, n]
-        g, sums_g = _window_gather(cfg, state, batch, nbrs)
+        g, sums_g = _window_gather(cfg, state, batch, xs_t[1][:, 0, :])
         core = window_core_cuda if g.is_cuda else window_core_torch
-        rows_flat, sums_flat, theta, beta = core(
-            cfg, state, xs_t, g, sums_g, mcodes[w % _WINDOWS_PER_BATCH])
-        pi, phi_sum = _window_scatter(cfg, state, batch,
-                                      keeps[w % _WINDOWS_PER_BATCH],
-                                      rows_flat, sums_flat)
+        rows_flat, sums_flat, theta, beta = core(cfg, state, xs_t, g,
+                                                 sums_g, mcode)
+        pi, phi_sum = _window_scatter(cfg, state, batch, keep, rows_flat,
+                                      sums_flat)
         state = state._replace(pi=pi, phi_sum=phi_sum, theta=theta,
                                beta=beta,
                                step_count=state.step_count + t_win,
                                beta_count=state.beta_count + t_win)
-    for i in range(n_win * t_win, s_len):
+    s_len = xs[1].shape[0]
+    for i in range(s_len - s_len % t_win, s_len):
         state = body(state, index_operands(xs, i))
     return state
 
@@ -235,8 +244,7 @@ def window_core_cuda(cfg: Config, s, xs_t, g, sums_g, mcode):
             f"T={t_win}; use a smaller --window or --window -1")
     lib = _window_lib()
     smem = lib.window_kernel_smem_bytes(b_cap, n_smpl, e_cap, k)
-    props = torch.cuda.get_device_properties(g.device)
-    limit = getattr(props, "shared_memory_per_block_optin", 232448)
+    limit = kernels.smem_limit(g.device)
     if smem > limit:
         raise ValueError(
             f"window kernel needs {smem} B of shared memory at B={b_cap}, "
@@ -244,11 +252,7 @@ def window_core_cuda(cfg: Config, s, xs_t, g, sums_g, mcode):
             f"{limit} B. Use a smaller K or --window -1.")
 
     def arg(x, dtype):
-        if x.dtype != dtype or not x.is_contiguous() or x.device != g.device:
-            raise ValueError(f"window kernel operand: {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}, wants "
-                             f"contiguous {dtype} on {g.device}")
-        return x.data_ptr()
+        return kernels.pointer(x, dtype, g.device)
 
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
     ptrs = [arg(g, f32), arg(sums_g, f32), arg(y_w, b8),
@@ -270,8 +274,7 @@ def window_core_cuda(cfg: Config, s, xs_t, g, sums_g, mcode):
         cfg.eta0, cfg.eta1, 1.0 / k, eps_phi.ctypes.data,
         eps_theta.ctypes.data,
         torch.cuda.current_stream(g.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"window kernel launch failed: CUDA error {err}")
+    kernels.check_launch(err, "window kernel")
     window_core_cuda.launches += 1
     return rows, sums, theta, beta
 

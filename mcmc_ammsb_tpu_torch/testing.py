@@ -1,12 +1,13 @@
-"""Seeded operands for checking one window of the window engine.
+"""Seeded operands for checking the port's kernels.
 
 ``window_case`` draws, with numpy, the state and the hoisted operands
 of one T-step window at a chosen shape, with rows that collide across
 the window's steps on purpose (nodes and neighbors come from a small
 node pool), masked node and edge lanes, and padded lanes that carry the
-sentinel N. The same arrays drive the port's plain version and its CUDA
-kernel (``chip_smoke.py``) and the JAX package's window cores (the CPU
-parity tests).
+sentinel N; ``mmsb_window_case`` is the same window for the full MMSB,
+``phi_case`` one step of the per-node phi update. The same arrays drive
+the port's plain versions and its CUDA kernels (``chip_smoke.py``) and
+the JAX package's functions (the CPU parity tests).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from mcmc_ammsb_tpu_torch.config import Config
 from mcmc_ammsb_tpu_torch.learner import DeviceBatch, TrainState
+from mcmc_ammsb_tpu_torch.models.mmsb import MMSBState
 
 
 def window_case(seed: int, t_win: int, b_cap: int, n_smpl: int,
@@ -86,3 +88,71 @@ def window_case_torch(case: dict, device):
     xs = (batch, t("neighbors"), t("y_phi"), t("phi_noise"),
           t("beta_noise"), t("y_edges"), t("lanes_u"), t("lanes_v"))
     return state, xs
+
+
+def mmsb_window_case(seed: int, t_win: int, b_cap: int, n_smpl: int,
+                     e_cap: int, k: int) -> dict:
+    """``window_case`` for the full MMSB: a symmetric theta_b [K, K, 2]
+    and its B, symmetrized theta noise [T, K, K, 2], neighbors [T, n] and
+    a theta_count in place of the a-MMSB's theta, beta and beta noise."""
+    case = window_case(seed, t_win, b_cap, n_smpl, e_cap, k)
+    r = np.random.default_rng(seed + 1000)
+    f32 = np.float32
+    theta_b = (r.gamma(1.0, size=(k, k, 2)) + 0.1).astype(f32)
+    theta_b = f32(0.5) * (theta_b + theta_b.transpose(1, 0, 2))
+    xi = r.standard_normal((t_win, k, k, 2)).astype(f32)
+    sym = (xi + xi.transpose(0, 2, 1, 3)) / f32(np.sqrt(2.0))
+    eye = np.eye(k, dtype=bool)[None, :, :, None]
+    for name in ("theta", "beta", "beta_noise", "beta_count"):
+        del case[name]
+    case.update(theta_b=theta_b,
+                b=theta_b[..., 1] / theta_b.sum(-1),
+                t_noise=np.where(eye, xi, sym),
+                theta_count=int(r.integers(0, 500)),
+                neighbors=case["neighbors"][:, 0])
+    return case
+
+
+def mmsb_window_case_torch(case: dict, device):
+    """An ``mmsb_window_case`` as the port's (MMSBState, operand tuple)."""
+    def t(name):
+        return torch.as_tensor(case[name], device=device)
+
+    state = MMSBState(pi=t("pi").clone(), phi_sum=t("phi_sum").clone(),
+                      theta_b=t("theta_b"), b=t("b"),
+                      step_count=case["step_count"],
+                      theta_count=case["theta_count"],
+                      ppx_per_edge=torch.zeros(1, device=device),
+                      ppx_count=0)
+    batch = DeviceBatch(*(t(f) for f in DeviceBatch._fields))
+    xs = (batch, t("neighbors"), t("y_phi"), t("phi_noise"),
+          t("t_noise"), t("y_edges"), t("lanes_u"), t("lanes_v"))
+    return state, xs
+
+
+def phi_case(seed: int, b_cap: int, n_smpl: int, k: int) -> dict:
+    """One step of the per-node phi update: pi [N, K] (rows normalized),
+    phi_sum [N], nodes [B] with the last lane padded with the sentinel N,
+    private neighbors [B, n], labels, beta, noise and a step count."""
+    r = np.random.default_rng(seed)
+    n_nodes = 4 * (b_cap + n_smpl)
+    f32 = np.float32
+    pi = r.gamma(1.0, size=(n_nodes, k)).astype(f32)
+    phi_sum = pi.sum(-1)
+    nodes = r.choice(n_nodes, b_cap, replace=False).astype(np.int32)
+    nodes[-1] = n_nodes
+    return dict(
+        n_nodes=n_nodes, pi=pi / phi_sum[:, None], phi_sum=phi_sum,
+        nodes=nodes,
+        nbrs=r.integers(0, n_nodes, (b_cap, n_smpl)).astype(np.int32),
+        y=r.random((b_cap, n_smpl)) < 0.3,
+        beta=(0.5 * r.random(k)).astype(f32),
+        noise=r.standard_normal((b_cap, k)).astype(f32),
+        step_count=int(r.integers(1, 500)))
+
+
+def phi_case_config(case: dict) -> Config:
+    b_cap, n_smpl = case["nbrs"].shape
+    return Config(K=case["pi"].shape[1], mini_batch_size=b_cap,
+                  num_node_sample=n_smpl, device_sampling=True).finalize(
+        case["n_nodes"], 1000, b_cap)

@@ -14,6 +14,9 @@ def test_port_imports_without_jax():
             "import mcmc_ammsb_tpu_torch, mcmc_ammsb_tpu_torch.cli\n"
             "import mcmc_ammsb_tpu_torch.testing\n"
             "import mcmc_ammsb_tpu_torch.interop\n"
+            "import mcmc_ammsb_tpu_torch.models.mmsb\n"
+            "import mcmc_ammsb_tpu_torch.ops.window_mmsb\n"
+            "import mcmc_ammsb_tpu_torch.ops.phi_pallas\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', "
             "'mcmc_ammsb_tpu.')) or m == 'mcmc_ammsb_tpu' "
             "for m, v in sys.modules.items() if v is not None)\n")

@@ -21,48 +21,14 @@ from mcmc_ammsb_tpu.config import EdgeSetBackend as JaxEdgeSetBackend
 from mcmc_ammsb_tpu.ops import phi as jax_phi
 from mcmc_ammsb_tpu.ops.device_sampling import sample_minibatches_device
 from mcmc_ammsb_tpu.ops.edgeset import build_edge_set as jax_build_edge_set
-from mcmc_ammsb_tpu.ops.neighbor import sample_neighbors as jax_neighbors
 from mcmc_ammsb_tpu.ops.window import windowed_scan as jax_windowed_scan
-from mcmc_ammsb_tpu.rng import native as jax_rng
 from mcmc_ammsb_tpu_torch import config, learner
 from mcmc_ammsb_tpu_torch.interop import state_from_numpy
 from mcmc_ammsb_tpu_torch.ops.edgeset import build_edge_set
 
-from torch_parity import assert_close, jax_config
+from torch_parity import assert_close, jax_config, jax_hoist, to_torch
 
 INTERVAL, EVALS, WINDOW = 10, 2, 4        # 2 windows + 2 tail steps each
-
-
-def _jax_hoist(jcfg, edge_set, state, batches):
-    """The operand tuple of learner.train_steps_scan (learner.py:488-536),
-    native RNG with shared neighbor draws."""
-    s_len, b = batches.nodes.shape
-    steps = state.step_count + jnp.arange(s_len, dtype=jnp.int32)
-    nbr_keys = jax.vmap(
-        lambda s: jax.random.fold_in(state.neighbor_key, s))(steps)
-    sentinel = jnp.full((1,), jcfg.N, jnp.int32)
-    neighbors = jax.vmap(lambda k: jax_neighbors(
-        k, sentinel, jcfg.N, jcfg.num_node_sample))(nbr_keys)
-    y_phi = edge_set.has_edges(batches.nodes[:, :, None], neighbors)
-    y_edges = edge_set.has_edges(batches.edges_u, batches.edges_v)
-    lanes_u = jnp.argmax(batches.edges_u[:, :, None]
-                         == batches.nodes[:, None, :],
-                         axis=-1).astype(jnp.int32)
-    lanes_v = jnp.argmax(batches.edges_v[:, :, None]
-                         == batches.nodes[:, None, :],
-                         axis=-1).astype(jnp.int32)
-    phi_noise = jax.vmap(lambda s: jax_rng.randn(
-        jax.random.fold_in(state.phi_key, s), (b, jcfg.K)))(steps)
-    beta_noise = jax.vmap(lambda s: jax_rng.randn(
-        jax.random.fold_in(state.beta_key, s), (jcfg.K, 2)))(steps)
-    return (batches, neighbors, y_phi, phi_noise, beta_noise, y_edges,
-            lanes_u, lanes_v)
-
-
-def _to_torch(xs):
-    batch = learner.DeviceBatch(*(torch.tensor(np.asarray(a))
-                                  for a in xs[0]))
-    return (batch, *(torch.tensor(np.asarray(a)) for a in xs[1:]))
 
 
 @pytest.fixture(scope="module")
@@ -106,7 +72,7 @@ def test_slice_matches_jax(slice_setup):
         ds = sample_minibatches_device(jcfg, jtr, jho, key, INTERVAL,
                                        adjacency)
         batches = jax_learner.DeviceBatch(*ds)
-        xs = _jax_hoist(jcfg, jtr, state, batches)
+        xs = jax_hoist(jcfg, jtr, state, batches)
         state = jax_windowed_scan(jcfg, state, xs, body)
         state, res = jax_learner.heldout_perplexity_step(
             jcfg, jho, jnp.asarray(hu), jnp.asarray(hv), state)
@@ -121,7 +87,8 @@ def test_slice_matches_jax(slice_setup):
     for i in range(EVALS):
         jstate, xs, jres = jax_interval(jstate,
                                         jax.random.PRNGKey(100 + i))
-        tstate = learner.run_hoisted(cfg, tstate, _to_torch(xs))
+        tstate = learner.run_hoisted(cfg, tstate,
+                                      to_torch(xs, learner.DeviceBatch))
         tstate, tres = learner.heldout_perplexity_step(
             cfg, tho, torch.from_numpy(hu), torch.from_numpy(hv), tstate)
         assert tstate.step_count == int(jstate.step_count)
