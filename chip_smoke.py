@@ -11,8 +11,12 @@ Phases, one line each; any failure raises and the exit code is not 0:
                CUDA operands, with the time per call of each and each
                version's distance to a float64 evaluation:
                the a-MMSB window kernel at the bench shape and two odd
-               ones; both phi entries (pre-gathered, by index) at
-               (B, n, K) = (33, 32, 256) and (5, 7, 12) — normwise
+               ones; its chain mode (one block per chain) at (C, T, B, n,
+               E, K) = (16, 6, 33, 32, 32, 256), the bench chain shape,
+               (3, 4, 9, 8, 8, 16) and (2, 3, 6, 7, 5, 12), also
+               bit-equal to C single-chain launches; both phi entries
+               (pre-gathered, by index) at (B, n, K) = (33, 32, 256)
+               and (5, 7, 12) — normwise
                rtol 1e-5, atol 1e-8 (see max_err); the MMSB window
                kernel at (T, B, n, E, K) = (1, 33, 32, 32, 64),
                (12, 33, 32, 32, 64), (3, 6, 7, 5, 12), (12, 33, 32, 32,
@@ -25,9 +29,11 @@ Phases, one line each; any failure raises and the exit code is not 0:
                a-MMSB windows (normwise rtol 1e-5, atol 1e-8), the
                MMSB windows (the measured envelope of
                tests/test_window_mmsb.py), --phi-impl pallas with
-               private draws (normwise rtol 1e-5, atol 1e-8); then the
-               MMSB learner on the GPU recovers a planted partition
-               (the JAX package's own check, tests/test_mmsb.py:84);
+               private draws (normwise rtol 1e-5, atol 1e-8), the flat
+               chain engine with C=3 (4 chain-kernel launches, normwise
+               rtol 1e-5, atol 1e-8); then the MMSB learner on the GPU
+               recovers a planted partition (the JAX package's own
+               check, tests/test_mmsb.py:84);
   5. main    — the port's CLI in-process, at N=317,080:
                the a-MMSB main path (K=256, window 12, 2000 steps): the
                window kernel launches once per window, ppx falls below
@@ -38,6 +44,13 @@ Phases, one line each; any failure raises and the exit code is not 0:
                --phi-impl pallas --device-sampling (K=256, 1000 steps):
                the by-index phi kernel launches 1000 times, the window
                kernel never, ppx falls below ppx[0];
+               --num-chains 16 --node-coin alternate (K=256, window
+               96 // 16 = 6, 2 x 504 steps): the chain kernel launches
+               2 x 84 = 168 times with C = 16 and the single-chain entry
+               never, every chain's ppx falls below its ppx[0]; the
+               aggregate rate and the host time of the chains' init are
+               printed; then a small --num-chains 3 --rhat-draws 2 run
+               logs a finite R-hat line;
 then a JSON line of the kernels, the card's name and power limit, and
 the result line last.
 """
@@ -64,6 +77,13 @@ MMSB_ARGS = ["--model", "mmsb", "--synthetic", "317080,7", "-k", "64",
 PHI_ARGS = ["--phi-impl", "pallas", "--device-sampling", "--synthetic",
             "317080,7", "-k", "256", "-x", "1000", "-i", "500",
             "--device", "cuda"]
+CHAINS = 16
+CHAIN_ARGS = ["--num-chains", str(CHAINS), "--node-coin", "alternate",
+              "--synthetic", "317080,7", "-k", "256", "-x", "1008",
+              "-i", "504", "--device", "cuda"]
+RHAT_ARGS = ["--num-chains", "3", "--synthetic", "2000,8", "-k", "16",
+             "-x", "200", "-i", "100", "--rhat-draws", "2",
+             "--device", "cuda"]
 # the measured multi-step MMSB envelope of tests/test_window_mmsb.py:57-59
 PI_ATOL = 5e-3
 TH_TOLS = dict(rtol=0.1, atol=0.15)
@@ -197,6 +217,58 @@ def check_window_kernel(window, testing):
     return worst, times
 
 
+def check_chain_kernel(window, chains_flat, testing):
+    """Phase 3, the window kernel's chain mode: (max abs err, kernel ms,
+    plain ms at the bench chain shape). One launch runs C blocks; it
+    must give the same bits as C single-chain launches on the chains'
+    slices."""
+    shapes = [  # (C, T, B, n, E, K)
+        (CHAINS, 6, 33, 32, 32, 256), (3, 4, 9, 8, 8, 16), (2, 3, 6, 7, 5, 12)]
+    worst, times = 0.0, None
+    for seed, shape in enumerate(shapes):
+        c, t_win, b_cap = shape[:3]
+        case = testing.chain_window_case(seed, *shape)
+        cfg = testing.chain_window_case_config(case)
+        state, xw = testing.chain_window_case_torch(case, "cuda")
+        win = chains_flat.chain_windows(cfg, c, xw).at(0)
+        if not all((win.mcode[i] > 0).any() for i in range(c)):
+            raise AssertionError("a chain of the case has no collision")
+        g, sums = chains_flat.chain_window_rows(state, win)
+        args = (cfg, state, win.xs_t, g, sums, win.mcode)
+        got = window.window_chain_core_cuda(*args)
+        torch.cuda.synchronize()
+        want = window.window_chain_core_torch(*args)
+        names = ("rows", "sums", "theta", "beta")
+        errs = [max_err(a, b, f"chain window {name} at {shape}")
+                for a, b, name in zip(got, want, names)]
+        worst = max(worst, *errs)
+        t_b = t_win * b_cap
+        for ci in range(c):
+            one = window.window_core_cuda(
+                cfg, state._replace(theta=state.theta[ci],
+                                    beta=state.beta[ci]),
+                window.index_operands(win.xs_t, ci), g[ci], sums[ci],
+                win.mcode[ci])
+            part = (got[0][ci * t_b:(ci + 1) * t_b],
+                    got[1][ci * t_b:(ci + 1) * t_b], got[2][ci], got[3][ci])
+            if not all(torch.equal(a, b) for a, b in zip(one, part)):
+                raise AssertionError(f"chain {ci} of the {c}-chain launch "
+                                     f"differs from its own launch, {shape}")
+        ref = window.window_chain_core_torch(*_float64(args))
+        f64 = [max(float((a.double() - r).abs().max())
+                   for a, r in zip(out, ref)) for out in (got, want)]
+        ms = time_ms(lambda: window.window_chain_core_cuda(*args))
+        plain_ms = time_ms(lambda: window.window_chain_core_torch(*args))
+        if times is None:
+            times = (ms, plain_ms)
+        phase("kernel", f"chain window C,T,B,n,E,K={','.join(map(str, shape))}"
+              f": kernel vs plain max abs err {max(errs):.3e} (vs float64: "
+              f"kernel {f64[0]:.3e}, plain {f64[1]:.3e}); bit-equal to {c} "
+              f"single-chain launches; {ms:.4f} ms/window kernel, "
+              f"{plain_ms:.4f} ms/window plain")
+    return worst, times
+
+
 def check_phi_kernel(phi_pallas, testing):
     """Phase 3, both phi entries: {entry: (max abs err over the shapes,
     kernel ms, plain ms at the main path's shape)}."""
@@ -311,7 +383,7 @@ def _slice_learner(mods, engine, hoist, **kw):
     return cfg, cpu.state, gpu_state, xs
 
 
-def check_slices(mods, window, window_mmsb, phi_pallas):
+def check_slices(mods, window, window_mmsb, phi_pallas, chains_flat):
     """Phase 4: the hoisted loops on the GPU vs the CPU from one state."""
     data, config, learner_mod, sampling, mmsb = mods
     fields = ("pi", "phi_sum", "theta", "beta")
@@ -361,6 +433,35 @@ def check_slices(mods, window, window_mmsb, phi_pallas):
           f"({launched} by-index phi launches), N=300 K=24: GPU kernel vs "
           f"CPU plain max abs err {max(errs):.3e}")
 
+    # the flat chain engine: 3 chains, 4 windows of 5 through the chain
+    # kernel and 3 batched tail steps
+    n, u, v = data.synthetic_edges(300, 8, seed=9)
+    split = data.generate_sets(n, u, v, heldout_ratio=0.1, seed=10)
+    graph = data.Graph.from_edges(n, split.training_u, split.training_v)
+    cfg = config.Config(K=24, mini_batch_size=8, num_node_sample=8,
+                        device_sampling=True, shared_neighbors=True,
+                        window=5).finalize(n, split.total_edges,
+                                           graph.max_fan_out)
+    cpu = chains_flat.FlatChainLearner(cfg, graph, split, 3, "cpu")
+    xs = chains_flat.hoist_chain_operands(cfg, 3, cpu.training_set,
+                                          cpu.heldout_set, cpu.adjacency,
+                                          cpu.streams, 23)
+    gpu_state = _to(cpu.state._replace(pi=cpu.state.pi.clone(),
+                                       phi_sum=cpu.state.phi_sum.clone()),
+                    "cuda")
+    window.window_chain_core_cuda.launches = 0
+    got = chains_flat.run_chain_hoisted(cfg, 3, gpu_state, _to(xs, "cuda"))
+    launched = window.window_chain_core_cuda.launches
+    want = chains_flat.run_chain_hoisted(cfg, 3, cpu.state, xs)
+    errs = [max_err(getattr(got, f), getattr(want, f), f"chain slice {f}")
+            for f in fields]
+    if launched != 4:
+        raise AssertionError(f"chain slice: {launched} kernel launches, "
+                             f"not 4")
+    phase("slice", f"flat chains, C=3, 23 steps (4 windows of 5 + 3 tail "
+          f"steps, {launched} chain-kernel launches), N=300 K=24: GPU "
+          f"kernel vs CPU plain max abs err {max(errs):.3e}")
+
     # the MMSB learner on the GPU learns a planted partition: the
     # identifiability knobs and the check of tests/test_mmsb.py:84-117
     n, u, v = data.synthetic_sbm_edges(300, 3, p_in=0.25, p_out=0.004,
@@ -396,7 +497,8 @@ def check_slices(mods, window, window_mmsb, phi_pallas):
 
 def _run_cli(cli, args):
     """cli.main(args) with its log records kept: (ppx series [(step,
-    ppx, created)])."""
+    ppx, created)] — ppx a float, or a list of the chains' — and every
+    logged message)."""
     records = []
 
     class Keep(logging.Handler):
@@ -413,32 +515,42 @@ def _run_cli(cli, args):
         raise AssertionError(f"cli.main{tuple(args)} returned {rc}")
     series = []
     for created, msg in records:
-        m = re.fullmatch(r"ppx\[(\d+)\] = (\S+)", msg)
+        m = re.fullmatch(r"ppx\[(\d+)\] = (\S+|\[.*\])", msg)
         if m:
-            series.append((int(m.group(1)), float(m.group(2)), created))
-    ppx = [p for _, p, _ in series]
-    if not all(math.isfinite(p) for p in ppx):
-        raise AssertionError(f"non-finite ppx {ppx}")
-    return series
+            text = m.group(2)
+            value = ([float(x) for x in text[1:-1].split()]
+                     if text.startswith("[") else float(text))
+            series.append((int(m.group(1)), value, created))
+    values = [x for _, p, _ in series
+              for x in (p if isinstance(p, list) else [p])]
+    if not all(math.isfinite(x) for x in values):
+        raise AssertionError(f"non-finite ppx {series}")
+    return series, [msg for _, msg in records]
 
 
 def _counts(mods, what):
+    """Reset every kernel's launch count (``what`` None), or read them:
+    {kernel: launches}, and "chains", the chains the chain-mode launches
+    ran in all."""
     window, window_mmsb, phi_pallas = mods
     counters = {"window": window.window_core_cuda,
+                "window_chain": window.window_chain_core_cuda,
                 "mmsb": window_mmsb.mmsb_window_core_cuda,
                 "phi": phi_pallas.phi_update_core_cuda,
                 "phi_gather": phi_pallas.phi_update_rows_cuda}
     if what is None:
         for c in counters.values():
             c.launches = 0
+        window.window_chain_core_cuda.chains = 0
         return None
-    return {k: c.launches for k, c in counters.items()}
+    return {**{k: c.launches for k, c in counters.items()},
+            "chains": window.window_chain_core_cuda.chains}
 
 
 def run_main(cli, kmods):
     """Phase 5, the a-MMSB main path: launches of each kernel."""
     _counts(kmods, None)
-    series = _run_cli(cli, MAIN_ARGS)
+    series, _ = _run_cli(cli, MAIN_ARGS)
     launches = _counts(kmods, "read")
     steps = [s for s, _, _ in series]
     if steps != [0, 500, 1000, 1500, 2000]:
@@ -470,7 +582,7 @@ def run_mmsb_main(cli, kmods):
     2.0008, 2.0041). The check is a finite series within 5% of ppx[0];
     learning is checked on the planted partition in phase 4."""
     _counts(kmods, None)
-    series = _run_cli(cli, MMSB_ARGS)
+    series, _ = _run_cli(cli, MMSB_ARGS)
     launches = _counts(kmods, "read")
     ppx = [p for _, p, _ in series]
     if [s for s, _, _ in series] != [0, 500, 1000]:
@@ -491,7 +603,7 @@ def run_mmsb_main(cli, kmods):
 def run_phi_main(cli, kmods):
     """Phase 5, --phi-impl pallas --device-sampling."""
     _counts(kmods, None)
-    series = _run_cli(cli, PHI_ARGS)
+    series, _ = _run_cli(cli, PHI_ARGS)
     launches = _counts(kmods, "read")
     ppx = [p for _, p, _ in series]
     if [s for s, _, _ in series] != [0, 500, 1000]:
@@ -509,13 +621,58 @@ def run_phi_main(cli, kmods):
     return launches
 
 
+def run_chain_main(cli, kmods):
+    """Phase 5, --num-chains 16 at the JAX bench's chain configuration:
+    (launches, aggregate updates/s over the second interval, host
+    seconds of the chains' init)."""
+    _counts(kmods, None)
+    series, messages = _run_cli(cli, CHAIN_ARGS)
+    launches = _counts(kmods, "read")
+    if [s for s, _, _ in series] != [0, 504, 1008]:
+        raise AssertionError(f"unexpected chain ppx steps {series}")
+    ppx = [p for _, p, _ in series]
+    if not all(isinstance(p, list) and len(p) == CHAINS for p in ppx):
+        raise AssertionError(f"chain ppx is not a {CHAINS}-vector: {ppx}")
+    if not all(q < q0 for p in ppx[1:] for q, q0 in zip(p, ppx[0])):
+        raise AssertionError(f"a chain's ppx does not fall: {ppx}")
+    expected = 2 * (504 // 6)     # 2 intervals of 84 windows, no tail
+    if (launches["window_chain"] != expected
+            or launches["chains"] != CHAINS * expected
+            or launches["window"]):
+        raise AssertionError(f"chain run launches {launches}, expected "
+                             f"{expected} chain-kernel launches of "
+                             f"{CHAINS} chains and no single-chain one")
+    init = next(float(m.group(1)) for m in (
+        re.search(r"chains initialized in (\S+) s", msg) for msg in messages)
+        if m)
+    rate = CHAINS * 504 / (series[2][2] - series[1][2])
+    phase("main", f"--num-chains {CHAINS}: rc 0, ppx[0] {ppx[0]}, ppx[1008] "
+          f"{ppx[2]}; chain-kernel launches {launches['window_chain']} "
+          f"(= {expected} windows, {launches['chains']} chain blocks), "
+          f"single-chain launches {launches['window']}; aggregate "
+          f"{rate:.1f} updates/s over the second 504-step interval; host "
+          f"init of the {CHAINS} chains {init:.3f} s")
+    return launches, rate, init
+
+
+def run_rhat(cli):
+    """Phase 5, the R-hat line of --rhat-draws 2 (a small graph)."""
+    _, messages = _run_cli(cli, RHAT_ARGS)
+    line = next(m for m in messages if m.startswith("beta R-hat"))
+    vals = [float(x) for x in re.findall(r"(?:max|median) (\S+)", line)]
+    if len(vals) != 2 or not all(math.isfinite(x) for x in vals):
+        raise AssertionError(f"R-hat line not finite: {line}")
+    phase("main", f"--num-chains 3 --rhat-draws 2: {line}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     # the port's package: an ImportError here (no checkout around the
     # script) ends the run before anything is printed
-    from mcmc_ammsb_tpu_torch import cli, config, data, kernels, testing
+    from mcmc_ammsb_tpu_torch import (chains_flat, cli, config, data, kernels,
+                                      testing)
     from mcmc_ammsb_tpu_torch import learner as learner_mod
     from mcmc_ammsb_tpu_torch.models import mmsb
     from mcmc_ammsb_tpu_torch.ops import (device_sampling, phi_pallas, window,
@@ -530,14 +687,17 @@ def main() -> int:
 
     build_all(kernels)
     w_err, (w_ms, w_plain) = check_window_kernel(window, testing)
+    c_err, (c_ms, c_plain) = check_chain_kernel(window, chains_flat, testing)
     phi = check_phi_kernel(phi_pallas, testing)
     m_err, (m_ms, m_plain) = check_mmsb_kernel(window, window_mmsb, testing)
     check_slices((data, config, learner_mod, device_sampling, mmsb),
-                 window, window_mmsb, phi_pallas)
+                 window, window_mmsb, phi_pallas, chains_flat)
     kmods = (window, window_mmsb, phi_pallas)
     main_l = run_main(cli, kmods)
     mmsb_l = run_mmsb_main(cli, kmods)
     phi_l = run_phi_main(cli, kmods)
+    chain_l, _, _ = run_chain_main(cli, kmods)
+    run_rhat(cli)
 
     src = "mcmc_ammsb_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
@@ -546,6 +706,12 @@ def main() -> int:
          "replaces": "mcmc_ammsb_tpu/ops/window.py:321",
          "launches": main_l["window"], "max_abs_err": w_err,
          "ms": w_ms, "plain_ms": w_plain},
+        # the same kernel and entry, C blocks: the chain engine's launches
+        {"name": "window_kernel_chains", "route": "cuda",
+         "source": src + "window_kernel.cu",
+         "replaces": "mcmc_ammsb_tpu/ops/window.py:321 (n_chains > 1)",
+         "launches": chain_l["window_chain"], "max_abs_err": c_err,
+         "ms": c_ms, "plain_ms": c_plain},
         {"name": "mmsb_window_kernel", "route": "cuda",
          "source": src + "mmsb_window_kernel.cu",
          "replaces": "mcmc_ammsb_tpu/ops/window_mmsb.py:96",

@@ -1,6 +1,7 @@
 """Command-line driver of the port (counterpart of
 ``mcmc_ammsb_tpu/cli.py``: the device-sampled single-chain a-MMSB, with
-``--phi-impl jnp`` or ``pallas``, and the full MMSB, ``--model mmsb``).
+``--phi-impl jnp`` or ``pallas``, the full MMSB, ``--model mmsb``, and
+C independent a-MMSB chains on the flat chain engine, ``--num-chains C``).
 
 The same flag names, ``resolve_fast_defaults`` semantics and log lines
 (config echo, ``ppx[i] = ...`` with the link/non-link quadruple, the
@@ -16,6 +17,8 @@ Usage:
         --synthetic 317080,7 -k 256 -x 1000 -i 500 --device cuda
     python -m mcmc_ammsb_tpu_torch.cli --model mmsb --window 12 \\
         --synthetic 317080,7 -k 64 -x 1000 -i 500 --device cuda
+    python -m mcmc_ammsb_tpu_torch.cli --num-chains 16 --node-coin \\
+        alternate --synthetic 317080,7 -k 256 -x 1008 -i 504 --device cuda
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ import logging
 import signal
 import sys
 
+import numpy as np
 import torch
 
+from mcmc_ammsb_tpu_torch.chains_flat import FlatChainLearner
 from mcmc_ammsb_tpu_torch.config import (Config, EdgeSetBackend, PhiImpl,
                                          RngBackend, SampleStrategy)
 from mcmc_ammsb_tpu_torch.data import (Graph, generate_sets,
@@ -40,7 +45,6 @@ log = logging.getLogger("mcmc_ammsb_tpu_torch")
 #: (argparse dest, the only accepted value, ROADMAP queue 1 item).
 _UNPORTED = (
     ("mesh", "", "item 14 (multi-GPU)"),
-    ("num_chains", 1, "item 12 (chains)"),
     ("checkpoint", "", "item 6 (checkpoints)"),
     ("restore", "", "item 6 (checkpoints)"),
     ("profile", False, "item 13 (profiling)"),
@@ -118,9 +122,22 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "cells (assortative regularization)")
     p.add_argument("--mmsb-noise-scale", type=float, default=1.0,
                    help="full-MMSB: SGRLD noise temperature (<1 tempers)")
+    p.add_argument("--num-chains", type=int, default=1,
+                   help="run C independent a-MMSB chains (the flat chain "
+                        "engine, chains_flat.py; implies device sampling)")
+    p.add_argument("--chain-engine", choices=["flat", "vmap"],
+                   default="flat",
+                   help="multi-chain engine ('vmap' is not ported yet)")
+    p.add_argument("--rhat-draws", type=int, default=0,
+                   help="with --num-chains >= 2: after training, run this "
+                        "many extra steps_per_call chunks keeping beta "
+                        "after each and log the Gelman-Rubin R-hat across "
+                        "chains (>= 2 draws; 0 = off)")
+    p.add_argument("--chain-devices", type=int, default=1,
+                   help="spread --num-chains over this many devices (not "
+                        "ported yet)")
     # engines of the JAX CLI that the port does not have yet (_UNPORTED)
     p.add_argument("--mesh", type=str, default="")
-    p.add_argument("--num-chains", type=int, default=1)
     p.add_argument("--checkpoint", type=str, default="")
     p.add_argument("--restore", type=str, default="")
     p.add_argument("--profile", action="store_true")
@@ -153,15 +170,20 @@ def resolve_fast_defaults(args) -> None:
                                if args.device_sampling
                                else max(1, min(200, args.ppx_interval)))
         log.info("steps_per_call auto-set to %d", args.steps_per_call)
-    # The JAX rule's chain clauses (no auto window for the non-flat chain
-    # engines, T = 96 // C past 8 chains) come with the chain engines
-    # (ROADMAP item 12): the port refuses --num-chains before this point.
+    # chains: T = 12 up to 8 chains, 96 // C up to 16, none past 16 or
+    # on the vmap engine
+    c = max(1, args.num_chains)
     if (args.window == 0 and args.device_sampling
-            and args.shared_neighbors and args.model == "ammsb"):
-        args.window = 12
-        args.window_auto = True
-        log.info("window auto-set to 12 (T-step fused windows; "
-                 "--window -1 disables)")
+            and args.shared_neighbors and args.model == "ammsb"
+            and not (c > 1 and args.chain_engine != "flat")):
+        if c <= 8:
+            args.window = 12
+        elif c <= 16:
+            args.window = 96 // c
+        if args.window:
+            args.window_auto = True
+            log.info("window auto-set to %d (T-step fused windows; "
+                     "--window -1 disables)", args.window)
     if args.window < 0:
         args.window = 0
 
@@ -207,8 +229,27 @@ def main(argv=None) -> int:
             log.fatal("--%s is not ported yet (ROADMAP queue 1 %s)",
                       dest.replace("_", "-"), item)
             return 2
+    if args.rhat_draws and (args.rhat_draws < 2 or args.num_chains < 2
+                            or args.model == "mmsb"):
+        log.fatal("--rhat-draws needs >= 2 draws and --num-chains >= 2 "
+                  "a-MMSB chains (R-hat is a between-chain statistic)")
+        return 1
+    chains = args.num_chains > 1
+    if chains:
+        for refused, what in (
+                (args.chain_engine != "flat",
+                 "--chain-engine vmap (item 12, the vmap chain engine)"),
+                (args.chain_devices > 1,
+                 "--chain-devices (item 14, chains over several GPUs)"),
+                (args.model == "mmsb",
+                 "--model mmsb --num-chains (item 11, MMSBChainLearner)")):
+            if refused:
+                log.fatal("%s is not ported yet (ROADMAP queue 1)", what)
+                return 2
     resolve_fast_defaults(args)
     cfg = config_from_args(args)
+    if chains:
+        cfg = cfg.replace(device_sampling=True)  # as the JAX chain engine
     try:
         check_ported(cfg)
     except NotImplementedError as e:
@@ -244,9 +285,17 @@ def main(argv=None) -> int:
     log.info("Loaded %s (N=%d, E=%d, training max fan out = %d)",
              args.file or args.synthetic, cfg.N, cfg.E, cfg.max_fan_out)
     log.info("config: %s", cfg)
-    engine = FullMMSBLearner if args.model == "mmsb" else Learner
     try:
-        learner = engine(cfg, graph, split, device)
+        if chains:
+            learner = FlatChainLearner(cfg, graph, split, args.num_chains,
+                                       device)
+            log.info("%d chains initialized in %.3f s (host init draws of "
+                     "C x N x K gammas)", args.num_chains,
+                     learner.init_seconds)
+        elif args.model == "mmsb":
+            learner = FullMMSBLearner(cfg, graph, split, device)
+        else:
+            learner = Learner(cfg, graph, split, device)
     except NotImplementedError as e:
         log.fatal("%s", e)
         return 2
@@ -268,11 +317,19 @@ def main(argv=None) -> int:
     return 0
 
 
+def _fmt_ppx(ppx) -> str:
+    """A perplexity for the log: a float, or the chains' [C] vector on
+    one line."""
+    if isinstance(ppx, np.ndarray):
+        return "[" + " ".join(str(p) for p in ppx) + "]"
+    return str(ppx)
+
+
 def _train(args, cfg: Config, learner: Learner, signaled: dict) -> None:
-    log.info("ppx[0] = %s", learner.heldout_perplexity())
+    log.info("ppx[0] = %s", _fmt_ppx(learner.heldout_perplexity()))
 
     def log_eval(i, ppx, st):
-        log.info("ppx[%d] = %s", i, ppx)
+        log.info("ppx[%d] = %s", i, _fmt_ppx(ppx))
         if "link_count" in st:      # the a-MMSB's evaluation counts them
             log.info("  links: %d (ll %.4f)  non-links: %d (ll %.4f)",
                      st["link_count"], st["link_likelihood"],
@@ -299,6 +356,14 @@ def _train(args, cfg: Config, learner: Learner, signaled: dict) -> None:
                          learner.last_ppx_stats)
     if signaled["flag"]:
         log.info("FORCED TERMINATE")
+    elif args.rhat_draws >= 2:
+        # Gelman-Rubin PSRF over beta across the chains; values near 1
+        # mean the chains agree
+        r = learner.beta_rhat(draws=args.rhat_draws)
+        log.info("beta R-hat over %d chains (%d draws of %d steps): max "
+                 "%.4f  median %.4f", args.num_chains, args.rhat_draws,
+                 max(1, cfg.steps_per_call), float(np.max(r)),
+                 float(np.median(r)))
     learner.print_stats(lambda s: log.info("%s", s))
 
 

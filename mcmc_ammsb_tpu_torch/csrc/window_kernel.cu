@@ -1,10 +1,27 @@
-// T sequential a-MMSB SGRLD steps of one window, in one thread block.
+// T sequential a-MMSB SGRLD steps of one window, one thread block per
+// chain.
 //
 // Replaces the Pallas TPU kernel mcmc_ammsb_tpu/ops/window.py::
 // _window_kernel (reached through window_kernel_call -> pl.pallas_call)
-// for one chain with the collision correction on. Called through
-// mcmc_ammsb_tpu_torch/ops/window.py::window_core_cuda; the plain
-// PyTorch version beside it is window_core_torch.
+// with the collision correction on, in both of its modes: one chain
+// (n_chains = 1, the main path; called through
+// mcmc_ammsb_tpu_torch/ops/window.py::window_core_cuda, plain version
+// window_core_torch) and C independent chains (n_chains = C > 1, the flat
+// chain engine; window_chain_core_cuda, plain version
+// window_chain_core_torch). Both go through window_kernel_launch, with
+// C = 1 for the first.
+//
+// Chains: the TPU kernel stacks the C chains' rows into block-diagonal
+// [C*B, C*n] pair tensors and [C*E, C*B] edge one-hots so that one
+// matrix-unit product serves every chain. Chains never interact inside
+// a window, so here block c of a C-block grid runs chain c's T steps on
+// its own contiguous slice of every operand (all operands chain-major,
+// [C, T, ...]), with its own theta, beta and weights; the step sizes are
+// shared (the chains run in lockstep). The staged rows come out
+// chain-major [C, T*B, K] and the read codes are chain-local, so block c
+// redirects reads into its own [T*B, K] slice. No block-diagonal tensor
+// is formed, and the shared memory per block is that of one chain,
+// independent of C and T.
 //
 // Per step t, exactly the JAX kernel's math:
 //   1. read rows: lane r reads staged row mcode-1 when mcode > 0 (a row
@@ -21,15 +38,17 @@
 //      floor) and beta = theta1 / (theta0 + theta1).
 //
 // What bounds it on an H100: the two contractions are ~2 B n K FMAs per
-// step (0.54 M at B=33, n=32, K=256) and the whole window runs on ONE
+// step (0.54 M at B=33, n=32, K=256) and a chain's window runs on ONE
 // SM, whose ~128 FP32 FMA/clock make that at least ~2.5 us per step
 // before the reductions and barriers. It is latency- and one-SM-bound,
-// not bandwidth-bound: the operands are ~0.1 MB per step.
+// not bandwidth-bound: the operands are ~0.1 MB per step and chain. C
+// chains fill C of the card's 132 SMs for about the time of one.
 //
 // What the design does about it, kept simple for a first kernel: one
-// block of 512 threads; the corrected read rows of the step ([B+n, K],
-// 67 KB at the bench shape), the nodes' pi * (beta - eps) rows, theta,
-// beta and the step's small operands live in shared memory; rows are
+// block of 512 threads per chain; the corrected read rows of the step
+// ([B+n, K], 67 KB at the bench shape), the nodes' pi * (beta - eps)
+// rows, theta, beta and the step's small operands live in shared
+// memory; rows are
 // copied one warp per row so every lane has independent loads in
 // flight. Both contractions were bound by shared-memory load
 // throughput, so each load serves several FMAs: q gives lane j of a
@@ -77,7 +96,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 struct Params {
-  // inputs, T = window steps, R = B + n; bool arrays are one byte each
+  // inputs, per chain (each array is [C, ...] of these, chain-major);
+  // T = window steps, R = B + n; bool arrays are one byte each
   const float* g;          // [T, R, K] gathered rows (nodes, then nbrs)
   const float* sums;       // [T, B]    gathered phi sums
   const bool* y;           // [T, B, n] neighbor edge labels
@@ -146,10 +166,30 @@ __global__ void __launch_bounds__(kThreads) window_kernel(Params P) {
   const int nwarps = blockDim.x >> 5;
   const float eps = P.eps;
 
+  // this block's chain: its slice of every operand
+  const size_t chain = blockIdx.x;
+  const size_t TB = (size_t)P.T * B, TE = (size_t)P.T * E;
+  const float* g_in = P.g + chain * P.T * R * K;
+  const float* sums_in = P.sums + chain * TB;
+  const bool* y_in = P.y + chain * TB * n;
+  const int* nodes_in = P.nodes + chain * TB;
+  const int* nbrs_in = P.nbrs + chain * P.T * n;
+  const bool* node_mask_in = P.node_mask + chain * TB;
+  const float* noise_in = P.noise + chain * TB * K;
+  const float* bnoise_in = P.bnoise + chain * P.T * K * 2;
+  const bool* y_edges_in = P.y_edges + chain * TE;
+  const bool* edge_mask_in = P.edge_mask + chain * TE;
+  const int* lanes_u_in = P.lanes_u + chain * TE;
+  const int* lanes_v_in = P.lanes_v + chain * TE;
+  const int* mcode_in = P.mcode + chain * P.T * R;
+  const float* wts_in = P.wts + chain * P.T;
+  float* rows_out = P.rows_out + chain * TB * K;
+  float* sums_out = P.sums_out + chain * TB;
+
   for (int k = tid; k < K; k += blockDim.x) {
-    th0[k] = P.theta_in[2 * k];
-    th1[k] = P.theta_in[2 * k + 1];
-    bet[k] = P.beta_in[k];
+    th0[k] = P.theta_in[chain * K * 2 + 2 * k];
+    th1[k] = P.theta_in[chain * K * 2 + 2 * k + 1];
+    bet[k] = P.beta_in[chain * K + k];
   }
   // zero the row padding once: the vector loads of step 2 read it
   for (int i = tid; i < (R + B) * (ld - K); i += blockDim.x)
@@ -157,33 +197,33 @@ __global__ void __launch_bounds__(kThreads) window_kernel(Params P) {
 
   for (int t = 0; t < P.T; ++t) {
     // ---- 0. the step's small operands, staged once -------------------
-    for (int r = tid; r < R; r += blockDim.x) mc[r] = P.mcode[(size_t)t * R + r];
+    for (int r = tid; r < R; r += blockDim.x) mc[r] = mcode_in[(size_t)t * R + r];
     for (int b = tid; b < B; b += blockDim.x) {
-      const int c = P.mcode[(size_t)t * R + b];
-      phis[b] = c > 0 ? P.sums_out[c - 1] : P.sums[(size_t)t * B + b];
-      nmask[b] = P.node_mask[(size_t)t * B + b] ? 1.f : 0.f;
+      const int c = mcode_in[(size_t)t * R + b];
+      phis[b] = c > 0 ? sums_out[c - 1] : sums_in[(size_t)t * B + b];
+      nmask[b] = node_mask_in[(size_t)t * B + b] ? 1.f : 0.f;
     }
     for (int i = tid; i < B * n; i += blockDim.x) {
       const int b = i / n, j = i - b * n;
-      yf[i] = P.y[(size_t)t * B * n + i] ? 1.f : 0.f;
+      yf[i] = y_in[(size_t)t * B * n + i] ? 1.f : 0.f;
       // a shared neighbor that is the node itself is excluded
-      mf[i] = P.nbrs[(size_t)t * n + j] != P.nodes[(size_t)t * B + b] ? 1.f : 0.f;
+      mf[i] = nbrs_in[(size_t)t * n + j] != nodes_in[(size_t)t * B + b] ? 1.f : 0.f;
     }
     for (int e = tid; e < E; e += blockDim.x) {
-      yef[e] = P.y_edges[(size_t)t * E + e] ? 1.f : 0.f;
-      emf[e] = P.edge_mask[(size_t)t * E + e] ? 1.f : 0.f;
-      lu[e] = P.lanes_u[(size_t)t * E + e];
-      lv[e] = P.lanes_v[(size_t)t * E + e];
+      yef[e] = y_edges_in[(size_t)t * E + e] ? 1.f : 0.f;
+      emf[e] = edge_mask_in[(size_t)t * E + e] ? 1.f : 0.f;
+      lu[e] = lanes_u_in[(size_t)t * E + e];
+      lv[e] = lanes_v_in[(size_t)t * E + e];
     }
     __syncthreads();
 
     // ---- 1. corrected reads, one warp per row: a row an earlier step
     //         of the window wrote comes from the staging buffer; node
     //         rows also give w = pi_n * (beta - eps) ---------------------
-    const float* gt = P.g + (size_t)t * R * K;
+    const float* gt = g_in + (size_t)t * R * K;
     for (int r = warp; r < R; r += nwarps) {
       const int c = mc[r];
-      const float* src = c > 0 ? P.rows_out + (size_t)(c - 1) * K
+      const float* src = c > 0 ? rows_out + (size_t)(c - 1) * K
                                : gt + (size_t)r * K;
 #pragma unroll 4
       for (int k = lane; k < K; k += 32) {
@@ -249,7 +289,7 @@ __global__ void __launch_bounds__(kThreads) window_kernel(Params P) {
     //         a group of nodes and keeps that column of the neighbor
     //         rows in registers; phi' overwrites the node's own row ------
     const float eps_t = P.eps_phi[t];
-    const float* noise_t = P.noise + (size_t)t * B * K;
+    const float* noise_t = noise_in + (size_t)t * B * K;
     const int groups = blockDim.x >= K ? blockDim.x / K : 1;
     for (int item = tid; item < K * groups; item += blockDim.x) {
       const int k = item % K, grp = item / K;
@@ -288,11 +328,11 @@ __global__ void __launch_bounds__(kThreads) window_kernel(Params P) {
     for (int i = tid; i < B * K; i += blockDim.x) {
       const int b = i / K, k = i - b * K;
       const float r = rows[b * ld + k] / rsum[b];
-      P.rows_out[(size_t)t * B * K + i] = r;
+      rows_out[(size_t)t * B * K + i] = r;
       rows[b * ld + k] = nmask[b] > 0.5f ? r : P.inv_k;
     }
     for (int b = tid; b < B; b += blockDim.x)
-      P.sums_out[(size_t)t * B + b] = rsum[b];
+      sums_out[(size_t)t * B + b] = rsum[b];
     __syncthreads();
 
     // ---- 6. per-edge sums, one warp per edge ---------------------------
@@ -317,8 +357,8 @@ __global__ void __launch_bounds__(kThreads) window_kernel(Params P) {
     // Labels are exactly 0 or 1, so (1-y)/theta0 and y/theta1 are exactly
     // 0 or 1/theta: one division per edge instead of three.
     const float eps_b = P.eps_theta[t];
-    const float wt = P.wts[t];
-    const float* bnoise_t = P.bnoise + (size_t)t * K * 2;
+    const float wt = wts_in[t];
+    const float* bnoise_t = bnoise_in + (size_t)t * K * 2;
     for (int k = tid; k < K; k += blockDim.x) {
       const float t0 = th0[k], t1 = th1[k], bk = bet[k];
       const float inv_ts = 1.f / (t0 + t1);
@@ -346,9 +386,9 @@ __global__ void __launch_bounds__(kThreads) window_kernel(Params P) {
   }
 
   for (int k = tid; k < K; k += blockDim.x) {
-    P.theta_out[2 * k] = th0[k];
-    P.theta_out[2 * k + 1] = th1[k];
-    P.beta_out[k] = bet[k];
+    P.theta_out[chain * K * 2 + 2 * k] = th0[k];
+    P.theta_out[chain * K * 2 + 2 * k + 1] = th1[k];
+    P.beta_out[chain * K + k] = bet[k];
   }
 }
 
@@ -358,8 +398,10 @@ extern "C" size_t window_kernel_smem_bytes(int B, int n, int E, int K) {
   return smem_words(B, n, E, K) * sizeof(float);
 }
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
-// `eps_phi` and `eps_theta` are host arrays of T floats.
+// Launches C blocks (one per chain) on `stream`; returns
+// cudaGetLastError() (0 on success). Every array holds the C chains'
+// slices one after another (chain-major); `eps_phi` and `eps_theta` are
+// host arrays of T floats, shared by the chains.
 extern "C" int window_kernel_launch(
     const float* g, const float* sums, const bool* y, const int* nodes,
     const int* nbrs, const bool* node_mask, const float* noise,
@@ -367,10 +409,11 @@ extern "C" int window_kernel_launch(
     const int* lanes_u, const int* lanes_v, const int* mcode,
     const float* wts, const float* theta_in, const float* beta_in,
     float* rows_out, float* sums_out, float* theta_out, float* beta_out,
-    int T, int B, int n, int E, int K, float eps, float one_minus_eps,
+    int C, int T, int B, int n, int E, int K, float eps, float one_minus_eps,
     float alpha, float n_nodes, float eta0, float eta1, float inv_k,
     const float* eps_phi, const float* eps_theta, void* stream) {
-  if (n > kMaxNeighbors || T > kMaxWindow) return (int)cudaErrorInvalidValue;
+  if (C < 1 || n > kMaxNeighbors || T > kMaxWindow)
+    return (int)cudaErrorInvalidValue;
   Params P{g, sums, y, nodes, nbrs, node_mask, noise, bnoise, y_edges,
            edge_mask, lanes_u, lanes_v, mcode, wts, theta_in, beta_in,
            rows_out, sums_out, theta_out, beta_out, T, B, n, E, K,
@@ -385,6 +428,6 @@ extern "C" int window_kernel_launch(
         window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  window_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(P);
+  window_kernel<<<C, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(P);
   return (int)cudaGetLastError();
 }

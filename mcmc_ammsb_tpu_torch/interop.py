@@ -6,15 +6,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mcmc_ammsb_tpu_torch.chains_flat import ChainState
 from mcmc_ammsb_tpu_torch.config import Config
 from mcmc_ammsb_tpu_torch.learner import TrainState
 from mcmc_ammsb_tpu_torch.models.mmsb import MMSBState
 
 
-def _tensors(arrays: dict, cfg: Config, device):
-    if tuple(np.shape(arrays["pi"])) != (cfg.N, cfg.K):
+def _tensors(arrays: dict, cfg: Config, device, num_chains: int = 1):
+    if tuple(np.shape(arrays["pi"])) != (num_chains * cfg.N, cfg.K):
         raise ValueError(f"pi has shape {np.shape(arrays['pi'])}, the "
-                         f"config says ({cfg.N}, {cfg.K})")
+                         f"config and {num_chains} chain(s) say "
+                         f"({num_chains * cfg.N}, {cfg.K})")
 
     def tensor(name):
         return torch.tensor(np.asarray(arrays[name], np.float32),
@@ -45,5 +47,19 @@ def mmsb_state_from_numpy(arrays: dict, cfg: Config, device) -> MMSBState:
         theta_b=tensor("theta_b"), b=tensor("b"),
         step_count=int(arrays["step_count"]),
         theta_count=int(arrays["theta_count"]),
+        ppx_per_edge=tensor("ppx_per_edge"),
+        ppx_count=int(arrays["ppx_count"]))
+
+
+def chain_state_from_numpy(arrays: dict, cfg: Config, num_chains: int,
+                           device) -> ChainState:
+    """The same for the JAX package's flat-chain ``ChainState`` (pi
+    [C*N, K], theta [C, K, 2], beta [C, K], ppx_per_edge [C, H], shared
+    counters)."""
+    tensor = _tensors(arrays, cfg, device, num_chains)
+    return ChainState(
+        pi=tensor("pi"), phi_sum=tensor("phi_sum"), theta=tensor("theta"),
+        beta=tensor("beta"), step_count=int(arrays["step_count"]),
+        beta_count=int(arrays["beta_count"]),
         ppx_per_edge=tensor("ppx_per_edge"),
         ppx_count=int(arrays["ppx_count"]))

@@ -121,13 +121,16 @@ def gamma_draws(cfg: Config, draws: np.random.Generator, shape,
 
 
 def gamma_rows(cfg: Config, draws: np.random.Generator, device,
-               dtype=torch.float32):
+               dtype=torch.float32, out=None):
     """pi [N, K]: rows ~ Gamma(eta0, eta1) normalized, and phi_sum [N],
     the raw row sums. The rows are drawn on the host in blocks and
     written into the device buffer block by block, so peak memory is pi
-    plus one block."""
-    pi = torch.empty(cfg.N, cfg.K, dtype=dtype, device=device)
-    phi_sum = torch.empty(cfg.N, dtype=dtype, device=device)
+    plus one block. ``out``, a (pi, phi_sum) pair of views, receives them
+    in place of new buffers (one chain's rows of the chain engine)."""
+    if out is None:
+        out = (torch.empty(cfg.N, cfg.K, dtype=dtype, device=device),
+               torch.empty(cfg.N, dtype=dtype, device=device))
+    pi, phi_sum = out
     block = max(1, (1 << 24) // max(cfg.K, 1))
     for start in range(0, cfg.N, block):
         g = gamma_draws(cfg, draws, (min(block, cfg.N - start), cfg.K),

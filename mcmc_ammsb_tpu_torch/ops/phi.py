@@ -36,19 +36,24 @@ def phi_update_core(
     phis: torch.Tensor,      # [B] gathered phi sums
     pi_nb: torch.Tensor,     # [B, n, K], or [1, n, K] shared
     y: torch.Tensor,         # [B, n] bool edge labels
-    beta: torch.Tensor,      # [K]
+    beta: torch.Tensor,      # [K], or [B, K] per node
     step_count,              # int or int32 scalar tensor
     noise: torch.Tensor,     # [B, K]
     nbr_mask: torch.Tensor = None,  # [B, n] bool; False lanes excluded
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Staged phi' for the minibatch rows: (pi_rows [B, K], sums [B])."""
+    """Staged phi' for the minibatch rows: (pi_rows [B, K], sums [B]).
+
+    With shared neighbors, leading axes batch independent minibatches
+    (the chain engine: pi_n [C, B, K], pi_nb [C, 1, n, K], beta
+    [C, 1, K])."""
     eps = cfg.epsilon
-    shared = pi_nb.shape[0] == 1 and pi_n.shape[0] != 1
+    shared = pi_nb.shape[-3] == 1 and pi_n.shape[-2] != 1
     sgn = torch.where(y, 1.0, -1.0).to(pi_n.dtype)          # [B, n]
     e = torch.where(y, eps, 1.0 - eps).to(pi_n.dtype)       # [B, n]
     w = pi_n * (beta - eps)                                 # [B, K]
     if shared:
-        q = w @ pi_nb[0].T                                  # [B, n]
+        nb = pi_nb[..., 0, :, :]                            # [n, K]
+        q = w @ nb.transpose(-1, -2)                        # [B, n]
     else:
         q = torch.einsum("bk,bnk->bn", w, pi_nb)
     p = sgn * q + e
@@ -57,22 +62,22 @@ def phi_update_core(
     if nbr_mask is None:
         n_valid = float(cfg.num_node_sample)
         scale_n = cfg.N / cfg.num_node_sample
-        ce = torch.sum(e * inv_p, dim=1, keepdim=True)      # [B, 1]
+        ce = torch.sum(e * inv_p, dim=-1, keepdim=True)     # [B, 1]
     else:
         mf = nbr_mask.to(pi_n.dtype)
         a = a * mf
-        ce = torch.sum(e * inv_p * mf, dim=1, keepdim=True)
-        n_valid = torch.sum(mf, dim=1, keepdim=True)        # [B, 1]
+        ce = torch.sum(e * inv_p * mf, dim=-1, keepdim=True)
+        n_valid = torch.sum(mf, dim=-1, keepdim=True)       # [B, 1]
         scale_n = cfg.N / n_valid
     if shared:
-        contrib = a @ pi_nb[0]                              # [B, K]
+        contrib = a @ nb                                    # [B, K]
     else:
         contrib = torch.einsum("bn,bnk->bk", a, pi_nb)
     s_contrib = (beta - eps) * contrib + ce
-    grads = (s_contrib - n_valid) * (1.0 / phis[:, None])
+    grads = (s_contrib - n_valid) * (1.0 / phis[..., None])
 
     eps_t = step_size(cfg, step_count, pi_n.device)
-    phi_k = pi_n * phis[:, None]
+    phi_k = pi_n * phis[..., None]
     phi_new = torch.abs(
         phi_k
         + eps_t / 2.0 * (cfg.alpha_value - phi_k + scale_n * grads)

@@ -15,6 +15,10 @@ A step may read a row that an earlier step of the same window wrote.
 latest such write, and both cores redirect the read there, so the
 trajectory is the sequential scan's up to float reduction order. Only
 the JAX package's default ``window_correction="always"`` is ported.
+
+The flat chain engine (``chains_flat``) runs the windows of C chains
+through ``window_chain_core_cuda`` (the same kernel, one thread block
+per chain) and its plain version ``window_chain_core_torch``.
 """
 
 from __future__ import annotations
@@ -188,6 +192,24 @@ def window_core_torch(cfg: Config, s, xs_t, g, sums_g, mcode):
     return rows_buf, sums_buf, theta, beta
 
 
+def window_chain_core_torch(cfg: Config, s, xs_t, g, sums_g, mcode):
+    """C independent chains' windows: ``window_core_torch`` on each
+    chain's slice with its own theta, beta and weights; the step counters
+    are shared. Every operand carries a leading chain axis (chain-major:
+    g [C, T, B+n, K], sums_g [C, T, B], mcode [C, T, B+n] with chain-local
+    slots, the tuple's arrays [C, T, ...]); ``s.theta`` is [C, K, 2],
+    ``s.beta`` [C, K]. Returns (rows [C*T*B, K] chain-major, sums
+    [C*T*B], theta [C, K, 2], beta [C, K])."""
+    outs = [window_core_torch(cfg, s._replace(theta=s.theta[c],
+                                              beta=s.beta[c]),
+                              index_operands(xs_t, c), g[c], sums_g[c],
+                              mcode[c])
+            for c in range(g.shape[0])]
+    rows, sums, theta, beta = zip(*outs)
+    return (torch.cat(rows), torch.cat(sums), torch.stack(theta),
+            torch.stack(beta))
+
+
 # ---------------------------------------------------------------------------
 # Window core: the Hopper kernel
 # ---------------------------------------------------------------------------
@@ -209,7 +231,7 @@ def _window_lib():
     lib = kernels.load("window_kernel")
     lib.window_kernel_smem_bytes.argtypes = [_I, _I, _I, _I]
     lib.window_kernel_smem_bytes.restype = ctypes.c_size_t
-    lib.window_kernel_launch.argtypes = ([_P] * 20 + [_I] * 5 + [_F] * 7
+    lib.window_kernel_launch.argtypes = ([_P] * 20 + [_I] * 6 + [_F] * 7
                                          + [_P] * 3)
     lib.window_kernel_launch.restype = _I
     return lib
@@ -225,18 +247,26 @@ def _step_sizes(cfg: Config, first: int, t_win: int) -> np.ndarray:
         f32(cfg.a) * (f32(1.0) + t / f32(cfg.b)) ** f32(-cfg.c), f32)
 
 
-def window_core_cuda(cfg: Config, s, xs_t, g, sums_g, mcode):
-    """The same T steps as ``window_core_torch`` in one launch of
-    ``csrc/window_kernel.cu`` (one chain; the JAX kernel's blocked C > 1
-    mode is not ported). CUDA tensors only: the kernel is launched or
-    this raises — there is no fallback."""
+def _launch(cfg: Config, s, xs_t, g, sums_g, mcode, chained: bool):
+    """One launch of ``csrc/window_kernel.cu``: one block, or with
+    ``chained`` one block per chain, every operand and ``s.theta``/
+    ``s.beta`` then carrying a leading chain axis, chain-major as
+    ``window_chain_core_torch`` takes them; the step sizes are shared."""
     batch, nbrs_s, y_w, nphi_w, nbeta_w, ye_w, lu, lv = xs_t
     if not g.is_cuda:
-        raise ValueError("window_core_cuda takes CUDA tensors")
-    t_win, n_read, k = g.shape
-    b_cap = batch.nodes.shape[1]
+        raise ValueError("the window kernel's wrappers take CUDA tensors")
+    t_win, n_read, k = g.shape[-3:]
+    b_cap = batch.nodes.shape[-1]
     n_smpl = n_read - b_cap
-    e_cap = ye_w.shape[1]
+    e_cap = ye_w.shape[-1]
+    lead = tuple(g.shape[:-3])
+    if (len(lead) != int(chained) or tuple(s.theta.shape) != (*lead, k, 2)
+            or tuple(s.beta.shape) != (*lead, k)):
+        raise ValueError(
+            f"window kernel operands for {'C' if chained else 'one'} "
+            f"chain(s): g {tuple(g.shape)}, theta "
+            f"{tuple(s.theta.shape)}, beta {tuple(s.beta.shape)}")
+    n_chains = lead[0] if chained else 1
     if n_smpl > MAX_NEIGHBORS or t_win > MAX_WINDOW:
         raise ValueError(
             f"window kernel takes n <= {MAX_NEIGHBORS} neighbors and "
@@ -256,29 +286,54 @@ def window_core_cuda(cfg: Config, s, xs_t, g, sums_g, mcode):
 
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
     ptrs = [arg(g, f32), arg(sums_g, f32), arg(y_w, b8),
-            arg(batch.nodes, i32), arg(nbrs_s[:, 0, :], i32),
+            arg(batch.nodes, i32), arg(nbrs_s[..., 0, :], i32),
             arg(batch.node_mask, b8), arg(nphi_w, f32), arg(nbeta_w, f32),
             arg(ye_w, b8), arg(batch.edge_mask, b8), arg(lu, i32),
             arg(lv, i32), arg(mcode, i32), arg(batch.weight, f32),
             arg(s.theta, f32), arg(s.beta, f32)]
-    rows = torch.empty(t_win * b_cap, k, device=g.device)
-    sums = torch.empty(t_win * b_cap, device=g.device)
-    theta = torch.empty(k, 2, device=g.device)
-    beta = torch.empty(k, device=g.device)
+    rows = torch.empty(n_chains * t_win * b_cap, k, device=g.device)
+    sums = torch.empty(n_chains * t_win * b_cap, device=g.device)
+    theta = torch.empty_like(s.theta)
+    beta = torch.empty_like(s.beta)
     eps_phi = _step_sizes(cfg, s.step_count, t_win)
     eps_theta = _step_sizes(cfg, s.beta_count + 1, t_win)
     err = lib.window_kernel_launch(
         *ptrs, *(t.data_ptr() for t in (rows, sums, theta, beta)),
-        t_win, b_cap, n_smpl, e_cap, k,
+        n_chains, t_win, b_cap, n_smpl, e_cap, k,
         cfg.epsilon, 1.0 - cfg.epsilon, cfg.alpha_value, float(cfg.N),
         cfg.eta0, cfg.eta1, 1.0 / k, eps_phi.ctypes.data,
         eps_theta.ctypes.data,
         torch.cuda.current_stream(g.device).cuda_stream)
     kernels.check_launch(err, "window kernel")
-    window_core_cuda.launches += 1
     return rows, sums, theta, beta
+
+
+def window_core_cuda(cfg: Config, s, xs_t, g, sums_g, mcode):
+    """The same T steps as ``window_core_torch`` in one launch of
+    ``csrc/window_kernel.cu`` with one block: the JAX kernel with
+    ``n_chains = 1``. CUDA tensors only: the kernel is launched or this
+    raises — there is no fallback."""
+    out = _launch(cfg, s, xs_t, g, sums_g, mcode, chained=False)
+    window_core_cuda.launches += 1
+    return out
 
 
 #: Launches of the window kernel in this process (reset by callers that
 #: check a run went through it).
 window_core_cuda.launches = 0
+
+
+def window_chain_core_cuda(cfg: Config, s, xs_t, g, sums_g, mcode):
+    """The same C chains' windows as ``window_chain_core_torch`` in one
+    launch of ``csrc/window_kernel.cu`` with one block per chain (the
+    JAX kernel's blocked ``n_chains = C`` mode; g [C, T, B+n, K], C >= 1).
+    CUDA tensors only: the kernel is launched or this raises."""
+    out = _launch(cfg, s, xs_t, g, sums_g, mcode, chained=True)
+    window_chain_core_cuda.launches += 1
+    window_chain_core_cuda.chains += g.shape[0]
+    return out
+
+
+#: Launches of the chain entry, and the chains they ran in all.
+window_chain_core_cuda.launches = 0
+window_chain_core_cuda.chains = 0

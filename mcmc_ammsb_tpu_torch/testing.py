@@ -4,7 +4,8 @@
 of one T-step window at a chosen shape, with rows that collide across
 the window's steps on purpose (nodes and neighbors come from a small
 node pool), masked node and edge lanes, and padded lanes that carry the
-sentinel N; ``mmsb_window_case`` is the same window for the full MMSB,
+sentinel N; ``chain_window_case`` one such window for each of C chains (the flat
+chain engine), ``mmsb_window_case`` the same window for the full MMSB,
 ``phi_case`` one step of the per-node phi update. The same arrays drive
 the port's plain versions and its CUDA kernels (``chip_smoke.py``) and
 the JAX package's functions (the CPU parity tests).
@@ -15,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mcmc_ammsb_tpu_torch.chains_flat import ChainState
 from mcmc_ammsb_tpu_torch.config import Config
 from mcmc_ammsb_tpu_torch.learner import DeviceBatch, TrainState
 from mcmc_ammsb_tpu_torch.models.mmsb import MMSBState
@@ -88,6 +90,74 @@ def window_case_torch(case: dict, device):
     xs = (batch, t("neighbors"), t("y_phi"), t("phi_noise"),
           t("beta_noise"), t("y_edges"), t("lanes_u"), t("lanes_v"))
     return state, xs
+
+
+#: The fields of a chain_window_case that make the window's hoisted
+#: operand tuple, in the order of the chain engine's (chains_flat).
+CHAIN_FIELDS = ("nodes", "node_mask", "edges_u", "edges_v", "edge_mask",
+                "weight", "neighbors", "y_phi", "phi_noise", "beta_noise",
+                "y_edges", "nbr_mask", "lanes_u", "lanes_v")
+
+
+def chain_window_case(seed: int, n_chains: int, t_win: int, b_cap: int,
+                      n_smpl: int, e_cap: int, k: int) -> dict:
+    """One window of ``n_chains`` chains: chain c is ``window_case``'s
+    recipe at its own seed (its own pi block, theta, weights and noise;
+    the same node pool, so the same N), with step 1 forced to read a row
+    step 0 wrote, so that every chain corrects. The state is flat
+    (pi [C*N, K], theta [C, K, 2]) and the operands are in the chain
+    engine's layout ([T, C, ...]; phi_noise [T, C*B, K], chain-local
+    ids, lanes without chain offsets); the step counters are shared."""
+    cases = [window_case(seed * 7919 + c, t_win, b_cap, n_smpl, e_cap, k)
+             for c in range(n_chains)]
+    for cs in cases:
+        if t_win > 1 and cs["nodes"][0, 0] not in cs["neighbors"][1, 0]:
+            cs["neighbors"][1, 0, 0] = cs["nodes"][0, 0]
+
+    def stack(name, axis=1):
+        return np.stack([cs[name] for cs in cases], axis=axis)
+
+    nodes = stack("nodes")
+    neighbors = stack("neighbors")[:, :, 0]                  # [T, C, n]
+    return dict(
+        n_nodes=cases[0]["n_nodes"], n_chains=n_chains,
+        pi=np.concatenate([cs["pi"] for cs in cases]),
+        phi_sum=np.concatenate([cs["phi_sum"] for cs in cases]),
+        theta=stack("theta", 0), beta=stack("beta", 0),
+        step_count=cases[0]["step_count"],
+        beta_count=cases[0]["beta_count"],
+        nodes=nodes, node_mask=stack("node_mask"),
+        edges_u=stack("edges_u"), edges_v=stack("edges_v"),
+        edge_mask=stack("edge_mask"), weight=stack("weight"),
+        neighbors=neighbors, y_phi=stack("y_phi"),
+        phi_noise=stack("phi_noise").reshape(t_win, n_chains * b_cap, k),
+        beta_noise=stack("beta_noise"), y_edges=stack("y_edges"),
+        nbr_mask=neighbors[:, :, None, :] != nodes[..., None],
+        lanes_u=stack("lanes_u"), lanes_v=stack("lanes_v"))
+
+
+def chain_window_case_config(case: dict) -> Config:
+    t_win, _, b_cap, n_smpl = case["y_phi"].shape
+    return Config(K=case["pi"].shape[1], window=t_win,
+                  mini_batch_size=b_cap - 1, num_node_sample=n_smpl,
+                  device_sampling=True, shared_neighbors=True).finalize(
+        case["n_nodes"], 1000, b_cap - 1)
+
+
+def chain_window_case_torch(case: dict, device):
+    """The case as the port's (ChainState, hoisted chain operand tuple)
+    on ``device``."""
+    def t(name):
+        return torch.as_tensor(case[name], device=device)
+
+    state = ChainState(pi=t("pi").clone(), phi_sum=t("phi_sum").clone(),
+                       theta=t("theta"), beta=t("beta"),
+                       step_count=case["step_count"],
+                       beta_count=case["beta_count"],
+                       ppx_per_edge=torch.zeros(case["n_chains"], 1,
+                                                device=device),
+                       ppx_count=0)
+    return state, tuple(t(f) for f in CHAIN_FIELDS)
 
 
 def mmsb_window_case(seed: int, t_win: int, b_cap: int, n_smpl: int,

@@ -1,0 +1,88 @@
+"""The port's CLI with --num-chains on the CPU: the flat chain engine end
+to end at a tiny size (per-chain ppx vectors, the R-hat line), the chain
+flags whose engines are not ported refused with their ROADMAP item, and
+the --rhat-draws guard."""
+
+import logging
+import re
+
+import numpy as np
+import pytest
+
+from mcmc_ammsb_tpu_torch import cli
+
+TINY = ["--synthetic", "300,8", "-k", "8", "-m", "8", "-n", "8",
+        "-x", "60", "-i", "20", "--steps-per-call", "40", "--device", "cpu"]
+
+
+def _run(args, caplog):
+    with caplog.at_level(logging.INFO, logger="mcmc_ammsb_tpu_torch"):
+        rc = cli.main(args)
+    return rc, [r.getMessage() for r in caplog.records]
+
+
+def _chain_ppx(messages):
+    """{step: [C] ppx} from the ``ppx[i] = [c0 c1 ...]`` lines."""
+    out = {}
+    for msg in messages:
+        m = re.fullmatch(r"ppx\[(\d+)\] = \[(.*)\]", msg)
+        if m:
+            out[int(m.group(1))] = np.array(m.group(2).split(), float)
+    return out
+
+
+@pytest.mark.parametrize("flags", [
+    ["--num-chains", "3", "--window", "4", "--rhat-draws", "2"],
+    ["--num-chains", "2", "--no-shared-neighbors"],
+    ["--num-chains", "3", "--node-coin", "alternate"],
+])
+def test_cli_chains_on_cpu(flags, caplog):
+    """Windows of 4 with tail steps and the R-hat line; private draws
+    through the sequential body; the alternate coin (the chip path's).
+    Each chain's ppx is logged as one vector per evaluation and ends
+    below that chain's ppx[0]."""
+    rc, messages = _run(TINY + flags, caplog)
+    assert rc == 0
+    ppx = _chain_ppx(messages)
+    c = int(flags[1])
+    assert sorted(ppx) == [0, 20, 40, 60]
+    assert all(p.shape == (c,) and np.isfinite(p).all()
+               for p in ppx.values())
+    assert (ppx[60] < ppx[0]).all()
+    assert any(f"{c} chains initialized in" in m for m in messages)
+    rhat = [m for m in messages if m.startswith("beta R-hat")]
+    if "--rhat-draws" in flags:
+        assert len(rhat) == 1
+        vals = re.findall(r"(?:max|median) (\S+)", rhat[0])
+        assert len(vals) == 2 and np.isfinite(np.array(vals, float)).all()
+    else:
+        assert not rhat
+
+
+@pytest.mark.parametrize("flags, item", [
+    (["--num-chains", "2", "--chain-engine", "vmap"], "item 12"),
+    (["--num-chains", "2", "--chain-devices", "2"], "item 14"),
+    (["--num-chains", "2", "--model", "mmsb"], "item 11"),
+    (["--num-chains", "2", "--checkpoint", "ck.npz"], "item 6"),
+    (["--num-chains", "2", "--restore", "ck.npz"], "item 6"),
+])
+def test_cli_refuses_unported_chain_engines(flags, item, caplog):
+    rc, messages = _run(TINY + flags, caplog)
+    assert rc == 2
+    assert any("ROADMAP" in m and item in m for m in messages)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--num-chains", "3", "--rhat-draws", "1"],
+    ["--rhat-draws", "2"],
+])
+def test_cli_rhat_draws_guard_exits_1(flags):
+    """R-hat needs >= 2 draws of >= 2 chains (the JAX CLI's guard)."""
+    assert cli.main(TINY + flags) == 1
+
+
+def test_cli_chains_cuda_without_gpu_fails():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    assert cli.main(TINY[:-1] + ["cuda", "--num-chains", "2"]) == 1

@@ -1,0 +1,173 @@
+"""The port's windowed chain engine (mcmc_ammsb_tpu_torch/chains_flat.py,
+ops/window.window_chain_core_*) against the JAX package's
+(chains_flat._windowed_chain_scan and the blocked mode of
+ops/window._window_kernel) on one seeded window of C chains: the
+bookkeeping exactly, the plain chain core against the JAX blocked Pallas
+kernel (interpret mode, as tests/test_window.py runs it on the CPU) and
+against _windowed_chain_jnp, and one whole window through both engines.
+The CUDA kernel is checked against the plain core on the card by
+chip_smoke.py."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mcmc_ammsb_tpu.chains_flat import _windowed_chain_jnp
+from mcmc_ammsb_tpu.chains_flat import _windowed_chain_scan as jax_scan
+from mcmc_ammsb_tpu.ops.window import window_kernel_call
+from mcmc_ammsb_tpu_torch import chains_flat, testing
+from mcmc_ammsb_tpu_torch.ops import phi as phi_ops
+from mcmc_ammsb_tpu_torch.ops import window
+
+from torch_parity import assert_close, blocked, jax_chain_window, jax_config
+
+# (C, T, B, n, E, K): a collision-heavy tiny window, the odd shape and
+# one with m > n
+SHAPES = [(3, 4, 9, 8, 8, 16), (2, 3, 6, 7, 5, 12), (2, 5, 14, 3, 13, 24)]
+SEED = 1
+
+
+def _setup(shape, seed=SEED):
+    c = shape[0]
+    case = testing.chain_window_case(seed, *shape)
+    cfg = testing.chain_window_case_config(case)
+    state, xw = testing.chain_window_case_torch(case, "cpu")
+    win = chains_flat.chain_windows(cfg, c, xw).at(0)
+    return c, case, cfg, state, xw, win
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_chain_window_bookkeeping_exact(shape):
+    """The flat-id gather with the C*N sentinel, the per-chain correction
+    codes, the edge lanes, the chain-major last-write-wins mask and the
+    scatter equal the arrays of JAX's _windowed_chain_scan exactly.
+    JAX's lanes carry the chain offset c*B (its kernel stacks the
+    chains' rows); the port's stay chain-local (one block per chain)."""
+    c, case, cfg, state, _, win = _setup(shape)
+    j = jax_chain_window(jax_config(cfg), c, case)
+    b_cap = shape[2]
+    assert all((win.mcode[i] > 0).any() for i in range(c)), \
+        "every chain must collide inside the window"
+    g, sums = chains_flat.chain_window_rows(state, win)
+    np.testing.assert_array_equal(blocked(g.numpy(), b_cap),
+                                  np.asarray(j["g"]))
+    np.testing.assert_array_equal(
+        np.swapaxes(sums.numpy(), 0, 1).reshape(shape[1], -1),
+        np.asarray(j["sums"]))
+    np.testing.assert_array_equal(blocked(win.mcode.numpy(), b_cap),
+                                  np.asarray(j["mcode"])[..., 0])
+    np.testing.assert_array_equal(win.keep.numpy(), np.asarray(j["keep"]))
+    lane_off = (np.arange(c) * b_cap)[:, None, None]
+    for port, jax_lanes in ((win.xs_t[6], "lanes_u"),
+                            (win.xs_t[7], "lanes_v")):
+        np.testing.assert_array_equal(
+            np.swapaxes(port.numpy() + lane_off, 0, 1).reshape(shape[1], -1),
+            np.asarray(j["args"][jax_lanes])[..., 0])
+
+    rng = np.random.default_rng(2)
+    n_rows = c * shape[1] * b_cap
+    rows = rng.random((n_rows, shape[5]), np.float32)
+    rsums = rng.random(n_rows, np.float32)
+    pi, phi_sum = phi_ops.scatter_rows(
+        state.pi, state.phi_sum, win.nodes.reshape(-1), win.keep.reshape(-1),
+        torch.from_numpy(rows), torch.from_numpy(rsums))
+    js = j["state"]
+    np.testing.assert_array_equal(
+        pi.numpy(), np.asarray(js.pi.at[j["safe"]].set(rows, mode="drop")))
+    np.testing.assert_array_equal(
+        phi_sum.numpy(),
+        np.asarray(js.phi_sum.at[j["safe"]].set(rsums, mode="drop")))
+
+
+@pytest.mark.parametrize("jax_core", ["jnp", "pallas_interpret"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_chain_window_core_torch_matches_jax(shape, jax_core):
+    """window_chain_core_torch == _windowed_chain_jnp / the blocked Pallas
+    kernel (window_kernel_call with n_chains = C, interpret mode) on one
+    window of C chains: rows and sums chain-major, theta [C, K, 2] from
+    the kernel's component-major [2C, K], beta [C, K].
+
+    rtol 5e-5, atol 1e-8, the bound of tests/test_torch_window.py for one
+    chain, for the same reason: torch's and XLA's CPU sums run in other
+    orders, and an element that comes out of the abs() of a cancellation
+    keeps only a few digits. Measured over seeds 1, 2, 3, 5, 7, 11 x
+    these shapes: all within the bound except one rows element at seed 3
+    (a value of 1.2e-4 that differs by 3e-8, 2.6e-4 relative) in each of
+    two shapes; at seed 1 the largest excess over atol is 1.2e-5 of the
+    value (theta)."""
+    c, case, cfg, state, _, win = _setup(shape)
+    g, sums = chains_flat.chain_window_rows(state, win)
+    got = window.window_chain_core_torch(cfg, state, win.xs_t, g, sums,
+                                         win.mcode)
+    jcfg = jax_config(cfg)
+    j = jax_chain_window(jcfg, c, case)
+    if jax_core == "jnp":
+        want = _windowed_chain_jnp(jcfg, c, j["state"], **j["args"])
+    else:
+        want = window_kernel_call(jcfg, c, **j["args"])
+    rows, sums_col, theta_cb, beta_cb = want
+    theta = np.moveaxis(np.asarray(theta_cb).reshape(2, c, -1), 0, 2)
+    for a, b, name in zip(got, (rows, np.asarray(sums_col)[:, 0], theta,
+                                beta_cb), ("rows", "sums", "theta", "beta")):
+        assert a.shape == np.shape(b), name
+        assert_close(a, b, rtol=5e-5, atol=1e-8, what=name)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_windowed_chain_scan_matches_jax(shape):
+    """One whole window (gather, core, scatter, counters) through the
+    port's windowed_chain_scan and JAX's _windowed_chain_scan (jnp core)
+    from the same state: pi, phi_sum, theta, beta at rtol 5e-5, atol
+    1e-8."""
+    c, case, cfg, state, xw, _ = _setup(shape)
+    got = chains_flat.windowed_chain_scan(cfg, c, state, xw, None)
+    jcfg = jax_config(cfg.replace(window_impl="jnp"))
+    j = jax_chain_window(jcfg, c, case)
+    jxs = tuple(jnp.asarray(case[f]) for f in testing.CHAIN_FIELDS)
+    want = jax_scan(jcfg, c, j["state"], jxs, None)
+    assert got.step_count == int(want.step_count)
+    assert got.beta_count == int(want.beta_count)
+    for f in ("pi", "phi_sum", "theta", "beta"):
+        assert_close(getattr(got, f), getattr(want, f), 5e-5, 1e-8, f)
+
+
+def test_window_chain_core_cuda_rejects_cpu_tensors():
+    """The chain kernel's wrapper never runs on the CPU: on CPU tensors
+    it raises (the engine picks the plain version by device)."""
+    _, _, cfg, state, _, win = _setup(SHAPES[0])
+    g, sums = chains_flat.chain_window_rows(state, win)
+    with pytest.raises(ValueError, match="CUDA"):
+        window.window_chain_core_cuda(cfg, state, win.xs_t, g, sums,
+                                      win.mcode)
+
+
+@pytest.mark.cuda
+def test_window_chain_kernel_matches_plain_on_gpu():
+    """On a GPU: one C-chain launch against the plain version at the
+    bench chain shape (normwise rtol 1e-5, atol 1e-8, as chip_smoke.py
+    checks it), and bit-equal to C single-chain launches on the chains'
+    slices."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    shape = (16, 6, 33, 32, 32, 256)
+    case = testing.chain_window_case(0, *shape)
+    cfg = testing.chain_window_case_config(case)
+    state, xw = testing.chain_window_case_torch(case, "cuda")
+    win = chains_flat.chain_windows(cfg, shape[0], xw).at(0)
+    g, sums = chains_flat.chain_window_rows(state, win)
+    args = (cfg, state, win.xs_t, g, sums, win.mcode)
+    got = window.window_chain_core_cuda(*args)
+    want = window.window_chain_core_torch(*args)
+    for a, b in zip(got, want):
+        err = float((a - b).abs().max())
+        assert err <= 1e-8 + 1e-5 * float(b.abs().max())
+    t_b = shape[1] * shape[2]
+    for c in range(shape[0]):
+        one = window.window_core_cuda(
+            cfg, state._replace(theta=state.theta[c], beta=state.beta[c]),
+            window.index_operands(win.xs_t, c), g[c], sums[c], win.mcode[c])
+        for a, b in zip(one, (got[0][c * t_b:(c + 1) * t_b],
+                              got[1][c * t_b:(c + 1) * t_b], got[2][c],
+                              got[3][c])):
+            assert torch.equal(a, b)

@@ -69,14 +69,17 @@ def _resolved(*flags):
 
 def test_window_rule_matches_jax():
     """The JAX CLI's rule (mcmc_ammsb_tpu/cli.py:348-375): auto windows
-    (12) for the a-MMSB fast path only. --model mmsb without --window
-    stays sequential, with --window 12 keeps 12; --phi-impl pallas draws
-    privately and never windows."""
+    for the a-MMSB fast path only — 12 up to 8 chains, 96 // C up to 16,
+    none past 16 chains or on the vmap chain engine. --model mmsb without
+    --window stays sequential, with --window 12 keeps 12; --phi-impl
+    pallas draws privately and never windows."""
     from mcmc_ammsb_tpu import cli as jax_cli
 
     cases = [(), ("--model", "mmsb"), ("--model", "mmsb", "--window", "12"),
              ("--phi-impl", "pallas", "--device-sampling"),
              ("--window", "-1"), ("--no-shared-neighbors",)]
+    cases += [("--num-chains", str(c), "--chain-engine", engine)
+              for c in (1, 2, 8, 9, 16, 17) for engine in ("flat", "vmap")]
     for flags in cases:
         port = _resolved(*flags)
         jargs = jax_cli.build_arg_parser().parse_args(["--synthetic",
@@ -88,6 +91,8 @@ def test_window_rule_matches_jax():
     assert _resolved("--model", "mmsb").window == 0
     assert _resolved("--model", "mmsb", "--window", "12").window == 12
     assert _resolved().window == 12
+    assert _resolved("--num-chains", "16").window == 6
+    assert _resolved("--num-chains", "17").window == 0
 
 
 @pytest.mark.parametrize("bad", [
@@ -110,7 +115,7 @@ def test_cli_guard_exits_1():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "1,2"], ["--num-chains", "2"],
+    ["--mesh", "1,2"], ["--num-chains", "2", "--chain-engine", "vmap"],
     ["--model", "mmsb", "--num-chains", "2"],
     ["--rng", "reference"], ["--phi-impl", "pallas"], ["-s", "BF"],
     ["--no-device-sampling"], ["--pi-dtype", "bfloat16"],
@@ -120,14 +125,19 @@ def test_cli_guard_exits_1():
 ])
 def test_cli_refuses_unported_engines(flags, caplog):
     """Exit 2, naming the ROADMAP item. ``--phi-impl pallas`` without
-    --device-sampling resolves to host sampling, item 7."""
+    --device-sampling resolves to host sampling, item 7. Of the chain
+    engines only the flat one is ported: the vmap engine is item 12,
+    the MMSB chains item 11 (tests/test_torch_chains_cli.py has the
+    rest)."""
     with caplog.at_level(logging.INFO, logger="mcmc_ammsb_tpu_torch"):
         assert cli.main(TINY + flags) == 2
     assert any("ROADMAP" in r.getMessage() for r in caplog.records)
     if flags == ["--phi-impl", "pallas"]:
         assert any("item 7" in r.getMessage() for r in caplog.records)
-    if "--num-chains" in flags:
+    if "--chain-engine" in flags:
         assert any("item 12" in r.getMessage() for r in caplog.records)
+    if flags == ["--model", "mmsb", "--num-chains", "2"]:
+        assert any("item 11" in r.getMessage() for r in caplog.records)
 
 
 def test_cli_cuda_without_gpu_fails():

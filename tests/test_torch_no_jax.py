@@ -17,6 +17,8 @@ def test_port_imports_without_jax():
             "import mcmc_ammsb_tpu_torch.models.mmsb\n"
             "import mcmc_ammsb_tpu_torch.ops.window_mmsb\n"
             "import mcmc_ammsb_tpu_torch.ops.phi_pallas\n"
+            "import mcmc_ammsb_tpu_torch.chains_flat\n"
+            "import mcmc_ammsb_tpu_torch.chains\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', "
             "'mcmc_ammsb_tpu.')) or m == 'mcmc_ammsb_tpu' "
             "for m, v in sys.modules.items() if v is not None)\n")
