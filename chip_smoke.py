@@ -8,13 +8,23 @@ Phases, one line each; any failure raises and the exit code is not 0:
   2. build   — compiles the three kernels from csrc/ with nvcc, one
                process per source, all started together;
   3. kernel  — each kernel against its plain PyTorch version on the same
-               CUDA operands, with the time per call of each and each
-               version's distance to a float64 evaluation:
-               the a-MMSB window kernel at the bench shape and two odd
-               ones; its chain mode (one block per chain) at (C, T, B, n,
-               E, K) = (16, 6, 33, 32, 32, 256), the bench chain shape,
-               (3, 4, 9, 8, 8, 16) and (2, 3, 6, 7, 5, 12), also
-               bit-equal to C single-chain launches; both phi entries
+               CUDA operands, with the time per call of each, its bound
+               (the larger of the bytes it must move over 3.35 TB/s and
+               its float32 operations over 67 TFLOP/s, from this run's
+               inputs) and each version's distance to a float64
+               evaluation:
+               the fused a-MMSB window kernel (gather, T steps on a
+               thread-block cluster that splits K, scatter; it writes
+               pi in place, so each version gets its own copy of the
+               state) at (T, B, n, E, K) = (12, 33, 32, 32, 256), the
+               bench shape, (3, 6, 7, 5, 12), (12, 33, 32, 32, 100) and
+               (48, 33, 32, 32, 256) (a cluster of 16), with its cluster
+               size, shared memory per CTA and us per step; its chain
+               mode (one cluster per chain) at (C, T, B, n, E, K) = (16,
+               6, 33, 32, 32, 256), the bench chain shape, (3, 4, 9, 8,
+               8, 16) and (2, 3, 6, 7, 5, 12), also bit-equal to C
+               single-chain launches — both no farther from float64 than
+               2x the plain version; both phi entries
                (pre-gathered, by index) at (B, n, K) = (33, 32, 256)
                and (5, 7, 12) — normwise
                rtol 1e-5, atol 1e-8 (see max_err); the MMSB window
@@ -30,14 +40,14 @@ Phases, one line each; any failure raises and the exit code is not 0:
                MMSB windows (the measured envelope of
                tests/test_window_mmsb.py), --phi-impl pallas with
                private draws (normwise rtol 1e-5, atol 1e-8), the flat
-               chain engine with C=3 (4 chain-kernel launches, normwise
+               chain engine with C=3 (4 fused chain launches, normwise
                rtol 1e-5, atol 1e-8); then the MMSB learner on the GPU
                recovers a planted partition (the JAX package's own
                check, tests/test_mmsb.py:84);
   5. main    — the port's CLI in-process, at N=317,080:
                the a-MMSB main path (K=256, window 12, 2000 steps): the
-               window kernel launches once per window, ppx falls below
-               ppx[0];
+               fused window kernel launches once per window, ppx falls
+               below ppx[0];
                --model mmsb --window 12 (K=64, 1000 steps): the MMSB
                kernel launches 2 x (500 // 12) = 82 times, ppx finite
                and at the structure-free plateau (see run_mmsb_main);
@@ -45,8 +55,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
                the by-index phi kernel launches 1000 times, the window
                kernel never, ppx falls below ppx[0];
                --num-chains 16 --node-coin alternate (K=256, window
-               96 // 16 = 6, 2 x 504 steps): the chain kernel launches
-               2 x 84 = 168 times with C = 16 and the single-chain entry
+               96 // 16 = 6, 2 x 504 steps): the fused chain entry
+               launches 2 x 84 = 168 times with C = 16 and the single-chain
+               entry
                never, every chain's ppx falls below its ppx[0]; the
                aggregate rate and the host time of the chains' init are
                printed; then a small --num-chains 3 --rhat-draws 2 run
@@ -84,6 +95,16 @@ CHAIN_ARGS = ["--num-chains", str(CHAINS), "--node-coin", "alternate",
 RHAT_ARGS = ["--num-chains", "3", "--synthetic", "2000,8", "-k", "16",
              "-x", "200", "-i", "100", "--rhat-draws", "2",
              "--device", "cuda"]
+# (T, B, n, E, K) of the fused window kernel's checks; the first is the
+# main path's
+WINDOW_SHAPES = [(12, 33, 32, 32, 256), (3, 6, 7, 5, 12),
+                 (12, 33, 32, 32, 100), (48, 33, 32, 32, 256)]
+# (C, T, B, n, E, K) of its chain mode; the first is the chain path's
+CHAIN_SHAPES = [(CHAINS, 6, 33, 32, 32, 256), (3, 4, 9, 8, 8, 16),
+                (2, 3, 6, 7, 5, 12)]
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, fp32 FLOP/s outside
+# the tensor cores
+HBM_RATE, FP32_RATE = 3.35e12, 67e12
 # the measured multi-step MMSB envelope of tests/test_window_mmsb.py:57-59
 PI_ATOL = 5e-3
 TH_TOLS = dict(rtol=0.1, atol=0.15)
@@ -129,11 +150,17 @@ def f64_distance(outs, refs) -> float:
                for o, r in zip(outs, refs))
 
 
-def time_ms(fn, reps: int = 50) -> float:
+def time_ms(fn, reps: int = 50, hold: bool = False) -> float:
+    """ms per call of ``reps`` calls after a warm-up, by CUDA events.
+    With ``hold`` the device first sleeps (~1 ms per call at ~2 GHz)
+    while the host queues the calls, so the events time the device alone
+    and not the host's launch overhead."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda._sleep(2_000_000 * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -178,100 +205,243 @@ def build_all(kernels):
     phase("build", f"3 sources built in {time.perf_counter() - t0:.2f} s")
 
 
-def check_window_kernel(window, testing):
-    """Phase 3, a-MMSB window: (max abs err, kernel ms, plain ms) at the
-    bench shape."""
-    shapes = [  # (T, B, n, E, K): bench shape, odd shape, K % 32 != 0
-        (12, 33, 32, 32, 256), (3, 6, 7, 5, 12), (12, 33, 32, 32, 100)]
-    worst, times = 0.0, None
-    for seed, (t_win, b_cap, n_smpl, e_cap, k) in enumerate(shapes):
-        case = testing.window_case(seed, t_win, b_cap, n_smpl, e_cap, k)
+def bound(nbytes: float, flops: float):
+    """(least ms the card could take, what sets it): the bytes over the
+    HBM rate against the float32 operations over the fp32 peak."""
+    t_bytes, t_ops = nbytes / HBM_RATE, flops / FP32_RATE
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _tensors(x):
+    """The tensors of a nest of tuples and NamedTuples."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, tuple):
+        return [t for a in x for t in _tensors(a)]
+    return []
+
+
+def window_bound(xs, mcode, keep, k: int, n_rows: int):
+    """Bound of one fused window (one chain, or C chain-major): the pi
+    rows and sums it must read (each distinct pre-window row once), every
+    operand once, the kept rows and sums and theta and beta written once;
+    the float32 operations of the valid lanes and edges (per step and
+    node 4 n K for the two contractions, ~15 K for the phi step and the
+    normalization, ~14 K per edge for the edge sums and the fan-in)."""
+    batch, nbrs_s, y_w, nphi_w, nbeta_w, ye_w, lu, lv = xs
+    t_win, b_cap = batch.nodes.shape[-2:]
+    n_smpl = nbrs_s.shape[-1]
+    nodes = batch.nodes.reshape(-1, t_win, b_cap)
+    c = nodes.shape[0]
+    offs = (torch.arange(c, device=nodes.device) * n_rows)[:, None, None]
+    ids = torch.cat([nodes.clamp(max=n_rows - 1),
+                     nbrs_s.reshape(c, t_win, n_smpl)], dim=-1) + offs
+    pre = mcode.reshape(c, t_win, -1) == 0
+    rows_read = int(torch.unique(ids[pre]).numel())
+    sums_read = int(torch.unique(ids[..., :b_cap][pre[..., :b_cap]]).numel())
+    kept = int(keep.sum())
+    operands = nbytes(y_w, batch.nodes, nbrs_s, batch.node_mask, keep,
+                      nphi_w, nbeta_w, ye_w, batch.edge_mask, lu, lv, mcode,
+                      batch.weight)
+    moved = ((rows_read + kept) * k * 4 + (sums_read + kept) * 4 + operands
+             + 2 * c * k * 3 * 4)
+    b_valid = int(batch.node_mask.sum())
+    e_valid = int(batch.edge_mask.sum())
+    flops = (4 * b_valid * n_smpl * k + 15 * b_valid * k + 14 * e_valid * k
+             + 8 * b_valid * n_smpl + 20 * k * c * t_win)
+    return bound(moved, flops)
+
+
+def _fresh(state):
+    """A copy of the state whose pi and phi_sum the kernel may write."""
+    return state._replace(pi=state.pi.clone(), phi_sum=state.phi_sum.clone())
+
+
+def _outs(st):
+    return (st.pi, st.phi_sum, st.theta, st.beta)
+
+
+STATE_FIELDS = ("pi", "phi_sum", "theta", "beta")
+
+
+def _window_f64(window, phi_ops, cfg, state, xs, mcode, keep, chained):
+    """The window in float64: the plain version's gather (float32 values,
+    exact in float64), its steps on the operands in float64, its
+    scatter into a float64 copy of pi."""
+    if chained:
+        g, sums = window._chain_window_gather(cfg, state, xs)
+        core = window.window_chain_core_torch
+        idx = window._chain_flat_ids(xs[0].nodes, cfg.N)
+    else:
+        g, sums = window._window_gather(cfg, state, xs[0], xs[1][:, 0, :])
+        core = window.window_core_torch
+        idx = xs[0].nodes
+    rows, sums_o, theta, beta = core(*_float64((cfg, state, xs, g, sums,
+                                                mcode)))
+    pi, phi_sum = phi_ops.scatter_rows(state.pi.double(),
+                                       state.phi_sum.double(),
+                                       idx.reshape(-1), keep.reshape(-1),
+                                       rows, sums_o)
+    return pi, phi_sum, theta, beta
+
+
+def _agree(window, phi_ops, cfg, state, xs, mcode, keep, chained, what,
+           normwise=True):
+    """The kernel and the plain version, each on its own copy of
+    ``state``: (kernel's state, max abs difference over the outputs,
+    distances to float64 of kernel and plain). Fails when the kernel is
+    more than 2x farther from float64 than the plain version, and with
+    ``normwise`` past the normwise tolerance (two float32 evaluations of
+    a long window drift apart past it, each as far from float64)."""
+    cuda = window.window_chain_apply_cuda if chained else \
+        window.window_apply_cuda
+    plain = window.window_chain_apply_torch if chained else \
+        window.window_apply_torch
+    got = cuda(cfg, _fresh(state), xs, mcode, keep)
+    torch.cuda.synchronize()
+    want = plain(cfg, _fresh(state), xs, mcode, keep)
+    if normwise:
+        err = max(max_err(a, b, f"{what} {name}") for a, b, name in
+                  zip(_outs(got), _outs(want), STATE_FIELDS))
+    else:
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(_outs(got), _outs(want)))
+    ref = _window_f64(window, phi_ops, cfg, _fresh(state), xs, mcode, keep,
+                      chained)
+    f64 = [max(float((a.double() - r).abs().max()) for a, r in zip(out, ref))
+           for out in (_outs(got), _outs(want))]
+    if f64[0] > 2 * f64[1]:
+        raise AssertionError(f"{what}: kernel {f64[0]:.3e} from float64, "
+                             f"more than 2x the plain version's {f64[1]:.3e}")
+    return got, err, f64
+
+
+def _cluster_line(window, lib, shape, limit):
+    """(cluster size, shared bytes per CTA) of a per-chain shape; the
+    kernel's own layout must give the rule's byte count."""
+    s_cl = window.window_cluster_size(*shape, limit)
+    smem = window.window_smem_bytes(*shape, s_cl)
+    if lib.window_kernel_smem_bytes(*shape, s_cl) != smem:
+        raise AssertionError(f"shared memory of {shape}: kernel "
+                             f"{lib.window_kernel_smem_bytes(*shape, s_cl)}"
+                             f" B, rule {smem} B")
+    return s_cl, smem
+
+
+def check_window_kernel(window, kernels, testing, phi_ops, smi):
+    """Phase 3, the fused a-MMSB window: (max abs err, and the kernel ms,
+    plain ms, bound ms and what sets it at the main path's shape)."""
+    lib = window._window_lib()
+    limit = kernels.smem_limit(torch.device("cuda"))
+    worst, main = 0.0, None
+    for seed, shape in enumerate(WINDOW_SHAPES):
+        t_win = shape[0]
+        case = testing.window_case(seed, *shape)
         cfg = testing.window_case_config(case)
         state, xs = testing.window_case_torch(case, "cuda")
         batch, nbrs = xs[0], xs[1][:, 0, :]
-        g, sums_g = window._window_gather(cfg, state, batch, nbrs)
         mcode = window._correction_codes(cfg, batch.nodes, batch.node_mask,
                                           nbrs)
+        keep = window._last_write_wins(batch.nodes, batch.node_mask, t_win)
         if not (mcode > 0).any():
             raise AssertionError("the case has no in-window collision")
-        args = (cfg, state, xs, g, sums_g, mcode)
-        got = window.window_core_cuda(*args)
-        torch.cuda.synchronize()
-        want = window.window_core_torch(*args)
-        names = ("rows", "sums", "theta", "beta")
-        shape = (t_win, b_cap, n_smpl, e_cap, k)
-        errs = [max_err(a, b, f"window {name} at {shape}")
-                for a, b, name in zip(got, want, names)]
-        worst = max(worst, *errs)
-        ref = window.window_core_torch(*_float64(args))
-        f64 = [max(float((a.double() - r).abs().max())
-                   for a, r in zip(out, ref)) for out in (got, want)]
-        ms = time_ms(lambda: window.window_core_cuda(*args))
-        plain_ms = time_ms(lambda: window.window_core_torch(*args))
-        if times is None:
-            times = (ms, plain_ms)
-        phase("kernel", f"window T,B,n,E,K={t_win},{b_cap},{n_smpl},{e_cap},"
-              f"{k}: kernel vs plain max abs err {max(errs):.3e} (vs "
-              f"float64: kernel {f64[0]:.3e}, plain {f64[1]:.3e}); "
-              f"{ms:.4f} ms/window kernel, {plain_ms:.4f} ms/window plain")
-    return worst, times
+        s_cl, smem = _cluster_line(window, lib, shape, limit)
+        normwise = t_win <= 12
+        _, err, f64 = _agree(window, phi_ops, cfg, state, xs, mcode, keep,
+                             False, f"window at {shape}", normwise)
+        if normwise:
+            worst = max(worst, err)
+        scratch, plain_scratch = _fresh(state), _fresh(state)
+        ms = time_ms(lambda: window.window_apply_cuda(cfg, scratch, xs,
+                                                      mcode, keep),
+                     hold=True)
+        ms_b2b = time_ms(lambda: window.window_apply_cuda(cfg, scratch, xs,
+                                                          mcode, keep))
+        plain_ms = time_ms(lambda: window.window_apply_torch(
+            cfg, plain_scratch, xs, mcode, keep), reps=10)
+        b_ms, b_by = window_bound(xs, mcode, keep, shape[4], cfg.N)
+        main = main or (ms, plain_ms, b_ms, b_by)
+        phase("kernel", f"window T,B,n,E,K={','.join(map(str, shape))}: "
+              f"cluster of {s_cl} CTAs, {smem} B shared per CTA; kernel vs "
+              f"plain max abs {'err' if normwise else 'diff (not held)'} "
+              f"{err:.3e} (vs float64: kernel {f64[0]:.3e}, plain "
+              f"{f64[1]:.3e}); {ms:.4f} ms/window on the device = "
+              f"{1e3 * ms / t_win:.2f} us/step, {ms_b2b:.4f} ms/window "
+              f"back to back with the host, {plain_ms:.4f} ms/window "
+              f"plain; bound {b_ms * 1e3:.3f} us ({b_by}), "
+              f"{100 * b_ms / ms:.2f}% of it; {smi}")
+    return worst, main
 
 
-def check_chain_kernel(window, chains_flat, testing):
-    """Phase 3, the window kernel's chain mode: (max abs err, kernel ms,
-    plain ms at the bench chain shape). One launch runs C blocks; it
-    must give the same bits as C single-chain launches on the chains'
-    slices."""
-    shapes = [  # (C, T, B, n, E, K)
-        (CHAINS, 6, 33, 32, 32, 256), (3, 4, 9, 8, 8, 16), (2, 3, 6, 7, 5, 12)]
-    worst, times = 0.0, None
-    for seed, shape in enumerate(shapes):
-        c, t_win, b_cap = shape[:3]
+def check_chain_kernel(window, kernels, chains_flat, testing, phi_ops, smi):
+    """Phase 3, the fused window's chain mode: (max abs err, and the
+    kernel ms, plain ms, bound ms and what sets it at the chain path's
+    shape). One launch runs C clusters; it must give the same bits as C
+    single-chain launches on the chains' blocks."""
+    lib = window._window_lib()
+    limit = kernels.smem_limit(torch.device("cuda"))
+    worst, main = 0.0, None
+    for seed, shape in enumerate(CHAIN_SHAPES):
+        c, t_win = shape[:2]
         case = testing.chain_window_case(seed, *shape)
         cfg = testing.chain_window_case_config(case)
         state, xw = testing.chain_window_case_torch(case, "cuda")
         win = chains_flat.chain_windows(cfg, c, xw).at(0)
         if not all((win.mcode[i] > 0).any() for i in range(c)):
             raise AssertionError("a chain of the case has no collision")
-        g, sums = chains_flat.chain_window_rows(state, win)
-        args = (cfg, state, win.xs_t, g, sums, win.mcode)
-        got = window.window_chain_core_cuda(*args)
-        torch.cuda.synchronize()
-        want = window.window_chain_core_torch(*args)
-        names = ("rows", "sums", "theta", "beta")
-        errs = [max_err(a, b, f"chain window {name} at {shape}")
-                for a, b, name in zip(got, want, names)]
-        worst = max(worst, *errs)
-        t_b = t_win * b_cap
+        s_cl, smem = _cluster_line(window, lib, shape[1:], limit)
+        args = (win.xs_t, win.mcode, win.keep)
+        got, err, f64 = _agree(window, phi_ops, cfg, state, *args, True,
+                               f"chain window at {shape}")
+        worst = max(worst, err)
+        n = cfg.N
         for ci in range(c):
-            one = window.window_core_cuda(
-                cfg, state._replace(theta=state.theta[ci],
+            rows = slice(ci * n, (ci + 1) * n)
+            one = window.window_apply_cuda(
+                cfg, state._replace(pi=state.pi[rows].clone(),
+                                    phi_sum=state.phi_sum[rows].clone(),
+                                    theta=state.theta[ci],
                                     beta=state.beta[ci]),
-                window.index_operands(win.xs_t, ci), g[ci], sums[ci],
-                win.mcode[ci])
-            part = (got[0][ci * t_b:(ci + 1) * t_b],
-                    got[1][ci * t_b:(ci + 1) * t_b], got[2][ci], got[3][ci])
-            if not all(torch.equal(a, b) for a, b in zip(one, part)):
+                window.index_operands(win.xs_t, ci), win.mcode[ci],
+                win.keep[ci])
+            part = (got.pi[rows], got.phi_sum[rows], got.theta[ci],
+                    got.beta[ci])
+            if not all(torch.equal(a, b) for a, b in zip(_outs(one), part)):
                 raise AssertionError(f"chain {ci} of the {c}-chain launch "
                                      f"differs from its own launch, {shape}")
-        ref = window.window_chain_core_torch(*_float64(args))
-        f64 = [max(float((a.double() - r).abs().max())
-                   for a, r in zip(out, ref)) for out in (got, want)]
-        ms = time_ms(lambda: window.window_chain_core_cuda(*args))
-        plain_ms = time_ms(lambda: window.window_chain_core_torch(*args))
-        if times is None:
-            times = (ms, plain_ms)
+        scratch, plain_scratch = _fresh(state), _fresh(state)
+        ms = time_ms(lambda: window.window_chain_apply_cuda(cfg, scratch,
+                                                            *args), hold=True)
+        ms_b2b = time_ms(lambda: window.window_chain_apply_cuda(
+            cfg, scratch, *args))
+        plain_ms = time_ms(lambda: window.window_chain_apply_torch(
+            cfg, plain_scratch, *args), reps=5)
+        b_ms, b_by = window_bound(win.xs_t, win.mcode, win.keep, shape[5],
+                                  cfg.N)
+        main = main or (ms, plain_ms, b_ms, b_by)
         phase("kernel", f"chain window C,T,B,n,E,K={','.join(map(str, shape))}"
-              f": kernel vs plain max abs err {max(errs):.3e} (vs float64: "
-              f"kernel {f64[0]:.3e}, plain {f64[1]:.3e}); bit-equal to {c} "
-              f"single-chain launches; {ms:.4f} ms/window kernel, "
-              f"{plain_ms:.4f} ms/window plain")
-    return worst, times
+              f": {c} clusters of {s_cl} CTAs, {smem} B shared per CTA; "
+              f"kernel vs plain max abs err {err:.3e} (vs float64: kernel "
+              f"{f64[0]:.3e}, plain {f64[1]:.3e}); bit-equal to {c} "
+              f"single-chain launches; {ms:.4f} ms/window on the device = "
+              f"{1e3 * ms / t_win:.2f} us/step, {ms_b2b:.4f} ms/window "
+              f"back to back with the host, {plain_ms:.4f} ms/window "
+              f"plain; bound {b_ms * 1e3:.3f} us ({b_by}), "
+              f"{100 * b_ms / ms:.2f}% of it; {smi}")
+    return worst, main
 
 
 def check_phi_kernel(phi_pallas, testing):
     """Phase 3, both phi entries: {entry: (max abs err over the shapes,
-    kernel ms, plain ms at the main path's shape)}."""
+    and the kernel ms, plain ms, bound ms and what sets it at the main
+    path's shape)}. Bound: the pre-gathered entry reads its operands once
+    and writes rows and sums once; the by-index entry reads each distinct
+    row of pi once; ~4 n K + 12 K float32 operations per valid node."""
     errs, times = {}, {}
     for seed, (b_cap, n_smpl, k) in enumerate([(33, 32, 256), (5, 7, 12)]):
         case = testing.phi_case(seed, b_cap, n_smpl, k)
@@ -301,18 +471,36 @@ def check_phi_kernel(phi_pallas, testing):
             f64 = [f64_distance(out, ref) for out in (got, want)]
             ms = time_ms(lambda: cuda(*args))
             plain_ms = time_ms(lambda: plain(*args))
-            times.setdefault(entry, (ms, plain_ms))
+            valid = int((t["nodes"] < cfg.N).sum())
+            if entry == "pre-gathered":
+                moved = nbytes(pi_n, phis, pi_nb, t["y"], t["beta"],
+                               t["noise"])
+            else:
+                ids = torch.cat([t["nodes"].clamp(max=cfg.N - 1),
+                                 t["nbrs"].reshape(-1)])
+                moved = (int(torch.unique(ids).numel()) * k * 4
+                         + valid * 4 + nbytes(t["beta"], t["nodes"],
+                                              t["nbrs"], t["y"], t["noise"]))
+            b_ms, b_by = bound(moved + nbytes(*got),
+                               valid * (4 * n_smpl * k + 12 * k))
+            times.setdefault(entry, (ms, plain_ms, b_ms, b_by))
             phase("kernel", f"phi {entry} B,n,K={b_cap},{n_smpl},{k}: "
                   f"kernel vs plain max abs err {err:.3e} (relative "
                   f"distance to float64: kernel {f64[0]:.3e}, plain "
                   f"{f64[1]:.3e}); {ms:.4f} ms/call kernel, "
-                  f"{plain_ms:.4f} ms/call plain")
+                  f"{plain_ms:.4f} ms/call plain; bound "
+                  f"{b_ms * 1e3:.3f} us ({b_by}), {100 * b_ms / ms:.2f}% "
+                  f"of it")
     return {e: (errs[e], *times[e]) for e in errs}
 
 
 def check_mmsb_kernel(window, window_mmsb, testing):
-    """Phase 3, the MMSB window kernel: (max abs err at T=1, kernel ms,
-    plain ms at the main path's shape (12, 33, 32, 32, 64))."""
+    """Phase 3, the MMSB window kernel: (max abs err at T=1, and the
+    kernel ms, plain ms, bound ms and what sets it at the main path's
+    shape (12, 33, 32, 32, 64)). Bound: every operand (the gathered rows
+    included) read once, rows, sums and theta written once; per step
+    2 n K^2 for g_link and ~15 K^2 for the theta step, ~8 n K per valid
+    node, ~10 K^2 per valid edge (the p_e contraction and the fan-in)."""
     shapes = [(1, 33, 32, 32, 64), (12, 33, 32, 32, 64), (3, 6, 7, 5, 12),
               (12, 33, 32, 32, 128)]
     worst, times = 0.0, None
@@ -351,12 +539,20 @@ def check_mmsb_kernel(window, window_mmsb, testing):
             verdict = f"max abs diff {err:.3e} (conditioning-bound)"
         ms = time_ms(lambda: window_mmsb.mmsb_window_core_cuda(*args))
         plain_ms = time_ms(lambda: window_mmsb.mmsb_window_core_torch(*args))
+        moved = nbytes(*_tensors((state.theta_b, xs, g, sums_g, mcode)),
+                       *got)
+        b_valid = int(xs[0].node_mask.sum())
+        e_valid = int(xs[0].edge_mask.sum())
+        b_ms, b_by = bound(moved, (2 * n_smpl + 15) * k * k * t_win
+                           + 8 * b_valid * n_smpl * k
+                           + 10 * e_valid * k * k)
         if shape == (12, 33, 32, 32, 64):
-            times = (ms, plain_ms)
+            times = (ms, plain_ms, b_ms, b_by)
         phase("kernel", f"MMSB window T,B,n,E,K={','.join(map(str, shape))}: "
               f"kernel vs plain {verdict}; relative distance to float64: "
               f"kernel {f64[0]:.3e}, plain {f64[1]:.3e}; {ms:.4f} ms/window "
-              f"kernel, {plain_ms:.4f} ms/window plain")
+              f"kernel, {plain_ms:.4f} ms/window plain; bound "
+              f"{b_ms * 1e3:.3f} us ({b_by}), {100 * b_ms / ms:.2f}% of it")
     return worst, times
 
 
@@ -391,9 +587,9 @@ def check_slices(mods, window, window_mmsb, phi_pallas, chains_flat):
     a_mmsb = (learner_mod.Learner, learner_mod.hoist_operands)
     cfg, cpu_state, gpu_state, xs = _slice_learner(
         mods, *a_mmsb, K=24, shared_neighbors=True, window=5)
-    window.window_core_cuda.launches = 0
+    window.window_apply_cuda.launches = 0
     got = learner_mod.run_hoisted(cfg, gpu_state, _to(xs, "cuda"))
-    launched = window.window_core_cuda.launches
+    launched = window.window_apply_cuda.launches
     want = learner_mod.run_hoisted(cfg, cpu_state, xs)
     errs = [max_err(getattr(got, f), getattr(want, f), f"slice {f}")
             for f in fields]
@@ -449,9 +645,9 @@ def check_slices(mods, window, window_mmsb, phi_pallas, chains_flat):
     gpu_state = _to(cpu.state._replace(pi=cpu.state.pi.clone(),
                                        phi_sum=cpu.state.phi_sum.clone()),
                     "cuda")
-    window.window_chain_core_cuda.launches = 0
+    window.window_chain_apply_cuda.launches = 0
     got = chains_flat.run_chain_hoisted(cfg, 3, gpu_state, _to(xs, "cuda"))
-    launched = window.window_chain_core_cuda.launches
+    launched = window.window_chain_apply_cuda.launches
     want = chains_flat.run_chain_hoisted(cfg, 3, cpu.state, xs)
     errs = [max_err(getattr(got, f), getattr(want, f), f"chain slice {f}")
             for f in fields]
@@ -459,7 +655,7 @@ def check_slices(mods, window, window_mmsb, phi_pallas, chains_flat):
         raise AssertionError(f"chain slice: {launched} kernel launches, "
                              f"not 4")
     phase("slice", f"flat chains, C=3, 23 steps (4 windows of 5 + 3 tail "
-          f"steps, {launched} chain-kernel launches), N=300 K=24: GPU "
+          f"steps, {launched} fused chain launches), N=300 K=24: GPU "
           f"kernel vs CPU plain max abs err {max(errs):.3e}")
 
     # the MMSB learner on the GPU learns a planted partition: the
@@ -533,18 +729,18 @@ def _counts(mods, what):
     {kernel: launches}, and "chains", the chains the chain-mode launches
     ran in all."""
     window, window_mmsb, phi_pallas = mods
-    counters = {"window": window.window_core_cuda,
-                "window_chain": window.window_chain_core_cuda,
+    counters = {"window": window.window_apply_cuda,
+                "window_chain": window.window_chain_apply_cuda,
                 "mmsb": window_mmsb.mmsb_window_core_cuda,
                 "phi": phi_pallas.phi_update_core_cuda,
                 "phi_gather": phi_pallas.phi_update_rows_cuda}
     if what is None:
         for c in counters.values():
             c.launches = 0
-        window.window_chain_core_cuda.chains = 0
+        window.window_chain_apply_cuda.chains = 0
         return None
     return {**{k: c.launches for k, c in counters.items()},
-            "chains": window.window_chain_core_cuda.chains}
+            "chains": window.window_chain_apply_cuda.chains}
 
 
 def run_main(cli, kmods):
@@ -677,6 +873,7 @@ def main() -> int:
     from mcmc_ammsb_tpu_torch.models import mmsb
     from mcmc_ammsb_tpu_torch.ops import (device_sampling, phi_pallas, window,
                                           window_mmsb)
+    from mcmc_ammsb_tpu_torch.ops import phi as phi_ops
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -686,10 +883,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     build_all(kernels)
-    w_err, (w_ms, w_plain) = check_window_kernel(window, testing)
-    c_err, (c_ms, c_plain) = check_chain_kernel(window, chains_flat, testing)
+    w_err, w_t = check_window_kernel(window, kernels, testing, phi_ops, smi)
+    c_err, c_t = check_chain_kernel(window, kernels, chains_flat, testing,
+                                    phi_ops, smi)
     phi = check_phi_kernel(phi_pallas, testing)
-    m_err, (m_ms, m_plain) = check_mmsb_kernel(window, window_mmsb, testing)
+    m_err, m_t = check_mmsb_kernel(window, window_mmsb, testing)
     check_slices((data, config, learner_mod, device_sampling, mmsb),
                  window, window_mmsb, phi_pallas, chains_flat)
     kmods = (window, window_mmsb, phi_pallas)
@@ -699,24 +897,29 @@ def main() -> int:
     chain_l, _, _ = run_chain_main(cli, kmods)
     run_rhat(cli)
 
+    def times(t):
+        # no single PyTorch call computes any of these functions
+        return {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2],
+                "bound_by": t[3], "library_ms": None}
+
     src = "mcmc_ammsb_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
+        # one launch per window: gather, T steps on a cluster, scatter
         {"name": "window_kernel", "route": "cuda",
          "source": src + "window_kernel.cu",
          "replaces": "mcmc_ammsb_tpu/ops/window.py:321",
-         "launches": main_l["window"], "max_abs_err": w_err,
-         "ms": w_ms, "plain_ms": w_plain},
-        # the same kernel and entry, C blocks: the chain engine's launches
+         "launches": main_l["window"], "max_abs_err": w_err, **times(w_t)},
+        # the same kernel and entry, one cluster per chain: the chain
+        # engine's launches
         {"name": "window_kernel_chains", "route": "cuda",
          "source": src + "window_kernel.cu",
          "replaces": "mcmc_ammsb_tpu/ops/window.py:321 (n_chains > 1)",
          "launches": chain_l["window_chain"], "max_abs_err": c_err,
-         "ms": c_ms, "plain_ms": c_plain},
+         **times(c_t)},
         {"name": "mmsb_window_kernel", "route": "cuda",
          "source": src + "mmsb_window_kernel.cu",
          "replaces": "mcmc_ammsb_tpu/ops/window_mmsb.py:96",
-         "launches": mmsb_l["mmsb"], "max_abs_err": m_err,
-         "ms": m_ms, "plain_ms": m_plain},
+         "launches": mmsb_l["mmsb"], "max_abs_err": m_err, **times(m_t)},
         # one Hopper kernel replaces both Pallas phi kernels; the
         # --phi-impl pallas path runs it through its by-index entry, so
         # its launches there are those of the kernel in either entry
@@ -725,13 +928,12 @@ def main() -> int:
          "replaces": "mcmc_ammsb_tpu/ops/phi_pallas.py:51",
          "launches": phi_l["phi"] + phi_l["phi_gather"],
          "max_abs_err": phi["pre-gathered"][0],
-         "ms": phi["pre-gathered"][1], "plain_ms": phi["pre-gathered"][2]},
+         **times(phi["pre-gathered"][1:])},
         {"name": "phi_gather", "route": "cuda",
          "source": src + "phi_kernel.cu",
          "replaces": "mcmc_ammsb_tpu/ops/phi_pallas.py:84",
          "launches": phi_l["phi_gather"],
-         "max_abs_err": phi["by-index"][0],
-         "ms": phi["by-index"][1], "plain_ms": phi["by-index"][2]},
+         "max_abs_err": phi["by-index"][0], **times(phi["by-index"][1:])},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -13,11 +13,13 @@ One training chunk is
   2. ``hoist_chain_operands`` computes the state-independent operands in
      the JAX package's tuple order and layouts ([S, C, ...]);
   3. ``run_chain_hoisted`` runs the S steps: in windows of ``cfg.window``
-     through ``windowed_chain_scan`` — one bulk gather, ONE launch of the
-     window kernel for all C chains (one thread block per chain,
-     ``ops/window.window_chain_core_cuda``; on CPU tensors the plain
-     ``window_chain_core_torch``), one last-write-wins scatter — and the
-     remaining steps through ``_chain_step_body``, batched over chains.
+     through ``windowed_chain_scan`` — each window of all C chains ONE
+     launch of the window kernel, which gathers, runs the T steps on one
+     thread-block cluster per chain and scatters
+     (``ops/window.window_chain_apply_cuda``; on CPU tensors the plain
+     ``window_chain_apply_torch``: a bulk gather, the steps, a
+     last-write-wins scatter) — and the remaining steps through
+     ``_chain_step_body``, batched over chains.
 
 The chains advance in lockstep, so the step counters are shared host
 integers; every chain has its own theta [K, 2], beta [K], held-out
@@ -43,11 +45,12 @@ from mcmc_ammsb_tpu_torch.ops import phi as phi_ops
 from mcmc_ammsb_tpu_torch.ops.device_sampling import sample_minibatches_device
 from mcmc_ammsb_tpu_torch.ops.neighbor import sample_neighbors
 from mcmc_ammsb_tpu_torch.ops.window import (_WINDOWS_PER_BATCH,
+                                             _chain_flat_ids,
                                              _correction_codes,
                                              _last_write_wins,
                                              index_operands,
-                                             window_chain_core_cuda,
-                                             window_chain_core_torch)
+                                             window_chain_apply_cuda,
+                                             window_chain_apply_torch)
 
 
 class ChainState(NamedTuple):
@@ -172,13 +175,6 @@ def _beta_gradients_chains(cfg: Config, theta, beta, pi_u, pi_v, y, mask):
                         torch.sum(g1 * m, dim=1)], dim=-1)
 
 
-def _flat(nodes, n_rows: int, c: int):
-    """Chain-local ids [..., C, B] -> flat ids; the sentinel N -> C*N."""
-    offsets = (torch.arange(c, dtype=torch.int32, device=nodes.device)
-               * n_rows)[:, None]
-    return torch.where(nodes < n_rows, nodes + offsets, c * n_rows)
-
-
 def _chain_step_body(cfg: Config, c: int, st: ChainState, x) -> ChainState:
     """One SGRLD step of all C chains on its hoisted operands, batched
     over chains (the JAX ``_chunk`` body)."""
@@ -188,7 +184,7 @@ def _chain_step_body(cfg: Config, c: int, st: ChainState, x) -> ChainState:
     b_cap = nodes.shape[-1]
     offsets = (torch.arange(c, dtype=torch.int32, device=nodes.device)
                * n_rows)[:, None]                               # [C, 1]
-    flat_nodes = _flat(nodes, n_rows, c).reshape(-1)           # [C*B]
+    flat_nodes = _chain_flat_ids(nodes, n_rows).reshape(-1)    # [C*B]
     flat_mask = nmask.reshape(-1)
     # JAX clamps the sentinel's gather to C*N - 1; torch faults
     gidx = flat_nodes.long().clamp(max=c * n_rows - 1)
@@ -238,24 +234,22 @@ class ChainWindows(NamedTuple):
     (``at(w)`` is window w, the same fields without the W axis)."""
 
     nodes: torch.Tensor     # [W, C, T, B] flat ids, sentinel C*N
-    read_idx: torch.Tensor  # [W, C, T, B+n] flat gather rows, clamped
-    xs_t: tuple             # the window core's operand tuple, chain-local
+    xs_t: tuple             # the window's operand tuple, chain-local
     mcode: torch.Tensor     # [W, C, T, B+n] int32, chain-local slots
     keep: torch.Tensor      # [W, C, T, B] last-write-wins mask
 
     def at(self, w: int) -> "ChainWindows":
-        return ChainWindows(self.nodes[w], self.read_idx[w],
-                            index_operands(self.xs_t, w), self.mcode[w],
-                            self.keep[w])
+        return ChainWindows(self.nodes[w], index_operands(self.xs_t, w),
+                            self.mcode[w], self.keep[w])
 
 
 def chain_windows(cfg: Config, c: int, xs) -> ChainWindows:
     """The bookkeeping of whole windows of the hoisted chain steps ``xs``
     (a multiple of ``cfg.window`` steps, shared draws): flat ids, the
-    rows to gather, the correction codes of each chain against its own
-    staged rows, the last-write-wins mask, and the operands moved
-    chain-major so that each chain's window is one contiguous slice
-    (what ``window_chain_core_*`` take)."""
+    correction codes of each chain against its own staged rows, the
+    last-write-wins mask, and the operands moved chain-major so that
+    each chain's window is one contiguous slice (what
+    ``window_chain_apply_*`` take)."""
     (nodes, nmask, eu, ev, emask, wts, nbrs, y_n, n_phi, n_beta, y_e, _nm,
      lu, lv) = xs
     t_win, n_rows = cfg.window, cfg.N
@@ -266,48 +260,28 @@ def chain_windows(cfg: Config, c: int, xs) -> ChainWindows:
         return a.reshape(n_win, t_win, c, *a.shape[2:]).transpose(
             1, 2).contiguous()
 
-    nodes_f = cm(_flat(nodes, n_rows, c))
+    nodes_f = cm(_chain_flat_ids(nodes, n_rows, axis=1))
     nbrs_f = cm(nbrs + (torch.arange(c, dtype=torch.int32,
                                      device=nodes.device) * n_rows)[:, None])
     mask = cm(nmask)
-    read_idx = torch.cat([nodes_f, nbrs_f], dim=-1).long().clamp(
-        max=c * n_rows - 1)
     batch = DeviceBatch(edges_u=cm(eu), edges_v=cm(ev), edge_mask=cm(emask),
                         nodes=cm(nodes), node_mask=mask, weight=cm(wts))
     xs_t = (batch, cm(nbrs)[..., None, :], cm(y_n),
             cm(n_phi.reshape(*nodes.shape, -1)), cm(n_beta), cm(y_e),
             cm(lu), cm(lv))
     return ChainWindows(
-        nodes=nodes_f, read_idx=read_idx, xs_t=xs_t,
+        nodes=nodes_f, xs_t=xs_t,
         mcode=_correction_codes(cfg, nodes_f, mask, nbrs_f),
         keep=_last_write_wins(nodes_f, mask, t_win))
 
 
-def chain_window_rows(state: ChainState, win: ChainWindows):
-    """One window's bulk read: g [C, T, B+n, K] f32, sums [C, T, B]."""
-    c, t_win, b_cap = win.nodes.shape
-    g = state.pi[win.read_idx.reshape(-1)].float().reshape(
-        c, t_win, -1, state.pi.shape[1])
-    sums = state.phi_sum[win.read_idx[..., :b_cap].reshape(-1)].reshape(
-        c, t_win, b_cap)
-    return g, sums
-
-
 def _chain_window(cfg: Config, state: ChainState,
                   win: ChainWindows) -> ChainState:
-    """One window of every chain: gather, one core call, scatter."""
-    g, sums_g = chain_window_rows(state, win)
-    core = window_chain_core_cuda if g.is_cuda else window_chain_core_torch
-    rows, sums, theta, beta = core(cfg, state, win.xs_t, g, sums_g,
-                                   win.mcode)
-    # staged rows are chain-major [C, T, B], as the flat ids
-    pi, phi_sum = phi_ops.scatter_rows(state.pi, state.phi_sum,
-                                       win.nodes.reshape(-1),
-                                       win.keep.reshape(-1), rows, sums)
-    t_win = win.nodes.shape[1]
-    return state._replace(pi=pi, phi_sum=phi_sum, theta=theta, beta=beta,
-                          step_count=state.step_count + t_win,
-                          beta_count=state.beta_count + t_win)
+    """One window of every chain: one kernel launch on the card (gather,
+    steps and scatter), the plain gather, steps and scatter on the CPU."""
+    apply = (window_chain_apply_cuda if state.pi.is_cuda
+             else window_chain_apply_torch)
+    return apply(cfg, state, win.xs_t, win.mcode, win.keep)
 
 
 def windowed_chain_scan(cfg: Config, c: int, state: ChainState, xs,
@@ -379,7 +353,7 @@ class FlatChainLearner(Learner):
     host time of the per-chain init draws."""
 
     def __init__(self, cfg: Config, graph, split, num_chains: int,
-                 device="cpu"):
+                 device="cuda"):
         if num_chains < 1:
             raise ValueError(f"num_chains must be >= 1, got {num_chains}")
         if len(split.heldout_edges_u) == 0:

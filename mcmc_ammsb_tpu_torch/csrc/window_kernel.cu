@@ -1,91 +1,187 @@
-// T sequential a-MMSB SGRLD steps of one window, one thread block per
-// chain.
+// One whole a-MMSB window per chain in ONE launch: the rows are read from
+// pi by index, the T sequential SGRLD steps run on a thread-block
+// cluster that splits K, and the surviving rows are written back into pi
+// and phi_sum in place.
 //
-// Replaces the Pallas TPU kernel mcmc_ammsb_tpu/ops/window.py::
-// _window_kernel (reached through window_kernel_call -> pl.pallas_call)
-// with the collision correction on, in both of its modes: one chain
-// (n_chains = 1, the main path; called through
-// mcmc_ammsb_tpu_torch/ops/window.py::window_core_cuda, plain version
-// window_core_torch) and C independent chains (n_chains = C > 1, the flat
-// chain engine; window_chain_core_cuda, plain version
-// window_chain_core_torch). Both go through window_kernel_launch, with
-// C = 1 for the first.
+// Replaces, for one window with window_correction="always", what
+// mcmc_ammsb_tpu/ops/window.py::windowed_scan does around the Pallas TPU
+// kernel _window_kernel (reached through window_kernel_call ->
+// pl.pallas_call): _window_gather, then the kernel, then _window_scatter.
+// Both of the kernel's modes go through window_kernel_launch: one chain
+// (C = 1, the main path; mcmc_ammsb_tpu_torch/ops/window.py::
+// window_apply_cuda, plain version window_apply_torch) and C independent
+// chains on the flat layout pi [C*N, K] (the flat chain engine;
+// window_chain_apply_cuda, plain version window_chain_apply_torch).
 //
-// Chains: the TPU kernel stacks the C chains' rows into block-diagonal
-// [C*B, C*n] pair tensors and [C*E, C*B] edge one-hots so that one
-// matrix-unit product serves every chain. Chains never interact inside
-// a window, so here block c of a C-block grid runs chain c's T steps on
-// its own contiguous slice of every operand (all operands chain-major,
-// [C, T, ...]), with its own theta, beta and weights; the step sizes are
-// shared (the chains run in lockstep). The staged rows come out
-// chain-major [C, T*B, K] and the read codes are chain-local, so block c
-// redirects reads into its own [T*B, K] slice. No block-diagonal tensor
-// is formed, and the shared memory per block is that of one chain,
-// independent of C and T.
+// Layout of the launch: chain c gets a cluster of S CTAs (grid C*S).
+// CTA r owns the column slice [r*kw, min(K, (r+1)*kw)) of every row,
+// theta, beta and noise, kw = slice_width(K, S); the last slice may be
+// ragged (K = 100). S comes from the per-chain shape and the card's
+// shared memory (ops/window.py::window_cluster_size: 4 at K = 256),
+// never from C, so one C-chain launch gives the same bits as C
+// single-chain launches.
 //
 // Per step t, exactly the JAX kernel's math:
 //   1. read rows: lane r reads staged row mcode-1 when mcode > 0 (a row
-//      an earlier step of the window wrote), else the gathered g[t, r].
-//      The TPU kernel does this with a 0/1 one-hot matrix product to
-//      feed its matrix unit; an indexed load gives the same bits.
+//      an earlier step of the window wrote), else pi[node or nbr] as it
+//      was before the window. The TPU kernel redirects with a 0/1
+//      one-hot matrix product; an indexed load gives the same bits.
 //   2. phi: q = (pi_n * (beta - eps)) . pi_nb, p = s q + e, the masked
 //      1/p coefficients, contrib = a . pi_nb, the SGRLD step with noise,
-//      the 1e-24 floor and the row normalization; rows are staged in
-//      rows_out, which is also the buffer step 1 redirects reads to.
+//      the 1e-24 floor and the row normalization; the rows are staged.
 //   3. beta: edge endpoint e reads staged row lanes_u[e] / lanes_v[e]
 //      (masked node lanes replaced by 1/K), the per-edge sums, the
 //      gradient fan-in over edges, then the theta SGRLD step (abs,
 //      floor) and beta = theta1 / (theta0 + theta1).
+// After the last step the rows that _last_write_wins keeps are written
+// to pi (each CTA its columns), their sums to phi_sum (CTA 0), theta and
+// beta to the outputs (each CTA its slice).
 //
-// What bounds it on an H100: the two contractions are ~2 B n K FMAs per
-// step (0.54 M at B=33, n=32, K=256) and a chain's window runs on ONE
-// SM, whose ~128 FP32 FMA/clock make that at least ~2.5 us per step
-// before the reductions and barriers. It is latency- and one-SM-bound,
-// not bandwidth-bound: the operands are ~0.1 MB per step and chain. C
-// chains fill C of the card's 132 SMs for about the time of one.
+// What bounds it on an H100: the bytes a window must move (its read
+// rows, noise and written rows, ~1.6 MB at T=12, B=33, n=32, E=32,
+// K=256 with distinct rows: ~0.5 us at 3.35 TB/s) and its ~16 MFLOP
+// (0.24 us at 67 TFLOP/s fp32) are both far below the time of T
+// sequential steps, each a chain of dependent reductions and barriers:
+// the kernel is latency-bound (PERF.md: ~17 us per step, ~10 stages of
+// 1-7 thousand cycles each, scripts/window_phases.py).
 //
-// What the design does about it, kept simple for a first kernel: one
-// block of 512 threads per chain; the corrected read rows of the step
-// ([B+n, K], 67 KB at the bench shape), the nodes' pi * (beta - eps)
-// rows, theta, beta and the step's small operands live in shared
-// memory; rows are
-// copied one warp per row so every lane has independent loads in
-// flight. Both contractions were bound by shared-memory load
-// throughput, so each load serves several FMAs: q gives lane j of a
-// warp neighbor j's 16-byte row chunks for up to 3 nodes at once (rows
-// padded to a stride that keeps those loads free of bank conflicts);
-// contrib keeps a thread's column of the n neighbor rows in registers
-// for all the nodes of its group. Row sums, per-node and per-edge sums
-// are warp reductions; the gradient fan-in is one thread per k. The
-// staged rows (T B K floats, 405 KB at the bench shape) exceed shared
-// memory and stay in the global output buffer, which L2 holds.
-// Splitting K across a thread block cluster is the next step for this
-// kernel.
-//
-// Division and sqrt are IEEE (no fast math): 1/p and 1/phi amplify
-// error.
+// What this design does about it:
+//   - The K split spreads a step over S SMs. Three sums need every
+//     column: q[b, j] (B*n), the row sums of phi' (B) and the per-edge
+//     s_pp, s_pr (2E). Each is exchanged through distributed shared
+//     memory by remote STORES, so no stage waits on a remote load: every
+//     CTA pushes its row-sum and edge partials into slot [rank] of every
+//     CTA, and its q partials into slot [rank] of the CTA that owns the
+//     node (b mod S); after one cluster barrier (barrier.cluster,
+//     release/acquire) each reader sums the S slots in the fixed order
+//     r = 0..S-1, so every CTA holds identical bits whatever the
+//     scheduling. A node's owner then computes its coefficients, e/p sum,
+//     mask count, 1/phi and N/n_valid and pushes them to every CTA before
+//     a second barrier. Four cluster barriers per step; each exchange
+//     buffer is written again only after the readers have passed another
+//     cluster barrier, so none needs a second copy. Everything else
+//     (contrib and the phi step, normalization and staging, the fan-in
+//     and the theta step) is local to a CTA's columns.
+//   - The window's staged rows ([T*B, kw] per CTA, 101 KB at T=12, B=33,
+//     kw=64) and their sums live in shared memory: redirected reads and
+//     edge-endpoint reads are shared-memory loads. There is no global
+//     staging buffer; the wrapper picks S so that the slice fits and
+//     raises when no S <= 16 does.
+//   - The gather is in the kernel: step t+1's pre-window rows (lanes with
+//     mcode 0), their phi sums and the step's noise slices are copied with
+//     cp.async (16-byte chunks where K and kw are multiples of 4) into a
+//     second set of buffers while step t computes; lanes with mcode > 0
+//     are copied from the staged slice before the step's barrier. TMA has
+//     no row gather, so per-row copies are the tool. pi is only written
+//     after the last step, so every read sees the pre-window values, as
+//     the JAX gather does. The window's ids and codes, and its labels and
+//     masks as bits, are loaded once at the start.
+//   - Sentinel lanes: a padded node lane carries N; JAX clamps its read
+//     to the last row (N-1 on one chain, C*N-1 — the last chain's last
+//     row — on the flat layout). Here the clamp stays inside the chain's
+//     own block (chain*N + N-1): a cluster never reads a row that another
+//     cluster writes. Masked lanes never reach the state (the scatter
+//     drops them and the beta stage reads 1/K for them), so no compared
+//     result changes.
+//   - Arithmetic is float32 FMAs on the SIMT units; division and sqrt are
+//     IEEE (no fast math): 1/p and 1/phi amplify error. No wgmma and no
+//     TF32: the products are 33x32 outputs over a 64-deep slice, far
+//     below a 64-row warpgroup tile, and TF32's ~3 digits would feed 1/p.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstddef>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 512;
 // The contrib loop keeps a thread's column of the neighbor rows in
-// registers; the window_kernel_launch entry refuses n > kMaxNeighbors.
+// registers; window_kernel_launch refuses n > kMaxNeighbors.
 constexpr int kMaxNeighbors = 32;
 // q is computed for up to this many nodes per warp in one pass, so each
 // neighbor-row load serves several nodes.
 constexpr int kNodesPerWarp = 3;
-
 // Longest window: the step sizes travel in the kernel's parameters.
 constexpr int kMaxWindow = 64;
+// Largest cluster (16 is non-portable: the launch allows it explicitly).
+constexpr int kMaxCluster = 16;
 
 // Shared row stride: a multiple of 4 floats (16-byte vector loads) whose
 // quarter is odd, so the 8 lanes of a quarter-warp reading 16 bytes of 8
 // different rows hit 8 different bank groups.
-__host__ __device__ inline int row_stride(int K) {
-  const int q4 = (K + 3) / 4;
+__host__ __device__ inline int row_stride(int w) {
+  const int q4 = (w + 3) / 4;
   return 4 * (q4 + 1 + (q4 % 2));
+}
+
+// Columns per CTA: ceil(K / S), rounded up to a multiple of 4 when K is
+// one (16-byte copies); mirrored by ops/window.py::window_slice_width.
+__host__ __device__ inline int slice_width(int K, int S) {
+  int w = (K + S - 1) / S;
+  if (K % 4 == 0) w = (w + 3) / 4 * 4;
+  return w;
+}
+
+constexpr int kWarps = kThreads / 32;
+
+// Offsets (in 4-byte words) of the shared arrays of one CTA; mirrored by
+// ops/window.py::window_smem_bytes. The row buffers and beta - eps come
+// first (16-byte aligned), then the noise buffers and the coefficients,
+// whose offsets are multiples of 16 bytes when kw is a multiple of 4 (the
+// 16-byte copies and loads).
+struct Layout {
+  size_t rows0, rows1, bme, nz0, nz1, bz0, bz1, coef, staged, ssum, th0,
+      th1, bet, gpart, phis0, phis1, ce, nval, scale, invphi, qin, rin, ein,
+      smc, snodes, snbrs, slanes, ybits, mbits, yebits, embits, total;
+};
+
+__host__ __device__ inline size_t words_of_bits(size_t bits) {
+  return (bits + 31) / 32;
+}
+
+__host__ __device__ inline Layout layout(int T, int B, int n, int E, int kw,
+                                         int S) {
+  const size_t R = (size_t)B + n, ld = row_stride(kw);
+  const size_t TB = (size_t)T * B, TE = (size_t)T * E, Bn = (size_t)B * n;
+  const size_t nl = (B + S - 1) / S;   // nodes a CTA owns, at most
+  Layout L;
+  size_t o = 0;
+  L.rows0 = o;  o += R * ld;     // step rows, even steps [R, ld]
+  L.rows1 = o;  o += R * ld;     // step rows, odd steps
+  L.bme = o;    o += (kw + 3) / 4 * 4;  // beta - eps, zero-padded
+  L.nz0 = o;    o += B * kw;     // phi noise slice, even steps [B, kw]
+  L.nz1 = o;    o += B * kw;     // odd steps
+  L.bz0 = o;    o += 2 * (size_t)kw;  // theta noise slice [kw, 2]
+  L.bz1 = o;    o += 2 * (size_t)kw;
+  L.coef = o;   o += Bn;         // s/p * mask [B, n], from the owners
+  L.staged = o; o += TB * kw;    // staged rows of the window [T*B, kw]
+  L.ssum = o;   o += TB;         // their sums
+  L.th0 = o;    o += kw;
+  L.th1 = o;    o += kw;
+  L.bet = o;    o += kw;
+  L.gpart = o;  o += (size_t)kWarps * kw * 2;  // fan-in partials per warp
+  L.phis0 = o;  o += B;          // gathered phi sums, even steps
+  L.phis1 = o;  o += B;          // odd steps
+  L.ce = o;     o += B;          // sum_j e/p, from the owners
+  L.nval = o;   o += B;          // valid neighbors
+  L.scale = o;  o += B;          // N / n_valid
+  L.invphi = o; o += B;          // 1 / phi
+  L.qin = o;    o += S * nl * n;       // q partials of the owned nodes
+  L.rin = o;    o += (size_t)S * B;    // row-sum partials [S, B]
+  L.ein = o;    o += (size_t)S * 2 * E;  // (s_pp, s_pr) partials [S, E, 2]
+  L.smc = o;    o += (size_t)T * R;   // the window's read codes
+  L.snodes = o; o += TB;              // its node ids
+  L.snbrs = o;  o += (size_t)T * n;   // its neighbor ids
+  L.slanes = o; o += TE;              // its lane maps, u | v << 16
+  L.ybits = o;  o += words_of_bits(TB * n);  // pair labels
+  L.mbits = o;  o += words_of_bits(TB);      // node masks
+  L.yebits = o; o += words_of_bits(TE);      // edge labels
+  L.embits = o; o += words_of_bits(TE);      // edge masks
+  L.total = o;
+  return L;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -95,15 +191,37 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most the newest group is in flight.
+__device__ __forceinline__ void cp_async_wait_older() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
 struct Params {
-  // inputs, per chain (each array is [C, ...] of these, chain-major);
-  // T = window steps, R = B + n; bool arrays are one byte each
-  const float* g;          // [T, R, K] gathered rows (nodes, then nbrs)
-  const float* sums;       // [T, B]    gathered phi sums
+  // state, per chain block of the flat layout; updated in place
+  float* pi;               // [C*N, K]
+  float* phi_sum;          // [C*N]
+  // operands, chain-major ([C, T, ...]); R = B + n; bools one byte each
   const bool* y;           // [T, B, n] neighbor edge labels
-  const int* nodes;        // [T, B]    node ids (padded lanes: N)
+  const int* nodes;        // [T, B]    chain-local node ids (padded: N)
   const int* nbrs;         // [T, n]    the step's shared neighbor ids
   const bool* node_mask;   // [T, B]
+  const bool* keep;        // [T, B]    last write of its row
   const float* noise;      // [T, B, K] phi noise
   const float* bnoise;     // [T, K, 2] theta noise
   const bool* y_edges;     // [T, E]    minibatch edge labels
@@ -114,320 +232,631 @@ struct Params {
   const float* wts;        // [T]       minibatch weight
   const float* theta_in;   // [K, 2]
   const float* beta_in;    // [K]
-  // outputs
-  float* rows_out;         // [T*B, K] staged rows (read back in-window)
-  float* sums_out;         // [T*B]
   float* theta_out;        // [K, 2]
   float* beta_out;         // [K]
-  int T, B, n, E, K;
+  int T, B, n, E, K, N, kw;
   float eps, one_minus_eps, alpha, n_nodes, eta0, eta1, inv_k;
   float eps_phi[kMaxWindow];    // phi step sizes of the T steps
   float eps_theta[kMaxWindow];  // theta step sizes
 };
 
-// Shared-memory words (4 bytes each): the step's rows [R, ld] and the
-// nodes' pi * (beta - eps) rows [B, ld]; theta0, theta1, beta [K] each;
-// the pair labels, pair mask and coefficients a [B, n] each;
-// five [B] vectors; the edge labels, mask, sums and both lane maps [E]
-// each; the read codes [R].
-__host__ __device__ inline size_t smem_words(int B, int n, int E, int K) {
-  return (size_t)(2 * B + n) * row_stride(K) + 3 * (size_t)K
-         + 3 * (size_t)B * n + 5 * (size_t)B + 5 * (size_t)E
-         + (size_t)(B + n);
+#ifdef WINDOW_PHASES
+// Opt-in phase profile (scripts/window_phases.py builds with
+// -DWINDOW_PHASES): thread 0 of the first CTA adds the clock cycles from
+// one barrier to the next into a slot per stage, over all steps.
+constexpr int kPhases = 16;
+__device__ unsigned long long g_phase_cycles[kPhases];
+#define PHASE(i)                                               \
+  do {                                                         \
+    if (tid == 0) {                                            \
+      const long long now = clock64();                         \
+      s_phase[i] += (unsigned long long)(now - t_last);        \
+      t_last = now;                                            \
+    }                                                          \
+  } while (0)
+#else
+#define PHASE(i) \
+  do {           \
+  } while (0)
+#endif
+
+// The shared arrays' word offsets, kept in shared memory so that they
+// cost no registers across the step loop: SM(name) is a float*,
+// SU(name) an unsigned*.
+constexpr int kLayoutFields = sizeof(Layout) / sizeof(size_t);
+#define SM(name) (smem + s_off[offsetof(Layout, name) / sizeof(size_t)])
+#define SU(name) reinterpret_cast<unsigned*>(SM(name))
+#define SI(name) reinterpret_cast<int*>(SM(name))
+
+__device__ __forceinline__ bool bit(const unsigned* bits, size_t i) {
+  return (bits[i >> 5] >> (i & 31)) & 1u;
+}
+
+// bits[i] = src[i] != 0 for i < count, one warp-wide ballot per 32.
+__device__ __forceinline__ void pack_bits(unsigned* bits, const bool* src,
+                                          int count, int warp, int lane) {
+  for (int base = warp * 32; base < count; base += kThreads) {
+    const int i = base + lane;
+    const unsigned word = __ballot_sync(0xffffffffu, i < count && src[i]);
+    if (lane == 0) bits[base >> 5] = word;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) window_kernel(Params P) {
-  extern __shared__ float smem[];
-  const int B = P.B, n = P.n, E = P.E, K = P.K, R = P.B + P.n;
-  const int ld = row_stride(K);    // shared row stride
-  float* rows = smem;              // [R, ld]
-  float* wrow = rows + (size_t)R * ld;  // [B, ld] pi_n * (beta - eps)
-  float* th0 = wrow + (size_t)B * ld;
-  float* th1 = th0 + K;
-  float* bet = th1 + K;
-  float* yf = bet + K;             // [B, n]  this step's pair labels
-  float* mf = yf + B * n;          // [B, n]  pair mask
-  float* coef_a = mf + B * n;      // [B, n]  s/p * mask
-  float* phis = coef_a + B * n;    // [B]
-  float* ce = phis + B;            // [B]
-  float* nval = ce + B;            // [B]
-  float* rsum = nval + B;          // [B]
-  float* nmask = rsum + B;         // [B]
-  float* yef = nmask + B;          // [E] edge labels
-  float* emf = yef + E;            // [E] edge mask
-  float* prsum = emf + E;          // [E] sum_k probs + prob_0
-  int* lu = reinterpret_cast<int*>(prsum + E);  // [E] endpoint lanes
-  int* lv = lu + E;                              // [E]
-  int* mc = lv + E;                              // [R] read codes
-
+  extern __shared__ __align__(16) float smem[];
+  __shared__ unsigned s_off[kLayoutFields];
+#ifdef WINDOW_PHASES
+  __shared__ unsigned long long s_phase[kPhases];
+  long long t_last = clock64();
+#endif
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int B = P.B, n = P.n, E = P.E, K = P.K, T = P.T, R = P.B + P.n;
+  const int KW = P.kw;                      // slice width of the layout
+  const int k0 = rank * KW;
+  const int kw = min(K, k0 + KW) - k0;      // this CTA's columns
+  const int ld = row_stride(KW);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
   const float eps = P.eps;
-
-  // this block's chain: its slice of every operand
-  const size_t chain = blockIdx.x;
-  const size_t TB = (size_t)P.T * B, TE = (size_t)P.T * E;
-  const float* g_in = P.g + chain * P.T * R * K;
-  const float* sums_in = P.sums + chain * TB;
-  const bool* y_in = P.y + chain * TB * n;
-  const int* nodes_in = P.nodes + chain * TB;
-  const int* nbrs_in = P.nbrs + chain * P.T * n;
-  const bool* node_mask_in = P.node_mask + chain * TB;
-  const float* noise_in = P.noise + chain * TB * K;
-  const float* bnoise_in = P.bnoise + chain * P.T * K * 2;
-  const bool* y_edges_in = P.y_edges + chain * TE;
-  const bool* edge_mask_in = P.edge_mask + chain * TE;
-  const int* lanes_u_in = P.lanes_u + chain * TE;
-  const int* lanes_v_in = P.lanes_v + chain * TE;
-  const int* mcode_in = P.mcode + chain * P.T * R;
-  const float* wts_in = P.wts + chain * P.T;
-  float* rows_out = P.rows_out + chain * TB * K;
-  float* sums_out = P.sums_out + chain * TB;
-
-  for (int k = tid; k < K; k += blockDim.x) {
-    th0[k] = P.theta_in[chain * K * 2 + 2 * k];
-    th1[k] = P.theta_in[chain * K * 2 + 2 * k + 1];
-    bet[k] = P.beta_in[chain * K + k];
+  if (tid == 0) {
+    const Layout L = layout(T, B, n, E, KW, S);
+    const size_t* f = reinterpret_cast<const size_t*>(&L);
+    for (int i = 0; i < kLayoutFields; ++i) s_off[i] = (unsigned)f[i];
+#ifdef WINDOW_PHASES
+    for (int i = 0; i < kPhases; ++i) s_phase[i] = 0;
+#endif
   }
-  // zero the row padding once: the vector loads of step 2 read it
-  for (int i = tid; i < (R + B) * (ld - K); i += blockDim.x)
-    rows[(i / (ld - K)) * ld + K + i % (ld - K)] = 0.f;
 
-  for (int t = 0; t < P.T; ++t) {
-    // ---- 0. the step's small operands, staged once -------------------
-    for (int r = tid; r < R; r += blockDim.x) mc[r] = mcode_in[(size_t)t * R + r];
-    for (int b = tid; b < B; b += blockDim.x) {
-      const int c = mcode_in[(size_t)t * R + b];
-      phis[b] = c > 0 ? sums_out[c - 1] : sums_in[(size_t)t * B + b];
-      nmask[b] = node_mask_in[(size_t)t * B + b] ? 1.f : 0.f;
-    }
-    for (int i = tid; i < B * n; i += blockDim.x) {
-      const int b = i / n, j = i - b * n;
-      yf[i] = y_in[(size_t)t * B * n + i] ? 1.f : 0.f;
-      // a shared neighbor that is the node itself is excluded
-      mf[i] = nbrs_in[(size_t)t * n + j] != nodes_in[(size_t)t * B + b] ? 1.f : 0.f;
-    }
-    for (int e = tid; e < E; e += blockDim.x) {
-      yef[e] = y_edges_in[(size_t)t * E + e] ? 1.f : 0.f;
-      emf[e] = edge_mask_in[(size_t)t * E + e] ? 1.f : 0.f;
-      lu[e] = lanes_u_in[(size_t)t * E + e];
-      lv[e] = lanes_v_in[(size_t)t * E + e];
-    }
-    __syncthreads();
+  // this cluster's chain: its block of pi and its slice of every operand
+  // ([C, T, ...] chain-major; the offsets are taken where they are used)
+  const size_t chain = blockIdx.x / S;
+  const size_t TB = (size_t)T * B, TE = (size_t)T * E;
+  float* const pi_c = P.pi + chain * P.N * K;
+  float* const sum_c = P.phi_sum + chain * P.N;
+  __syncthreads();
 
-    // ---- 1. corrected reads, one warp per row: a row an earlier step
-    //         of the window wrote comes from the staging buffer; node
-    //         rows also give w = pi_n * (beta - eps) ---------------------
-    const float* gt = g_in + (size_t)t * R * K;
-    for (int r = warp; r < R; r += nwarps) {
-      const int c = mc[r];
-      const float* src = c > 0 ? rows_out + (size_t)(c - 1) * K
-                               : gt + (size_t)r * K;
-#pragma unroll 4
-      for (int k = lane; k < K; k += 32) {
-        const float v = src[k];
-        rows[r * ld + k] = v;
-        if (r < B) wrow[r * ld + k] = v * (bet[k] - eps);
+  // The window's indices, labels, masks and lane maps, once: ids and
+  // codes as ints, the bool arrays as bits, the two lane maps packed.
+  {
+    int* smc = SI(smc);
+    int* snodes = SI(snodes);
+    int* snbrs = SI(snbrs);
+    unsigned* slanes = SU(slanes);
+    for (int i = tid; i < T * R; i += kThreads) smc[i] = P.mcode[chain * T * R + i];
+    for (int i = tid; i < T * B; i += kThreads) snodes[i] = P.nodes[chain * TB + i];
+    for (int i = tid; i < T * n; i += kThreads) snbrs[i] = P.nbrs[chain * T * n + i];
+    for (int i = tid; i < T * E; i += kThreads)
+      slanes[i] = (unsigned)P.lanes_u[chain * TE + i]
+                  | ((unsigned)P.lanes_v[chain * TE + i] << 16);
+    pack_bits(SU(ybits), P.y + chain * TB * n, T * B * n, warp, lane);
+    pack_bits(SU(mbits), P.node_mask + chain * TB, T * B, warp, lane);
+    pack_bits(SU(yebits), P.y_edges + chain * TE, T * E, warp, lane);
+    pack_bits(SU(embits), P.edge_mask + chain * TE, T * E, warp, lane);
+    for (int kk = tid; kk < kw; kk += kThreads) {
+      SM(th0)[kk] = P.theta_in[chain * K * 2 + 2 * (k0 + kk)];
+      SM(th1)[kk] = P.theta_in[chain * K * 2 + 2 * (k0 + kk) + 1];
+      SM(bet)[kk] = P.beta_in[chain * K + k0 + kk];
+    }
+    // zero the columns past the slice once (both row buffers, and beta -
+    // eps): the 16-byte loads of step 2 read them
+    float* rows_a = SM(rows0);
+    for (int i = tid; i < 2 * R * (ld - kw); i += kThreads)
+      rows_a[(i / (ld - kw)) * ld + kw + i % (ld - kw)] = 0.f;
+    for (int kk = tid; kk < (KW + 3) / 4 * 4; kk += kThreads)
+      SM(bme)[kk] = kk < kw ? P.beta_in[chain * K + k0 + kk] - eps : 0.f;
+  }
+  __syncthreads();
+
+  // The gather of step t into the buffers of parity p, asynchronously
+  // (one group): this CTA's columns of the lanes whose row holds its
+  // pre-window value, their phi sums, and the step's noise slices. A
+  // warp copies rpp rows per pass, lane `sub` of them, chunks c0, c0 +
+  // cstep, ... of it.
+  const bool vec = (K % 4 == 0) && (KW % 4 == 0);
+  const int width = vec ? 4 : 1;
+  const int nchunk = (kw + width - 1) / width;
+  const int rpp = nchunk < 32 ? 32 / nchunk : 1;
+  const int sub = nchunk < 32 ? lane / nchunk : 0;
+  const int c0 = nchunk < 32 ? lane - sub * nchunk : lane;
+  const int cstep = nchunk < 32 ? nchunk : 32;
+  auto copy = [&](float* dst, const float* src) {
+    if (vec)
+      cp_async16(dst, src);
+    else
+      cp_async4(dst, src);
+  };
+  auto gather = [&](int t, int p) {
+    const int* mct = SI(smc) + t * R;
+    const int* nd = SI(snodes) + t * B;
+    const int* nb = SI(snbrs) + t * n;
+    if (sub < rpp) {
+      float* rbuf = p ? SM(rows1) : SM(rows0);
+      for (int r = warp * rpp + sub; r < R; r += kWarps * rpp) {
+        if (mct[r] > 0) continue;   // staged in-window: read after the barrier
+        // the sentinel N reads the chain's own last row (see the note)
+        const int id = r < B ? min(nd[r], P.N - 1) : nb[r - B];
+        const float* src = pi_c + (size_t)id * K + k0;
+        for (int c = c0; c < nchunk; c += cstep)
+          copy(rbuf + r * ld + c * width, src + c * width);
       }
+      float* nbuf = p ? SM(nz1) : SM(nz0);
+      const float* noise_t = P.noise + (chain * T + t) * B * K + k0;
+      for (int b = warp * rpp + sub; b < B; b += kWarps * rpp)
+        for (int c = c0; c < nchunk; c += cstep)
+          copy(nbuf + b * KW + c * width, noise_t + (size_t)b * K + c * width);
     }
-    __syncthreads();
+    float* sbuf = p ? SM(phis1) : SM(phis0);
+    for (int b = tid; b < B; b += kThreads)
+      if (mct[b] == 0) cp_async4(sbuf + b, sum_c + min(nd[b], P.N - 1));
+    float* bbuf = p ? SM(bz1) : SM(bz0);
+    const float* bnoise_t = P.bnoise + (chain * T + t) * K * 2 + 2 * k0;
+    for (int i = tid; i < (2 * kw) / width; i += kThreads)
+      copy(bbuf + i * width, bnoise_t + i * width);
+    cp_async_commit();
+  };
+  gather(0, 0);
+  PHASE(0);
 
-    // ---- 2. q = w . pi_nb and the pair coefficients: lane j of a warp
-    //         owns neighbor j, for up to kNodesPerWarp nodes at once
-    //         (16-byte loads; the row padding is zero); the warp's sums
-    //         over its lanes give the per-node e/p sum and mask count ---
-    for (int base = warp; base < B; base += kNodesPerWarp * nwarps) {
-      float s_ce[kNodesPerWarp] = {}, s_n[kNodesPerWarp] = {};
-      for (int j = lane; j < n; j += 32) {
-        const float4* pb = reinterpret_cast<const float4*>(rows + (B + j) * ld);
-        float acc[kNodesPerWarp] = {};
-        for (int k4 = 0; k4 < (K + 3) / 4; ++k4) {
-          const float4 v = pb[k4];
+  for (int t = 0; t < T; ++t) {
+    const int par = t & 1;
+#ifdef WINDOW_PHASES
+    // calibration: a bare block barrier and a bare cluster barrier
+    __syncthreads();
+    PHASE(11);
+    cluster.sync();
+    PHASE(12);
+#endif
+    // ---- 0. start step t+1's gather into the other buffers (free since
+    //         the end of step t-1); redirect this step's reads of rows an
+    //         earlier step wrote to the staged slice, one warp per row;
+    //         then wait for this step's gather --------------------------
+    if (t + 1 < T)
+      gather(t + 1, par ^ 1);
+    else
+      cp_async_commit();   // an empty group keeps the wait below uniform
+    float* const rows = par ? SM(rows1) : SM(rows0);
+    float* const phis = par ? SM(phis1) : SM(phis0);
+    {
+      const int* mc = SI(smc) + t * R;
+      const float* staged = SM(staged);
+      for (int r = warp; r < R; r += kWarps) {
+        const int c = mc[r];
+        if (c == 0) continue;
+        for (int kk = lane; kk < kw; kk += 32)
+          rows[r * ld + kk] = staged[(size_t)(c - 1) * KW + kk];
+      }
+      const float* ssum = SM(ssum);
+      for (int b = tid; b < B; b += kThreads)
+        if (mc[b] > 0) phis[b] = ssum[mc[b] - 1];
+    }
+    cp_async_wait_older();
+    __syncthreads();
+    PHASE(1);
+
+    // ---- 2. partial q = (pi_n * (beta - eps)) . pi_nb over the slice:
+    //         lane j of a warp owns neighbor j, for up to kNodesPerWarp
+    //         nodes at once (16-byte loads; the padding is zero). Node b's
+    //         partials go to the CTA that owns it (b mod S), slot [rank,
+    //         b / S, j] ------------------------------------------------------
+    {
+      const float4* bm4 = reinterpret_cast<const float4*>(SM(bme));
+      float* const qin = SM(qin);
+      const int nl = (B + S - 1) / S;
+      for (int base = warp; base < B; base += kNodesPerWarp * kWarps) {
+        for (int j = lane; j < n; j += 32) {
+          const float4* pb = reinterpret_cast<const float4*>(rows + (B + j) * ld);
+          float acc[kNodesPerWarp] = {};
+          for (int k4 = 0; k4 < (kw + 3) / 4; ++k4) {
+            const float4 v = pb[k4];
+            const float4 bm = bm4[k4];
 #pragma unroll
-          for (int q = 0; q < kNodesPerWarp; ++q) {
-            const int b = base + q * nwarps;
-            if (b < B) {
-              const float4 w = reinterpret_cast<const float4*>(wrow + b * ld)[k4];
-              acc[q] += w.x * v.x;
-              acc[q] += w.y * v.y;
-              acc[q] += w.z * v.z;
-              acc[q] += w.w * v.w;
+            for (int q = 0; q < kNodesPerWarp; ++q) {
+              const int b = base + q * kWarps;
+              if (b < B) {
+                const float4 x = reinterpret_cast<const float4*>(rows + b * ld)[k4];
+                acc[q] += (x.x * bm.x) * v.x;
+                acc[q] += (x.y * bm.y) * v.y;
+                acc[q] += (x.z * bm.z) * v.z;
+                acc[q] += (x.w * bm.w) * v.w;
+              }
             }
           }
-        }
 #pragma unroll
-        for (int q = 0; q < kNodesPerWarp; ++q) {
-          const int b = base + q * nwarps;
-          if (b >= B) continue;
+          for (int q = 0; q < kNodesPerWarp; ++q) {
+            const int b = base + q * kWarps;
+            if (b < B)
+              cluster.map_shared_rank(qin, b % S)[(rank * nl + b / S) * n + j] = acc[q];
+          }
+        }
+      }
+    }
+    cluster.sync();
+    PHASE(2);
+
+    // ---- 2b. each CTA finishes its own nodes (b mod S == rank, one warp
+    //          per node): q summed over the ranks in order, the pair
+    //          coefficients, the e/p sum, the mask count, 1/phi and
+    //          N/n_valid, pushed to every CTA of the cluster -------------
+    {
+      const unsigned* ybits = SU(ybits);
+      const int* nd = SI(snodes) + t * B;
+      const int* nb = SI(snbrs) + t * n;
+      const size_t ybase = (size_t)t * B * n;
+      const float* qin = SM(qin);
+      const int nl = (B + S - 1) / S;
+      for (int lb = warp; lb * S + rank < B; lb += kWarps) {
+        const int b = lb * S + rank;
+        float s_ce = 0.f, s_n = 0.f;
+        for (int j = lane; j < n; j += 32) {
+          float q = 0.f;
+          for (int r = 0; r < S; ++r) q += qin[(r * nl + lb) * n + j];
           const int pair = b * n + j;
-          const float y = yf[pair], m = mf[pair];
+          const float y = bit(ybits, ybase + pair) ? 1.f : 0.f;
+          // a shared neighbor that is the node itself is excluded
+          const float m = nb[j] != nd[b] ? 1.f : 0.f;
           const float sgn = 2.f * y - 1.f;
           const float e = y > 0.5f ? eps : P.one_minus_eps;
-          float p = sgn * acc[q] + e;
+          float p = sgn * q + e;
           if (!(m > 0.5f)) p = 1.f;   // masked lanes must not turn into NaN
           const float inv_p = 1.f / p;
-          coef_a[pair] = sgn * inv_p * m;
-          s_ce[q] += e * inv_p * m;
-          s_n[q] += m;
+          const float a = sgn * inv_p * m;
+          for (int x = 0; x < S; ++x) cluster.map_shared_rank(SM(coef), x)[pair] = a;
+          s_ce += e * inv_p * m;
+          s_n += m;
         }
-      }
-#pragma unroll
-      for (int q = 0; q < kNodesPerWarp; ++q) {
-        const float a = warp_sum(s_ce[q]), c = warp_sum(s_n[q]);
-        const int b = base + q * nwarps;
-        if (lane == 0 && b < B) {
-          ce[b] = a;
-          nval[b] = c;
+        s_ce = warp_sum(s_ce);
+        s_n = warp_sum(s_n);
+        if (lane < S) {   // lane x writes CTA x's copy
+          cluster.map_shared_rank(SM(ce), lane)[b] = s_ce;
+          cluster.map_shared_rank(SM(nval), lane)[b] = s_n;
+          cluster.map_shared_rank(SM(scale), lane)[b] = P.n_nodes / s_n;
+          cluster.map_shared_rank(SM(invphi), lane)[b] = 1.f / phis[b];
         }
       }
     }
-    __syncthreads();
+    cluster.sync();
+    PHASE(3);
 
-    // ---- 3. contrib and the phi SGRLD step: a thread owns column k of
-    //         a group of nodes and keeps that column of the neighbor
-    //         rows in registers; phi' overwrites the node's own row ------
-    const float eps_t = P.eps_phi[t];
-    const float* noise_t = noise_in + (size_t)t * B * K;
-    const int groups = blockDim.x >= K ? blockDim.x / K : 1;
-    for (int item = tid; item < K * groups; item += blockDim.x) {
-      const int k = item % K, grp = item / K;
-      float col[kMaxNeighbors];
-#pragma unroll
-      for (int j = 0; j < kMaxNeighbors; ++j)
-        col[j] = j < n ? rows[(B + j) * ld + k] : 0.f;
-      const float bk = bet[k] - eps;
-      for (int b = grp; b < B; b += groups) {
-        const float xi = noise_t[b * K + k];
-        float acc = 0.f;
+    // ---- 3. contrib and the phi SGRLD step on the slice: a thread owns
+    //         column kk of a group of nodes and keeps that column of the
+    //         neighbor rows in registers; two nodes at a time, so that two
+    //         chains of FMAs interleave; phi' overwrites the node row -----
+    {
+      const float eps_t = P.eps_phi[t];
+      const float* nz = par ? SM(nz1) : SM(nz0);
+      const float* coef_a = SM(coef);
+      const float* ce = SM(ce);
+      const float* nval = SM(nval);
+      const float* scale = SM(scale);
+      const float* invphi = SM(invphi);
+      const float* bme = SM(bme);
+      const bool coef4 = (KW % 4 == 0) && (n % 4 == 0);
+      const int groups = kThreads >= kw ? kThreads / kw : 1;
+      const int grp0 = tid / kw;
+      auto finish = [&](int b, int kk, float acc, float bk) {
+        const float s_contrib = bk * acc + ce[b];
+        const float grads = (s_contrib - nval[b]) * invphi[b];
+        const float phi_k = rows[b * ld + kk] * phis[b];
+        const float v = fabsf(phi_k
+                              + eps_t / 2.f * (P.alpha - phi_k + scale[b] * grads)
+                              + sqrtf(eps_t * phi_k) * nz[b * KW + kk]);
+        rows[b * ld + kk] = fmaxf(v, 1e-24f);
+      };
+      for (int item = tid; item < kw * groups; item += kThreads) {
+        const int grp = item == tid ? grp0 : item / kw;
+        const int kk = item - grp * kw;
+        float col[kMaxNeighbors];
 #pragma unroll
         for (int j = 0; j < kMaxNeighbors; ++j)
-          if (j < n) acc += coef_a[b * n + j] * col[j];
-        const float s_contrib = bk * acc + ce[b];
-        const float grads = (s_contrib - nval[b]) * (1.f / phis[b]);
-        const float phi_k = rows[b * ld + k] * phis[b];
-        const float v = fabsf(phi_k
-                              + eps_t / 2.f * (P.alpha - phi_k + (P.n_nodes / nval[b]) * grads)
-                              + sqrtf(eps_t * phi_k) * xi);
-        rows[b * ld + k] = fmaxf(v, 1e-24f);
+          col[j] = j < n ? rows[(B + j) * ld + kk] : 0.f;
+        const float bk = bme[kk];
+        for (int b = grp; b < B; b += 2 * groups) {
+          const int b2 = b + groups < B ? b + groups : b;   // b again: discarded
+          float acc = 0.f, acc2 = 0.f;
+          if (coef4) {
+            const float4* cb = reinterpret_cast<const float4*>(coef_a + b * n);
+            const float4* cb2 = reinterpret_cast<const float4*>(coef_a + b2 * n);
+#pragma unroll
+            for (int j4 = 0; j4 < kMaxNeighbors / 4; ++j4) {
+              if (4 * j4 < n) {
+                const float4 c = cb[j4], c2 = cb2[j4];
+                acc += c.x * col[4 * j4];
+                acc2 += c2.x * col[4 * j4];
+                acc += c.y * col[4 * j4 + 1];
+                acc2 += c2.y * col[4 * j4 + 1];
+                acc += c.z * col[4 * j4 + 2];
+                acc2 += c2.z * col[4 * j4 + 2];
+                acc += c.w * col[4 * j4 + 3];
+                acc2 += c2.w * col[4 * j4 + 3];
+              }
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < kMaxNeighbors; ++j) {
+              if (j < n) {
+                acc += coef_a[b * n + j] * col[j];
+                acc2 += coef_a[b2 * n + j] * col[j];
+              }
+            }
+          }
+          finish(b, kk, acc, bk);
+          if (b2 != b) finish(b2, kk, acc2, bk);
+        }
       }
     }
     __syncthreads();
+    PHASE(4);
 
-    // ---- 4. row sums of phi', one warp per row -------------------------
-    for (int b = warp; b < B; b += nwarps) {
+    // ---- 4. row sums of phi': the partial of each row (one warp per row)
+    //         goes to every CTA, slot [rank, b] ----------------------------
+    for (int b = warp; b < B; b += kWarps) {
       float acc = 0.f;
-      for (int k = lane; k < K; k += 32) acc += rows[b * ld + k];
+      for (int kk = lane; kk < kw; kk += 32) acc += rows[b * ld + kk];
       acc = warp_sum(acc);
-      if (lane == 0) rsum[b] = acc;
+      if (lane < S) cluster.map_shared_rank(SM(rin), lane)[rank * B + b] = acc;
     }
-    __syncthreads();
+    cluster.sync();
+    PHASE(5);
 
-    // ---- 5. normalize, stage, sanitize masked lanes for the beta stage
-    for (int i = tid; i < B * K; i += blockDim.x) {
-      const int b = i / K, k = i - b * K;
-      const float r = rows[b * ld + k] / rsum[b];
-      rows_out[(size_t)t * B * K + i] = r;
-      rows[b * ld + k] = nmask[b] > 0.5f ? r : P.inv_k;
-    }
-    for (int b = tid; b < B; b += blockDim.x)
-      sums_out[(size_t)t * B + b] = rsum[b];
-    __syncthreads();
-
-    // ---- 6. per-edge sums, one warp per edge ---------------------------
-    for (int e = warp; e < E; e += nwarps) {
-      const float* pu = rows + lu[e] * ld;
-      const float* pv = rows + lv[e] * ld;
-      const bool link = yef[e] > 0.5f;
-      float s_pp = 0.f, s_pr = 0.f;
-      for (int k = lane; k < K; k += 32) {
-        const float pp = pu[k] * pv[k];
-        s_pp += pp;
-        s_pr += (link ? bet[k] : 1.f - bet[k]) * pp;
+    // ---- 5. the row sums (ranks in order), normalize and stage, one warp
+    //         per row; masked lanes read 1/K in the beta stage -------------
+    {
+      const float* rin = SM(rin);
+      const unsigned* mbits = SU(mbits);
+      float* staged = SM(staged) + (size_t)t * B * KW;
+      float* ssum = SM(ssum) + (size_t)t * B;
+      for (int b = warp; b < B; b += kWarps) {
+        float rs = 0.f;
+        for (int r = 0; r < S; ++r) rs += rin[r * B + b];
+        const bool valid = bit(mbits, (size_t)t * B + b);
+        for (int kk = lane; kk < kw; kk += 32) {
+          const float v = rows[b * ld + kk] / rs;
+          staged[b * KW + kk] = v;
+          rows[b * ld + kk] = valid ? v : P.inv_k;
+        }
+        if (lane == 0) ssum[b] = rs;
       }
-      s_pp = warp_sum(s_pp);
-      s_pr = warp_sum(s_pr);
-      if (lane == 0)
-        prsum[e] = s_pr + (link ? eps : P.one_minus_eps) * (1.f - s_pp);
     }
     __syncthreads();
+    PHASE(6);
 
-    // ---- 7. gradient fan-in and the theta SGRLD step, one thread per k
-    // Labels are exactly 0 or 1, so (1-y)/theta0 and y/theta1 are exactly
-    // 0 or 1/theta: one division per edge instead of three.
-    const float eps_b = P.eps_theta[t];
-    const float wt = wts_in[t];
-    const float* bnoise_t = bnoise_in + (size_t)t * K * 2;
-    for (int k = tid; k < K; k += blockDim.x) {
-      const float t0 = th0[k], t1 = th1[k], bk = bet[k];
-      const float inv_ts = 1.f / (t0 + t1);
-      const float inv_t0 = 1.f / t0, inv_t1 = 1.f / t1;
-      float g0 = 0.f, g1 = 0.f;
-      for (int e = 0; e < E; ++e) {
-        const bool link = yef[e] > 0.5f;
-        const float m = emf[e];
-        const float pp = rows[lu[e] * ld + k] * rows[lv[e] * ld + k];
-        const float f = ((link ? bk : 1.f - bk) * pp) / prsum[e];
-        g0 += (f * ((link ? 0.f : inv_t0) - inv_ts)) * m;
-        g1 += (f * ((link ? inv_t1 : 0.f) - inv_ts)) * m;
+    // ---- 6. per-edge sums: the partials of each edge (one warp per edge)
+    //         go to every CTA, slot [rank, e] -----------------------------
+    const unsigned* const slanes = SU(slanes) + t * E;
+    const unsigned* const yebits = SU(yebits);
+    {
+      const float* bet = SM(bet);
+      for (int e = warp; e < E; e += kWarps) {
+        const unsigned pk = slanes[e];
+        const float* pu = rows + (pk & 0xffffu) * ld;
+        const float* pv = rows + (pk >> 16) * ld;
+        const bool link = bit(yebits, (size_t)t * E + e);
+        float s_pp = 0.f, s_pr = 0.f;
+        for (int kk = lane; kk < kw; kk += 32) {
+          const float pp = pu[kk] * pv[kk];
+          s_pp += pp;
+          s_pr += (link ? bet[kk] : 1.f - bet[kk]) * pp;
+        }
+        s_pp = warp_sum(s_pp);
+        s_pr = warp_sum(s_pr);
+        if (lane < S) {
+          float* peer = cluster.map_shared_rank(SM(ein), lane);
+          peer[(rank * E + e) * 2] = s_pp;
+          peer[(rank * E + e) * 2 + 1] = s_pr;
+        }
       }
-      float n0 = fabsf(t0 + eps_b / 2.f * (P.eta0 - t0 + wt * g0)
-                       + sqrtf(eps_b * t0) * bnoise_t[2 * k]);
-      float n1 = fabsf(t1 + eps_b / 2.f * (P.eta1 - t1 + wt * g1)
-                       + sqrtf(eps_b * t1) * bnoise_t[2 * k + 1]);
-      n0 = fmaxf(n0, 1e-24f);
-      n1 = fmaxf(n1, 1e-24f);
-      th0[k] = n0;
-      th1[k] = n1;
-      bet[k] = n1 / (n0 + n1);
+    }
+    cluster.sync();
+    PHASE(7);
+
+    // ---- 7. gradient fan-in: warp w takes the edges e = w mod kWarps
+    // (their sums over the ranks in order) for lane-strided columns; then
+    // one thread per column adds the kWarps partials in warp order and
+    // takes the theta SGRLD step. Labels are exactly 0 or 1, so
+    // (1-y)/theta0 and y/theta1 are exactly 0 or 1/theta: one division per
+    // edge instead of three.
+    {
+      const unsigned* embits = SU(embits);
+      const float* ein = SM(ein);
+      const float* th0 = SM(th0);
+      const float* th1 = SM(th1);
+      const float* bet = SM(bet);
+      float* gpart = SM(gpart);
+      for (int kk = lane; kk < kw; kk += 32) {
+        const float t0 = th0[kk], t1 = th1[kk], bk = bet[kk];
+        const float inv_ts = 1.f / (t0 + t1);
+        const float inv_t0 = 1.f / t0, inv_t1 = 1.f / t1;
+        float g0 = 0.f, g1 = 0.f;
+        for (int e = warp; e < E; e += kWarps) {
+          const bool link = bit(yebits, (size_t)t * E + e);
+          float s_pp = 0.f, s_pr = 0.f;
+          for (int r = 0; r < S; ++r) {
+            s_pp += ein[(r * E + e) * 2];
+            s_pr += ein[(r * E + e) * 2 + 1];
+          }
+          const float prsum = s_pr + (link ? eps : P.one_minus_eps) * (1.f - s_pp);
+          const float m = bit(embits, (size_t)t * E + e) ? 1.f : 0.f;
+          const unsigned pk = slanes[e];
+          const float pp = rows[(pk & 0xffffu) * ld + kk] * rows[(pk >> 16) * ld + kk];
+          const float f = ((link ? bk : 1.f - bk) * pp) / prsum;
+          g0 += (f * ((link ? 0.f : inv_t0) - inv_ts)) * m;
+          g1 += (f * ((link ? inv_t1 : 0.f) - inv_ts)) * m;
+        }
+        gpart[(warp * KW + kk) * 2] = g0;
+        gpart[(warp * KW + kk) * 2 + 1] = g1;
+      }
     }
     __syncthreads();
+    PHASE(8);
+    {
+      const float eps_b = P.eps_theta[t];
+      const float wt = P.wts[chain * T + t];
+      const float* bz = par ? SM(bz1) : SM(bz0);
+      const float* gpart = SM(gpart);
+      float* th0 = SM(th0);
+      float* th1 = SM(th1);
+      float* bet = SM(bet);
+      float* bme = SM(bme);
+      for (int kk = tid; kk < kw; kk += kThreads) {
+        float g0 = 0.f, g1 = 0.f;
+        for (int w = 0; w < kWarps; ++w) {
+          g0 += gpart[(w * KW + kk) * 2];
+          g1 += gpart[(w * KW + kk) * 2 + 1];
+        }
+        const float t0 = th0[kk], t1 = th1[kk];
+        float n0 = fabsf(t0 + eps_b / 2.f * (P.eta0 - t0 + wt * g0)
+                         + sqrtf(eps_b * t0) * bz[2 * kk]);
+        float n1 = fabsf(t1 + eps_b / 2.f * (P.eta1 - t1 + wt * g1)
+                         + sqrtf(eps_b * t1) * bz[2 * kk + 1]);
+        n0 = fmaxf(n0, 1e-24f);
+        n1 = fmaxf(n1, 1e-24f);
+        th0[kk] = n0;
+        th1[kk] = n1;
+        bet[kk] = n1 / (n0 + n1);
+        bme[kk] = bet[kk] - eps;
+      }
+    }
+    __syncthreads();
+    PHASE(9);
   }
 
-  for (int k = tid; k < K; k += blockDim.x) {
-    P.theta_out[chain * K * 2 + 2 * k] = th0[k];
-    P.theta_out[chain * K * 2 + 2 * k + 1] = th1[k];
-    P.beta_out[chain * K + k] = bet[k];
+  // ---- 8. the scatter: the rows _last_write_wins keeps (unique rows; the
+  //         CTAs own disjoint columns, so no address is written twice),
+  //         their sums by CTA 0, theta and beta by slice. Every read of pi
+  //         and phi_sum in this cluster came before the barriers above. --
+  {
+    const bool* keep = P.keep + chain * TB;
+    const int* snodes = SI(snodes);
+    const float* staged = SM(staged);
+    for (int tb = warp; tb < T * B; tb += kWarps) {
+      if (!keep[tb]) continue;
+      float* dst = pi_c + (size_t)snodes[tb] * K + k0;
+      for (int kk = lane; kk < kw; kk += 32) dst[kk] = staged[(size_t)tb * KW + kk];
+    }
+    if (rank == 0) {
+      const float* ssum = SM(ssum);
+      for (int tb = tid; tb < T * B; tb += kThreads)
+        if (keep[tb]) sum_c[snodes[tb]] = ssum[tb];
+    }
+    for (int kk = tid; kk < kw; kk += kThreads) {
+      P.theta_out[chain * K * 2 + 2 * (k0 + kk)] = SM(th0)[kk];
+      P.theta_out[chain * K * 2 + 2 * (k0 + kk) + 1] = SM(th1)[kk];
+      P.beta_out[chain * K + k0 + kk] = SM(bet)[kk];
+    }
   }
+  // the peers may still be reading this CTA's last partials
+  cluster.sync();
+  PHASE(10);
+#ifdef WINDOW_PHASES
+  if (tid == 0 && blockIdx.x == 0)
+    for (int i = 0; i < kPhases; ++i) g_phase_cycles[i] += s_phase[i];
+#endif
 }
+
+#undef SM
+#undef SU
+#undef SI
 
 }  // namespace
 
-extern "C" size_t window_kernel_smem_bytes(int B, int n, int E, int K) {
-  return smem_words(B, n, E, K) * sizeof(float);
+// Bytes of shared memory per CTA with a cluster of S CTAs.
+extern "C" size_t window_kernel_smem_bytes(int T, int B, int n, int E, int K,
+                                           int S) {
+  return layout(T, B, n, E, slice_width(K, S), S).total * sizeof(float);
 }
 
-// Launches C blocks (one per chain) on `stream`; returns
-// cudaGetLastError() (0 on success). Every array holds the C chains'
+// Launches C clusters of S CTAs (one cluster per chain) on `stream`;
+// returns the launch's CUDA error (0 on success). pi [C*N, K] and
+// phi_sum [C*N] are updated in place; every operand holds the C chains'
 // slices one after another (chain-major); `eps_phi` and `eps_theta` are
 // host arrays of T floats, shared by the chains.
 extern "C" int window_kernel_launch(
-    const float* g, const float* sums, const bool* y, const int* nodes,
-    const int* nbrs, const bool* node_mask, const float* noise,
-    const float* bnoise, const bool* y_edges, const bool* edge_mask,
-    const int* lanes_u, const int* lanes_v, const int* mcode,
-    const float* wts, const float* theta_in, const float* beta_in,
-    float* rows_out, float* sums_out, float* theta_out, float* beta_out,
-    int C, int T, int B, int n, int E, int K, float eps, float one_minus_eps,
+    float* pi, float* phi_sum, const bool* y, const int* nodes,
+    const int* nbrs, const bool* node_mask, const bool* keep,
+    const float* noise, const float* bnoise, const bool* y_edges,
+    const bool* edge_mask, const int* lanes_u, const int* lanes_v,
+    const int* mcode, const float* wts, const float* theta_in,
+    const float* beta_in, float* theta_out, float* beta_out, int C, int T,
+    int B, int n, int E, int K, int N, int S, float eps, float one_minus_eps,
     float alpha, float n_nodes, float eta0, float eta1, float inv_k,
     const float* eps_phi, const float* eps_theta, void* stream) {
-  if (C < 1 || n > kMaxNeighbors || T > kMaxWindow)
+  // lanes are packed in 16 bits each
+  if (C < 1 || T < 1 || T > kMaxWindow || n > kMaxNeighbors || S < 1
+      || S > kMaxCluster || B > 0xffff)
     return (int)cudaErrorInvalidValue;
-  Params P{g, sums, y, nodes, nbrs, node_mask, noise, bnoise, y_edges,
-           edge_mask, lanes_u, lanes_v, mcode, wts, theta_in, beta_in,
-           rows_out, sums_out, theta_out, beta_out, T, B, n, E, K,
+  const int kw = slice_width(K, S);
+  if ((S - 1) * kw >= K) return (int)cudaErrorInvalidValue;  // empty slice
+  Params P{pi, phi_sum, y, nodes, nbrs, node_mask, keep, noise, bnoise,
+           y_edges, edge_mask, lanes_u, lanes_v, mcode, wts, theta_in,
+           beta_in, theta_out, beta_out, T, B, n, E, K, N, kw,
            eps, one_minus_eps, alpha, n_nodes, eta0, eta1, inv_k, {}, {}};
   for (int t = 0; t < T; ++t) {
     P.eps_phi[t] = eps_phi[t];
     P.eps_theta[t] = eps_theta[t];
   }
-  const size_t smem = window_kernel_smem_bytes(B, n, E, K);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = window_kernel_smem_bytes(T, B, n, E, K, S);
+  cudaError_t err = cudaFuncSetAttribute(
+      window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (S > 8) {
+    err = cudaFuncSetAttribute(
+        window_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
   }
-  window_kernel<<<C, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(P);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * S);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, window_kernel, P);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
+
+// The most clusters of S CTAs (with their shared memory) that the card
+// runs at once, or a negative CUDA error.
+extern "C" int window_kernel_max_clusters(int T, int B, int n, int E, int K,
+                                          int S) {
+  const size_t smem = window_kernel_smem_bytes(T, B, n, E, K, S);
+  cudaError_t err = cudaFuncSetAttribute(
+      window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && S > 8)
+    err = cudaFuncSetAttribute(
+        window_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, window_kernel, &cfg);
+  return err == cudaSuccess ? clusters : -(int)err;
+}
+
+#ifdef WINDOW_PHASES
+// Copies the phase cycles out (kPhases values) and zeroes them.
+extern "C" int window_kernel_phases(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_phase_cycles,
+                                         sizeof(g_phase_cycles));
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long zero[kPhases] = {};
+  return (int)cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero));
+}
+#endif

@@ -293,20 +293,33 @@ def _read_stats(res: ppx_ops.PpxResult) -> dict:
 # Orchestration
 # ---------------------------------------------------------------------------
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; raises for a CUDA device on a
+    machine without one. The entry points run on the card unless the
+    caller asks for the CPU: there is no quiet fallback."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(dev)!r}: no CUDA device is "
+                           f"available (pass device='cpu' to run on the "
+                           f"CPU)")
+    return dev
+
+
 class Learner:
     """Owns config, graph structures, device state and RNG streams.
 
     The model lives in four methods, which ``models/mmsb.FullMMSBLearner``
     overrides: ``_check`` (the config guards), ``_init_state``,
     ``_train_chunk`` (device-sampled steps) and ``_evaluate`` with
-    ``_read_stats`` (one held-out evaluation)."""
+    ``_read_stats`` (one held-out evaluation). ``device`` defaults to
+    the card and raises without one (``resolve_device``)."""
 
     def __init__(self, cfg: Config, graph: Graph, split: DataSplit,
-                 device="cpu"):
+                 device="cuda"):
+        self.device = resolve_device(device)
         self._check(cfg)
         check_ported(cfg)
         self.cfg = cfg
-        self.device = torch.device(device)
         if self.device.type == "cuda":
             # the q and contrib products feed 1/p: keep them full fp32
             torch.backends.cuda.matmul.allow_tf32 = False

@@ -288,9 +288,10 @@ class FullMMSBLearner(learner.Learner):
     sequential scan (as the JAX package does when its TPU envelope is
     exceeded) and the decision is logged with its numbers."""
 
-    def __init__(self, cfg: Config, graph, split, device="cpu"):
+    def __init__(self, cfg: Config, graph, split, device="cuda"):
+        device = learner.resolve_device(device)
         if (cfg.window > 1 and cfg.shared_neighbors
-                and torch.device(device).type == "cuda"):
+                and device.type == "cuda"):
             from mcmc_ammsb_tpu_torch.ops import window_mmsb
 
             fits, why = window_mmsb.window_fits(cfg, device)

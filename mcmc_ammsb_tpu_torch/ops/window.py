@@ -1,24 +1,29 @@
 """T-step windowed training loop (counterpart of
 ``mcmc_ammsb_tpu/ops/window.py``).
 
-Each window of T steps is
+Each window of T steps is what the JAX package's ``windowed_scan`` does
+with ``window_correction="always"``:
 
   1. ONE bulk gather of all T steps' pi rows ([T*(B+n)] indices);
-  2. the T sequential phi/beta/theta updates — on a CUDA tensor one
-     launch of the hand-written Hopper kernel ``csrc/window_kernel.cu``
-     (``window_core_cuda``), on a CPU tensor the plain PyTorch version
-     ``window_core_torch``;
+  2. the T sequential phi/beta/theta updates;
   3. ONE last-write-wins scatter of the T*B staged rows.
+
+On a CUDA tensor the three are one launch of the hand-written Hopper
+kernel ``csrc/window_kernel.cu`` (``window_apply_cuda``): it reads its
+rows from pi by index, runs the steps on a thread-block cluster that
+splits K (``window_cluster_size``), and writes the surviving rows back
+itself. On a CPU tensor the plain PyTorch version ``window_apply_torch``
+runs them as ``_window_gather``, ``window_core_torch`` and
+``_window_scatter``.
 
 A step may read a row that an earlier step of the same window wrote.
 ``_correction_codes`` gives every read lane the staged slot of the
-latest such write, and both cores redirect the read there, so the
-trajectory is the sequential scan's up to float reduction order. Only
-the JAX package's default ``window_correction="always"`` is ported.
+latest such write, and both versions redirect the read there, so the
+trajectory is the sequential scan's up to float reduction order.
 
 The flat chain engine (``chains_flat``) runs the windows of C chains
-through ``window_chain_core_cuda`` (the same kernel, one thread block
-per chain) and its plain version ``window_chain_core_torch``.
+through ``window_chain_apply_cuda`` (the same kernel, one cluster per
+chain) and its plain version ``window_chain_apply_torch``.
 """
 
 from __future__ import annotations
@@ -78,21 +83,11 @@ def windowed_scan(cfg: Config, state, xs, body):
     ``xs`` is the operand tuple of ``learner.hoist_operands``:
     (batches, neighbors [S,1,n], y_phi, phi_noise, beta_noise,
      y_edges, lanes_u, lanes_v)."""
-    t_win = cfg.window
+    apply = window_apply_cuda if state.pi.is_cuda else window_apply_torch
     for xs_t, mcode, keep in iter_windows(cfg, xs, xs[1][:, 0, :]):
-        batch = xs_t[0]
-        g, sums_g = _window_gather(cfg, state, batch, xs_t[1][:, 0, :])
-        core = window_core_cuda if g.is_cuda else window_core_torch
-        rows_flat, sums_flat, theta, beta = core(cfg, state, xs_t, g,
-                                                 sums_g, mcode)
-        pi, phi_sum = _window_scatter(cfg, state, batch, keep, rows_flat,
-                                      sums_flat)
-        state = state._replace(pi=pi, phi_sum=phi_sum, theta=theta,
-                               beta=beta,
-                               step_count=state.step_count + t_win,
-                               beta_count=state.beta_count + t_win)
+        state = apply(cfg, state, xs_t, mcode, keep)
     s_len = xs[1].shape[0]
-    for i in range(s_len - s_len % t_win, s_len):
+    for i in range(s_len - s_len % cfg.window, s_len):
         state = body(state, index_operands(xs, i))
     return state
 
@@ -152,8 +147,41 @@ def _window_scatter(cfg: Config, s, batch, keep, rows_flat, sums_flat):
                                 keep.reshape(-1), rows_flat, sums_flat)
 
 
+def _chain_flat_ids(nodes, n_rows: int, axis: int = 0):
+    """Chain-local ids, the chain on ``axis``, -> flat row ids of pi
+    [C*N, K]; the sentinel N becomes the flat sentinel C*N."""
+    c = nodes.shape[axis]
+    shape = [1] * nodes.dim()
+    shape[axis] = c
+    offsets = (torch.arange(c, dtype=nodes.dtype, device=nodes.device)
+               * n_rows).reshape(shape)
+    return torch.where(nodes < n_rows, nodes + offsets, c * n_rows)
+
+
+def _chain_window_gather(cfg: Config, s, xs_t):
+    """The bulk read of one window of C chains on the flat layout (the
+    JAX chain engine's): g [C, T, B+n, K] f32, sums [C, T, B]; the flat
+    sentinel C*N is clamped to C*N - 1, as JAX's gather clamps it."""
+    batch, nbrs_s = xs_t[0], xs_t[1]
+    c, t_win, b_cap = batch.nodes.shape
+    read_idx = _chain_flat_ids(torch.cat([batch.nodes, nbrs_s[..., 0, :]],
+                                         dim=-1), cfg.N)
+    read_idx = read_idx.long().clamp(max=c * cfg.N - 1)
+    g = s.pi[read_idx.reshape(-1)].float().reshape(c, t_win, -1, cfg.K)
+    sums = s.phi_sum[read_idx[..., :b_cap].reshape(-1)].reshape(
+        c, t_win, b_cap)
+    return g, sums
+
+
+def _advance(s, t_win: int, **fields):
+    """``s`` after one window: the given fields replaced, the step
+    counters advanced by T."""
+    return s._replace(step_count=s.step_count + t_win,
+                      beta_count=s.beta_count + t_win, **fields)
+
+
 # ---------------------------------------------------------------------------
-# Window core: the plain PyTorch version
+# The window: the plain PyTorch version
 # ---------------------------------------------------------------------------
 
 def window_core_torch(cfg: Config, s, xs_t, g, sums_g, mcode):
@@ -210,8 +238,39 @@ def window_chain_core_torch(cfg: Config, s, xs_t, g, sums_g, mcode):
             torch.stack(beta))
 
 
+def window_apply_torch(cfg: Config, s, xs_t, mcode, keep):
+    """One whole window with the stock torch ops: ``_window_gather``,
+    ``window_core_torch``, ``_window_scatter`` (JAX's gather, kernel and
+    scatter). ``s.pi`` and ``s.phi_sum`` are updated in place; returns
+    the state after the window."""
+    batch = xs_t[0]
+    g, sums_g = _window_gather(cfg, s, batch, xs_t[1][:, 0, :])
+    rows, sums, theta, beta = window_core_torch(cfg, s, xs_t, g, sums_g,
+                                                mcode)
+    pi, phi_sum = _window_scatter(cfg, s, batch, keep, rows, sums)
+    return _advance(s, batch.nodes.shape[0], pi=pi, phi_sum=phi_sum,
+                    theta=theta, beta=beta)
+
+
+def window_chain_apply_torch(cfg: Config, s, xs_t, mcode, keep):
+    """One whole window of C chains on the flat layout with the stock
+    torch ops: ``_chain_window_gather``, ``window_chain_core_torch`` and
+    the chain-major last-write-wins scatter (JAX's _windowed_chain_scan).
+    Operands as ``window_chain_core_torch`` takes them, ``keep``
+    [C, T, B]; ``s.pi`` [C*N, K] and ``s.phi_sum`` are updated in place."""
+    batch = xs_t[0]
+    g, sums_g = _chain_window_gather(cfg, s, xs_t)
+    rows, sums, theta, beta = window_chain_core_torch(cfg, s, xs_t, g,
+                                                      sums_g, mcode)
+    pi, phi_sum = phi_ops.scatter_rows(
+        s.pi, s.phi_sum, _chain_flat_ids(batch.nodes, cfg.N).reshape(-1),
+        keep.reshape(-1), rows, sums)
+    return _advance(s, batch.nodes.shape[1], pi=pi, phi_sum=phi_sum,
+                    theta=theta, beta=beta)
+
+
 # ---------------------------------------------------------------------------
-# Window core: the Hopper kernel
+# The window: the Hopper kernel
 # ---------------------------------------------------------------------------
 
 #: kMaxNeighbors of csrc/window_kernel.cu: the contrib loop keeps a
@@ -220,21 +279,93 @@ MAX_NEIGHBORS = 32
 #: kMaxWindow of csrc/window_kernel.cu: the step sizes of a window
 #: travel in the kernel's parameters.
 MAX_WINDOW = 64
+#: kMaxCluster of csrc/window_kernel.cu: the largest thread-block cluster.
+MAX_CLUSTER = 16
+#: Shared memory one thread block may use on an H100 (bytes).
+H100_SMEM = 232448
+#: The K split aims at about this many columns per CTA: at K = 256 a
+#: cluster of 4, of which an H100 runs 30 at once (15 of 8), so 16
+#: chains fit in one wave.
+_COLUMNS_PER_CTA = 64
+
+
+def window_slice_width(k: int, s: int) -> int:
+    """Columns per CTA with a cluster of ``s`` (``slice_width`` of
+    csrc/window_kernel.cu): ceil(K / S), rounded up to a multiple of 4
+    when K is one (16-byte copies). CTA r owns [r*w, min(K, (r+1)*w))."""
+    w = -(-k // s)
+    if k % 4 == 0:
+        w = -(-w // 4) * 4
+    return w
+
+
+def window_smem_bytes(t_win: int, b_cap: int, n_smpl: int, e_cap: int,
+                      k: int, s: int) -> int:
+    """Shared memory per CTA (``layout`` of csrc/window_kernel.cu): two
+    step row buffers [B+n, ld] and beta - eps [w, padded to 4]; two phi noise
+    slices [B, w]; the coefficients [B, n]; the staged slice [T*B, w]
+    and its sums [T*B]; theta and beta [w] x 3, two theta noise slices
+    [w, 2] and the 16 warps' fan-in partials [w, 2]; the node vectors
+    [B] x 6; the partials pushed by the cluster: q of the owned nodes
+    [S, ceil(B/S), n], row sums [S, B], edge sums [S, E, 2]; the
+    window's read codes [T, B+n], node ids [T, B], neighbor ids [T, n]
+    and lane maps [T, E]; its labels and masks as bits."""
+    w = window_slice_width(k, s)
+    q4 = -(-w // 4)
+    ld = 4 * (q4 + 1 + q4 % 2)
+    n_read = b_cap + n_smpl
+    tb, te = t_win * b_cap, t_win * e_cap
+    bits = (-(-tb * n_smpl // 32) + -(-tb // 32) + 2 * -(-te // 32))
+    words = (2 * n_read * ld + 4 * q4 + 2 * b_cap * w + 39 * w
+             + tb * (w + 1) + b_cap * n_smpl + 6 * b_cap
+             + s * (-(-b_cap // s) * n_smpl + b_cap + 2 * e_cap)
+             + t_win * (n_read + b_cap + n_smpl + e_cap) + bits)
+    return 4 * words
+
+
+@functools.lru_cache(maxsize=None)
+def window_cluster_size(t_win: int, b_cap: int, n_smpl: int, e_cap: int,
+                        k: int, smem_limit: int = H100_SMEM) -> int:
+    """The cluster size S of one chain's window, from the per-chain
+    shape and the card's shared memory per block (never from the number
+    of chains, so one C-chain launch gives the bits of C single-chain
+    launches). The first of: the powers of two from
+    min(8, ceil(K / 64)) up to 16, then any other S <= 16 — whose slices
+    are all non-empty and whose per-CTA shared memory (the window's
+    staged slice above all) fits. Raises when none does."""
+    s0 = min(8, max(1, -(-k // _COLUMNS_PER_CTA)))
+    pow2 = [s for s in (1, 2, 4, 8, 16) if s >= s0]
+    for s in pow2 + [s for s in range(1, MAX_CLUSTER + 1) if s not in pow2]:
+        if s > k or (s - 1) * window_slice_width(k, s) >= k:
+            continue
+        if window_smem_bytes(t_win, b_cap, n_smpl, e_cap, k, s) <= smem_limit:
+            return s
+    raise ValueError(
+        f"window kernel: (T, B, n, E, K) = ({t_win}, {b_cap}, {n_smpl}, "
+        f"{e_cap}, {k}) fits {smem_limit} B of shared memory per CTA at no "
+        f"cluster size <= {MAX_CLUSTER}; use a smaller --window or K")
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-@functools.cache
-def _window_lib():
-    lib = kernels.load("window_kernel")
-    lib.window_kernel_smem_bytes.argtypes = [_I, _I, _I, _I]
+def bind_window_lib(lib):
+    """Declare the C interface of a build of csrc/window_kernel.cu."""
+    lib.window_kernel_smem_bytes.argtypes = [_I] * 6
     lib.window_kernel_smem_bytes.restype = ctypes.c_size_t
-    lib.window_kernel_launch.argtypes = ([_P] * 20 + [_I] * 6 + [_F] * 7
+    lib.window_kernel_max_clusters.argtypes = [_I] * 6
+    lib.window_kernel_max_clusters.restype = _I
+    lib.window_kernel_launch.argtypes = ([_P] * 19 + [_I] * 8 + [_F] * 7
                                          + [_P] * 3)
     lib.window_kernel_launch.restype = _I
     return lib
+
+
+@functools.cache
+def _window_lib():
+    return bind_window_lib(kernels.load("window_kernel"))
 
 
 def _step_sizes(cfg: Config, first: int, t_win: int) -> np.ndarray:
@@ -247,93 +378,94 @@ def _step_sizes(cfg: Config, first: int, t_win: int) -> np.ndarray:
         f32(cfg.a) * (f32(1.0) + t / f32(cfg.b)) ** f32(-cfg.c), f32)
 
 
-def _launch(cfg: Config, s, xs_t, g, sums_g, mcode, chained: bool):
-    """One launch of ``csrc/window_kernel.cu``: one block, or with
-    ``chained`` one block per chain, every operand and ``s.theta``/
-    ``s.beta`` then carrying a leading chain axis, chain-major as
-    ``window_chain_core_torch`` takes them; the step sizes are shared."""
+def _launch(cfg: Config, s, xs_t, mcode, keep, chained: bool):
+    """One launch of ``csrc/window_kernel.cu``: one cluster, or with
+    ``chained`` one cluster per chain, every operand, ``keep`` and
+    ``s.theta``/``s.beta`` then carrying a leading chain axis,
+    chain-major as ``window_chain_core_torch`` takes them, and ``s.pi``
+    the flat [C*N, K]. Updates ``s.pi`` and ``s.phi_sum`` in place;
+    returns the state after the window."""
     batch, nbrs_s, y_w, nphi_w, nbeta_w, ye_w, lu, lv = xs_t
-    if not g.is_cuda:
+    if not s.pi.is_cuda:
         raise ValueError("the window kernel's wrappers take CUDA tensors")
-    t_win, n_read, k = g.shape[-3:]
-    b_cap = batch.nodes.shape[-1]
-    n_smpl = n_read - b_cap
+    dev = s.pi.device
+    t_win, b_cap = batch.nodes.shape[-2:]
+    n_smpl = nbrs_s.shape[-1]
     e_cap = ye_w.shape[-1]
-    lead = tuple(g.shape[:-3])
+    k = cfg.K
+    lead = tuple(batch.nodes.shape[:-2])
+    n_chains = lead[0] if chained else 1
     if (len(lead) != int(chained) or tuple(s.theta.shape) != (*lead, k, 2)
-            or tuple(s.beta.shape) != (*lead, k)):
+            or tuple(s.beta.shape) != (*lead, k)
+            or tuple(s.pi.shape) != (n_chains * cfg.N, k)
+            or tuple(keep.shape) != (*lead, t_win, b_cap)):
         raise ValueError(
             f"window kernel operands for {'C' if chained else 'one'} "
-            f"chain(s): g {tuple(g.shape)}, theta "
-            f"{tuple(s.theta.shape)}, beta {tuple(s.beta.shape)}")
-    n_chains = lead[0] if chained else 1
+            f"chain(s): nodes {tuple(batch.nodes.shape)}, pi "
+            f"{tuple(s.pi.shape)}, theta {tuple(s.theta.shape)}, beta "
+            f"{tuple(s.beta.shape)}, keep {tuple(keep.shape)}")
     if n_smpl > MAX_NEIGHBORS or t_win > MAX_WINDOW:
         raise ValueError(
             f"window kernel takes n <= {MAX_NEIGHBORS} neighbors and "
             f"windows of <= {MAX_WINDOW} steps, got n={n_smpl}, "
             f"T={t_win}; use a smaller --window or --window -1")
+    cluster = window_cluster_size(t_win, b_cap, n_smpl, e_cap, k,
+                                  kernels.smem_limit(dev))
     lib = _window_lib()
-    smem = lib.window_kernel_smem_bytes(b_cap, n_smpl, e_cap, k)
-    limit = kernels.smem_limit(g.device)
-    if smem > limit:
-        raise ValueError(
-            f"window kernel needs {smem} B of shared memory at B={b_cap}, "
-            f"n={n_smpl}, E={e_cap}, K={k}; the card gives a block "
-            f"{limit} B. Use a smaller K or --window -1.")
 
     def arg(x, dtype):
-        return kernels.pointer(x, dtype, g.device)
+        return kernels.pointer(x, dtype, dev)
 
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
-    ptrs = [arg(g, f32), arg(sums_g, f32), arg(y_w, b8),
-            arg(batch.nodes, i32), arg(nbrs_s[..., 0, :], i32),
-            arg(batch.node_mask, b8), arg(nphi_w, f32), arg(nbeta_w, f32),
-            arg(ye_w, b8), arg(batch.edge_mask, b8), arg(lu, i32),
-            arg(lv, i32), arg(mcode, i32), arg(batch.weight, f32),
-            arg(s.theta, f32), arg(s.beta, f32)]
-    rows = torch.empty(n_chains * t_win * b_cap, k, device=g.device)
-    sums = torch.empty(n_chains * t_win * b_cap, device=g.device)
     theta = torch.empty_like(s.theta)
     beta = torch.empty_like(s.beta)
+    ptrs = [arg(s.pi, f32), arg(s.phi_sum, f32), arg(y_w, b8),
+            arg(batch.nodes, i32), arg(nbrs_s[..., 0, :], i32),
+            arg(batch.node_mask, b8), arg(keep, b8), arg(nphi_w, f32),
+            arg(nbeta_w, f32), arg(ye_w, b8), arg(batch.edge_mask, b8),
+            arg(lu, i32), arg(lv, i32), arg(mcode, i32),
+            arg(batch.weight, f32), arg(s.theta, f32), arg(s.beta, f32),
+            theta.data_ptr(), beta.data_ptr()]
     eps_phi = _step_sizes(cfg, s.step_count, t_win)
     eps_theta = _step_sizes(cfg, s.beta_count + 1, t_win)
     err = lib.window_kernel_launch(
-        *ptrs, *(t.data_ptr() for t in (rows, sums, theta, beta)),
-        n_chains, t_win, b_cap, n_smpl, e_cap, k,
+        *ptrs, n_chains, t_win, b_cap, n_smpl, e_cap, k, cfg.N, cluster,
         cfg.epsilon, 1.0 - cfg.epsilon, cfg.alpha_value, float(cfg.N),
         cfg.eta0, cfg.eta1, 1.0 / k, eps_phi.ctypes.data,
-        eps_theta.ctypes.data,
-        torch.cuda.current_stream(g.device).cuda_stream)
+        eps_theta.ctypes.data, torch.cuda.current_stream(dev).cuda_stream)
     kernels.check_launch(err, "window kernel")
-    return rows, sums, theta, beta
+    return _advance(s, t_win, theta=theta, beta=beta)
 
 
-def window_core_cuda(cfg: Config, s, xs_t, g, sums_g, mcode):
-    """The same T steps as ``window_core_torch`` in one launch of
-    ``csrc/window_kernel.cu`` with one block: the JAX kernel with
-    ``n_chains = 1``. CUDA tensors only: the kernel is launched or this
-    raises — there is no fallback."""
-    out = _launch(cfg, s, xs_t, g, sums_g, mcode, chained=False)
-    window_core_cuda.launches += 1
+def window_apply_cuda(cfg: Config, s, xs_t, mcode, keep):
+    """The same window as ``window_apply_torch`` in ONE launch of
+    ``csrc/window_kernel.cu`` (one cluster): the kernel reads its rows
+    from ``s.pi``/``s.phi_sum`` by index and writes the rows ``keep``
+    selects back into them IN PLACE; theta and beta are new tensors.
+    CUDA tensors only: the kernel is launched or this raises — there is
+    no fallback."""
+    out = _launch(cfg, s, xs_t, mcode, keep, chained=False)
+    window_apply_cuda.launches += 1
     return out
 
 
-#: Launches of the window kernel in this process (reset by callers that
-#: check a run went through it).
-window_core_cuda.launches = 0
+#: Launches of the single-chain entry in this process (reset by callers
+#: that check a run went through it).
+window_apply_cuda.launches = 0
 
 
-def window_chain_core_cuda(cfg: Config, s, xs_t, g, sums_g, mcode):
-    """The same C chains' windows as ``window_chain_core_torch`` in one
-    launch of ``csrc/window_kernel.cu`` with one block per chain (the
-    JAX kernel's blocked ``n_chains = C`` mode; g [C, T, B+n, K], C >= 1).
+def window_chain_apply_cuda(cfg: Config, s, xs_t, mcode, keep):
+    """The same C chains' window as ``window_chain_apply_torch`` in ONE
+    launch of ``csrc/window_kernel.cu``, one cluster per chain (the JAX
+    kernel's blocked ``n_chains = C`` mode with its gather and scatter,
+    C >= 1); ``s.pi`` [C*N, K] and ``s.phi_sum`` are updated IN PLACE.
     CUDA tensors only: the kernel is launched or this raises."""
-    out = _launch(cfg, s, xs_t, g, sums_g, mcode, chained=True)
-    window_chain_core_cuda.launches += 1
-    window_chain_core_cuda.chains += g.shape[0]
+    out = _launch(cfg, s, xs_t, mcode, keep, chained=True)
+    window_chain_apply_cuda.launches += 1
+    window_chain_apply_cuda.chains += keep.shape[0]
     return out
 
 
 #: Launches of the chain entry, and the chains they ran in all.
-window_chain_core_cuda.launches = 0
-window_chain_core_cuda.chains = 0
+window_chain_apply_cuda.launches = 0
+window_chain_apply_cuda.chains = 0

@@ -1,0 +1,128 @@
+"""Profile the port's two windowed a-MMSB paths on one NVIDIA GPU.
+
+Run from the root of a checkout (the package must be importable):
+
+    PYTHONPATH=. python3 scripts/torch_profile.py [--reps 5] [--out FILE]
+
+Both paths at N=317,080 (``--synthetic 317080,7``), K=256, the CLI's
+defaults otherwise:
+
+  single  the main path: window 12, 1008 steps per call (84 windows);
+  chains  ``--num-chains 16 --node-coin alternate``: window 96 // 16 = 6,
+          504 steps per call (84 windows of 16 chains).
+
+For each: one warm-up call, then ``--reps`` unprofiled calls timed on the
+host clock around ``Learner.run`` (which ends in a synchronize): updates/s
+per call (each chain's steps count). Then one call under torch.profiler:
+the CUDA kernels it launched (events on the device), their count per
+window, the device-busy share (summed kernel time over the call's wall
+time) and the largest kernels. Prints one JSON line; with ``--out`` also
+writes it there. Needs a CUDA device; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+PATHS = {
+    "single": (["--synthetic", "317080,7", "-k", "256"], 1008),
+    "chains": (["--num-chains", "16", "--node-coin", "alternate",
+                "--synthetic", "317080,7", "-k", "256"], 504),
+}
+
+
+def make_learner(flags):
+    """The learner the port's CLI builds for ``flags``, on the card."""
+    from mcmc_ammsb_tpu_torch import cli
+    from mcmc_ammsb_tpu_torch.chains_flat import FlatChainLearner
+    from mcmc_ammsb_tpu_torch.data import (Graph, generate_sets,
+                                           synthetic_edges)
+    from mcmc_ammsb_tpu_torch.learner import Learner
+
+    args = cli.build_arg_parser().parse_args(flags)
+    cli.resolve_fast_defaults(args)
+    cfg = cli.config_from_args(args)
+    nn, deg = (int(x) for x in args.synthetic.split(","))
+    n, u, v = synthetic_edges(nn, deg, seed=1)
+    split = generate_sets(n, u, v, args.heldout_ratio)
+    graph = Graph.from_edges(n, split.training_u, split.training_v)
+    cfg = cfg.finalize(n, split.total_edges, graph.max_fan_out)
+    if args.num_chains > 1:
+        cfg = cfg.replace(device_sampling=True)
+        return cfg, args.num_chains, FlatChainLearner(
+            cfg, graph, split, args.num_chains, "cuda")
+    return cfg, 1, Learner(cfg, graph, split, "cuda")
+
+
+def profile_path(name: str, reps: int) -> dict:
+    flags, steps = PATHS[name]
+    cfg, chains, lrn = make_learner(flags)
+    lrn.run(steps)                                   # warm-up
+    seconds = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        lrn.run(steps)
+        seconds.append(time.perf_counter() - t0)
+    rates = [chains * steps / s for s in seconds]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lrn.run(steps)
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in device if not e.name.startswith("Memcpy")
+               and not e.name.startswith("Memset")]
+    busy_us = sum(e.time_range.elapsed_us() for e in device)
+    by_name = {}
+    for e in kernels:
+        tot, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    windows = steps // cfg.window
+    return {
+        "path": name, "window": cfg.window, "steps_per_call": steps,
+        "windows_per_call": windows, "chains": chains,
+        "updates_per_s": rates,
+        "profiled_wall_s": wall,
+        "device_events": len(device), "kernel_launches": len(kernels),
+        "launches_per_window": len(kernels) / windows,
+        "device_busy_share": busy_us * 1e-6 / wall,
+        "top_kernels": [{"name": n[:80], "us": t, "launches": c}
+                        for n, (t, c) in top],
+    }
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--reps", type=int, default=5)
+    p.add_argument("--paths", default="single,chains")
+    p.add_argument("--out", default=None)
+    a = p.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_profile: no CUDA device available", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    result = {"device": smi, "torch": torch.__version__,
+              "paths": [profile_path(n, a.reps)
+                        for n in a.paths.split(",")]}
+    line = json.dumps(result)
+    print(line)
+    if a.out:
+        with open(a.out, "w") as f:
+            f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -32,7 +32,7 @@ def trained():
     n, split, graph = _graph()
     cfg = _cfg(n, split, graph, shared_neighbors=True, window=4,
                steps_per_call=100)
-    lrn = chains_flat.FlatChainLearner(cfg, graph, split, 3)
+    lrn = chains_flat.FlatChainLearner(cfg, graph, split, 3, "cpu")
     p0 = lrn.heldout_perplexity()
     series = lrn.run_with_ppx(203, 50)
     return n, lrn, p0, series
@@ -70,7 +70,7 @@ def test_windowed_chains_match_sequential(window):
     rtol 1e-5. 24 steps: 6 windows of 4, or 4 of 5 and 4 tail steps."""
     n, split, graph = _graph()
     cfg = _cfg(n, split, graph, shared_neighbors=True, steps_per_call=24)
-    lrn = chains_flat.FlatChainLearner(cfg, graph, split, 3)
+    lrn = chains_flat.FlatChainLearner(cfg, graph, split, 3, "cpu")
     xs = chains_flat.hoist_chain_operands(cfg, 3, lrn.training_set,
                                           lrn.heldout_set, lrn.adjacency,
                                           lrn.streams, 24)
@@ -97,7 +97,7 @@ def test_chain_step_equals_single_chain_steps(shared):
     and the lane maps line up chain by chain."""
     n, split, graph = _graph()
     cfg = _cfg(n, split, graph, shared_neighbors=shared)
-    lrn = chains_flat.FlatChainLearner(cfg, graph, split, 3)
+    lrn = chains_flat.FlatChainLearner(cfg, graph, split, 3, "cpu")
     xs = chains_flat.hoist_chain_operands(cfg, 3, lrn.training_set,
                                           lrn.heldout_set, lrn.adjacency,
                                           lrn.streams, 2)
@@ -166,7 +166,8 @@ def test_rhat_matches_jax():
     n, split, graph = _graph()
     cfg = _cfg(n, split, graph, shared_neighbors=True, window=4,
                steps_per_call=8)
-    r = chains_flat.FlatChainLearner(cfg, graph, split, 2).beta_rhat(2)
+    lrn = chains_flat.FlatChainLearner(cfg, graph, split, 2, "cpu")
+    r = lrn.beta_rhat(2)
     assert r.shape == (8,) and np.isfinite(r).all()
 
 
@@ -192,4 +193,4 @@ def test_flat_chain_guards_raise(bad):
     n, split, graph = _graph()
     cfg = _cfg(n, split, graph, **{"shared_neighbors": False, **bad})
     with pytest.raises(ValueError):
-        chains_flat.FlatChainLearner(cfg, graph, split, 2)
+        chains_flat.FlatChainLearner(cfg, graph, split, 2, "cpu")

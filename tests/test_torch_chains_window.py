@@ -4,9 +4,10 @@ ops/window.window_chain_core_*) against the JAX package's
 ops/window._window_kernel) on one seeded window of C chains: the
 bookkeeping exactly, the plain chain core against the JAX blocked Pallas
 kernel (interpret mode, as tests/test_window.py runs it on the CPU) and
-against _windowed_chain_jnp, and one whole window through both engines.
-The CUDA kernel is checked against the plain core on the card by
-chip_smoke.py."""
+against _windowed_chain_jnp, the fused chain window's plain version
+against JAX's gather, core and scatter, and one whole window through
+both engines. The CUDA kernel is checked against the plain version on
+the card by chip_smoke.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -49,7 +50,7 @@ def test_chain_window_bookkeeping_exact(shape):
     b_cap = shape[2]
     assert all((win.mcode[i] > 0).any() for i in range(c)), \
         "every chain must collide inside the window"
-    g, sums = chains_flat.chain_window_rows(state, win)
+    g, sums = window._chain_window_gather(cfg, state, win.xs_t)
     np.testing.assert_array_equal(blocked(g.numpy(), b_cap),
                                   np.asarray(j["g"]))
     np.testing.assert_array_equal(
@@ -97,7 +98,7 @@ def test_chain_window_core_torch_matches_jax(shape, jax_core):
     two shapes; at seed 1 the largest excess over atol is 1.2e-5 of the
     value (theta)."""
     c, case, cfg, state, _, win = _setup(shape)
-    g, sums = chains_flat.chain_window_rows(state, win)
+    g, sums = window._chain_window_gather(cfg, state, win.xs_t)
     got = window.window_chain_core_torch(cfg, state, win.xs_t, g, sums,
                                          win.mcode)
     jcfg = jax_config(cfg)
@@ -132,22 +133,51 @@ def test_windowed_chain_scan_matches_jax(shape):
         assert_close(getattr(got, f), getattr(want, f), 5e-5, 1e-8, f)
 
 
+@pytest.mark.parametrize("jax_core", ["jnp", "pallas_interpret"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_window_chain_apply_torch_matches_jax(shape, jax_core):
+    """The fused chain window's plain version (flat gather, chain core,
+    chain-major last-write-wins scatter in one call) == JAX's gather ->
+    _windowed_chain_jnp / the blocked Pallas kernel (interpret mode) ->
+    scatter of _windowed_chain_scan on the same operands: pi, phi_sum,
+    theta and beta after the window, at rtol 5e-5, atol 1e-8 (the bound
+    of test_chain_window_core_torch_matches_jax, for the same reason)."""
+    c, case, cfg, state, _, win = _setup(shape)
+    got = window.window_chain_apply_torch(cfg, state, win.xs_t, win.mcode,
+                                          win.keep)
+    assert got.pi is state.pi                        # in place
+    assert got.step_count == case["step_count"] + shape[1]
+    jcfg = jax_config(cfg)
+    j = jax_chain_window(jcfg, c, case)
+    if jax_core == "jnp":
+        want = _windowed_chain_jnp(jcfg, c, j["state"], **j["args"])
+    else:
+        want = window_kernel_call(jcfg, c, **j["args"])
+    rows, sums_col, theta_cb, beta = want
+    js = j["state"]
+    pi = js.pi.at[j["safe"]].set(rows, mode="drop")
+    phi_sum = js.phi_sum.at[j["safe"]].set(sums_col[:, 0], mode="drop")
+    theta = np.moveaxis(np.asarray(theta_cb).reshape(2, c, -1), 0, 2)
+    for f, b in (("pi", pi), ("phi_sum", phi_sum), ("theta", theta),
+                 ("beta", beta)):
+        assert_close(getattr(got, f), b, rtol=5e-5, atol=1e-8, what=f)
+
+
 def test_window_chain_core_cuda_rejects_cpu_tensors():
-    """The chain kernel's wrapper never runs on the CPU: on CPU tensors
-    it raises (the engine picks the plain version by device)."""
+    """The fused kernel's chain entry never runs on the CPU: on CPU
+    tensors it raises (the engine picks the plain version by device)."""
     _, _, cfg, state, _, win = _setup(SHAPES[0])
-    g, sums = chains_flat.chain_window_rows(state, win)
     with pytest.raises(ValueError, match="CUDA"):
-        window.window_chain_core_cuda(cfg, state, win.xs_t, g, sums,
-                                      win.mcode)
+        window.window_chain_apply_cuda(cfg, state, win.xs_t, win.mcode,
+                                       win.keep)
 
 
 @pytest.mark.cuda
 def test_window_chain_kernel_matches_plain_on_gpu():
     """On a GPU: one C-chain launch against the plain version at the
-    bench chain shape (normwise rtol 1e-5, atol 1e-8, as chip_smoke.py
-    checks it), and bit-equal to C single-chain launches on the chains'
-    slices."""
+    bench chain shape, each on its own copy of the state (normwise rtol
+    1e-5, atol 1e-8, as chip_smoke.py checks it), and bit-equal to C
+    single-chain launches on the chains' blocks."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     shape = (16, 6, 33, 32, 32, 256)
@@ -155,19 +185,27 @@ def test_window_chain_kernel_matches_plain_on_gpu():
     cfg = testing.chain_window_case_config(case)
     state, xw = testing.chain_window_case_torch(case, "cuda")
     win = chains_flat.chain_windows(cfg, shape[0], xw).at(0)
-    g, sums = chains_flat.chain_window_rows(state, win)
-    args = (cfg, state, win.xs_t, g, sums, win.mcode)
-    got = window.window_chain_core_cuda(*args)
-    want = window.window_chain_core_torch(*args)
-    for a, b in zip(got, want):
+    args = (win.xs_t, win.mcode, win.keep)
+
+    def fresh():
+        return state._replace(pi=state.pi.clone(),
+                              phi_sum=state.phi_sum.clone())
+
+    got = window.window_chain_apply_cuda(cfg, fresh(), *args)
+    want = window.window_chain_apply_torch(cfg, fresh(), *args)
+    for f in ("pi", "phi_sum", "theta", "beta"):
+        a, b = getattr(got, f), getattr(want, f)
         err = float((a - b).abs().max())
-        assert err <= 1e-8 + 1e-5 * float(b.abs().max())
-    t_b = shape[1] * shape[2]
+        assert err <= 1e-8 + 1e-5 * float(b.abs().max()), f
+    n = cfg.N
     for c in range(shape[0]):
-        one = window.window_core_cuda(
-            cfg, state._replace(theta=state.theta[c], beta=state.beta[c]),
-            window.index_operands(win.xs_t, c), g[c], sums[c], win.mcode[c])
-        for a, b in zip(one, (got[0][c * t_b:(c + 1) * t_b],
-                              got[1][c * t_b:(c + 1) * t_b], got[2][c],
-                              got[3][c])):
+        one = window.window_apply_cuda(
+            cfg, state._replace(pi=state.pi[c * n:(c + 1) * n].clone(),
+                                phi_sum=state.phi_sum[c * n:(c + 1) * n]
+                                .clone(),
+                                theta=state.theta[c], beta=state.beta[c]),
+            window.index_operands(win.xs_t, c), win.mcode[c], win.keep[c])
+        for a, b in ((one.pi, got.pi[c * n:(c + 1) * n]),
+                     (one.phi_sum, got.phi_sum[c * n:(c + 1) * n]),
+                     (one.theta, got.theta[c]), (one.beta, got.beta[c])):
             assert torch.equal(a, b)

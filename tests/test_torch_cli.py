@@ -144,3 +144,31 @@ def test_cli_cuda_without_gpu_fails():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
     assert cli.main(TINY[:-1] + ["cuda"]) == 1
+
+
+@pytest.mark.parametrize("engine", ["Learner", "FlatChainLearner",
+                                    "FullMMSBLearner"])
+def test_learners_default_to_the_card(engine, monkeypatch):
+    """The entry points run on the card unless the caller asks for the
+    CPU: constructed without a device on a machine without CUDA (forced
+    here), each raises, naming the way to the CPU, before anything is
+    built; it never quietly runs on the CPU."""
+    from mcmc_ammsb_tpu_torch import chains_flat
+    from mcmc_ammsb_tpu_torch.models import mmsb
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = config.Config(K=8, device_sampling=True, shared_neighbors=True)
+    make = {"Learner": lambda: learner.Learner(cfg, None, None),
+            "FlatChainLearner": lambda: chains_flat.FlatChainLearner(
+                cfg, None, _NoHeldout(), 2),
+            "FullMMSBLearner": lambda: mmsb.FullMMSBLearner(
+                cfg.replace(window=4), None, None)}[engine]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make()
+
+
+class _NoHeldout:
+    """A split with one held-out edge (FlatChainLearner checks that
+    there is one before its device)."""
+
+    heldout_edges_u = [0]

@@ -2,8 +2,10 @@
 the JAX package's (mcmc_ammsb_tpu/ops/window.py) on the same seeded
 operands: the bookkeeping exactly, the plain window core against the
 JAX jnp core and against the Pallas kernel in interpret mode (the way
-tests/test_window.py runs it on the CPU). The CUDA kernel itself is
-checked against the plain core on the card by chip_smoke.py."""
+tests/test_window.py runs it on the CPU), the fused window's plain
+version (gather, core, scatter) against JAX's three, and the kernel's
+cluster-size rule. The CUDA kernel itself is checked against the plain
+version on the card by chip_smoke.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -98,34 +100,117 @@ def test_window_core_torch_matches_jax(shape, jax_core):
         assert_close(a, b, rtol=5e-5, atol=1e-8, what=name)
 
 
-def test_window_core_cuda_rejects_cpu_tensors():
-    """The kernel wrapper never runs on the CPU: on a CPU tensor it
-    raises (windowed_scan picks the plain version by device)."""
-    case, cfg, _ = _both(4, SHAPES[0])
-    state, xs = testing.window_case_torch(case, "cpu")
+def _codes(cfg, xs):
+    """(mcode, keep) of the window ``xs``, as iter_windows gives them."""
     batch, nbrs = xs[0], xs[1][:, 0, :]
-    g, sums = window._window_gather(cfg, state, batch, nbrs)
     mcode = window._correction_codes(cfg, batch.nodes, batch.node_mask,
                                      nbrs)
+    keep = window._last_write_wins(batch.nodes, batch.node_mask,
+                                   batch.nodes.shape[0])
+    return mcode, keep
+
+
+@pytest.mark.parametrize("jax_core", ["jnp", "pallas_interpret"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_window_apply_torch_matches_jax(shape, jax_core):
+    """The fused window's plain version (gather, core, scatter in one
+    call) == JAX's _window_gather -> _window_core_jnp / the Pallas kernel
+    (interpret mode) -> _window_scatter on the same operands: pi,
+    phi_sum, theta and beta after the window, with the in-window
+    collisions, masked lanes and padded lanes of the case, at rtol 5e-5,
+    atol 1e-8 (the bound of test_window_core_torch_matches_jax, for the
+    same reason). The counters advance by T."""
+    case, cfg, jcfg = _both(5, shape)
+    state, xs = testing.window_case_torch(case, "cpu")
+    js, jxs = jax_window_case(case)
+    mcode, keep = _codes(cfg, xs)
+    assert (mcode > 0).any() and not bool(xs[0].node_mask.all())
+    got = window.window_apply_torch(cfg, state, xs, mcode, keep)
+    assert got.pi is state.pi                        # in place
+    assert got.step_count == case["step_count"] + shape[0]
+    assert got.beta_count == case["beta_count"] + shape[0]
+
+    jbatch, jnbrs = jxs[0], jxs[1][:, 0, :]
+    g, sums = jax_window._window_gather(jcfg, js, jbatch, jnbrs)
+    jmcode = jax_window._correction_codes(jcfg, jbatch.nodes,
+                                          jbatch.node_mask, jnbrs)
+    core = (jax_window._window_core_jnp if jax_core == "jnp"
+            else jax_window._window_core_pallas)
+    rows, rsums, theta, beta = core(jcfg, js, jxs, g, sums, jmcode)
+    jkeep = jax_window._last_write_wins(jbatch.nodes, jbatch.node_mask,
+                                        shape[0])
+    pi, phi_sum = jax_window._window_scatter(jcfg, js, jbatch, jkeep, rows,
+                                             rsums)
+    for f, want in (("pi", pi), ("phi_sum", phi_sum), ("theta", theta),
+                    ("beta", beta)):
+        assert_close(getattr(got, f), want, rtol=5e-5, atol=1e-8, what=f)
+
+
+@pytest.mark.parametrize("shape", [
+    (12, 33, 32, 32, 256), (3, 6, 7, 5, 12), (12, 33, 32, 32, 100),
+    (6, 33, 32, 32, 256), (4, 9, 8, 8, 16), (12, 33, 32, 32, 128),
+    (5, 14, 3, 13, 24), (48, 33, 32, 32, 256), (64, 33, 32, 32, 256)])
+def test_window_cluster_size_rule(shape):
+    """The K split of the window kernel: the cluster size S depends on
+    the per-chain shape only (no chain count enters), its column slices
+    tile K exactly with none empty, and the per-CTA shared memory fits
+    an H100's 232,448 B per block — at every shape chip_smoke.py runs and
+    at the long windows a user's --window may ask for."""
+    t_win, b_cap, n_smpl, e_cap, k = shape
+    s = window.window_cluster_size(*shape)
+    assert 1 <= s <= window.MAX_CLUSTER
+    w = window.window_slice_width(k, s)
+    cols = [c for r in range(s) for c in range(r * w, min(k, (r + 1) * w))]
+    assert cols == list(range(k))
+    assert all(min(k, (r + 1) * w) > r * w for r in range(s))
+    assert window.window_smem_bytes(*shape, s) <= window.H100_SMEM
+    if k <= 16:
+        assert s == 1
+    if k == 256:
+        assert s > 1
+
+
+def test_window_cluster_size_bench_shapes():
+    """S = 4 at K = 256 (an H100 runs 30 clusters of 4 at once, so 16
+    chains fit in one wave; it runs only 15 of 8), 2 at K = 100 with a
+    ragged last slice (52 + 48 columns), 1 at K = 12; the staged slice of
+    T = 48 at K = 256 needs S = 16; a shape that fits at no S raises
+    naming the shape."""
+    assert window.window_cluster_size(12, 33, 32, 32, 256) == 4
+    assert window.window_cluster_size(6, 33, 32, 32, 256) == 4
+    assert window.window_cluster_size(12, 33, 32, 32, 100) == 2
+    assert window.window_slice_width(100, 2) == 52
+    assert window.window_cluster_size(3, 6, 7, 5, 12) == 1
+    assert window.window_cluster_size(48, 33, 32, 32, 256) == 16
+    with pytest.raises(ValueError, match=r"\(64, 33, 32, 32, 4096\)"):
+        window.window_cluster_size(64, 33, 32, 32, 4096)
+
+
+def test_window_core_cuda_rejects_cpu_tensors():
+    """The fused kernel's wrapper never runs on the CPU: on a CPU tensor
+    it raises (windowed_scan picks the plain version by device)."""
+    case, cfg, _ = _both(4, SHAPES[0])
+    state, xs = testing.window_case_torch(case, "cpu")
+    mcode, keep = _codes(cfg, xs)
     with pytest.raises(ValueError, match="CUDA"):
-        window.window_core_cuda(cfg, state, xs, g, sums, mcode)
+        window.window_apply_cuda(cfg, state, xs, mcode, keep)
 
 
 @pytest.mark.cuda
 def test_window_core_cuda_matches_plain_on_gpu():
-    """On a GPU: the kernel against the plain version at the bench shape
-    (rtol 1e-5, atol 1e-8 normwise, as chip_smoke.py checks it)."""
+    """On a GPU: the fused kernel against its plain version at the bench
+    shape, each on its own copy of the state (the kernel writes pi in
+    place): rtol 1e-5, atol 1e-8 normwise, as chip_smoke.py checks it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     case = testing.window_case(0, 12, 33, 32, 32, 256)
     cfg = testing.window_case_config(case)
     state, xs = testing.window_case_torch(case, "cuda")
-    batch, nbrs = xs[0], xs[1][:, 0, :]
-    g, sums = window._window_gather(cfg, state, batch, nbrs)
-    mcode = window._correction_codes(cfg, batch.nodes, batch.node_mask,
-                                     nbrs)
-    got = window.window_core_cuda(cfg, state, xs, g, sums, mcode)
-    want = window.window_core_torch(cfg, state, xs, g, sums, mcode)
-    for a, b in zip(got, want):
+    mcode, keep = _codes(cfg, xs)
+    clone = state._replace(pi=state.pi.clone(), phi_sum=state.phi_sum.clone())
+    got = window.window_apply_cuda(cfg, state, xs, mcode, keep)
+    want = window.window_apply_torch(cfg, clone, xs, mcode, keep)
+    for f in ("pi", "phi_sum", "theta", "beta"):
+        a, b = getattr(got, f), getattr(want, f)
         err = float((a - b).abs().max())
-        assert err <= 1e-8 + 1e-5 * float(b.abs().max())
+        assert err <= 1e-8 + 1e-5 * float(b.abs().max()), f
