@@ -25,15 +25,22 @@ Phases, one line each; any failure raises and the exit code is not 0:
                8, 16) and (2, 3, 6, 7, 5, 12), also bit-equal to C
                single-chain launches — both no farther from float64 than
                2x the plain version; both phi entries
-               (pre-gathered, by index) at (B, n, K) = (33, 32, 256)
-               and (5, 7, 12) — normwise
-               rtol 1e-5, atol 1e-8 (see max_err); the MMSB window
-               kernel at (T, B, n, E, K) = (1, 33, 32, 32, 64),
-               (12, 33, 32, 32, 64), (3, 6, 7, 5, 12), (12, 33, 32, 32,
-               128) — at T=1 normwise rtol 1e-5, past it (the 1/theta
+               (pre-gathered, by index) at (B, n, K) = (33, 32, 256),
+               (5, 7, 12), the ragged (33, 32, 100) and (33, 32, 4096)
+               (neighbor rows staged in chunks) — normwise
+               rtol 1e-5, atol 1e-8 (see max_err) and no farther from
+               float64 than 2x the plain version; the fused MMSB window
+               (gather, T steps on a cluster whose CTAs own slices of B
+               and theta, scatter; each version on its own copy of the
+               state) at (T, B, n, E, K) = (1, 33, 32, 32, 64), (12,
+               33, 32, 32, 64), (3, 6, 7, 5, 12), (12, 33, 32, 32, 128),
+               (12, 33, 32, 32, 256) (a cluster of 16) and (12, 33, 32,
+               32, 50) (13 CTAs, a ragged last slice), with its
+               cluster size, shared memory per CTA and us per step —
+               at T=1 normwise rtol 1e-5, past it (the 1/theta
                conditioning, docs/design.md "Windowed MMSB tolerances")
-               the kernel no farther from float64 than 2x the plain
-               version;
+               finite and no farther from float64 than 2x the plain
+               version; theta bit-symmetric at every shape;
   4. slice   — hoisted loops on the GPU against the same loops on the
                CPU from one state and one operand tuple, N=300: the
                a-MMSB windows (normwise rtol 1e-5, atol 1e-8), the
@@ -48,9 +55,10 @@ Phases, one line each; any failure raises and the exit code is not 0:
                the a-MMSB main path (K=256, window 12, 2000 steps): the
                fused window kernel launches once per window, ppx falls
                below ppx[0];
-               --model mmsb --window 12 (K=64, 1000 steps): the MMSB
-               kernel launches 2 x (500 // 12) = 82 times, ppx finite
-               and at the structure-free plateau (see run_mmsb_main);
+               --model mmsb --window 12 (K=64, 1000 steps): the fused
+               MMSB kernel launches 2 x (500 // 12) = 82 times and no
+               other window entry, ppx finite and at the
+               structure-free plateau (see run_mmsb_main);
                --phi-impl pallas --device-sampling (K=256, 1000 steps):
                the by-index phi kernel launches 1000 times, the window
                kernel never, ppx falls below ppx[0];
@@ -102,6 +110,15 @@ WINDOW_SHAPES = [(12, 33, 32, 32, 256), (3, 6, 7, 5, 12),
 # (C, T, B, n, E, K) of its chain mode; the first is the chain path's
 CHAIN_SHAPES = [(CHAINS, 6, 33, 32, 32, 256), (3, 4, 9, 8, 8, 16),
                 (2, 3, 6, 7, 5, 12)]
+# (T, B, n, E, K) of the fused MMSB window's checks; the second is the
+# MMSB path's, (..., 256) fits only a cluster of 16, K = 50 takes 13 CTAs
+# with a ragged last slice and 4-byte copies
+MMSB_SHAPES = [(1, 33, 32, 32, 64), (12, 33, 32, 32, 64), (3, 6, 7, 5, 12),
+               (12, 33, 32, 32, 128), (12, 33, 32, 32, 256),
+               (12, 33, 32, 32, 50)]
+# (B, n, K) of the phi entries' checks; the first is the phi path's, the
+# last stages each block's neighbor rows in chunks
+PHI_SHAPES = [(33, 32, 256), (5, 7, 12), (33, 32, 100), (33, 32, 4096)]
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, fp32 FLOP/s outside
 # the tensor cores
 HBM_RATE, FP32_RATE = 3.35e12, 67e12
@@ -436,14 +453,23 @@ def check_chain_kernel(window, kernels, chains_flat, testing, phi_ops, smi):
     return worst, main
 
 
-def check_phi_kernel(phi_pallas, testing):
+def check_phi_kernel(phi_pallas, kernels, testing):
     """Phase 3, both phi entries: {entry: (max abs err over the shapes,
     and the kernel ms, plain ms, bound ms and what sets it at the main
     path's shape)}. Bound: the pre-gathered entry reads its operands once
     and writes rows and sums once; the by-index entry reads each distinct
     row of pi once; ~4 n K + 12 K float32 operations per valid node."""
     errs, times = {}, {}
-    for seed, (b_cap, n_smpl, k) in enumerate([(33, 32, 256), (5, 7, 12)]):
+    limit = kernels.smem_limit(torch.device("cuda"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for seed, (b_cap, n_smpl, k) in enumerate(PHI_SHAPES):
+        g = phi_pallas.phi_cluster_size(b_cap, n_smpl, k, sms, limit)
+        nc = phi_pallas.phi_neighbor_chunk(n_smpl, k, g, limit)
+        smem = phi_pallas.phi_smem_bytes(n_smpl, k, nc, g)
+        if phi_pallas._phi_lib().phi_kernel_smem_bytes(n_smpl, k, nc,
+                                                       g) != smem:
+            raise AssertionError(f"phi shared memory of {(n_smpl, k)}: "
+                                 f"the kernel and the rule differ")
         case = testing.phi_case(seed, b_cap, n_smpl, k)
         cfg = testing.phi_case_config(case)
         t = {f: torch.as_tensor(case[f], device="cuda") for f in
@@ -469,7 +495,12 @@ def check_phi_kernel(phi_pallas, testing):
             errs[entry] = max(errs.get(entry, 0.0), err)
             ref = plain(*_float64(args))
             f64 = [f64_distance(out, ref) for out in (got, want)]
-            ms = time_ms(lambda: cuda(*args))
+            if f64[0] > 2 * f64[1]:
+                raise AssertionError(
+                    f"phi {entry} at {(b_cap, n_smpl, k)}: relative "
+                    f"distance to float64 {f64[0]:.3e} > 2 x the plain "
+                    f"version's {f64[1]:.3e}")
+            ms = time_ms(lambda: cuda(*args), hold=True)
             plain_ms = time_ms(lambda: plain(*args))
             valid = int((t["nodes"] < cfg.N).sum())
             if entry == "pre-gathered":
@@ -485,6 +516,8 @@ def check_phi_kernel(phi_pallas, testing):
                                valid * (4 * n_smpl * k + 12 * k))
             times.setdefault(entry, (ms, plain_ms, b_ms, b_by))
             phase("kernel", f"phi {entry} B,n,K={b_cap},{n_smpl},{k}: "
+                  f"{g} block(s) per node, chunks of {nc} neighbors, "
+                  f"{smem} B shared per block; "
                   f"kernel vs plain max abs err {err:.3e} (relative "
                   f"distance to float64: kernel {f64[0]:.3e}, plain "
                   f"{f64[1]:.3e}); {ms:.4f} ms/call kernel, "
@@ -494,65 +527,122 @@ def check_phi_kernel(phi_pallas, testing):
     return {e: (errs[e], *times[e]) for e in errs}
 
 
-def check_mmsb_kernel(window, window_mmsb, testing):
-    """Phase 3, the MMSB window kernel: (max abs err at T=1, and the
-    kernel ms, plain ms, bound ms and what sets it at the main path's
-    shape (12, 33, 32, 32, 64)). Bound: every operand (the gathered rows
-    included) read once, rows, sums and theta written once; per step
-    2 n K^2 for g_link and ~15 K^2 for the theta step, ~8 n K per valid
-    node, ~10 K^2 per valid edge (the p_e contraction and the fan-in)."""
-    shapes = [(1, 33, 32, 32, 64), (12, 33, 32, 32, 64), (3, 6, 7, 5, 12),
-              (12, 33, 32, 32, 128)]
+def _mmsb_outs(st):
+    return (st.pi, st.phi_sum, st.theta_b)
+
+
+MMSB_FIELDS = ("pi", "phi_sum", "theta_b")
+
+
+def _mmsb_window_f64(window, window_mmsb, phi_ops, cfg, state, xs, mcode,
+                     keep):
+    """The MMSB window in float64: the plain version's gather (float32
+    values, exact in float64), its steps on the operands in float64, its
+    scatter into a float64 copy of pi."""
+    g, sums = window._window_gather(cfg, state, xs[0], xs[1])
+    rows, sums_o, theta = window_mmsb.mmsb_window_core_torch(
+        *_float64((cfg, state, xs, g, sums, mcode)))
+    pi, phi_sum = phi_ops.scatter_rows(state.pi.double(),
+                                       state.phi_sum.double(),
+                                       xs[0].nodes.reshape(-1),
+                                       keep.reshape(-1), rows, sums_o)
+    return pi, phi_sum, theta
+
+
+def mmsb_bound(xs, mcode, keep, k: int, n_rows: int):
+    """Bound of one fused MMSB window: the pi rows and sums it must read
+    (each distinct pre-window row once), every operand once, theta read
+    and written once, the kept rows and sums written once; per step 2 n
+    K^2 for g_link and ~15 K^2 for the theta step, ~8 n K per valid node,
+    ~10 K^2 per valid edge (the p_e contraction and the fan-in)."""
+    batch, nbrs, y_w, nphi_w, tn_w, ye_w, lu, lv = xs
+    t_win, b_cap = batch.nodes.shape
+    n_smpl = nbrs.shape[-1]
+    ids = torch.cat([batch.nodes.clamp(max=n_rows - 1), nbrs], dim=-1)
+    pre = mcode == 0
+    rows_read = int(torch.unique(ids[pre]).numel())
+    sums_read = int(torch.unique(ids[:, :b_cap][pre[:, :b_cap]]).numel())
+    kept = int(keep.sum())
+    operands = nbytes(y_w, batch.nodes, nbrs, batch.node_mask, keep,
+                      nphi_w, tn_w, ye_w, batch.edge_mask, lu, lv, mcode,
+                      batch.weight)
+    moved = ((rows_read + kept) * k * 4 + (sums_read + kept) * 4 + operands
+             + 2 * k * k * 2 * 4)
+    b_valid = int(batch.node_mask.sum())
+    e_valid = int(batch.edge_mask.sum())
+    return bound(moved, (2 * n_smpl + 15) * k * k * t_win
+                 + 8 * b_valid * n_smpl * k + 10 * e_valid * k * k)
+
+
+def check_mmsb_kernel(window, window_mmsb, kernels, testing, phi_ops, smi):
+    """Phase 3, the fused MMSB window (gather, T steps on a cluster,
+    scatter; each version on its own copy of the state): (max abs err at
+    T=1, and the kernel ms, plain ms, bound ms and what sets it at the
+    main path's shape (12, 33, 32, 32, 64))."""
+    lib = window_mmsb._mmsb_lib()
+    limit = kernels.smem_limit(torch.device("cuda"))
     worst, times = 0.0, None
-    for seed, shape in enumerate(shapes):
+    for seed, shape in enumerate(MMSB_SHAPES):
         t_win, b_cap, n_smpl, e_cap, k = shape
         case = testing.mmsb_window_case(seed, *shape)
         cfg = testing.window_case_config(case)
         state, xs = testing.mmsb_window_case_torch(case, "cuda")
-        g, sums_g = window._window_gather(cfg, state, xs[0], xs[1])
-        mcode = window._correction_codes(cfg, xs[0].nodes,
-                                          xs[0].node_mask, xs[1])
+        batch = xs[0]
+        mcode = window._correction_codes(cfg, batch.nodes, batch.node_mask,
+                                          xs[1])
+        keep = window._last_write_wins(batch.nodes, batch.node_mask, t_win)
         if t_win > 1 and not (mcode > 0).any():
             raise AssertionError("the case has no in-window collision")
-        args = (cfg, state, xs, g, sums_g, mcode)
-        got = window_mmsb.mmsb_window_core_cuda(*args)
+        s_cl = window_mmsb.mmsb_window_cluster_size(*shape, limit)
+        smem = window_mmsb.mmsb_window_smem_bytes(*shape, s_cl)
+        if lib.mmsb_window_smem_bytes(*shape, s_cl) != smem:
+            raise AssertionError(
+                f"MMSB shared memory of {shape}: kernel "
+                f"{lib.mmsb_window_smem_bytes(*shape, s_cl)} B, rule {smem} B")
+        args = (mcode, keep)
+        got = window_mmsb.mmsb_window_apply_cuda(cfg, _fresh(state), xs,
+                                                 *args)
         torch.cuda.synchronize()
-        want = window_mmsb.mmsb_window_core_torch(*args)
-        if not torch.equal(got[2], got[2].transpose(0, 1)):
+        want = window_mmsb.mmsb_window_apply_torch(cfg, _fresh(state), xs,
+                                                   *args)
+        if not torch.equal(got.theta_b, got.theta_b.transpose(0, 1)):
             raise AssertionError(f"MMSB kernel theta not symmetric at {shape}")
-        ref = window_mmsb.mmsb_window_core_torch(*_float64(args))
-        f64 = [f64_distance(out, ref) for out in (got, want)]
-        names = ("rows", "sums", "theta")
+        ref = _mmsb_window_f64(window, window_mmsb, phi_ops, cfg,
+                               _fresh(state), xs, *args)
+        f64 = [f64_distance(_mmsb_outs(out), ref) for out in (got, want)]
         if t_win == 1:
-            errs = [max_err(a, b, f"MMSB {name} at {shape}")
-                    for a, b, name in zip(got, want, names)]
+            errs = [max_err(a, b, f"MMSB {name} at {shape}") for a, b, name
+                    in zip(_mmsb_outs(got), _mmsb_outs(want), MMSB_FIELDS)]
             worst = max(worst, *errs)
             verdict = f"max abs err {max(errs):.3e} (normwise)"
         else:
-            if not all(torch.isfinite(o).all() for o in got):
+            if not all(torch.isfinite(o).all() for o in _mmsb_outs(got)):
                 raise AssertionError(f"MMSB kernel non-finite at {shape}")
-            if f64[0] > 2 * f64[1]:
-                raise AssertionError(
-                    f"MMSB kernel at {shape}: relative distance to float64 "
-                    f"{f64[0]:.3e} > 2 x the plain version's {f64[1]:.3e}")
-            err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+            err = max(float((a - b).abs().max()) for a, b in
+                      zip(_mmsb_outs(got), _mmsb_outs(want)))
             verdict = f"max abs diff {err:.3e} (conditioning-bound)"
-        ms = time_ms(lambda: window_mmsb.mmsb_window_core_cuda(*args))
-        plain_ms = time_ms(lambda: window_mmsb.mmsb_window_core_torch(*args))
-        moved = nbytes(*_tensors((state.theta_b, xs, g, sums_g, mcode)),
-                       *got)
-        b_valid = int(xs[0].node_mask.sum())
-        e_valid = int(xs[0].edge_mask.sum())
-        b_ms, b_by = bound(moved, (2 * n_smpl + 15) * k * k * t_win
-                           + 8 * b_valid * n_smpl * k
-                           + 10 * e_valid * k * k)
+        if f64[0] > 2 * f64[1]:
+            raise AssertionError(
+                f"MMSB kernel at {shape}: relative distance to float64 "
+                f"{f64[0]:.3e} > 2 x the plain version's {f64[1]:.3e}")
+        scratch, plain_scratch = _fresh(state), _fresh(state)
+        ms = time_ms(lambda: window_mmsb.mmsb_window_apply_cuda(
+            cfg, scratch, xs, *args), hold=True)
+        ms_b2b = time_ms(lambda: window_mmsb.mmsb_window_apply_cuda(
+            cfg, scratch, xs, *args))
+        plain_ms = time_ms(lambda: window_mmsb.mmsb_window_apply_torch(
+            cfg, plain_scratch, xs, *args), reps=10)
+        b_ms, b_by = mmsb_bound(xs, mcode, keep, k, cfg.N)
         if shape == (12, 33, 32, 32, 64):
             times = (ms, plain_ms, b_ms, b_by)
         phase("kernel", f"MMSB window T,B,n,E,K={','.join(map(str, shape))}: "
-              f"kernel vs plain {verdict}; relative distance to float64: "
-              f"kernel {f64[0]:.3e}, plain {f64[1]:.3e}; {ms:.4f} ms/window "
-              f"kernel, {plain_ms:.4f} ms/window plain; bound "
-              f"{b_ms * 1e3:.3f} us ({b_by}), {100 * b_ms / ms:.2f}% of it")
+              f"cluster of {s_cl} CTAs, {smem} B shared per CTA; kernel vs "
+              f"plain {verdict}; relative distance to float64: kernel "
+              f"{f64[0]:.3e}, plain {f64[1]:.3e}; theta bit-symmetric; "
+              f"{ms:.4f} ms/window on the device = {1e3 * ms / t_win:.2f} "
+              f"us/step, {ms_b2b:.4f} ms/window back to back with the host, "
+              f"{plain_ms:.4f} ms/window plain; bound {b_ms * 1e3:.3f} us "
+              f"({b_by}), {100 * b_ms / ms:.3f}% of it; {smi}")
     return worst, times
 
 
@@ -600,9 +690,9 @@ def check_slices(mods, window, window_mmsb, phi_pallas, chains_flat):
     cfg, cpu_state, gpu_state, xs = _slice_learner(
         mods, mmsb.FullMMSBLearner, mmsb.mmsb_hoist_operands, K=8,
         shared_neighbors=True, window=5)
-    window_mmsb.mmsb_window_core_cuda.launches = 0
+    window_mmsb.mmsb_window_apply_cuda.launches = 0
     got = mmsb.mmsb_run_hoisted(cfg, gpu_state, _to(xs, "cuda"))
-    launched = window_mmsb.mmsb_window_core_cuda.launches
+    launched = window_mmsb.mmsb_window_apply_cuda.launches
     want = mmsb.mmsb_run_hoisted(cfg, cpu_state, xs)
     pi_err = within(got.pi, want.pi, "MMSB slice pi", atol=PI_ATOL)
     th_err = within(got.theta_b, want.theta_b, "MMSB slice theta", **TH_TOLS)
@@ -671,10 +761,10 @@ def check_slices(mods, window, window_mmsb, phi_pallas, chains_flat):
         eta0=50.0, eta1=1.0).finalize(n, split.total_edges,
                                       graph.max_fan_out)
     lrn = mmsb.FullMMSBLearner(cfg, graph, split, "cuda")
-    window_mmsb.mmsb_window_core_cuda.launches = 0
+    window_mmsb.mmsb_window_apply_cuda.launches = 0
     p0 = lrn.heldout_perplexity()
     ppx = [e["ppx"] for e in lrn.run_with_ppx(8000, 1000)]
-    launched = window_mmsb.mmsb_window_core_cuda.launches
+    launched = window_mmsb.mmsb_window_apply_cuda.launches
     b = lrn.state.b
     gap = float(b.diagonal().mean()
                 - b[~torch.eye(3, dtype=torch.bool, device=b.device)].mean())
@@ -731,7 +821,7 @@ def _counts(mods, what):
     window, window_mmsb, phi_pallas = mods
     counters = {"window": window.window_apply_cuda,
                 "window_chain": window.window_chain_apply_cuda,
-                "mmsb": window_mmsb.mmsb_window_core_cuda,
+                "mmsb": window_mmsb.mmsb_window_apply_cuda,
                 "phi": phi_pallas.phi_update_core_cuda,
                 "phi_gather": phi_pallas.phi_update_rows_cuda}
     if what is None:
@@ -786,12 +876,15 @@ def run_mmsb_main(cli, kmods):
     if not all(abs(p / ppx[0] - 1.0) < 0.05 for p in ppx):
         raise AssertionError(f"MMSB ppx leaves the plateau: {ppx}")
     expected = 2 * (500 // 12)
-    if launches["mmsb"] != expected or launches["window"]:
+    if (launches["mmsb"] != expected or launches["window"]
+            or launches["window_chain"]):
         raise AssertionError(f"MMSB run launches {launches}, expected "
-                             f"{expected} MMSB window launches")
+                             f"{expected} fused MMSB window launches and "
+                             f"no other window entry")
     rate = 1000 / (series[-1][2] - series[0][2])
-    phase("main", f"MMSB: rc 0, ppx {ppx}, MMSB-kernel launches "
-          f"{launches['mmsb']} (= {expected} windows), {rate:.1f} updates/s "
+    phase("main", f"MMSB: rc 0, ppx {ppx}, fused MMSB-kernel launches "
+          f"{launches['mmsb']} (= {expected} windows), a-MMSB window "
+          f"launches {launches['window']}, {rate:.1f} updates/s "
           f"over the 1000 steps after ppx[0]")
     return launches
 
@@ -886,8 +979,9 @@ def main() -> int:
     w_err, w_t = check_window_kernel(window, kernels, testing, phi_ops, smi)
     c_err, c_t = check_chain_kernel(window, kernels, chains_flat, testing,
                                     phi_ops, smi)
-    phi = check_phi_kernel(phi_pallas, testing)
-    m_err, m_t = check_mmsb_kernel(window, window_mmsb, testing)
+    phi = check_phi_kernel(phi_pallas, kernels, testing)
+    m_err, m_t = check_mmsb_kernel(window, window_mmsb, kernels, testing,
+                                   phi_ops, smi)
     check_slices((data, config, learner_mod, device_sampling, mmsb),
                  window, window_mmsb, phi_pallas, chains_flat)
     kmods = (window, window_mmsb, phi_pallas)

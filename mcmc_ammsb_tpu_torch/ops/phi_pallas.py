@@ -15,7 +15,9 @@ version and a hand-written Hopper kernel (``csrc/phi_kernel.cu``):
 Both return the row-normalized rows and their sums (the JAX package
 normalizes outside its kernel; the CUDA kernel fuses that step). The TPU
 tiling limits (K % 128, K % 1024, ``node_tile``) are not carried over:
-the kernel takes any K. Shared-neighbor masks are rejected, as in JAX.
+the kernel takes any K, staging a node's neighbor rows in chunks where
+they do not all fit a block's shared memory (``phi_neighbor_chunk``).
+Shared-neighbor masks are rejected, as in JAX.
 """
 
 from __future__ import annotations
@@ -83,21 +85,73 @@ def phi_update_rows(cfg: Config, pi, phi_sum, beta, nodes, nbrs, y,
 # The Hopper kernel
 # ---------------------------------------------------------------------------
 
+#: The largest cluster per node (kMaxCluster of csrc/phi_kernel.cu).
+MAX_CLUSTER = 8
+
+
+def phi_smem_bytes(n_smpl: int, k: int, nc: int, g: int) -> int:
+    """Shared memory per block (``smem_words`` of csrc/phi_kernel.cu):
+    the staged rows of a chunk [nc, ceil4(K)], the node row, beta - eps
+    and the accumulator [ceil4(K)] each, with ``g`` > 1 the cluster's
+    partial rows [g, ceil4(K)]; the block's ceil(n/g) neighbors' row
+    offsets (two words), labels and sums; 32 words for the row sum."""
+    ldr = -(-k // 4) * 4
+    ng = -(-n_smpl // g)
+    return 4 * (nc * ldr + 3 * ldr + (g * ldr if g > 1 else 0) + 4 * ng
+                + 32)
+
+
+def phi_neighbor_chunk(n_smpl: int, k: int, g: int = 1,
+                       smem_limit: int = 232448) -> int:
+    """Neighbors whose rows a block stages at once: all of its ceil(n/g)
+    when they fit ``smem_limit``, else as many as fit (the kernel loops
+    over the chunks). Raises, naming the shape, when not even one row
+    fits."""
+    ng = -(-n_smpl // g)
+    fixed = phi_smem_bytes(n_smpl, k, 0, g)
+    nc = min(ng, (smem_limit - fixed) // (4 * (-(-k // 4) * 4)))
+    if nc < 1:
+        raise ValueError(f"phi kernel: (n, K) = ({n_smpl}, {k}) leaves no "
+                         f"room for one row in {smem_limit} B of shared "
+                         f"memory per block")
+    return nc
+
+
+def phi_cluster_size(b_cap: int, n_smpl: int, k: int, sms: int = 132,
+                     smem_limit: int = 232448) -> int:
+    """Blocks per node (the kernel's G, a cluster that splits the node's
+    neighbors): the largest power of two <= MAX_CLUSTER and <= n whose B*G
+    blocks fit the card's ``sms`` SMs at one block each and whose blocks
+    still have room for a neighbor row beside the cluster's partial rows;
+    G = 4 at the --phi-impl pallas shape (B = 33), which fills the 132 SMs
+    of an H100 (scripts/window_phases.py --kernels phi sweeps G; PERF.md
+    gives the times)."""
+    g = 1
+    while (2 * g <= min(MAX_CLUSTER, n_smpl) and 2 * g * b_cap <= sms
+           and phi_smem_bytes(n_smpl, k, 1, 2 * g) <= smem_limit):
+        g *= 2
+    return g
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-@functools.cache
-def _phi_lib():
-    lib = kernels.load("phi_kernel")
-    lib.phi_kernel_smem_bytes.argtypes = [_I, _I]
+def bind_phi_lib(lib):
+    """Declare the C interface of a build of csrc/phi_kernel.cu."""
+    lib.phi_kernel_smem_bytes.argtypes = [_I] * 4
     lib.phi_kernel_smem_bytes.restype = ctypes.c_size_t
-    lib.phi_kernel_launch.argtypes = [_P] * 8 + [_I] * 3 + [_F] * 5 + [_P]
+    lib.phi_kernel_launch.argtypes = [_P] * 8 + [_I] * 5 + [_F] * 5 + [_P]
     lib.phi_kernel_launch.restype = _I
-    lib.phi_gather_launch.argtypes = [_P] * 9 + [_I] * 4 + [_F] * 5 + [_P]
+    lib.phi_gather_launch.argtypes = [_P] * 9 + [_I] * 6 + [_F] * 5 + [_P]
     lib.phi_gather_launch.restype = _I
     return lib
+
+
+@functools.cache
+def _phi_lib():
+    return bind_phi_lib(kernels.load("phi_kernel"))
 
 
 def _scalars(cfg: Config, step_count):
@@ -108,19 +162,22 @@ def _scalars(cfg: Config, step_count):
 
 
 def _check(cfg: Config, x, b_cap, n_smpl, k):
+    """Outputs (rows, sums) and the launch's (nc, G) for a CUDA
+    operand ``x``; raises on a CPU tensor or a shape the kernel does not
+    take."""
     if not x.is_cuda:
         raise ValueError("the phi kernel takes CUDA tensors")
     if n_smpl != cfg.num_node_sample:
         raise ValueError(f"{n_smpl} neighbors per node, the config says "
                          f"{cfg.num_node_sample}")
-    smem = _phi_lib().phi_kernel_smem_bytes(n_smpl, k)
     limit = kernels.smem_limit(x.device)
-    if smem > limit:
-        raise ValueError(f"phi kernel needs {smem} B of shared memory at "
-                         f"n={n_smpl}, K={k}; the card gives a block "
-                         f"{limit} B")
+    g = phi_cluster_size(
+        b_cap, n_smpl, k,
+        torch.cuda.get_device_properties(x.device).multi_processor_count,
+        limit)
+    nc = phi_neighbor_chunk(n_smpl, k, g, limit)
     return (torch.empty(b_cap, k, device=x.device),
-            torch.empty(b_cap, device=x.device))
+            torch.empty(b_cap, device=x.device), nc, g)
 
 
 def phi_update_core_cuda(cfg: Config, pi_n, phis, pi_nb, y, beta,
@@ -130,7 +187,7 @@ def phi_update_core_cuda(cfg: Config, pi_n, phis, pi_nb, y, beta,
     or this raises."""
     _reject_mask(nbr_mask)
     b_cap, n_smpl, k = pi_nb.shape
-    rows, sums = _check(cfg, pi_n, b_cap, n_smpl, k)
+    rows, sums, nc, g = _check(cfg, pi_n, b_cap, n_smpl, k)
     dev = pi_n.device
     f32 = torch.float32
     err = _phi_lib().phi_kernel_launch(
@@ -138,7 +195,7 @@ def phi_update_core_cuda(cfg: Config, pi_n, phis, pi_nb, y, beta,
         kernels.pointer(pi_nb, f32, dev),
         kernels.pointer(y, torch.bool, dev),
         kernels.pointer(beta, f32, dev), kernels.pointer(noise, f32, dev),
-        rows.data_ptr(), sums.data_ptr(), b_cap, n_smpl, k,
+        rows.data_ptr(), sums.data_ptr(), b_cap, n_smpl, k, nc, g,
         *_scalars(cfg, step_count), torch.cuda.current_stream(dev).cuda_stream)
     kernels.check_launch(err, "phi kernel")
     phi_update_core_cuda.launches += 1
@@ -155,7 +212,7 @@ def phi_update_rows_cuda(cfg: Config, pi, phi_sum, beta, nodes, nbrs, y,
     if pi.shape[0] != cfg.N:
         raise ValueError(f"pi has {pi.shape[0]} rows, the config says "
                          f"N={cfg.N}")
-    rows, sums = _check(cfg, pi, b_cap, n_smpl, k)
+    rows, sums, nc, g = _check(cfg, pi, b_cap, n_smpl, k)
     dev = pi.device
     f32, i32 = torch.float32, torch.int32
     err = _phi_lib().phi_gather_launch(
@@ -163,7 +220,7 @@ def phi_update_rows_cuda(cfg: Config, pi, phi_sum, beta, nodes, nbrs, y,
         kernels.pointer(nodes, i32, dev), kernels.pointer(nbrs, i32, dev),
         kernels.pointer(y, torch.bool, dev),
         kernels.pointer(beta, f32, dev), kernels.pointer(noise, f32, dev),
-        rows.data_ptr(), sums.data_ptr(), b_cap, n_smpl, k, cfg.N,
+        rows.data_ptr(), sums.data_ptr(), b_cap, n_smpl, k, cfg.N, nc, g,
         *_scalars(cfg, step_count), torch.cuda.current_stream(dev).cuda_stream)
     kernels.check_launch(err, "phi gather kernel")
     phi_update_rows_cuda.launches += 1

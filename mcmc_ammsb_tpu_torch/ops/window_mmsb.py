@@ -5,10 +5,14 @@ The structure of ``ops/window.py``, single chain: each window of T steps
 is one bulk gather of the window's pi rows, the T sequential full-MMSB
 steps, one last-write-wins scatter; reads of rows that an earlier step of
 the window wrote are redirected to the staged rows through the same
-correction codes. The T steps run, on a CUDA tensor, in one launch of the
+correction codes. On a CUDA tensor the three are ONE launch of the
 hand-written Hopper kernel ``csrc/mmsb_window_kernel.cu``
-(``mmsb_window_core_cuda``), on a CPU tensor through the plain PyTorch
-version ``mmsb_window_core_torch``.
+(``mmsb_window_apply_cuda``): it reads its rows from pi by index, runs the
+steps on a thread-block cluster whose CTAs own slices of the rows of B
+and theta (``mmsb_window_cluster_size``), and writes the surviving rows
+back itself. On a CPU tensor the plain PyTorch version
+``mmsb_window_apply_torch`` runs them as ``_window_gather``,
+``mmsb_window_core_torch`` and ``_window_scatter``.
 
 Whether the kernel fits a card is a shared-memory rule
 (``window_fits``), which replaces the JAX package's TPU VMEM envelope
@@ -26,9 +30,11 @@ import torch
 from mcmc_ammsb_tpu_torch import kernels
 from mcmc_ammsb_tpu_torch.config import Config
 from mcmc_ammsb_tpu_torch.models import mmsb as model
-from mcmc_ammsb_tpu_torch.ops.window import (MAX_WINDOW, _step_sizes,
+from mcmc_ammsb_tpu_torch.ops.window import (H100_SMEM, MAX_CLUSTER,
+                                             MAX_WINDOW, _step_sizes,
                                              _window_gather, _window_scatter,
-                                             index_operands, iter_windows)
+                                             index_operands, iter_windows,
+                                             window_slice_width)
 
 
 def mmsb_windowed_scan(cfg: Config, state, xs, body):
@@ -36,21 +42,12 @@ def mmsb_windowed_scan(cfg: Config, state, xs, body):
     mmsb_hoist_operands``, shared draws [S, n]) in windows of
     ``cfg.window``; the steps after the last whole window go through
     ``body(state, x) -> state``."""
-    t_win = cfg.window
+    apply = (mmsb_window_apply_cuda if state.pi.is_cuda
+             else mmsb_window_apply_torch)
     for xs_t, mcode, keep in iter_windows(cfg, xs, xs[1]):
-        batch = xs_t[0]
-        g, sums_g = _window_gather(cfg, state, batch, xs_t[1])
-        core = mmsb_window_core_cuda if g.is_cuda else mmsb_window_core_torch
-        rows_flat, sums_flat, theta_b = core(cfg, state, xs_t, g, sums_g,
-                                             mcode)
-        pi, phi_sum = _window_scatter(cfg, state, batch, keep, rows_flat,
-                                      sums_flat)
-        state = state._replace(pi=pi, phi_sum=phi_sum, theta_b=theta_b,
-                               b=theta_b[..., 1] / theta_b.sum(-1),
-                               step_count=state.step_count + t_win,
-                               theta_count=state.theta_count + t_win)
+        state = apply(cfg, state, xs_t, mcode, keep)
     s_len = xs[1].shape[0]
-    for i in range(s_len - s_len % t_win, s_len):
+    for i in range(s_len - s_len % cfg.window, s_len):
         state = body(state, index_operands(xs, i))
     return state
 
@@ -94,76 +91,173 @@ def mmsb_window_core_torch(cfg: Config, s, xs_t, g, sums_g, mcode):
     return rows_buf, sums_buf, theta
 
 
+def _advance(s, t_win: int, theta_b):
+    """``s`` after one window: the new theta and B, the counters by T."""
+    return s._replace(theta_b=theta_b, b=theta_b[..., 1] / theta_b.sum(-1),
+                      step_count=s.step_count + t_win,
+                      theta_count=s.theta_count + t_win)
+
+
+def mmsb_window_apply_torch(cfg: Config, s, xs_t, mcode, keep):
+    """One whole window with the stock torch ops: ``_window_gather``,
+    ``mmsb_window_core_torch``, ``_window_scatter`` (JAX's gather, kernel
+    and scatter). ``s.pi`` and ``s.phi_sum`` are updated in place;
+    returns the state after the window."""
+    batch = xs_t[0]
+    g, sums_g = _window_gather(cfg, s, batch, xs_t[1])
+    rows, sums, theta_b = mmsb_window_core_torch(cfg, s, xs_t, g, sums_g,
+                                                 mcode)
+    pi, phi_sum = _window_scatter(cfg, s, batch, keep, rows, sums)
+    return _advance(s._replace(pi=pi, phi_sum=phi_sum), batch.nodes.shape[0],
+                    theta_b)
+
+
 # ---------------------------------------------------------------------------
-# Window core: the Hopper kernel
+# The window: the Hopper kernel
 # ---------------------------------------------------------------------------
+
+#: The K split aims at about this many rows of B and theta per CTA: a
+#: cluster of 16 from K = 64 (scripts/window_phases.py sweeps S; PERF.md
+#: gives the times).
+_ROWS_PER_CTA = 4
+#: Static shared memory of the kernel (its layout's offsets, 112 B by
+#: ptxas), which the dynamic part must leave room for.
+_STATIC_SMEM = 128
+
+
+def mmsb_window_smem_bytes(t_win: int, b_cap: int, n_smpl: int, e_cap: int,
+                           k: int, s: int) -> int:
+    """Shared memory per CTA with a cluster of ``s`` (``layout`` of
+    csrc/mmsb_window_kernel.cu). In double: g_link [w, n] (also the p_e
+    terms [E, w]), w [n, B], the p partials of the owned nodes [S,
+    ceil(B/S), n], the neighbor row sums [n], the row-sum and p_e
+    partials [S, B] and [S, E], mask / p_e by label [2, E]. In float, at the full row
+    stride ld: the neighbor rows [n, ld], the new rows [B, ld], the owned
+    rows of B [w, ld]; the owned columns of the node rows and of the phi
+    noise [B, w] each, the owned rows of the theta noise and of theta
+    [w, K, 2] each, the staged slice [T*B, w] and its sums [T*B], the phi
+    sums [B], the valid-neighbor counts [T*B]. The window's codes, ids and
+    lane maps, its labels and masks as bits."""
+    w = window_slice_width(k, s)
+    q4 = -(-k // 4)
+    ld = 4 * (q4 + 1 + q4 % 2)
+    nl = -(-b_cap // s)
+    tb, te = t_win * b_cap, t_win * e_cap
+    doubles = 2 * (max(n_smpl, e_cap) * w + b_cap * n_smpl
+                   + s * nl * n_smpl + n_smpl + s * b_cap + s * e_cap
+                   + 2 * e_cap)
+    floats = ((n_smpl + b_cap + w) * ld + 2 * b_cap * w + 4 * w * k
+              + tb * (w + 2) + b_cap)
+    bits = -(-tb * n_smpl // 32) + -(-tb // 32) + 2 * -(-te // 32)
+    ints = t_win * (2 * b_cap + 2 * n_smpl + e_cap) + bits
+    return 4 * (-(-doubles // 4) * 4 + floats + ints)
+
+
+@functools.lru_cache(maxsize=None)
+def mmsb_window_cluster_size(t_win: int, b_cap: int, n_smpl: int,
+                             e_cap: int, k: int,
+                             smem_limit: int = H100_SMEM) -> int:
+    """The cluster size S of an MMSB window: the first of the powers of
+    two from s0 = min(16, ceil(K / 4)) up to 16, then of the other S <=
+    16 nearest to s0, whose slices of K are all non-empty and whose
+    per-CTA shared memory (with the kernel's static part) fits
+    ``smem_limit``. Raises, naming the shape, when none does."""
+    s0 = min(MAX_CLUSTER, max(1, -(-k // _ROWS_PER_CTA)))
+    pow2 = [s for s in (1, 2, 4, 8, 16) if s >= s0]
+    rest = sorted((s for s in range(1, MAX_CLUSTER + 1) if s not in pow2),
+                  key=lambda s: (abs(s - s0), s))
+    for s in pow2 + rest:
+        if s > k or (s - 1) * window_slice_width(k, s) >= k:
+            continue
+        if (mmsb_window_smem_bytes(t_win, b_cap, n_smpl, e_cap, k, s)
+                + _STATIC_SMEM <= smem_limit):
+            return s
+    raise ValueError(
+        f"MMSB window kernel: (T, B, n, E, K) = ({t_win}, {b_cap}, "
+        f"{n_smpl}, {e_cap}, {k}) fits {smem_limit} B of shared memory per "
+        f"CTA at no cluster size <= {MAX_CLUSTER}; use a smaller --window "
+        f"or K")
+
+
+def window_fits(cfg: Config, device):
+    """(fits, reason): whether the window kernel can run ``cfg``'s
+    windows on ``device``: T <= MAX_WINDOW (the step sizes travel in the
+    kernel's parameters) and some cluster size fits the card's shared
+    memory per block (``mmsb_window_cluster_size``)."""
+    shape = (cfg.window, cfg.max_batch_nodes, cfg.num_node_sample,
+             cfg.max_batch_edges, cfg.K)
+    limit = kernels.smem_limit(device)
+    try:
+        s = mmsb_window_cluster_size(*shape, limit)
+    except ValueError as err:
+        return False, str(err)
+    if cfg.window > MAX_WINDOW:
+        return False, f"T={cfg.window}: the kernel takes at most {MAX_WINDOW}"
+    return True, (f"(T, B, n, E, K) = {shape}: a cluster of {s} CTAs, "
+                  f"{mmsb_window_smem_bytes(*shape, s)} B of shared memory "
+                  f"per CTA; the card gives a block {limit} B")
+
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-@functools.cache
-def _mmsb_lib():
-    lib = kernels.load("mmsb_window_kernel")
-    lib.mmsb_window_smem_bytes.argtypes = [_I, _I, _I, _I]
+def bind_mmsb_lib(lib):
+    """Declare the C interface of a build of csrc/mmsb_window_kernel.cu."""
+    lib.mmsb_window_smem_bytes.argtypes = [_I] * 6
     lib.mmsb_window_smem_bytes.restype = ctypes.c_size_t
-    lib.mmsb_window_launch.argtypes = ([_P] * 18 + [_I] * 5 + [_F] * 7
+    lib.mmsb_window_launch.argtypes = ([_P] * 17 + [_I] * 7 + [_F] * 7
                                        + [_P] * 3)
     lib.mmsb_window_launch.restype = _I
     return lib
 
 
-def window_fits(cfg: Config, device):
-    """(fits, reason): whether the window kernel can run ``cfg``'s
-    windows on ``device``: T <= MAX_WINDOW (the step sizes travel in the
-    kernel's parameters) and its shared memory within the card's limit
-    per block: B [K, K] and the B + n read rows in float32, the 2n phi
-    products in float64, at an odd row stride, and the step's small
-    operands (csrc/mmsb_window_kernel.cu smem_words)."""
-    smem = _mmsb_lib().mmsb_window_smem_bytes(
-        cfg.max_batch_nodes, cfg.num_node_sample, cfg.max_batch_edges,
-        cfg.K)
-    limit = kernels.smem_limit(device)
-    why = (f"T={cfg.window} (at most {MAX_WINDOW}), shared memory "
-           f"{smem} B at B={cfg.max_batch_nodes}, n={cfg.num_node_sample},"
-           f" E={cfg.max_batch_edges}, K={cfg.K}; the card gives a block "
-           f"{limit} B")
-    return cfg.window <= MAX_WINDOW and smem <= limit, why
+@functools.cache
+def _mmsb_lib():
+    return bind_mmsb_lib(kernels.load("mmsb_window_kernel"))
 
 
-def mmsb_window_core_cuda(cfg: Config, s, xs_t, g, sums_g, mcode):
-    """The same T steps as ``mmsb_window_core_torch`` in one launch of
-    ``csrc/mmsb_window_kernel.cu``. CUDA tensors only: the kernel is
-    launched or this raises — there is no fallback."""
+def mmsb_window_apply_cuda(cfg: Config, s, xs_t, mcode, keep):
+    """The same window as ``mmsb_window_apply_torch`` in ONE launch of
+    ``csrc/mmsb_window_kernel.cu`` (one cluster): the kernel reads its rows
+    from ``s.pi``/``s.phi_sum`` by index and writes the rows ``keep``
+    selects back into them IN PLACE; theta is a new tensor. CUDA tensors
+    only: the kernel is launched or this raises — there is no fallback."""
     batch, nbrs, y_w, nphi_w, tn_w, ye_w, lu, lv = xs_t
-    if not g.is_cuda:
-        raise ValueError("mmsb_window_core_cuda takes CUDA tensors")
-    t_win, n_read, k = g.shape
-    b_cap = batch.nodes.shape[1]
-    n_smpl = n_read - b_cap
-    e_cap = ye_w.shape[1]
-    lib = _mmsb_lib()
-    smem = lib.mmsb_window_smem_bytes(b_cap, n_smpl, e_cap, k)
-    limit = kernels.smem_limit(g.device)
-    if t_win > MAX_WINDOW or smem > limit:
+    if not s.pi.is_cuda:
+        raise ValueError("the MMSB window kernel's wrapper takes CUDA "
+                         "tensors")
+    dev = s.pi.device
+    t_win, b_cap = batch.nodes.shape
+    n_smpl = nbrs.shape[-1]
+    e_cap = ye_w.shape[-1]
+    k = cfg.K
+    if (nbrs.dim() != 2 or tuple(s.pi.shape) != (cfg.N, k)
+            or tuple(s.theta_b.shape) != (k, k, 2)
+            or tuple(keep.shape) != (t_win, b_cap)):
         raise ValueError(
-            f"MMSB window kernel takes T <= {MAX_WINDOW} and {limit} B of "
-            f"shared memory; T={t_win}, B={b_cap}, n={n_smpl}, E={e_cap}, "
-            f"K={k} need {smem} B. Use a smaller --window or K.")
+            f"MMSB window kernel operands: nodes {tuple(batch.nodes.shape)}"
+            f", neighbors {tuple(nbrs.shape)}, pi {tuple(s.pi.shape)}, "
+            f"theta {tuple(s.theta_b.shape)}, keep {tuple(keep.shape)}")
+    if t_win > MAX_WINDOW:
+        raise ValueError(f"MMSB window kernel takes windows of <= "
+                         f"{MAX_WINDOW} steps, got T={t_win}")
+    cluster = mmsb_window_cluster_size(t_win, b_cap, n_smpl, e_cap, k,
+                                       kernels.smem_limit(dev))
+    lib = _mmsb_lib()
 
     def arg(x, dtype):
-        return kernels.pointer(x, dtype, g.device)
+        return kernels.pointer(x, dtype, dev)
 
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
-    ptrs = [arg(g, f32), arg(sums_g, f32), arg(y_w, b8),
+    theta = torch.empty_like(s.theta_b)
+    ptrs = [arg(s.pi, f32), arg(s.phi_sum, f32), arg(y_w, b8),
             arg(batch.nodes, i32), arg(nbrs, i32), arg(batch.node_mask, b8),
-            arg(nphi_w, f32), arg(tn_w, f32), arg(ye_w, b8),
+            arg(keep, b8), arg(nphi_w, f32), arg(tn_w, f32), arg(ye_w, b8),
             arg(batch.edge_mask, b8), arg(lu, i32), arg(lv, i32),
-            arg(mcode, i32), arg(batch.weight, f32), arg(s.theta_b, f32)]
-    rows = torch.empty(t_win * b_cap, k, device=g.device)
-    sums = torch.empty(t_win * b_cap, device=g.device)
-    theta = torch.empty(k, k, 2, device=g.device)
+            arg(mcode, i32), arg(batch.weight, f32), arg(s.theta_b, f32),
+            theta.data_ptr()]
     # the prior of the diagonal cells: mmsb_prior_diag, a scalar or an
     # (eta0, eta1) pair (models/mmsb.mmsb_eta)
     diag = np.broadcast_to(np.asarray(
@@ -172,17 +266,15 @@ def mmsb_window_core_cuda(cfg: Config, s, xs_t, g, sums_g, mcode):
     eps_phi = _step_sizes(cfg, s.step_count, t_win)
     eps_theta = _step_sizes(cfg, s.theta_count + 1, t_win)
     err = lib.mmsb_window_launch(
-        *ptrs, rows.data_ptr(), sums.data_ptr(), theta.data_ptr(),
-        t_win, b_cap, n_smpl, e_cap, k,
+        *ptrs, t_win, b_cap, n_smpl, e_cap, k, cfg.N, cluster,
         cfg.alpha_value, float(cfg.N), 1.0 / k, cfg.eta0, cfg.eta1,
-        float(diag[0]), float(diag[1]),
-        eps_phi.ctypes.data, eps_theta.ctypes.data,
-        torch.cuda.current_stream(g.device).cuda_stream)
+        float(diag[0]), float(diag[1]), eps_phi.ctypes.data,
+        eps_theta.ctypes.data, torch.cuda.current_stream(dev).cuda_stream)
     kernels.check_launch(err, "MMSB window kernel")
-    mmsb_window_core_cuda.launches += 1
-    return rows, sums, theta
+    mmsb_window_apply_cuda.launches += 1
+    return _advance(s, t_win, theta)
 
 
 #: Launches of the MMSB window kernel in this process (reset by callers
 #: that check a run went through it).
-mmsb_window_core_cuda.launches = 0
+mmsb_window_apply_cuda.launches = 0

@@ -1,15 +1,21 @@
-"""Profile the port's two windowed a-MMSB paths on one NVIDIA GPU.
+"""Profile the port's CLI paths on one NVIDIA GPU.
 
 Run from the root of a checkout (the package must be importable):
 
-    PYTHONPATH=. python3 scripts/torch_profile.py [--reps 5] [--out FILE]
+    PYTHONPATH=. python3 scripts/torch_profile.py [--reps 5]
+        [--paths single,chains,mmsb,phi] [--out FILE]
 
-Both paths at N=317,080 (``--synthetic 317080,7``), K=256, the CLI's
-defaults otherwise:
+Each path at N=317,080 (``--synthetic 317080,7``), the CLI's defaults
+otherwise:
 
-  single  the main path: window 12, 1008 steps per call (84 windows);
-  chains  ``--num-chains 16 --node-coin alternate``: window 96 // 16 = 6,
-          504 steps per call (84 windows of 16 chains).
+  single  the a-MMSB main path, K=256: window 12, 1008 steps per call
+          (84 windows);
+  chains  ``--num-chains 16 --node-coin alternate``, K=256: window
+          96 // 16 = 6, 504 steps per call (84 windows of 16 chains);
+  mmsb    ``--model mmsb --window 12``, K=64: 1008 steps per call (84
+          windows);
+  phi     ``--phi-impl pallas --device-sampling``, K=256: 1000 steps per
+          call, no windows (kernels are counted per step).
 
 For each: one warm-up call, then ``--reps`` unprofiled calls timed on the
 host clock around ``Learner.run`` (which ends in a synchronize): updates/s
@@ -36,6 +42,10 @@ PATHS = {
     "single": (["--synthetic", "317080,7", "-k", "256"], 1008),
     "chains": (["--num-chains", "16", "--node-coin", "alternate",
                 "--synthetic", "317080,7", "-k", "256"], 504),
+    "mmsb": (["--model", "mmsb", "--synthetic", "317080,7", "-k", "64",
+              "--window", "12"], 1008),
+    "phi": (["--phi-impl", "pallas", "--device-sampling", "--synthetic",
+             "317080,7", "-k", "256"], 1000),
 }
 
 
@@ -46,6 +56,7 @@ def make_learner(flags):
     from mcmc_ammsb_tpu_torch.data import (Graph, generate_sets,
                                            synthetic_edges)
     from mcmc_ammsb_tpu_torch.learner import Learner
+    from mcmc_ammsb_tpu_torch.models.mmsb import FullMMSBLearner
 
     args = cli.build_arg_parser().parse_args(flags)
     cli.resolve_fast_defaults(args)
@@ -59,6 +70,8 @@ def make_learner(flags):
         cfg = cfg.replace(device_sampling=True)
         return cfg, args.num_chains, FlatChainLearner(
             cfg, graph, split, args.num_chains, "cuda")
+    if args.model == "mmsb":
+        return cfg, 1, FullMMSBLearner(cfg, graph, split, "cuda")
     return cfg, 1, Learner(cfg, graph, split, "cuda")
 
 
@@ -87,7 +100,8 @@ def profile_path(name: str, reps: int) -> dict:
         tot, cnt = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
-    windows = steps // cfg.window
+    # kernels per window on the windowed paths, per step on the others
+    windows = steps // cfg.window if cfg.window > 1 else steps
     return {
         "path": name, "window": cfg.window, "steps_per_call": steps,
         "windows_per_call": windows, "chains": chains,
@@ -104,7 +118,7 @@ def profile_path(name: str, reps: int) -> dict:
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--reps", type=int, default=5)
-    p.add_argument("--paths", default="single,chains")
+    p.add_argument("--paths", default="single,chains,mmsb,phi")
     p.add_argument("--out", default=None)
     a = p.parse_args()
     if not torch.cuda.is_available():

@@ -1,19 +1,32 @@
-"""Phase profile and cluster-size sweep of the fused a-MMSB window kernel
-(mcmc_ammsb_tpu_torch/csrc/window_kernel.cu) on one NVIDIA GPU.
+"""Phase profiles and cluster-size sweeps of the port's kernels on one
+NVIDIA GPU: the fused a-MMSB window (mcmc_ammsb_tpu_torch/csrc/
+window_kernel.cu), the fused MMSB window (csrc/mmsb_window_kernel.cu)
+and the phi kernel's blocks per node (csrc/phi_kernel.cu).
 
 Run from the root of a checkout:
 
-    PYTHONPATH=. python3 scripts/window_phases.py [--sizes 2,4,8,16]
+    PYTHONPATH=. python3 scripts/window_phases.py [--kernels window,mmsb,phi]
+        [--sizes 2,4,8,16]
 
-At the single-chain bench shape (T, B, n, E, K) = (12, 33, 32, 32, 256)
+window: at the single-chain bench shape (T, B, n, E, K) = (12, 33, 32, 32, 256)
 and the chain shape (16 chains of (6, 33, 32, 32, 256)), for each cluster
 size S that fits: the clusters the card runs at once, the device time per
 window (CUDA events; the device sleeps while the host queues 50
 windows, so the host's launch cost is not in it), and the clock cycles
 per step of each stage, from a second build of the source with
 -DWINDOW_PHASES (thread 0 of the first CTA adds the cycles between
-consecutive barriers into one slot per stage). Prints one JSON line.
-Imports nothing of JAX.
+consecutive barriers into one slot per stage).
+
+mmsb: the same for the MMSB window at (T, B, n, E, K) = (12, 33, 32, 32,
+64), the --model mmsb --window 12 shape, and (12, 33, 32, 32, 128), for
+each cluster size S in 1, 2, 4, 8, 16 that fits (a build with
+-DMMSB_PHASES for the stages).
+
+phi: the by-index phi entry at (B, n, K) = (33, 32, 256), the
+--phi-impl pallas shape, with G = 1, 2, 4, 8 blocks per node.
+
+Prints one JSON line per run and one with all of them. Imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -26,6 +39,18 @@ import sys
 
 import torch
 
+MMSB_STAGES = ["init + first gather",
+               "theta-noise issue + redirect + wait",
+               "neighbor row sums + g_link",
+               "p partials pushed + cluster barrier",
+               "owners' w pushed + cluster barrier", "sc + phi step",
+               "next gather issue + phi' and row-sum partials pushed + "
+               "cluster barrier", "normalize + stage",
+               "p_e terms, partials pushed + cluster barrier",
+               "edge weights", "fan-in + theta step",
+               "scatter + final barrier", "(unused)",
+               "calibration: bare block barrier",
+               "calibration: bare cluster barrier"]
 STAGES = ["init + first gather", "gather issue + redirect + wait",
           "partial q pushed + cluster barrier",
           "owners' coefficients pushed + cluster barrier",
@@ -51,23 +76,23 @@ def device_ms(fn) -> float:
     return start.elapsed_time(end) / REPS
 
 
-def main() -> int:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--sizes", default="2,4,8,16")
-    a = p.parse_args()
-    if not torch.cuda.is_available():
-        print("window_phases: no CUDA device available", file=sys.stderr)
-        return 1
-    from mcmc_ammsb_tpu_torch import chains_flat, kernels, testing
+def _phase_build(kernels, name: str, flag: str):
+    """A second build of csrc/<name>.cu with the phase counters on."""
+    src = kernels._CSRC / f"{name}.cu"
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = kernels.BUILD_DIR / f"lib{name}_phases.so"
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, flag, "-o",
+                    str(out), str(src)], check=True, capture_output=True)
+    return ctypes.CDLL(str(out))
+
+
+def run_window(sizes, kernels, result):
+    """The fused a-MMSB window: cluster sizes, stages."""
+    from mcmc_ammsb_tpu_torch import chains_flat, testing
     from mcmc_ammsb_tpu_torch.ops import window
 
-    src = kernels._CSRC / "window_kernel.cu"
-    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = kernels.BUILD_DIR / "libwindow_phases.so"
-    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-DWINDOW_PHASES",
-                    "-o", str(out), str(src)], check=True,
-                   capture_output=True)
-    plib = window.bind_window_lib(ctypes.CDLL(str(out)))
+    plib = window.bind_window_lib(_phase_build(kernels, "window_kernel",
+                                               "-DWINDOW_PHASES"))
     plib.window_kernel_phases.argtypes = [ctypes.c_void_p]
     lib = window._window_lib()
     limit = kernels.smem_limit(torch.device("cuda"))
@@ -91,13 +116,9 @@ def main() -> int:
             window.window_chain_apply_cuda(cfgc, st, win.xs_t, win.mcode,
                                            win.keep), stc),
     }
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    result = {"device": smi, "stages": STAGES, "runs": []}
     for name, (shape, t_win, run, state) in runs.items():
         k = shape[4]
-        for s in (int(x) for x in a.sizes.split(",")):
+        for s in sizes:
             w = window.window_slice_width(k, s)
             if ((s - 1) * w >= k
                     or window.window_smem_bytes(*shape, s) > limit):
@@ -123,6 +144,104 @@ def main() -> int:
                 "cycles_per_step": sum(cyc[1:10]),
                 "stage_cycles_per_step": [round(c, 1) for c in cyc]})
             print(json.dumps(result["runs"][-1]), flush=True)
+
+
+def run_mmsb(kernels, result):
+    """The fused MMSB window: every cluster size that fits, stages."""
+    from mcmc_ammsb_tpu_torch import testing
+    from mcmc_ammsb_tpu_torch.ops import window, window_mmsb
+
+    plib = window_mmsb.bind_mmsb_lib(_phase_build(
+        kernels, "mmsb_window_kernel", "-DMMSB_PHASES"))
+    plib.mmsb_window_phases.argtypes = [ctypes.c_void_p]
+    lib = window_mmsb._mmsb_lib()
+    limit = kernels.smem_limit(torch.device("cuda"))
+    phases = (ctypes.c_ulonglong * 16)()
+    for shape in [(12, 33, 32, 32, 64), (12, 33, 32, 32, 128)]:
+        t_win, k = shape[0], shape[4]
+        case = testing.mmsb_window_case(1, *shape)
+        cfg = testing.window_case_config(case)
+        state, xs = testing.mmsb_window_case_torch(case, "cuda")
+        b = xs[0]
+        mcode = window._correction_codes(cfg, b.nodes, b.node_mask, xs[1])
+        keep = window._last_write_wins(b.nodes, b.node_mask, t_win)
+        for s in (1, 2, 4, 8, 16):
+            w = window.window_slice_width(k, s)
+            smem = window_mmsb.mmsb_window_smem_bytes(*shape, s)
+            if (s - 1) * w >= k or smem > limit:
+                continue
+            window_mmsb.mmsb_window_cluster_size = lambda *a, _s=s: _s
+            scratch = state._replace(pi=state.pi.clone(),
+                                     phi_sum=state.phi_sum.clone())
+
+            def run():
+                window_mmsb.mmsb_window_apply_cuda(cfg, scratch, xs, mcode,
+                                                   keep)
+
+            window_mmsb._mmsb_lib = lambda: lib
+            ms = device_ms(run)
+            window_mmsb._mmsb_lib = lambda: plib
+            run()
+            torch.cuda.synchronize()
+            plib.mmsb_window_phases(phases)        # reads and zeroes
+            run()
+            torch.cuda.synchronize()
+            plib.mmsb_window_phases(phases)
+            cyc = [phases[i] / t_win for i in range(len(MMSB_STAGES))]
+            result["runs"].append({
+                "run": f"mmsb {shape}", "S": s, "smem_per_cta": smem,
+                "ms_per_window": ms, "us_per_step": 1e3 * ms / t_win,
+                "cycles_per_step": sum(cyc[1:11]),
+                "stage_cycles_per_step": [round(c, 1) for c in cyc]})
+            print(json.dumps(result["runs"][-1]), flush=True)
+        window_mmsb._mmsb_lib = lambda: lib
+
+
+def run_phi(kernels, result):
+    """The by-index phi entry at the --phi-impl pallas shape with G
+    blocks per node, in turns (1, 2, 4, 8, 8, 4, 2, 1)."""
+    from mcmc_ammsb_tpu_torch import testing
+    from mcmc_ammsb_tpu_torch.ops import phi_pallas
+
+    case = testing.phi_case(0, 33, 32, 256)
+    cfg = testing.phi_case_config(case)
+    t = {f: torch.as_tensor(case[f], device="cuda") for f in
+         ("pi", "phi_sum", "beta", "nodes", "nbrs", "y", "noise")}
+    args = (cfg, t["pi"], t["phi_sum"], t["beta"], t["nodes"], t["nbrs"],
+            t["y"], case["step_count"], t["noise"])
+    want = phi_pallas.phi_update_rows_torch(*args)
+    for g in (1, 2, 4, 8, 8, 4, 2, 1):
+        phi_pallas.phi_cluster_size = lambda *a, _g=g: _g
+        got = phi_pallas.phi_update_rows_cuda(*args)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        ms = device_ms(lambda: phi_pallas.phi_update_rows_cuda(*args))
+        result["runs"].append({"run": "phi by-index (33,32,256)", "G": g,
+                               "ms_per_call": ms, "max_abs_diff": err})
+        print(json.dumps(result["runs"][-1]), flush=True)
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--kernels", default="window,mmsb,phi")
+    p.add_argument("--sizes", default="2,4,8,16")
+    a = p.parse_args()
+    if not torch.cuda.is_available():
+        print("window_phases: no CUDA device available", file=sys.stderr)
+        return 1
+    from mcmc_ammsb_tpu_torch import kernels
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    result = {"device": smi, "stages": STAGES, "mmsb_stages": MMSB_STAGES,
+              "runs": []}
+    which = a.kernels.split(",")
+    if "window" in which:
+        run_window([int(x) for x in a.sizes.split(",")], kernels, result)
+    if "mmsb" in which:
+        run_mmsb(kernels, result)
+    if "phi" in which:
+        run_phi(kernels, result)
     print(json.dumps(result))
     return 0
 

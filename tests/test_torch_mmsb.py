@@ -2,9 +2,13 @@
 ops/window_mmsb.py) against the JAX package's (mcmc_ammsb_tpu/models/
 mmsb.py, ops/window_mmsb.py) on the same seeded operands: the step math,
 the plain window core against the Pallas window kernel in interpret
-mode, a windowed trajectory with its ppx series, and the learner on a
-planted partition. The CUDA kernel itself is checked against the plain
-core on the card by chip_smoke.py."""
+mode, the fused window's plain version (gather, core, scatter) against
+JAX's three, the kernel's cluster-size rule, a windowed trajectory with
+its ppx series, and the learner on a planted partition. The CUDA kernel
+itself is checked against the plain version on the card by
+chip_smoke.py."""
+
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +19,7 @@ import torch
 from mcmc_ammsb_tpu.config import EdgeSetBackend as JaxEdgeSetBackend
 from mcmc_ammsb_tpu.learner import DeviceBatch as JaxDeviceBatch
 from mcmc_ammsb_tpu.models import mmsb as jax_mmsb
+from mcmc_ammsb_tpu.ops import window as jax_window
 from mcmc_ammsb_tpu.ops import window_mmsb as jax_window_mmsb
 from mcmc_ammsb_tpu.ops.device_sampling import sample_minibatches_device
 from mcmc_ammsb_tpu.ops.edgeset import build_edge_set as jax_build_edge_set
@@ -268,10 +273,107 @@ def test_window_core_matches_jax_kernel(shape, prior_diag):
     assert torch.equal(got[2], got[2].transpose(0, 1))
 
 
+def _window_apply_jax(cfg, case, state_np, keep):
+    """JAX's _window_gather -> mmsb_window_kernel_call (interpret mode) ->
+    _window_scatter on the case: (pi, phi_sum, theta_b)."""
+    jcfg = jax_config(cfg)
+    js = SimpleNamespace(pi=jnp.asarray(state_np["pi"]),
+                         phi_sum=jnp.asarray(state_np["phi_sum"]))
+    jbatch = JaxDeviceBatch(*(jnp.asarray(case[f])
+                              for f in JaxDeviceBatch._fields))
+    jnbrs = jnp.asarray(case["neighbors"])
+    g, sums = jax_window._window_gather(jcfg, js, jbatch, jnbrs)
+    jmcode = jax_window._correction_codes(jcfg, jbatch.nodes,
+                                          jbatch.node_mask, jnbrs)
+    rows, rsums, theta_b = _jax_kernel(
+        cfg, case, torch.from_numpy(np.array(g)),
+        torch.from_numpy(np.array(sums)),
+        torch.from_numpy(np.array(jmcode)[..., 0]))
+    jkeep = jax_window._last_write_wins(jbatch.nodes, jbatch.node_mask,
+                                        case["nodes"].shape[0])
+    np.testing.assert_array_equal(np.asarray(jkeep), keep.numpy())
+    pi, phi_sum = jax_window._window_scatter(jcfg, js, jbatch, jkeep,
+                                             jnp.asarray(rows),
+                                             jnp.asarray(rsums))
+    return np.asarray(pi), np.asarray(phi_sum), theta_b
+
+
+@pytest.mark.parametrize("shape, prior_diag", [
+    ((4, 9, 8, 8, 8), None),
+    ((4, 5, 7, 5, 12), (2.0, 5.0)),
+])
+def test_window_apply_torch_matches_jax(shape, prior_diag):
+    """The fused window's plain version (gather, core, scatter in one
+    call: what the CUDA kernel computes in one launch) == JAX's
+    _window_gather -> the Pallas kernel (interpret mode) ->
+    _window_scatter on the same operands, with the case's in-window
+    collisions, masked and padded lanes: pi updated in place (atol 5e-3),
+    phi_sum rtol 1e-3, theta within the envelope of tests/
+    test_window_mmsb.py:57-59 and exactly symmetric, B its ratio, the
+    counters advanced by T."""
+    case, cfg, state, xs, _, _, mcode = _window_both(6, shape, prior_diag)
+    state_np = {f: getattr(state, f).numpy().copy() for f in ("pi",
+                                                              "phi_sum")}
+    keep = window._last_write_wins(xs[0].nodes, xs[0].node_mask, shape[0])
+    assert not bool(xs[0].node_mask.all()), "the case must mask lanes"
+    got = window_mmsb.mmsb_window_apply_torch(cfg, state, xs, mcode, keep)
+    assert got.pi is state.pi                        # in place
+    assert got.step_count == case["step_count"] + shape[0]
+    assert got.theta_count == case["theta_count"] + shape[0]
+    pi, phi_sum, theta_b = _window_apply_jax(cfg, case, state_np, keep)
+    assert_close(got.pi, pi, 0.0, PI_ATOL, "pi")
+    assert_close(got.phi_sum, phi_sum, 1e-3, 0.0, "phi_sum")
+    assert_close(got.theta_b, theta_b, what="theta", **TH_TOLS)
+    assert torch.equal(got.theta_b, got.theta_b.transpose(0, 1))
+    torch.testing.assert_close(got.b, got.theta_b[..., 1]
+                               / got.theta_b.sum(-1), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [
+    (12, 33, 32, 32, 64), (12, 33, 32, 32, 128), (12, 33, 32, 32, 256),
+    (3, 6, 7, 5, 12), (48, 33, 32, 32, 64)])
+def test_mmsb_window_cluster_size_rule(shape):
+    """The K split of the MMSB window kernel: CTA r owns rows [r*w,
+    min(K, (r+1)*w)) of B and theta; the slices tile K exactly with none
+    empty, and the per-CTA shared memory fits an H100's 232,448 B per
+    block — at the shapes chip_smoke.py runs (K = 64, 128, 256; the odd
+    K = 12) and a long window (T = 48)."""
+    t_win, b_cap, n_smpl, e_cap, k = shape
+    s = window_mmsb.mmsb_window_cluster_size(*shape)
+    assert 1 <= s <= window.MAX_CLUSTER
+    w = window.window_slice_width(k, s)
+    rows = [c for r in range(s) for c in range(r * w, min(k, (r + 1) * w))]
+    assert rows == list(range(k))
+    assert all(min(k, (r + 1) * w) > r * w for r in range(s))
+    assert window_mmsb.mmsb_window_smem_bytes(*shape, s) <= window.H100_SMEM
+    if k >= 64:
+        assert s > 1
+
+
+def test_mmsb_window_cluster_size_raises_and_window_fits():
+    """A shape that fits at no cluster size raises naming the shape;
+    window_fits (the learner's decision) says no for it and names the
+    cluster and the bytes for a shape that fits."""
+    with pytest.raises(ValueError, match=r"\(64, 33, 32, 32, 1024\)"):
+        window_mmsb.mmsb_window_cluster_size(64, 33, 32, 32, 1024)
+    assert window_mmsb.mmsb_window_cluster_size(12, 33, 32, 32, 256) == 16
+    assert window_mmsb.mmsb_window_cluster_size(12, 33, 32, 32, 64) == 16
+    # no power of two splits K = 12 or K = 100 into non-empty slices: the
+    # nearest other size does
+    assert window_mmsb.mmsb_window_cluster_size(3, 6, 7, 5, 12) == 3
+    assert window_mmsb.mmsb_window_cluster_size(12, 33, 32, 32, 100) == 13
+    # a smaller card: a shape that fits nowhere raises
+    with pytest.raises(ValueError, match=r"\(12, 33, 32, 32, 64\)"):
+        window_mmsb.mmsb_window_cluster_size(12, 33, 32, 32, 64, 70_000)
+
+
 def test_window_core_cuda_rejects_cpu_tensors():
+    """The fused kernel's wrapper never runs on the CPU: on a CPU tensor
+    it raises (mmsb_windowed_scan picks the plain version by device)."""
     case, cfg, state, xs, g, sums, mcode = _window_both(4, (2, 6, 5, 4, 8))
+    keep = window._last_write_wins(xs[0].nodes, xs[0].node_mask, 2)
     with pytest.raises(ValueError, match="CUDA"):
-        window_mmsb.mmsb_window_core_cuda(cfg, state, xs, g, sums, mcode)
+        window_mmsb.mmsb_window_apply_cuda(cfg, state, xs, mcode, keep)
 
 
 # ---------------------------------------------------------------------------
@@ -399,19 +501,23 @@ def test_learner_recovers_planted_blocks():
 
 @pytest.mark.cuda
 def test_window_core_cuda_matches_plain_on_gpu():
-    """On a GPU: the kernel against the plain version at the main path's
-    shape at T=1 (rtol 1e-5, atol 1e-8 normwise, as chip_smoke.py checks
-    it)."""
+    """On a GPU: the fused kernel against its plain version at the main
+    path's shape at T=1, each on its own copy of the state (the kernel
+    writes pi in place): rtol 1e-5, atol 1e-8 normwise, as chip_smoke.py
+    checks it; theta exactly symmetric."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     case = testing.mmsb_window_case(0, 1, 33, 32, 32, 64)
     cfg = testing.window_case_config(case)
     state, xs = testing.mmsb_window_case_torch(case, "cuda")
-    g, sums = window._window_gather(cfg, state, xs[0], xs[1])
     mcode = window._correction_codes(cfg, xs[0].nodes, xs[0].node_mask,
                                      xs[1])
-    got = window_mmsb.mmsb_window_core_cuda(cfg, state, xs, g, sums, mcode)
-    want = window_mmsb.mmsb_window_core_torch(cfg, state, xs, g, sums, mcode)
-    for a, b in zip(got, want):
+    keep = window._last_write_wins(xs[0].nodes, xs[0].node_mask, 1)
+    clone = state._replace(pi=state.pi.clone(), phi_sum=state.phi_sum.clone())
+    got = window_mmsb.mmsb_window_apply_cuda(cfg, state, xs, mcode, keep)
+    want = window_mmsb.mmsb_window_apply_torch(cfg, clone, xs, mcode, keep)
+    assert torch.equal(got.theta_b, got.theta_b.transpose(0, 1))
+    for f in ("pi", "phi_sum", "theta_b"):
+        a, b = getattr(got, f), getattr(want, f)
         err = float((a - b).abs().max())
-        assert err <= 1e-8 + 1e-5 * float(b.abs().max())
+        assert err <= 1e-8 + 1e-5 * float(b.abs().max()), f

@@ -117,6 +117,49 @@ def test_phi_entries_reject_masks_and_cpu_tensors():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("n_smpl, k, g, chunk", [
+    (32, 256, 1, 32), (32, 100, 1, 32), (7, 12, 1, 7), (32, 2048, 1, 25),
+    (32, 4096, 1, 11), (32, 256, 2, 16), (32, 2048, 2, 16),
+    (32, 4096, 8, 3)])
+def test_phi_shared_memory_and_chunk_rule(n_smpl, k, g, chunk):
+    """The kernel's shared-memory rule: a block stages all of its
+    ceil(n/G) neighbor rows at once where they fit an H100's 232,448 B
+    per block (the main path's (32, 256), the ragged K = 100, the small
+    (7, 12)), else chunks of as many as fit (K = 2048: 25 + 7, K = 4096:
+    11 + 11 + 10; with 8 blocks per node, 3 + 1 of each block's 4); the
+    chunks tile the neighbors and each chunk's block fits."""
+    nc = phi_pallas.phi_neighbor_chunk(n_smpl, k, g)
+    assert nc == chunk
+    ng = -(-n_smpl // g)
+    starts = list(range(0, ng, nc))
+    assert sum(min(nc, ng - c) for c in starts) == ng
+    assert phi_pallas.phi_smem_bytes(n_smpl, k, nc, g) <= 232448
+    if nc < ng:
+        assert phi_pallas.phi_smem_bytes(n_smpl, k, nc + 1, g) > 232448
+
+
+def test_phi_chunk_rule_raises_naming_the_shape():
+    """A row too long for one block's shared memory raises, naming the
+    shape."""
+    with pytest.raises(ValueError, match=r"\(32, 20000\)"):
+        phi_pallas.phi_neighbor_chunk(32, 20000)
+
+
+@pytest.mark.parametrize("b_cap, n_smpl, k, g", [
+    (33, 32, 256, 4), (5, 7, 12, 4), (8, 32, 2048, 8), (66, 32, 256, 2),
+    (200, 32, 256, 1), (33, 1, 256, 1), (8, 32, 8192, 2)])
+def test_phi_cluster_rule(b_cap, n_smpl, k, g):
+    """Blocks per node: the largest power of two up to the kernel's
+    cluster limit and to n whose B*G blocks fit an H100's 132 SMs and
+    whose blocks keep room for a neighbor row beside the G partial rows
+    (the --phi-impl pallas shape, B = 33, gets 4 and fills the SMs; at
+    K = 8192 the partial rows hold G to 2)."""
+    got = phi_pallas.phi_cluster_size(b_cap, n_smpl, k)
+    assert got == g
+    assert got == 1 or got * b_cap <= 132
+    assert phi_pallas.phi_neighbor_chunk(n_smpl, k, got) >= 1
+
+
 INTERVAL, EVALS = 5, 2
 
 
