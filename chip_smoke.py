@@ -6,7 +6,18 @@ Phases, one line each; any failure raises and the exit code is not 0:
   1. device  — a CUDA device is required; prints the card's name and
                power limit as nvidia-smi reports them;
   2. build   — compiles the three kernels from csrc/ with nvcc, one
-               process per source, all started together;
+               process per source, and the native host library
+               (csrc/sampler.cpp) with g++, all started together;
+     native  — the native CHD build and the numpy build give
+               byte-equal perfect-hash tables on the bench graph's
+               training edges (E ~ 1.1 M), with the seconds of each;
+     membership — on the card, at N=317,080: has_edges of the perfect,
+               csr, sorted and cuckoo backends equals the adjacency
+               backend's answer exactly on one [200, 33, 32] block of
+               training queries (nodes x neighbors; padded lanes hold the
+               sentinel N in the even steps and id 0 in the odd ones) and
+               on 10^6 pairs of which half are true edges, with the ms of
+               each backend on the block;
   3. kernel  — each kernel against its plain PyTorch version on the same
                CUDA operands, with the time per call of each, its bound
                (the larger of the bytes it must move over 3.35 TB/s and
@@ -26,6 +37,7 @@ Phases, one line each; any failure raises and the exit code is not 0:
                single-chain launches — both no farther from float64 than
                2x the plain version; both phi entries
                (pre-gathered, by index) at (B, n, K) = (33, 32, 256),
+               (64, 32, 256) (the host-sampled paths' 64 node lanes),
                (5, 7, 12), the ragged (33, 32, 100) and (33, 32, 4096)
                (neighbor rows staged in chunks) — normwise
                rtol 1e-5, atol 1e-8 (see max_err) and no farther from
@@ -48,9 +60,13 @@ Phases, one line each; any failure raises and the exit code is not 0:
                tests/test_window_mmsb.py), --phi-impl pallas with
                private draws (normwise rtol 1e-5, atol 1e-8), the flat
                chain engine with C=3 (4 fused chain launches, normwise
-               rtol 1e-5, atol 1e-8); then the MMSB learner on the GPU
-               recovers a planted partition (the JAX package's own
-               check, tests/test_mmsb.py:84);
+               rtol 1e-5, atol 1e-8), 23 host-sampled steps from the
+               same host batches, one train_step per step with
+               --phi-impl pallas (23 launches of the pre-gathered phi
+               entry) and one scanned chunk with the jnp phi (both
+               normwise rtol 1e-5, atol 1e-8); then the MMSB learner on
+               the GPU recovers a planted partition (the JAX package's
+               own check, tests/test_mmsb.py:84);
   5. main    — the port's CLI in-process, at N=317,080:
                the a-MMSB main path (K=256, window 12, 2000 steps): the
                fused window kernel launches once per window, ppx falls
@@ -70,6 +86,21 @@ Phases, one line each; any failure raises and the exit code is not 0:
                aggregate rate and the host time of the chains' init are
                printed; then a small --num-chains 3 --rhat-draws 2 run
                logs a finite R-hat line;
+               the host-sampled paths and the perfect-hash main path
+               (HOST_RUNS), each with ppx finite and below ppx[0] at the
+               last evaluation and exact launch counts:
+               --phi-impl pallas (K=256, 1000 steps: host batches from
+               the native sampler, private draws, chunks of 200): 1000
+               by-index phi launches, no pre-gathered one;
+               --no-device-sampling --no-shared-neighbors
+               --steps-per-call 1 --phi-impl pallas (300 steps): 300
+               pre-gathered phi launches, no by-index one;
+               --no-device-sampling -s BFLink (400 steps, jnp phi): no
+               kernel launch;
+               --synthetic-powerlaw 317080,6.6,343,256 --edgeset perfect
+               --ds-link-cap 64 (1000 device-sampled steps; 65 node lanes
+               switch the auto window off): both edge sets are perfect
+               hashes, no kernel launch;
 then a JSON line of the kernels, the card's name and power limit, and
 the result line last.
 """
@@ -103,6 +134,30 @@ CHAIN_ARGS = ["--num-chains", str(CHAINS), "--node-coin", "alternate",
 RHAT_ARGS = ["--num-chains", "3", "--synthetic", "2000,8", "-k", "16",
              "-x", "200", "-i", "100", "--rhat-draws", "2",
              "--device", "cuda"]
+# the host-sampled paths and the perfect-hash main path: name -> (CLI
+# arguments, steps, ppx interval, expected launches of every kernel entry
+# that may be non-zero, messages the log must hold)
+HOST_RUNS = {
+    "--phi-impl pallas (host-sampled)": (
+        ["--phi-impl", "pallas", "--synthetic", "317080,7", "-k", "256",
+         "-x", "1000", "-i", "500"], 1000, 500, {"phi_gather": 1000},
+        ["host sampler: native C++", "steps_per_call auto-set to 200"]),
+    "step at a time, --phi-impl pallas": (
+        ["--no-device-sampling", "--no-shared-neighbors",
+         "--steps-per-call", "1", "--phi-impl", "pallas", "--synthetic",
+         "317080,7", "-k", "256", "-x", "300", "-i", "100"], 300, 100,
+        {"phi": 300}, ["host sampler: numpy"]),
+    "--no-device-sampling -s BFLink": (
+        ["--no-device-sampling", "-s", "BFLink", "--synthetic", "317080,7",
+         "-k", "256", "-x", "400", "-i", "200"], 400, 200, {},
+        ["host sampler: native C++"]),
+    "--synthetic-powerlaw, --edgeset perfect": (
+        ["--synthetic-powerlaw", "317080,6.6,343,256", "--edgeset",
+         "perfect", "--ds-link-cap", "64", "-k", "256", "-x", "1000", "-i",
+         "500"], 1000, 500, {},
+        ["edge sets: training perfect, held-out perfect",
+         "window auto-disabled"]),
+}
 # (T, B, n, E, K) of the fused window kernel's checks; the first is the
 # main path's
 WINDOW_SHAPES = [(12, 33, 32, 32, 256), (3, 6, 7, 5, 12),
@@ -116,9 +171,14 @@ CHAIN_SHAPES = [(CHAINS, 6, 33, 32, 32, 256), (3, 4, 9, 8, 8, 16),
 MMSB_SHAPES = [(1, 33, 32, 32, 64), (12, 33, 32, 32, 64), (3, 6, 7, 5, 12),
                (12, 33, 32, 32, 128), (12, 33, 32, 32, 256),
                (12, 33, 32, 32, 50)]
-# (B, n, K) of the phi entries' checks; the first is the phi path's, the
-# last stages each block's neighbor rows in chunks
-PHI_SHAPES = [(33, 32, 256), (5, 7, 12), (33, 32, 100), (33, 32, 4096)]
+# (B, n, K) of the phi entries' checks: the device-sampled phi path's (33
+# node lanes: the by-index entry's main shape), the host-sampled paths'
+# (64 node lanes, two blocks per node: the pre-gathered entry's main
+# shape, which only the step-at-a-time host path launches), two odd
+# ones, and one that stages each block's neighbor rows in chunks
+PHI_SHAPES = [(33, 32, 256), (64, 32, 256), (5, 7, 12), (33, 32, 100),
+              (33, 32, 4096)]
+PHI_MAIN_SHAPE = {"pre-gathered": (64, 32, 256), "by-index": (33, 32, 256)}
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, fp32 FLOP/s outside
 # the tensor cores
 HBM_RATE, FP32_RATE = 3.35e12, 67e12
@@ -210,16 +270,129 @@ def _to(x, dev):
     return x
 
 
-def build_all(kernels):
-    """Phase 2: one nvcc per source, all started together."""
+def build_all(kernels, native):
+    """Phase 2: one nvcc per source and one g++ for the native host
+    library, all started together."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
+    with ThreadPoolExecutor(len(SOURCES) + 1) as pool:
+        host_lib = pool.submit(native.build)
         libs = dict(zip(SOURCES, pool.map(kernels.build, SOURCES)))
+        host_lib = host_lib.result()
     for name, lib in libs.items():
         ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
                  .splitlines() if "registers" in ln or "spill" in ln]
         phase("build", f"{name}: {'; '.join(ptxas)}")
-    phase("build", f"3 sources built in {time.perf_counter() - t0:.2f} s")
+    if not native.available():
+        raise AssertionError(f"native host library: {native.build_error}")
+    phase("build", f"3 CUDA sources and {host_lib.name} (g++) built in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+
+def _bench_graph(data):
+    """The bench graph (--synthetic 317080,7) as the CLI splits it."""
+    n, u, v = data.synthetic_edges(317080, 7, seed=1)
+    split = data.generate_sets(n, u, v, 0.01)
+    return n, split, data.Graph.from_edges(n, split.training_u,
+                                           split.training_v)
+
+
+def check_native(edgeset, graph):
+    """Phase native: the CHD perfect hash of the bench graph's training
+    edges built natively and built in numpy."""
+    out = {}
+    for route in ("native", "numpy"):
+        t0 = time.perf_counter()
+        out[route] = edgeset._build_perfect_host(
+            graph.edges_u, graph.edges_v, use_native=route == "native")
+        out[route + "_s"] = time.perf_counter() - t0
+    a, b = out["native"], out["numpy"]
+    if a[2:] != b[2:] or any(x.tobytes() != y.tobytes()
+                             for x, y in zip(a[:2], b[:2])):
+        raise AssertionError("CHD tables of the native and the numpy "
+                             "build differ")
+    phase("native", f"CHD perfect hash of E={graph.num_edges} training "
+          f"edges: {a[1].shape[0]} slots, {a[0].shape[0]} buckets, seed "
+          f"{a[4]}; native chd_build {out['native_s']:.3f} s, numpy build "
+          f"{out['numpy_s']:.3f} s, tables byte-equal")
+
+
+def check_membership(mods, n, split, graph, smi):
+    """Phase membership: every backend against the adjacency matrix on
+    the card. On a lane whose node is the sentinel N the adjacency backend
+    answers for node N-1 (the clamped gather, as in the JAX package) and
+    the others answer False; those lanes are held to that, every other
+    lane to exact equality."""
+    config, edgeset, device_sampling, neighbor, rng_mod = mods
+    cfg = config.Config(K=256, device_sampling=True).finalize(
+        n, split.total_edges, graph.max_fan_out)
+    backends = ("adjacency", "perfect", "csr", "sorted", "cuckoo")
+    sets, build_s = {}, {}
+    for b in backends:
+        t0 = time.perf_counter()
+        sets[b] = edgeset.build_edge_set(config.EdgeSetBackend(b), n,
+                                         graph.edges_u, graph.edges_v, "cuda")
+        build_s[b] = time.perf_counter() - t0
+    held = edgeset.build_edge_set(config.EdgeSetBackend.ADJACENCY, n,
+                                  split.heldout_u, split.heldout_v, "cuda")
+    adj = device_sampling.Adjacency(
+        torch.as_tensor(graph.offsets, device="cuda"),
+        torch.as_tensor(graph.cols, dtype=torch.int32, device="cuda"))
+    gen = rng_mod.generator((7, 8), "cuda")
+    ds = device_sampling.sample_minibatches_device(
+        cfg, sets["adjacency"], held, gen, 200, adj)
+    nodes = ds.nodes.clone()
+    nodes[1::2] = torch.where(ds.node_mask[1::2], nodes[1::2], 0)
+    nbrs = neighbor.sample_neighbors(gen, nodes, n, cfg.num_node_sample)
+    block = (nodes[:, :, None], nbrs)
+    if tuple(nbrs.shape) != (200, 33, 32):
+        raise AssertionError(f"query block {tuple(nbrs.shape)}")
+    r = torch.Generator(device="cuda").manual_seed(5)
+    pick = torch.randint(0, graph.num_edges, (500_000,), generator=r,
+                         device="cuda")
+    eu = torch.as_tensor(graph.edges_u, device="cuda")[pick]
+    ev = torch.as_tensor(graph.edges_v, device="cuda")[pick]
+    swap = torch.rand(500_000, generator=r, device="cuda") < 0.5
+    pairs = (torch.cat([torch.where(swap, ev, eu),
+                        torch.randint(0, n, (500_000,), generator=r,
+                                      device="cuda", dtype=torch.int32)]),
+             torch.cat([torch.where(swap, eu, ev),
+                        torch.randint(0, n, (500_000,), generator=r,
+                                      device="cuda", dtype=torch.int32)]))
+    want_block = sets["adjacency"].has_edges(*block)
+    want_pairs = sets["adjacency"].has_edges(*pairs)
+    sentinel = (nodes == n)[:, :, None].expand_as(want_block)
+    zero_pad = int(((nodes == 0) & ~ds.node_mask).sum())
+    if not want_pairs[:500_000].all() or not sentinel.any() or not zero_pad:
+        raise AssertionError("membership queries: true edges not found or "
+                             "no padded lanes of both kinds")
+    clamped = sets["adjacency"].has_edges(
+        torch.where(nodes == n, n - 1, nodes)[:, :, None], nbrs)
+    if not torch.equal(want_block, clamped):
+        raise AssertionError("adjacency: a sentinel lane is not node N-1's")
+    for b in backends:
+        got_block = sets[b].has_edges(*block)
+        got_pairs = sets[b].has_edges(*pairs)
+        if b != "adjacency":
+            if not torch.equal(got_pairs, want_pairs):
+                raise AssertionError(f"{b}: differs from adjacency on the "
+                                     f"10^6 pairs")
+            if not torch.equal(got_block[~sentinel], want_block[~sentinel]):
+                raise AssertionError(f"{b}: differs from adjacency on the "
+                                     f"query block")
+            if got_block[sentinel].any():
+                raise AssertionError(f"{b}: a sentinel lane answers True")
+        ms = time_ms(lambda: sets[b].has_edges(*block), reps=20)
+        ms_pairs = time_ms(lambda: sets[b].has_edges(*pairs), reps=5)
+        phase("membership", f"{b}: built in {build_s[b]:.3f} s (host tables "
+              f"+ copy), {nbytes(*sets[b].arrays) / 2**20:.1f} MiB on the "
+              f"card; [200,33,32] block {ms:.4f} ms, 10^6 pairs "
+              f"{ms_pairs:.4f} ms (back to back with the host); "
+              + ("the reference" if b == "adjacency" else
+                 "equal to adjacency on both") + f"; {smi}")
+    phase("membership", f"block: {int(want_block.sum())} of "
+          f"{want_block.numel()} queries are edges, {int(sentinel.sum())} "
+          f"on sentinel-N lanes, {zero_pad * 32} on id-0 padded lanes; "
+          f"pairs: {int(want_pairs.sum())} of 10^6 are edges")
 
 
 def bound(nbytes: float, flops: float):
@@ -514,7 +687,8 @@ def check_phi_kernel(phi_pallas, kernels, testing):
                                               t["nbrs"], t["y"], t["noise"]))
             b_ms, b_by = bound(moved + nbytes(*got),
                                valid * (4 * n_smpl * k + 12 * k))
-            times.setdefault(entry, (ms, plain_ms, b_ms, b_by))
+            if (b_cap, n_smpl, k) == PHI_MAIN_SHAPE[entry]:
+                times[entry] = (ms, plain_ms, b_ms, b_by)
             phase("kernel", f"phi {entry} B,n,K={b_cap},{n_smpl},{k}: "
                   f"{g} block(s) per node, chunks of {nc} neighbors, "
                   f"{smem} B shared per block; "
@@ -669,7 +843,70 @@ def _slice_learner(mods, engine, hoist, **kw):
     return cfg, cpu.state, gpu_state, xs
 
 
-def check_slices(mods, window, window_mmsb, phi_pallas, chains_flat):
+def check_host_slices(mods, phi_pallas, testing_mod):
+    """Phase 4, host-sampled: 23 steps on the GPU against the CPU from one
+    state, the same host batches (padded lanes hold id 0) and the same
+    operands, drawn once on the CPU."""
+    _, config, learner_mod, _, _ = mods
+    fields = ("pi", "phi_sum", "theta", "beta")
+    from mcmc_ammsb_tpu_torch.ops import edgeset
+    from mcmc_ammsb_tpu_torch.ops.window import index_operands
+
+    def both(case):
+        cfg = case["cfg"]
+        cpu = learner_mod.Learner(cfg, case["graph"], case["split"], "cpu",
+                                  prefetch=False)
+        batches = learner_mod.DeviceBatch.from_stacked(case["stacked"], "cpu")
+        xs = learner_mod.hoist_operands(cfg, cpu.training_set, batches,
+                                        cpu.streams)
+        gpu_set = edgeset.build_edge_set(
+            cfg.edgeset_backend, cfg.N, case["graph"].edges_u,
+            case["graph"].edges_v, "cuda")
+        gpu_state = _to(cpu.state._replace(
+            pi=cpu.state.pi.clone(), phi_sum=cpu.state.phi_sum.clone()),
+            "cuda")
+        return cfg, cpu, xs, gpu_set, gpu_state
+
+    # (a) one train_step per step, --phi-impl pallas: the pre-gathered entry
+    case = testing_mod.host_case(9, 23, K=24, steps_per_call=1,
+                                 phi_impl=config.PhiImpl.PALLAS)
+    cfg, cpu, xs, gpu_set, got = both(case)
+    gxs, want = _to(xs, "cuda"), cpu.state
+    phi_pallas.phi_update_core_cuda.launches = 0
+    phi_pallas.phi_update_rows_cuda.launches = 0
+    for i in range(23):
+        x, gx = (index_operands(t, i) for t in (xs, gxs))
+        want = learner_mod.train_step(cfg, cpu.training_set, want, x[0],
+                                      x[1], x[3], x[4])
+        got = learner_mod.train_step(cfg, gpu_set, got, gx[0], gx[1], gx[3],
+                                     gx[4])
+    launched = phi_pallas.phi_update_core_cuda.launches
+    errs = [max_err(getattr(got, f), getattr(want, f), f"host step slice {f}")
+            for f in fields]
+    if launched != 23 or phi_pallas.phi_update_rows_cuda.launches:
+        raise AssertionError(
+            f"host step slice: {launched} pre-gathered and "
+            f"{phi_pallas.phi_update_rows_cuda.launches} by-index launches, "
+            f"not 23 and 0")
+    phase("slice", f"host-sampled, one train_step per step, --phi-impl "
+          f"pallas, 23 steps ({launched} pre-gathered phi launches), N=300 "
+          f"K=24, {int((~case['stacked'].node_mask).sum())} padded lanes of "
+          f"id 0: GPU kernel vs CPU plain max abs err {max(errs):.3e}")
+
+    # (b) one scanned chunk, private draws, the jnp phi
+    case = testing_mod.host_case(10, 23, K=24, steps_per_call=23)
+    cfg, cpu, xs, _, gpu_state = both(case)
+    got = learner_mod.run_hoisted(cfg, gpu_state, _to(xs, "cuda"))
+    want = learner_mod.run_hoisted(cfg, cpu.state, xs)
+    errs = [max_err(getattr(got, f), getattr(want, f), f"host scan slice {f}")
+            for f in fields]
+    phase("slice", f"host-sampled, one scanned chunk of 23 steps, private "
+          f"draws, jnp phi, N=300 K=24: GPU vs CPU max abs err "
+          f"{max(errs):.3e}")
+
+
+def check_slices(mods, window, window_mmsb, phi_pallas, chains_flat,
+                 testing_mod):
     """Phase 4: the hoisted loops on the GPU vs the CPU from one state."""
     data, config, learner_mod, sampling, mmsb = mods
     fields = ("pi", "phi_sum", "theta", "beta")
@@ -747,6 +984,8 @@ def check_slices(mods, window, window_mmsb, phi_pallas, chains_flat):
     phase("slice", f"flat chains, C=3, 23 steps (4 windows of 5 + 3 tail "
           f"steps, {launched} fused chain launches), N=300 K=24: GPU "
           f"kernel vs CPU plain max abs err {max(errs):.3e}")
+
+    check_host_slices(mods, phi_pallas, testing_mod)
 
     # the MMSB learner on the GPU learns a planted partition: the
     # identifiability knobs and the check of tests/test_mmsb.py:84-117
@@ -944,6 +1183,32 @@ def run_chain_main(cli, kmods):
     return launches, rate, init
 
 
+def run_host_main(cli, kmods, name, smi):
+    """Phase 5, one of HOST_RUNS: its launches."""
+    args, steps, interval, expected, needles = HOST_RUNS[name]
+    _counts(kmods, None)
+    series, messages = _run_cli(cli, args)
+    launches = _counts(kmods, "read")
+    if [s for s, _, _ in series] != list(range(0, steps + 1, interval)):
+        raise AssertionError(f"{name}: unexpected ppx steps {series}")
+    ppx = [p for _, p, _ in series]
+    if not ppx[-1] < ppx[0]:
+        raise AssertionError(f"{name}: ppx does not fall: {ppx}")
+    want = {k: expected.get(k, 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    for needle in needles:
+        if not any(needle in m for m in messages):
+            raise AssertionError(f"{name}: the log lacks {needle!r}")
+    rate = steps / (series[-1][2] - series[0][2])
+    phase("main", f"{name}: rc 0, ppx {ppx}; launches: pre-gathered phi "
+          f"{launches['phi']}, by-index phi {launches['phi_gather']}, window "
+          f"entries {launches['window'] + launches['window_chain'] + launches['mmsb']}"
+          f"; logged {needles}; {rate:.1f} updates/s over the {steps} steps "
+          f"after ppx[0], evaluations included; {smi}")
+    return launches
+
+
 def run_rhat(cli):
     """Phase 5, the R-hat line of --rhat-draws 2 (a small graph)."""
     _, messages = _run_cli(cli, RHAT_ARGS)
@@ -961,11 +1226,11 @@ def main() -> int:
     # the port's package: an ImportError here (no checkout around the
     # script) ends the run before anything is printed
     from mcmc_ammsb_tpu_torch import (chains_flat, cli, config, data, kernels,
-                                      testing)
+                                      native, rng, testing)
     from mcmc_ammsb_tpu_torch import learner as learner_mod
     from mcmc_ammsb_tpu_torch.models import mmsb
-    from mcmc_ammsb_tpu_torch.ops import (device_sampling, phi_pallas, window,
-                                          window_mmsb)
+    from mcmc_ammsb_tpu_torch.ops import (device_sampling, edgeset, neighbor,
+                                          phi_pallas, window, window_mmsb)
     from mcmc_ammsb_tpu_torch.ops import phi as phi_ops
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -975,7 +1240,12 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}; {smi}")
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    build_all(kernels)
+    build_all(kernels, native)
+    n, split, graph = _bench_graph(data)
+    check_native(edgeset, graph)
+    check_membership((config, edgeset, device_sampling, neighbor, rng), n,
+                     split, graph, smi)
+    del n, split, graph
     w_err, w_t = check_window_kernel(window, kernels, testing, phi_ops, smi)
     c_err, c_t = check_chain_kernel(window, kernels, chains_flat, testing,
                                     phi_ops, smi)
@@ -983,13 +1253,15 @@ def main() -> int:
     m_err, m_t = check_mmsb_kernel(window, window_mmsb, kernels, testing,
                                    phi_ops, smi)
     check_slices((data, config, learner_mod, device_sampling, mmsb),
-                 window, window_mmsb, phi_pallas, chains_flat)
+                 window, window_mmsb, phi_pallas, chains_flat, testing)
     kmods = (window, window_mmsb, phi_pallas)
     main_l = run_main(cli, kmods)
     mmsb_l = run_mmsb_main(cli, kmods)
     phi_l = run_phi_main(cli, kmods)
     chain_l, _, _ = run_chain_main(cli, kmods)
     run_rhat(cli)
+    host_l = {name: run_host_main(cli, kmods, name, smi)
+              for name in HOST_RUNS}
 
     def times(t):
         # no single PyTorch call computes any of these functions
@@ -1014,13 +1286,13 @@ def main() -> int:
          "source": src + "mmsb_window_kernel.cu",
          "replaces": "mcmc_ammsb_tpu/ops/window_mmsb.py:96",
          "launches": mmsb_l["mmsb"], "max_abs_err": m_err, **times(m_t)},
-        # one Hopper kernel replaces both Pallas phi kernels; the
-        # --phi-impl pallas path runs it through its by-index entry, so
-        # its launches there are those of the kernel in either entry
+        # one Hopper kernel replaces both Pallas phi kernels: the
+        # step-at-a-time --phi-impl pallas path launches its pre-gathered
+        # entry, the scanned paths its by-index entry
         {"name": "phi_kernel", "route": "cuda",
          "source": src + "phi_kernel.cu",
          "replaces": "mcmc_ammsb_tpu/ops/phi_pallas.py:51",
-         "launches": phi_l["phi"] + phi_l["phi_gather"],
+         "launches": host_l["step at a time, --phi-impl pallas"]["phi"],
          "max_abs_err": phi["pre-gathered"][0],
          **times(phi["pre-gathered"][1:])},
         {"name": "phi_gather", "route": "cuda",

@@ -1,7 +1,8 @@
 """Command-line driver of the port (counterpart of
-``mcmc_ammsb_tpu/cli.py``: the device-sampled single-chain a-MMSB, with
-``--phi-impl jnp`` or ``pallas``, the full MMSB, ``--model mmsb``, and
-C independent a-MMSB chains on the flat chain engine, ``--num-chains C``).
+``mcmc_ammsb_tpu/cli.py``: the single-chain a-MMSB, device-sampled or
+host-sampled, with ``--phi-impl jnp`` or ``pallas``, the full MMSB,
+``--model mmsb``, and C independent a-MMSB chains on the flat chain
+engine, ``--num-chains C``).
 
 The same flag names, ``resolve_fast_defaults`` semantics and log lines
 (config echo, ``ppx[i] = ...`` with the link/non-link quadruple, the
@@ -13,6 +14,16 @@ exits non-zero and names the ROADMAP item that will port it.
 Usage:
     python -m mcmc_ammsb_tpu_torch.cli --synthetic 317080,7 -k 256 \\
         -x 2000 -i 500 --device cuda
+    python -m mcmc_ammsb_tpu_torch.cli --phi-impl pallas \\
+        --synthetic 317080,7 -k 256 -x 1000 -i 500
+    python -m mcmc_ammsb_tpu_torch.cli --no-device-sampling \\
+        --no-shared-neighbors --steps-per-call 1 --phi-impl pallas \\
+        --synthetic 317080,7 -k 256 -x 300 -i 100
+    python -m mcmc_ammsb_tpu_torch.cli --no-device-sampling -s BFLink \\
+        --synthetic 317080,7 -k 256 -x 400 -i 200
+    python -m mcmc_ammsb_tpu_torch.cli --synthetic-powerlaw \\
+        317080,6.6,343,256 --edgeset perfect --ds-link-cap 64 -k 256 \\
+        -x 1000 -i 500
     python -m mcmc_ammsb_tpu_torch.cli --phi-impl pallas --device-sampling \\
         --synthetic 317080,7 -k 256 -x 1000 -i 500 --device cuda
     python -m mcmc_ammsb_tpu_torch.cli --model mmsb --window 12 \\
@@ -35,7 +46,8 @@ from mcmc_ammsb_tpu_torch.chains_flat import FlatChainLearner
 from mcmc_ammsb_tpu_torch.config import (Config, EdgeSetBackend, PhiImpl,
                                          RngBackend, SampleStrategy)
 from mcmc_ammsb_tpu_torch.data import (Graph, generate_sets,
-                                       load_snap_edges, synthetic_edges)
+                                       load_snap_edges, synthetic_edges,
+                                       synthetic_powerlaw_edges)
 from mcmc_ammsb_tpu_torch.learner import Learner, check_ported
 from mcmc_ammsb_tpu_torch.models.mmsb import FullMMSBLearner
 
@@ -59,6 +71,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic", type=str, default=None,
                    metavar="N,AVG_DEG",
                    help="use a synthetic random graph instead of --file")
+    p.add_argument("--synthetic-powerlaw", type=str, default=None,
+                   metavar="N,AVG_DEG[,MAX_DEG[,COMMUNITIES]]",
+                   help="use a heavy-tailed (Chung-Lu degree-corrected "
+                        "planted-partition) synthetic graph, the "
+                        "degree-realistic surrogate for SNAP graphs "
+                        "(com-DBLP ~ 317080,6.6,343,256; "
+                        "com-LiveJournal ~ 3997962,17.35,14815,5000). "
+                        "Pair with --ds-link-cap on hubby graphs")
     p.add_argument("--heldout-ratio", "-r", type=float, default=0.01)
     p.add_argument("--alpha", type=float, default=0.0)
     p.add_argument("-a", dest="a", type=float, default=0.0315)
@@ -73,8 +93,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--ppx-interval", "-i", type=int, default=100)
     p.add_argument("--max-iters", "-x", type=int, default=100)
     p.add_argument("--sample", "-s", default="Node",
-                   help="Node|NodeLink|NodeNonLink (the BF family is not "
-                        "ported yet)")
+                   help="Node|NodeLink|NodeNonLink|BF|BFLink|BFNonLink "
+                        "(the BF family is host-sampled: its device "
+                        "samplers are not ported yet)")
     p.add_argument("--phi-seed", type=int, nargs=2, default=(42, 43))
     p.add_argument("--beta-seed", type=int, nargs=2, default=(44, 45))
     p.add_argument("--neighbor-seed", type=int, nargs=2, default=(56, 57))
@@ -88,13 +109,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    default="float32")
     p.add_argument("--calc-train-ppx", action="store_true")
     p.add_argument("--steps-per-call", type=int, default=0,
-                   help="steps between host readbacks; 0 = auto (1000 "
-                        "with device sampling)")
+                   help="steps per chunk; 0 = auto (1000 with device "
+                        "sampling, min(200, ppx interval) with host "
+                        "sampling); 1 host-sampled = one step at a time")
     p.add_argument("--device-sampling",
                    action=argparse.BooleanOptionalAction, default=None,
                    help="sample minibatches on the device (default: on "
-                        "for the Node family; host sampling is not "
-                        "ported yet)")
+                        "for the Node family with the native RNG and the "
+                        "jnp phi; --no-device-sampling samples on the "
+                        "host, prefetched by a producer thread)")
     p.add_argument("--shared-neighbors",
                    action=argparse.BooleanOptionalAction, default=None,
                    help="one shared n-neighbor draw per step (default: "
@@ -154,15 +177,28 @@ def resolve_fast_defaults(args) -> None:
     """Resolve auto flags to the fast path (in place), by the JAX CLI's
     rule (mcmc_ammsb_tpu/cli.py:297-375): device sampling + shared
     neighbor draws + 1000-step chunks whenever the configuration supports
-    them, and T-step windows for the a-MMSB only (an MMSB run windows
-    only with an explicit --window N)."""
+    them, host sampling with private draws and chunks of min(200, ppx
+    interval) otherwise (so for --phi-impl pallas), and T-step windows
+    for the a-MMSB only (an MMSB run windows only with an explicit
+    --window N). The reference-exact slow path stays reachable:
+    --no-device-sampling --no-shared-neighbors --steps-per-call 1.
+
+    One departure: the JAX CLI also turns device sampling on for the
+    breadth-first family; its device samplers are not ported yet (ROADMAP
+    queue 1 item 9), so here the BF family resolves to host sampling."""
     strategy = SampleStrategy.parse(args.sample)
     native_jnp = (args.rng == RngBackend.NATIVE.value
                   and args.phi_impl == PhiImpl.JNP.value)
     fast_ok = strategy in _NODE_FAMILY and native_jnp
     if args.device_sampling is None:
-        args.device_sampling = (fast_ok
-                                or (strategy in _BF_FAMILY and native_jnp))
+        args.device_sampling = fast_ok
+        if fast_ok:
+            log.info("device sampling auto-enabled (Node-family strategy, "
+                     "native RNG); --no-device-sampling restores host "
+                     "sampling")
+        elif strategy in _BF_FAMILY and native_jnp:
+            log.info("host sampling: the device breadth-first samplers "
+                     "are not ported yet (ROADMAP queue 1 item 9)")
     if args.shared_neighbors is None:
         args.shared_neighbors = fast_ok and bool(args.device_sampling)
     if args.steps_per_call <= 0:
@@ -269,10 +305,17 @@ def main(argv=None) -> int:
     if args.synthetic:
         nn, deg = (int(x) for x in args.synthetic.split(","))
         n, u, v = synthetic_edges(nn, deg, seed=1)
+    elif args.synthetic_powerlaw:
+        parts = args.synthetic_powerlaw.split(",")
+        n, u, v = synthetic_powerlaw_edges(
+            int(parts[0]), float(parts[1]),
+            max_degree=int(parts[2]) if len(parts) > 2 else None,
+            num_communities=int(parts[3]) if len(parts) > 3 else 0, seed=1)
     elif args.file:
         n, u, v = load_snap_edges(args.file)
     else:
-        log.fatal("one of --file / --synthetic is required")
+        log.fatal("one of --file / --synthetic / --synthetic-powerlaw is "
+                  "required")
         return 1
     split = generate_sets(n, u, v, args.heldout_ratio)
     graph = Graph.from_edges(n, split.training_u, split.training_v)
@@ -283,7 +326,8 @@ def main(argv=None) -> int:
                  cfg.max_batch_nodes)
         cfg = cfg.replace(window=0)
     log.info("Loaded %s (N=%d, E=%d, training max fan out = %d)",
-             args.file or args.synthetic, cfg.N, cfg.E, cfg.max_fan_out)
+             args.file or args.synthetic or args.synthetic_powerlaw, cfg.N,
+             cfg.E, cfg.max_fan_out)
     log.info("config: %s", cfg)
     try:
         if chains:
@@ -303,6 +347,18 @@ def main(argv=None) -> int:
         log.fatal("%s", e)
         return 1
 
+    log.info("edge sets: training %s, held-out %s",
+             learner.training_set.backend, learner.heldout_set.backend)
+    if learner.sampler is not None:
+        # single batches (steps_per_call 1) are always numpy-sampled
+        chunked = cfg.steps_per_call > 1
+        log.info("host sampler: %s (host_sampler=%s, %s), prefetch %s",
+                 "native C++" if learner.sampler.use_native and chunked
+                 else "numpy", cfg.host_sampler,
+                 f"chunks of {cfg.steps_per_call}" if chunked
+                 else "one batch at a time",
+                 "on" if learner._use_prefetch else "off")
+
     # --- SIGINT drain -----------------------------------------------------
     signaled = {"flag": False}
 
@@ -314,6 +370,7 @@ def main(argv=None) -> int:
         _train(args, cfg, learner, signaled)
     finally:
         signal.signal(signal.SIGINT, previous)
+        learner.close()
     return 0
 
 
@@ -335,7 +392,8 @@ def _train(args, cfg: Config, learner: Learner, signaled: dict) -> None:
                      st["link_count"], st["link_likelihood"],
                      st["non_link_count"], st["non_link_likelihood"])
 
-    fused_evals = cfg.steps_per_call > cfg.ppx_interval
+    fused_evals = (cfg.device_sampling
+                   and cfg.steps_per_call > cfg.ppx_interval)
     i = 0
     start_step = learner.state.step_count
     while i < args.max_iters and not signaled["flag"]:

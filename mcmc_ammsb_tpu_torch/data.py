@@ -2,15 +2,20 @@
 adjacency — the numpy paths of ``mcmc_ammsb_tpu/data.py``, copied (see
 config.py for why the port does not import them).
 
-  * ``load_snap_edges``  — parse an edge list, canonicalize, renumber
-                           vertices to [0, N), dedup, shuffle.
+  * ``load_snap_edges``  — parse an edge list (the native C++ parser
+                           of ``native.py`` when it is built, else numpy),
+                           canonicalize, renumber vertices to [0, N),
+                           dedup, shuffle.
   * ``synthetic_edges``  — uniform random test/benchmark graph.
+  * ``synthetic_sbm_edges``, ``synthetic_powerlaw_edges`` — a planted
+                           partition, and its degree-corrected heavy-tailed
+                           variant (the surrogate for SNAP graphs).
   * ``generate_sets``    — training / held-out split plus an equal count
                            of "fake" held-out non-edges.
   * ``Graph``            — CSR adjacency + max fan-out.
 
-The native C++ parser, the power-law / SBM generators and the dataset
-cache are not ported yet (ROADMAP queue 1).
+The dataset cache (``dump_dataset``, ``load_dataset``) and
+``make_training_ppx_edges`` are not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 import gzip
 import io
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -71,10 +76,29 @@ class Graph:
         return bool(i < len(row) and row[i] == v)
 
 
-def load_snap_edges(path: str, shuffle_seed: int = 0
+def load_snap_edges(path: str, shuffle_seed: int = 0,
+                    use_native: str = "auto"
                     ) -> Tuple[int, np.ndarray, np.ndarray]:
     """Parse a SNAP edge-list file (``#`` comment lines, then ``u v``
-    pairs; ``.gz`` is read through gzip). Returns (N, u, v)."""
+    pairs; ``.gz`` is read through gzip). Returns (N, u, v).
+
+    Plain-text files go through the native C++ parser when it is built
+    (``use_native="auto"``; ``"always"`` raises when it is not or the
+    file is gzip, ``"never"`` takes the numpy path). Both give the same
+    arrays."""
+    if use_native != "never":
+        if path.endswith(".gz"):
+            if use_native == "always":
+                raise RuntimeError("native parser does not read gzip; "
+                                   "decompress first or use the numpy path")
+        else:
+            from mcmc_ammsb_tpu_torch import native
+            if native.available():
+                a, b = native.snap_parse(path)
+                return renumber_dedup_shuffle(a, b, shuffle_seed)
+            if use_native == "always":
+                raise RuntimeError("native parser requested but "
+                                   "unavailable")
     opener = gzip.open if path.endswith(".gz") else open
     with opener(path, "rt") as f:
         text = f.read()
@@ -144,6 +168,56 @@ def synthetic_sbm_edges(num_nodes: int, num_communities: int,
     return renumber_dedup_shuffle(np.concatenate([c[0] for c in chunks]),
                                   np.concatenate([c[1] for c in chunks]),
                                   shuffle_seed=seed + 1)
+
+
+def synthetic_powerlaw_edges(
+        num_nodes: int, avg_degree: float, exponent: float = 2.7,
+        max_degree: Optional[int] = None, num_communities: int = 0,
+        intra_fraction: float = 0.85, seed: int = 0
+) -> Tuple[int, np.ndarray, np.ndarray]:
+    """Degree-realistic surrogate graph, the same draws as the JAX
+    package's: a degree-corrected planted partition whose degree sequence
+    follows a truncated power law. Per-node propensities theta_i ~ 1 +
+    Pareto(exponent - 1), capped so that the largest expected degree lands
+    near ``max_degree``; edges draw endpoints in proportion to theta (a
+    Chung-Lu law), ``intra_fraction`` of them inside ``num_communities``
+    planted communities. Returns renumbered, deduped, canonical edges;
+    isolated nodes are dropped."""
+    rng = np.random.RandomState(seed)
+    theta = rng.pareto(exponent - 1.0, num_nodes) + 1.0
+    if max_degree is not None:
+        for _ in range(4):
+            scale = avg_degree * num_nodes / theta.sum()
+            theta = np.minimum(theta, max_degree / scale)
+    p_global = theta / theta.sum()
+    total = int(num_nodes * avg_degree) // 2
+    a = rng.choice(num_nodes, size=total, p=p_global)
+    if num_communities and num_communities > 1:
+        labels = rng.randint(0, num_communities, num_nodes)
+        b = rng.choice(num_nodes, size=total, p=p_global)
+        intra = rng.rand(total) < intra_fraction
+        # an intra edge's second endpoint is redrawn inside a's community,
+        # in proportion to theta: nodes sorted by label form contiguous
+        # segments, and a uniform draw in a segment's cumulative-theta
+        # mass + searchsorted is that draw
+        order = np.argsort(labels, kind="stable")
+        lab_sorted = labels[order]
+        cum = np.cumsum(theta[order])
+        cum0 = np.concatenate([[0.0], cum])
+        seg_lo = np.searchsorted(lab_sorted, np.arange(num_communities))
+        seg_hi = np.searchsorted(lab_sorted,
+                                 np.arange(num_communities) + 1)
+        c_edge = labels[a]
+        lo, hi = seg_lo[c_edge], seg_hi[c_edge]
+        redir = intra & (hi - lo >= 2)   # singletons keep the global draw
+        r = rng.rand(int(redir.sum()))
+        mass = cum0[lo[redir]] + r * (cum0[hi[redir]] - cum0[lo[redir]])
+        pos = np.searchsorted(cum, mass, side="left")
+        pos = np.clip(pos, lo[redir], hi[redir] - 1)
+        b[redir] = order[pos]
+    else:
+        b = rng.choice(num_nodes, size=total, p=p_global)
+    return renumber_dedup_shuffle(a, b, shuffle_seed=seed + 1)
 
 
 @dataclasses.dataclass

@@ -1,5 +1,6 @@
-"""Build the port's state from the JAX package's, so that both packages
-can run the same computation from the same numbers (the parity tests)."""
+"""Build the port's state and membership tables from the JAX package's,
+so that both packages can run the same computation from the same numbers
+(the parity tests)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from mcmc_ammsb_tpu_torch.chains_flat import ChainState
 from mcmc_ammsb_tpu_torch.config import Config
 from mcmc_ammsb_tpu_torch.learner import TrainState
 from mcmc_ammsb_tpu_torch.models.mmsb import MMSBState
+from mcmc_ammsb_tpu_torch.ops.edgeset import EdgeSet
 
 
 def _tensors(arrays: dict, cfg: Config, device, num_chains: int = 1):
@@ -63,3 +65,15 @@ def chain_state_from_numpy(arrays: dict, cfg: Config, num_chains: int,
         beta_count=int(arrays["beta_count"]),
         ppx_per_edge=tensor("ppx_per_edge"),
         ppx_count=int(arrays["ppx_count"]))
+
+
+def edge_set_from_numpy(backend: str, meta, arrays, num_nodes: int,
+                        num_search_steps: int = 1, device="cpu") -> EdgeSet:
+    """The port's ``EdgeSet`` over the JAX package's tables: ``backend``,
+    ``meta`` and ``arrays`` (as numpy) of a ``mcmc_ammsb_tpu`` EdgeSet with
+    its ``num_nodes`` and ``num_search_steps``, so a test can give both
+    packages the very same table."""
+    return EdgeSet(backend, int(num_nodes), int(num_search_steps),
+                   tuple((k, int(v)) for k, v in meta),
+                   tuple(torch.tensor(np.asarray(a), device=device)
+                         for a in arrays))

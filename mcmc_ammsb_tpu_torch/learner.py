@@ -1,9 +1,13 @@
-"""Learner: state, the hoisted training loop, evaluation (counterpart of
-``mcmc_ammsb_tpu/learner.py``, device-sampled paths).
+"""Learner: state, the hoisted training loop, the step-at-a-time loop,
+evaluation (counterpart of ``mcmc_ammsb_tpu/learner.py``).
 
 One training chunk is
 
-  1. ``sample_minibatches_device`` draws S minibatches on the device;
+  1. ``sample_minibatches_device`` draws S minibatches on the device, or,
+     host-sampled (``cfg.device_sampling`` off), the host sampler's
+     stacked chunk arrives in one host-to-device copy
+     (``DeviceBatch.from_stacked``; a producer thread samples the next
+     chunk meanwhile, ``HostSamplingPipeline``);
   2. ``hoist_operands`` computes everything that does not depend on the
      state for all S steps: neighbor draws (one shared draw per step, or
      one private draw per node), edge labels, the edge-endpoint lane maps
@@ -14,6 +18,25 @@ One training chunk is
      ``_hoisted_step_body``. With ``--phi-impl pallas`` (private draws,
      no windows) every step's phi update is one launch of the by-index
      phi kernel (``ops/phi_pallas``).
+
+Host-sampled at ``steps_per_call == 1`` every step is one ``train_step``
+(the reference-exact slow path): its own batch, its own draws, phi
+through ``ops/phi.phi_update_rows`` or, with ``--phi-impl pallas``,
+``ops/phi_pallas.phi_update_rows_pallas`` (torch gathers, then one launch
+of the pre-gathered phi kernel), and a beta stage that re-reads the
+endpoint rows from the new pi.
+
+Stream position. JAX keys every draw by ``fold_in(key, step)``, so there
+one step at a time and a scanned chunk give the same bits. The port's
+``rng.Streams`` are stateful generators and a chunk draws its S steps in
+one block per stream, so the bits depend on the chunking: a run of
+one-step chunks equals the step-at-a-time run bit for bit on the CPU
+(``draw_step_operands`` is a one-step block), chunks of S > 1 steps draw
+other numbers from the same seeds, with the same law. On the same
+operands ``train_step`` and one hoisted step agree bit for bit on the CPU
+(tests/test_torch_host_slice.py holds both). Drawing a chunk step by step
+would cost eight more launches per step on paths that the host's launch
+rate already bounds, so it is not done.
 
 JAX's ``lax.scan`` becomes a Python loop; its donated state buffers
 become in-place updates of ``pi`` and ``phi_sum``. The TPU tunnel
@@ -26,7 +49,7 @@ from __future__ import annotations
 
 import time
 from functools import partial
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +67,8 @@ from mcmc_ammsb_tpu_torch.ops.device_sampling import (
 from mcmc_ammsb_tpu_torch.ops.edgeset import EdgeSet, build_edge_set
 from mcmc_ammsb_tpu_torch.ops.neighbor import sample_neighbors
 from mcmc_ammsb_tpu_torch.ops.window import index_operands, windowed_scan
+from mcmc_ammsb_tpu_torch.sampling import (MiniBatch, MiniBatchSampler,
+                                           PrefetchingSampler, StackedBatches)
 from mcmc_ammsb_tpu_torch.utils.timing import StageTimers
 
 
@@ -62,26 +87,62 @@ class TrainState(NamedTuple):
 
 
 class DeviceBatch(NamedTuple):
-    """S stacked device minibatches (padded, static shapes)."""
+    """S stacked device minibatches (padded, static shapes), or one
+    minibatch without the leading axis. Padded node lanes hold the
+    sentinel N (device-sampled) or 0 (host-sampled), with a false mask."""
 
     edges_u: torch.Tensor    # [S, E] int32
     edges_v: torch.Tensor
     edge_mask: torch.Tensor  # [S, E] bool
-    nodes: torch.Tensor      # [S, B] int32, padded with N
+    nodes: torch.Tensor      # [S, B] int32
     node_mask: torch.Tensor  # [S, B] bool
     weight: torch.Tensor     # [S] f32
+
+    @classmethod
+    def from_host(cls, b: MiniBatch, device) -> "DeviceBatch":
+        """One host minibatch on ``device`` (fields without a leading
+        axis)."""
+        return cls(*(a[0] for a in cls.from_stacked(StackedBatches(
+            *(np.asarray(x)[None] for x in (
+                b.edges_u, b.edges_v, b.edge_mask, b.nodes, b.node_mask,
+                b.weight))), device)))
+
+    @classmethod
+    def from_stacked(cls, s: StackedBatches, device) -> "DeviceBatch":
+        """A stacked host chunk on ``device`` in ONE host-to-device copy:
+        the six arrays are packed into one int32 buffer (the masks as
+        0/1 words, the weights as their bits), pinned and copied without
+        blocking the host when the device is a card, and unpacked there
+        as contiguous views."""
+        device = torch.device(device)
+        parts = [np.ascontiguousarray(s.edges_u, np.int32),
+                 np.ascontiguousarray(s.edges_v, np.int32),
+                 s.edge_mask.astype(np.int32),
+                 np.ascontiguousarray(s.nodes, np.int32),
+                 s.node_mask.astype(np.int32),
+                 np.ascontiguousarray(s.weight, np.float32).view(np.int32)]
+        packed = torch.from_numpy(np.concatenate([p.ravel() for p in parts]))
+        if device.type == "cuda":
+            packed = packed.pin_memory()
+        packed = packed.to(device, non_blocking=True)
+        views, at = [], 0
+        for p in parts:
+            views.append(packed[at:at + p.size].view(p.shape))
+            at += p.size
+        eu, ev, em, nd, nm, w = views
+        return cls(eu, ev, em != 0, nd, nm != 0, w.view(torch.float32))
 
 
 def check_ported(cfg: Config) -> None:
     """Raise for a configuration whose engine the port lacks, naming
     the ROADMAP item that will port it."""
     missing = [
-        (not cfg.device_sampling, "host-sampled training (item 7)"),
         (cfg.rng_backend != RngBackend.NATIVE,
          "the reference RNG (item 10)"),
-        (cfg.strategy not in (SampleStrategy.NODE,
-                              SampleStrategy.NODE_LINK,
-                              SampleStrategy.NODE_NON_LINK),
+        (cfg.device_sampling
+         and cfg.strategy not in (SampleStrategy.NODE,
+                                  SampleStrategy.NODE_LINK,
+                                  SampleStrategy.NODE_NON_LINK),
          "the device BF family (item 9)"),
         (cfg.pi_dtype != "float32", "bfloat16 pi storage (item 4)"),
         (cfg.calc_train_ppx, "training perplexity (item 4)"),
@@ -254,6 +315,69 @@ def _hoisted_step_body(cfg: Config, s: TrainState, x) -> TrainState:
                       step_count=s.step_count + 1, beta_count=beta_count)
 
 
+def draw_step_operands(cfg: Config, streams: rng.Streams,
+                       batch: DeviceBatch):
+    """One step's random operands from the streams, (neighbors, phi_noise
+    [B, K], beta_noise [K, 2]): a one-step block of ``hoist_operands``'
+    draws, in its order. Neighbors are [1, n], shared by the step's nodes,
+    with ``cfg.shared_neighbors``, else [B, n] private."""
+    dev = batch.nodes.device
+    if cfg.shared_neighbors:
+        draw_for = torch.full((1,), cfg.N, dtype=torch.int32, device=dev)
+    else:
+        draw_for = batch.nodes
+    neighbors = sample_neighbors(streams.neighbor, draw_for, cfg.N,
+                                 cfg.num_node_sample)
+    phi_noise = rng.randn(streams.phi, (batch.nodes.shape[0], cfg.K), dev)
+    beta_noise = rng.randn(streams.beta, (cfg.K, 2), dev)
+    return neighbors, phi_noise, beta_noise
+
+
+def train_step(cfg: Config, edge_set: EdgeSet, s: TrainState,
+               batch: DeviceBatch, neighbors: torch.Tensor,
+               phi_noise: torch.Tensor, beta_noise: torch.Tensor
+               ) -> TrainState:
+    """One SGRLD step on one minibatch (the JAX package's ``train_step``,
+    native-RNG branches) with its random operands given: ``neighbors``
+    [1, n] shared or [B, n] private, ``phi_noise`` [B, K], ``beta_noise``
+    [K, 2] (``draw_step_operands`` draws them). The phi update gathers
+    and queries membership itself; the beta stage re-reads the endpoint
+    rows from the new pi and queries the edge labels."""
+    if cfg.shared_neighbors:
+        nodes = batch.nodes.long().clamp(0, cfg.N - 1)
+        y = edge_set.has_edges(batch.nodes[:, None], neighbors)
+        nbr_mask = neighbors != batch.nodes[:, None]             # [B, n]
+        rows, sums = phi_ops.phi_update_core(
+            cfg, s.pi[nodes].float(), s.phi_sum[nodes],
+            s.pi[neighbors.long()].float(), y, s.beta, s.step_count,
+            phi_noise, nbr_mask)
+    elif cfg.phi_impl == PhiImpl.PALLAS:
+        rows, sums = phi_pallas.phi_update_rows_pallas(
+            cfg, s.pi, s.phi_sum, s.beta, edge_set, batch.nodes, neighbors,
+            s.step_count, phi_noise)
+    else:
+        rows, sums = phi_ops.phi_update_rows(
+            cfg, s.pi, s.phi_sum, s.beta, edge_set, batch.nodes, neighbors,
+            s.step_count, phi_noise)
+    pi, phi_sum = phi_ops.scatter_rows(s.pi, s.phi_sum, batch.nodes,
+                                       batch.node_mask, rows, sums)
+    beta_count = s.beta_count + 1
+    theta, beta = beta_ops.update_beta(
+        cfg, s.theta, s.beta, pi, edge_set, batch.edges_u, batch.edges_v,
+        batch.edge_mask, batch.weight, beta_count, beta_noise)
+    return s._replace(pi=pi, phi_sum=phi_sum, theta=theta, beta=beta,
+                      step_count=s.step_count + 1, beta_count=beta_count)
+
+
+def train_steps_scan(cfg: Config, edge_set: EdgeSet, state: TrainState,
+                     batches: DeviceBatch, streams: rng.Streams
+                     ) -> TrainState:
+    """S steps on the given minibatches: hoist, then run (windowed when
+    ``cfg.window > 1``, which the guards allow with shared draws only)."""
+    return run_hoisted(cfg, state,
+                       hoist_operands(cfg, edge_set, batches, streams))
+
+
 def train_steps_fused(cfg: Config, edge_set: EdgeSet, heldout_set: EdgeSet,
                       state: TrainState, num_steps: int,
                       adjacency: Adjacency, streams: rng.Streams
@@ -261,8 +385,7 @@ def train_steps_fused(cfg: Config, edge_set: EdgeSet, heldout_set: EdgeSet,
     """``num_steps`` device-sampled steps: sample, hoist, run."""
     ds = sample_minibatches_device(cfg, edge_set, heldout_set,
                                    streams.sample, num_steps, adjacency)
-    xs = hoist_operands(cfg, edge_set, DeviceBatch(*ds), streams)
-    return run_hoisted(cfg, state, xs)
+    return train_steps_scan(cfg, edge_set, state, DeviceBatch(*ds), streams)
 
 
 def heldout_perplexity_step(cfg: Config, heldout_set: EdgeSet,
@@ -305,17 +428,67 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-class Learner:
+class HostSamplingPipeline:
+    """Host minibatch prefetch pipeline with its in-flight state.
+
+    A producer thread draws batches (or chunks) ahead of device compute;
+    produced-but-unconsumed items can be drained into a pending list,
+    which a checkpoint would save and a resumed run consumes first. The
+    producer thread runs numpy and the native sampler only: it never
+    touches torch or the device."""
+
+    def _init_pipeline(self, sampler: Optional[MiniBatchSampler],
+                       prefetch: bool) -> None:
+        self.sampler = sampler
+        self._prefetcher: Optional[PrefetchingSampler] = None
+        self._use_prefetch = prefetch
+        self._pending = []
+
+    def _get_prefetcher(self, chunk: int) -> PrefetchingSampler:
+        if self._prefetcher is None or self._prefetcher._chunk != chunk:
+            if self._prefetcher is not None:
+                # keep already-drawn batches (stream position) intact
+                self._pending.extend(self._prefetcher.drain())
+            self._prefetcher = PrefetchingSampler(self.sampler, depth=2,
+                                                  chunk=chunk)
+        return self._prefetcher
+
+    def _next_pending(self, want_cls):
+        """Pop a drained in-flight item, if it is of the current run
+        mode's type."""
+        if self._pending and isinstance(self._pending[0], want_cls):
+            return self._pending.pop(0)
+        return None
+
+    def drain_sampling(self):
+        """Quiesce the prefetch pipeline; produced-but-unconsumed items
+        move to the pending list, in production order."""
+        if self._prefetcher is not None:
+            self._pending.extend(self._prefetcher.drain())
+            self._prefetcher = None
+        return self._pending
+
+    def close(self) -> None:
+        """Stop the producer thread."""
+        if self._prefetcher is not None:
+            self._prefetcher.close()
+            self._prefetcher = None
+
+
+class Learner(HostSamplingPipeline):
     """Owns config, graph structures, device state and RNG streams.
 
-    The model lives in four methods, which ``models/mmsb.FullMMSBLearner``
+    The model lives in these methods, which ``models/mmsb.FullMMSBLearner``
     overrides: ``_check`` (the config guards), ``_init_state``,
     ``_train_chunk`` (device-sampled steps) and ``_evaluate`` with
     ``_read_stats`` (one held-out evaluation). ``device`` defaults to
-    the card and raises without one (``resolve_device``)."""
+    the card and raises without one (``resolve_device``). Without
+    ``cfg.device_sampling`` the minibatches come from the host sampler
+    (``sampling.MiniBatchSampler``), prefetched by a producer thread
+    unless ``prefetch`` is off; ``close()`` stops it."""
 
     def __init__(self, cfg: Config, graph: Graph, split: DataSplit,
-                 device="cuda"):
+                 device="cuda", prefetch: bool = True):
         self.device = resolve_device(device)
         self._check(cfg)
         check_ported(cfg)
@@ -341,6 +514,9 @@ class Learner:
                             device=self.device))
         self.streams = rng.make_streams(cfg, self.device)
         self.state = self._init_state(len(split.heldout_edges_u))
+        self._init_pipeline(
+            None if cfg.device_sampling
+            else MiniBatchSampler(cfg, graph, split), prefetch)
         self.timers = StageTimers()
         self.last_ppx_stats = {}
 
@@ -369,9 +545,17 @@ class Learner:
     # -- training ----------------------------------------------------------
 
     def run(self, max_iters: int) -> None:
-        """Run ``max_iters`` SGRLD steps in chunks of steps_per_call."""
+        """Run ``max_iters`` SGRLD steps: device-sampled in chunks of
+        steps_per_call; host-sampled one ``train_step`` per step at
+        steps_per_call == 1, else in scanned chunks."""
+        spc = max(1, self.cfg.steps_per_call)
         with self.timers.stage("total"):
-            self._run_fused(max_iters)
+            if self.cfg.device_sampling:
+                self._run_fused(max_iters)
+            elif spc == 1:
+                self._run_single(max_iters)
+            else:
+                self._run_scanned(max_iters, spc)
 
     def _run_fused(self, max_iters: int) -> None:
         spc = max(1, self.cfg.steps_per_call)
@@ -383,6 +567,42 @@ class Learner:
             done += take
         self._sync()
 
+    def _run_single(self, max_iters: int) -> None:
+        src = self._get_prefetcher(1) if self._use_prefetch else None
+        for _ in range(max_iters):
+            with self.timers.stage("sampling"):
+                hb = (self._next_pending(MiniBatch)
+                      or (src.get() if src else self.sampler.sample()))
+                batch = DeviceBatch.from_host(hb, self.device)
+            with self.timers.stage("device_step"):
+                self.state = train_step(
+                    self.cfg, self.training_set, self.state, batch,
+                    *draw_step_operands(self.cfg, self.streams, batch))
+        self._sync()
+
+    def _run_scanned(self, max_iters: int, spc: int) -> None:
+        done = 0
+        src = self._get_prefetcher(spc) if self._use_prefetch else None
+        while done < max_iters:
+            take = min(spc, max_iters - done)
+            with self.timers.stage("sampling"):
+                stacked = (self._next_pending(StackedBatches)
+                           or (src.get() if src
+                               else self.sampler.sample_many(spc)))
+                if take < spc:  # tail: slice the stacked chunk
+                    stacked = StackedBatches(
+                        *(a[:take] for a in (
+                            stacked.edges_u, stacked.edges_v,
+                            stacked.edge_mask, stacked.nodes,
+                            stacked.node_mask, stacked.weight)))
+                batches = DeviceBatch.from_stacked(stacked, self.device)
+            with self.timers.stage("device_step"):
+                self.state = train_steps_scan(
+                    self.cfg, self.training_set, self.state, batches,
+                    self.streams)
+            done += take
+        self._sync()
+
     def run_with_ppx(self, max_iters: int, interval: int) -> List[dict]:
         """Train ``max_iters`` steps with a held-out ppx evaluation every
         ``interval`` steps, in groups of about steps_per_call steps
@@ -390,6 +610,10 @@ class Learner:
         link/non-link stats, and ``t``, the host time its group's
         numbers reached the host); a non-multiple tail trains without a
         trailing evaluation."""
+        if not self.cfg.device_sampling:
+            raise RuntimeError("run_with_ppx requires device_sampling "
+                               "(the host-batch loop evaluates between "
+                               "chunks instead)")
         if self.heldout_u.shape[0] == 0:
             raise RuntimeError("no held-out edges")
         group = max(1, self.cfg.steps_per_call // max(1, interval))

@@ -305,6 +305,10 @@ class FullMMSBLearner(learner.Learner):
 
     @staticmethod
     def _check(cfg: Config) -> None:
+        if not cfg.device_sampling:
+            raise NotImplementedError(
+                "host-sampled full-MMSB training is not ported yet "
+                "(ROADMAP queue 1 item 11)")
         if cfg.pi_dtype != "float32":
             raise ValueError("the full-MMSB family keeps pi in fp32; "
                              "pi_dtype=bfloat16 is a-MMSB only")

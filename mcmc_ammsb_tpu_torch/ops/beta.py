@@ -24,6 +24,19 @@ from mcmc_ammsb_tpu_torch.ops.phi import step_size
 _THETA_FLOOR = 1e-24
 
 
+def beta_gradients(cfg: Config, theta: torch.Tensor, beta: torch.Tensor,
+                   pi: torch.Tensor, edge_set, edges_u: torch.Tensor,
+                   edges_v: torch.Tensor, edge_mask: torch.Tensor
+                   ) -> torch.Tensor:
+    """``beta_gradients_core`` on the endpoint rows read from pi [N, K],
+    with the labels queried from ``edge_set`` (padded edge lanes hold a
+    valid id and a false mask)."""
+    y = edge_set.has_edges(edges_u, edges_v)
+    cdt = theta.dtype
+    return beta_gradients_core(cfg, theta, beta, pi[edges_u.long()].to(cdt),
+                               pi[edges_v.long()].to(cdt), y, edge_mask)
+
+
 def beta_gradients_core(cfg: Config, theta: torch.Tensor,
                         beta: torch.Tensor, pi_u: torch.Tensor,
                         pi_v: torch.Tensor, y: torch.Tensor,
@@ -62,3 +75,15 @@ def theta_step(cfg: Config, theta: torch.Tensor, grads: torch.Tensor,
     theta_new = torch.clamp(theta_new, min=_THETA_FLOOR)
     beta_new = theta_new[..., 1] / (theta_new[..., 0] + theta_new[..., 1])
     return theta_new, beta_new
+
+
+def update_beta(cfg: Config, theta: torch.Tensor, beta: torch.Tensor,
+                pi: torch.Tensor, edge_set, edges_u: torch.Tensor,
+                edges_v: torch.Tensor, edge_mask: torch.Tensor,
+                scale: torch.Tensor, count_calls, noise: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole beta stage of a step: gradients from pi, the SGRLD step,
+    the normalization."""
+    grads = beta_gradients(cfg, theta, beta, pi, edge_set, edges_u, edges_v,
+                           edge_mask)
+    return theta_step(cfg, theta, grads, scale, count_calls, noise)

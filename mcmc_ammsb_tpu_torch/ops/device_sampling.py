@@ -126,7 +126,7 @@ def _sample_node_non_link_batch(cfg: Config, training_set: EdgeSet,
     (weight * m_eff == 2E exactly)."""
     if rounds is None:
         rounds = cfg.ds_nonlink_rounds
-    dev = training_set.matrix.device
+    dev = training_set.device
     m = cfg.mini_batch_size
     e_cap = cfg.max_batch_edges
     u = rng.randint(gen, cfg.N, (s_len,), dev)

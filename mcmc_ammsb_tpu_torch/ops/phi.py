@@ -86,6 +86,23 @@ def phi_update_core(
     return row_normalize(phi_new)
 
 
+def phi_update_rows(cfg: Config, pi: torch.Tensor, phi_sum: torch.Tensor,
+                    beta: torch.Tensor, edge_set, nodes: torch.Tensor,
+                    neighbors: torch.Tensor, step_count,
+                    noise: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gather + membership + ``phi_update_core`` for one step with private
+    neighbor draws: pi [N, K], phi_sum [N], nodes [B], neighbors [B, n].
+    Padded node lanes (the sentinel N, or id 0 with a false mask) are
+    clamped into the table as JAX's gather clamps them; their rows are the
+    caller's to drop."""
+    idx = nodes.long().clamp(0, pi.shape[0] - 1)
+    cdt = phi_sum.dtype                  # compute type, as in JAX
+    y = edge_set.has_edges(nodes[:, None], neighbors)
+    return phi_update_core(cfg, pi[idx].to(cdt), phi_sum[idx],
+                           pi[neighbors.long()].to(cdt), y, beta,
+                           step_count, noise)
+
+
 def scatter_rows(pi: torch.Tensor, phi_sum: torch.Tensor,
                  nodes: torch.Tensor, node_mask: torch.Tensor,
                  pi_rows: torch.Tensor, sums: torch.Tensor
@@ -99,12 +116,21 @@ def scatter_rows(pi: torch.Tensor, phi_sum: torch.Tensor,
     carries that lane's row, so a repeated index only ever repeats the
     same bytes and the result does not depend on the write order. The
     unmasked indices themselves are unique (deduplicated node lists,
-    last-write-wins windows). At least one lane must be unmasked — the
-    pivot lane of every Node-family minibatch is."""
-    # a 1-element index: a 0-d tensor index would be read on the host
-    anchor = torch.argmax(node_mask.to(torch.int32)).reshape(1)
-    idx = torch.where(node_mask, nodes, nodes[anchor]).long()
-    rows = torch.where(node_mask[:, None], pi_rows, pi_rows[anchor])
-    pi.index_copy_(0, idx, rows.to(pi.dtype))
-    phi_sum.index_copy_(0, idx, torch.where(node_mask, sums, sums[anchor]))
+    last-write-wins windows). The ids of masked lanes are never used:
+    they may be the sentinel N or 0. With no lane unmasked every lane is
+    pointed at row 0 and carries that row's present contents, so the
+    write changes nothing, as in JAX."""
+    # one reduction gives both "is any lane unmasked" and such a lane;
+    # 1-element tensors: a 0-d tensor index would be read on the host
+    any_lane, anchor = node_mask.max(dim=0, keepdim=True)
+    target = torch.where(any_lane, nodes[anchor], 0)
+    idx = torch.where(node_mask, nodes, target).long()
+    row_a = torch.where(any_lane[:, None], pi_rows[anchor].to(pi.dtype),
+                        pi[:1])
+    sum_a = torch.where(any_lane, sums[anchor].to(phi_sum.dtype),
+                        phi_sum[:1])
+    pi.index_copy_(0, idx, torch.where(node_mask[:, None],
+                                       pi_rows.to(pi.dtype), row_a))
+    phi_sum.index_copy_(0, idx, torch.where(node_mask,
+                                            sums.to(phi_sum.dtype), sum_a))
     return pi, phi_sum

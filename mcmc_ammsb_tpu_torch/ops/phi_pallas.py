@@ -6,7 +6,10 @@ Two entries with the JAX package's contracts, each with a plain PyTorch
 version and a hand-written Hopper kernel (``csrc/phi_kernel.cu``):
 
 * the pre-gathered entry (``phi_update_core_pallas``): node rows
-  [B, K], their phi sums [B], neighbor rows [B, n, K];
+  [B, K], their phi sums [B], neighbor rows [B, n, K]. The
+  step-at-a-time host-sampled path (``learner.train_step`` at
+  ``--steps-per-call 1``) calls it through ``phi_update_rows_pallas``,
+  which gathers and queries membership first, as the JAX package does;
 * the by-index entry (``phi_update_rows_pallas_gather``): the kernel
   reads the B + B n rows from pi [N, K] itself. The hoisted
   ``--phi-impl pallas`` step calls this one (``phi_update_rows``): no
@@ -79,6 +82,20 @@ def phi_update_rows(cfg: Config, pi, phi_sum, beta, nodes, nbrs, y,
     the plain version for a CPU one."""
     entry = phi_update_rows_cuda if pi.is_cuda else phi_update_rows_torch
     return entry(cfg, pi, phi_sum, beta, nodes, nbrs, y, step_count, noise)
+
+
+def phi_update_rows_pallas(cfg: Config, pi, phi_sum, beta, edge_set, nodes,
+                           neighbors, step_count, noise):
+    """The step-at-a-time ``--phi-impl pallas`` update (``train_step``),
+    the contract of ``ops/phi.phi_update_rows``: torch gathers of
+    ``pi[nodes]``, ``pi[neighbors]`` and ``phi_sum[nodes]`` and the
+    membership query, then the pre-gathered entry: the CUDA kernel for a
+    CUDA ``pi``, the plain version for a CPU one. Padded node lanes (the
+    sentinel N, or id 0 with a false mask) are clamped into the table."""
+    pi_n, phis, pi_nb = _gather(cfg, pi, phi_sum, nodes, neighbors)
+    y = edge_set.has_edges(nodes[:, None], neighbors)
+    entry = phi_update_core_cuda if pi.is_cuda else phi_update_core_torch
+    return entry(cfg, pi_n, phis, pi_nb, y, beta, step_count, noise)
 
 
 # ---------------------------------------------------------------------------

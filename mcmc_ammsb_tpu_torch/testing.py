@@ -6,7 +6,9 @@ the window's steps on purpose (nodes and neighbors come from a small
 node pool), masked node and edge lanes, and padded lanes that carry the
 sentinel N; ``chain_window_case`` one such window for each of C chains (the flat
 chain engine), ``mmsb_window_case`` the same window for the full MMSB,
-``phi_case`` one step of the per-node phi update. The same arrays drive
+``phi_case`` one step of the per-node phi update, ``host_case`` a small
+graph with a chunk of host-sampled minibatches (padded lanes hold id 0
+and a false mask). The same arrays drive
 the port's plain versions and its CUDA kernels (``chip_smoke.py``) and
 the JAX package's functions (the CPU parity tests).
 """
@@ -16,10 +18,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from mcmc_ammsb_tpu_torch import data
 from mcmc_ammsb_tpu_torch.chains_flat import ChainState
 from mcmc_ammsb_tpu_torch.config import Config
 from mcmc_ammsb_tpu_torch.learner import DeviceBatch, TrainState
 from mcmc_ammsb_tpu_torch.models.mmsb import MMSBState
+from mcmc_ammsb_tpu_torch.sampling import MiniBatchSampler
 
 
 def window_case(seed: int, t_win: int, b_cap: int, n_smpl: int,
@@ -226,3 +230,23 @@ def phi_case_config(case: dict) -> Config:
     return Config(K=case["pi"].shape[1], mini_batch_size=b_cap,
                   num_node_sample=n_smpl, device_sampling=True).finalize(
         case["n_nodes"], 1000, b_cap)
+
+
+def host_case(seed: int, steps: int, num_nodes: int = 300, avg_degree: int = 8,
+              **config) -> dict:
+    """A host-sampled case: a uniform random graph made from ``seed``, its
+    split and training CSR, a finalized ``Config`` (host sampling, the
+    numpy sampler, m = n = 8, K = 16 unless ``config`` says otherwise) and
+    ``steps`` minibatches from the numpy host sampler, stacked. Keys:
+    n, split, graph, cfg, stacked."""
+    n, u, v = data.synthetic_edges(num_nodes, avg_degree, seed=seed)
+    split = data.generate_sets(n, u, v, heldout_ratio=0.1, seed=seed + 1)
+    graph = data.Graph.from_edges(n, split.training_u, split.training_v)
+    kw = dict(K=16, mini_batch_size=8, num_node_sample=8,
+              device_sampling=False, shared_neighbors=False,
+              host_sampler="numpy")
+    kw.update(config)
+    cfg = Config(**kw).finalize(n, split.total_edges, graph.max_fan_out)
+    stacked = MiniBatchSampler(cfg, graph, split, seed=seed).sample_many(
+        steps)
+    return dict(n=n, split=split, graph=graph, cfg=cfg, stacked=stacked)

@@ -3,7 +3,8 @@
 Run from the root of a checkout (the package must be importable):
 
     PYTHONPATH=. python3 scripts/torch_profile.py [--reps 5]
-        [--paths single,chains,mmsb,phi] [--out FILE]
+        [--paths single,chains,mmsb,phi,hostphi,hoststep,hostbf,powerlaw]
+        [--out FILE]
 
 Each path at N=317,080 (``--synthetic 317080,7``), the CLI's defaults
 otherwise:
@@ -15,7 +16,25 @@ otherwise:
   mmsb    ``--model mmsb --window 12``, K=64: 1008 steps per call (84
           windows);
   phi     ``--phi-impl pallas --device-sampling``, K=256: 1000 steps per
-          call, no windows (kernels are counted per step).
+          call, no windows (kernels are counted per step);
+  hostphi ``--phi-impl pallas -i 500``, K=256: host-sampled, private
+          draws, chunks of 200 steps, 1000 steps per call;
+  hoststep ``--no-device-sampling --no-shared-neighbors --steps-per-call 1
+          --phi-impl pallas``, K=256: one train_step per step, 300 steps
+          per call;
+  hostbf  ``--no-device-sampling -s BFLink -i 200``, K=256: chunks of 200
+          steps, 400 steps per call;
+  powerlaw ``--synthetic-powerlaw 317080,6.6,343,256 --edgeset perfect
+          --ds-link-cap 64``, K=256: device-sampled, no windows (65 node
+          lanes), 1000 steps per call.
+
+The four host-sampled and power-law paths need a tree that has them; a
+parent tree is profiled with ``--paths single,chains,mmsb,phi``. For a
+host-sampled path the result also has ``sampling_stage_share`` (the
+share of the calls before the profiled one that the training thread
+spent waiting for its batches and copying them to the device) and ``sampler_ms_per_step`` (the
+host sampler alone, timed on a second sampler: one ``sample_many`` of a
+chunk, or 50 ``sample`` calls at steps_per_call 1).
 
 For each: one warm-up call, then ``--reps`` unprofiled calls timed on the
 host clock around ``Learner.run`` (which ends in a synchronize): updates/s
@@ -46,12 +65,22 @@ PATHS = {
               "--window", "12"], 1008),
     "phi": (["--phi-impl", "pallas", "--device-sampling", "--synthetic",
              "317080,7", "-k", "256"], 1000),
+    "hostphi": (["--phi-impl", "pallas", "-i", "500", "--synthetic",
+                 "317080,7", "-k", "256"], 1000),
+    "hoststep": (["--no-device-sampling", "--no-shared-neighbors",
+                  "--steps-per-call", "1", "--phi-impl", "pallas",
+                  "--synthetic", "317080,7", "-k", "256"], 300),
+    "hostbf": (["--no-device-sampling", "-s", "BFLink", "-i", "200",
+                "--synthetic", "317080,7", "-k", "256"], 400),
+    "powerlaw": (["--synthetic-powerlaw", "317080,6.6,343,256", "--edgeset",
+                  "perfect", "--ds-link-cap", "64", "-k", "256"], 1000),
 }
 
 
 def make_learner(flags):
     """The learner the port's CLI builds for ``flags``, on the card."""
     from mcmc_ammsb_tpu_torch import cli
+    from mcmc_ammsb_tpu_torch import data
     from mcmc_ammsb_tpu_torch.chains_flat import FlatChainLearner
     from mcmc_ammsb_tpu_torch.data import (Graph, generate_sets,
                                            synthetic_edges)
@@ -61,11 +90,19 @@ def make_learner(flags):
     args = cli.build_arg_parser().parse_args(flags)
     cli.resolve_fast_defaults(args)
     cfg = cli.config_from_args(args)
-    nn, deg = (int(x) for x in args.synthetic.split(","))
-    n, u, v = synthetic_edges(nn, deg, seed=1)
+    if getattr(args, "synthetic_powerlaw", None):
+        nn, deg, cap, comms = args.synthetic_powerlaw.split(",")
+        n, u, v = data.synthetic_powerlaw_edges(
+            int(nn), float(deg), max_degree=int(cap),
+            num_communities=int(comms), seed=1)
+    else:
+        nn, deg = (int(x) for x in args.synthetic.split(","))
+        n, u, v = synthetic_edges(nn, deg, seed=1)
     split = generate_sets(n, u, v, args.heldout_ratio)
     graph = Graph.from_edges(n, split.training_u, split.training_v)
     cfg = cfg.finalize(n, split.total_edges, graph.max_fan_out)
+    if getattr(args, "window_auto", False) and cfg.max_batch_nodes > 64:
+        cfg = cfg.replace(window=0)              # the CLI's fallback
     if args.num_chains > 1:
         cfg = cfg.replace(device_sampling=True)
         return cfg, args.num_chains, FlatChainLearner(
@@ -85,6 +122,26 @@ def profile_path(name: str, reps: int) -> dict:
         lrn.run(steps)
         seconds.append(time.perf_counter() - t0)
     rates = [chains * steps / s for s in seconds]
+    host = {}
+    if not cfg.device_sampling:
+        from mcmc_ammsb_tpu_torch.sampling import MiniBatchSampler
+
+        spc = max(1, cfg.steps_per_call)
+        second = MiniBatchSampler(cfg, lrn.graph, lrn.split, seed=99)
+        t0 = time.perf_counter()
+        if spc > 1:
+            second.sample_many(spc)
+            per_step = (time.perf_counter() - t0) / spc
+        else:
+            for _ in range(50):
+                second.sample()
+            per_step = (time.perf_counter() - t0) / 50
+        # single batches (steps_per_call 1) are always numpy-sampled
+        host = {"sampler": "native" if lrn.sampler.use_native and spc > 1
+                else "numpy",
+                "sampler_ms_per_step": 1e3 * per_step,
+                "sampling_stage_share": lrn.timers.seconds["sampling"]
+                / lrn.timers.seconds["total"]}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -102,6 +159,8 @@ def profile_path(name: str, reps: int) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
     # kernels per window on the windowed paths, per step on the others
     windows = steps // cfg.window if cfg.window > 1 else steps
+    if hasattr(lrn, "close"):
+        lrn.close()                      # stops the prefetch thread
     return {
         "path": name, "window": cfg.window, "steps_per_call": steps,
         "windows_per_call": windows, "chains": chains,
@@ -109,7 +168,7 @@ def profile_path(name: str, reps: int) -> dict:
         "profiled_wall_s": wall,
         "device_events": len(device), "kernel_launches": len(kernels),
         "launches_per_window": len(kernels) / windows,
-        "device_busy_share": busy_us * 1e-6 / wall,
+        "device_busy_share": busy_us * 1e-6 / wall, **host,
         "top_kernels": [{"name": n[:80], "us": t, "launches": c}
                         for n, (t, c) in top],
     }
@@ -127,9 +186,11 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    result = {"device": smi, "torch": torch.__version__,
-              "paths": [profile_path(n, a.reps)
-                        for n in a.paths.split(",")]}
+    paths = []
+    for n in a.paths.split(","):
+        paths.append(profile_path(n, a.reps))
+        print(json.dumps(paths[-1]), file=sys.stderr, flush=True)
+    result = {"device": smi, "torch": torch.__version__, "paths": paths}
     line = json.dumps(result)
     print(line)
     if a.out:

@@ -1,5 +1,7 @@
 """The port's CLI on the CPU: the main path, the ``--phi-impl pallas``
-path and the full MMSB end to end at a tiny size, the window rule of
+paths (host-sampled by default, device-sampled when asked), host
+sampling with every strategy, every membership backend, the power-law
+surrogate and the full MMSB end to end at a tiny size, the rules of
 ``resolve_fast_defaults``, the learner guards, engines that are not
 ported yet refused with their ROADMAP item, and no silent fallback to
 the CPU when the GPU is asked for."""
@@ -68,31 +70,64 @@ def _resolved(*flags):
 
 
 def test_window_rule_matches_jax():
-    """The JAX CLI's rule (mcmc_ammsb_tpu/cli.py:348-375): auto windows
-    for the a-MMSB fast path only — 12 up to 8 chains, 96 // C up to 16,
-    none past 16 chains or on the vmap chain engine. --model mmsb without
-    --window stays sequential, with --window 12 keeps 12; --phi-impl
-    pallas draws privately and never windows."""
+    """The JAX CLI's rule (mcmc_ammsb_tpu/cli.py:297-375), flag for flag:
+    auto windows for the a-MMSB fast path only — 12 up to 8 chains,
+    96 // C up to 16, none past 16 chains or on the vmap chain engine;
+    --model mmsb without --window stays sequential, with --window 12
+    keeps 12; --phi-impl pallas resolves to host sampling with private
+    draws and chunks of min(200, ppx interval), and never windows;
+    --no-device-sampling keeps explicit shared draws and windows. The one
+    departure: the breadth-first family resolves to host sampling here
+    (its device samplers are not ported), where JAX turns device sampling
+    on."""
     from mcmc_ammsb_tpu import cli as jax_cli
 
     cases = [(), ("--model", "mmsb"), ("--model", "mmsb", "--window", "12"),
              ("--phi-impl", "pallas", "--device-sampling"),
-             ("--window", "-1"), ("--no-shared-neighbors",)]
+             ("--window", "-1"), ("--no-shared-neighbors",),
+             ("--phi-impl", "pallas"), ("--phi-impl", "pallas", "-i", "500"),
+             ("--phi-impl", "pallas", "-i", "7"),
+             ("--phi-impl", "pallas", "--steps-per-call", "1"),
+             ("--no-device-sampling",), ("--no-device-sampling", "-i", "50"),
+             ("--no-device-sampling", "--shared-neighbors", "--window", "12"),
+             ("--no-device-sampling", "--shared-neighbors"),
+             ("--no-device-sampling", "--no-shared-neighbors",
+              "--steps-per-call", "1", "--phi-impl", "pallas"),
+             ("--rng", "reference"), ("--model", "mmsb", "--phi-impl",
+                                      "pallas"),
+             ("--steps-per-call", "37"), ("-i", "5000")]
+    cases += [("-s", s) for s in ("NodeLink", "NodeNonLink")]
+    cases += [("-s", s, "--no-device-sampling") for s in
+              ("Node", "NodeLink", "NodeNonLink", "BF", "BFLink",
+               "BFNonLink")]
+    cases += [("-s", s, "--device-sampling") for s in ("BF", "BFLink")]
     cases += [("--num-chains", str(c), "--chain-engine", engine)
               for c in (1, 2, 8, 9, 16, 17) for engine in ("flat", "vmap")]
+    fields = ("window", "device_sampling", "shared_neighbors",
+              "steps_per_call")
     for flags in cases:
         port = _resolved(*flags)
         jargs = jax_cli.build_arg_parser().parse_args(["--synthetic",
                                                        "300,8", *flags])
         jax_cli.resolve_fast_defaults(jargs)
-        for f in ("window", "device_sampling", "shared_neighbors",
-                  "steps_per_call"):
+        for f in fields:
             assert getattr(port, f) == getattr(jargs, f), (flags, f)
+    for s in ("BF", "BFLink", "BFNonLink"):
+        port, jargs = _resolved("-s", s), jax_cli.build_arg_parser(
+        ).parse_args(["--synthetic", "300,8", "-s", s])
+        jax_cli.resolve_fast_defaults(jargs)
+        assert jargs.device_sampling and not port.device_sampling
+        assert (port.window, port.shared_neighbors) == (
+            jargs.window, jargs.shared_neighbors) == (0, False)
+        assert port.steps_per_call == 100        # min(200, ppx interval)
     assert _resolved("--model", "mmsb").window == 0
     assert _resolved("--model", "mmsb", "--window", "12").window == 12
     assert _resolved().window == 12
     assert _resolved("--num-chains", "16").window == 6
     assert _resolved("--num-chains", "17").window == 0
+    pallas = _resolved("--phi-impl", "pallas", "-i", "500")
+    assert (pallas.device_sampling, pallas.shared_neighbors,
+            pallas.steps_per_call, pallas.window) == (False, False, 200, 0)
 
 
 @pytest.mark.parametrize("bad", [
@@ -117,27 +152,139 @@ def test_cli_guard_exits_1():
 @pytest.mark.parametrize("flags", [
     ["--mesh", "1,2"], ["--num-chains", "2", "--chain-engine", "vmap"],
     ["--model", "mmsb", "--num-chains", "2"],
-    ["--rng", "reference"], ["--phi-impl", "pallas"], ["-s", "BF"],
-    ["--no-device-sampling"], ["--pi-dtype", "bfloat16"],
+    ["--rng", "reference"], ["--calc-train-ppx"],
+    ["-s", "BF", "--device-sampling"],
+    ["--model", "mmsb", "--no-device-sampling"], ["--pi-dtype", "bfloat16"],
     ["--checkpoint", "ck.npz"],
-    ["--edgeset", "perfect"],
+    ["--profile"],
     ["--model", "mmsb", "--restore", "ck.npz"],
 ])
 def test_cli_refuses_unported_engines(flags, caplog):
-    """Exit 2, naming the ROADMAP item. ``--phi-impl pallas`` without
-    --device-sampling resolves to host sampling, item 7. Of the chain
-    engines only the flat one is ported: the vmap engine is item 12,
-    the MMSB chains item 11 (tests/test_torch_chains_cli.py has the
-    rest)."""
+    """Exit 2, naming the ROADMAP item. The breadth-first family is
+    refused with device sampling only (item 9); host-sampled full-MMSB
+    training is item 11. Of the chain engines only the flat one is
+    ported: the vmap engine is item 12, the MMSB chains item 11
+    (tests/test_torch_chains_cli.py has the rest)."""
     with caplog.at_level(logging.INFO, logger="mcmc_ammsb_tpu_torch"):
         assert cli.main(TINY + flags) == 2
     assert any("ROADMAP" in r.getMessage() for r in caplog.records)
-    if flags == ["--phi-impl", "pallas"]:
-        assert any("item 7" in r.getMessage() for r in caplog.records)
+    if flags == ["-s", "BF", "--device-sampling"]:
+        assert any("item 9" in r.getMessage() for r in caplog.records)
+    if flags == ["--model", "mmsb", "--no-device-sampling"]:
+        assert any("item 11" in r.getMessage() for r in caplog.records)
     if "--chain-engine" in flags:
         assert any("item 12" in r.getMessage() for r in caplog.records)
     if flags == ["--model", "mmsb", "--num-chains", "2"]:
         assert any("item 11" in r.getMessage() for r in caplog.records)
+
+
+HOST = ["--synthetic", "400,12", "-k", "16", "-x", "60", "-i", "20",
+        "--device", "cpu"]
+
+
+def _config_echo(caplog):
+    return next(r.getMessage() for r in caplog.records
+                if r.getMessage().startswith("config: "))
+
+
+def test_cli_phi_pallas_resolves_to_host_sampling(caplog):
+    """--phi-impl pallas without --device-sampling is the JAX CLI's
+    resolution: host batches, private draws, chunks of min(200, i)."""
+    ppx = _ppx_series(["--phi-impl", "pallas"] + HOST, caplog)
+    echo = _config_echo(caplog)
+    for want in ("device_sampling=False", "shared_neighbors=False",
+                 "steps_per_call=20", "window=0", "'pallas'"):
+        assert want in echo, want
+    assert sorted(ppx) == [0, 20, 40, 60] and ppx[60] < ppx[0]
+    assert any(r.getMessage().startswith("host sampler: ")
+               for r in caplog.records)
+
+
+def test_cli_reference_exact_slow_path(caplog):
+    """--no-device-sampling --no-shared-neighbors --steps-per-call 1: one
+    train_step per step, with either phi."""
+    slow = ["--no-device-sampling", "--no-shared-neighbors",
+            "--steps-per-call", "1"]
+    ppx = _ppx_series(slow + ["--phi-impl", "pallas"] + HOST, caplog)
+    assert "steps_per_call=1," in _config_echo(caplog)
+    assert sorted(ppx) == [0, 20, 40, 60] and ppx[60] < ppx[0]
+
+
+@pytest.mark.parametrize("strategy", ["Node", "NodeLink", "NodeNonLink",
+                                      "BF", "BFLink", "BFNonLink"])
+def test_cli_host_sampling_every_strategy(strategy, caplog):
+    """A finite series for every strategy; it falls where the strategy
+    shows the sampler links. (Non-links alone push the held-out links'
+    likelihood down: with NodeNonLink the JAX CLI's series rises too,
+    5.18 -> 7.35 on this graph.)"""
+    ppx = _ppx_series(["--no-device-sampling", "-s", strategy] + HOST,
+                      caplog)
+    assert sorted(ppx) == [0, 20, 40, 60]
+    assert all(1.0 < p < float("inf") for p in ppx.values())
+    if strategy in ("Node", "NodeLink", "BF", "BFLink"):
+        assert ppx[60] < ppx[0]
+    assert "device_sampling=False" in _config_echo(caplog)
+
+
+def test_cli_host_sampled_windows(caplog):
+    """--no-device-sampling --shared-neighbors --window 4: the window
+    engine on host batches (padded lanes hold id 0)."""
+    ppx = _ppx_series(["--no-device-sampling", "--shared-neighbors",
+                       "--window", "4"] + HOST, caplog)
+    assert "window=4," in _config_echo(caplog) and ppx[60] < ppx[0]
+
+
+@pytest.fixture(scope="module")
+def adjacency_series():
+    import logging as _logging
+
+    records = []
+    handler = _logging.Handler()
+    handler.emit = lambda r: records.append(r.getMessage())
+    logger = _logging.getLogger("mcmc_ammsb_tpu_torch")
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(_logging.INFO)
+    try:
+        assert cli.main(["--edgeset", "adjacency"] + HOST) == 0
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    return [m for m in records if m.startswith("ppx[")]
+
+
+@pytest.mark.parametrize("backend", ["perfect", "csr", "sorted", "cuckoo"])
+def test_cli_edgeset_backends_give_the_adjacency_series(backend, caplog,
+                                                        adjacency_series):
+    """Membership is exact, so every backend trains the same bits: the
+    ppx lines equal the adjacency run's, character for character."""
+    with caplog.at_level(logging.INFO, logger="mcmc_ammsb_tpu_torch"):
+        assert cli.main(["--edgeset", backend] + HOST) == 0
+    lines = [r.getMessage() for r in caplog.records
+             if r.getMessage().startswith("ppx[")]
+    assert len(lines) == 4 and lines == adjacency_series
+    assert any(r.getMessage() == f"edge sets: training {backend}, held-out "
+               f"{backend}" for r in caplog.records)
+
+
+def test_cli_synthetic_powerlaw(caplog):
+    """The degree-realistic surrogate. With hubs past 63 neighbors the
+    hub-padded batches switch the auto window off (max_batch_nodes > 64),
+    and --ds-link-cap, which caps the lanes, keeps it."""
+    tail = ["-k", "16", "-x", "40", "-i", "20", "--device", "cpu"]
+    ppx = _ppx_series(["--synthetic-powerlaw", "3000,6.6,60,8"] + tail,
+                      caplog)
+    assert sorted(ppx) == [0, 20, 40] and ppx[40] < ppx[0]
+    caplog.clear()
+    hubby = ["--synthetic-powerlaw", "3000,6.6,150,8"] + tail
+    ppx = _ppx_series(hubby, caplog)
+    assert any("window auto-disabled" in r.getMessage()
+               for r in caplog.records)
+    assert "window=0," in _config_echo(caplog) and ppx[40] < ppx[0]
+    caplog.clear()
+    ppx = _ppx_series(hubby + ["--ds-link-cap", "32", "--edgeset",
+                               "perfect"], caplog)
+    assert "window=12," in _config_echo(caplog) and ppx[40] < ppx[0]
 
 
 def test_cli_cuda_without_gpu_fails():

@@ -72,14 +72,19 @@ def test_has_edges_equals_jax(setup):
 
 def test_auto_backend_budget(setup, monkeypatch):
     """AUTO picks the adjacency matrix within the 1 GiB budget; past it
-    the JAX package picks the perfect hash, which the port names as not
-    ported yet."""
+    the perfect hash, as the JAX package does, with the same answers."""
     n, split, graph, tr = setup[:4]
     assert tr.backend == "adjacency"
     monkeypatch.setattr(edgeset, "ADJACENCY_AUTO_BUDGET_BYTES", 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        edgeset.build_edge_set(EdgeSetBackend.AUTO, n, graph.edges_u,
-                               graph.edges_v, "cpu")
+    ph = edgeset.build_edge_set(EdgeSetBackend.AUTO, n, graph.edges_u,
+                                graph.edges_v, "cpu")
+    assert ph.backend == "perfect"
+    u = torch.from_numpy(np.concatenate([graph.edges_u[:50],
+                                         graph.edges_v[:50]]))
+    v = torch.from_numpy(np.concatenate([graph.edges_v[:50],
+                                         graph.edges_u[:50] + 1]))
+    assert torch.equal(ph.has_edges(u, v), tr.has_edges(u, v))
+    assert ph.has_edges(u, v)[:50].all()
 
 
 def test_sample_neighbors_distinct(setup):

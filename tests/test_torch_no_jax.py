@@ -1,5 +1,7 @@
-"""The port never imports JAX: with ``jax`` made unimportable, the
-package and its CLI still import (the GPU machine has no JAX)."""
+"""The port never imports JAX or the JAX package: with ``jax`` and
+``mcmc_ammsb_tpu`` made unimportable, every module of the port and its
+CLI still import (the GPU machine has no JAX), and the native library
+builds and loads."""
 
 import os
 import subprocess
@@ -11,6 +13,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_port_imports_without_jax():
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
+            "sys.modules['mcmc_ammsb_tpu'] = None\n"
             "import mcmc_ammsb_tpu_torch, mcmc_ammsb_tpu_torch.cli\n"
             "import mcmc_ammsb_tpu_torch.testing\n"
             "import mcmc_ammsb_tpu_torch.interop\n"
@@ -19,6 +22,15 @@ def test_port_imports_without_jax():
             "import mcmc_ammsb_tpu_torch.ops.phi_pallas\n"
             "import mcmc_ammsb_tpu_torch.chains_flat\n"
             "import mcmc_ammsb_tpu_torch.chains\n"
+            "import mcmc_ammsb_tpu_torch.native\n"
+            "import mcmc_ammsb_tpu_torch.sampling\n"
+            "import mcmc_ammsb_tpu_torch.data\n"
+            "import mcmc_ammsb_tpu_torch.learner\n"
+            "import mcmc_ammsb_tpu_torch.ops.edgeset\n"
+            "import mcmc_ammsb_tpu_torch.ops.phi\n"
+            "import mcmc_ammsb_tpu_torch.ops.beta\n"
+            "import mcmc_ammsb_tpu_torch.ops.device_sampling\n"
+            "mcmc_ammsb_tpu_torch.native.available()\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', "
             "'mcmc_ammsb_tpu.')) or m == 'mcmc_ammsb_tpu' "
             "for m, v in sys.modules.items() if v is not None)\n")

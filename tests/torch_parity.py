@@ -16,6 +16,18 @@ from mcmc_ammsb_tpu.ops.neighbor import sample_neighbors as jax_neighbors
 from mcmc_ammsb_tpu.rng import native as jax_rng
 
 
+def require_native():
+    """Skip the calling test where the port's native library cannot be
+    built (no g++). Decided inside the test, never at import: every
+    worker collects the same tests."""
+    import pytest
+
+    from mcmc_ammsb_tpu_torch import native
+    if not native.available():
+        pytest.skip(f"g++ is absent: no native library "
+                    f"({native.build_error})")
+
+
 def jax_config(cfg):
     """The port's Config as the JAX package's Config (enum fields are
     mapped by value onto the JAX package's own enum classes)."""
