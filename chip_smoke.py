@@ -66,7 +66,11 @@ Phases, one line each; any failure raises and the exit code is not 0:
                entry) and one scanned chunk with the jnp phi (both
                normwise rtol 1e-5, atol 1e-8); then the MMSB learner on
                the GPU recovers a planted partition (the JAX package's
-               own check, tests/test_mmsb.py:84);
+               own check, tests/test_mmsb.py:84); 23 steps of the MMSB
+               chain engine with C=3 (shared draws; torch ops, no kernel)
+               and of host-sampled MMSB (private draws) GPU against CPU
+               inside the MMSB envelope; the MMSB chain learner on the
+               planted partition: every chain's diag(B) - off(B) > 0.5;
   5. main    — the port's CLI in-process, at N=317,080:
                the a-MMSB main path (K=256, window 12, 2000 steps): the
                fused window kernel launches once per window, ppx falls
@@ -101,6 +105,29 @@ Phases, one line each; any failure raises and the exit code is not 0:
                --ds-link-cap 64 (1000 device-sampled steps; 65 node lanes
                switch the auto window off): both edge sets are perfect
                hashes, no kernel launch;
+               the engines that launch no kernel (NEW_RUNS), each with a
+               finite series and its updates/s: --model mmsb --num-chains
+               4 (K=64, 1000 steps; every chain within 5% of its ppx[0]
+               on the structure-free graph), --model mmsb
+               --no-device-sampling (K=64, 400 steps), --chain-engine vmap
+               --num-chains 3 (K=256, 200 steps, falling);
+               --calc-train-ppx --train-ppx-ratio 0.00001 on the main path
+               (82 window launches; a finite train_ppx line after every
+               evaluation); --dump-data then --load-data: the main path's
+               ppx[0] from the cache;
+  6. checkpoint — through the API on the card at N=317,080: run, save, run
+               against a fresh learner, restore, run, every state field
+               bit-equal and the kernel launches of the two second halves
+               equal, with the file's size and the save and load seconds:
+               the a-MMSB main path (K=256, window 12, 2 x 1008 steps, 84
+               window launches each), --model mmsb --window 12 (K=64, 2 x
+               504), host-sampled --phi-impl pallas (K=256, 2 x 400 steps
+               in chunks of 200, pending batches in the file, 400 by-index
+               phi launches each) and --num-chains 4 (K=256, 2 x 252
+               steps, 21 chain launches each, a 1.3 GB file); then through
+               the CLI on the main path: --checkpoint, then --restore
+               logs "restored checkpoint ... (step=1001)" and its ppx
+               stays below the first run's ppx[0];
 then a JSON line of the kernels, the card's name and power limit, and
 the result line last.
 """
@@ -113,6 +140,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -157,6 +185,41 @@ HOST_RUNS = {
          "500"], 1000, 500, {},
         ["edge sets: training perfect, held-out perfect",
          "window auto-disabled"]),
+}
+# engines that launch no kernel: name -> (CLI arguments, steps, interval,
+# chains, must the series fall)
+NEW_RUNS = {
+    "--model mmsb --num-chains 4": (
+        ["--model", "mmsb", "--num-chains", "4", "--synthetic", "317080,7",
+         "-k", "64", "-x", "1000", "-i", "500"], 1000, 500, 4, False),
+    "--model mmsb --no-device-sampling": (
+        ["--model", "mmsb", "--no-device-sampling", "--synthetic",
+         "317080,7", "-k", "64", "-x", "400", "-i", "200"], 400, 200, 1,
+        False),
+    "--chain-engine vmap --num-chains 3": (
+        ["--num-chains", "3", "--chain-engine", "vmap", "--synthetic",
+         "317080,7", "-k", "256", "-x", "200", "-i", "100"], 200, 100, 3,
+        True),
+}
+TRAIN_PPX_ARGS = ["--synthetic", "317080,7", "-k", "256", "-x", "1000", "-i",
+                  "500", "--calc-train-ppx", "--train-ppx-ratio", "0.00001"]
+# run-save-run against restore-run through the API: name -> (CLI
+# arguments, steps per half, the kernel entry the path launches, its
+# launches per half)
+RESUME_RUNS = {
+    "a-MMSB main path": (
+        ["--synthetic", "317080,7", "-k", "256", "--steps-per-call", "1008"],
+        1008, "window", 84),
+    "--model mmsb --window 12": (
+        ["--model", "mmsb", "--window", "12", "--synthetic", "317080,7",
+         "-k", "64", "--steps-per-call", "504"], 504, "mmsb", 42),
+    "--phi-impl pallas (host-sampled)": (
+        ["--phi-impl", "pallas", "-i", "500", "--synthetic", "317080,7",
+         "-k", "256"], 400, "phi_gather", 400),
+    "--num-chains 4": (
+        ["--num-chains", "4", "--node-coin", "alternate", "--synthetic",
+         "317080,7", "-k", "256", "--steps-per-call", "252"], 252,
+        "window_chain", 21),
 }
 # (T, B, n, E, K) of the fused window kernel's checks; the first is the
 # main path's
@@ -1073,7 +1136,8 @@ def _counts(mods, what):
 
 
 def run_main(cli, kmods):
-    """Phase 5, the a-MMSB main path: launches of each kernel."""
+    """Phase 5, the a-MMSB main path: (launches of each kernel,
+    ppx[0])."""
     _counts(kmods, None)
     series, _ = _run_cli(cli, MAIN_ARGS)
     launches = _counts(kmods, "read")
@@ -1095,7 +1159,7 @@ def run_main(cli, kmods):
     phase("main", f"a-MMSB: rc 0, ppx {ppx}, window-kernel launches "
           f"{launches['window']} (= {expected} windows), steady state "
           f"{rate:.1f} updates/s")
-    return launches
+    return launches, ppx[0]
 
 
 def run_mmsb_main(cli, kmods):
@@ -1219,14 +1283,263 @@ def run_rhat(cli):
     phase("main", f"--num-chains 3 --rhat-draws 2: {line}")
 
 
+def check_mmsb_engine_slices(mods, testing_mod):
+    """Phase 4, the MMSB engines without a kernel: 23 steps on the GPU
+    against the CPU from one state and one operand tuple (the MMSB
+    envelope: GPU and CPU matrix products sum in other orders and the
+    1/theta conditioning amplifies it), then the chain learner on the
+    planted partition."""
+    data, config, learner_mod, _, mmsb = mods
+
+    def agree(got, want, what):
+        pi = within(got.pi, want.pi, f"{what} pi", atol=PI_ATOL)
+        th = within(got.theta_b, want.theta_b, f"{what} theta", **TH_TOLS)
+        within(got.b, want.b, f"{what} b", **B_TOLS)
+        return pi, th
+
+    n, u, v = data.synthetic_edges(300, 8, seed=9)
+    split = data.generate_sets(n, u, v, heldout_ratio=0.1, seed=10)
+    graph = data.Graph.from_edges(n, split.training_u, split.training_v)
+    cfg = config.Config(K=8, mini_batch_size=8, num_node_sample=8,
+                        device_sampling=True, shared_neighbors=True
+                        ).finalize(n, split.total_edges, graph.max_fan_out)
+    cpu = mmsb.MMSBChainLearner(cfg, graph, split, 3, "cpu")
+    xs = mmsb.mmsb_hoist_chain_operands(cfg, 3, cpu.training_set,
+                                        cpu.heldout_set, cpu.adjacency,
+                                        cpu.streams, 23)
+    got = mmsb.mmsb_run_chain_hoisted(cfg, 3, _to(_fresh(cpu.state), "cuda"),
+                                      _to(xs, "cuda"))
+    want = mmsb.mmsb_run_chain_hoisted(cfg, 3, cpu.state, xs)
+    pi_err, th_err = agree(got, want, "MMSB chain slice")
+    phase("slice", f"MMSB chain engine, C=3, 23 batched steps (torch ops, no "
+          f"kernel), N=300 K=8: GPU vs CPU max abs err pi {pi_err:.3e}, "
+          f"theta {th_err:.3e} (envelope: pi {PI_ATOL}, theta rtol 0.1 atol "
+          f"0.15)")
+
+    case = testing_mod.host_case(11, 23, K=8, steps_per_call=23)
+    cfg = case["cfg"]
+    cpu = mmsb.FullMMSBLearner(cfg, case["graph"], case["split"], "cpu",
+                               prefetch=False)
+    xs = mmsb.mmsb_hoist_operands(
+        cfg, cpu.training_set,
+        learner_mod.DeviceBatch.from_stacked(case["stacked"], "cpu"),
+        cpu.streams)
+    got = mmsb.mmsb_run_hoisted(cfg, _to(_fresh(cpu.state), "cuda"),
+                                _to(xs, "cuda"))
+    want = mmsb.mmsb_run_hoisted(cfg, cpu.state, xs)
+    pi_err, th_err = agree(got, want, "host MMSB slice")
+    phase("slice", f"host-sampled MMSB, one scanned chunk of 23 steps, "
+          f"private draws, N=300 K=8: GPU vs CPU max abs err pi "
+          f"{pi_err:.3e}, theta {th_err:.3e}")
+
+    n, u, v = data.synthetic_sbm_edges(300, 3, p_in=0.25, p_out=0.004,
+                                       seed=31)
+    split = data.generate_sets(n, u, v, heldout_ratio=0.1, seed=32)
+    graph = data.Graph.from_edges(n, split.training_u, split.training_v)
+    cfg = config.Config(
+        K=3, mini_batch_size=16, num_node_sample=12, steps_per_call=1000,
+        device_sampling=True, shared_neighbors=True,
+        mmsb_prior_diag=(1.0, 50.0), mmsb_noise_scale=0.3, b=4096.0,
+        eta0=50.0, eta1=1.0).finalize(n, split.total_edges,
+                                      graph.max_fan_out)
+    lrn = mmsb.MMSBChainLearner(cfg, graph, split, 3, "cuda")
+    p0 = lrn.heldout_perplexity()
+    ppx = [e["ppx"] for e in lrn.run_with_ppx(4000, 1000)]
+    b = lrn.state.b
+    eye = torch.eye(3, dtype=torch.bool, device=b.device)
+    gaps = [float(b[c].diagonal().mean() - b[c][~eye].mean())
+            for c in range(3)]
+    if not all((p < p0).all() for p in ppx):
+        raise AssertionError(f"planted MMSB chains: ppx does not fall: "
+                             f"{p0} {ppx}")
+    if min(gaps) <= 0.5:
+        raise AssertionError(f"planted MMSB chains: diag - off {gaps}")
+    if not torch.equal(lrn.state.theta_b, lrn.state.theta_b.transpose(1, 2)):
+        raise AssertionError("planted MMSB chains: theta not symmetric")
+    phase("slice", f"MMSB chains on a planted 3-block partition (N={n}, K=3, "
+          f"C=3, 4000 steps): ppx {p0.round(4).tolist()} -> "
+          f"{ppx[-1].round(4).tolist()}, diag(B) - off(B) per chain "
+          f"{[round(g, 3) for g in gaps]}, all > 0.5")
+
+
+def run_new_main(cli, kmods, name, smi):
+    """Phase 5, one of NEW_RUNS: an engine that launches no kernel."""
+    args, steps, interval, chains, falls = NEW_RUNS[name]
+    _counts(kmods, None)
+    series, messages = _run_cli(cli, args)
+    launches = _counts(kmods, "read")
+    if [s for s, _, _ in series] != list(range(0, steps + 1, interval)):
+        raise AssertionError(f"{name}: unexpected ppx steps {series}")
+    ppx = [p if isinstance(p, list) else [p] for _, p, _ in series]
+    if not all(len(p) == chains for p in ppx):
+        raise AssertionError(f"{name}: not {chains} values per line: {ppx}")
+    if falls and not all(q < q0 for q, q0 in zip(ppx[-1], ppx[0])):
+        raise AssertionError(f"{name}: ppx does not fall: {ppx}")
+    if not falls and not all(abs(q / q0 - 1.0) < 0.05
+                             for p in ppx for q, q0 in zip(p, ppx[0])):
+        # the structure-free plateau at 2 (see run_mmsb_main)
+        raise AssertionError(f"{name}: ppx leaves the plateau: {ppx}")
+    if any(launches.values()):
+        raise AssertionError(f"{name}: launches {launches}, expected none")
+    rate = chains * steps / (series[-1][2] - series[0][2])
+    phase("main", f"{name}: rc 0, ppx[0] {ppx[0]}, ppx[{steps}] {ppx[-1]}; no "
+          f"kernel launch (torch ops); {rate:.1f} updates/s"
+          f"{' aggregate' if chains > 1 else ''} over the {steps} steps "
+          f"after ppx[0], evaluations included; {smi}")
+
+
+def run_train_ppx_main(cli, kmods, smi):
+    """Phase 5, --calc-train-ppx on the main path."""
+    _counts(kmods, None)
+    t0 = time.perf_counter()
+    series, messages = _run_cli(cli, TRAIN_PPX_ARGS + ["--device", "cuda"])
+    launches = _counts(kmods, "read")
+    train = [(int(m.group(1)), float(m.group(2))) for m in (
+        re.fullmatch(r"train_ppx\[(\d+)\] = (\S+)", msg) for msg in messages)
+        if m]
+    ppx = [p for _, p, _ in series]
+    if [s for s, _ in train] != [500, 1000]:
+        raise AssertionError(f"train_ppx lines {train}")
+    if not all(math.isfinite(p) and p > 1.0 for _, p in train):
+        raise AssertionError(f"train_ppx not finite: {train}")
+    if not ppx[-1] < ppx[0] or launches["window"] != 2 * (500 // 12):
+        raise AssertionError(f"--calc-train-ppx run: ppx {ppx}, launches "
+                             f"{launches}")
+    phase("main", f"--calc-train-ppx --train-ppx-ratio 0.00001: rc 0, ppx "
+          f"{ppx}, train_ppx {train} ("
+          f"{'falls' if train[1][1] < train[0][1] else 'does not fall'}), "
+          f"window-kernel launches {launches['window']}; "
+          f"{time.perf_counter() - t0:.1f} s with the population's host "
+          f"build; {smi}")
+    return launches
+
+
+def run_cache_main(cli, tmp, main_ppx0):
+    """Phase 5, --dump-data then --load-data: the main path's ppx[0]."""
+    import os
+
+    cache = os.path.join(tmp, "graph.npz")
+    t0 = time.perf_counter()
+    if cli.main(["--synthetic", "317080,7", "--dump-data", "--dump-file",
+                 cache, "--device", "cuda"]) != 0:
+        raise AssertionError("--dump-data did not return 0")
+    dump_s = time.perf_counter() - t0
+    series, messages = _run_cli(cli, ["--load-data", "--load-file", cache,
+                                      "-k", "256", "-x", "500", "-i", "500",
+                                      "--device", "cuda"])
+    ppx = [p for _, p, _ in series]
+    if ppx[0] != main_ppx0 or not ppx[1] < ppx[0]:
+        raise AssertionError(f"--load-data: ppx {ppx}, the main path's "
+                             f"ppx[0] is {main_ppx0}")
+    phase("main", f"--dump-data ({os.path.getsize(cache)} B, {dump_s:.2f} s "
+          f"with the graph's generation) then --load-data: ppx {ppx}, "
+          f"ppx[0] equal to the main path's")
+
+
+def _api_learner(cli, argv, bench):
+    """The learner the CLI builds for ``argv`` on the bench graph."""
+    n, split, graph = bench
+    args = cli.build_arg_parser().parse_args(argv)
+    cli.resolve_fast_defaults(args)
+    cfg = cli.config_from_args(args)
+    if args.num_chains > 1:
+        cfg = cfg.replace(device_sampling=True)
+    cfg = cfg.finalize(n, split.total_edges, graph.max_fan_out)
+    return cli.make_learner(args, cfg, graph, split, "cuda")
+
+
+def check_resume(cli, checkpoint, kmods, bench, tmp, name, smi):
+    """Phase 6, one of RESUME_RUNS through the API: run, save, run against
+    a fresh learner, restore, run. Every field of the state bit-equal,
+    the same kernel launches in both second halves."""
+    import os
+
+    argv, steps, entry, expected = RESUME_RUNS[name]
+    path = os.path.join(tmp, "resume.npz")
+    a = _api_learner(cli, argv, bench)
+    a.heldout_perplexity()
+    a.run(steps)
+    t0 = time.perf_counter()
+    checkpoint.save_checkpoint(path, a)
+    save_s = time.perf_counter() - t0
+    pending = len(getattr(a, "_pending", []))
+    _counts(kmods, None)
+    a.run(steps)
+    first = _counts(kmods, "read")
+    ppx_a = a.heldout_perplexity()
+    a.close()
+    b = _api_learner(cli, argv, bench)
+    t0 = time.perf_counter()
+    checkpoint.load_checkpoint(path, b)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if b.step_count != steps + 1:
+        raise AssertionError(f"{name}: restored at step {b.step_count}")
+    _counts(kmods, None)
+    b.run(steps)
+    second = _counts(kmods, "read")
+    ppx_b = b.heldout_perplexity()
+    b.close()
+    diffs = {}
+    for f, x, y in zip(a.state._fields, a.state, b.state):
+        if isinstance(x, torch.Tensor):
+            if not torch.equal(x, y):
+                diffs[f] = float((x.double() - y.double()).abs().max())
+        elif x != y:
+            diffs[f] = (x, y)
+    if diffs or not (torch.as_tensor(ppx_a) == torch.as_tensor(ppx_b)).all():
+        raise AssertionError(f"{name}: the resumed run differs from the "
+                             f"uninterrupted one: max abs {diffs}, ppx "
+                             f"{ppx_a} vs {ppx_b}")
+    if first != second or first[entry] != expected:
+        raise AssertionError(f"{name}: launches {first} then {second} after "
+                             f"the restore, expected {expected} of {entry}")
+    size = os.path.getsize(path)
+    os.remove(path)
+    phase("checkpoint", f"{name}: run {steps}, save, run {steps} == restore, "
+          f"run {steps}: {len(a.state._fields)} state fields bit-equal "
+          f"(step {b.step_count}), ppx equal; {first[entry]} {entry} launches "
+          f"in each second half; {pending} pending host chunk(s) in the "
+          f"file; file {size} B, save {save_s:.3f} s, load {load_s:.3f} s "
+          f"(np.savez, host clock, the device copies included); {smi}")
+
+
+def check_cli_resume(cli, kmods, tmp):
+    """Phase 6 through the CLI: --checkpoint, then --restore."""
+    import os
+
+    ck = os.path.join(tmp, "cli.npz")
+    base = ["--synthetic", "317080,7", "-k", "256", "-x", "1000", "-i",
+            "500", "--device", "cuda"]
+    first, messages = _run_cli(cli, base + ["--checkpoint", ck])
+    if f"checkpoint saved to {ck}" not in messages:
+        raise AssertionError("--checkpoint: no 'checkpoint saved' line")
+    _counts(kmods, None)
+    second, messages = _run_cli(cli, base + ["--restore", ck])
+    launches = _counts(kmods, "read")
+    if f"restored checkpoint {ck} (step=1001)" not in messages:
+        raise AssertionError(f"--restore: no restored line at step 1001 in "
+                             f"{[m for m in messages if 'restored' in m]}")
+    ppx0 = first[0][1]
+    resumed = [p for _, p, _ in second]
+    if not all(p < ppx0 for p in resumed) or launches["window"] != 82:
+        raise AssertionError(f"--restore: ppx {resumed} against the first "
+                             f"run's ppx[0] {ppx0}, launches {launches}")
+    phase("checkpoint", f"CLI: --checkpoint ({os.path.getsize(ck)} B) then "
+          f"--restore: rc 0, 'restored checkpoint ... (step=1001)', first "
+          f"run ppx {[p for _, p, _ in first]}, resumed ppx {resumed} (all "
+          f"below the first ppx[0]), {launches['window']} window launches")
+    os.remove(ck)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     # the port's package: an ImportError here (no checkout around the
     # script) ends the run before anything is printed
-    from mcmc_ammsb_tpu_torch import (chains_flat, cli, config, data, kernels,
-                                      native, rng, testing)
+    from mcmc_ammsb_tpu_torch import (chains_flat, checkpoint, cli, config,
+                                      data, kernels, native, rng, testing)
     from mcmc_ammsb_tpu_torch import learner as learner_mod
     from mcmc_ammsb_tpu_torch.models import mmsb
     from mcmc_ammsb_tpu_torch.ops import (device_sampling, edgeset, neighbor,
@@ -1245,23 +1558,32 @@ def main() -> int:
     check_native(edgeset, graph)
     check_membership((config, edgeset, device_sampling, neighbor, rng), n,
                      split, graph, smi)
-    del n, split, graph
+    bench = (n, split, graph)
     w_err, w_t = check_window_kernel(window, kernels, testing, phi_ops, smi)
     c_err, c_t = check_chain_kernel(window, kernels, chains_flat, testing,
                                     phi_ops, smi)
     phi = check_phi_kernel(phi_pallas, kernels, testing)
     m_err, m_t = check_mmsb_kernel(window, window_mmsb, kernels, testing,
                                    phi_ops, smi)
-    check_slices((data, config, learner_mod, device_sampling, mmsb),
-                 window, window_mmsb, phi_pallas, chains_flat, testing)
+    smods = (data, config, learner_mod, device_sampling, mmsb)
+    check_slices(smods, window, window_mmsb, phi_pallas, chains_flat, testing)
+    check_mmsb_engine_slices(smods, testing)
     kmods = (window, window_mmsb, phi_pallas)
-    main_l = run_main(cli, kmods)
+    main_l, main_ppx0 = run_main(cli, kmods)
     mmsb_l = run_mmsb_main(cli, kmods)
     phi_l = run_phi_main(cli, kmods)
     chain_l, _, _ = run_chain_main(cli, kmods)
     run_rhat(cli)
     host_l = {name: run_host_main(cli, kmods, name, smi)
               for name in HOST_RUNS}
+    for name in NEW_RUNS:
+        run_new_main(cli, kmods, name, smi)
+    run_train_ppx_main(cli, kmods, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        run_cache_main(cli, tmp, main_ppx0)
+        for name in RESUME_RUNS:
+            check_resume(cli, checkpoint, kmods, bench, tmp, name, smi)
+        check_cli_resume(cli, kmods, tmp)
 
     def times(t):
         # no single PyTorch call computes any of these functions

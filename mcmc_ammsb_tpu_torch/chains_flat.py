@@ -48,7 +48,7 @@ from mcmc_ammsb_tpu_torch.ops.window import (_WINDOWS_PER_BATCH,
                                              _chain_flat_ids,
                                              _correction_codes,
                                              _last_write_wins,
-                                             index_operands,
+                                             index_operands, plain_or,
                                              window_chain_apply_cuda,
                                              window_chain_apply_torch)
 
@@ -278,9 +278,10 @@ def chain_windows(cfg: Config, c: int, xs) -> ChainWindows:
 def _chain_window(cfg: Config, state: ChainState,
                   win: ChainWindows) -> ChainState:
     """One window of every chain: one kernel launch on the card (gather,
-    steps and scatter), the plain gather, steps and scatter on the CPU."""
-    apply = (window_chain_apply_cuda if state.pi.is_cuda
-             else window_chain_apply_torch)
+    steps and scatter), the plain gather, steps and scatter on the CPU
+    and with ``cfg.window_impl == "jnp"``."""
+    apply = plain_or(cfg, state, window_chain_apply_cuda,
+                     window_chain_apply_torch)
     return apply(cfg, state, win.xs_t, win.mcode, win.keep)
 
 
@@ -351,6 +352,8 @@ class FlatChainLearner(Learner):
     ``run_with_ppx``, ``heldout_perplexity``, ``print_stats``) with a [C]
     perplexity per evaluation, and ``beta_rhat``. ``init_seconds`` is the
     host time of the per-chain init draws."""
+
+    keeps_train_ppx = False
 
     def __init__(self, cfg: Config, graph, split, num_chains: int,
                  device="cuda"):

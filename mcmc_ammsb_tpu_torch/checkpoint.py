@@ -1,0 +1,257 @@
+"""Checkpoint / resume (counterpart of the npz backend of
+``mcmc_ammsb_tpu/checkpoint.py``).
+
+A checkpoint is one npz file in the JAX package's layout: the state's
+fields in field order as ``leaf_i`` arrays (the host counters as int32
+scalars), a JSON ``manifest`` (format version, config, learner class,
+number of chains and leaves, timers, the native sampler's call counter),
+the host sampler's numpy RNG state (``sampler_rng``) and the
+produced-but-unconsumed prefetched batches (``pending``), both pickled
+into uint8 arrays, so the file is read with ``allow_pickle=False``.
+
+The JAX package's random streams are keys inside its state. The port's
+are stateful ``torch.Generator``s, so the file also holds the state of
+every generator of ``rng.Streams`` (``stream_<c>_<name>``; C sets for
+``chains.MultiChainLearner``) and the manifest the device kind they were
+saved from: a CPU generator's state does not fit a CUDA generator.
+
+Every learner of the port is taken: ``Learner``, ``FullMMSBLearner``,
+``FlatChainLearner``, ``MMSBChainLearner`` and ``MultiChainLearner``
+(whose state is the list ``states``: its leaves are the chains' in turn).
+
+Resume is bit-exact under this contract: run n steps, save, run m steps
+equals restore, run m steps, with the same ``steps_per_call``. A chunk
+draws its steps in one block per stream (``learner`` module docstring),
+so ``run(n + m)`` in one call is another trajectory when a chunk would
+straddle step n; the trajectory depends on where the run calls end, not
+on whether a checkpoint was taken there.
+
+The file is written with ``np.savez`` (uncompressed: pi is noise-like
+float32 data, which zlib shrinks by about a tenth for seconds of host
+time; PERF.md has the measurement) through a temporary file that is
+renamed into place, so an interrupted save leaves the previous
+checkpoint whole. ``np.load`` reads either flavor, and the path is used
+as given (no ``.npz`` is appended).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import pickle
+from typing import List
+
+import numpy as np
+import torch
+
+from mcmc_ammsb_tpu_torch.config import (Config, EdgeSetBackend, PhiImpl,
+                                         RngBackend, SampleStrategy)
+
+_FORMAT_VERSION = 2  # the JAX package's npz layout version
+
+
+def _config_to_json(cfg: Config) -> dict:
+    d = dataclasses.asdict(cfg)
+    d["strategy"] = cfg.strategy.value
+    d["phi_impl"] = cfg.phi_impl.value
+    d["edgeset_backend"] = cfg.edgeset_backend.value
+    d["rng_backend"] = cfg.rng_backend.value
+    return d
+
+
+def _config_from_json(d: dict) -> Config:
+    d = dict(d)
+    d["strategy"] = SampleStrategy.parse(d["strategy"])
+    d["phi_impl"] = PhiImpl(d["phi_impl"])
+    d["edgeset_backend"] = EdgeSetBackend(d["edgeset_backend"])
+    d["rng_backend"] = RngBackend(d["rng_backend"])
+    for f in ("phi_seed", "beta_seed", "neighbor_seed", "mmsb_prior_diag"):
+        if isinstance(d.get(f), list):
+            d[f] = tuple(d[f])
+    return Config(**d)
+
+
+def _states(learner) -> list:
+    """The learner's state(s): ``states`` of the independent-states
+    chain engine, else the one ``state``."""
+    states = getattr(learner, "states", None)
+    return list(states) if states is not None else [learner.state]
+
+
+def _streams(learner) -> list:
+    sets = getattr(learner, "chain_streams", None)
+    return list(sets) if sets is not None else [learner.streams]
+
+
+def state_leaves(state) -> List[np.ndarray]:
+    """The state's fields in field order as host arrays: tensors copied
+    to the host, the host counters as int32 scalars, an absent optional
+    field as an empty float32 array."""
+    leaves = []
+    for v in state:
+        if isinstance(v, torch.Tensor):
+            leaves.append(v.detach().cpu().numpy())
+        elif v is None:
+            leaves.append(np.zeros(0, np.float32))
+        else:
+            leaves.append(np.asarray(int(v), np.int32))
+    return leaves
+
+
+def _collect_host_state(learner, num_leaves: int):
+    """Manifest + host-sampler position."""
+    pending = (learner.drain_sampling()
+               if hasattr(learner, "drain_sampling") else [])
+    sampler = getattr(learner, "sampler", None)
+    manifest = {
+        "format_version": _FORMAT_VERSION,
+        "config": _config_to_json(learner.cfg),
+        "learner": type(learner).__name__,
+        "num_chains": getattr(learner, "num_chains", None),
+        "num_leaves": num_leaves,
+        "timers": {k: v for k, v in learner.timers.seconds.items()},
+        "timer_calls": {k: v for k, v in learner.timers.calls.items()},
+        "native_call_count": getattr(sampler, "_native_call_count", 0),
+        "stream_device": learner.device.type,
+    }
+    sampler_rng = pickle.dumps(
+        sampler.rng.get_state() if sampler is not None else None)
+    return manifest, sampler_rng, pickle.dumps(pending)
+
+
+def _num_leaves(learner) -> int:
+    return sum(len(s) for s in _states(learner))
+
+
+def _check_manifest(manifest: dict, learner) -> None:
+    if manifest["format_version"] != _FORMAT_VERSION:
+        raise ValueError(
+            f"checkpoint format {manifest['format_version']} != "
+            f"{_FORMAT_VERSION}: the state leaf layout changed (v2 added "
+            "the reference-backend neighbor RNG stream); re-train or "
+            "migrate the checkpoint")
+    if "stream_device" not in manifest:
+        raise ValueError(
+            "checkpoint holds no random-stream states (written by the JAX "
+            "package?): load it with interop.state_from_jax_checkpoint")
+    saved_cfg = _config_from_json(manifest["config"])
+    if saved_cfg.K != learner.cfg.K or saved_cfg.N != learner.cfg.N:
+        raise ValueError("checkpoint geometry mismatch")
+    saved_chains = manifest.get("num_chains")
+    if saved_chains != getattr(learner, "num_chains", None):
+        raise ValueError(
+            f"checkpoint geometry mismatch: num_chains {saved_chains} "
+            f"!= {getattr(learner, 'num_chains', None)}")
+    expected = _num_leaves(learner)
+    if manifest["num_leaves"] != expected:
+        raise ValueError(
+            f"checkpoint has {manifest['num_leaves']} state leaves, "
+            f"learner expects {expected} (different learner "
+            f"class or config: saved by {manifest.get('learner')})")
+    if manifest.get("learner") != type(learner).__name__:
+        # two of the port's states have the same number of fields
+        raise ValueError(
+            f"checkpoint was saved by {manifest.get('learner')}, this "
+            f"learner is a {type(learner).__name__} (different learner "
+            "class)")
+    if manifest["stream_device"] != learner.device.type:
+        raise ValueError(
+            f"checkpoint streams were saved on "
+            f"{manifest['stream_device']!r}, this learner runs on "
+            f"{learner.device.type!r}: a generator's state does not move "
+            "between device kinds")
+
+
+def _apply_host_state(learner, manifest: dict, sampler_rng_blob: bytes,
+                      pending_blob) -> None:
+    if hasattr(learner, "drain_sampling"):
+        # a producer already running would draw from the sampler's RNG
+        # while it is restored
+        learner.drain_sampling()
+    sampler = getattr(learner, "sampler", None)
+    sampler_rng = pickle.loads(sampler_rng_blob)
+    if sampler is not None and sampler_rng is not None:
+        sampler.rng.set_state(sampler_rng)
+        sampler._native_call_count = int(
+            manifest.get("native_call_count", 0))
+    if pending_blob is not None and hasattr(learner, "_pending"):
+        learner._pending = pickle.loads(pending_blob)
+    for k, v in manifest.get("timers", {}).items():
+        learner.timers.seconds[k] = v
+    for k, v in manifest.get("timer_calls", {}).items():
+        learner.timers.calls[k] = v
+
+
+def save_checkpoint(path: str, learner, compress: bool = False) -> None:
+    """Full-fidelity checkpoint: state + config + every random stream +
+    the complete host-sampling position (the numpy RNG state, the native
+    sampler's chunk counter and the produced-but-unconsumed prefetched
+    batches). The prefetch producer is stopped; the next ``run`` consumes
+    the drained batches first and restarts it. Waits for the device
+    before it reads the state. ``compress`` writes the JAX package's
+    ``np.savez_compressed`` flavor."""
+    if learner.device.type == "cuda":
+        torch.cuda.synchronize(learner.device)
+    leaves = [leaf for s in _states(learner) for leaf in state_leaves(s)]
+    manifest, sampler_rng, pending_blob = _collect_host_state(
+        learner, len(leaves))
+    arrays = {f"leaf_{i}": leaf for i, leaf in enumerate(leaves)}
+    for c, streams in enumerate(_streams(learner)):
+        for name, gen in zip(streams._fields, streams):
+            arrays[f"stream_{c}_{name}"] = gen.get_state().numpy()
+    tmp = f"{path}.tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        (np.savez_compressed if compress else np.savez)(
+            f,
+            manifest=np.frombuffer(json.dumps(manifest).encode(), np.uint8),
+            sampler_rng=np.frombuffer(sampler_rng, np.uint8),
+            pending=np.frombuffer(pending_blob, np.uint8),
+            **arrays)
+    os.replace(tmp, path)
+
+
+def _restore_state(ref, leaves):
+    """``ref`` with the leaves' values: tensors are copied INTO ref's
+    buffers (their device, their dtype; never an alias of a host array),
+    the counters become host ints."""
+    fields = {}
+    for name, old, leaf in zip(ref._fields, ref, leaves):
+        if isinstance(old, torch.Tensor):
+            if tuple(old.shape) != tuple(leaf.shape):
+                raise ValueError(
+                    f"checkpoint geometry mismatch: {name} has shape "
+                    f"{tuple(leaf.shape)}, the learner's {tuple(old.shape)}")
+            old.copy_(torch.from_numpy(np.ascontiguousarray(leaf)))
+            fields[name] = old
+        elif old is None:
+            fields[name] = None
+        else:
+            fields[name] = int(leaf)
+    return type(ref)(**fields)
+
+
+def load_checkpoint(path: str, learner):
+    """Restore state into an already-constructed learner of the same
+    class on the same dataset and device kind; the graph, split and edge
+    sets are rebuilt from data. Raises ValueError on a mismatch of format
+    version, K or N, number of chains, learner class or device kind."""
+    z = np.load(path, allow_pickle=False)
+    manifest = json.loads(bytes(z["manifest"]).decode())
+    _check_manifest(manifest, learner)
+    refs = _states(learner)
+    at, restored = 0, []
+    for ref in refs:
+        restored.append(_restore_state(
+            ref, [z[f"leaf_{i}"] for i in range(at, at + len(ref))]))
+        at += len(ref)
+    if getattr(learner, "states", None) is not None:
+        learner.states = restored
+    else:
+        learner.state = restored[0]
+    for c, streams in enumerate(_streams(learner)):
+        for name, gen in zip(streams._fields, streams):
+            gen.set_state(torch.from_numpy(z[f"stream_{c}_{name}"].copy()))
+    _apply_host_state(learner, manifest, bytes(z["sampler_rng"]),
+                      bytes(z["pending"]) if "pending" in z else None)
+    return learner

@@ -1,8 +1,13 @@
 """Command-line driver of the port (counterpart of
 ``mcmc_ammsb_tpu/cli.py``: the single-chain a-MMSB, device-sampled or
 host-sampled, with ``--phi-impl jnp`` or ``pallas``, the full MMSB,
-``--model mmsb``, and C independent a-MMSB chains on the flat chain
-engine, ``--num-chains C``).
+``--model mmsb``, also host-sampled, and C independent chains of
+either model, ``--num-chains C``: the flat a-MMSB chain engine, the MMSB
+chain engine, or with ``--chain-engine vmap`` C whole single-chain
+states, the slow cross-check). ``--checkpoint`` saves the run at exit,
+after SIGINT and every ``--checkpoint-interval`` steps, ``--restore``
+resumes it; ``--dump-data`` / ``--load-data`` write and read the dataset
+cache.
 
 The same flag names, ``resolve_fast_defaults`` semantics and log lines
 (config echo, ``ppx[i] = ...`` with the link/non-link quadruple, the
@@ -30,6 +35,16 @@ Usage:
         --synthetic 317080,7 -k 64 -x 1000 -i 500 --device cuda
     python -m mcmc_ammsb_tpu_torch.cli --num-chains 16 --node-coin \\
         alternate --synthetic 317080,7 -k 256 -x 1008 -i 504 --device cuda
+    python -m mcmc_ammsb_tpu_torch.cli --model mmsb --num-chains 4 \\
+        --synthetic 317080,7 -k 64 -x 1000 -i 500 --device cuda
+    python -m mcmc_ammsb_tpu_torch.cli --synthetic 317080,7 -k 256 \\
+        -x 1000 -i 500 --checkpoint run.npz --checkpoint-interval 500
+    python -m mcmc_ammsb_tpu_torch.cli --synthetic 317080,7 -k 256 \\
+        -x 1000 -i 500 --restore run.npz --checkpoint run.npz
+    python -m mcmc_ammsb_tpu_torch.cli --synthetic 317080,7 --dump-data \\
+        --dump-file graph.npz [--cache-format ref]
+    python -m mcmc_ammsb_tpu_torch.cli --load-data --load-file graph.npz \\
+        -k 256 -x 1000 -i 500
 """
 
 from __future__ import annotations
@@ -42,14 +57,18 @@ import sys
 import numpy as np
 import torch
 
+from mcmc_ammsb_tpu_torch.chains import MultiChainLearner
 from mcmc_ammsb_tpu_torch.chains_flat import FlatChainLearner
+from mcmc_ammsb_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
 from mcmc_ammsb_tpu_torch.config import (Config, EdgeSetBackend, PhiImpl,
                                          RngBackend, SampleStrategy)
-from mcmc_ammsb_tpu_torch.data import (Graph, generate_sets,
-                                       load_snap_edges, synthetic_edges,
+from mcmc_ammsb_tpu_torch.data import (Graph, dump_dataset, generate_sets,
+                                       load_dataset, load_snap_edges,
+                                       synthetic_edges,
                                        synthetic_powerlaw_edges)
 from mcmc_ammsb_tpu_torch.learner import Learner, check_ported
-from mcmc_ammsb_tpu_torch.models.mmsb import FullMMSBLearner
+from mcmc_ammsb_tpu_torch.models.mmsb import (FullMMSBLearner,
+                                              MMSBChainLearner)
 
 log = logging.getLogger("mcmc_ammsb_tpu_torch")
 
@@ -57,9 +76,11 @@ log = logging.getLogger("mcmc_ammsb_tpu_torch")
 #: (argparse dest, the only accepted value, ROADMAP queue 1 item).
 _UNPORTED = (
     ("mesh", "", "item 14 (multi-GPU)"),
-    ("checkpoint", "", "item 6 (checkpoints)"),
-    ("restore", "", "item 6 (checkpoints)"),
     ("profile", False, "item 13 (profiling)"),
+    ("checkpoint_backend", "npz", "item 15 (the orbax backend)"),
+    ("checkpoint_ref", "", "item 15 (reference-format checkpoints)"),
+    ("restore_ref", "", "item 15 (reference-format checkpoints)"),
+    ("split_seed", 12345, "item 14 (partitioned ingest)"),
 )
 
 
@@ -107,7 +128,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    default=RngBackend.NATIVE.value)
     p.add_argument("--pi-dtype", choices=["float32", "bfloat16"],
                    default="float32")
-    p.add_argument("--calc-train-ppx", action="store_true")
+    p.add_argument("--calc-train-ppx", action="store_true",
+                   help="also log the training perplexity at every "
+                        "evaluation (train_ppx[i]; the a-MMSB learner)")
+    p.add_argument("--train-ppx-ratio", type=float, default=0.01)
+    p.add_argument("--phi-disable-noise", action="store_true",
+                   help="golden-test mode: the phi noise operand is ones")
     p.add_argument("--steps-per-call", type=int, default=0,
                    help="steps per chunk; 0 = auto (1000 with device "
                         "sampling, min(200, ppx interval) with host "
@@ -127,6 +153,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="T-step window engine (one gather, one CUDA "
                         "kernel launch, one scatter per window); 0 = auto "
                         "[12 on the fast path], -1 = off")
+    p.add_argument("--window-impl", choices=["pallas", "jnp"],
+                   default="pallas",
+                   help="pallas = the window kernel (CUDA); jnp = the "
+                        "golden twin: the plain PyTorch version of the "
+                        "window on whatever device the run is on")
     p.add_argument("--node-coin", choices=["random", "alternate"],
                    default="random")
     p.add_argument("--ds-link-rounds", type=int, default=2)
@@ -146,11 +177,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--mmsb-noise-scale", type=float, default=1.0,
                    help="full-MMSB: SGRLD noise temperature (<1 tempers)")
     p.add_argument("--num-chains", type=int, default=1,
-                   help="run C independent a-MMSB chains (the flat chain "
-                        "engine, chains_flat.py; implies device sampling)")
+                   help="run C independent chains (a-MMSB: the flat chain "
+                        "engine, chains_flat.py; --model mmsb: "
+                        "MMSBChainLearner; implies device sampling)")
     p.add_argument("--chain-engine", choices=["flat", "vmap"],
                    default="flat",
-                   help="multi-chain engine ('vmap' is not ported yet)")
+                   help="a-MMSB multi-chain engine: 'flat' = one shared "
+                        "row space (fast); 'vmap' = C whole single-chain "
+                        "states advanced in turn (slow; a cross-check)")
     p.add_argument("--rhat-draws", type=int, default=0,
                    help="with --num-chains >= 2: after training, run this "
                         "many extra steps_per_call chunks keeping beta "
@@ -159,11 +193,35 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--chain-devices", type=int, default=1,
                    help="spread --num-chains over this many devices (not "
                         "ported yet)")
+    # dataset cache
+    p.add_argument("--dump-data", action="store_true",
+                   help="write the loaded graph to --dump-file and exit")
+    p.add_argument("--dump-file", type=str, default="")
+    p.add_argument("--load-data", action="store_true",
+                   help="read the graph (and its held-out ratio) from "
+                        "--load-file")
+    p.add_argument("--load-file", type=str, default="")
+    p.add_argument("--cache-format", choices=["npz", "ref"], default="npz",
+                   help="dump format: npz (native) or ref, the "
+                        "reference's gzip binary layout (loading detects "
+                        "either)")
+    # checkpointing
+    p.add_argument("--checkpoint", type=str, default="",
+                   help="save a checkpoint here at exit / SIGINT")
+    p.add_argument("--checkpoint-interval", type=int, default=0,
+                   metavar="ITERS",
+                   help="also checkpoint every ITERS training steps "
+                        "(rounded up to eval-loop boundaries)")
+    p.add_argument("--restore", type=str, default="",
+                   help="restore a checkpoint before training")
     # engines of the JAX CLI that the port does not have yet (_UNPORTED)
     p.add_argument("--mesh", type=str, default="")
-    p.add_argument("--checkpoint", type=str, default="")
-    p.add_argument("--restore", type=str, default="")
     p.add_argument("--profile", action="store_true")
+    p.add_argument("--checkpoint-backend", choices=["npz", "orbax"],
+                   default="npz")
+    p.add_argument("--checkpoint-ref", type=str, default="")
+    p.add_argument("--restore-ref", type=str, default="")
+    p.add_argument("--split-seed", type=int, default=12345)
     return p
 
 
@@ -232,6 +290,9 @@ def config_from_args(args) -> Config:
         strategy=SampleStrategy.parse(args.sample),
         heldout_ratio=args.heldout_ratio,
         calc_train_ppx=args.calc_train_ppx,
+        training_ppx_ratio=args.train_ppx_ratio,
+        phi_disable_noise=args.phi_disable_noise,
+        window_impl=args.window_impl,
         device_sampling=args.device_sampling,
         shared_neighbors=args.shared_neighbors,
         ppx_interval=args.ppx_interval,
@@ -253,6 +314,22 @@ def config_from_args(args) -> Config:
     )
 
 
+def make_learner(args, cfg: Config, graph, split, device):
+    """The learner of the engine the flags select, on ``device``."""
+    if args.num_chains > 1 and args.model == "mmsb":
+        return MMSBChainLearner(cfg, graph, split, args.num_chains, device)
+    if args.num_chains > 1 and args.chain_engine != "flat":
+        return MultiChainLearner(cfg, graph, split, args.num_chains, device)
+    if args.num_chains > 1:
+        learner = FlatChainLearner(cfg, graph, split, args.num_chains, device)
+        log.info("%d chains initialized in %.3f s (host init draws of "
+                 "C x N x K gammas)", args.num_chains, learner.init_seconds)
+        return learner
+    if args.model == "mmsb":
+        return FullMMSBLearner(cfg, graph, split, device)
+    return Learner(cfg, graph, split, device)
+
+
 def main(argv=None) -> int:
     logging.basicConfig(
         level=logging.INFO,
@@ -271,17 +348,10 @@ def main(argv=None) -> int:
                   "a-MMSB chains (R-hat is a between-chain statistic)")
         return 1
     chains = args.num_chains > 1
-    if chains:
-        for refused, what in (
-                (args.chain_engine != "flat",
-                 "--chain-engine vmap (item 12, the vmap chain engine)"),
-                (args.chain_devices > 1,
-                 "--chain-devices (item 14, chains over several GPUs)"),
-                (args.model == "mmsb",
-                 "--model mmsb --num-chains (item 11, MMSBChainLearner)")):
-            if refused:
-                log.fatal("%s is not ported yet (ROADMAP queue 1)", what)
-                return 2
+    if chains and args.chain_devices > 1:
+        log.fatal("--chain-devices (item 14, chains over several GPUs) is "
+                  "not ported yet (ROADMAP queue 1)")
+        return 2
     resolve_fast_defaults(args)
     cfg = config_from_args(args)
     if chains:
@@ -302,7 +372,14 @@ def main(argv=None) -> int:
              else "cpu")
 
     # --- dataset ----------------------------------------------------------
-    if args.synthetic:
+    if args.load_data:
+        if not args.load_file:
+            log.fatal("load-file is required with load-data")
+            return 1
+        n, ratio, u, v = load_dataset(args.load_file)
+        args.heldout_ratio = ratio
+        cfg = cfg.replace(heldout_ratio=ratio)
+    elif args.synthetic:
         nn, deg = (int(x) for x in args.synthetic.split(","))
         n, u, v = synthetic_edges(nn, deg, seed=1)
     elif args.synthetic_powerlaw:
@@ -314,9 +391,18 @@ def main(argv=None) -> int:
     elif args.file:
         n, u, v = load_snap_edges(args.file)
     else:
-        log.fatal("one of --file / --synthetic / --synthetic-powerlaw is "
-                  "required")
+        log.fatal("one of --file / --synthetic / --synthetic-powerlaw / "
+                  "--load-data is required")
         return 1
+    if args.dump_data:
+        if not args.dump_file:
+            log.fatal("dump-file is required with dump-data")
+            return 1
+        dump_dataset(args.dump_file, n, args.heldout_ratio, u, v,
+                     fmt=args.cache_format)
+        log.info("dataset cache (%s) written to %s", args.cache_format,
+                 args.dump_file)
+        return 0
     split = generate_sets(n, u, v, args.heldout_ratio)
     graph = Graph.from_edges(n, split.training_u, split.training_v)
     cfg = cfg.finalize(n, split.total_edges, graph.max_fan_out)
@@ -326,20 +412,11 @@ def main(argv=None) -> int:
                  cfg.max_batch_nodes)
         cfg = cfg.replace(window=0)
     log.info("Loaded %s (N=%d, E=%d, training max fan out = %d)",
-             args.file or args.synthetic or args.synthetic_powerlaw, cfg.N,
-             cfg.E, cfg.max_fan_out)
+             args.load_file or args.file or args.synthetic
+             or args.synthetic_powerlaw, cfg.N, cfg.E, cfg.max_fan_out)
     log.info("config: %s", cfg)
     try:
-        if chains:
-            learner = FlatChainLearner(cfg, graph, split, args.num_chains,
-                                       device)
-            log.info("%d chains initialized in %.3f s (host init draws of "
-                     "C x N x K gammas)", args.num_chains,
-                     learner.init_seconds)
-        elif args.model == "mmsb":
-            learner = FullMMSBLearner(cfg, graph, split, device)
-        else:
-            learner = Learner(cfg, graph, split, device)
+        learner = make_learner(args, cfg, graph, split, device)
     except NotImplementedError as e:
         log.fatal("%s", e)
         return 2
@@ -349,6 +426,21 @@ def main(argv=None) -> int:
 
     log.info("edge sets: training %s, held-out %s",
              learner.training_set.backend, learner.heldout_set.backend)
+    if cfg.window > 1 and args.model == "ammsb":
+        plain = device.type != "cuda" or cfg.window_impl == "jnp"
+        log.info("windows of %d steps run %s (--window-impl %s on %s)",
+                 cfg.window, "the plain PyTorch version of the window"
+                 if plain else "the window kernel", cfg.window_impl,
+                 device.type)
+    if args.restore:
+        try:
+            load_checkpoint(args.restore, learner)
+        except ValueError as e:
+            log.fatal("--restore %s: %s", args.restore, e)
+            learner.close()
+            return 1
+        log.info("restored checkpoint %s (step=%d)", args.restore,
+                 learner.step_count)
     if learner.sampler is not None:
         # single batches (steps_per_call 1) are always numpy-sampled
         chunked = cfg.steps_per_call > 1
@@ -368,6 +460,9 @@ def main(argv=None) -> int:
     previous = signal.signal(signal.SIGINT, handler)
     try:
         _train(args, cfg, learner, signaled)
+        if args.checkpoint:       # at exit, and after SIGINT
+            save_checkpoint(args.checkpoint, learner)
+            log.info("checkpoint saved to %s", args.checkpoint)
     finally:
         signal.signal(signal.SIGINT, previous)
         learner.close()
@@ -391,11 +486,33 @@ def _train(args, cfg: Config, learner: Learner, signaled: dict) -> None:
             log.info("  links: %d (ll %.4f)  non-links: %d (ll %.4f)",
                      st["link_count"], st["link_likelihood"],
                      st["non_link_count"], st["non_link_likelihood"])
+        if train_ppx:
+            # the fused series carries the value; the host loop
+            # evaluates it here, after the held-out one either way
+            log.info("train_ppx[%d] = %s", i,
+                     st["train_ppx"] if "train_ppx" in st
+                     else learner.training_perplexity())
 
-    fused_evals = (cfg.device_sampling
+    # only the a-MMSB learner keeps a training-perplexity population
+    train_ppx = learner.train_ppx_u is not None
+    # the chain engines force device sampling: read the engine's config
+    fused_evals = (learner.cfg.device_sampling
+                   and hasattr(learner, "run_with_ppx")
                    and cfg.steps_per_call > cfg.ppx_interval)
+    ck_next = [args.checkpoint_interval or None]
+
+    def maybe_checkpoint(i):
+        """Periodic checkpoint (--checkpoint-interval), checked at
+        eval-loop boundaries."""
+        if ck_next[0] is None or i < ck_next[0] or not args.checkpoint:
+            return
+        save_checkpoint(args.checkpoint, learner)
+        log.info("checkpoint saved to %s (step %d)", args.checkpoint, i)
+        while ck_next[0] <= i:
+            ck_next[0] += args.checkpoint_interval
+
     i = 0
-    start_step = learner.state.step_count
+    start_step = learner.step_count
     while i < args.max_iters and not signaled["flag"]:
         if fused_evals and args.max_iters - i >= cfg.ppx_interval:
             # whole eval periods, about steps_per_call steps per call;
@@ -405,6 +522,7 @@ def _train(args, cfg: Config, learner: Learner, signaled: dict) -> None:
             for ev in learner.run_with_ppx(take, cfg.ppx_interval):
                 log_eval(ev["step"] - start_step, ev["ppx"], ev)
             i += take
+            maybe_checkpoint(i)
         else:
             step = min(args.max_iters - i, cfg.ppx_interval)
             learner.run(step)
@@ -412,6 +530,7 @@ def _train(args, cfg: Config, learner: Learner, signaled: dict) -> None:
             if not signaled["flag"]:
                 log_eval(i, learner.heldout_perplexity(),
                          learner.last_ppx_stats)
+            maybe_checkpoint(i)
     if signaled["flag"]:
         log.info("FORCED TERMINATE")
     elif args.rhat_draws >= 2:

@@ -14,8 +14,10 @@ config.py for why the port does not import them).
                            of "fake" held-out non-edges.
   * ``Graph``            — CSR adjacency + max fan-out.
 
-The dataset cache (``dump_dataset``, ``load_dataset``) and
-``make_training_ppx_edges`` are not ported yet (ROADMAP queue 1).
+  * ``make_training_ppx_edges`` — the evaluation population of the
+                           training perplexity.
+  * ``dump_dataset``, ``load_dataset`` — the dataset cache: the npz
+                           cache, or the reference's gzip binary layout.
 """
 
 from __future__ import annotations
@@ -286,3 +288,103 @@ def generate_sets(num_nodes: int, u: np.ndarray, v: np.ndarray,
             VERTEX_DTYPE),
         total_edges=e,
     )
+
+
+def make_training_ppx_edges(
+    split: DataSplit, ratio: float, seed: int = 777
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Evaluation population for TRAINING perplexity: ``ratio`` of the
+    training edges, plus that count times (N(N-1)/2) / E sampled
+    non-edges (outside training and held-out)."""
+    n = split.num_nodes
+    e = split.total_edges
+    total = n * (n - 1) // 2
+    num_links = int(ratio * len(split.training_u))
+    num_non_links = int(num_links * total / float(e))
+    eu = [split.training_u[:num_links]]
+    ev = [split.training_v[:num_links]]
+    existing = set(pack_edges(
+        np.concatenate([split.training_u, split.heldout_u]),
+        np.concatenate([split.training_v, split.heldout_v]),
+    ).tolist())
+    rng = np.random.RandomState(seed)
+    fu = np.empty(num_non_links, VERTEX_DTYPE)
+    fv = np.empty(num_non_links, VERTEX_DTYPE)
+    count = 0
+    rounds = 0
+    while count < num_non_links:
+        rounds += 1
+        if rounds > 200:
+            raise ValueError(
+                f"make_training_ppx_edges: found only {count}/"
+                f"{num_non_links} non-edges after 200 rejection rounds "
+                "— the graph is too dense for this ratio")
+        need = num_non_links - count
+        ra = rng.randint(0, n, size=2 * need + 16)
+        rb = rng.randint(0, n, size=2 * need + 16)
+        keep = ra != rb
+        cu, cv = canonicalize(ra[keep], rb[keep])
+        for x, y in zip(cu, cv):
+            if int(pack_edges(x, y)) in existing:
+                continue
+            fu[count], fv[count] = x, y
+            count += 1
+            if count == num_non_links:
+                break
+    eu.append(fu)
+    ev.append(fv)
+    return (np.concatenate(eu).astype(VERTEX_DTYPE),
+            np.concatenate(ev).astype(VERTEX_DTYPE))
+
+
+def dump_dataset(path: str, num_nodes: int, heldout_ratio: float,
+                 u: np.ndarray, v: np.ndarray, fmt: str = "npz") -> None:
+    """Compressed dataset cache. ``fmt="npz"`` (default) is the native
+    cache; ``fmt="ref"`` writes the reference's on-disk layout: a gzip
+    stream of uint64 N, float32 heldout_ratio, uint64 count, then count
+    little-endian uint64 (u<<32|v)-packed edges. (A gzip header carries
+    a time stamp: two dumps of one graph differ in bytes 4-8, their
+    decompressed streams are equal.)"""
+    if fmt == "ref":
+        packed = np.ascontiguousarray(pack_edges(u, v), "<u8")
+        with gzip.open(path, "wb") as f:
+            f.write(np.uint64(num_nodes).astype("<u8").tobytes())
+            f.write(np.float32(heldout_ratio).astype("<f4").tobytes())
+            f.write(np.uint64(packed.size).astype("<u8").tobytes())
+            f.write(packed.tobytes())
+        return
+    if fmt != "npz":
+        raise ValueError(f"unknown dataset cache format {fmt!r}")
+    with open(path, "wb") as f:     # the path as given: no .npz appended
+        np.savez_compressed(
+            f,
+            num_nodes=np.int64(num_nodes),
+            heldout_ratio=np.float64(heldout_ratio),
+            edges=pack_edges(u, v),
+        )
+
+
+def load_dataset(path: str) -> Tuple[int, float, np.ndarray, np.ndarray]:
+    """Load a cached dataset: (N, heldout_ratio, u, v). The format is
+    sniffed from the file magic: PK (zip) -> npz cache, 1f 8b (gzip) ->
+    the reference's binary layout (see dump_dataset)."""
+    with open(path, "rb") as f:
+        magic = f.read(2)
+    if magic == b"\x1f\x8b":
+        with gzip.open(path, "rb") as f:
+            head = f.read(20)
+            if len(head) != 20:
+                raise IOError(f"{path}: truncated reference cache header")
+            num_nodes = int(np.frombuffer(head[0:8], "<u8")[0])
+            ratio = float(np.frombuffer(head[8:12], "<f4")[0])
+            count = int(np.frombuffer(head[12:20], "<u8")[0])
+            body = f.read(count * 8)
+            if len(body) != count * 8:
+                raise IOError(f"{path}: reference cache holds "
+                              f"{len(body) // 8} edges, header says "
+                              f"{count}")
+            u, v = unpack_edges(np.frombuffer(body, "<u8"))
+        return num_nodes, ratio, u, v
+    z = np.load(path)
+    u, v = unpack_edges(z["edges"])
+    return int(z["num_nodes"]), float(z["heldout_ratio"]), u, v

@@ -1,6 +1,7 @@
 """Build the port's state and membership tables from the JAX package's,
 so that both packages can run the same computation from the same numbers
-(the parity tests)."""
+(the parity tests), from arrays or from a checkpoint file that the JAX
+package wrote."""
 
 from __future__ import annotations
 
@@ -37,7 +38,42 @@ def state_from_numpy(arrays: dict, cfg: Config, device) -> TrainState:
         beta=tensor("beta"), step_count=int(arrays["step_count"]),
         beta_count=int(arrays["beta_count"]),
         ppx_per_edge=tensor("ppx_per_edge"),
-        ppx_count=int(arrays["ppx_count"]))
+        ppx_count=int(arrays["ppx_count"]),
+        train_ppx_per_edge=(tensor("train_ppx_per_edge")
+                            if "train_ppx_per_edge" in arrays else None),
+        train_ppx_count=int(arrays.get("train_ppx_count", 0)))
+
+
+#: Leaf order of the JAX package's ``TrainState`` with the native RNG
+#: (mcmc_ammsb_tpu/learner.py:60-87; ``ref_seeds`` is None there and has
+#: no leaf). The four keys have no counterpart in the port's state.
+_JAX_TRAIN_STATE_LEAVES = (
+    "pi", "phi_sum", "theta", "beta", "step_count", "beta_count",
+    "ppx_per_edge", "ppx_count", "phi_key", "beta_key", "neighbor_key",
+    "sample_key", "train_ppx_per_edge", "train_ppx_count")
+
+
+def state_from_jax_checkpoint(path: str, cfg: Config, device) -> TrainState:
+    """The port's ``TrainState`` from an npz checkpoint that the JAX
+    package's ``save_checkpoint`` wrote for its single-chain ``Learner``
+    (``leaf_i`` arrays in the field order of its ``TrainState``). The
+    four key leaves are skipped: the port's streams are generators seeded
+    from the config, so the run goes on with the port's own draws."""
+    import json
+
+    z = np.load(path, allow_pickle=False)
+    manifest = json.loads(bytes(z["manifest"]).decode())
+    if manifest.get("learner") != "Learner":
+        raise ValueError(f"checkpoint of a {manifest.get('learner')}: only "
+                         f"the single-chain Learner's state is read")
+    if manifest["num_leaves"] != len(_JAX_TRAIN_STATE_LEAVES):
+        raise ValueError(
+            f"checkpoint has {manifest['num_leaves']} state leaves, the "
+            f"native-RNG TrainState has {len(_JAX_TRAIN_STATE_LEAVES)} "
+            f"(saved with the reference RNG?)")
+    arrays = {name: z[f"leaf_{i}"] for i, name in
+              enumerate(_JAX_TRAIN_STATE_LEAVES) if not name.endswith("_key")}
+    return state_from_numpy(arrays, cfg, device)
 
 
 def mmsb_state_from_numpy(arrays: dict, cfg: Config, device) -> MMSBState:

@@ -26,13 +26,21 @@ through ``ops/phi.phi_update_rows`` or, with ``--phi-impl pallas``,
 of the pre-gathered phi kernel), and a beta stage that re-reads the
 endpoint rows from the new pi.
 
+Evaluation: the held-out perplexity (``heldout_perplexity_step``) and,
+with ``cfg.calc_train_ppx``, the training perplexity over its own
+population and running averages (``training_perplexity_step``). Golden
+modes: ``cfg.phi_disable_noise`` puts ones in place of the phi noise
+(``phi_noise_operand``), and ``cfg.window_impl == "jnp"`` runs the plain
+version of the window on any device (``ops/window.plain_or``).
+
 Stream position. JAX keys every draw by ``fold_in(key, step)``, so there
 one step at a time and a scanned chunk give the same bits. The port's
 ``rng.Streams`` are stateful generators and a chunk draws its S steps in
 one block per stream, so the bits depend on the chunking: a run of
 one-step chunks equals the step-at-a-time run bit for bit on the CPU
 (``draw_step_operands`` is a one-step block), chunks of S > 1 steps draw
-other numbers from the same seeds, with the same law. On the same
+other numbers from the same seeds, with the same law (``checkpoint.py``
+states what that means for a resumed run). On the same
 operands ``train_step`` and one hoisted step agree bit for bit on the CPU
 (tests/test_torch_host_slice.py holds both). Drawing a chunk step by step
 would cost eight more launches per step on paths that the host's launch
@@ -57,7 +65,8 @@ import torch
 from mcmc_ammsb_tpu_torch import rng
 from mcmc_ammsb_tpu_torch.config import (Config, PhiImpl, RngBackend,
                                          SampleStrategy)
-from mcmc_ammsb_tpu_torch.data import DataSplit, Graph
+from mcmc_ammsb_tpu_torch.data import (DataSplit, Graph,
+                                       make_training_ppx_edges)
 from mcmc_ammsb_tpu_torch.ops import beta as beta_ops
 from mcmc_ammsb_tpu_torch.ops import perplexity as ppx_ops
 from mcmc_ammsb_tpu_torch.ops import phi as phi_ops
@@ -84,6 +93,10 @@ class TrainState(NamedTuple):
     beta_count: int             # starts at 0
     ppx_per_edge: torch.Tensor  # [H] running per-edge likelihood averages
     ppx_count: int              # number of ppx calls so far
+    # training-perplexity running state ([0] unless cfg.calc_train_ppx;
+    # None in a state built by hand without it)
+    train_ppx_per_edge: Optional[torch.Tensor] = None
+    train_ppx_count: int = 0
 
 
 class DeviceBatch(NamedTuple):
@@ -102,10 +115,8 @@ class DeviceBatch(NamedTuple):
     def from_host(cls, b: MiniBatch, device) -> "DeviceBatch":
         """One host minibatch on ``device`` (fields without a leading
         axis)."""
-        return cls(*(a[0] for a in cls.from_stacked(StackedBatches(
-            *(np.asarray(x)[None] for x in (
-                b.edges_u, b.edges_v, b.edge_mask, b.nodes, b.node_mask,
-                b.weight))), device)))
+        return cls(*(a[0] for a in cls.from_stacked(_as_stacked(b),
+                                                    device)))
 
     @classmethod
     def from_stacked(cls, s: StackedBatches, device) -> "DeviceBatch":
@@ -133,6 +144,15 @@ class DeviceBatch(NamedTuple):
         return cls(eu, ev, em != 0, nd, nm != 0, w.view(torch.float32))
 
 
+def _as_stacked(item) -> StackedBatches:
+    """A host chunk as it is, one host minibatch as a chunk of one."""
+    if isinstance(item, StackedBatches):
+        return item
+    return StackedBatches(*(np.asarray(x)[None] for x in (
+        item.edges_u, item.edges_v, item.edge_mask, item.nodes,
+        item.node_mask, item.weight)))
+
+
 def check_ported(cfg: Config) -> None:
     """Raise for a configuration whose engine the port lacks, naming
     the ROADMAP item that will port it."""
@@ -145,8 +165,6 @@ def check_ported(cfg: Config) -> None:
                                   SampleStrategy.NODE_NON_LINK),
          "the device BF family (item 9)"),
         (cfg.pi_dtype != "float32", "bfloat16 pi storage (item 4)"),
-        (cfg.calc_train_ppx, "training perplexity (item 4)"),
-        (cfg.phi_disable_noise, "the noise-free golden-test mode (item 4)"),
         (cfg.window > 1 and cfg.window_correction != "always",
          "window_correction='auto' (item 5)"),
     ]
@@ -157,7 +175,7 @@ def check_ported(cfg: Config) -> None:
 
 
 def check_learner_config(cfg: Config) -> None:
-    """The JAX Learner's guards (mcmc_ammsb_tpu/learner.py:859-881)."""
+    """The JAX Learner's guards (mcmc_ammsb_tpu/learner.py:859-885)."""
     jnp_native = (cfg.rng_backend == RngBackend.NATIVE
                   and cfg.phi_impl == PhiImpl.JNP)
     if cfg.shared_neighbors and not jnp_native:
@@ -172,6 +190,9 @@ def check_learner_config(cfg: Config) -> None:
         raise ValueError("window > 1 (the T-step window engine) requires "
                          "shared_neighbors, rng_backend=native and "
                          "phi_impl=jnp")
+    if cfg.window > 1 and cfg.window_impl not in ("pallas", "jnp"):
+        raise ValueError(f"unknown window_impl {cfg.window_impl!r} "
+                         "(pallas | jnp)")
 
 
 def gamma_draws(cfg: Config, draws: np.random.Generator, shape,
@@ -203,9 +224,10 @@ def gamma_rows(cfg: Config, draws: np.random.Generator, device,
 
 
 def init_state(cfg: Config, heldout_size: int, device,
-               dtype=torch.float32) -> TrainState:
+               dtype=torch.float32, train_ppx_size: int = 0) -> TrainState:
     """theta ~ Gamma(eta0, eta1), beta = theta1/(theta0+theta1); pi and
-    phi_sum from ``gamma_rows``."""
+    phi_sum from ``gamma_rows``. ``train_ppx_size`` is the size of the
+    training-perplexity population (0 without ``cfg.calc_train_ppx``)."""
     draws = rng.host_gamma_rng(cfg)
     theta = gamma_draws(cfg, draws, (cfg.K, 2), device).to(dtype)
     pi, phi_sum = gamma_rows(cfg, draws, device, dtype)
@@ -214,19 +236,35 @@ def init_state(cfg: Config, heldout_size: int, device,
         beta=theta[:, 1] / (theta[:, 0] + theta[:, 1]),
         step_count=1, beta_count=0,
         ppx_per_edge=torch.zeros(heldout_size, dtype=dtype, device=device),
-        ppx_count=0)
+        ppx_count=0,
+        train_ppx_per_edge=torch.zeros(train_ppx_size, dtype=dtype,
+                                       device=device),
+        train_ppx_count=0)
 
 
 # ---------------------------------------------------------------------------
 # The hoisted training loop
 # ---------------------------------------------------------------------------
 
+def phi_noise_operand(cfg: Config, gen: torch.Generator, shape,
+                      device) -> torch.Tensor:
+    """The phi noise operand of ``shape``: standard normal draws from
+    ``gen``, or, in the noise-free golden mode (``cfg.phi_disable_noise``),
+    ONES (the JAX package's operand: not zeros, not randn). The generator
+    is then not advanced. The theta noise is drawn in either mode."""
+    if cfg.phi_disable_noise:
+        return torch.ones(shape, dtype=torch.float32, device=device)
+    return rng.randn(gen, shape, device)
+
+
 def hoist_common(cfg: Config, edge_set: EdgeSet, batches: DeviceBatch,
                  streams: rng.Streams):
     """The state-independent operands of S steps that both model
     families hoist: (neighbors, y_phi, y_edges, lanes_u, lanes_v,
     phi_noise). Neighbors are one shared draw per step [S, 1, n] with
-    ``cfg.shared_neighbors``, else one private draw per node [S, B, n]."""
+    ``cfg.shared_neighbors``, else one private draw per node [S, B, n].
+    ``phi_noise`` is ``phi_noise_operand``'s (ones in the noise-free
+    mode)."""
     s_len, b = batches.nodes.shape
     dev = batches.nodes.device
     if cfg.shared_neighbors:
@@ -250,7 +288,7 @@ def hoist_common(cfg: Config, edge_set: EdgeSet, batches: DeviceBatch,
     lanes_v = torch.argmax((batches.edges_v[:, :, None]
                             == batches.nodes[:, None, :]).to(torch.int32),
                            dim=-1).to(torch.int32)
-    phi_noise = rng.randn(streams.phi, (s_len, b, cfg.K), dev)
+    phi_noise = phi_noise_operand(cfg, streams.phi, (s_len, b, cfg.K), dev)
     return neighbors, y_phi, y_edges, lanes_u, lanes_v, phi_noise
 
 
@@ -320,7 +358,8 @@ def draw_step_operands(cfg: Config, streams: rng.Streams,
     """One step's random operands from the streams, (neighbors, phi_noise
     [B, K], beta_noise [K, 2]): a one-step block of ``hoist_operands``'
     draws, in its order. Neighbors are [1, n], shared by the step's nodes,
-    with ``cfg.shared_neighbors``, else [B, n] private."""
+    with ``cfg.shared_neighbors``, else [B, n] private; the phi noise is
+    ones in the noise-free mode."""
     dev = batch.nodes.device
     if cfg.shared_neighbors:
         draw_for = torch.full((1,), cfg.N, dtype=torch.int32, device=dev)
@@ -328,7 +367,8 @@ def draw_step_operands(cfg: Config, streams: rng.Streams,
         draw_for = batch.nodes
     neighbors = sample_neighbors(streams.neighbor, draw_for, cfg.N,
                                  cfg.num_node_sample)
-    phi_noise = rng.randn(streams.phi, (batch.nodes.shape[0], cfg.K), dev)
+    phi_noise = phi_noise_operand(cfg, streams.phi,
+                                  (batch.nodes.shape[0], cfg.K), dev)
     beta_noise = rng.randn(streams.beta, (cfg.K, 2), dev)
     return neighbors, phi_noise, beta_noise
 
@@ -399,6 +439,21 @@ def heldout_perplexity_step(cfg: Config, heldout_set: EdgeSet,
                                   count)
     return state._replace(ppx_per_edge=res.ppx_per_edge,
                           ppx_count=count), res
+
+
+def training_perplexity_step(cfg: Config, training_set: EdgeSet,
+                             edges_u: torch.Tensor, edges_v: torch.Tensor,
+                             state: TrainState
+                             ) -> Tuple[TrainState, ppx_ops.PpxResult]:
+    """One evaluation over the training-perplexity population
+    (``data.make_training_ppx_edges``): the labels come from the training
+    set, the running averages live in their own state fields."""
+    count = state.train_ppx_count + 1
+    res = ppx_ops.perplexity_step(cfg, state.pi, state.beta, training_set,
+                                  edges_u, edges_v, state.train_ppx_per_edge,
+                                  count)
+    return state._replace(train_ppx_per_edge=res.ppx_per_edge,
+                          train_ppx_count=count), res
 
 
 def _read_stats(res: ppx_ops.PpxResult) -> dict:
@@ -480,8 +535,9 @@ class Learner(HostSamplingPipeline):
 
     The model lives in these methods, which ``models/mmsb.FullMMSBLearner``
     overrides: ``_check`` (the config guards), ``_init_state``,
-    ``_train_chunk`` (device-sampled steps) and ``_evaluate`` with
-    ``_read_stats`` (one held-out evaluation). ``device`` defaults to
+    ``_train_chunk`` (device-sampled steps), ``_scan_chunk`` (the steps
+    of one host-sampled chunk) and ``_evaluate`` with ``_read_stats``
+    (one held-out evaluation). ``device`` defaults to
     the card and raises without one (``resolve_device``). Without
     ``cfg.device_sampling`` the minibatches come from the host sampler
     (``sampling.MiniBatchSampler``), prefetched by a producer thread
@@ -496,6 +552,19 @@ class Learner(HostSamplingPipeline):
         if self.device.type == "cuda":
             # the q and contrib products feed 1/p: keep them full fp32
             torch.backends.cuda.matmul.allow_tf32 = False
+        self._build_graph_structures(graph, split)
+        self.streams = rng.make_streams(cfg, self.device)
+        self.state = self._init_state(len(split.heldout_edges_u))
+        self._init_pipeline(
+            None if cfg.device_sampling
+            else MiniBatchSampler(cfg, graph, split), prefetch)
+
+    def _build_graph_structures(self, graph: Graph, split: DataSplit) -> None:
+        """Everything on ``self.device`` that depends on the data and
+        not on the chain: the edge sets, the held-out population, the
+        training-perplexity population (``cfg.calc_train_ppx``), the
+        training adjacency for the device samplers; and the timers."""
+        cfg = self.cfg
         self.graph = graph
         self.split = split
         self.training_set = build_edge_set(cfg.edgeset_backend, cfg.N,
@@ -508,17 +577,22 @@ class Learner(HostSamplingPipeline):
                                          device=self.device)
         self.heldout_v = torch.as_tensor(split.heldout_edges_v,
                                          device=self.device)
+        self.train_ppx_u = self.train_ppx_v = None
+        if cfg.calc_train_ppx and self.keeps_train_ppx:
+            tu, tv = make_training_ppx_edges(split, cfg.training_ppx_ratio)
+            self.train_ppx_u = torch.as_tensor(tu, device=self.device)
+            self.train_ppx_v = torch.as_tensor(tv, device=self.device)
         self.adjacency = Adjacency(
             torch.as_tensor(graph.offsets, device=self.device),
             torch.as_tensor(graph.cols, dtype=torch.int32,
                             device=self.device))
-        self.streams = rng.make_streams(cfg, self.device)
-        self.state = self._init_state(len(split.heldout_edges_u))
-        self._init_pipeline(
-            None if cfg.device_sampling
-            else MiniBatchSampler(cfg, graph, split), prefetch)
         self.timers = StageTimers()
         self.last_ppx_stats = {}
+
+    @property
+    def step_count(self) -> int:
+        """The 1-based number of the next step."""
+        return self.state.step_count
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -528,19 +602,41 @@ class Learner(HostSamplingPipeline):
 
     _check = staticmethod(check_learner_config)
     _read_stats = staticmethod(_read_stats)
+    #: Only the a-MMSB single-chain state has the training-perplexity
+    #: fields (as in the JAX package): the other engines set this False
+    #: and ignore ``cfg.calc_train_ppx``.
+    keeps_train_ppx = True
 
     def _init_state(self, heldout_size: int):
-        return init_state(self.cfg, heldout_size, self.device)
+        return init_state(
+            self.cfg, heldout_size, self.device,
+            train_ppx_size=(0 if self.train_ppx_u is None
+                            else self.train_ppx_u.shape[0]))
 
     def _train_chunk(self, state, num_steps: int):
         return train_steps_fused(self.cfg, self.training_set,
                                  self.heldout_set, state, num_steps,
                                  self.adjacency, self.streams)
 
+    def _scan_chunk(self, state, batches: DeviceBatch):
+        return train_steps_scan(self.cfg, self.training_set, state, batches,
+                                self.streams)
+
     def _evaluate(self, state):
         """(state, the evaluation's numbers, still on the device)."""
         return heldout_perplexity_step(self.cfg, self.heldout_set,
                                        self.heldout_u, self.heldout_v, state)
+
+    def _evaluate_train(self, state):
+        """(state, -mean log likelihood over the training-perplexity
+        population as a device scalar), or (state, None) when the
+        learner keeps none (``keeps_train_ppx``, ``cfg.calc_train_ppx``)."""
+        if self.train_ppx_u is None:
+            return state, None
+        state, res = training_perplexity_step(
+            self.cfg, self.training_set, self.train_ppx_u, self.train_ppx_v,
+            state)
+        return state, res.neg_avg_log
 
     # -- training ----------------------------------------------------------
 
@@ -581,14 +677,19 @@ class Learner(HostSamplingPipeline):
         self._sync()
 
     def _run_scanned(self, max_iters: int, spc: int) -> None:
+        """Scanned chunks of ``spc`` host-sampled steps. A chunk of one
+        is one ``sampler.sample()`` (what the producer thread draws at
+        that depth), stacked."""
         done = 0
         src = self._get_prefetcher(spc) if self._use_prefetch else None
+        want = MiniBatch if spc == 1 else StackedBatches
         while done < max_iters:
             take = min(spc, max_iters - done)
             with self.timers.stage("sampling"):
-                stacked = (self._next_pending(StackedBatches)
-                           or (src.get() if src
-                               else self.sampler.sample_many(spc)))
+                stacked = _as_stacked(
+                    self._next_pending(want)
+                    or (src.get() if src else self.sampler.sample()
+                        if spc == 1 else self.sampler.sample_many(spc)))
                 if take < spc:  # tail: slice the stacked chunk
                     stacked = StackedBatches(
                         *(a[:take] for a in (
@@ -597,9 +698,7 @@ class Learner(HostSamplingPipeline):
                             stacked.node_mask, stacked.weight)))
                 batches = DeviceBatch.from_stacked(stacked, self.device)
             with self.timers.stage("device_step"):
-                self.state = train_steps_scan(
-                    self.cfg, self.training_set, self.state, batches,
-                    self.streams)
+                self.state = self._scan_chunk(self.state, batches)
             done += take
         self._sync()
 
@@ -607,9 +706,10 @@ class Learner(HostSamplingPipeline):
         """Train ``max_iters`` steps with a held-out ppx evaluation every
         ``interval`` steps, in groups of about steps_per_call steps
         between host readbacks. Returns the series as dicts (step, ppx,
-        link/non-link stats, and ``t``, the host time its group's
-        numbers reached the host); a non-multiple tail trains without a
-        trailing evaluation."""
+        link/non-link stats, ``train_ppx`` with ``cfg.calc_train_ppx``,
+        evaluated after the held-out one as the host loop does, and
+        ``t``, the host time its group's numbers reached the host); a
+        non-multiple tail trains without a trailing evaluation."""
         if not self.cfg.device_sampling:
             raise RuntimeError("run_with_ppx requires device_sampling "
                                "(the host-batch loop evaluates between "
@@ -627,8 +727,12 @@ class Learner(HostSamplingPipeline):
                     for _ in range(take):
                         self.state = self._train_chunk(self.state, interval)
                         self.state, res = self._evaluate(self.state)
-                        results.append(res)
-                    stats = [self._read_stats(r) for r in results]
+                        self.state, tneg = self._evaluate_train(self.state)
+                        results.append((res, tneg))
+                    stats = [self._read_stats(r) if t is None else
+                             dict(self._read_stats(r),
+                                  train_ppx=float(torch.exp(t)))
+                             for r, t in results]
                     self._sync()
                 now = time.perf_counter()
                 first = self.state.step_count - take * interval
@@ -652,6 +756,15 @@ class Learner(HostSamplingPipeline):
             stats = self._read_stats(res)
         self.last_ppx_stats = {k: v for k, v in stats.items() if k != "ppx"}
         return stats["ppx"]
+
+    def training_perplexity(self) -> float:
+        """exp(-avg log running-averaged likelihood) over the
+        training-perplexity population; requires cfg.calc_train_ppx."""
+        if self.train_ppx_u is None:
+            raise RuntimeError("enable cfg.calc_train_ppx")
+        with self.timers.stage("train_ppx"):
+            self.state, neg = self._evaluate_train(self.state)
+            return float(torch.exp(neg))
 
     # -- reporting ---------------------------------------------------------
 

@@ -12,7 +12,8 @@ On a CUDA tensor the three are one launch of the hand-written Hopper
 kernel ``csrc/window_kernel.cu`` (``window_apply_cuda``): it reads its
 rows from pi by index, runs the steps on a thread-block cluster that
 splits K (``window_cluster_size``), and writes the surviving rows back
-itself. On a CPU tensor the plain PyTorch version ``window_apply_torch``
+itself. On a CPU tensor, and on any device with ``cfg.window_impl ==
+"jnp"`` (``plain_or``), the plain PyTorch version ``window_apply_torch``
 runs them as ``_window_gather``, ``window_core_torch`` and
 ``_window_scatter``.
 
@@ -76,6 +77,16 @@ def iter_windows(cfg: Config, xs, nbrs):
                mcodes[w % _WINDOWS_PER_BATCH], keeps[w % _WINDOWS_PER_BATCH])
 
 
+def plain_or(cfg: Config, state, kernel, plain):
+    """The version of a window a run goes through: ``kernel`` when the
+    state lies on a card, ``plain`` (the stock torch ops) on the CPU and,
+    on any device, with ``cfg.window_impl == "jnp"``, the explicit golden
+    twin."""
+    if state.pi.is_cuda and cfg.window_impl != "jnp":
+        return kernel
+    return plain
+
+
 def windowed_scan(cfg: Config, state, xs, body):
     """Run the hoisted steps ``xs`` in windows of ``cfg.window``; the
     steps left over at the end go through ``body(state, x) -> state``.
@@ -83,7 +94,7 @@ def windowed_scan(cfg: Config, state, xs, body):
     ``xs`` is the operand tuple of ``learner.hoist_operands``:
     (batches, neighbors [S,1,n], y_phi, phi_noise, beta_noise,
      y_edges, lanes_u, lanes_v)."""
-    apply = window_apply_cuda if state.pi.is_cuda else window_apply_torch
+    apply = plain_or(cfg, state, window_apply_cuda, window_apply_torch)
     for xs_t, mcode, keep in iter_windows(cfg, xs, xs[1][:, 0, :]):
         state = apply(cfg, state, xs_t, mcode, keep)
     s_len = xs[1].shape[0]

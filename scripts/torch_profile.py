@@ -3,7 +3,8 @@
 Run from the root of a checkout (the package must be importable):
 
     PYTHONPATH=. python3 scripts/torch_profile.py [--reps 5]
-        [--paths single,chains,mmsb,phi,hostphi,hoststep,hostbf,powerlaw]
+        [--paths single,chains,mmsb,phi,hostphi,hoststep,hostbf,powerlaw,
+                 mmsbchains,hostmmsb,vmap,checkpoint]
         [--out FILE]
 
 Each path at N=317,080 (``--synthetic 317080,7``), the CLI's defaults
@@ -26,7 +27,19 @@ otherwise:
           steps, 400 steps per call;
   powerlaw ``--synthetic-powerlaw 317080,6.6,343,256 --edgeset perfect
           --ds-link-cap 64``, K=256: device-sampled, no windows (65 node
-          lanes), 1000 steps per call.
+          lanes), 1000 steps per call;
+  mmsbchains ``--model mmsb --num-chains 4``, K=64: the MMSB chain engine
+          (no windows: batched torch ops), 500 steps per call;
+  hostmmsb ``--model mmsb --no-device-sampling -i 200``, K=64: host
+          batches, private draws, chunks of 200 steps, 400 steps per call;
+  vmap    ``--num-chains 3 --chain-engine vmap``, K=256: three whole
+          single-chain states advanced in turn, no windows, 200 steps per
+          call;
+  checkpoint  not a training path: the a-MMSB main path's learner
+          (K=256, pi 325 MB) saved and loaded three times in each flavor,
+          ``np.savez`` (what ``save_checkpoint`` writes) and
+          ``np.savez_compressed``: seconds of each save and load, host
+          clock, and the file's bytes.
 
 The four host-sampled and power-law paths need a tree that has them; a
 parent tree is profiled with ``--paths single,chains,mmsb,phi``. For a
@@ -74,18 +87,50 @@ PATHS = {
                 "--synthetic", "317080,7", "-k", "256"], 400),
     "powerlaw": (["--synthetic-powerlaw", "317080,6.6,343,256", "--edgeset",
                   "perfect", "--ds-link-cap", "64", "-k", "256"], 1000),
+    "mmsbchains": (["--model", "mmsb", "--num-chains", "4", "--synthetic",
+                    "317080,7", "-k", "64"], 500),
+    "hostmmsb": (["--model", "mmsb", "--no-device-sampling", "-i", "200",
+                  "--synthetic", "317080,7", "-k", "64"], 400),
+    "vmap": (["--num-chains", "3", "--chain-engine", "vmap", "--synthetic",
+              "317080,7", "-k", "256"], 200),
 }
+
+
+def time_checkpoint(reps: int = 3) -> dict:
+    """Seconds to save and to load the main path's learner (K=256), in
+    both npz flavors, into a temporary directory."""
+    import os
+    import tempfile
+
+    from mcmc_ammsb_tpu_torch import checkpoint
+
+    _, _, lrn = make_learner(PATHS["single"][0])
+    lrn.run(1008)
+    out = {"path": "checkpoint", "K": lrn.cfg.K, "N": lrn.cfg.N}
+    with tempfile.TemporaryDirectory() as tmp:
+        for flavor, compress in (("savez", False), ("savez_compressed",
+                                                    True)):
+            path = os.path.join(tmp, flavor)
+            saves, loads = [], []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                checkpoint.save_checkpoint(path, lrn, compress=compress)
+                saves.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                checkpoint.load_checkpoint(path, lrn)
+                torch.cuda.synchronize()
+                loads.append(time.perf_counter() - t0)
+            out[flavor] = {"bytes": os.path.getsize(path),
+                           "save_s": saves, "load_s": loads}
+    return out
 
 
 def make_learner(flags):
     """The learner the port's CLI builds for ``flags``, on the card."""
     from mcmc_ammsb_tpu_torch import cli
     from mcmc_ammsb_tpu_torch import data
-    from mcmc_ammsb_tpu_torch.chains_flat import FlatChainLearner
     from mcmc_ammsb_tpu_torch.data import (Graph, generate_sets,
                                            synthetic_edges)
-    from mcmc_ammsb_tpu_torch.learner import Learner
-    from mcmc_ammsb_tpu_torch.models.mmsb import FullMMSBLearner
 
     args = cli.build_arg_parser().parse_args(flags)
     cli.resolve_fast_defaults(args)
@@ -105,11 +150,8 @@ def make_learner(flags):
         cfg = cfg.replace(window=0)              # the CLI's fallback
     if args.num_chains > 1:
         cfg = cfg.replace(device_sampling=True)
-        return cfg, args.num_chains, FlatChainLearner(
-            cfg, graph, split, args.num_chains, "cuda")
-    if args.model == "mmsb":
-        return cfg, 1, FullMMSBLearner(cfg, graph, split, "cuda")
-    return cfg, 1, Learner(cfg, graph, split, "cuda")
+    lrn = cli.make_learner(args, cfg, graph, split, "cuda")
+    return lrn.cfg, max(1, args.num_chains), lrn
 
 
 def profile_path(name: str, reps: int) -> dict:
@@ -188,7 +230,8 @@ def main() -> int:
                          text=True, check=True).stdout.strip()
     paths = []
     for n in a.paths.split(","):
-        paths.append(profile_path(n, a.reps))
+        paths.append(time_checkpoint() if n == "checkpoint"
+                     else profile_path(n, a.reps))
         print(json.dumps(paths[-1]), file=sys.stderr, flush=True)
     result = {"device": smi, "torch": torch.__version__, "paths": paths}
     line = json.dumps(result)

@@ -1,7 +1,8 @@
 """The port's CLI with --num-chains on the CPU: the flat chain engine end
-to end at a tiny size (per-chain ppx vectors, the R-hat line), the chain
-flags whose engines are not ported refused with their ROADMAP item, and
-the --rhat-draws guard."""
+to end at a tiny size (per-chain ppx vectors, the R-hat line), the MMSB
+chain engine and the vmap engine with a checkpoint and a resume, the
+chain flags whose engines are not ported refused with their ROADMAP item,
+and the --rhat-draws guard."""
 
 import logging
 import re
@@ -60,16 +61,61 @@ def test_cli_chains_on_cpu(flags, caplog):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--num-chains", "2", "--chain-engine", "vmap"], "item 12"),
     (["--num-chains", "2", "--chain-devices", "2"], "item 14"),
-    (["--num-chains", "2", "--model", "mmsb"], "item 11"),
-    (["--num-chains", "2", "--checkpoint", "ck.npz"], "item 6"),
-    (["--num-chains", "2", "--restore", "ck.npz"], "item 6"),
+    (["--num-chains", "2", "--model", "mmsb", "--chain-devices", "2"],
+     "item 14"),
+    (["--num-chains", "2", "--checkpoint", "ck", "--checkpoint-backend",
+      "orbax"], "item 15"),
+    (["--num-chains", "2", "--restore-ref", "ck.bin"], "item 15"),
+    (["--num-chains", "2", "--chain-engine", "vmap", "--pi-dtype",
+      "bfloat16"], "item 4"),
 ])
 def test_cli_refuses_unported_chain_engines(flags, item, caplog):
+    """Chains over several GPUs, the orbax and reference checkpoint
+    formats and bfloat16 pi still wait (the vmap engine, the MMSB chains
+    and npz checkpoints of chain runs are ported: test_cli_chain_engines_
+    and_checkpoints below)."""
     rc, messages = _run(TINY + flags, caplog)
     assert rc == 2
     assert any("ROADMAP" in m and item in m for m in messages)
+
+
+@pytest.mark.parametrize("flags, rhat, falls", [
+    (["--num-chains", "2", "--chain-engine", "vmap"], True, True),
+    (["--num-chains", "2", "--model", "mmsb"], False, False),
+    (["--num-chains", "2", "--model", "mmsb", "--no-shared-neighbors"],
+     False, False),
+    (["--num-chains", "3", "--window", "4"], False, True),
+])
+def test_cli_chain_engines_and_checkpoints(flags, rhat, falls, caplog,
+                                           tmp_path):
+    """--chain-engine vmap, --model mmsb --num-chains (shared and private
+    draws) and the flat engine: a [C] ppx vector per evaluation (falling
+    for the a-MMSB; the MMSB sits at the structure-free plateau of 2 on
+    this graph), a checkpoint at exit, and a second run that restores it
+    at step 61 and trains on."""
+    ck = str(tmp_path / "chains.npz")
+    first = flags + (["--rhat-draws", "2"] if rhat else [])
+    rc, messages = _run(TINY + first + ["--checkpoint", ck], caplog)
+    assert rc == 0
+    ppx = _chain_ppx(messages)
+    c = int(flags[1])
+    assert sorted(ppx) == [0, 20, 40, 60]
+    assert all(p.shape == (c,) and np.isfinite(p).all() and (p > 1).all()
+               for p in ppx.values())
+    if falls:
+        assert (ppx[60] < ppx[0]).all()
+    assert f"checkpoint saved to {ck}" in messages
+    assert rhat == any(m.startswith("beta R-hat") for m in messages)
+    caplog.clear()
+    rc, messages = _run(TINY + flags + ["--restore", ck, "-x", "20"], caplog)
+    assert rc == 0
+    step = 61 + (2 * 40 if rhat else 0)    # the R-hat draws train on
+    assert f"restored checkpoint {ck} (step={step})" in messages
+    assert sorted(_chain_ppx(messages)) == [0, 20]
+    caplog.clear()
+    rc, messages = _run(TINY + ["--restore", ck], caplog)
+    assert rc == 1 and any("num_chains" in m for m in messages)
 
 
 @pytest.mark.parametrize("flags", [

@@ -3,8 +3,10 @@ paths (host-sampled by default, device-sampled when asked), host
 sampling with every strategy, every membership backend, the power-law
 surrogate and the full MMSB end to end at a tiny size, the rules of
 ``resolve_fast_defaults``, the learner guards, engines that are not
-ported yet refused with their ROADMAP item, and no silent fallback to
-the CPU when the GPU is asked for."""
+ported yet refused with their ROADMAP item, checkpoint and resume, the
+dataset cache, training perplexity, the noise-free mode and the golden
+twin of the window, and no silent fallback to the CPU when the GPU is
+asked for."""
 
 import logging
 import re
@@ -149,33 +151,180 @@ def test_cli_guard_exits_1():
     assert cli.main(TINY + ["--no-shared-neighbors"]) == 1
 
 
-@pytest.mark.parametrize("flags", [
-    ["--mesh", "1,2"], ["--num-chains", "2", "--chain-engine", "vmap"],
-    ["--model", "mmsb", "--num-chains", "2"],
-    ["--rng", "reference"], ["--calc-train-ppx"],
-    ["-s", "BF", "--device-sampling"],
-    ["--model", "mmsb", "--no-device-sampling"], ["--pi-dtype", "bfloat16"],
-    ["--checkpoint", "ck.npz"],
-    ["--profile"],
-    ["--model", "mmsb", "--restore", "ck.npz"],
+@pytest.mark.parametrize("flags, item", [
+    (["--mesh", "1,2"], "item 14"),
+    (["--num-chains", "2", "--chain-devices", "2"], "item 14"),
+    (["--split-seed", "7"], "item 14"),
+    (["--rng", "reference"], "item 10"),
+    (["--model", "mmsb", "--rng", "reference"], "item 10"),
+    (["-s", "BF", "--device-sampling"], "item 9"),
+    (["--pi-dtype", "bfloat16"], "item 4"),
+    (["--checkpoint", "ck", "--checkpoint-backend", "orbax"], "item 15"),
+    (["--profile"], "item 13"),
+    (["--restore-ref", "ck.bin"], "item 15"),
+    (["--checkpoint-ref", "ck.bin"], "item 15"),
 ])
-def test_cli_refuses_unported_engines(flags, caplog):
+def test_cli_refuses_unported_engines(flags, item, caplog):
     """Exit 2, naming the ROADMAP item. The breadth-first family is
-    refused with device sampling only (item 9); host-sampled full-MMSB
-    training is item 11. Of the chain engines only the flat one is
-    ported: the vmap engine is item 12, the MMSB chains item 11
-    (tests/test_torch_chains_cli.py has the rest)."""
+    refused with device sampling only (item 9). What this file refused
+    before and now runs (checkpoints, training perplexity, host-sampled
+    MMSB, the vmap and the MMSB chain engines) is driven end to end
+    below and in tests/test_torch_chains_cli.py."""
     with caplog.at_level(logging.INFO, logger="mcmc_ammsb_tpu_torch"):
         assert cli.main(TINY + flags) == 2
-    assert any("ROADMAP" in r.getMessage() for r in caplog.records)
-    if flags == ["-s", "BF", "--device-sampling"]:
-        assert any("item 9" in r.getMessage() for r in caplog.records)
-    if flags == ["--model", "mmsb", "--no-device-sampling"]:
-        assert any("item 11" in r.getMessage() for r in caplog.records)
-    if "--chain-engine" in flags:
-        assert any("item 12" in r.getMessage() for r in caplog.records)
-    if flags == ["--model", "mmsb", "--num-chains", "2"]:
-        assert any("item 11" in r.getMessage() for r in caplog.records)
+    assert any("ROADMAP" in r.getMessage() and item in r.getMessage()
+               for r in caplog.records)
+
+
+def _messages(args, caplog, rc=0):
+    caplog.clear()
+    with caplog.at_level(logging.INFO, logger="mcmc_ammsb_tpu_torch"):
+        assert cli.main(args) == rc
+    return [r.getMessage() for r in caplog.records]
+
+
+def _series(messages, name="ppx"):
+    return {int(m.group(1)): float(m.group(2)) for m in
+            (re.fullmatch(name + r"\[(\d+)\] = (\S+)", msg)
+             for msg in messages) if m}
+
+
+@pytest.mark.parametrize("flags", [
+    ["--window", "4"],
+    ["--window", "4", "--calc-train-ppx"],
+    ["--model", "mmsb", "--window", "4"],
+    ["--model", "mmsb", "--no-device-sampling"],
+    ["--no-device-sampling", "--steps-per-call", "7"],
+    ["--no-device-sampling", "--no-shared-neighbors", "--steps-per-call", "1",
+     "--phi-impl", "pallas"],
+])
+def test_cli_checkpoint_then_restore(flags, caplog, tmp_path):
+    """--checkpoint with --checkpoint-interval 20 saves at the eval-loop
+    boundaries the interval reaches and once more at exit; --restore
+    resumes at step 61, logs the restored step, evaluates ppx[0] (one more
+    evaluation, as in the JAX CLI: the series of a resumed run is not
+    that of an uninterrupted one) and trains on; a checkpoint of another
+    learner class exits 1 with the loader's message."""
+    ck = str(tmp_path / "run.npz")
+    base = TINY[:TINY.index("--window")] + ["--device", "cpu"] + flags
+    messages = _messages(base + ["--checkpoint", ck,
+                                 "--checkpoint-interval", "20"], caplog)
+    saves = [m for m in messages if m.startswith("checkpoint saved to")]
+    assert saves[-1] == f"checkpoint saved to {ck}"
+    steps = [int(re.search(r"\(step (\d+)\)", m).group(1))
+             for m in saves[:-1]]
+    # device-sampled runs group 40 steps per fused call: boundaries at 40
+    # and 60; the host loop reaches every interval
+    assert steps == ([40, 60] if "--no-device-sampling" not in flags
+                     else [20, 40, 60])
+    first = _series(messages)
+    messages = _messages(base + ["--restore", ck, "-x", "40"], caplog)
+    assert f"restored checkpoint {ck} (step=61)" in messages
+    resumed = _series(messages)
+    assert sorted(resumed) == [0, 20, 40]
+    assert all(1.0 < p < float("inf") for p in resumed.values())
+    if "mmsb" not in flags:
+        assert resumed[40] < first[0]
+    if "--calc-train-ppx" in flags:
+        assert sorted(_series(messages, "train_ppx")) == [20, 40]
+    other = (["--model", "mmsb"] if "mmsb" not in flags else [])
+    messages = _messages(TINY[:TINY.index("--window")]
+                         + ["--device", "cpu"] + other + ["--restore", ck],
+                         caplog, rc=1)
+    assert any("state leaves" in m for m in messages)
+
+
+def test_cli_sigint_saves_a_checkpoint(caplog, tmp_path, monkeypatch):
+    """After SIGINT the loop drains at the next boundary, logs FORCED
+    TERMINATE and still saves: the run resumes from where it stopped."""
+    import os
+    import signal
+
+    from mcmc_ammsb_tpu_torch import learner as learner_mod
+
+    ck = str(tmp_path / "int.npz")
+    run = learner_mod.Learner.run
+
+    def interrupted(self, max_iters):
+        run(self, max_iters)
+        os.kill(os.getpid(), signal.SIGINT)
+
+    monkeypatch.setattr(learner_mod.Learner, "run", interrupted)
+    args = HOST + ["--no-device-sampling", "--checkpoint", ck]
+    messages = _messages(args, caplog)
+    assert "FORCED TERMINATE" in messages
+    assert f"checkpoint saved to {ck}" in messages
+    monkeypatch.setattr(learner_mod.Learner, "run", run)
+    messages = _messages(HOST + ["--no-device-sampling", "--restore", ck,
+                                 "-x", "20"], caplog)
+    assert f"restored checkpoint {ck} (step=21)" in messages
+
+
+@pytest.mark.parametrize("fmt", ["npz", "ref"])
+def test_cli_dump_then_load_data(fmt, caplog, tmp_path):
+    """--dump-data writes the cache and exits 0 without training;
+    --load-data trains on it with the held-out ratio from the file: the
+    same ppx[0] as the run on the generated graph (the ratio 0.125 is
+    exact in the reference layout's float32)."""
+    cache = str(tmp_path / "graph.cache")
+    gen = ["--synthetic", "300,8", "--heldout-ratio", "0.125"]
+    tail = ["-k", "8", "-m", "8", "-n", "8", "-x", "20", "-i", "20",
+            "--device", "cpu"]
+    messages = _messages(gen + tail + ["--dump-data", "--dump-file", cache,
+                                       "--cache-format", fmt], caplog)
+    assert not _series(messages)
+    assert any(m.startswith(f"dataset cache ({fmt}) written") for m in messages)
+    loaded = _messages(tail + ["--load-data", "--load-file", cache], caplog)
+    assert any(m.startswith(f"Loaded {cache} (N=300") for m in loaded)
+    assert "heldout_ratio=0.125" in next(m for m in loaded
+                                         if m.startswith("config: "))
+    direct = _messages(gen + tail, caplog)
+    assert _series(loaded) == _series(direct) and len(_series(direct)) == 2
+    assert cli.main(tail + ["--load-data"]) == 1
+    assert cli.main(gen + tail + ["--dump-data"]) == 1
+
+
+def test_cli_train_ppx_lines(caplog):
+    """--calc-train-ppx --train-ppx-ratio: a train_ppx[i] line after
+    every ppx[i] but ppx[0], from the fused series and from the host
+    loop; without the flag none; the MMSB learner keeps no training
+    population and logs none."""
+    base = TINY[:TINY.index("--window")] + ["--device", "cpu"]
+    flags = ["--calc-train-ppx", "--train-ppx-ratio", "0.05"]
+    for extra in (["--window", "4"], ["--no-device-sampling"]):
+        messages = _messages(base + extra + flags, caplog)
+        train = _series(messages, "train_ppx")
+        assert sorted(train) == [20, 40, 60]
+        assert all(1.0 < p < float("inf") for p in train.values())
+        order = [m.split("[")[0] for m in messages
+                 if m.startswith(("ppx[", "train_ppx["))]
+        assert order == ["ppx"] + ["ppx", "train_ppx"] * 3
+        assert "training_ppx_ratio=0.05" in _config_echo(caplog)
+    assert not _series(_messages(base + ["--window", "4"], caplog),
+                       "train_ppx")
+    assert not _series(_messages(base + ["--model", "mmsb"] + flags, caplog),
+                       "train_ppx")
+
+
+def test_cli_noise_free_and_window_impl(caplog):
+    """--phi-disable-noise trains (a deterministic phi update) and
+    --window-impl jnp gives the default's series on the CPU, character
+    for character; the log says which version of the window runs."""
+    base = TINY[:TINY.index("--window")] + ["--device", "cpu", "--window", "4"]
+    default = _messages(base + ["--phi-disable-noise"], caplog)
+    assert "phi_disable_noise=True" in _config_echo(caplog)
+    assert any("windows of 4 steps run the plain PyTorch version of the "
+               "window (--window-impl pallas on cpu)" in m for m in default)
+    golden = _messages(base + ["--phi-disable-noise", "--window-impl", "jnp"],
+                       caplog)
+    assert any("(--window-impl jnp on cpu)" in m for m in golden)
+    lines = [[m for m in ms if m.startswith("ppx[")]
+             for ms in (default, golden)]
+    assert len(lines[0]) == 4 and lines[0] == lines[1]
+    series = _series(default)
+    assert series[60] < series[0]
+    noisy = _series(_messages(base, caplog))
+    assert noisy[0] == series[0] and noisy[60] != series[60]
 
 
 HOST = ["--synthetic", "400,12", "-k", "16", "-x", "60", "-i", "20",
@@ -294,13 +443,14 @@ def test_cli_cuda_without_gpu_fails():
 
 
 @pytest.mark.parametrize("engine", ["Learner", "FlatChainLearner",
-                                    "FullMMSBLearner"])
+                                    "FullMMSBLearner", "MMSBChainLearner",
+                                    "MultiChainLearner"])
 def test_learners_default_to_the_card(engine, monkeypatch):
     """The entry points run on the card unless the caller asks for the
     CPU: constructed without a device on a machine without CUDA (forced
     here), each raises, naming the way to the CPU, before anything is
     built; it never quietly runs on the CPU."""
-    from mcmc_ammsb_tpu_torch import chains_flat
+    from mcmc_ammsb_tpu_torch import chains, chains_flat
     from mcmc_ammsb_tpu_torch.models import mmsb
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -309,7 +459,11 @@ def test_learners_default_to_the_card(engine, monkeypatch):
             "FlatChainLearner": lambda: chains_flat.FlatChainLearner(
                 cfg, None, _NoHeldout(), 2),
             "FullMMSBLearner": lambda: mmsb.FullMMSBLearner(
-                cfg.replace(window=4), None, None)}[engine]
+                cfg.replace(window=4), None, None),
+            "MMSBChainLearner": lambda: mmsb.MMSBChainLearner(
+                cfg, None, _NoHeldout(), 2),
+            "MultiChainLearner": lambda: chains.MultiChainLearner(
+                cfg, None, _NoHeldout(), 2)}[engine]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make()
 

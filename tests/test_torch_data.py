@@ -93,3 +93,85 @@ def test_load_snap_edges_gzip(tmp_path):
     _same(data.load_snap_edges(str(path)), jax_data.load_snap_edges(str(path)))
     with pytest.raises(RuntimeError, match="gzip"):
         data.load_snap_edges(str(path), use_native="always")
+
+
+# ---------------------------------------------------------------------------
+# The dataset cache and the training-perplexity population
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def cached_graph():
+    return data.synthetic_edges(300, 8, seed=9)
+
+
+@pytest.mark.parametrize("fmt", ["npz", "ref"])
+def test_dump_then_load_round_trips(cached_graph, tmp_path, fmt):
+    """dump_dataset then load_dataset: N and the edge arrays come back
+    equal with their dtypes, the held-out ratio as the format stores it
+    (float64 in the npz cache, float32 in the reference's layout);
+    load_dataset detects the format."""
+    n, u, v = cached_graph
+    path = str(tmp_path / ("g.npz" if fmt == "npz" else "g.gz"))
+    data.dump_dataset(path, n, 0.01, u, v, fmt=fmt)
+    n2, ratio, u2, v2 = data.load_dataset(path)
+    assert n2 == n
+    assert ratio == (0.01 if fmt == "npz" else float(np.float32(0.01)))
+    _same((u2, v2), (u, v))
+
+
+@pytest.mark.parametrize("fmt", ["npz", "ref"])
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_cache_of_one_package_loads_in_the_other(cached_graph, tmp_path, fmt,
+                                                 writer):
+    n, u, v = cached_graph
+    path = str(tmp_path / ("g.npz" if fmt == "npz" else "g.gz"))
+    dump, load = ((data.dump_dataset, jax_data.load_dataset)
+                  if writer == "port" else
+                  (jax_data.dump_dataset, data.load_dataset))
+    dump(path, n, 0.05, u, v, fmt=fmt)
+    n2, ratio, u2, v2 = load(path)
+    same = (jax_data if writer == "port" else data).load_dataset(path)
+    assert (n2, ratio) == (n, same[1])
+    _same((u2, v2), (u, v))
+    _same(same[2:], (u, v))
+
+
+def test_ref_cache_streams_are_byte_equal(cached_graph, tmp_path):
+    """The reference's layout, byte for byte: the decompressed streams of
+    both packages' dumps are equal (a gzip header carries a time stamp,
+    so the files themselves differ in bytes 4-8), and hold uint64 N,
+    float32 ratio, uint64 count and the packed edges."""
+    import gzip
+
+    n, u, v = cached_graph
+    paths = [str(tmp_path / name) for name in ("port.gz", "jax.gz")]
+    data.dump_dataset(paths[0], n, 0.01, u, v, fmt="ref")
+    jax_data.dump_dataset(paths[1], n, 0.01, u, v, fmt="ref")
+    streams = []
+    for p in paths:
+        with gzip.open(p, "rb") as f:
+            streams.append(f.read())
+    assert streams[0] == streams[1]
+    assert len(streams[0]) == 20 + 8 * len(u)
+    assert int(np.frombuffer(streams[0][:8], "<u8")[0]) == n
+    assert int(np.frombuffer(streams[0][12:20], "<u8")[0]) == len(u)
+    with pytest.raises(ValueError, match="unknown dataset cache format"):
+        data.dump_dataset(paths[0], n, 0.01, u, v, fmt="hdf5")
+    with open(paths[0], "wb") as f:
+        f.write(gzip.compress(streams[0][:-8]))
+    with pytest.raises(IOError, match="header says"):
+        data.load_dataset(paths[0])
+
+
+@pytest.mark.parametrize("ratio", [0.01, 0.1])
+def test_make_training_ppx_edges(cached_graph, ratio):
+    """Array-equal to the JAX package's (np.random.RandomState(777)): the
+    first ratio * |training| training edges, then the sampled non-edges."""
+    n, u, v = cached_graph
+    split = data.generate_sets(n, u, v, heldout_ratio=0.1, seed=10)
+    jsplit = jax_data.DataSplit(**dataclasses.asdict(split))
+    got = data.make_training_ppx_edges(split, ratio)
+    _same(got, jax_data.make_training_ppx_edges(jsplit, ratio))
+    links = int(ratio * len(split.training_u))
+    assert links > 0 and len(got[0]) > links
+    np.testing.assert_array_equal(got[0][:links], split.training_u[:links])

@@ -521,3 +521,174 @@ def test_window_core_cuda_matches_plain_on_gpu():
         a, b = getattr(got, f), getattr(want, f)
         err = float((a - b).abs().max())
         assert err <= 1e-8 + 1e-5 * float(b.abs().max()), f
+
+
+# ---------------------------------------------------------------------------
+# Host-sampled MMSB against the JAX package's
+# ---------------------------------------------------------------------------
+
+def _jax_mmsb_hoist_private(jcfg, edge_set, state, batches):
+    """The draws of JAX's mmsb_train_step and of its mmsb_steps_scan with
+    private neighbors (models/mmsb.py:272-297, 351-368), recomputed from
+    the same keys: (neighbors [S, B, n], phi_noise [S, B, K], t_noise
+    [S, K, K, 2] symmetrized); JAX keys every draw by the step, so one
+    step at a time and a scanned chunk see the same numbers."""
+    s_len, b_sz = batches.nodes.shape
+    steps = state.step_count + jnp.arange(s_len, dtype=jnp.int32)
+    nbr_keys = jax.vmap(
+        lambda s: jax.random.fold_in(state.neighbor_key, s))(steps)
+    neighbors = jax.vmap(lambda k, nd: jax_neighbors(
+        k, nd, jcfg.N, jcfg.num_node_sample))(nbr_keys, batches.nodes)
+    phi_noise = jax.vmap(lambda s: jax_rng.randn(
+        jax.random.fold_in(state.phi_key, s), (b_sz, jcfg.K)))(steps)
+    t_noise = jax.vmap(lambda s: jax_mmsb._symmetrize_noise(
+        jcfg, jax_rng.randn(jax.random.fold_in(state.theta_key, s),
+                            (jcfg.K, jcfg.K, 2))))(steps)
+    return neighbors, phi_noise, t_noise
+
+
+def _host_setup(small_dataset, **kw):
+    from mcmc_ammsb_tpu_torch.sampling import MiniBatchSampler
+
+    n, split, graph = small_dataset
+    cfg = config.Config(
+        **{**dict(K=8, mini_batch_size=8, num_node_sample=8,
+                  device_sampling=False, shared_neighbors=False,
+                  host_sampler="numpy", steps_per_call=10,
+                  mmsb_prior_diag=(1.0, 5.0)), **kw}).finalize(
+        n, split.total_edges, graph.max_fan_out)
+    jcfg = jax_config(cfg)
+    jset = jax_build_edge_set(JaxEdgeSetBackend.ADJACENCY, n, graph.edges_u,
+                              graph.edges_v)
+    tset = build_edge_set(config.EdgeSetBackend.ADJACENCY, n, graph.edges_u,
+                          graph.edges_v, "cpu")
+    jstate = jax_mmsb.init_mmsb_state(jcfg, len(split.heldout_edges_u))
+    tstate = mmsb_state_from_numpy(
+        {f: np.asarray(v) for f, v in jstate._asdict().items()}, cfg, "cpu")
+    sampler = MiniBatchSampler(cfg, graph, split, seed=0)
+    return cfg, jcfg, jset, tset, jstate, tstate, sampler
+
+
+def _compare_host(tstate, jstate, what):
+    """Normwise rtol 5e-5, atol 1e-8 on the whole state, the tolerance
+    of the a-MMSB host slice (tests/test_torch_host_slice.py)."""
+    from torch_parity import assert_normwise
+
+    assert tstate.step_count == int(jstate.step_count)
+    assert tstate.theta_count == int(jstate.theta_count)
+    for f in ("pi", "phi_sum", "theta_b", "b"):
+        assert_normwise(getattr(tstate, f), getattr(jstate, f), 5e-5, 1e-8,
+                        f"{what}: {f}")
+
+
+def test_mmsb_train_step_matches_jax(small_dataset):
+    """10 mmsb_train_steps on host batches (padded lanes hold id 0), with
+    a diagonal prior and a noise temperature, against JAX's
+    mmsb_train_step; the port is handed JAX's keyed draws. Measured max
+    abs: pi 2.0e-7, theta_b 8.5e-6."""
+    cfg, jcfg, jset, tset, jstate, tstate, sampler = _host_setup(
+        small_dataset, mmsb_noise_scale=0.5)
+    stacked = sampler.sample_many(10)
+    assert not stacked.node_mask.all()
+    jbatches = JaxDeviceBatch.from_stacked(stacked)
+    tbatches = learner.DeviceBatch.from_stacked(stacked, "cpu")
+    nbrs, phi_noise, t_noise = (
+        torch.tensor(np.asarray(a)) for a in _jax_mmsb_hoist_private(
+            jcfg, jset, jstate, jbatches))
+    jstep = jax.jit(lambda es, s, b: jax_mmsb.mmsb_train_step(jcfg, es, s, b))
+    for i in range(10):
+        jstate = jstep(jset, jstate, JaxDeviceBatch(*(a[i] for a in jbatches)))
+        tstate = mmsb.mmsb_train_step(
+            cfg, tset, tstate, learner.DeviceBatch(*(a[i] for a in tbatches)),
+            nbrs[i], 0.5 * phi_noise[i], 0.5 * t_noise[i])
+    _compare_host(tstate, jstate, "train_step")
+    assert torch.equal(tstate.theta_b, tstate.theta_b.transpose(0, 1))
+
+
+def test_mmsb_draw_step_operands_shapes_and_modes(small_dataset):
+    """mmsb_draw_step_operands: private neighbors [B, n] that avoid the
+    node itself, phi noise [B, K] and symmetric theta noise [K, K, 2] at
+    the noise temperature; ones (unscaled) in the noise-free mode, the
+    phi stream then untouched."""
+    cfg, _, _, _, _, _, sampler = _host_setup(small_dataset,
+                                              mmsb_noise_scale=0.5)
+    streams = learner.rng.make_streams(cfg, "cpu")
+    batch = learner.DeviceBatch.from_host(sampler.sample(), "cpu")
+    nbrs, phi_noise, t_noise = mmsb.mmsb_draw_step_operands(cfg, streams,
+                                                            batch)
+    assert nbrs.shape == (batch.nodes.shape[0], cfg.num_node_sample)
+    assert not (nbrs == batch.nodes[:, None]).any()
+    assert phi_noise.shape == (batch.nodes.shape[0], cfg.K)
+    assert 0.35 < float(phi_noise.std()) < 0.65
+    assert torch.equal(t_noise, t_noise.transpose(0, 1))
+    quiet = cfg.replace(phi_disable_noise=True)
+    before = streams.phi.get_state().clone()
+    _, ones, t2 = mmsb.mmsb_draw_step_operands(quiet, streams, batch)
+    assert torch.equal(ones, torch.ones_like(ones))
+    assert torch.equal(streams.phi.get_state(), before)
+    assert float(t2.std()) > 0.3
+
+
+def test_mmsb_host_scanned_run_matches_jax(small_dataset):
+    """Two scanned chunks of 10 host-sampled steps (private draws, a
+    diagonal prior) against JAX's mmsb_steps_scan, with an evaluation
+    after each (ppx rtol 1e-5). Measured max abs after chunk
+    0 / 1: pi 2.1e-7 / 2.1e-7, theta_b 2.7e-6 / 4.3e-6."""
+    cfg, jcfg, jset, tset, jstate, tstate, sampler = _host_setup(
+        small_dataset)
+    n, split, _ = small_dataset
+    jho = jax_build_edge_set(JaxEdgeSetBackend.ADJACENCY, n,
+                             split.heldout_u, split.heldout_v)
+    tho = build_edge_set(config.EdgeSetBackend.ADJACENCY, n,
+                         split.heldout_u, split.heldout_v, "cpu")
+    held = (split.heldout_edges_u, split.heldout_edges_v)
+    jscan = jax.jit(lambda es, s, b: jax_mmsb.mmsb_steps_scan(jcfg, es, s, b))
+    for chunk in range(2):
+        stacked = sampler.sample_many(10)
+        jbatches = JaxDeviceBatch.from_stacked(stacked)
+        tbatches = learner.DeviceBatch.from_stacked(stacked, "cpu")
+        nbrs, phi_noise, t_noise = (
+            torch.tensor(np.asarray(a)) for a in _jax_mmsb_hoist_private(
+                jcfg, jset, jstate, jbatches))
+        y_phi = tset.has_edges(tbatches.nodes[:, :, None], nbrs)
+        y_edges = tset.has_edges(tbatches.edges_u, tbatches.edges_v)
+        xs = (tbatches, nbrs, y_phi, phi_noise, t_noise, y_edges, None, None)
+        jstate = jscan(jset, jstate, jbatches)
+        for i in range(10):
+            tstate = mmsb._mmsb_step_body(
+                cfg, tstate, (learner.DeviceBatch(*(a[i] for a in tbatches)),
+                              *(a[i] if a is not None else None
+                                for a in xs[1:])))
+        _compare_host(tstate, jstate, f"chunk {chunk}")
+        jstate, jneg = jax_mmsb.mmsb_perplexity(jcfg, jho, *_j(*held), jstate)
+        tstate, tneg = mmsb.mmsb_perplexity(cfg, tho, *_t(*held), tstate)
+        assert_close(torch.exp(tneg), np.exp(np.asarray(jneg)), 1e-5, 0.0,
+                     f"chunk {chunk}: ppx")
+
+
+def test_mmsb_host_sampled_learner(small_dataset):
+    """FullMMSBLearner without device sampling: the host branch of run
+    (sample_many through the prefetch pipeline, one packed copy,
+    mmsb_steps_scan) trains at every steps_per_call (1 included: the
+    scanned loop, as in JAX), with and without prefetch giving the same
+    bits; run_with_ppx raises as the JAX learner's does."""
+    n, split, graph = small_dataset
+    states = []
+    for prefetch, spc in ((True, 5), (False, 5), (True, 1)):
+        cfg = config.Config(K=8, mini_batch_size=8, num_node_sample=8,
+                            steps_per_call=spc, host_sampler="numpy"
+                            ).finalize(n, split.total_edges,
+                                       graph.max_fan_out)
+        lrn = mmsb.FullMMSBLearner(cfg, graph, split, "cpu",
+                                   prefetch=prefetch)
+        assert lrn.sampler is not None
+        lrn.run(12)
+        assert lrn.state.step_count == 13 and lrn.state.theta_count == 12
+        assert np.isfinite(lrn.heldout_perplexity())
+        with pytest.raises(RuntimeError, match="requires device_sampling"):
+            lrn.run_with_ppx(10, 5)
+        lrn.close()
+        states.append(lrn.state)
+    assert torch.equal(states[0].pi, states[1].pi)
+    assert torch.equal(states[0].theta_b, states[1].theta_b)
+    assert not torch.equal(states[0].pi, states[2].pi)

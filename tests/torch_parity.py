@@ -263,3 +263,58 @@ def blocked(x, b_cap):
     return np.concatenate(
         [x[:, :, :b_cap].reshape(t_win, -1, *x.shape[3:]),
          x[:, :, b_cap:].reshape(t_win, -1, *x.shape[3:])], axis=1)
+
+
+def jax_mmsb_chain_hoist(jcfg, c, edge_set, heldout_set, adjacency, state,
+                         s_len):
+    """The scan operands that the JAX MMSB chain engine's
+    _mmsb_chains_chunk builds (models/mmsb.py:593-650), recomputed with
+    the JAX package's own functions and the same keys, so that they equal
+    the operands the chunk runs on from ``state``."""
+    from functools import partial
+
+    from mcmc_ammsb_tpu.models.mmsb import _symmetrize_noise
+    from mcmc_ammsb_tpu.ops.device_sampling import sample_minibatches_device
+
+    b_cap, e_cap, k = jcfg.max_batch_nodes, jcfg.max_batch_edges, jcfg.K
+    chunk_key = jax.random.fold_in(state.sample_key, state.step_count)
+    ds = sample_minibatches_device(jcfg, edge_set, heldout_set, chunk_key,
+                                   s_len * c, adjacency, alt_period=c)
+
+    def r(x, cap):
+        return x.reshape(s_len, c, cap, *x.shape[2:])
+
+    nodes, node_mask = r(ds.nodes, b_cap), r(ds.node_mask, b_cap)
+    eu, ev = r(ds.edges_u, e_cap), r(ds.edges_v, e_cap)
+    emask = r(ds.edge_mask, e_cap)
+    weight = ds.weight.reshape(s_len, c)
+    steps = state.step_count + jnp.arange(s_len, dtype=jnp.int32)
+    nbr_keys = jax.vmap(
+        lambda s: jax.random.fold_in(state.neighbor_key, s))(steps)
+    if jcfg.shared_neighbors:
+        sentinel = jnp.full((c,), jcfg.N, jnp.int32)
+        neighbors = jax.vmap(lambda key: jax_neighbors(
+            key, sentinel, jcfg.N, jcfg.num_node_sample))(nbr_keys)
+        y_phi = edge_set.has_edges(nodes[..., None],
+                                   neighbors[:, :, None, :])
+    else:
+        flat = nodes.reshape(s_len, c * b_cap)
+        neighbors = jax.vmap(lambda key, nd: jax_neighbors(
+            key, nd, jcfg.N, jcfg.num_node_sample))(nbr_keys, flat)
+        y_phi = edge_set.has_edges(flat[:, :, None], neighbors).reshape(
+            s_len, c, b_cap, -1)
+    if jcfg.phi_disable_noise:
+        phi_noise = jnp.ones((s_len, c, b_cap, k), jnp.float32)
+    else:
+        phi_noise = jax.vmap(lambda s: jax_rng.randn(
+            jax.random.fold_in(state.phi_key, s), (c, b_cap, k)))(steps)
+        if jcfg.mmsb_noise_scale != 1.0:
+            phi_noise = phi_noise * jcfg.mmsb_noise_scale
+    t_noise = jax.vmap(lambda s: jax.vmap(partial(_symmetrize_noise, jcfg))(
+        jax_rng.randn(jax.random.fold_in(state.theta_key, s),
+                      (c, k, k, 2))))(steps)
+    if jcfg.mmsb_noise_scale != 1.0:
+        t_noise = t_noise * jcfg.mmsb_noise_scale
+    y_edges = edge_set.has_edges(eu, ev)
+    return (nodes, node_mask, eu, ev, emask, weight, neighbors, y_phi,
+            phi_noise, t_noise, y_edges)
