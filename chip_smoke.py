@@ -5,7 +5,7 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases, one line each; any failure raises and the exit code is not 0:
   1. device  — a CUDA device is required; prints the card's name and
                power limit as nvidia-smi reports them;
-  2. build   — compiles the three kernels from csrc/ with nvcc, one
+  2. build   — compiles the four kernels from csrc/ with nvcc, one
                process per source, and the native host library
                (csrc/sampler.cpp) with g++, all started together;
      native  — the native CHD build and the numpy build give
@@ -52,7 +52,20 @@ Phases, one line each; any failure raises and the exit code is not 0:
                at T=1 normwise rtol 1e-5, past it (the 1/theta
                conditioning, docs/design.md "Windowed MMSB tolerances")
                finite and no farther from float64 than 2x the plain
-               version; theta bit-symmetric at every shape;
+               version; theta bit-symmetric at every shape; the
+               reference RNG's three entries (csrc/ref_rng_kernel.cu: one
+               thread per stream, a chunk per launch) against the plain
+               version on the same CUDA seeds, values and seeds bit for
+               bit, at the main path's launch shapes: randn_lanes over a
+               200-step chunk of a real host mask of 64 lanes, K=256 (one
+               launch; the plain version takes ~1 s per step, so it
+               draws the last 10 steps from the seeds a 190-step launch
+               leaves, and the 200-step launch's first 190 equal that
+               launch's) and at (200, 256, 2), neighbors_lanes at (200,
+               64, 32) with N = 317,080, gamma_lanes over 317,080 x 32
+               lanes and 8 column blocks (the pi init) and with a = 0.5
+               and 0.3 (the boost pre-pass) on 1280 lanes, with the
+               kernel's and the plain version's times;
   4. slice   — hoisted loops on the GPU against the same loops on the
                CPU from one state and one operand tuple, N=300: the
                a-MMSB windows (normwise rtol 1e-5, atol 1e-8), the
@@ -115,6 +128,25 @@ Phases, one line each; any failure raises and the exit code is not 0:
                (82 window launches; a finite train_ppx line after every
                evaluation); --dump-data then --load-data: the main path's
                ppx[0] from the cache;
+               the reference-RNG and device breadth-first paths
+               (REF_RUNS), exact launch counts: --rng reference (K=256,
+               400 host-sampled steps in chunks of 200: 4 randn_lanes,
+               2 neighbors_lanes, 2 gamma_lanes launches), the same with
+               --phi-impl pallas (200 steps, also 200 by-index phi
+               launches), -s BFLink (1000 device-sampled steps), -s BF
+               --node-coin alternate (400), -s BFNonLink (400),
+               --num-chains 4 -s BFLink (200); ppx falls on BFLink (every
+               chain) and the reference RNG (the BF mix rises on this
+               graph, as in the JAX package and with host sampling); then
+               --profile --auto-tune-window on the main path: no window
+               candidate fails, the stage table comes from a trace of the
+               card's kernels, window_kernel its largest stage;
+     api     — --rng reference against --no-ref-rng-block over 20 steps
+               (the kernel's draws and init are the plain version's: every
+               state field and seed bit-equal), --theta-init libstdc++
+               (theta equals the native stream), window_correction='auto'
+               (run as 'always') against 'always' over 1008 main-path
+               steps (bit-equal, the dirty windows counted);
   6. checkpoint — through the API on the card at N=317,080: run, save, run
                against a fresh learner, restore, run, every state field
                bit-equal and the kernel launches of the two second halves
@@ -129,7 +161,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
                logs "restored checkpoint ... (step=1001)" and its ppx
                stays below the first run's ppx[0];
 then a JSON line of the kernels, the card's name and power limit, and
-the result line last.
+the result line last. Each phase line ends with the seconds since the
+script began.
 """
 
 from __future__ import annotations
@@ -147,7 +180,8 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 RTOL, ATOL = 1e-5, 1e-8
-SOURCES = ("window_kernel", "phi_kernel", "mmsb_window_kernel")
+SOURCES = ("window_kernel", "phi_kernel", "mmsb_window_kernel",
+           "ref_rng_kernel")
 MAIN_ARGS = ["--synthetic", "317080,7", "-k", "256", "-x", "2000",
              "-i", "500", "--device", "cuda"]
 MMSB_ARGS = ["--model", "mmsb", "--synthetic", "317080,7", "-k", "64",
@@ -221,6 +255,47 @@ RESUME_RUNS = {
          "317080,7", "-k", "256", "--steps-per-call", "252"], 252,
         "window_chain", 21),
 }
+# the reference-RNG and device breadth-first paths: name -> (CLI
+# arguments, steps, ppx interval, expected launches of every kernel entry
+# that may be non-zero, must the series fall, messages the log must hold).
+# A --rng reference run draws each chunk's phi noise, theta noise and
+# neighbors in one launch each, and its init in two (theta, pi)
+REF_ARGS = ["--rng", "reference", "--synthetic", "317080,7", "-k", "256",
+            "-x", "400", "-i", "200"]
+REF_RUNS = {
+    "--rng reference": (
+        REF_ARGS, 400, 200, {"randn": 4, "neighbors": 2, "gamma": 2}, True,
+        ["reference RNG: the kernel", "steps_per_call auto-set to 200"]),
+    "--rng reference --phi-impl pallas": (
+        ["--rng", "reference", "--phi-impl", "pallas", "--synthetic",
+         "317080,7", "-k", "256", "-x", "200", "-i", "100"], 200, 100,
+        {"randn": 4, "neighbors": 2, "gamma": 2, "phi_gather": 200}, True,
+        ["reference RNG: the kernel"]),
+    "-s BFLink (device-sampled)": (
+        ["-s", "BFLink", "--synthetic", "317080,7", "-k", "256", "-x",
+         "1000", "-i", "500"], 1000, 500, {}, True,
+        ["device sampling auto-enabled (breadth-first family"]),
+    # the BF mix rises on this graph in both packages and with host
+    # sampling too: the BFNonLink weight (N(N-1)/2 - E)/m dwarfs the links'
+    "-s BF --node-coin alternate": (
+        ["-s", "BF", "--node-coin", "alternate", "--synthetic", "317080,7",
+         "-k", "256", "-x", "400", "-i", "200"], 400, 200, {}, False, []),
+    "-s BFNonLink": (
+        ["-s", "BFNonLink", "--synthetic", "317080,7", "-k", "256", "-x",
+         "400", "-i", "200"], 400, 200, {}, False, []),
+    "--num-chains 4 -s BFLink": (
+        ["--num-chains", "4", "-s", "BFLink", "--synthetic", "317080,7",
+         "-k", "256", "-x", "200", "-i", "100"], 200, 100, {}, True, []),
+}
+PROFILE_ARGS = ["--synthetic", "317080,7", "-k", "256", "-x", "1000", "-i",
+                "500", "--profile", "--auto-tune-window", "--device", "cuda"]
+# steps at the end of the phi-noise chunk the plain version draws in the
+# kernel phase
+REF_PLAIN_STEPS = 10
+REF_API_ARGS = ["--rng", "reference", "--synthetic", "317080,7", "-k", "256",
+                "--steps-per-call", "10"]
+AUTO_ARGS = ["--synthetic", "317080,7", "-k", "256", "--steps-per-call",
+             "1008"]
 # (T, B, n, E, K) of the fused window kernel's checks; the first is the
 # main path's
 WINDOW_SHAPES = [(12, 33, 32, 32, 256), (3, 6, 7, 5, 12),
@@ -251,8 +326,13 @@ TH_TOLS = dict(rtol=0.1, atol=0.15)
 B_TOLS = dict(rtol=0.1, atol=0.05)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str, msg: str) -> None:
-    print(f"[{name}] {msg}", flush=True)
+    """One phase line, ending with the seconds since the script began."""
+    print(f"[{name}] {msg} (at {time.perf_counter() - _T0:.1f} s)",
+          flush=True)
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
@@ -347,7 +427,8 @@ def build_all(kernels, native):
         phase("build", f"{name}: {'; '.join(ptxas)}")
     if not native.available():
         raise AssertionError(f"native host library: {native.build_error}")
-    phase("build", f"3 CUDA sources and {host_lib.name} (g++) built in "
+    phase("build", f"{len(SOURCES)} CUDA sources and {host_lib.name} (g++) "
+          f"built in "
           f"{time.perf_counter() - t0:.2f} s")
 
 
@@ -1120,12 +1201,15 @@ def _counts(mods, what):
     """Reset every kernel's launch count (``what`` None), or read them:
     {kernel: launches}, and "chains", the chains the chain-mode launches
     ran in all."""
-    window, window_mmsb, phi_pallas = mods
+    window, window_mmsb, phi_pallas, refblock = mods
     counters = {"window": window.window_apply_cuda,
                 "window_chain": window.window_chain_apply_cuda,
                 "mmsb": window_mmsb.mmsb_window_apply_cuda,
                 "phi": phi_pallas.phi_update_core_cuda,
-                "phi_gather": phi_pallas.phi_update_rows_cuda}
+                "phi_gather": phi_pallas.phi_update_rows_cuda,
+                "randn": refblock.randn_lanes,
+                "neighbors": refblock.neighbors_lanes,
+                "gamma": refblock.gamma_lanes}
     if what is None:
         for c in counters.values():
             c.launches = 0
@@ -1436,12 +1520,281 @@ def run_cache_main(cli, tmp, main_ppx0):
           f"ppx[0] equal to the main path's")
 
 
-def _api_learner(cli, argv, bench):
-    """The learner the CLI builds for ``argv`` on the bench graph."""
+def _ref_host_chunk(cli, sampler_cls, bench, steps):
+    """A chunk of ``steps`` host batches of the --rng reference path (its
+    64 node lanes and real masks) on the card: (nodes, node_mask)."""
+    n, split, graph = bench
+    args = cli.build_arg_parser().parse_args(REF_ARGS)
+    cli.resolve_fast_defaults(args)
+    cfg = cli.config_from_args(args).finalize(n, split.total_edges,
+                                              graph.max_fan_out)
+    chunk = sampler_cls(cfg, graph, split).sample_many(steps)
+    return (torch.as_tensor(chunk.nodes, device="cuda"),
+            torch.as_tensor(chunk.node_mask, device="cuda"), cfg)
+
+
+def check_ref_rng_kernel(cli, refblock, ref_rng, sampler_cls, bench):
+    """Phase 3, csrc/ref_rng_kernel.cu: each entry against the plain
+    version (rng/reference.py) on the same CUDA seeds, values and seeds
+    bit for bit, at the --rng reference path's launch shapes: the phi
+    noise of a 200-step chunk of real host batches (64 lanes, K=256) in
+    one launch, its theta noise (200, 256 lanes, 2), its neighbor draws
+    (200, 64 lanes, n=32, N=317,080) and the pi init's Gamma draws
+    (317,080 x 32 lanes, 8 column blocks); and Gamma draws with a < 1
+    (the boost pre-pass) on 1280 lanes. The plain phi noise runs a
+    rejection loop per draw (~1 s per step of the chunk on the card), so
+    it draws only the chunk's last REF_PLAIN_STEPS steps, from the seeds a
+    kernel launch over the steps before them leaves; the whole launch's
+    earlier steps equal that launch's values. Kernel times by CUDA events
+    (20 calls at the launch shape), the plain version's by its one
+    comparison call (for the phi noise: its REF_PLAIN_STEPS steps).
+    Returns {entry: (0.0, (ms, plain_ms, bound_ms, bound_by), plain
+    steps)} for the main path's three entries."""
+    nodes, mask, cfg = _ref_host_chunk(cli, sampler_cls, bench, 200)
+    s_len, lanes = mask.shape
+    seeds = ref_rng.make_seeds(cfg.phi_seed, lanes, "cuda")
+    beta_seeds = ref_rng.make_seeds(cfg.beta_seed, cfg.K, "cuda")
+    every = torch.ones(s_len, cfg.K, dtype=torch.bool, device="cuda")
+    width = (cfg.K - 32 * torch.arange(-(-cfg.K // 32), device="cuda")
+             ).clamp(max=32)
+    g_mask = (torch.arange(32, device="cuda")[None, :] < width[:, None]
+              ).repeat(1, cfg.N)
+    g_seeds = ref_rng.make_seeds((11, 113), cfg.N * 32, "cuda")
+    boost_seeds = ref_rng.make_seeds((5, 7), 1280, "cuda")
+    boost_mask = torch.ones(4, 1280, dtype=torch.bool, device="cuda")
+    cut = s_len - REF_PLAIN_STEPS
+    head, head_seeds = refblock.randn_lanes(seeds, cfg.K, mask[:cut])
+
+    def state(streams):
+        # xorshift128+ state: four 32-bit words per stream, read and written
+        return 2 * 16 * streams
+
+    # entry: (kernel, plain, the kernel's (values, seeds) the plain ones
+    # are held against, the bytes the function must move, its float32
+    # operations: one product per Gaussian draw (the ziggurat's j * w), one
+    # for the rest at least)
+    cases = {
+        "randn_lanes": (
+            lambda: refblock.randn_lanes(seeds, cfg.K, mask),
+            lambda: ref_rng.randn_lanes(head_seeds, cfg.K, mask[cut:]),
+            lambda got: (got[0][cut:], got[1]),
+            state(lanes) + nbytes(mask) + s_len * lanes * cfg.K * 4,
+            int(mask.sum()) * cfg.K),
+        "randn_lanes (theta noise)": (
+            lambda: refblock.randn_lanes(beta_seeds, 2, every),
+            lambda: ref_rng.randn_lanes(beta_seeds, 2, every),
+            lambda got: got, state(cfg.K) + s_len * cfg.K * 2 * 4,
+            s_len * cfg.K * 2),
+        "neighbors_lanes": (
+            lambda: refblock.neighbors_lanes(seeds, nodes, mask, cfg.N,
+                                             cfg.num_node_sample),
+            lambda: ref_rng.neighbors_lanes(seeds, nodes, mask, cfg.N,
+                                            cfg.num_node_sample),
+            # node ids and drawn ids fit 32 bits
+            lambda got: got, state(lanes) + nbytes(mask) + s_len * lanes
+            * (1 + cfg.num_node_sample) * 4, 0),
+        "gamma_lanes": (
+            lambda: refblock.gamma_lanes(g_seeds, cfg.eta0, cfg.eta1, g_mask),
+            lambda: ref_rng.gamma_lanes(g_seeds, cfg.eta0, cfg.eta1, g_mask),
+            # the mask follows from K alone (all true at K = 256)
+            lambda got: got, state(g_seeds.shape[0]) + g_mask.numel() * 4,
+            int(g_mask.sum())),
+    }
+    for a in (0.5, 0.3):
+        cases[f"gamma_lanes (a={a}, the boost pre-pass)"] = (
+            lambda a=a: refblock.gamma_lanes(boost_seeds, a, 2.0, boost_mask),
+            lambda a=a: ref_rng.gamma_lanes(boost_seeds, a, 2.0, boost_mask),
+            lambda got: got, state(1280) + boost_mask.numel() * 4,
+            boost_mask.numel())
+    out = {}
+    for name, (kernel, plain, pick, need, draws) in cases.items():
+        got = kernel()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain()
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        for g, w, what in zip(pick(got), want, ("values", "seeds")):
+            if not torch.equal(g, w):
+                raise AssertionError(
+                    f"{name}: kernel {what} differ from the plain version's "
+                    f"at {int((g != w).sum())} of {g.numel()} elements")
+        note = ""
+        if name == "randn_lanes":
+            if not torch.equal(got[0][:cut], head):
+                raise AssertionError(
+                    f"randn_lanes: the {s_len}-step launch's first {cut} "
+                    f"steps differ from a {cut}-step launch's")
+            note = (f" (its last {REF_PLAIN_STEPS} steps, from the seeds a "
+                    f"{cut}-step launch leaves; the first {cut} equal that "
+                    f"launch's)")
+        plain_steps = want[0].shape[0]
+        ms = time_ms(kernel, reps=20)
+        b_ms, by = bound(need, draws)
+        out[name] = (0.0, (ms, plain_ms, b_ms, by), plain_steps)
+        phase("kernel", f"ref_rng {name} {tuple(got[0].shape)}: values and "
+              f"seeds bit-equal to the plain version{note}; {ms:.4f} ms per "
+              f"launch vs plain {plain_ms:.1f} ms (one call of {plain_steps} "
+              f"steps); bound {b_ms * 1e3:.3f} us ({by})")
+    return out
+
+
+def run_ref_main(cli, kmods, name, smi):
+    """Phase 5, one of REF_RUNS: the reference-RNG and device-BF paths,
+    each with a finite series (falling where the strategy shows links)
+    and exact launch counts."""
+    args, steps, interval, expected, falls, needles = REF_RUNS[name]
+    _counts(kmods, None)
+    series, messages = _run_cli(cli, args + ["--device", "cuda"])
+    launches = _counts(kmods, "read")
+    if [s for s, _, _ in series] != list(range(0, steps + 1, interval)):
+        raise AssertionError(f"{name}: unexpected ppx steps {series}")
+    ppx = [p if isinstance(p, list) else [p] for _, p, _ in series]
+    if falls and not all(q < q0 for q, q0 in zip(ppx[-1], ppx[0])):
+        raise AssertionError(f"{name}: ppx does not fall: {ppx}")
+    want = {k: expected.get(k, 0) for k in launches}
+    want["chains"] = launches["chains"]
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, expected {want}")
+    for needle in needles:
+        if not any(needle in m for m in messages):
+            raise AssertionError(f"{name}: the log lacks {needle!r}")
+    chains = len(ppx[0])
+    rate = chains * steps / (series[-1][2] - series[0][2])
+    phase("main", f"{name}: rc 0, ppx[0] {ppx[0]}, ppx[{steps}] {ppx[-1]}; "
+          f"launches {({k: v for k, v in launches.items() if v})}; logged "
+          f"{needles}; {rate:.1f} updates/s{' aggregate' if chains > 1 else ''}"
+          f" over the {steps} steps after ppx[0], evaluations included; "
+          f"{smi}")
+    return launches
+
+
+def run_profile_tune_main(cli, kmods, smi):
+    """Phase 5, --profile --auto-tune-window on the main path: every
+    window candidate probed without a failure, the stage table printed
+    from a trace of the card's kernels."""
+    _counts(kmods, None)
+    t0 = time.perf_counter()
+    series, messages = _run_cli(cli, PROFILE_ARGS)
+    wall = time.perf_counter() - t0
+    tuned = [m for m in messages if m.startswith("window auto-tuned to ")]
+    if len(tuned) != 1 or "failed" in tuned[0]:
+        raise AssertionError(f"--auto-tune-window: {tuned or 'no pick'}")
+    table = [m for m in messages if m.startswith("fused per-step stage "
+                                                 "profile")]
+    if not table or "device-kernel time" not in table[0]:
+        raise AssertionError(f"--profile: no traced device table "
+                             f"{[m for m in messages if 'profile' in m]}")
+    start = messages.index(table[0])
+    end = next(i for i in range(start, len(messages))
+               if messages[i].startswith("TOTAL OPS"))
+    rows = messages[start + 1:end + 1] + [
+        m for m in messages[end + 1:end + 2] if m.startswith("(of OTHER")]
+    # the hand kernel's device time must be in the table, under its stage
+    if not rows[0].startswith("WINDOW_KERNEL"):
+        raise AssertionError(f"--profile: window_kernel is not the largest "
+                             f"stage: {rows}")
+    ppx = [p for _, p, _ in series]
+    if not ppx[-1] < ppx[0]:
+        raise AssertionError(f"--profile --auto-tune-window: ppx {ppx}")
+    phase("main", f"--profile --auto-tune-window: {tuned[0]}; ppx {ppx}; "
+          f"{table[0]}: {rows}; {wall:.1f} s in all; {smi}")
+
+
+def check_ref_api(cli, native, kmods, window, bench, smi):
+    """Checks through the API on the card: --rng reference against
+    --no-ref-rng-block over 20 steps (every state field and seed bit-equal:
+    the kernel's draws, init included, are the plain version's), with the
+    seconds of each; --theta-init libstdc++ (theta the native stream's);
+    window_correction='auto' (run as 'always') against 'always' over 1008
+    main-path steps, bit-equal, with the number of dirty windows."""
+    def state_diffs(a, b):
+        out = []
+        for f, x, y in zip(a._fields, a, b):
+            xs = x if isinstance(x, tuple) else (x,)
+            ys = y if isinstance(y, tuple) else (y,)
+            for u, v in zip(xs, ys):
+                if isinstance(u, torch.Tensor):
+                    if not torch.equal(u, v):
+                        out.append(f)
+                elif u != v:
+                    out.append(f)
+        return out
+
+    runs, secs = [], []
+    for extra in ([], ["--no-ref-rng-block"]):
+        lrn = _api_learner(cli, REF_API_ARGS + extra, bench)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lrn.run(20)
+        secs.append(time.perf_counter() - t0)
+        runs.append(lrn.state)
+        lrn.close()
+    diffs = state_diffs(*runs)
+    if diffs:
+        raise AssertionError(f"--no-ref-rng-block differs in {diffs}")
+    phase("api", f"--rng reference vs --no-ref-rng-block, 20 steps in "
+          f"chunks of 10, K=256: every state field and the three seed "
+          f"arrays bit-equal; {secs[0]:.3f} s with the kernel, {secs[1]:.3f} "
+          f"s with the plain version; {smi}")
+
+    lrn = _api_learner(cli, REF_API_ARGS + ["--theta-init", "libstdc++"],
+                       bench)
+    want = native.ref_theta_init(lrn.cfg.eta0, lrn.cfg.eta1,
+                                 lrn.cfg.init_seed, 2 * lrn.cfg.K)
+    if not torch.equal(lrn.state.theta.cpu().reshape(-1),
+                       torch.from_numpy(want)):
+        raise AssertionError("--theta-init libstdc++: theta is not the "
+                             "native stream's")
+    lrn.close()
+    phase("api", "--theta-init libstdc++: theta equals native.ref_theta_init "
+          "(std::mt19937 + std::gamma_distribution) bit for bit")
+
+    # 'auto' runs as 'always'; the windows JAX would skip the codes of
+    # are counted by _dirty_windows on the operands of the call
+    found, real = [], window.iter_windows
+
+    def counted(cfg, xs, nbrs):
+        t = cfg.window
+        s_len = nbrs.shape[0] // t * t
+        found.append(int(window._dirty_windows(
+            *(a[:s_len].reshape(s_len // t, t, -1)
+              for a in (xs[0].nodes, xs[0].node_mask, nbrs)), t).sum()))
+        return real(cfg, xs, nbrs)
+
+    states = []
+    for corr in ("always", "auto"):
+        lrn = _api_learner(cli, AUTO_ARGS, bench, window_correction=corr)
+        found.clear()
+        window.iter_windows = counted
+        _counts(kmods, None)
+        try:
+            lrn.run(1008)
+        finally:
+            window.iter_windows = real
+        launches = _counts(kmods, "read")["window"]
+        states.append(lrn.state)
+        lrn.close()
+        if launches != 84:
+            raise AssertionError(f"window_correction={corr!r}: {launches} "
+                                 f"window launches")
+    diffs = state_diffs(*states)
+    if diffs:
+        raise AssertionError(f"window_correction='auto' differs in {diffs}")
+    phase("api", f"window_correction='auto' (run as 'always') vs 'always', "
+          f"1008 main-path steps: every state field bit-equal; "
+          f"{sum(found)} of 84 windows dirty, 84 window launches each")
+
+
+def _api_learner(cli, argv, bench, **cfg_fields):
+    """The learner the CLI builds for ``argv`` on the bench graph, with
+    ``cfg_fields`` replaced in its config."""
     n, split, graph = bench
     args = cli.build_arg_parser().parse_args(argv)
     cli.resolve_fast_defaults(args)
-    cfg = cli.config_from_args(args)
+    cfg = cli.config_from_args(args).replace(**cfg_fields)
     if args.num_chains > 1:
         cfg = cfg.replace(device_sampling=True)
     cfg = cfg.finalize(n, split.total_edges, graph.max_fan_out)
@@ -1545,6 +1898,9 @@ def main() -> int:
     from mcmc_ammsb_tpu_torch.ops import (device_sampling, edgeset, neighbor,
                                           phi_pallas, window, window_mmsb)
     from mcmc_ammsb_tpu_torch.ops import phi as phi_ops
+    from mcmc_ammsb_tpu_torch.rng import reference as ref_rng
+    from mcmc_ammsb_tpu_torch.rng import refblock
+    from mcmc_ammsb_tpu_torch.sampling import MiniBatchSampler
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1565,10 +1921,11 @@ def main() -> int:
     phi = check_phi_kernel(phi_pallas, kernels, testing)
     m_err, m_t = check_mmsb_kernel(window, window_mmsb, kernels, testing,
                                    phi_ops, smi)
+    rr = check_ref_rng_kernel(cli, refblock, ref_rng, MiniBatchSampler, bench)
     smods = (data, config, learner_mod, device_sampling, mmsb)
     check_slices(smods, window, window_mmsb, phi_pallas, chains_flat, testing)
     check_mmsb_engine_slices(smods, testing)
-    kmods = (window, window_mmsb, phi_pallas)
+    kmods = (window, window_mmsb, phi_pallas, refblock)
     main_l, main_ppx0 = run_main(cli, kmods)
     mmsb_l = run_mmsb_main(cli, kmods)
     phi_l = run_phi_main(cli, kmods)
@@ -1579,6 +1936,9 @@ def main() -> int:
     for name in NEW_RUNS:
         run_new_main(cli, kmods, name, smi)
     run_train_ppx_main(cli, kmods, smi)
+    ref_l = {name: run_ref_main(cli, kmods, name, smi) for name in REF_RUNS}
+    run_profile_tune_main(cli, kmods, smi)
+    check_ref_api(cli, native, kmods, window, bench, smi)
     with tempfile.TemporaryDirectory() as tmp:
         run_cache_main(cli, tmp, main_ppx0)
         for name in RESUME_RUNS:
@@ -1589,6 +1949,12 @@ def main() -> int:
         # no single PyTorch call computes any of these functions
         return {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2],
                 "bound_by": t[3], "library_ms": None}
+
+    def ref_times(name):
+        # ms and bound_ms are the main path's launch (a 200-step chunk);
+        # plain_ms covers the plain_steps the plain version drew of it
+        err, t, plain_steps = rr[name]
+        return {"max_abs_err": err, **times(t), "plain_steps": plain_steps}
 
     src = "mcmc_ammsb_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
@@ -1622,6 +1988,29 @@ def main() -> int:
          "replaces": "mcmc_ammsb_tpu/ops/phi_pallas.py:84",
          "launches": phi_l["phi_gather"],
          "max_abs_err": phi["by-index"][0], **times(phi["by-index"][1:])},
+        # the reference RNG: one thread per stream, a chunk per launch;
+        # launches are the --rng reference run's (400 steps, chunks of 200:
+        # the phi and theta noise and the neighbors of each chunk, the
+        # theta and pi init)
+        {"name": "ref_rng_randn_lanes", "route": "cuda",
+         "source": src + "ref_rng_kernel.cu",
+         "replaces": "mcmc_ammsb_tpu/rng/refblock.py:144,291 (no "
+                     "pallas_call)",
+         "launches": ref_l["--rng reference"]["randn"],
+         **ref_times("randn_lanes")},
+        {"name": "ref_rng_neighbors_lanes", "route": "cuda",
+         "source": src + "ref_rng_kernel.cu",
+         "replaces": "mcmc_ammsb_tpu/rng/refblock.py:144,291 (no "
+                     "pallas_call)",
+         "launches": ref_l["--rng reference"]["neighbors"],
+         **ref_times("neighbors_lanes")},
+        {"name": "ref_rng_gamma_lanes", "route": "cuda",
+         "source": src + "ref_rng_kernel.cu",
+         "replaces": "mcmc_ammsb_tpu/rng/refblock.py:144,291 (no "
+                     "pallas_call; the init's rand_gamma, "
+                     "mcmc_ammsb_tpu/learner.py:129)",
+         "launches": ref_l["--rng reference"]["gamma"],
+         **ref_times("gamma_lanes")},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -366,6 +366,17 @@ class FlatChainLearner(Learner):
         super().__init__(cfg.replace(device_sampling=True), graph, split,
                          device)
 
+    def print_stage_profile(self, log=print, iters=None) -> None:
+        """The traced per-stage table of the chain loop; no unfused
+        fallback (the JAX chain engine has none)."""
+        from mcmc_ammsb_tpu_torch.utils import profiling
+
+        prof = self.fused_stage_profile(iters)
+        if prof["source"] == "none" or prof["total_op_seconds"] <= 0:
+            log("trace captured no attributable device ops")
+            return
+        profiling.format_stage_table(prof, prof["steps"], log)
+
     @staticmethod
     def _check(cfg: Config) -> None:
         """The JAX FlatChainLearner's guards (chains_flat.py:486-501)."""

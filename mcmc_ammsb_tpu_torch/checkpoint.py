@@ -84,19 +84,31 @@ def _streams(learner) -> list:
     return list(sets) if sets is not None else [learner.streams]
 
 
+def _leaf(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    if v is None:
+        return np.zeros(0, np.float32)
+    return np.asarray(int(v), np.int32)
+
+
 def state_leaves(state) -> List[np.ndarray]:
     """The state's fields in field order as host arrays: tensors copied
     to the host, the host counters as int32 scalars, an absent optional
-    field as an empty float32 array."""
+    field as an empty float32 array, and a field that is itself a tuple
+    of tensors (the reference RNG's ``RefRngState``) as its tensors in
+    turn, as the JAX package flattens it."""
     leaves = []
     for v in state:
-        if isinstance(v, torch.Tensor):
-            leaves.append(v.detach().cpu().numpy())
-        elif v is None:
-            leaves.append(np.zeros(0, np.float32))
+        if isinstance(v, tuple):
+            leaves.extend(_leaf(x) for x in v)
         else:
-            leaves.append(np.asarray(int(v), np.int32))
+            leaves.append(_leaf(v))
     return leaves
+
+
+def _leaf_count(state) -> int:
+    return sum(len(v) if isinstance(v, tuple) else 1 for v in state)
 
 
 def _collect_host_state(learner, num_leaves: int):
@@ -121,7 +133,7 @@ def _collect_host_state(learner, num_leaves: int):
 
 
 def _num_leaves(learner) -> int:
-    return sum(len(s) for s in _states(learner))
+    return sum(_leaf_count(s) for s in _states(learner))
 
 
 def _check_manifest(manifest: dict, learner) -> None:
@@ -211,19 +223,32 @@ def save_checkpoint(path: str, learner, compress: bool = False) -> None:
     os.replace(tmp, path)
 
 
+def _restore_tensor(name, old, leaf):
+    if tuple(old.shape) != tuple(leaf.shape):
+        raise ValueError(
+            f"checkpoint geometry mismatch: {name} has shape "
+            f"{tuple(leaf.shape)}, the learner's {tuple(old.shape)}")
+    old.copy_(torch.from_numpy(np.ascontiguousarray(leaf)))
+    return old
+
+
 def _restore_state(ref, leaves):
     """``ref`` with the leaves' values: tensors are copied INTO ref's
     buffers (their device, their dtype; never an alias of a host array),
-    the counters become host ints."""
-    fields = {}
-    for name, old, leaf in zip(ref._fields, ref, leaves):
+    the counters become host ints, a tuple field takes one leaf per
+    tensor."""
+    fields, at = {}, 0
+    for name, old in zip(ref._fields, ref):
+        if isinstance(old, tuple):
+            fields[name] = type(old)(*(
+                _restore_tensor(f"{name}.{sub}", x, leaves[at + i])
+                for i, (sub, x) in enumerate(zip(old._fields, old))))
+            at += len(old)
+            continue
+        leaf = leaves[at]
+        at += 1
         if isinstance(old, torch.Tensor):
-            if tuple(old.shape) != tuple(leaf.shape):
-                raise ValueError(
-                    f"checkpoint geometry mismatch: {name} has shape "
-                    f"{tuple(leaf.shape)}, the learner's {tuple(old.shape)}")
-            old.copy_(torch.from_numpy(np.ascontiguousarray(leaf)))
-            fields[name] = old
+            fields[name] = _restore_tensor(name, old, leaf)
         elif old is None:
             fields[name] = None
         else:
@@ -242,9 +267,10 @@ def load_checkpoint(path: str, learner):
     refs = _states(learner)
     at, restored = 0, []
     for ref in refs:
+        n = _leaf_count(ref)
         restored.append(_restore_state(
-            ref, [z[f"leaf_{i}"] for i in range(at, at + len(ref))]))
-        at += len(ref)
+            ref, [z[f"leaf_{i}"] for i in range(at, at + n)]))
+        at += n
     if getattr(learner, "states", None) is not None:
         learner.states = restored
     else:

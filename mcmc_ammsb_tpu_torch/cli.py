@@ -76,7 +76,6 @@ log = logging.getLogger("mcmc_ammsb_tpu_torch")
 #: (argparse dest, the only accepted value, ROADMAP queue 1 item).
 _UNPORTED = (
     ("mesh", "", "item 14 (multi-GPU)"),
-    ("profile", False, "item 13 (profiling)"),
     ("checkpoint_backend", "npz", "item 15 (the orbax backend)"),
     ("checkpoint_ref", "", "item 15 (reference-format checkpoints)"),
     ("restore_ref", "", "item 15 (reference-format checkpoints)"),
@@ -114,9 +113,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--ppx-interval", "-i", type=int, default=100)
     p.add_argument("--max-iters", "-x", type=int, default=100)
     p.add_argument("--sample", "-s", default="Node",
-                   help="Node|NodeLink|NodeNonLink|BF|BFLink|BFNonLink "
-                        "(the BF family is host-sampled: its device "
-                        "samplers are not ported yet)")
+                   help="Node|NodeLink|NodeNonLink|BF|BFLink|BFNonLink")
     p.add_argument("--phi-seed", type=int, nargs=2, default=(42, 43))
     p.add_argument("--beta-seed", type=int, nargs=2, default=(44, 45))
     p.add_argument("--neighbor-seed", type=int, nargs=2, default=(56, 57))
@@ -125,7 +122,21 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--edgeset", choices=[m.value for m in EdgeSetBackend],
                    default=EdgeSetBackend.AUTO.value)
     p.add_argument("--rng", choices=[m.value for m in RngBackend],
-                   default=RngBackend.NATIVE.value)
+                   default=RngBackend.NATIVE.value,
+                   help="native = torch generators; reference = the "
+                        "reference's bit-exact xorshift128+ streams "
+                        "(rng/reference.py; host-sampled by default)")
+    p.add_argument("--no-ref-rng-block", dest="ref_rng_block",
+                   action="store_false", default=True,
+                   help="with --rng reference: draw with the plain "
+                        "PyTorch version (rng/reference.py) instead of the "
+                        "kernel (csrc/ref_rng_kernel.cu); the same bits")
+    p.add_argument("--theta-init", choices=["native", "libstdc++"],
+                   default="native",
+                   help="theta init stream: libstdc++ reproduces the "
+                        "reference's std::mt19937 + "
+                        "std::gamma_distribution host stream through the "
+                        "native library")
     p.add_argument("--pi-dtype", choices=["float32", "bfloat16"],
                    default="float32")
     p.add_argument("--calc-train-ppx", action="store_true",
@@ -214,9 +225,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "(rounded up to eval-loop boundaries)")
     p.add_argument("--restore", type=str, default="",
                    help="restore a checkpoint before training")
+    p.add_argument("--auto-tune-window", action="store_true",
+                   help="probe candidate window sizes on the device before "
+                        "training and keep the fastest (autotune.py)")
+    p.add_argument("--profile", action="store_true",
+                   help="print the per-stage table at exit: the device "
+                        "time of a traced chunk by stage "
+                        "(utils/profiling.py)")
     # engines of the JAX CLI that the port does not have yet (_UNPORTED)
     p.add_argument("--mesh", type=str, default="")
-    p.add_argument("--profile", action="store_true")
     p.add_argument("--checkpoint-backend", choices=["npz", "orbax"],
                    default="npz")
     p.add_argument("--checkpoint-ref", type=str, default="")
@@ -236,27 +253,27 @@ def resolve_fast_defaults(args) -> None:
     rule (mcmc_ammsb_tpu/cli.py:297-375): device sampling + shared
     neighbor draws + 1000-step chunks whenever the configuration supports
     them, host sampling with private draws and chunks of min(200, ppx
-    interval) otherwise (so for --phi-impl pallas), and T-step windows
-    for the a-MMSB only (an MMSB run windows only with an explicit
-    --window N). The reference-exact slow path stays reachable:
-    --no-device-sampling --no-shared-neighbors --steps-per-call 1.
-
-    One departure: the JAX CLI also turns device sampling on for the
-    breadth-first family; its device samplers are not ported yet (ROADMAP
-    queue 1 item 9), so here the BF family resolves to host sampling."""
+    interval) otherwise (so for --phi-impl pallas and --rng reference),
+    and T-step windows for the a-MMSB only (an MMSB run windows only with
+    an explicit --window N). The breadth-first family is device-sampled
+    too (the exact host-FIFO replay), with private draws and no windows.
+    The reference-exact slow path stays reachable:
+    --no-device-sampling --no-shared-neighbors --steps-per-call 1."""
     strategy = SampleStrategy.parse(args.sample)
     native_jnp = (args.rng == RngBackend.NATIVE.value
                   and args.phi_impl == PhiImpl.JNP.value)
     fast_ok = strategy in _NODE_FAMILY and native_jnp
+    bf_ok = strategy in _BF_FAMILY and native_jnp
     if args.device_sampling is None:
-        args.device_sampling = fast_ok
+        args.device_sampling = fast_ok or bf_ok
         if fast_ok:
             log.info("device sampling auto-enabled (Node-family strategy, "
                      "native RNG); --no-device-sampling restores host "
                      "sampling")
-        elif strategy in _BF_FAMILY and native_jnp:
-            log.info("host sampling: the device breadth-first samplers "
-                     "are not ported yet (ROADMAP queue 1 item 9)")
+        elif bf_ok:
+            log.info("device sampling auto-enabled (breadth-first family, "
+                     "exact host-FIFO replay); --no-device-sampling "
+                     "restores host sampling")
     if args.shared_neighbors is None:
         args.shared_neighbors = fast_ok and bool(args.device_sampling)
     if args.steps_per_call <= 0:
@@ -301,6 +318,8 @@ def config_from_args(args) -> Config:
         phi_impl=PhiImpl(args.phi_impl),
         edgeset_backend=EdgeSetBackend(args.edgeset),
         rng_backend=RngBackend(args.rng),
+        ref_rng_block=args.ref_rng_block,
+        theta_init=args.theta_init,
         pi_dtype=args.pi_dtype,
         steps_per_call=args.steps_per_call,
         window=args.window,
@@ -411,6 +430,8 @@ def main(argv=None) -> int:
         log.info("window auto-disabled: max_batch_nodes=%d > 64",
                  cfg.max_batch_nodes)
         cfg = cfg.replace(window=0)
+    if args.auto_tune_window:
+        cfg = _auto_tune_window(args, cfg, graph, split, device)
     log.info("Loaded %s (N=%d, E=%d, training max fan out = %d)",
              args.load_file or args.file or args.synthetic
              or args.synthetic_powerlaw, cfg.N, cfg.E, cfg.max_fan_out)
@@ -426,6 +447,13 @@ def main(argv=None) -> int:
 
     log.info("edge sets: training %s, held-out %s",
              learner.training_set.backend, learner.heldout_set.backend)
+    if cfg.rng_backend == RngBackend.REFERENCE:
+        plain = device.type != "cuda" or not cfg.ref_rng_block
+        log.info("reference RNG: %s (--rng reference%s on %s)",
+                 "the plain PyTorch version (rng/reference.py)" if plain
+                 else "the kernel (csrc/ref_rng_kernel.cu)",
+                 "" if cfg.ref_rng_block else " --no-ref-rng-block",
+                 device.type)
     if cfg.window > 1 and args.model == "ammsb":
         plain = device.type != "cuda" or cfg.window_impl == "jnp"
         log.info("windows of %d steps run %s (--window-impl %s on %s)",
@@ -467,6 +495,32 @@ def main(argv=None) -> int:
         signal.signal(signal.SIGINT, previous)
         learner.close()
     return 0
+
+
+def _auto_tune_window(args, cfg: Config, graph, split, device) -> Config:
+    """--auto-tune-window (the JAX CLI's rule, cli.py:618-644): the
+    single-chain and flat-chain a-MMSB engines probe every candidate
+    window size and keep the fastest; the others keep their window."""
+    if args.model == "mmsb" or (args.num_chains > 1
+                                and args.chain_engine != "flat"):
+        log.warning("--auto-tune-window supports the single-chain and "
+                    "flat-chain engines; keeping window=%d", cfg.window)
+        return cfg
+    from mcmc_ammsb_tpu_torch.autotune import tune_window
+
+    def make(c):
+        if args.num_chains > 1:
+            return FlatChainLearner(c, graph, split, args.num_chains, device)
+        return Learner(c, graph, split, device)
+
+    smem = None
+    if device.type == "cuda":
+        from mcmc_ammsb_tpu_torch import kernels
+        smem = kernels.smem_limit(device)
+    cfg, table = tune_window(cfg, make, smem_limit=smem)
+    log.info("window auto-tuned to %d (probed %s)", cfg.window,
+             {w: (f"{r:.0f}/s" if r else "failed") for w, r in table.items()})
+    return cfg
 
 
 def _fmt_ppx(ppx) -> str:
@@ -542,6 +596,9 @@ def _train(args, cfg: Config, learner: Learner, signaled: dict) -> None:
                  max(1, cfg.steps_per_call), float(np.max(r)),
                  float(np.median(r)))
     learner.print_stats(lambda s: log.info("%s", s))
+    if (args.profile and args.model == "ammsb"
+            and hasattr(learner, "print_stage_profile")):
+        learner.print_stage_profile(lambda s: log.info("%s", s))
 
 
 if __name__ == "__main__":

@@ -249,6 +249,7 @@ class Config:
     # auto: lax.cond picks the corrected kernel only for windows with
     #       intra-window collisions (the predicate is a hoisted
     #       integer compare; kept as the measured-slower variant).
+    #       The port accepts it and runs "always" (the same bits).
     # pi STORAGE precision. Compute stays fp32 everywhere (gathered
     # rows are upcast before the SGRLD math; staged rows are written
     # back at storage precision). "bfloat16" halves the pi HBM

@@ -10,7 +10,7 @@ import torch
 
 from mcmc_ammsb_tpu_torch.chains_flat import ChainState
 from mcmc_ammsb_tpu_torch.config import Config
-from mcmc_ammsb_tpu_torch.learner import TrainState
+from mcmc_ammsb_tpu_torch.learner import RefRngState, TrainState
 from mcmc_ammsb_tpu_torch.models.mmsb import MMSBState
 from mcmc_ammsb_tpu_torch.ops.edgeset import EdgeSet
 
@@ -30,35 +30,46 @@ def _tensors(arrays: dict, cfg: Config, device, num_chains: int = 1):
 
 def state_from_numpy(arrays: dict, cfg: Config, device) -> TrainState:
     """``arrays`` maps the JAX ``TrainState`` field names to numpy
-    arrays; its RNG keys and other fields the port keeps elsewhere are
-    ignored. Tensors are copies: the port updates pi in place."""
+    arrays (the reference RNG's seeds as ``ref_seeds.phi``,
+    ``ref_seeds.beta`` and ``ref_seeds.neighbor``, uint32 [L, 4]); its RNG
+    keys and other fields the port keeps elsewhere are ignored. Tensors
+    are copies: the port updates pi in place."""
     tensor = _tensors(arrays, cfg, device)
+    ref_seeds = None
+    if "ref_seeds.phi" in arrays:
+        ref_seeds = RefRngState(*(
+            torch.tensor(np.asarray(arrays[f"ref_seeds.{f}"], np.int64),
+                         device=device) for f in RefRngState._fields))
     return TrainState(
         pi=tensor("pi"), phi_sum=tensor("phi_sum"), theta=tensor("theta"),
         beta=tensor("beta"), step_count=int(arrays["step_count"]),
         beta_count=int(arrays["beta_count"]),
         ppx_per_edge=tensor("ppx_per_edge"),
-        ppx_count=int(arrays["ppx_count"]),
+        ppx_count=int(arrays["ppx_count"]), ref_seeds=ref_seeds,
         train_ppx_per_edge=(tensor("train_ppx_per_edge")
                             if "train_ppx_per_edge" in arrays else None),
         train_ppx_count=int(arrays.get("train_ppx_count", 0)))
 
 
-#: Leaf order of the JAX package's ``TrainState`` with the native RNG
-#: (mcmc_ammsb_tpu/learner.py:60-87; ``ref_seeds`` is None there and has
-#: no leaf). The four keys have no counterpart in the port's state.
+#: Leaf order of the JAX package's ``TrainState``
+#: (mcmc_ammsb_tpu/learner.py:60-87). ``ref_seeds`` is None with the
+#: native RNG and has no leaf; with the reference RNG its three arrays sit
+#: after ``neighbor_key``. The four keys have no counterpart in the port's
+#: state.
 _JAX_TRAIN_STATE_LEAVES = (
     "pi", "phi_sum", "theta", "beta", "step_count", "beta_count",
     "ppx_per_edge", "ppx_count", "phi_key", "beta_key", "neighbor_key",
     "sample_key", "train_ppx_per_edge", "train_ppx_count")
+_JAX_REF_LEAVES = tuple(f"ref_seeds.{f}" for f in RefRngState._fields)
 
 
 def state_from_jax_checkpoint(path: str, cfg: Config, device) -> TrainState:
     """The port's ``TrainState`` from an npz checkpoint that the JAX
     package's ``save_checkpoint`` wrote for its single-chain ``Learner``
-    (``leaf_i`` arrays in the field order of its ``TrainState``). The
-    four key leaves are skipped: the port's streams are generators seeded
-    from the config, so the run goes on with the port's own draws."""
+    (``leaf_i`` arrays in the field order of its ``TrainState``), with the
+    native RNG or the reference RNG (whose seeds the run continues from).
+    The four key leaves are skipped: the port's native streams are
+    generators seeded from the config."""
     import json
 
     z = np.load(path, allow_pickle=False)
@@ -66,13 +77,18 @@ def state_from_jax_checkpoint(path: str, cfg: Config, device) -> TrainState:
     if manifest.get("learner") != "Learner":
         raise ValueError(f"checkpoint of a {manifest.get('learner')}: only "
                          f"the single-chain Learner's state is read")
-    if manifest["num_leaves"] != len(_JAX_TRAIN_STATE_LEAVES):
+    names = list(_JAX_TRAIN_STATE_LEAVES)
+    if manifest["num_leaves"] == len(names) + len(_JAX_REF_LEAVES):
+        at = names.index("neighbor_key") + 1
+        names[at:at] = _JAX_REF_LEAVES
+    if manifest["num_leaves"] != len(names):
         raise ValueError(
             f"checkpoint has {manifest['num_leaves']} state leaves, the "
-            f"native-RNG TrainState has {len(_JAX_TRAIN_STATE_LEAVES)} "
-            f"(saved with the reference RNG?)")
-    arrays = {name: z[f"leaf_{i}"] for i, name in
-              enumerate(_JAX_TRAIN_STATE_LEAVES) if not name.endswith("_key")}
+            f"JAX TrainState has {len(_JAX_TRAIN_STATE_LEAVES)} (native RNG) "
+            f"or {len(_JAX_TRAIN_STATE_LEAVES) + len(_JAX_REF_LEAVES)} "
+            f"(reference RNG)")
+    arrays = {name: z[f"leaf_{i}"] for i, name in enumerate(names)
+              if not name.endswith("_key")}
     return state_from_numpy(arrays, cfg, device)
 
 

@@ -62,9 +62,8 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from mcmc_ammsb_tpu_torch import rng
-from mcmc_ammsb_tpu_torch.config import (Config, PhiImpl, RngBackend,
-                                         SampleStrategy)
+from mcmc_ammsb_tpu_torch import native, rng
+from mcmc_ammsb_tpu_torch.config import Config, PhiImpl, RngBackend
 from mcmc_ammsb_tpu_torch.data import (DataSplit, Graph,
                                        make_training_ppx_edges)
 from mcmc_ammsb_tpu_torch.ops import beta as beta_ops
@@ -76,14 +75,31 @@ from mcmc_ammsb_tpu_torch.ops.device_sampling import (
 from mcmc_ammsb_tpu_torch.ops.edgeset import EdgeSet, build_edge_set
 from mcmc_ammsb_tpu_torch.ops.neighbor import sample_neighbors
 from mcmc_ammsb_tpu_torch.ops.window import index_operands, windowed_scan
+from mcmc_ammsb_tpu_torch.rng import reference as ref_rng
+from mcmc_ammsb_tpu_torch.rng import refblock
 from mcmc_ammsb_tpu_torch.sampling import (MiniBatch, MiniBatchSampler,
                                            PrefetchingSampler, StackedBatches)
+from mcmc_ammsb_tpu_torch.utils.profiling import stage
 from mcmc_ammsb_tpu_torch.utils.timing import StageTimers
+
+
+class RefRngState(NamedTuple):
+    """The reference RNG's per-thread xorshift128+ streams, [L, 4] int64
+    words each (``rng/reference.py``): one per minibatch node lane for the
+    phi noise (K draws per step) and for the neighbor draws, one per
+    community for the theta noise (r0, r1 per step). They persist across
+    steps like the reference's checkpointed seed arrays."""
+
+    phi: torch.Tensor       # [max_batch_nodes, 4]
+    beta: torch.Tensor      # [K, 4]
+    neighbor: torch.Tensor  # [max_batch_nodes, 4]
 
 
 class TrainState(NamedTuple):
     """Sampler state. ``pi`` and ``phi_sum`` are updated in place; the
-    counters are host integers (they set step sizes, never shapes)."""
+    counters are host integers (they set step sizes, never shapes). The
+    fields are the JAX ``TrainState``'s in its order, without its four
+    random keys (the port's ``rng.Streams`` hold those streams)."""
 
     pi: torch.Tensor            # [N, K] row-normalized memberships
     phi_sum: torch.Tensor       # [N] membership row sums
@@ -93,6 +109,8 @@ class TrainState(NamedTuple):
     beta_count: int             # starts at 0
     ppx_per_edge: torch.Tensor  # [H] running per-edge likelihood averages
     ppx_count: int              # number of ppx calls so far
+    # only with the reference RNG (cfg.rng_backend == "reference")
+    ref_seeds: Optional[RefRngState] = None
     # training-perplexity running state ([0] unless cfg.calc_train_ppx;
     # None in a state built by hand without it)
     train_ppx_per_edge: Optional[torch.Tensor] = None
@@ -156,22 +174,9 @@ def _as_stacked(item) -> StackedBatches:
 def check_ported(cfg: Config) -> None:
     """Raise for a configuration whose engine the port lacks, naming
     the ROADMAP item that will port it."""
-    missing = [
-        (cfg.rng_backend != RngBackend.NATIVE,
-         "the reference RNG (item 10)"),
-        (cfg.device_sampling
-         and cfg.strategy not in (SampleStrategy.NODE,
-                                  SampleStrategy.NODE_LINK,
-                                  SampleStrategy.NODE_NON_LINK),
-         "the device BF family (item 9)"),
-        (cfg.pi_dtype != "float32", "bfloat16 pi storage (item 4)"),
-        (cfg.window > 1 and cfg.window_correction != "always",
-         "window_correction='auto' (item 5)"),
-    ]
-    for absent, what in missing:
-        if absent:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP queue 1)")
+    if cfg.pi_dtype != "float32":
+        raise NotImplementedError("bfloat16 pi storage (item 4) is not "
+                                  "ported yet (ROADMAP queue 1)")
 
 
 def check_learner_config(cfg: Config) -> None:
@@ -223,20 +228,70 @@ def gamma_rows(cfg: Config, draws: np.random.Generator, device,
     return pi, phi_sum
 
 
+def init_gamma_reference(cfg: Config, device, plain: bool = False):
+    """(theta [K, 2], phi_raw [N, K]) drawn through the reference RNG
+    (JAX ``_init_gamma_reference``): pi by the device law of
+    RandomGammaAndNormalize (random.cc:106-167), 32 streams per row seeded
+    {11, 113} + i, stream row*32 + l giving columns l, l + 32, ... in turn
+    (one ``gamma_lanes`` call: step t is column block t); theta from 2K
+    streams of the init seed. ``plain`` draws with the plain version on
+    any device (``--no-ref-rng-block``)."""
+    draw = ref_rng if plain else refblock
+    lanes = 32
+    th_seeds = ref_rng.make_seeds(
+        (cfg.init_seed & 0xFFFFFFFF, cfg.init_seed >> 32), 2 * cfg.K, device)
+    th, _ = draw.gamma_lanes(th_seeds, cfg.eta0, cfg.eta1,
+                             torch.ones(1, 2 * cfg.K, dtype=torch.bool,
+                                        device=device))
+    blocks = -(-cfg.K // lanes)
+    col = torch.arange(lanes, device=device)
+    width = (cfg.K - lanes * torch.arange(blocks, device=device)).clamp(
+        max=lanes)
+    mask = (col[None, :] < width[:, None]).repeat(1, cfg.N)   # [T, N*32]
+    g, _ = draw.gamma_lanes(ref_rng.make_seeds((11, 113), cfg.N * lanes,
+                                               device),
+                            cfg.eta0, cfg.eta1, mask)
+    phi_raw = g.reshape(blocks, cfg.N, lanes).permute(1, 0, 2).reshape(
+        cfg.N, blocks * lanes)[:, :cfg.K]
+    return th.reshape(cfg.K, 2), phi_raw.contiguous()
+
+
 def init_state(cfg: Config, heldout_size: int, device,
                dtype=torch.float32, train_ppx_size: int = 0) -> TrainState:
     """theta ~ Gamma(eta0, eta1), beta = theta1/(theta0+theta1); pi and
-    phi_sum from ``gamma_rows``. ``train_ppx_size`` is the size of the
-    training-perplexity population (0 without ``cfg.calc_train_ppx``)."""
-    draws = rng.host_gamma_rng(cfg)
-    theta = gamma_draws(cfg, draws, (cfg.K, 2), device).to(dtype)
-    pi, phi_sum = gamma_rows(cfg, draws, device, dtype)
+    phi_sum from ``gamma_rows``, or with the reference RNG from
+    ``init_gamma_reference``, which also seeds the state's reference
+    streams. ``cfg.theta_init == "libstdc++"`` takes theta from the
+    reference's own host stream (``native.ref_theta_init``).
+    ``train_ppx_size`` is the size of the training-perplexity population
+    (0 without ``cfg.calc_train_ppx``)."""
+    ref_seeds = None
+    if cfg.rng_backend == RngBackend.REFERENCE:
+        theta, phi_raw = init_gamma_reference(cfg, device,
+                                              plain=not cfg.ref_rng_block)
+        theta, phi_raw = theta.to(dtype), phi_raw.to(dtype)
+        phi_sum = phi_raw.sum(dim=-1)
+        pi = phi_raw / phi_sum[:, None]
+        b_cap = cfg.max_batch_nodes
+        ref_seeds = RefRngState(
+            phi=ref_rng.make_seeds(cfg.phi_seed, b_cap, device),
+            beta=ref_rng.make_seeds(cfg.beta_seed, cfg.K, device),
+            neighbor=ref_rng.make_seeds(cfg.neighbor_seed, b_cap, device))
+    else:
+        draws = rng.host_gamma_rng(cfg)
+        theta = gamma_draws(cfg, draws, (cfg.K, 2), device).to(dtype)
+        pi, phi_sum = gamma_rows(cfg, draws, device, dtype)
+    if cfg.theta_init == "libstdc++":
+        # the reference's exact host bit stream (learner.cc:149-153)
+        theta = torch.from_numpy(native.ref_theta_init(
+            cfg.eta0, cfg.eta1, cfg.init_seed, 2 * cfg.K).reshape(
+            cfg.K, 2)).to(device=device, dtype=dtype)
     return TrainState(
         pi=pi, phi_sum=phi_sum, theta=theta,
         beta=theta[:, 1] / (theta[:, 0] + theta[:, 1]),
         step_count=1, beta_count=0,
         ppx_per_edge=torch.zeros(heldout_size, dtype=dtype, device=device),
-        ppx_count=0,
+        ppx_count=0, ref_seeds=ref_seeds,
         train_ppx_per_edge=torch.zeros(train_ppx_size, dtype=dtype,
                                        device=device),
         train_ppx_count=0)
@@ -274,22 +329,29 @@ def hoist_common(cfg: Config, edge_set: EdgeSet, batches: DeviceBatch,
                               device=dev)
     else:
         draw_for = batches.nodes
-    neighbors = sample_neighbors(streams.neighbor, draw_for, cfg.N,
-                                 cfg.num_node_sample)
-    y_phi = edge_set.has_edges(batches.nodes[:, :, None], neighbors)
-    y_edges = edge_set.has_edges(batches.edges_u, batches.edges_v)
-    # Edge endpoints are a subset of the batch nodes, so the beta stage
-    # reads endpoint rows from the step's staged rows through these lane
-    # maps. argmax over int (torch's argmax takes no bool): ties go to
-    # the first lane and an all-false row gives 0, as in JAX.
-    lanes_u = torch.argmax((batches.edges_u[:, :, None]
-                            == batches.nodes[:, None, :]).to(torch.int32),
-                           dim=-1).to(torch.int32)
-    lanes_v = torch.argmax((batches.edges_v[:, :, None]
-                            == batches.nodes[:, None, :]).to(torch.int32),
-                           dim=-1).to(torch.int32)
-    phi_noise = phi_noise_operand(cfg, streams.phi, (s_len, b, cfg.K), dev)
+    with stage("neighbor_draws"):
+        neighbors = sample_neighbors(streams.neighbor, draw_for, cfg.N,
+                                     cfg.num_node_sample)
+    with stage("membership"):
+        y_phi = edge_set.has_edges(batches.nodes[:, :, None], neighbors)
+        y_edges = edge_set.has_edges(batches.edges_u, batches.edges_v)
+    with stage("edge_lanes"):
+        lanes_u, lanes_v = edge_lanes(batches)
+    with stage("noise"):
+        phi_noise = phi_noise_operand(cfg, streams.phi, (s_len, b, cfg.K),
+                                      dev)
     return neighbors, y_phi, y_edges, lanes_u, lanes_v, phi_noise
+
+
+def edge_lanes(batches: DeviceBatch):
+    """(lanes_u, lanes_v) [S, E]: the node lane of each edge endpoint.
+    Edge endpoints are a subset of the batch nodes, so the beta stage
+    reads endpoint rows from the step's staged rows through these maps.
+    argmax over int (torch's argmax takes no bool): ties go to the first
+    lane and an all-false row gives 0, as in JAX."""
+    return tuple(torch.argmax((e[:, :, None] == batches.nodes[:, None, :])
+                              .to(torch.int32), dim=-1).to(torch.int32)
+                 for e in (batches.edges_u, batches.edges_v))
 
 
 def hoist_operands(cfg: Config, edge_set: EdgeSet, batches: DeviceBatch,
@@ -300,10 +362,59 @@ def hoist_operands(cfg: Config, edge_set: EdgeSet, batches: DeviceBatch,
      lanes_u, lanes_v)."""
     neighbors, y_phi, y_edges, lanes_u, lanes_v, phi_noise = hoist_common(
         cfg, edge_set, batches, streams)
-    beta_noise = rng.randn(streams.beta, (batches.nodes.shape[0], cfg.K, 2),
-                           batches.nodes.device)
+    with stage("noise"):
+        beta_noise = rng.randn(streams.beta,
+                               (batches.nodes.shape[0], cfg.K, 2),
+                               batches.nodes.device)
     return (batches, neighbors, y_phi, phi_noise, beta_noise, y_edges,
             lanes_u, lanes_v)
+
+
+def reference_operands(cfg: Config, batches: DeviceBatch,
+                       seeds: RefRngState):
+    """The reference RNG's draws of S steps (the JAX package's reference
+    branches of ``train_step``, learner.py:296-311, 330-348, 387-399),
+    one chunk per stream family: (neighbors [S, B, n] int32, phi_noise
+    [S, B, K], beta_noise [S, K, 2], seeds'). The draws depend on the
+    batches' node ids and masks only, never on the state, so a chunk's
+    are drawn before its steps run. Through ``rng/refblock.py`` (the
+    kernel on the card), or with ``cfg.ref_rng_block`` off through the
+    plain version on any device. Only the mask decides which lanes draw
+    (padded host lanes hold id 0)."""
+    draw = refblock if cfg.ref_rng_block else ref_rng
+    nodes, mask = batches.nodes, batches.node_mask
+    s_len = nodes.shape[0]
+    with stage("neighbor_draws"):
+        nbrs, n_seeds = draw.neighbors_lanes(seeds.neighbor, nodes, mask,
+                                             cfg.N, cfg.num_node_sample)
+    with stage("noise"):
+        if cfg.phi_disable_noise:
+            phi_noise, p_seeds = phi_noise_operand(
+                cfg, None, (s_len, nodes.shape[1], cfg.K),
+                nodes.device), seeds.phi
+        else:
+            phi_noise, p_seeds = draw.randn_lanes(seeds.phi, cfg.K, mask)
+        every = torch.ones(s_len, cfg.K, dtype=torch.bool,
+                           device=nodes.device)
+        beta_noise, b_seeds = draw.randn_lanes(seeds.beta, 2, every)
+    # masked lanes hold the sentinel N, which JAX's gathers clamp
+    nbrs = nbrs.clamp(max=cfg.N - 1).to(torch.int32)
+    return nbrs, phi_noise, beta_noise, RefRngState(p_seeds, b_seeds, n_seeds)
+
+
+def hoist_reference(cfg: Config, edge_set: EdgeSet, batches: DeviceBatch,
+                    seeds: RefRngState):
+    """``hoist_operands`` with the reference RNG's draws (private
+    neighbors): (the operand tuple, seeds')."""
+    nbrs, phi_noise, beta_noise, seeds = reference_operands(cfg, batches,
+                                                            seeds)
+    with stage("membership"):
+        y_phi = edge_set.has_edges(batches.nodes[:, :, None], nbrs)
+        y_edges = edge_set.has_edges(batches.edges_u, batches.edges_v)
+    with stage("edge_lanes"):
+        lanes = edge_lanes(batches)
+    return (batches, nbrs, y_phi, phi_noise, beta_noise, y_edges,
+            *lanes), seeds
 
 
 def run_hoisted(cfg: Config, state: TrainState, xs) -> TrainState:
@@ -324,31 +435,39 @@ def _hoisted_step_body(cfg: Config, s: TrainState, x) -> TrainState:
     if cfg.phi_impl == PhiImpl.PALLAS:
         # the by-index phi entry reads the rows itself: no [B, n, K]
         # buffer, no separate gather
-        rows, sums = phi_pallas.phi_update_rows(
-            cfg, s.pi, s.phi_sum, s.beta, batch.nodes, nbrs, y_n,
-            s.step_count, n_phi)
+        with stage("phi_update"):
+            rows, sums = phi_pallas.phi_update_rows(
+                cfg, s.pi, s.phi_sum, s.beta, batch.nodes, nbrs, y_n,
+                s.step_count, n_phi)
     else:
-        # padded lanes carry the sentinel N: clamp as JAX's gather does
-        nodes = batch.nodes.long().clamp(max=cfg.N - 1)
-        pi_nb = s.pi[nbrs.long()].float()            # [1, n, K] / [B, n, K]
-        # shared draws exclude a neighbor that is the node itself (the
-        # count-aware N/n_valid scale); private draws pass no mask, as in
-        # JAX, so a rare self-draw left by the fix-up rounds keeps N/n
-        nbr_mask = (nbrs != batch.nodes[:, None] if cfg.shared_neighbors
-                    else None)
-        rows, sums = phi_ops.phi_update_core(
-            cfg, s.pi[nodes].float(), s.phi_sum[nodes], pi_nb, y_n, s.beta,
-            s.step_count, n_phi, nbr_mask)
-    pi, phi_sum = phi_ops.scatter_rows(s.pi, s.phi_sum, batch.nodes,
-                                       batch.node_mask, rows, sums)
+        with stage("pi_gather"):
+            # padded lanes carry the sentinel N: clamp as JAX's gather does
+            nodes = batch.nodes.long().clamp(max=cfg.N - 1)
+            pi_n, phis = s.pi[nodes].float(), s.phi_sum[nodes]
+            pi_nb = s.pi[nbrs.long()].float()        # [1, n, K] / [B, n, K]
+        with stage("phi_update"):
+            # shared draws exclude a neighbor that is the node itself (the
+            # count-aware N/n_valid scale); private draws pass no mask, as
+            # in JAX, so a rare self-draw left by the fix-up rounds keeps
+            # N/n
+            nbr_mask = (nbrs != batch.nodes[:, None]
+                        if cfg.shared_neighbors else None)
+            rows, sums = phi_ops.phi_update_core(
+                cfg, pi_n, phis, pi_nb, y_n, s.beta, s.step_count, n_phi,
+                nbr_mask)
+    with stage("pi_scatter"):
+        pi, phi_sum = phi_ops.scatter_rows(s.pi, s.phi_sum, batch.nodes,
+                                           batch.node_mask, rows, sums)
     beta_count = s.beta_count + 1
-    # masked lanes may hold garbage: select 1/K before the lane gathers
-    rows_safe = torch.where(batch.node_mask[:, None], rows, 1.0 / cfg.K)
-    grads = beta_ops.beta_gradients_core(
-        cfg, s.theta, s.beta, rows_safe[lane_u.long()],
-        rows_safe[lane_v.long()], y_e, batch.edge_mask)
-    theta, beta = beta_ops.theta_step(cfg, s.theta, grads, batch.weight,
-                                      beta_count, n_beta)
+    with stage("beta_grads"):
+        # masked lanes may hold garbage: select 1/K before the lane gathers
+        rows_safe = torch.where(batch.node_mask[:, None], rows, 1.0 / cfg.K)
+        grads = beta_ops.beta_gradients_core(
+            cfg, s.theta, s.beta, rows_safe[lane_u.long()],
+            rows_safe[lane_v.long()], y_e, batch.edge_mask)
+    with stage("theta_update"):
+        theta, beta = beta_ops.theta_step(cfg, s.theta, grads, batch.weight,
+                                          beta_count, n_beta)
     return s._replace(pi=pi, phi_sum=phi_sum, theta=theta, beta=beta,
                       step_count=s.step_count + 1, beta_count=beta_count)
 
@@ -413,9 +532,27 @@ def train_steps_scan(cfg: Config, edge_set: EdgeSet, state: TrainState,
                      batches: DeviceBatch, streams: rng.Streams
                      ) -> TrainState:
     """S steps on the given minibatches: hoist, then run (windowed when
-    ``cfg.window > 1``, which the guards allow with shared draws only)."""
+    ``cfg.window > 1``, which the guards allow with shared draws only).
+    With the reference RNG the draws come from the state's streams."""
+    if state.ref_seeds is not None:
+        xs, seeds = hoist_reference(cfg, edge_set, batches, state.ref_seeds)
+        return run_hoisted(cfg, state._replace(ref_seeds=seeds), xs)
     return run_hoisted(cfg, state,
                        hoist_operands(cfg, edge_set, batches, streams))
+
+
+def step_operands(cfg: Config, streams: rng.Streams, state: TrainState,
+                  batch: DeviceBatch):
+    """One step's random operands for ``train_step`` and the state with
+    its reference streams advanced: ``draw_step_operands``, or with the
+    reference RNG a one-step chunk of ``reference_operands``."""
+    if state.ref_seeds is None:
+        return draw_step_operands(cfg, streams, batch), state
+    one = DeviceBatch(*(a[None] for a in batch))
+    nbrs, phi_noise, beta_noise, seeds = reference_operands(
+        cfg, one, state.ref_seeds)
+    return ((nbrs[0], phi_noise[0], beta_noise[0]),
+            state._replace(ref_seeds=seeds))
 
 
 def train_steps_fused(cfg: Config, edge_set: EdgeSet, heldout_set: EdgeSet,
@@ -423,8 +560,9 @@ def train_steps_fused(cfg: Config, edge_set: EdgeSet, heldout_set: EdgeSet,
                       adjacency: Adjacency, streams: rng.Streams
                       ) -> TrainState:
     """``num_steps`` device-sampled steps: sample, hoist, run."""
-    ds = sample_minibatches_device(cfg, edge_set, heldout_set,
-                                   streams.sample, num_steps, adjacency)
+    with stage("device_sampling"):
+        ds = sample_minibatches_device(cfg, edge_set, heldout_set,
+                                       streams.sample, num_steps, adjacency)
     return train_steps_scan(cfg, edge_set, state, DeviceBatch(*ds), streams)
 
 
@@ -434,9 +572,10 @@ def heldout_perplexity_step(cfg: Config, heldout_set: EdgeSet,
                             ) -> Tuple[TrainState, ppx_ops.PpxResult]:
     """One perplexity evaluation; updates the running-average state."""
     count = state.ppx_count + 1
-    res = ppx_ops.perplexity_step(cfg, state.pi, state.beta, heldout_set,
-                                  heldout_u, heldout_v, state.ppx_per_edge,
-                                  count)
+    with stage("ppx"):
+        res = ppx_ops.perplexity_step(cfg, state.pi, state.beta, heldout_set,
+                                      heldout_u, heldout_v,
+                                      state.ppx_per_edge, count)
     return state._replace(ppx_per_edge=res.ppx_per_edge,
                           ppx_count=count), res
 
@@ -671,9 +810,10 @@ class Learner(HostSamplingPipeline):
                       or (src.get() if src else self.sampler.sample()))
                 batch = DeviceBatch.from_host(hb, self.device)
             with self.timers.stage("device_step"):
-                self.state = train_step(
-                    self.cfg, self.training_set, self.state, batch,
-                    *draw_step_operands(self.cfg, self.streams, batch))
+                ops, self.state = step_operands(self.cfg, self.streams,
+                                                self.state, batch)
+                self.state = train_step(self.cfg, self.training_set,
+                                        self.state, batch, *ops)
         self._sync()
 
     def _run_scanned(self, max_iters: int, spc: int) -> None:
@@ -771,3 +911,94 @@ class Learner(HostSamplingPipeline):
     def print_stats(self, log=print) -> None:
         """Stage-seconds table."""
         self.timers.print_table(log)
+
+    def profile_stages(self, iters: int = 20) -> dict:
+        """Seconds per call of each step function on one host batch, each
+        timed on its own (waiting for the device after each), with the
+        reference's stage names: upper bounds on each stage's share of a
+        step (JAX ``Learner.profile_stages``). The state is not changed:
+        the phi and scatter stages work on copies."""
+        cfg, state = self.cfg, self.state
+        sampler = self.sampler or MiniBatchSampler(cfg, self.graph,
+                                                   self.split)
+        batch = DeviceBatch.from_host(sampler.sample(), self.device)
+        gen = torch.Generator(self.device).manual_seed(0)
+        noise_b = torch.zeros(batch.nodes.shape[0], cfg.K,
+                              device=self.device)
+        noise_t = torch.zeros(cfg.K, 2, device=self.device)
+        result = {}
+
+        def timed(name, fn, *args):
+            out = fn(*args)                              # warm-up
+            self._sync()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                out = fn(*args)
+            self._sync()
+            result[name] = (time.perf_counter() - t0) / iters
+            return out
+
+        neighbors = timed("sample_neighbors", sample_neighbors, gen,
+                          batch.nodes, cfg.N, cfg.num_node_sample)
+        rows, sums = timed("phi", phi_ops.phi_update_rows, cfg, state.pi,
+                           state.phi_sum, state.beta, self.training_set,
+                           batch.nodes, neighbors, state.step_count, noise_b)
+        timed("pi_scatter", phi_ops.scatter_rows, state.pi.clone(),
+              state.phi_sum.clone(), batch.nodes, batch.node_mask, rows,
+              sums)
+        grads = timed("beta_grads", beta_ops.beta_gradients, cfg,
+                      state.theta, state.beta, state.pi, self.training_set,
+                      batch.edges_u, batch.edges_v, batch.edge_mask)
+        timed("theta_update", beta_ops.theta_step, cfg, state.theta, grads,
+              batch.weight, state.beta_count + 1, noise_t)
+        timed("ppx", ppx_ops.perplexity_step, cfg, state.pi, state.beta,
+              self.heldout_set, self.heldout_u, self.heldout_v,
+              state.ppx_per_edge, state.ppx_count + 1)
+        return result
+
+    def fused_stage_profile(self, iters: Optional[int] = None) -> dict:
+        """Per-stage attribution of the production loop: ``iters`` steps
+        (whole chunks, 200 at least) traced with ``torch.profiler`` and
+        added up by the stage ranges of the step functions
+        (``utils/profiling.profile_trace``), after one untraced chunk. The
+        shares add up to the traced time, unlike ``profile_stages``. The
+        run advances the state."""
+        from mcmc_ammsb_tpu_torch.utils import profiling
+
+        spc = max(1, self.cfg.steps_per_call)
+        iters = iters or max(spc, 200)
+        iters = max(spc, (iters // spc) * spc)
+        self.run(spc)       # the first chunk (kernel builds) outside
+        prof = profiling.profile_trace(lambda: self.run(iters))
+        prof["steps"] = iters
+        return prof
+
+    def print_stage_profile(self, log=print,
+                            iters: Optional[int] = None) -> None:
+        """The traced per-stage table; the unfused upper-bound table when
+        the trace yields nothing attributable (as in the JAX package)."""
+        from mcmc_ammsb_tpu_torch.utils import profiling
+
+        prof = self.fused_stage_profile(iters)
+        if prof["source"] == "none" or prof["total_op_seconds"] <= 0:
+            log("trace captured no attributable device ops; "
+                "unfused upper bounds instead:")
+            self.print_unfused_stage_profile(log)
+            return
+        profiling.format_stage_table(prof, prof["steps"], log)
+
+    def print_unfused_stage_profile(self, log=print, iters: int = 20) -> None:
+        """``profile_stages`` as a table with the reference's stage names
+        (PrintStats, learner.cc:252-299): upper bounds on each stage's
+        cost. GRADS PAR/GRADS SUM and UPDATE THETA/NORM THETA are one call
+        here, reported on one line each."""
+        prof = self.profile_stages(iters)
+        names = [("SAMPLING (nbr)", "sample_neighbors"), ("PHI", "phi"),
+                 ("PI", "pi_scatter"), ("GRADS PAR+SUM", "beta_grads"),
+                 ("UPDATE+NORM THETA", "theta_update"),
+                 ("PPX CALC+ACCUM", "ppx")]
+        total = sum(prof[k] for _, k in names)
+        log(f"per-step stage profile (unfused upper bounds, {iters} reps)")
+        for label, key in names:
+            log(f"{label:18s}: {prof[key] * 1e6:9.1f} us "
+                f"(%{100 * prof[key] / total:5.1f})")

@@ -26,10 +26,9 @@ from mcmc_ammsb_tpu_torch import rng
 from mcmc_ammsb_tpu_torch.config import Config
 from mcmc_ammsb_tpu_torch.data import DataSplit, Graph
 from mcmc_ammsb_tpu_torch.learner import (DeviceBatch, TrainState,
-                                          draw_step_operands,
                                           heldout_perplexity_step, init_state,
-                                          resolve_device, train_step,
-                                          train_steps_scan)
+                                          resolve_device, step_operands,
+                                          train_step, train_steps_scan)
 from mcmc_ammsb_tpu_torch.ops import perplexity as ppx_ops
 from mcmc_ammsb_tpu_torch.ops.edgeset import EdgeSet, build_edge_set
 
@@ -66,9 +65,10 @@ class AMMSB:
     def step(self, state: TrainState, batch: DeviceBatch,
              streams: rng.Streams) -> TrainState:
         """One SGRLD transition on one minibatch; its neighbor draws and
-        noise come from ``streams``. Updates ``state.pi`` in place."""
-        return train_step(self.cfg, self.training_set, state, batch,
-                          *draw_step_operands(self.cfg, streams, batch))
+        noise come from ``streams`` (with the reference RNG, from the
+        state's streams). Updates ``state.pi`` in place."""
+        ops, state = step_operands(self.cfg, streams, state, batch)
+        return train_step(self.cfg, self.training_set, state, batch, *ops)
 
     def steps(self, state: TrainState, batches: DeviceBatch,
               streams: rng.Streams) -> TrainState:

@@ -120,6 +120,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i64, ctypes.c_uint64,                           # num_bins, seed
         ptr,                                            # out slots
     ]
+    lib.ref_theta_init.restype = ctypes.c_int
+    lib.ref_theta_init.argtypes = [
+        ctypes.c_double, ctypes.c_double, ctypes.c_uint64,  # eta0, eta1, seed
+        i64, ptr,                                       # count, out
+    ]
     return lib
 
 
@@ -251,3 +256,19 @@ def cuckoo_try(keys: np.ndarray, num_bins: int, seed: int):
     if rc != 0:
         raise IOError(f"cuckoo_try failed: rc={rc}")
     return slots
+
+
+def ref_theta_init(eta0: float, eta1: float, seed: int,
+                   count: int) -> np.ndarray:
+    """The reference's exact theta-init bit stream (learner.cc:149-153):
+    std::mt19937 seeded with the seed cut to 32 bits driving libstdc++'s
+    std::gamma_distribution<float>(eta0, eta1), ``count`` draws in the
+    interleaved (k,0),(k,1) layout. Raises without the native library: a
+    run that asks for the reference's stream must not get another one."""
+    lib = _require("ref_theta_init")
+    out = np.empty(count, np.float32)
+    rc = lib.ref_theta_init(float(eta0), float(eta1),
+                            seed & 0xFFFFFFFFFFFFFFFF, count, _ptr(out))
+    if rc != 0:
+        raise IOError(f"ref_theta_init failed: rc={rc}")
+    return out

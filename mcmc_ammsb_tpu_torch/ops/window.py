@@ -21,6 +21,10 @@ A step may read a row that an earlier step of the same window wrote.
 ``_correction_codes`` gives every read lane the staged slot of the
 latest such write, and both versions redirect the read there, so the
 trajectory is the sequential scan's up to float reduction order.
+``window_correction="auto"`` runs as ``"always"``: the JAX package skips
+the codes of windows without such a read (``_dirty_windows``), whose
+codes are all zero, so the bits are the same; on the H100 skipping them
+did not pay (PERF.md).
 
 The flat chain engine (``chains_flat``) runs the windows of C chains
 through ``window_chain_apply_cuda`` (the same kernel, one cluster per
@@ -39,6 +43,7 @@ from mcmc_ammsb_tpu_torch import kernels
 from mcmc_ammsb_tpu_torch.config import Config
 from mcmc_ammsb_tpu_torch.ops import beta as beta_ops
 from mcmc_ammsb_tpu_torch.ops import phi as phi_ops
+from mcmc_ammsb_tpu_torch.utils.profiling import stage
 
 
 #: Windows whose correction codes are computed in one batch.
@@ -71,8 +76,10 @@ def iter_windows(cfg: Config, xs, nbrs):
             nodes = xs[0].nodes[steps].reshape(w_end - w, t_win, -1)
             mask = xs[0].node_mask[steps].reshape(w_end - w, t_win, -1)
             nbrs_w = nbrs[steps].reshape(w_end - w, t_win, -1)
-            mcodes = _correction_codes(cfg, nodes, mask, nbrs_w)
-            keeps = _last_write_wins(nodes, mask, t_win)
+            with stage("window_correct"):
+                mcodes = _correction_codes(cfg, nodes, mask, nbrs_w)
+            with stage("window_prep"):
+                keeps = _last_write_wins(nodes, mask, t_win)
         yield (index_operands(xs, slice(w * t_win, (w + 1) * t_win)),
                mcodes[w % _WINDOWS_PER_BATCH], keeps[w % _WINDOWS_PER_BATCH])
 
@@ -96,11 +103,32 @@ def windowed_scan(cfg: Config, state, xs, body):
      y_edges, lanes_u, lanes_v)."""
     apply = plain_or(cfg, state, window_apply_cuda, window_apply_torch)
     for xs_t, mcode, keep in iter_windows(cfg, xs, xs[1][:, 0, :]):
-        state = apply(cfg, state, xs_t, mcode, keep)
+        with stage("window_kernel"):
+            state = apply(cfg, state, xs_t, mcode, keep)
     s_len = xs[1].shape[0]
     for i in range(s_len - s_len % cfg.window, s_len):
         state = body(state, index_operands(xs, i))
     return state
+
+
+def _dirty_windows(nodes, mask, nbrs, t_win):
+    """[W] bool: the window has an intra-window read-after-write (a later
+    step reads a row an earlier step wrote) or write-after-write. Shapes:
+    nodes/mask [W, T, B], nbrs [W, T, n]. The JAX package's test of a
+    window that needs correcting; the port corrects every window, and
+    counts the dirty ones with it in its checks."""
+    writes = torch.where(mask, nodes, -2)                    # [W, T, B]
+    reads = torch.cat([torch.where(mask, nodes, -1), nbrs], dim=2)
+    # masked write lanes are non-writes: they never match each other
+    # (every padded lane carries the same sentinel) nor a read
+    t_r = torch.arange(t_win, device=nodes.device)
+    later = (t_r[:, None, None, None] > t_r[None, None, :, None])
+    rw = ((reads[:, :, :, None, None] == writes[:, None, None, :, :])
+          & later & mask[:, None, None, :, :])
+    distinct = t_r[:, None, None, None] != t_r[None, None, :, None]
+    ww = ((writes[:, :, :, None, None] == writes[:, None, None, :, :])
+          & distinct & mask[:, :, :, None, None] & mask[:, None, None, :, :])
+    return rw.flatten(1).any(1) | ww.flatten(1).any(1)
 
 
 def _last_write_wins(nodes, mask, t_win):

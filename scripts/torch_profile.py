@@ -4,7 +4,8 @@ Run from the root of a checkout (the package must be importable):
 
     PYTHONPATH=. python3 scripts/torch_profile.py [--reps 5]
         [--paths single,chains,mmsb,phi,hostphi,hoststep,hostbf,powerlaw,
-                 mmsbchains,hostmmsb,vmap,checkpoint]
+                 mmsbchains,hostmmsb,vmap,refrng,refplain,refphi,devbf,
+                 devbfalt,devbfnon,refkernel,checkpoint]
         [--out FILE]
 
 Each path at N=317,080 (``--synthetic 317080,7``), the CLI's defaults
@@ -35,6 +36,24 @@ otherwise:
   vmap    ``--num-chains 3 --chain-engine vmap``, K=256: three whole
           single-chain states advanced in turn, no windows, 200 steps per
           call;
+  refrng  ``--rng reference -i 200``, K=256: host batches, private
+          draws from the reference streams (one launch of each
+          ref_rng_kernel.cu entry per chunk and family), chunks of 200
+          steps, 400 steps per call;
+  refplain the same with ``--no-ref-rng-block -i 10``: the reference
+          streams drawn by the plain PyTorch version on the card, one
+          chunk of 10 steps per call;
+  refphi  ``--rng reference --phi-impl pallas -i 200``, K=256: the same
+          draws, the by-index phi kernel, 400 steps per call;
+  devbf   ``-s BFLink``, K=256: device-sampled breadth-first batches,
+          private draws, no windows, 1000 steps per call;
+  devbfalt ``-s BF --node-coin alternate``, K=256: 1000 steps per call;
+  devbfnon ``-s BFNonLink``, K=256: 1000 steps per call;
+  refkernel  not a training path: the reference RNG's phi-noise draws
+          of one 200-step chunk of real host batches (64 lanes, K=256),
+          through csrc/ref_rng_kernel.cu (CUDA events, 5 calls) and through
+          the plain version (one call, host clock): ms of each, and that
+          they are bit-equal;
   checkpoint  not a training path: the a-MMSB main path's learner
           (K=256, pi 325 MB) saved and loaded three times in each flavor,
           ``np.savez`` (what ``save_checkpoint`` writes) and
@@ -54,7 +73,11 @@ host clock around ``Learner.run`` (which ends in a synchronize): updates/s
 per call (each chain's steps count). Then one call under torch.profiler:
 the CUDA kernels it launched (events on the device), their count per
 window, the device-busy share (summed kernel time over the call's wall
-time) and the largest kernels. Prints one JSON line; with ``--out`` also
+time) and the largest kernels. Then one more call traced by stage
+(``utils/profiling.profile_trace``, what ``--profile`` prints): device
+seconds per stage (``stage_device_s``) and those of device work whose
+launch call the trace lacks (``stage_unlinked_s``); skipped for a
+parent tree without ``utils/profiling.py``. Prints one JSON line; with ``--out`` also
 writes it there. Needs a CUDA device; imports nothing of JAX.
 """
 
@@ -93,6 +116,18 @@ PATHS = {
                   "--synthetic", "317080,7", "-k", "64"], 400),
     "vmap": (["--num-chains", "3", "--chain-engine", "vmap", "--synthetic",
               "317080,7", "-k", "256"], 200),
+    "refrng": (["--rng", "reference", "-i", "200", "--synthetic",
+                "317080,7", "-k", "256"], 400),
+    "refplain": (["--rng", "reference", "--no-ref-rng-block", "-i", "10",
+                  "--synthetic", "317080,7", "-k", "256"], 10),
+    "refphi": (["--rng", "reference", "--phi-impl", "pallas", "-i", "200",
+                "--synthetic", "317080,7", "-k", "256"], 400),
+    "devbf": (["-s", "BFLink", "--synthetic", "317080,7", "-k", "256"],
+              1000),
+    "devbfalt": (["-s", "BF", "--node-coin", "alternate", "--synthetic",
+                  "317080,7", "-k", "256"], 1000),
+    "devbfnon": (["-s", "BFNonLink", "--synthetic", "317080,7", "-k",
+                  "256"], 1000),
 }
 
 
@@ -123,6 +158,37 @@ def time_checkpoint(reps: int = 3) -> dict:
             out[flavor] = {"bytes": os.path.getsize(path),
                            "save_s": saves, "load_s": loads}
     return out
+
+
+def time_ref_rng() -> dict:
+    """The phi noise of one 200-step --rng reference chunk: the kernel
+    against the plain version, on the same CUDA seeds and real host
+    masks."""
+    from mcmc_ammsb_tpu_torch.rng import reference, refblock
+    from mcmc_ammsb_tpu_torch.sampling import MiniBatchSampler
+
+    cfg, _, lrn = make_learner(PATHS["refrng"][0])
+    mask = torch.as_tensor(MiniBatchSampler(cfg, lrn.graph, lrn.split)
+                           .sample_many(200).node_mask, device="cuda")
+    lrn.close()
+    seeds = reference.make_seeds(cfg.phi_seed, mask.shape[1], "cuda")
+    got = refblock.randn_lanes(seeds, cfg.K, mask)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        refblock.randn_lanes(seeds, cfg.K, mask)
+    end.record()
+    end.synchronize()
+    t0 = time.perf_counter()
+    want = reference.randn_lanes(seeds, cfg.K, mask)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    return {"path": "refkernel", "shape": [*mask.shape, cfg.K],
+            "drawing_lanes": int(mask.sum()),
+            "kernel_ms": start.elapsed_time(end) / 5,
+            "plain_ms": plain_s * 1e3,
+            "bit_equal": all(torch.equal(a, b) for a, b in zip(got, want))}
 
 
 def make_learner(flags):
@@ -201,6 +267,17 @@ def profile_path(name: str, reps: int) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
     # kernels per window on the windowed paths, per step on the others
     windows = steps // cfg.window if cfg.window > 1 else steps
+    # the device time of each stage of one more call (the --profile
+    # table's numbers)
+    stages = {}
+    try:
+        from mcmc_ammsb_tpu_torch.utils import profiling
+    except ImportError:                  # a parent tree without it
+        profiling = None
+    if profiling is not None:
+        traced = profiling.profile_trace(lambda: lrn.run(steps))
+        stages = {"stage_device_s": traced["stages"],
+                  "stage_unlinked_s": traced["unlinked_seconds"]}
     if hasattr(lrn, "close"):
         lrn.close()                      # stops the prefetch thread
     return {
@@ -210,7 +287,7 @@ def profile_path(name: str, reps: int) -> dict:
         "profiled_wall_s": wall,
         "device_events": len(device), "kernel_launches": len(kernels),
         "launches_per_window": len(kernels) / windows,
-        "device_busy_share": busy_us * 1e-6 / wall, **host,
+        "device_busy_share": busy_us * 1e-6 / wall, **host, **stages,
         "top_kernels": [{"name": n[:80], "us": t, "launches": c}
                         for n, (t, c) in top],
     }
@@ -231,6 +308,7 @@ def main() -> int:
     paths = []
     for n in a.paths.split(","):
         paths.append(time_checkpoint() if n == "checkpoint"
+                     else time_ref_rng() if n == "refkernel"
                      else profile_path(n, a.reps))
         print(json.dumps(paths[-1]), file=sys.stderr, flush=True)
     result = {"device": smi, "torch": torch.__version__, "paths": paths}

@@ -40,6 +40,7 @@ def _cfg(dataset, **kw):
 
 FAST = dict(device_sampling=True, shared_neighbors=True, steps_per_call=10)
 PALLAS = config.PhiImpl.PALLAS
+REF = config.RngBackend.REFERENCE
 # name -> (learner class or factory, config fields, extra constructor args)
 CASES = {
     "learner-device-windowed": (learner.Learner, dict(FAST, window=4), ()),
@@ -65,6 +66,15 @@ CASES = {
     "learner-host-no-prefetch": (
         lambda *a: learner.Learner(*a, prefetch=False),
         dict(steps_per_call=5, host_sampler="numpy"), ()),
+    "learner-reference-rng": (learner.Learner,
+                              dict(steps_per_call=5, rng_backend=REF), ()),
+    "learner-reference-rng-step": (learner.Learner,
+                                   dict(steps_per_call=1, rng_backend=REF,
+                                        phi_impl=PALLAS), ()),
+    "learner-reference-rng-device-bf": (
+        learner.Learner, dict(device_sampling=True, rng_backend=REF,
+                              strategy=config.SampleStrategy.BF_LINK,
+                              steps_per_call=10), ()),
     "mmsb-device-windowed": (mmsb.FullMMSBLearner, dict(FAST, window=4), ()),
     "mmsb-host": (mmsb.FullMMSBLearner, dict(steps_per_call=5), ()),
     "mmsb-host-chunks-of-one": (mmsb.FullMMSBLearner,
@@ -190,7 +200,7 @@ def test_checkpoint_rejects_chain_count_and_learner_class(dataset, tmp_path):
     single = str(tmp_path / "single.npz")
     checkpoint.save_checkpoint(single, _build(dataset,
                                               "learner-device-windowed"))
-    with pytest.raises(ValueError, match=r"checkpoint has 10 state leaves, "
+    with pytest.raises(ValueError, match=r"checkpoint has 11 state leaves, "
                        r"learner expects 8 \(different learner class or "
                        r"config: saved by Learner\)"):
         checkpoint.load_checkpoint(single,
@@ -257,14 +267,15 @@ def test_layout_matches_the_jax_package(dataset, tmp_path):
     _config_to_json for the same Config and round-trips; the manifest has
     its keys plus the streams' device kind; the leaves are the fields of
     the port's TrainState, which are the JAX TrainState's without its
-    four keys (and the reference-RNG seeds), in its order."""
+    four keys, in its order (an absent reference-RNG seeds field is one
+    empty leaf)."""
     cfg = _cfg(dataset, **FAST, mmsb_prior_diag=(1.0, 5.0))
     mine = checkpoint._config_to_json(cfg)
     theirs = jax_checkpoint._config_to_json(jax_config(cfg))
     assert list(mine) == list(theirs) and mine == theirs
     assert checkpoint._config_from_json(json.loads(json.dumps(mine))) == cfg
     jax_fields = [f for f in jax_learner.TrainState._fields
-                  if not f.endswith("_key") and f != "ref_seeds"]
+                  if not f.endswith("_key")]
     assert list(learner.TrainState._fields) == jax_fields
 
     path = str(tmp_path / "ck.npz")
@@ -276,10 +287,11 @@ def test_layout_matches_the_jax_package(dataset, tmp_path):
     assert set(manifest) == {
         "format_version", "config", "learner", "num_chains", "num_leaves",
         "timers", "timer_calls", "native_call_count", "stream_device"}
-    assert manifest["num_leaves"] == len(learner.TrainState._fields) == 10
+    assert manifest["num_leaves"] == len(learner.TrainState._fields) == 11
     for i, f in enumerate(learner.TrainState._fields):
         v = getattr(a.state, f)
-        want = v.numpy() if isinstance(v, torch.Tensor) else np.int32(v)
+        want = (v.numpy() if isinstance(v, torch.Tensor)
+                else np.zeros(0, np.float32) if v is None else np.int32(v))
         np.testing.assert_array_equal(z[f"leaf_{i}"], want)
         assert z[f"leaf_{i}"].dtype == want.dtype
     assert {f"stream_0_{n}" for n in a.streams._fields} <= set(z.files)
@@ -291,8 +303,20 @@ def test_jax_checkpoint_loads_through_interop(dataset, tmp_path):
     host-sampled steps and one evaluation on the CPU) loads into the
     port's TrainState: every array equal, the counters equal, and both
     packages give the same next held-out perplexity from it (rtol 1e-5)."""
+    _check_jax_checkpoint(dataset, tmp_path, config.RngBackend.NATIVE)
+
+
+def test_jax_reference_rng_checkpoint_loads_through_interop(dataset,
+                                                            tmp_path):
+    """The same with the reference RNG: the three seed arrays load from
+    JAX's leaf positions, bit-equal."""
+    _check_jax_checkpoint(dataset, tmp_path, REF)
+
+
+def _check_jax_checkpoint(dataset, tmp_path, rng_backend):
     n, split, graph = dataset
-    cfg = _cfg(dataset, steps_per_call=4, host_sampler="numpy")
+    cfg = _cfg(dataset, steps_per_call=4, host_sampler="numpy",
+               rng_backend=rng_backend)
     jcfg = jax_config(cfg)
     jsplit = JaxDataSplit(**dataclasses.asdict(split))
     jgraph = JaxGraph.from_edges(n, split.training_u, split.training_v)
@@ -308,6 +332,13 @@ def test_jax_checkpoint_loads_through_interop(dataset, tmp_path):
     for f in ("pi", "phi_sum", "theta", "beta", "ppx_per_edge"):
         np.testing.assert_array_equal(getattr(state, f).numpy(),
                                       np.asarray(getattr(jl.state, f)))
+    if rng_backend == REF:
+        for f in learner.RefRngState._fields:
+            np.testing.assert_array_equal(
+                getattr(state.ref_seeds, f).numpy(),
+                np.asarray(getattr(jl.state.ref_seeds, f)))
+    else:
+        assert state.ref_seeds is None
     tl = learner.Learner(cfg, graph, split, "cpu", prefetch=False)
     tl.state = state
     assert_close(np.float32(tl.heldout_perplexity()),

@@ -78,10 +78,9 @@ def test_window_rule_matches_jax():
     --model mmsb without --window stays sequential, with --window 12
     keeps 12; --phi-impl pallas resolves to host sampling with private
     draws and chunks of min(200, ppx interval), and never windows;
-    --no-device-sampling keeps explicit shared draws and windows. The one
-    departure: the breadth-first family resolves to host sampling here
-    (its device samplers are not ported), where JAX turns device sampling
-    on."""
+    --no-device-sampling keeps explicit shared draws and windows; the
+    breadth-first family is device-sampled with private draws and no
+    windows, as in JAX."""
     from mcmc_ammsb_tpu import cli as jax_cli
 
     cases = [(), ("--model", "mmsb"), ("--model", "mmsb", "--window", "12"),
@@ -118,10 +117,10 @@ def test_window_rule_matches_jax():
         port, jargs = _resolved("-s", s), jax_cli.build_arg_parser(
         ).parse_args(["--synthetic", "300,8", "-s", s])
         jax_cli.resolve_fast_defaults(jargs)
-        assert jargs.device_sampling and not port.device_sampling
+        assert jargs.device_sampling and port.device_sampling
         assert (port.window, port.shared_neighbors) == (
             jargs.window, jargs.shared_neighbors) == (0, False)
-        assert port.steps_per_call == 100        # min(200, ppx interval)
+        assert port.steps_per_call == jargs.steps_per_call == 1000
     assert _resolved("--model", "mmsb").window == 0
     assert _resolved("--model", "mmsb", "--window", "12").window == 12
     assert _resolved().window == 12
@@ -155,21 +154,18 @@ def test_cli_guard_exits_1():
     (["--mesh", "1,2"], "item 14"),
     (["--num-chains", "2", "--chain-devices", "2"], "item 14"),
     (["--split-seed", "7"], "item 14"),
-    (["--rng", "reference"], "item 10"),
-    (["--model", "mmsb", "--rng", "reference"], "item 10"),
-    (["-s", "BF", "--device-sampling"], "item 9"),
     (["--pi-dtype", "bfloat16"], "item 4"),
     (["--checkpoint", "ck", "--checkpoint-backend", "orbax"], "item 15"),
-    (["--profile"], "item 13"),
     (["--restore-ref", "ck.bin"], "item 15"),
     (["--checkpoint-ref", "ck.bin"], "item 15"),
 ])
 def test_cli_refuses_unported_engines(flags, item, caplog):
-    """Exit 2, naming the ROADMAP item. The breadth-first family is
-    refused with device sampling only (item 9). What this file refused
-    before and now runs (checkpoints, training perplexity, host-sampled
-    MMSB, the vmap and the MMSB chain engines) is driven end to end
-    below and in tests/test_torch_chains_cli.py."""
+    """Exit 2, naming the ROADMAP item. What this file refused before and
+    now runs (checkpoints, training perplexity, host-sampled MMSB, the
+    vmap and the MMSB chain engines; device-sampled BF, the reference
+    RNG, --profile) is driven end to end below, in
+    tests/test_torch_chains_cli.py, test_torch_rng_reference.py and
+    test_torch_profiling.py."""
     with caplog.at_level(logging.INFO, logger="mcmc_ammsb_tpu_torch"):
         assert cli.main(TINY + flags) == 2
     assert any("ROADMAP" in r.getMessage() and item in r.getMessage()

@@ -181,7 +181,8 @@ def test_cli_arg_parsing_matches_jax():
             "--steps-per-call", "50", "--device-sampling",
             "--calc-train-ppx", "--train-ppx-ratio", "0.03",
             "--phi-disable-noise", "--window-impl", "jnp",
-            "--phi-seed", "7", "8"]
+            "--phi-seed", "7", "8", "--no-ref-rng-block", "--theta-init",
+            "libstdc++"]
     mine = cli.config_from_args(cli.build_arg_parser().parse_args(argv))
     theirs = jax_cli.config_from_args(
         jax_cli.build_arg_parser().parse_args(argv))
@@ -190,7 +191,8 @@ def test_cli_arg_parsing_matches_jax():
     for f in ("K", "mini_batch_size", "num_node_sample", "a", "b", "c",
               "epsilon", "heldout_ratio", "steps_per_call",
               "device_sampling", "calc_train_ppx", "training_ppx_ratio",
-              "phi_disable_noise", "window_impl", "phi_seed"):
+              "phi_disable_noise", "window_impl", "phi_seed",
+              "ref_rng_block", "theta_init"):
         assert getattr(mine, f) == getattr(theirs, f), f
     for f in ("strategy", "phi_impl", "edgeset_backend", "rng_backend"):
         assert getattr(mine, f).value == getattr(theirs, f).value, f

@@ -32,6 +32,12 @@ def test_port_imports_without_jax():
             "import mcmc_ammsb_tpu_torch.ops.phi\n"
             "import mcmc_ammsb_tpu_torch.ops.beta\n"
             "import mcmc_ammsb_tpu_torch.ops.device_sampling\n"
+            "import mcmc_ammsb_tpu_torch.rng.reference\n"
+            "import mcmc_ammsb_tpu_torch.rng.refblock\n"
+            "import mcmc_ammsb_tpu_torch.utils.profiling\n"
+            "import mcmc_ammsb_tpu_torch.autotune\n"
+            "from mcmc_ammsb_tpu_torch import rng\n"
+            "assert rng.make_streams and rng.reference.make_seeds\n"
             "mcmc_ammsb_tpu_torch.native.available()\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', "
             "'mcmc_ammsb_tpu.')) or m == 'mcmc_ammsb_tpu' "

@@ -214,3 +214,62 @@ def test_window_core_cuda_matches_plain_on_gpu():
         a, b = getattr(got, f), getattr(want, f)
         err = float((a - b).abs().max())
         assert err <= 1e-8 + 1e-5 * float(b.abs().max()), f
+
+
+@pytest.mark.parametrize("n_nodes", [12, 40, 200_000])
+def test_dirty_windows_match_jax(n_nodes):
+    """_dirty_windows on 32 windows of the bench's (T, B, n) with ids
+    drawn from n_nodes rows (few rows: every window collides; many: few
+    do), masked lanes holding the sentinel: exactly JAX's."""
+    rng = np.random.default_rng(n_nodes)
+    nodes = rng.integers(0, n_nodes, (32, 12, 33)).astype(np.int32)
+    mask = rng.random((32, 12, 33)) < 0.8
+    nodes = np.where(mask, nodes, n_nodes).astype(np.int32)
+    nbrs = rng.integers(0, n_nodes, (32, 12, 32)).astype(np.int32)
+    got = window._dirty_windows(torch.as_tensor(nodes), torch.as_tensor(mask),
+                                torch.as_tensor(nbrs), 12)
+    want = jax_window._dirty_windows(jnp.asarray(nodes), jnp.asarray(mask),
+                                     jnp.asarray(nbrs), 12)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.any() if n_nodes < 100 else not got.all()
+
+
+@pytest.mark.parametrize("impl", ["pallas", "jnp"])
+def test_auto_correction_equals_always(impl, monkeypatch):
+    """window_correction='auto' runs as 'always' (JAX skips the codes of
+    clean windows, which are all zero anyway), so a run equals the
+    'always' run bit for bit, on both versions of the window (the plain
+    one here), with both clean and dirty windows (counted by
+    _dirty_windows on the operands of each call)."""
+    from mcmc_ammsb_tpu_torch import config, data, learner
+
+    n, u, v = data.synthetic_edges(3000, 6, seed=4)
+    split = data.generate_sets(n, u, v, heldout_ratio=0.05, seed=5)
+    graph = data.Graph.from_edges(n, split.training_u, split.training_v)
+    found = []
+    real = window.iter_windows
+
+    def counted(cfg, xs, nbrs):
+        t = cfg.window
+        s_len = nbrs.shape[0] // t * t
+        found.append(int(window._dirty_windows(
+            *(a[:s_len].reshape(s_len // t, t, -1)
+              for a in (xs[0].nodes, xs[0].node_mask, nbrs)), t).sum()))
+        return real(cfg, xs, nbrs)
+
+    monkeypatch.setattr(window, "iter_windows", counted)
+    states = []
+    for corr in ("always", "auto"):
+        cfg = config.Config(
+            K=8, mini_batch_size=8, num_node_sample=8, device_sampling=True,
+            shared_neighbors=True, window=4, window_correction=corr,
+            window_impl=impl, steps_per_call=48).finalize(
+            n, split.total_edges, graph.max_fan_out)
+        lrn = learner.Learner(cfg, graph, split, "cpu")
+        found.clear()
+        lrn.run(96)
+        states.append(lrn.state)
+    assert 0 < sum(found) < 24
+    a, b = states
+    for f in ("pi", "phi_sum", "theta", "beta"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
