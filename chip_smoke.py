@@ -88,6 +88,21 @@ Phases, one line each; any failure raises and the exit code is not 0:
                the a-MMSB main path (K=256, window 12, 2000 steps): the
                fused window kernel launches once per window, ppx falls
                below ppx[0];
+     sharded — the multi-GPU paths on the one card, through NCCL process
+               groups of size 1 and the sharded code (row fetch over the
+               model ranks, write-back, collectives): the CLI at --mesh
+               1,1 on the main path (2000 steps; as many window-kernel
+               launches as the main path, its steady-state updates/s
+               beside the main path's, ppx falls); one ShardedLearner
+               window at (1,1) on the bench window case (fetch, ONE
+               launch of the window kernel on the fetched rows as its
+               table, local write-back) against the single-GPU kernel
+               and its own --window-impl jnp version, normwise rtol
+               1e-5, with its ms; ShardedChainLearner with G = 1, C = 4,
+               window 6, 1008 steps (168 launches of the chain entry,
+               every chain's ppx falls); --partitioned-ingest --mesh 1,1
+               on the bench graph written as a SNAP file (1000 steps, 82
+               window launches, the ingest seconds, ppx falls);
                --model mmsb --window 12 (K=64, 1000 steps): the fused
                MMSB kernel launches 2 x (500 // 12) = 82 times and no
                other window entry, ppx finite and at the
@@ -155,8 +170,12 @@ Phases, one line each; any failure raises and the exit code is not 0:
                window launches each), --model mmsb --window 12 (K=64, 2 x
                504), host-sampled --phi-impl pallas (K=256, 2 x 400 steps
                in chunks of 200, pending batches in the file, 400 by-index
-               phi launches each) and --num-chains 4 (K=256, 2 x 252
-               steps, 21 chain launches each, a 1.3 GB file); then through
+               phi launches each), --num-chains 4 (K=256, 2 x 252
+               steps, 21 chain launches each, a 1.3 GB file) and --mesh
+               1,1 (the sharded checkpoint: rank 0 writes the global
+               state and every rank's generators through NCCL
+               collectives, each rank reads its rows; 84 window launches
+               each); then through
                the CLI on the main path: --checkpoint, then --restore
                logs "restored checkpoint ... (step=1001)" and its ppx
                stays below the first run's ppx[0];
@@ -254,6 +273,11 @@ RESUME_RUNS = {
         ["--num-chains", "4", "--node-coin", "alternate", "--synthetic",
          "317080,7", "-k", "256", "--steps-per-call", "252"], 252,
         "window_chain", 21),
+    # the sharded checkpoint: rank 0 writes the global state and every
+    # rank's generators through NCCL collectives, each rank reads its rows
+    "--mesh 1,1": (
+        ["--synthetic", "317080,7", "-k", "256", "--steps-per-call", "1008",
+         "--mesh", "1,1"], 1008, "window", 84),
 }
 # the reference-RNG and device breadth-first paths: name -> (CLI
 # arguments, steps, ppx interval, expected launches of every kernel entry
@@ -287,6 +311,15 @@ REF_RUNS = {
         ["--num-chains", "4", "-s", "BFLink", "--synthetic", "317080,7",
          "-k", "256", "-x", "200", "-i", "100"], 200, 100, {}, True, []),
 }
+# the multi-GPU paths at world size 1 (one H100: NCCL groups of size 1)
+SHARDED_ARGS = MAIN_ARGS + ["--mesh", "1,1"]
+SHARDED_CHAINS = 4
+SHARDED_CHAIN_ARGS = ["--num-chains", str(SHARDED_CHAINS), "--window", "6",
+                      "--steps-per-call", "504", "-i", "504", "--synthetic",
+                      "317080,7", "-k", "256"]
+PARTITIONED_ARGS = ["-k", "256", "-x", "1000", "-i", "500",
+                    "--partitioned-ingest", "--mesh", "1,1", "--device",
+                    "cuda"]
 PROFILE_ARGS = ["--synthetic", "317080,7", "-k", "256", "-x", "1000", "-i",
                 "500", "--profile", "--auto-tune-window", "--device", "cuda"]
 # steps at the end of the phi-noise chunk the plain version draws in the
@@ -1243,7 +1276,7 @@ def run_main(cli, kmods):
     phase("main", f"a-MMSB: rc 0, ppx {ppx}, window-kernel launches "
           f"{launches['window']} (= {expected} windows), steady state "
           f"{rate:.1f} updates/s")
-    return launches, ppx[0]
+    return launches, ppx[0], rate
 
 
 def run_mmsb_main(cli, kmods):
@@ -1788,6 +1821,160 @@ def check_ref_api(cli, native, kmods, window, bench, smi):
           f"{sum(found)} of 84 windows dirty, 84 window launches each")
 
 
+def run_sharded_phases(cli, kmods, main_l, main_rate, testing, bench, smi):
+    """Phase sharded: the multi-GPU paths on the one card, each through
+    NCCL process groups of size 1 and the sharded code (row fetch,
+    write-back, collectives): the CLI at --mesh 1,1 on the main path, one
+    sharded window against the single-GPU kernel and its plain version,
+    ShardedChainLearner with G = 1, --partitioned-ingest on the bench
+    graph as a SNAP file. Returns {path: launches} and the window check's
+    numbers."""
+    import os
+
+    from mcmc_ammsb_tpu_torch.ops import window
+    from mcmc_ammsb_tpu_torch.parallel import multihost
+    from mcmc_ammsb_tpu_torch.parallel.chains_sharded import (
+        ShardedChainLearner, make_chain_mesh)
+    from mcmc_ammsb_tpu_torch.parallel.mesh import make_mesh
+    from mcmc_ammsb_tpu_torch.parallel.sharded import (ShardCtx,
+                                                       sharded_window_apply)
+
+    import torch.distributed as dist
+
+    out = {}
+    # the CLI at --mesh 1,1: it starts and ends its own group of size 1
+    _counts(kmods, None)
+    series, messages = _run_cli(cli, SHARDED_ARGS)
+    launches = _counts(kmods, "read")
+    if not any("torch.distributed: rank 0 of 1 (nccl)" in m
+               for m in messages):
+        raise AssertionError("--mesh 1,1 did not start an NCCL group")
+    ppx = [p for _, p, _ in series]
+    if ([st for st, _, _ in series] != [0, 500, 1000, 1500, 2000]
+            or not (all(p < ppx[0] for p in ppx[1:]) and ppx[-1] < ppx[1])):
+        raise AssertionError(f"--mesh 1,1: ppx series {series}")
+    if (launches["window"] != main_l["window"]
+            or any(v for k, v in launches.items() if k != "window")):
+        raise AssertionError(f"--mesh 1,1 launches {launches}, the "
+                             f"single-GPU main path {main_l['window']}")
+    t = {st: c for st, _, c in series}
+    rate = 1000 / (t[2000] - t[1000])
+    out["mesh"] = launches
+    phase("sharded", f"--mesh 1,1 (NCCL, a group of size 1), 2000 steps: rc "
+          f"0, ppx {ppx}, window-kernel launches {launches['window']} (the "
+          f"single-GPU main path: {main_l['window']}, "
+          f"{launches['window'] / 2} per 1000 steps), steady state "
+          f"{rate:.1f} updates/s (the single-GPU main path {main_rate:.1f} "
+          f"in this run); {smi}")
+
+    started = multihost.initialize(device="cuda")
+    try:
+        # one sharded window against the single-GPU kernel on the same
+        # operand tuple, and against its own plain version
+        case = testing.window_case(0, *WINDOW_SHAPES[0])
+        cfg = testing.window_case_config(case)
+        state, xs = testing.window_case_torch(case, "cuda")
+        batch, nbrs = xs[0], xs[1][:, 0, :]
+        mcode = window._correction_codes(cfg, batch.nodes, batch.node_mask,
+                                          nbrs)
+        keep = window._last_write_wins(batch.nodes, batch.node_mask,
+                                        cfg.window)
+        ctx = ShardCtx(cfg, make_mesh(1, 1, device="cuda"), cfg.N, None)
+        want = window.window_apply_cuda(cfg, _fresh(state), xs, mcode, keep)
+        before = window.window_apply_cuda.launches
+        got = sharded_window_apply(ctx, _fresh(state), xs, mcode, keep)
+        if window.window_apply_cuda.launches != before + 1:
+            raise AssertionError("the sharded window did not launch the "
+                                 "window kernel once")
+        plain = sharded_window_apply(
+            ctx._replace(cfg=cfg.replace(window_impl="jnp")), _fresh(state),
+            xs, mcode, keep)
+        err = max(max_err(a, b, f"sharded window {f}") for a, b, f in
+                  zip(_outs(got), _outs(want), STATE_FIELDS))
+        err_plain = max(max_err(a, b, f"sharded window vs plain {f}")
+                        for a, b, f in zip(_outs(got), _outs(plain),
+                                           STATE_FIELDS))
+        scratch = _fresh(state)
+        ms = time_ms(lambda: sharded_window_apply(ctx, scratch, xs, mcode,
+                                                  keep))
+        ms_single = time_ms(lambda: window.window_apply_cuda(
+            cfg, scratch, xs, mcode, keep))
+        out["window"] = (err, ms, ms_single)
+        phase("sharded", f"ShardedLearner window at (1,1), (T,B,n,E,K) = "
+              f"{WINDOW_SHAPES[0]}: row fetch + one window-kernel launch on "
+              f"the fetched table + local write-back vs the single-GPU "
+              f"kernel max abs err {err:.3e}, vs its --window-impl jnp "
+              f"version {err_plain:.3e} (normwise rtol {RTOL}); "
+              f"{ms:.4f} ms/window against {ms_single:.4f} back to back "
+              f"with the host; {smi}")
+
+        # chains over the ranks of a chain mesh of one
+        n, split, graph = bench
+        args = cli.build_arg_parser().parse_args(SHARDED_CHAIN_ARGS)
+        cli.resolve_fast_defaults(args)
+        ccfg = cli.config_from_args(args).replace(
+            device_sampling=True).finalize(n, split.total_edges,
+                                           graph.max_fan_out)
+        chains = ShardedChainLearner(ccfg, graph, split, SHARDED_CHAINS,
+                                     make_chain_mesh(1, device="cuda"))
+        p0 = chains.heldout_perplexity()
+        _counts(kmods, None)
+        t0 = time.perf_counter()
+        evs = chains.run_with_ppx(1008, 504)
+        seconds = time.perf_counter() - t0
+        launches = _counts(kmods, "read")
+        expected = 1008 // 6
+        if (launches["window_chain"] != expected or launches["window"]
+                or launches["chains"] != SHARDED_CHAINS * expected):
+            raise AssertionError(f"ShardedChainLearner launches {launches}, "
+                                 f"expected {expected} chain launches")
+        last = evs[-1]["ppx"]
+        if not (len(last) == SHARDED_CHAINS and (last < p0).all()):
+            raise AssertionError(f"a chain's ppx does not fall: {p0} -> "
+                                 f"{last}")
+        out["chains"] = launches
+        phase("sharded", f"ShardedChainLearner G = 1, C = {SHARDED_CHAINS}, "
+              f"window 6, 1008 steps: chain-entry launches "
+              f"{launches['window_chain']} (= {expected} windows, "
+              f"{launches['chains']} chain blocks), ppx "
+              f"{[round(float(x), 4) for x in p0]} -> "
+              f"{[round(float(x), 4) for x in last]}, "
+              f"{SHARDED_CHAINS * 1008 / seconds:.1f} "
+              f"updates/s aggregate (evaluations included), init "
+              f"{chains.init_seconds:.3f} s; {smi}")
+        del chains
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+    # --partitioned-ingest on the bench graph written as a SNAP file
+    import numpy as np
+
+    from mcmc_ammsb_tpu_torch import data
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bench.txt")
+        _, u, v = data.synthetic_edges(317080, 7, seed=1)
+        t0 = time.perf_counter()
+        np.savetxt(path, np.stack([u, v], 1), fmt="%d", delimiter="\t",
+                   header="bench graph, synthetic_edges(317080, 7, seed=1)")
+        write_s = time.perf_counter() - t0
+        _counts(kmods, None)
+        series, messages = _run_cli(cli, ["--file", path] + PARTITIONED_ARGS)
+        launches = _counts(kmods, "read")
+    ingest = next(m for m in messages if m.startswith("partitioned ingest"))
+    ppx = [p for _, p, _ in series]
+    if ([st for st, _, _ in series] != [0, 500, 1000]
+            or not all(p < ppx[0] for p in ppx[1:])):
+        raise AssertionError(f"--partitioned-ingest: ppx series {series}")
+    if launches["window"] != 2 * (500 // 12):
+        raise AssertionError(f"--partitioned-ingest launches {launches}")
+    out["partitioned"] = launches
+    phase("sharded", f"--partitioned-ingest --mesh 1,1 on the bench graph "
+          f"as a SNAP file ({write_s:.2f} s to write): {ingest}; ppx {ppx}, "
+          f"window-kernel launches {launches['window']}; {smi}")
+    return out
+
+
 def _api_learner(cli, argv, bench, **cfg_fields):
     """The learner the CLI builds for ``argv`` on the bench graph, with
     ``cfg_fields`` replaced in its config."""
@@ -1804,7 +1991,24 @@ def _api_learner(cli, argv, bench, **cfg_fields):
 def check_resume(cli, checkpoint, kmods, bench, tmp, name, smi):
     """Phase 6, one of RESUME_RUNS through the API: run, save, run against
     a fresh learner, restore, run. Every field of the state bit-equal,
-    the same kernel launches in both second halves."""
+    the same kernel launches in both second halves. A sharded path runs
+    in a process group of size 1 that it starts and ends."""
+    if "--mesh" in RESUME_RUNS[name][0]:
+        import torch.distributed as dist
+
+        from mcmc_ammsb_tpu_torch.parallel import multihost
+
+        started = multihost.initialize(device="cuda")
+        try:
+            return _check_resume(cli, checkpoint, kmods, bench, tmp, name,
+                                 smi)
+        finally:
+            if started:
+                dist.destroy_process_group()
+    return _check_resume(cli, checkpoint, kmods, bench, tmp, name, smi)
+
+
+def _check_resume(cli, checkpoint, kmods, bench, tmp, name, smi):
     import os
 
     argv, steps, entry, expected = RESUME_RUNS[name]
@@ -1926,7 +2130,9 @@ def main() -> int:
     check_slices(smods, window, window_mmsb, phi_pallas, chains_flat, testing)
     check_mmsb_engine_slices(smods, testing)
     kmods = (window, window_mmsb, phi_pallas, refblock)
-    main_l, main_ppx0 = run_main(cli, kmods)
+    main_l, main_ppx0, main_rate = run_main(cli, kmods)
+    shard = run_sharded_phases(cli, kmods, main_l, main_rate, testing, bench,
+                               smi)
     mmsb_l = run_mmsb_main(cli, kmods)
     phi_l = run_phi_main(cli, kmods)
     chain_l, _, _ = run_chain_main(cli, kmods)
@@ -1962,14 +2168,23 @@ def main() -> int:
         {"name": "window_kernel", "route": "cuda",
          "source": src + "window_kernel.cu",
          "replaces": "mcmc_ammsb_tpu/ops/window.py:321",
-         "launches": main_l["window"], "max_abs_err": w_err, **times(w_t)},
+         "launches": main_l["window"], "max_abs_err": w_err, **times(w_t),
+         # the same kernel on the sharded paths (NCCL groups of size 1):
+         # --mesh 1,1 (2000 steps), --partitioned-ingest (1000 steps), and
+         # one sharded window (fetch, launch, write-back) against it
+         "sharded_launches": shard["mesh"]["window"],
+         "partitioned_launches": shard["partitioned"]["window"],
+         "sharded_window_max_abs_err": shard["window"][0],
+         "sharded_window_ms": shard["window"][1]},
         # the same kernel and entry, one cluster per chain: the chain
         # engine's launches
         {"name": "window_kernel_chains", "route": "cuda",
          "source": src + "window_kernel.cu",
          "replaces": "mcmc_ammsb_tpu/ops/window.py:321 (n_chains > 1)",
          "launches": chain_l["window_chain"], "max_abs_err": c_err,
-         **times(c_t)},
+         **times(c_t),
+         # ShardedChainLearner, G = 1, C = 4, 1008 steps
+         "sharded_launches": shard["chains"]["window_chain"]},
         {"name": "mmsb_window_kernel", "route": "cuda",
          "source": src + "mmsb_window_kernel.cu",
          "replaces": "mcmc_ammsb_tpu/ops/window_mmsb.py:96",

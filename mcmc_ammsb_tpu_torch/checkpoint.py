@@ -17,7 +17,17 @@ saved from: a CPU generator's state does not fit a CUDA generator.
 
 Every learner of the port is taken: ``Learner``, ``FullMMSBLearner``,
 ``FlatChainLearner``, ``MMSBChainLearner`` and ``MultiChainLearner``
-(whose state is the list ``states``: its leaves are the chains' in turn).
+(whose state is the list ``states``: its leaves are the chains' in turn),
+and the multi-GPU ``parallel.ShardedLearner`` and
+``parallel.ShardedChainLearner``. Their state is split across ranks
+(``shard_layout``): every rank joins the save, rank 0 writes the GLOBAL
+state in the single-GPU layout (pi [N_pad, K], the running averages of
+the whole population, the C chains' fields), every rank's generators as
+``stream_<rank>_<name>`` and the mesh in the manifest, and a barrier
+follows the write; on load each rank reads only its own rows of the
+split fields (an uncompressed member is read from its offset) and its
+own generators. The file must be loaded on a world of the same size and
+mesh.
 
 Resume is bit-exact under this contract: run n steps, save, run m steps
 equals restore, run m steps, with the same ``steps_per_call``. A chunk
@@ -40,10 +50,12 @@ import dataclasses
 import json
 import os
 import pickle
+import zipfile
 from typing import List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mcmc_ammsb_tpu_torch.config import (Config, EdgeSetBackend, PhiImpl,
                                          RngBackend, SampleStrategy)
@@ -70,6 +82,13 @@ def _config_from_json(d: dict) -> Config:
         if isinstance(d.get(f), list):
             d[f] = tuple(d[f])
     return Config(**d)
+
+
+def _num_chains(learner):
+    """The chain count a checkpoint records: all C chains of a sharded
+    chain engine, not one rank's."""
+    return getattr(learner, "total_chains",
+                   getattr(learner, "num_chains", None))
 
 
 def _states(learner) -> list:
@@ -120,7 +139,7 @@ def _collect_host_state(learner, num_leaves: int):
         "format_version": _FORMAT_VERSION,
         "config": _config_to_json(learner.cfg),
         "learner": type(learner).__name__,
-        "num_chains": getattr(learner, "num_chains", None),
+        "num_chains": _num_chains(learner),
         "num_leaves": num_leaves,
         "timers": {k: v for k, v in learner.timers.seconds.items()},
         "timer_calls": {k: v for k, v in learner.timers.calls.items()},
@@ -151,10 +170,10 @@ def _check_manifest(manifest: dict, learner) -> None:
     if saved_cfg.K != learner.cfg.K or saved_cfg.N != learner.cfg.N:
         raise ValueError("checkpoint geometry mismatch")
     saved_chains = manifest.get("num_chains")
-    if saved_chains != getattr(learner, "num_chains", None):
+    if saved_chains != _num_chains(learner):
         raise ValueError(
             f"checkpoint geometry mismatch: num_chains {saved_chains} "
-            f"!= {getattr(learner, 'num_chains', None)}")
+            f"!= {_num_chains(learner)}")
     expected = _num_leaves(learner)
     if manifest["num_leaves"] != expected:
         raise ValueError(
@@ -173,6 +192,11 @@ def _check_manifest(manifest: dict, learner) -> None:
             f"{manifest['stream_device']!r}, this learner runs on "
             f"{learner.device.type!r}: a generator's state does not move "
             "between device kinds")
+    mesh = getattr(getattr(learner, "mesh", None), "shape", None)
+    if manifest.get("mesh") != mesh:
+        raise ValueError(f"checkpoint was saved on the mesh "
+                         f"{manifest.get('mesh')}, this learner runs on "
+                         f"{mesh}")
 
 
 def _apply_host_state(learner, manifest: dict, sampler_rng_blob: bytes,
@@ -202,9 +226,12 @@ def save_checkpoint(path: str, learner, compress: bool = False) -> None:
     batches). The prefetch producer is stopped; the next ``run`` consumes
     the drained batches first and restarts it. Waits for the device
     before it reads the state. ``compress`` writes the JAX package's
-    ``np.savez_compressed`` flavor."""
+    ``np.savez_compressed`` flavor. A sharded learner's save is
+    collective: every rank of its mesh calls it."""
     if learner.device.type == "cuda":
         torch.cuda.synchronize(learner.device)
+    if hasattr(learner, "shard_layout"):
+        return _save_sharded(path, learner, compress)
     leaves = [leaf for s in _states(learner) for leaf in state_leaves(s)]
     manifest, sampler_rng, pending_blob = _collect_host_state(
         learner, len(leaves))
@@ -212,6 +239,10 @@ def save_checkpoint(path: str, learner, compress: bool = False) -> None:
     for c, streams in enumerate(_streams(learner)):
         for name, gen in zip(streams._fields, streams):
             arrays[f"stream_{c}_{name}"] = gen.get_state().numpy()
+    _write(path, manifest, sampler_rng, pending_blob, arrays, compress)
+
+
+def _write(path, manifest, sampler_rng, pending_blob, arrays, compress):
     tmp = f"{path}.tmp{os.getpid()}"
     with open(tmp, "wb") as f:
         (np.savez_compressed if compress else np.savez)(
@@ -221,6 +252,86 @@ def save_checkpoint(path: str, learner, compress: bool = False) -> None:
             pending=np.frombuffer(pending_blob, np.uint8),
             **arrays)
     os.replace(tmp, path)
+
+
+def _gather_field(x: torch.Tensor, group) -> torch.Tensor:
+    """The global field: ``x`` of every rank of ``group`` concatenated on
+    dim 0 in group order (an empty field stays empty)."""
+    if x.numel() == 0:
+        return x
+    out = x.new_empty((dist.get_world_size(group) * x.shape[0],
+                       *x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    return out
+
+
+def _save_sharded(path: str, learner, compress: bool) -> None:
+    """Every rank: gather the split fields and the generator states;
+    rank 0: write the file; then a barrier, so no rank reads a file that
+    is not there yet."""
+    state = learner.state
+    full = {name: _gather_field(getattr(state, name), group)
+            for name, (group, _) in learner.shard_layout().items()}
+    gens = {name: gen.get_state().numpy()
+            for name, gen in learner.stream_generators().items()}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, gens)
+    manifest, sampler_rng, pending_blob = _collect_host_state(
+        learner, _num_leaves(learner))
+    if dist.get_rank() == 0:
+        manifest["world_size"] = dist.get_world_size()
+        manifest["mesh"] = learner.mesh.shape
+        leaves = state_leaves(state._replace(**full))
+        arrays = {f"leaf_{i}": leaf for i, leaf in enumerate(leaves)}
+        for r, per_rank in enumerate(every):
+            for name, st in per_rank.items():
+                arrays[f"stream_{r}_{name}"] = st
+        _write(path, manifest, sampler_rng, pending_blob, arrays, compress)
+    dist.barrier()
+
+
+def _npz_rows(path: str, key: str, lo: int, hi: int) -> np.ndarray:
+    """Rows [lo, hi) of the array ``key`` of an npz file, read from their
+    offset in the member (a compressed member is inflated up to there)."""
+    with zipfile.ZipFile(path) as zf, zf.open(key + ".npy") as f:
+        version = np.lib.format.read_magic(f)
+        read_header = (np.lib.format.read_array_header_1_0 if version[0] == 1
+                       else np.lib.format.read_array_header_2_0)
+        shape, fortran, dtype = read_header(f)
+        if fortran:
+            raise ValueError(f"{key}: a Fortran-ordered array")
+        row = int(np.prod(shape[1:], dtype=np.int64)) * dtype.itemsize
+        f.seek(f.tell() + lo * row)
+        buf = bytearray(f.read((hi - lo) * row))     # writable
+    return np.frombuffer(buf, dtype).reshape(hi - lo, *shape[1:])
+
+
+def _load_sharded(path: str, z, manifest: dict, learner) -> None:
+    if manifest.get("world_size") != dist.get_world_size():
+        raise ValueError(f"checkpoint was saved by "
+                         f"{manifest.get('world_size')} ranks, this run "
+                         f"has {dist.get_world_size()}")
+    layout = learner.shard_layout()
+    fields = {}
+    for i, (name, old) in enumerate(zip(learner.state._fields,
+                                        learner.state)):
+        key = f"leaf_{i}"
+        if isinstance(old, torch.Tensor):
+            if name in layout and old.numel():
+                n = old.shape[0]
+                at = layout[name][1] * n
+                leaf = _npz_rows(path, key, at, at + n)
+            else:
+                leaf = z[key]
+            fields[name] = _restore_tensor(name, old, leaf)
+        elif old is None:
+            fields[name] = None
+        else:
+            fields[name] = int(z[key])
+    learner.state = type(learner.state)(**fields)
+    rank = dist.get_rank()
+    for name, gen in learner.stream_generators().items():
+        gen.set_state(torch.from_numpy(z[f"stream_{rank}_{name}"].copy()))
 
 
 def _restore_tensor(name, old, leaf):
@@ -264,6 +375,11 @@ def load_checkpoint(path: str, learner):
     z = np.load(path, allow_pickle=False)
     manifest = json.loads(bytes(z["manifest"]).decode())
     _check_manifest(manifest, learner)
+    if hasattr(learner, "shard_layout"):
+        _load_sharded(path, z, manifest, learner)
+        _apply_host_state(learner, manifest, bytes(z["sampler_rng"]),
+                          bytes(z["pending"]) if "pending" in z else None)
+        return learner
     refs = _states(learner)
     at, restored = 0, []
     for ref in refs:

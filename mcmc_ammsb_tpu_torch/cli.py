@@ -4,7 +4,10 @@ host-sampled, with ``--phi-impl jnp`` or ``pallas``, the full MMSB,
 ``--model mmsb``, also host-sampled, and C independent chains of
 either model, ``--num-chains C``: the flat a-MMSB chain engine, the MMSB
 chain engine, or with ``--chain-engine vmap`` C whole single-chain
-states, the slow cross-check). ``--checkpoint`` saves the run at exit,
+states, the slow cross-check; on several GPUs ``--mesh D,M``, the
+row-sharded learner, ``--num-chains C --chain-devices G``, chains spread
+over G GPUs, and ``--partitioned-ingest``, each process parsing its byte
+range of ``--file``). ``--checkpoint`` saves the run at exit,
 after SIGINT and every ``--checkpoint-interval`` steps, ``--restore``
 resumes it; ``--dump-data`` / ``--load-data`` write and read the dataset
 cache.
@@ -15,6 +18,13 @@ stats table) as the JAX CLI; SIGINT drains the loop. ``--device cuda``
 (the default) runs on the GPU and fails when there is none — it never
 falls back to the CPU. A flag that selects an engine the port lacks
 exits non-zero and names the ROADMAP item that will port it.
+
+Multi-GPU runs are one process per GPU (``parallel/``): started by
+``torchrun --nproc-per-node G -m mcmc_ammsb_tpu_torch.cli --mesh D,M ...``
+or by ``--coordinator HOST:PORT --num-processes P --process-id I`` in
+each process; a lone process with ``--mesh 1,1`` starts a group of size
+1 itself. The ranks run NCCL on cards, gloo with ``--device cpu``; only
+rank 0 logs the ppx series and the stats.
 
 Usage:
     python -m mcmc_ammsb_tpu_torch.cli --synthetic 317080,7 -k 256 \\
@@ -45,6 +55,12 @@ Usage:
         --dump-file graph.npz [--cache-format ref]
     python -m mcmc_ammsb_tpu_torch.cli --load-data --load-file graph.npz \\
         -k 256 -x 1000 -i 500
+    torchrun --nproc-per-node 4 -m mcmc_ammsb_tpu_torch.cli --mesh 2,2 \\
+        --synthetic 317080,7 -k 256 -x 1000 -i 500
+    torchrun --nproc-per-node 4 -m mcmc_ammsb_tpu_torch.cli --num-chains 16 \\
+        --chain-devices 4 --synthetic 317080,7 -k 256 -x 1008 -i 504
+    python -m mcmc_ammsb_tpu_torch.cli --partitioned-ingest --file graph.txt \\
+        --mesh 1,1 -k 256 -x 1000 -i 500
 """
 
 from __future__ import annotations
@@ -53,9 +69,11 @@ import argparse
 import logging
 import signal
 import sys
+import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mcmc_ammsb_tpu_torch.chains import MultiChainLearner
 from mcmc_ammsb_tpu_torch.chains_flat import FlatChainLearner
@@ -69,17 +87,21 @@ from mcmc_ammsb_tpu_torch.data import (Graph, dump_dataset, generate_sets,
 from mcmc_ammsb_tpu_torch.learner import Learner, check_ported
 from mcmc_ammsb_tpu_torch.models.mmsb import (FullMMSBLearner,
                                               MMSBChainLearner)
+from mcmc_ammsb_tpu_torch.parallel import multihost
+from mcmc_ammsb_tpu_torch.parallel.chains_sharded import (ShardedChainLearner,
+                                                          make_chain_mesh)
+from mcmc_ammsb_tpu_torch.parallel.mesh import make_mesh, rank_device
+from mcmc_ammsb_tpu_torch.parallel.partitioned import partitioned_ingest
+from mcmc_ammsb_tpu_torch.parallel.sharded import ShardedLearner
 
 log = logging.getLogger("mcmc_ammsb_tpu_torch")
 
 #: Flags of the JAX CLI whose engines are not ported yet:
 #: (argparse dest, the only accepted value, ROADMAP queue 1 item).
 _UNPORTED = (
-    ("mesh", "", "item 14 (multi-GPU)"),
     ("checkpoint_backend", "npz", "item 15 (the orbax backend)"),
     ("checkpoint_ref", "", "item 15 (reference-format checkpoints)"),
     ("restore_ref", "", "item 15 (reference-format checkpoints)"),
-    ("split_seed", 12345, "item 14 (partitioned ingest)"),
 )
 
 
@@ -202,8 +224,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "after each and log the Gelman-Rubin R-hat across "
                         "chains (>= 2 draws; 0 = off)")
     p.add_argument("--chain-devices", type=int, default=1,
-                   help="spread --num-chains over this many devices (not "
-                        "ported yet)")
+                   help="spread --num-chains over this many GPUs, one "
+                        "process each (a-MMSB flat chains; "
+                        "parallel/chains_sharded.py)")
     # dataset cache
     p.add_argument("--dump-data", action="store_true",
                    help="write the loaded graph to --dump-file and exit")
@@ -232,13 +255,39 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="print the per-stage table at exit: the device "
                         "time of a traced chunk by stage "
                         "(utils/profiling.py)")
+    # multi-GPU execution (parallel/): one process per GPU
+    p.add_argument("--mesh", type=str, default="", metavar="DATA,MODEL",
+                   help="train on several GPUs: shard pi rows over MODEL "
+                        "ranks and the minibatch over DATA ranks of a "
+                        "(DATA, MODEL) mesh of DATA*MODEL processes")
+    p.add_argument("--coordinator", type=str, default="",
+                   metavar="HOST:PORT",
+                   help="torch.distributed rendezvous address (process "
+                        "0's host); required with --num-processes > 1 "
+                        "(torchrun sets its own)")
+    p.add_argument("--num-processes", type=int, default=0,
+                   help="total process count (0/1 = single-process, or "
+                        "torchrun's)")
+    p.add_argument("--process-id", type=int, default=0,
+                   help="this process's rank")
+    p.add_argument("--partitioned-ingest", action="store_true",
+                   help="multi-process capacity mode: each process parses "
+                        "only its byte range of --file, edges are "
+                        "exchanged to their owning model shards, and both "
+                        "E-sized device structures (membership set, "
+                        "sampling adjacency) are sharded over the mesh's "
+                        "model ranks. Requires --mesh and device sampling; "
+                        "the held-out split is the hash rule "
+                        "(parallel/partitioned.py)")
+    p.add_argument("--split-seed", type=int, default=12345,
+                   help="seed of the held-out split (the hash rule under "
+                        "--partitioned-ingest; generate_sets' shuffle "
+                        "otherwise uses its own default)")
     # engines of the JAX CLI that the port does not have yet (_UNPORTED)
-    p.add_argument("--mesh", type=str, default="")
     p.add_argument("--checkpoint-backend", choices=["npz", "orbax"],
                    default="npz")
     p.add_argument("--checkpoint-ref", type=str, default="")
     p.add_argument("--restore-ref", type=str, default="")
-    p.add_argument("--split-seed", type=int, default=12345)
     return p
 
 
@@ -334,7 +383,25 @@ def config_from_args(args) -> Config:
 
 
 def make_learner(args, cfg: Config, graph, split, device):
-    """The learner of the engine the flags select, on ``device``."""
+    """The learner of the engine the flags select, on ``device``, in the
+    JAX CLI's order: chains (over several GPUs with --chain-devices),
+    then the model, then --mesh. A mesh or chain mesh larger than the
+    world raises ValueError with the JAX package's wording."""
+    if args.num_chains > 1 and args.chain_devices > 1:
+        if args.chain_engine != "flat":
+            raise ValueError("--chain-devices requires the flat engine")
+        mesh = make_chain_mesh(args.chain_devices, device)
+        if args.model == "mmsb":
+            raise ValueError("--chain-devices spreads the a-MMSB flat "
+                             "chain engine; --model mmsb chains run on one "
+                             "GPU")
+        learner = ShardedChainLearner(cfg, graph, split, args.num_chains,
+                                      mesh)
+        log.info("%d chains over %d GPUs (%d per rank), this rank's "
+                 "initialized in %.3f s", args.num_chains,
+                 args.chain_devices, learner.chains_per_group,
+                 learner.init_seconds)
+        return learner
     if args.num_chains > 1 and args.model == "mmsb":
         return MMSBChainLearner(cfg, graph, split, args.num_chains, device)
     if args.num_chains > 1 and args.chain_engine != "flat":
@@ -345,8 +412,22 @@ def make_learner(args, cfg: Config, graph, split, device):
                  "C x N x K gammas)", args.num_chains, learner.init_seconds)
         return learner
     if args.model == "mmsb":
+        if args.mesh:
+            raise ValueError("--model mmsb is single-GPU (use --num-chains "
+                             "for parallelism)")
         return FullMMSBLearner(cfg, graph, split, device)
+    if args.mesh:
+        return ShardedLearner(cfg, graph, split, _mesh(args, device))
     return Learner(cfg, graph, split, device)
+
+
+def _mesh(args, device):
+    """The (DATA, MODEL) mesh of ``--mesh``."""
+    n_data, n_model = (int(x) for x in args.mesh.split(","))
+    mesh = make_mesh(n_data, n_model, device=device)
+    log.info("mesh: data=%d model=%d (pi rows sharded %d-way)", n_data,
+             n_model, n_model)
+    return mesh
 
 
 def main(argv=None) -> int:
@@ -367,10 +448,6 @@ def main(argv=None) -> int:
                   "a-MMSB chains (R-hat is a between-chain statistic)")
         return 1
     chains = args.num_chains > 1
-    if chains and args.chain_devices > 1:
-        log.fatal("--chain-devices (item 14, chains over several GPUs) is "
-                  "not ported yet (ROADMAP queue 1)")
-        return 2
     resolve_fast_defaults(args)
     cfg = config_from_args(args)
     if chains:
@@ -385,10 +462,39 @@ def main(argv=None) -> int:
         log.fatal("--device cuda: no CUDA device is available (pass "
                   "--device cpu to run on the CPU)")
         return 1
-    device = torch.device(args.device)
-    log.info("torch %s on %s", torch.__version__,
-             torch.cuda.get_device_name(device) if device.type == "cuda"
-             else "cpu")
+    distributed = bool(args.mesh or args.partitioned_ingest
+                       or (chains and args.chain_devices > 1)
+                       or args.num_processes > 1)
+    owns_group = False
+    level = log.level
+    try:
+        if distributed:
+            # the backend follows --device (NCCL on a card, gloo on the
+            # CPU); a failure to start it ends the run
+            owns_group = multihost.initialize(
+                args.coordinator or None, args.num_processes or None,
+                args.process_id, args.device)
+            log.info("torch.distributed: rank %d of %d (%s)",
+                     dist.get_rank(), dist.get_world_size(),
+                     dist.get_backend())
+            if dist.get_rank() != 0:
+                log.setLevel(logging.WARNING)   # rank 0 logs the run
+        device = (rank_device(args.device) if distributed
+                  else torch.device(args.device))
+        log.info("torch %s on %s", torch.__version__,
+                 torch.cuda.get_device_name(device)
+                 if device.type == "cuda" else "cpu")
+        if args.partitioned_ingest:
+            return _main_partitioned(args, device)
+        return _main(args, cfg, chains, device)
+    finally:
+        log.setLevel(level)
+        if owns_group:
+            dist.destroy_process_group()
+
+
+def _main(args, cfg: Config, chains: bool, device) -> int:
+    """The run after the device and the process group are set up."""
 
     # --- dataset ----------------------------------------------------------
     if args.load_data:
@@ -497,12 +603,71 @@ def main(argv=None) -> int:
     return 0
 
 
+def _main_partitioned(args, device) -> int:
+    """--partitioned-ingest (the JAX CLI's ``_main_partitioned``): every
+    process parses its byte range of --file, the edges go to their model
+    shards, and ``ShardedLearner.from_partitioned`` trains on the sharded
+    CSR. Every rank runs the same loop; rank 0 logs it."""
+    if not args.file:
+        log.fatal("--partitioned-ingest requires --file (SNAP edge list; "
+                  "byte-range split across processes)")
+        return 1
+    if not args.mesh:
+        log.fatal("--partitioned-ingest requires --mesh DATA,MODEL")
+        return 1
+    if not args.device_sampling:
+        log.fatal("--partitioned-ingest requires device sampling (no "
+                  "process holds the host graph)")
+        return 1
+    try:
+        mesh = _mesh(args, device)
+    except ValueError as e:
+        log.fatal("%s", e)
+        return 1
+    t0 = time.perf_counter()
+    pdata = partitioned_ingest(mesh, heldout_ratio=args.heldout_ratio,
+                               seed=args.split_seed, path=args.file)
+    log.info("partitioned ingest in %.3f s: N=%d E=%d max_fan_out=%d; this "
+             "process parsed %d edges, largest shard holds %d (full graph "
+             "never materialized)", time.perf_counter() - t0,
+             pdata.num_nodes, pdata.num_edges, pdata.max_fan_out,
+             pdata.local_parse_edges, pdata.max_shard_edges)
+    cfg = config_from_args(args).finalize(pdata.num_nodes, pdata.num_edges,
+                                          pdata.max_fan_out)
+    log.info("config: %s", cfg)
+    try:
+        learner = ShardedLearner.from_partitioned(cfg, pdata, mesh)
+    except ValueError as e:
+        log.fatal("%s", e)
+        return 1
+    if args.restore:
+        try:
+            load_checkpoint(args.restore, learner)
+        except ValueError as e:
+            log.fatal("--restore %s: %s", args.restore, e)
+            return 1
+        log.info("restored checkpoint %s (step=%d)", args.restore,
+                 learner.step_count)
+    signaled = {"flag": False}
+    previous = signal.signal(signal.SIGINT,
+                             lambda _s, _f: signaled.update(flag=True))
+    try:
+        _train(args, cfg, learner, signaled)
+        if args.checkpoint:
+            save_checkpoint(args.checkpoint, learner)
+            log.info("checkpoint saved to %s", args.checkpoint)
+    finally:
+        signal.signal(signal.SIGINT, previous)
+    return 0
+
+
 def _auto_tune_window(args, cfg: Config, graph, split, device) -> Config:
     """--auto-tune-window (the JAX CLI's rule, cli.py:618-644): the
     single-chain and flat-chain a-MMSB engines probe every candidate
     window size and keep the fastest; the others keep their window."""
-    if args.model == "mmsb" or (args.num_chains > 1
-                                and args.chain_engine != "flat"):
+    if args.mesh or args.model == "mmsb" or (
+            args.num_chains > 1 and (args.chain_engine != "flat"
+                                     or args.chain_devices > 1)):
         log.warning("--auto-tune-window supports the single-chain and "
                     "flat-chain engines; keeping window=%d", cfg.window)
         return cfg

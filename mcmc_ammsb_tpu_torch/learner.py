@@ -301,14 +301,19 @@ def init_state(cfg: Config, heldout_size: int, device,
 # The hoisted training loop
 # ---------------------------------------------------------------------------
 
-def phi_noise_operand(cfg: Config, gen: torch.Generator, shape,
-                      device) -> torch.Tensor:
+def phi_noise_operand(cfg: Config, gen, shape, device) -> torch.Tensor:
     """The phi noise operand of ``shape``: standard normal draws from
     ``gen``, or, in the noise-free golden mode (``cfg.phi_disable_noise``),
     ONES (the JAX package's operand: not zeros, not randn). The generator
-    is then not advanced. The theta noise is drawn in either mode."""
+    is then not advanced. The theta noise is drawn in either mode. ``gen``
+    may be a list of D generators (the data shards' streams of
+    ``parallel.sharded``): the node lanes (``shape[-2]``) are split into D
+    blocks in order, block d drawn from generator d."""
     if cfg.phi_disable_noise:
         return torch.ones(shape, dtype=torch.float32, device=device)
+    if isinstance(gen, list):
+        block = (*shape[:-2], shape[-2] // len(gen), shape[-1])
+        return torch.cat([rng.randn(g, block, device) for g in gen], dim=-2)
     return rng.randn(gen, shape, device)
 
 

@@ -417,13 +417,17 @@ def _step_sizes(cfg: Config, first: int, t_win: int) -> np.ndarray:
         f32(cfg.a) * (f32(1.0) + t / f32(cfg.b)) ** f32(-cfg.c), f32)
 
 
-def _launch(cfg: Config, s, xs_t, mcode, keep, chained: bool):
+def _launch(cfg: Config, s, xs_t, mcode, keep, chained: bool,
+            table_rows: int = None):
     """One launch of ``csrc/window_kernel.cu``: one cluster, or with
     ``chained`` one cluster per chain, every operand, ``keep`` and
     ``s.theta``/``s.beta`` then carrying a leading chain axis,
     chain-major as ``window_chain_core_torch`` takes them, and ``s.pi``
-    the flat [C*N, K]. Updates ``s.pi`` and ``s.phi_sum`` in place;
-    returns the state after the window."""
+    the flat [C*N, K]. ``table_rows`` is the number of rows of each
+    chain's table (``s.pi``), N unless given: the sharded path hands the
+    kernel a table of fetched rows and ids remapped into it, while the
+    scale of the phi gradient stays N. Updates ``s.pi`` and ``s.phi_sum``
+    in place; returns the state after the window."""
     batch, nbrs_s, y_w, nphi_w, nbeta_w, ye_w, lu, lv = xs_t
     if not s.pi.is_cuda:
         raise ValueError("the window kernel's wrappers take CUDA tensors")
@@ -434,9 +438,10 @@ def _launch(cfg: Config, s, xs_t, mcode, keep, chained: bool):
     k = cfg.K
     lead = tuple(batch.nodes.shape[:-2])
     n_chains = lead[0] if chained else 1
+    n_rows = cfg.N if table_rows is None else table_rows
     if (len(lead) != int(chained) or tuple(s.theta.shape) != (*lead, k, 2)
             or tuple(s.beta.shape) != (*lead, k)
-            or tuple(s.pi.shape) != (n_chains * cfg.N, k)
+            or tuple(s.pi.shape) != (n_chains * n_rows, k)
             or tuple(keep.shape) != (*lead, t_win, b_cap)):
         raise ValueError(
             f"window kernel operands for {'C' if chained else 'one'} "
@@ -468,7 +473,7 @@ def _launch(cfg: Config, s, xs_t, mcode, keep, chained: bool):
     eps_phi = _step_sizes(cfg, s.step_count, t_win)
     eps_theta = _step_sizes(cfg, s.beta_count + 1, t_win)
     err = lib.window_kernel_launch(
-        *ptrs, n_chains, t_win, b_cap, n_smpl, e_cap, k, cfg.N, cluster,
+        *ptrs, n_chains, t_win, b_cap, n_smpl, e_cap, k, n_rows, cluster,
         cfg.epsilon, 1.0 - cfg.epsilon, cfg.alpha_value, float(cfg.N),
         cfg.eta0, cfg.eta1, 1.0 / k, eps_phi.ctypes.data,
         eps_theta.ctypes.data, torch.cuda.current_stream(dev).cuda_stream)
@@ -476,14 +481,18 @@ def _launch(cfg: Config, s, xs_t, mcode, keep, chained: bool):
     return _advance(s, t_win, theta=theta, beta=beta)
 
 
-def window_apply_cuda(cfg: Config, s, xs_t, mcode, keep):
+def window_apply_cuda(cfg: Config, s, xs_t, mcode, keep,
+                      table_rows: int = None):
     """The same window as ``window_apply_torch`` in ONE launch of
     ``csrc/window_kernel.cu`` (one cluster): the kernel reads its rows
     from ``s.pi``/``s.phi_sum`` by index and writes the rows ``keep``
     selects back into them IN PLACE; theta and beta are new tensors.
+    ``table_rows``: ``s.pi`` is a table of that many rows and the ids
+    index it (``parallel/sharded.py``'s fetched rows), not pi [N, K].
     CUDA tensors only: the kernel is launched or this raises — there is
     no fallback."""
-    out = _launch(cfg, s, xs_t, mcode, keep, chained=False)
+    out = _launch(cfg, s, xs_t, mcode, keep, chained=False,
+                  table_rows=table_rows)
     window_apply_cuda.launches += 1
     return out
 

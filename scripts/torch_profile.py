@@ -5,7 +5,7 @@ Run from the root of a checkout (the package must be importable):
     PYTHONPATH=. python3 scripts/torch_profile.py [--reps 5]
         [--paths single,chains,mmsb,phi,hostphi,hoststep,hostbf,powerlaw,
                  mmsbchains,hostmmsb,vmap,refrng,refplain,refphi,devbf,
-                 devbfalt,devbfnon,refkernel,checkpoint]
+                 devbfalt,devbfnon,mesh,refkernel,checkpoint]
         [--out FILE]
 
 Each path at N=317,080 (``--synthetic 317080,7``), the CLI's defaults
@@ -49,6 +49,11 @@ otherwise:
           private draws, no windows, 1000 steps per call;
   devbfalt ``-s BF --node-coin alternate``, K=256: 1000 steps per call;
   devbfnon ``-s BFNonLink``, K=256: 1000 steps per call;
+  mesh    ``--mesh 1,1``, K=256: the main path through the row-sharded
+          learner in a process group of size 1 (NCCL) that the script
+          starts and ends: per window one row fetch (an all-reduce), one
+          window-kernel launch on the fetched rows, the local write-back;
+          1008 steps per call;
   refkernel  not a training path: the reference RNG's phi-noise draws
           of one 200-step chunk of real host batches (64 lanes, K=256),
           through csrc/ref_rng_kernel.cu (CUDA events, 5 calls) and through
@@ -128,6 +133,8 @@ PATHS = {
                   "317080,7", "-k", "256"], 1000),
     "devbfnon": (["-s", "BFNonLink", "--synthetic", "317080,7", "-k",
                   "256"], 1000),
+    "mesh": (["--synthetic", "317080,7", "-k", "256", "--mesh", "1,1"],
+             1008),
 }
 
 
@@ -221,6 +228,23 @@ def make_learner(flags):
 
 
 def profile_path(name: str, reps: int) -> dict:
+    """``_profile_path``, in a process group of size 1 for a sharded
+    path."""
+    if "--mesh" not in PATHS[name][0]:
+        return _profile_path(name, reps)
+    import torch.distributed as dist
+
+    from mcmc_ammsb_tpu_torch.parallel import multihost
+
+    started = multihost.initialize(device="cuda")
+    try:
+        return _profile_path(name, reps)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _profile_path(name: str, reps: int) -> dict:
     flags, steps = PATHS[name]
     cfg, chains, lrn = make_learner(flags)
     lrn.run(steps)                                   # warm-up

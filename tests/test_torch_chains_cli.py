@@ -60,24 +60,30 @@ def test_cli_chains_on_cpu(flags, caplog):
         assert not rhat
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--num-chains", "2", "--chain-devices", "2"], "item 14"),
-    (["--num-chains", "2", "--model", "mmsb", "--chain-devices", "2"],
-     "item 14"),
+@pytest.mark.parametrize("flags, rc, message", [
+    # ported (item 14): one process is a chain mesh of one rank, so two
+    # groups fail as the JAX CLI fails on one device
+    (["--num-chains", "2", "--chain-devices", "2"], 1,
+     "chain mesh needs 2 devices, only 1 available"),
+    (["--num-chains", "2", "--model", "mmsb", "--chain-devices", "2"], 1,
+     "chain mesh needs 2 devices, only 1 available"),
     (["--num-chains", "2", "--checkpoint", "ck", "--checkpoint-backend",
-      "orbax"], "item 15"),
-    (["--num-chains", "2", "--restore-ref", "ck.bin"], "item 15"),
+      "orbax"], 2, "item 15"),
+    (["--num-chains", "2", "--restore-ref", "ck.bin"], 2, "item 15"),
     (["--num-chains", "2", "--chain-engine", "vmap", "--pi-dtype",
-      "bfloat16"], "item 4"),
+      "bfloat16"], 2, "item 4"),
 ])
-def test_cli_refuses_unported_chain_engines(flags, item, caplog):
-    """Chains over several GPUs, the orbax and reference checkpoint
-    formats and bfloat16 pi still wait (the vmap engine, the MMSB chains
-    and npz checkpoints of chain runs are ported: test_cli_chain_engines_
-    and_checkpoints below)."""
-    rc, messages = _run(TINY + flags, caplog)
-    assert rc == 2
-    assert any("ROADMAP" in m and item in m for m in messages)
+def test_cli_refuses_unported_chain_engines(flags, rc, message, caplog):
+    """The orbax and reference checkpoint formats and bfloat16 pi still
+    wait (exit 2, naming the ROADMAP item). Chains over several GPUs are
+    ported (tests/test_torch_chains_sharded.py runs them on two ranks):
+    in one process --chain-devices 2 exits 1 with the JAX CLI's message.
+    The vmap engine, the MMSB chains and npz checkpoints of chain runs
+    are ported: test_cli_chain_engines_and_checkpoints below."""
+    got, messages = _run(TINY + flags, caplog)
+    assert got == rc
+    assert any(message in m and (rc != 2 or "ROADMAP" in m)
+               for m in messages)
 
 
 @pytest.mark.parametrize("flags, rhat, falls", [

@@ -210,5 +210,6 @@ def test_cli_arg_parsing_matches_jax():
                  "dump_file", "load_data", "load_file", "cache_format",
                  "train_ppx_ratio", "phi_disable_noise", "window_impl",
                  "checkpoint_backend", "checkpoint_ref", "restore_ref",
-                 "split_seed"):
+                 "split_seed", "mesh", "coordinator", "num_processes",
+                 "process_id", "partitioned_ingest", "chain_devices"):
         assert getattr(defaults, dest) == getattr(jdefaults, dest), dest
