@@ -66,6 +66,16 @@ Phases, one line each; any failure raises and the exit code is not 0:
                lanes and 8 column blocks (the pi init) and with a = 0.5
                and 0.3 (the boost pre-pass) on 1280 lanes, with the
                kernel's and the plain version's times;
+     bf16    — the window kernel's bf16 row mode (bfloat16 pi storage) at
+               the main path's and the chain path's shapes: the bf16
+               launch equals the float32 launch on the upcast rows,
+               rounded to nearest-even, bit for bit; against the plain
+               version at bf16 the stored values are equal or 1 ulp
+               apart, farther only within their float32 gap
+               (testing.bf16_gaps), the counts printed; its ms against
+               the float32 launch's in the same call and its bound with
+               pi's row bytes halved;
+     sort    — ops/sort.bitonic_sort_rows on the card equals torch.sort;
   4. slice   — hoisted loops on the GPU against the same loops on the
                CPU from one state and one operand tuple, N=300: the
                a-MMSB windows (normwise rtol 1e-5, atol 1e-8), the
@@ -156,13 +166,26 @@ Phases, one line each; any failure raises and the exit code is not 0:
                --profile --auto-tune-window on the main path: no window
                candidate fails, the stage table comes from a trace of the
                card's kernels, window_kernel its largest stage;
+     bf16    — the CLI with --pi-dtype bfloat16: the main path (2000
+               steps, 164 window launches on bf16 rows, ppx falls and ends
+               within 5% of the float32 main path's; the peak device
+               memory of both runs), --num-chains 4 --window 6 (504 steps,
+               84 chain launches on bf16 rows, every chain falls) and
+               --mesh 1,1 (1000 steps, 82 launches on the fetched float32
+               rows, write-backs into the bf16 shard);
      api     — --rng reference against --no-ref-rng-block over 20 steps
                (the kernel's draws and init are the plain version's: every
                state field and seed bit-equal), --theta-init libstdc++
                (theta equals the native stream), window_correction='auto'
                (run as 'always') against 'always' over 1008 main-path
                steps (bit-equal, the dirty windows counted);
-  6. checkpoint — through the API on the card at N=317,080: run, save, run
+  6. refckpt — --checkpoint-ref after a main-path run of 1000 steps
+               (evaluations every 100): the file's bytes and the export's
+               seconds, the strict parse of the reference binary's checks
+               accepts it in the default build layout; --restore-ref of it
+               for 1000 steps (80 window launches): the first ppx after the
+               import within 2% of the exporter's last;
+     checkpoint — through the API on the card at N=317,080: run, save, run
                against a fresh learner, restore, run, every state field
                bit-equal and the kernel launches of the two second halves
                equal, with the file's size and the save and load seconds:
@@ -175,10 +198,16 @@ Phases, one line each; any failure raises and the exit code is not 0:
                1,1 (the sharded checkpoint: rank 0 writes the global
                state and every rank's generators through NCCL
                collectives, each rank reads its rows; 84 window launches
-               each); then through
+               each), and in the directory backend (a DCP directory) the
+               main path and --mesh 1,1 (each rank's rows as DTensor
+               shards); then through
                the CLI on the main path: --checkpoint, then --restore
                logs "restored checkpoint ... (step=1001)" and its ppx
-               stays below the first run's ppx[0];
+               stays below the first run's ppx[0]; --checkpoint-interval
+               500 --checkpoint-backend orbax: the async save of step 1001
+               equals the synchronous exit save leaf for leaf, and a run
+               restored from the async save of step 501 ends in the exit
+               save's state, bit for bit;
 then a JSON line of the kernels, the card's name and power limit, and
 the result line last. Each phase line ends with the seconds since the
 script began.
@@ -186,6 +215,7 @@ script began.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import math
@@ -258,7 +288,7 @@ TRAIN_PPX_ARGS = ["--synthetic", "317080,7", "-k", "256", "-x", "1000", "-i",
                   "500", "--calc-train-ppx", "--train-ppx-ratio", "0.00001"]
 # run-save-run against restore-run through the API: name -> (CLI
 # arguments, steps per half, the kernel entry the path launches, its
-# launches per half)
+# launches per half[, the checkpoint backend: npz unless given])
 RESUME_RUNS = {
     "a-MMSB main path": (
         ["--synthetic", "317080,7", "-k", "256", "--steps-per-call", "1008"],
@@ -278,6 +308,14 @@ RESUME_RUNS = {
     "--mesh 1,1": (
         ["--synthetic", "317080,7", "-k", "256", "--steps-per-call", "1008",
          "--mesh", "1,1"], 1008, "window", 84),
+    # the directory backend (torch.distributed.checkpoint): on the mesh
+    # every rank writes its own rows as DTensor shards
+    "a-MMSB main path, directory backend": (
+        ["--synthetic", "317080,7", "-k", "256", "--steps-per-call", "1008"],
+        1008, "window", 84, "orbax"),
+    "--mesh 1,1, directory backend": (
+        ["--synthetic", "317080,7", "-k", "256", "--steps-per-call", "1008",
+         "--mesh", "1,1"], 1008, "window", 84, "orbax"),
 }
 # the reference-RNG and device breadth-first paths: name -> (CLI
 # arguments, steps, ppx interval, expected launches of every kernel entry
@@ -322,6 +360,24 @@ PARTITIONED_ARGS = ["-k", "256", "-x", "1000", "-i", "500",
                     "cuda"]
 PROFILE_ARGS = ["--synthetic", "317080,7", "-k", "256", "-x", "1000", "-i",
                 "500", "--profile", "--auto-tune-window", "--device", "cuda"]
+# bfloat16 pi storage: the main path, the flat chains and --mesh 1,1
+BF16_ARGS = MAIN_ARGS + ["--pi-dtype", "bfloat16"]
+BF16_CHAIN_ARGS = ["--num-chains", "4", "--pi-dtype", "bfloat16", "--window",
+                   "6", "--synthetic", "317080,7", "-k", "256", "-x", "504",
+                   "-i", "252", "--device", "cuda"]
+BF16_MESH_ARGS = ["--synthetic", "317080,7", "-k", "256", "-x", "1000", "-i",
+                  "500", "--mesh", "1,1", "--pi-dtype", "bfloat16",
+                  "--device", "cuda"]
+# reference-format checkpoints: a main-path run that exports, then a run
+# that imports the file; evaluations every 100 steps, so that the running
+# averages the file carries hold 11 of them and the import's first
+# evaluation moves them little
+REF_EXPORT_ARGS = ["--synthetic", "317080,7", "-k", "256", "-x", "1000",
+                   "-i", "100", "--device", "cuda"]
+# the directory backend's asynchronous interval saves through the CLI
+ASYNC_ARGS = ["--synthetic", "317080,7", "-k", "256", "-x", "1000", "-i",
+              "500", "--steps-per-call", "500", "--checkpoint-interval",
+              "500", "--checkpoint-backend", "orbax", "--device", "cuda"]
 # steps at the end of the phi-noise chunk the plain version draws in the
 # kernel phase
 REF_PLAIN_STEPS = 10
@@ -593,10 +649,11 @@ def _tensors(x):
     return []
 
 
-def window_bound(xs, mcode, keep, k: int, n_rows: int):
+def window_bound(xs, mcode, keep, k: int, n_rows: int, pi_bytes: int = 4):
     """Bound of one fused window (one chain, or C chain-major): the pi
-    rows and sums it must read (each distinct pre-window row once), every
-    operand once, the kept rows and sums and theta and beta written once;
+    rows (``pi_bytes`` per value: 2 in bf16) and sums it must read (each
+    distinct pre-window row once), every operand once, the kept rows and
+    sums and theta and beta written once;
     the float32 operations of the valid lanes and edges (per step and
     node 4 n K for the two contractions, ~15 K for the phi step and the
     normalization, ~14 K per edge for the edge sums and the fan-in)."""
@@ -615,8 +672,8 @@ def window_bound(xs, mcode, keep, k: int, n_rows: int):
     operands = nbytes(y_w, batch.nodes, nbrs_s, batch.node_mask, keep,
                       nphi_w, nbeta_w, ye_w, batch.edge_mask, lu, lv, mcode,
                       batch.weight)
-    moved = ((rows_read + kept) * k * 4 + (sums_read + kept) * 4 + operands
-             + 2 * c * k * 3 * 4)
+    moved = ((rows_read + kept) * k * pi_bytes + (sums_read + kept) * 4
+             + operands + 2 * c * k * 3 * 4)
     b_valid = int(batch.node_mask.sum())
     e_valid = int(batch.edge_mask.sum())
     flops = (4 * b_valid * n_smpl * k + 15 * b_valid * k + 14 * e_valid * k
@@ -686,6 +743,39 @@ def _agree(window, phi_ops, cfg, state, xs, mcode, keep, chained, what,
         raise AssertionError(f"{what}: kernel {f64[0]:.3e} from float64, "
                              f"more than 2x the plain version's {f64[1]:.3e}")
     return got, err, f64
+
+
+def bf16_agree(testing, cfg, state, args, cuda, plain, what):
+    """The window kernel's bf16 row mode against the plain version at
+    bf16 (the --window-impl jnp window), each on its own copy of the
+    state with pi rounded to bf16: the bf16 launch must equal the
+    float32 launch on the upcast table with its rows rounded to
+    nearest-even, bit for bit (the mode's whole contract); the stored
+    rows of kernel and plain may differ by one ulp where their float32
+    values straddle a rounding boundary, and by more only as far as
+    those float32 values differ (testing.bf16_gaps); phi_sum, theta and
+    beta by the float32 normwise rule. Returns (the gaps, max abs err of
+    the float32 fields)."""
+    st16 = state._replace(pi=state.pi.to(torch.bfloat16))
+    st32 = st16._replace(pi=st16.pi.float())
+    k16 = cuda(cfg, _fresh(st16), *args)
+    k32 = cuda(cfg, _fresh(st32), *args)
+    torch.cuda.synchronize()
+    p16 = plain(cfg, _fresh(st16), *args)
+    p32 = plain(cfg, _fresh(st32), *args)
+    if k16.pi.dtype != torch.bfloat16 or not (
+            torch.equal(k16.pi, k32.pi.to(torch.bfloat16))
+            and all(torch.equal(a, b) for a, b in
+                    zip(_outs(k16)[1:], _outs(k32)[1:]))):
+        raise AssertionError(f"{what}: the bf16 launch is not the float32 "
+                             f"launch on the upcast rows, rounded")
+    gaps = testing.bf16_gaps(k16.pi, p16.pi, k32.pi, p32.pi)
+    if gaps["unexplained"]:
+        raise AssertionError(f"{what}: bf16 rows farther apart than their "
+                             f"float32 values allow: {gaps}")
+    err = max(max_err(a, b, f"{what} bf16 {f}") for a, b, f in
+              zip(_outs(k16)[1:], _outs(p16)[1:], STATE_FIELDS[1:]))
+    return gaps, err
 
 
 def _cluster_line(window, lib, shape, limit):
@@ -1276,7 +1366,7 @@ def run_main(cli, kmods):
     phase("main", f"a-MMSB: rc 0, ppx {ppx}, window-kernel launches "
           f"{launches['window']} (= {expected} windows), steady state "
           f"{rate:.1f} updates/s")
-    return launches, ppx[0], rate
+    return launches, ppx, rate
 
 
 def run_mmsb_main(cli, kmods):
@@ -2011,13 +2101,15 @@ def check_resume(cli, checkpoint, kmods, bench, tmp, name, smi):
 def _check_resume(cli, checkpoint, kmods, bench, tmp, name, smi):
     import os
 
-    argv, steps, entry, expected = RESUME_RUNS[name]
-    path = os.path.join(tmp, "resume.npz")
+    argv, steps, entry, expected, *rest = RESUME_RUNS[name]
+    backend = rest[0] if rest else "npz"
+    path = os.path.join(tmp, "resume.npz" if backend == "npz"
+                        else "resume.dir")
     a = _api_learner(cli, argv, bench)
     a.heldout_perplexity()
     a.run(steps)
     t0 = time.perf_counter()
-    checkpoint.save_checkpoint(path, a)
+    checkpoint.save_checkpoint(path, a, backend=backend)
     save_s = time.perf_counter() - t0
     pending = len(getattr(a, "_pending", []))
     _counts(kmods, None)
@@ -2051,14 +2143,22 @@ def _check_resume(cli, checkpoint, kmods, bench, tmp, name, smi):
     if first != second or first[entry] != expected:
         raise AssertionError(f"{name}: launches {first} then {second} after "
                              f"the restore, expected {expected} of {entry}")
-    size = os.path.getsize(path)
-    os.remove(path)
+    if backend == "npz":
+        size = os.path.getsize(path)
+        os.remove(path)
+    else:
+        import shutil
+
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, files in os.walk(path) for f in files)
+        shutil.rmtree(path)
     phase("checkpoint", f"{name}: run {steps}, save, run {steps} == restore, "
           f"run {steps}: {len(a.state._fields)} state fields bit-equal "
           f"(step {b.step_count}), ppx equal; {first[entry]} {entry} launches "
           f"in each second half; {pending} pending host chunk(s) in the "
-          f"file; file {size} B, save {save_s:.3f} s, load {load_s:.3f} s "
-          f"(np.savez, host clock, the device copies included); {smi}")
+          f"file; {size} B, save {save_s:.3f} s, load {load_s:.3f} s "
+          f"({'np.savez' if backend == 'npz' else 'a DCP directory'}, host "
+          f"clock, the device copies included); {smi}")
 
 
 def check_cli_resume(cli, kmods, tmp):
@@ -2089,6 +2189,310 @@ def check_cli_resume(cli, kmods, tmp):
     os.remove(ck)
 
 
+def check_bf16_kernels(window, chains_flat, testing, smi):
+    """Phase bf16, the window kernel's bf16 row mode at the main path's
+    and the chain path's shapes (``bf16_agree``), timed against the
+    float32 launches on the same operands in this call (turns: f32,
+    bf16, bf16, f32). Returns {kernel: (gaps, max abs err, bf16 ms, f32
+    ms, bound ms with pi's row bytes halved, what sets it)}."""
+    out = {}
+    for name, shape in (("window_kernel", WINDOW_SHAPES[0]),
+                        ("window_kernel_chains", CHAIN_SHAPES[0])):
+        if name == "window_kernel":
+            case = testing.window_case(0, *shape)
+            cfg = testing.window_case_config(case)
+            state, xs = testing.window_case_torch(case, "cuda")
+            batch, nbrs = xs[0], xs[1][:, 0, :]
+            args = (xs, window._correction_codes(cfg, batch.nodes,
+                                                 batch.node_mask, nbrs),
+                    window._last_write_wins(batch.nodes, batch.node_mask,
+                                            shape[0]))
+            cuda, plain = window.window_apply_cuda, window.window_apply_torch
+        else:
+            case = testing.chain_window_case(0, *shape)
+            cfg = testing.chain_window_case_config(case)
+            state, xw = testing.chain_window_case_torch(case, "cuda")
+            win = chains_flat.chain_windows(cfg, shape[0], xw).at(0)
+            args = (win.xs_t, win.mcode, win.keep)
+            cuda = window.window_chain_apply_cuda
+            plain = window.window_chain_apply_torch
+        gaps, err = bf16_agree(testing, cfg, state, args, cuda, plain,
+                               f"{name} at {shape}")
+        s32 = _fresh(state)
+        s16 = _fresh(state._replace(pi=state.pi.to(torch.bfloat16)))
+        t = [time_ms(lambda st=st: cuda(cfg, st, *args), hold=True)
+             for st in (s32, s16, s16, s32)]
+        b_ms, b_by = window_bound(*args, shape[-1], cfg.N, pi_bytes=2)
+        ms16, ms32 = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        out[name] = (gaps, err, ms16, ms32, b_ms, b_by)
+        phase("bf16", f"{name} bf16 rows at {','.join(map(str, shape))}: "
+              f"the bf16 launch is the float32 launch on the upcast rows, "
+              f"rounded, bit for bit; against the plain version at bf16 "
+              f"{gaps['one_ulp']} stored values 1 ulp apart, "
+              f"{gaps['more_ulps']} more (max {gaps['max_ulps']} ulps, each "
+              f"within its float32 gap), phi_sum/theta/beta max abs err "
+              f"{err:.3e}; ms/window bf16 {t[1]:.4f} {t[2]:.4f}, float32 "
+              f"{t[0]:.4f} {t[3]:.4f} ({100 * (ms16 / ms32 - 1):+.2f}%); "
+              f"bound {b_ms * 1e3:.3f} us ({b_by}, pi rows at 2 B); {smi}")
+    return out
+
+
+@contextlib.contextmanager
+def spied(module, name, record):
+    """``module.name`` wrapped for the block: ``record`` sees every call's
+    arguments first."""
+    real = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        record(*args, **kwargs)
+        return real(*args, **kwargs)
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def run_bf16_phases(cli, kmods, main_ppx, main_mem, smi):
+    """Phase bf16 through the CLI: the main path with --pi-dtype
+    bfloat16 (2000 steps: 164 window launches, every one on bf16 rows,
+    ppx falls and ends within 5% of the float32 main path's, JAX's
+    test_bf16_tracks_fp32_ppx rule; the peak device memory of both
+    runs), --num-chains 4 (window 6, 504 steps: 84 chain launches on bf16
+    rows, every chain falls) and --mesh 1,1 (1000 steps: 82 window
+    launches on the fetched float32 rows, write-backs into bf16 rows).
+    Returns {run: launches}."""
+    from mcmc_ammsb_tpu_torch.ops import phi as phi_ops
+    from mcmc_ammsb_tpu_torch.ops import window
+
+    out = {}
+    seen = set()
+    torch.cuda.reset_peak_memory_stats()
+    _counts(kmods, None)
+    with spied(window, "_launch",
+               lambda cfg, st, *a, **k: seen.add(st.pi.dtype)):
+        series, _ = _run_cli(cli, BF16_ARGS)
+    mem = torch.cuda.max_memory_allocated()
+    launches = _counts(kmods, "read")
+    ppx = [p for _, p, _ in series]
+    gap = abs(ppx[-1] - main_ppx[-1]) / main_ppx[-1]
+    if ([st for st, _, _ in series] != [0, 500, 1000, 1500, 2000]
+            or not all(p < ppx[0] for p in ppx[1:]) or gap >= 0.05
+            or launches["window"] != 164 or seen != {torch.bfloat16}):
+        raise AssertionError(f"--pi-dtype bfloat16: ppx {ppx} against "
+                             f"float32 {main_ppx}, launches {launches}, "
+                             f"pi dtypes {seen}")
+    out["main"] = launches
+    phase("bf16", f"main path --pi-dtype bfloat16, 2000 steps: rc 0, ppx "
+          f"{ppx} (float32 {main_ppx}: final within {100 * gap:.3f}%), "
+          f"{launches['window']} window launches, all on bf16 rows; peak "
+          f"device memory {mem} B (float32 main path {main_mem} B); {smi}")
+
+    seen.clear()
+    _counts(kmods, None)
+    with spied(window, "_launch",
+               lambda cfg, st, *a, **k: seen.add(st.pi.dtype)):
+        series, _ = _run_cli(cli, BF16_CHAIN_ARGS)
+    launches = _counts(kmods, "read")
+    ppx = [p for _, p, _ in series]
+    if ([st for st, _, _ in series] != [0, 252, 504]
+            or not all(q < q0 for q, q0 in zip(ppx[-1], ppx[0]))
+            or launches["window_chain"] != 84 or launches["chains"] != 336
+            or seen != {torch.bfloat16}):
+        raise AssertionError(f"--num-chains 4 --pi-dtype bfloat16: ppx "
+                             f"{ppx}, launches {launches}, dtypes {seen}")
+    out["chains"] = launches
+    phase("bf16", f"--num-chains 4 --pi-dtype bfloat16 --window 6, 504 "
+          f"steps: rc 0, ppx {ppx[0]} -> {ppx[-1]}, "
+          f"{launches['window_chain']} chain launches on bf16 rows")
+
+    kernel_rows, stored = set(), set()
+    _counts(kmods, None)
+    with spied(window, "_launch",
+               lambda cfg, st, *a, **k: kernel_rows.add(st.pi.dtype)), \
+            spied(phi_ops, "scatter_rows",
+                  lambda pi, *a, **k: stored.add(pi.dtype)):
+        series, _ = _run_cli(cli, BF16_MESH_ARGS)
+    launches = _counts(kmods, "read")
+    ppx = [p for _, p, _ in series]
+    if (not all(p < ppx[0] for p in ppx[1:]) or launches["window"] != 82
+            or kernel_rows != {torch.float32}
+            or stored != {torch.bfloat16}):
+        raise AssertionError(f"--mesh 1,1 --pi-dtype bfloat16: ppx {ppx}, "
+                             f"launches {launches}, kernel rows "
+                             f"{kernel_rows}, stored {stored}")
+    out["mesh"] = launches
+    phase("bf16", f"--mesh 1,1 --pi-dtype bfloat16, 1000 steps: rc 0, ppx "
+          f"{ppx}, {launches['window']} window launches on the fetched "
+          f"float32 rows, write-backs into the bf16 shard; {smi}")
+    return out
+
+
+def check_sort(sort_mod):
+    """bitonic_sort_rows on the card equals torch.sort."""
+    x = torch.randn(1024, 100, device="cuda")
+    if not torch.equal(sort_mod.bitonic_sort_rows(x),
+                       torch.sort(x, dim=-1).values):
+        raise AssertionError("bitonic_sort_rows differs from torch.sort")
+    phase("sort", "ops/sort.bitonic_sort_rows of [1024, 100] on the card "
+          "equals torch.sort")
+
+
+def run_refckpt_phase(cli, refckpt, kmods, bench, tmp, smi):
+    """Phase refckpt: --checkpoint-ref after a main-path run (the bytes
+    and the export's seconds; the strict parse of the reference binary's
+    checks accepts the file in the default build layout), then
+    --restore-ref of that file for 1000 steps on the window kernel (10
+    chunks of 100 steps: 80 launches): the first ppx after the import
+    within 2% of the exporter's last."""
+    import os
+
+    path = os.path.join(tmp, "main.ref")
+    seconds = {}
+
+    def timed(module, name):
+        real = getattr(module, name)
+
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            seconds[name] = time.perf_counter() - t0
+            return out
+
+        return run
+
+    real_export, real_import = refckpt.export_learner, cli._import_reference
+    refckpt.export_learner = timed(refckpt, "export_learner")
+    cli._import_reference = timed(cli, "_import_reference")
+    try:
+        first, messages = _run_cli(cli, REF_EXPORT_ARGS
+                                   + ["--checkpoint-ref", path])
+        if not any(m.startswith(f"reference-format checkpoint saved to "
+                                f"{path} (step=1001)") for m in messages):
+            raise AssertionError("--checkpoint-ref: no saved line")
+        n, split, graph = bench
+        args = cli.build_arg_parser().parse_args(REF_EXPORT_ARGS)
+        cli.resolve_fast_defaults(args)
+        cfg = cli.config_from_args(args).finalize(n, split.total_edges,
+                                                  graph.max_fan_out)
+        t0 = time.perf_counter()
+        props = refckpt.simulate_reference_parse(
+            path, refckpt.ReferenceLayout.from_config(
+                cfg, len(split.heldout_edges_u)))
+        parse_s = time.perf_counter() - t0
+        _counts(kmods, None)
+        second, messages = _run_cli(cli, REF_EXPORT_ARGS
+                                    + ["--restore-ref", path])
+        launches = _counts(kmods, "read")
+    finally:
+        refckpt.export_learner, cli._import_reference = (real_export,
+                                                         real_import)
+    last, resumed = first[-1][1], second[0][1]
+    gap = abs(resumed - last) / last
+    if (f"imported reference checkpoint {path} (step=1001)" not in messages
+            or gap >= 0.02 or launches["window"] != 80
+            or props["learner_props"][1][0] != 1001):
+        raise AssertionError(f"--restore-ref: ppx {second} after the "
+                             f"export's last {last}, launches {launches}")
+    phase("refckpt", f"--checkpoint-ref after 1000 main-path steps: "
+          f"{os.path.getsize(path)} B in {seconds['export_learner']:.3f} s "
+          f"(host clock, the device copy included); the strict parse "
+          f"accepts it in the default build layout ({parse_s:.3f} s, "
+          f"samples of {props['sample0_edges']} and {props['sample1_edges']} "
+          f"edges); --restore-ref: imported in "
+          f"{seconds['_import_reference']:.3f} s, ppx[0] {resumed} against "
+          f"the export's last {last} ({100 * gap:.4f}%), then "
+          f"{[p for _, p, _ in second]}, {launches['window']} window "
+          f"launches; {smi}")
+    os.remove(path)
+
+
+def _read_dir(path):
+    """A directory checkpoint's state leaves ({leaf_i: CPU tensor}) and
+    generator states, read with DCP in this process."""
+    import os
+
+    import numpy as np
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint import FileSystemReader
+
+    state_dir = os.path.join(path, "state")
+    meta = FileSystemReader(state_dir).read_metadata().state_dict_metadata
+    leaves = {k: torch.empty(tuple(m.size), dtype=m.properties.dtype)
+              for k, m in meta.items()}
+    dcp.load(leaves, checkpoint_id=state_dir, no_dist=True)
+    with np.load(os.path.join(path, "streams.npz")) as z:
+        streams = {k: z[k] for k in z.files}
+    return leaves, streams
+
+
+def check_cli_async(cli, checkpoint, bench, tmp, smi):
+    """Phase checkpoint: --checkpoint-interval 500 with the directory
+    backend through the CLI (1000 steps): its async saves at steps 501
+    and 1001 (kept under their own paths here) return while training
+    goes on; the one at 1001 holds what the synchronous save at exit of
+    the same step holds, leaf for leaf and stream for stream, and a
+    learner restored from the one at 501 and run 500 steps ends in the
+    exit save's state, bit for bit."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    ck = os.path.join(tmp, "async_ck")
+    real, kept = cli.save_checkpoint, []
+
+    def keep_async(path, learner, **kw):
+        if kw.get("async_save"):
+            path = f"{path}.at{learner.step_count}"
+            kept.append(path)
+        t0 = time.perf_counter()
+        out = real(path, learner, **kw)
+        kept_s.append(time.perf_counter() - t0)
+        return out
+
+    kept_s = []
+    cli.save_checkpoint = keep_async
+    try:
+        _, messages = _run_cli(cli, ASYNC_ARGS + ["--checkpoint", ck])
+    finally:
+        cli.save_checkpoint = real
+    if (kept != [f"{ck}.at501", f"{ck}.at1001"]
+            or sum("[async]" in m for m in messages) != 2):
+        raise AssertionError(f"async saves {kept}")
+    a_leaves, a_streams = _read_dir(f"{ck}.at1001")
+    b_leaves, b_streams = _read_dir(ck)
+    if (a_leaves.keys() != b_leaves.keys()
+            or not all(torch.equal(a_leaves[k], b_leaves[k])
+                       for k in a_leaves)
+            or a_streams.keys() != b_streams.keys()
+            or not all(np.array_equal(a_streams[k], b_streams[k])
+                       for k in a_streams)):
+        raise AssertionError("the async save differs from the synchronous "
+                             "save of the same step")
+    lrn = _api_learner(cli, ASYNC_ARGS, bench)
+    checkpoint.load_checkpoint(f"{ck}.at501", lrn)
+    lrn.run(500)
+    lrn.heldout_perplexity()
+    got = checkpoint.state_leaves(lrn.state)
+    lrn.close()
+    diff = [i for i, leaf in enumerate(got) if f"leaf_{i}" in b_leaves
+            and not np.array_equal(leaf, b_leaves[f"leaf_{i}"].numpy())]
+    if diff:
+        raise AssertionError(f"resumed from the step-501 async save, leaves "
+                             f"{diff} differ from the exit save")
+    phase("checkpoint", f"CLI --checkpoint-interval 500 --checkpoint-backend "
+          f"orbax: async saves at steps 501 and 1001 returned in "
+          f"{kept_s[0]:.3f} and {kept_s[1]:.3f} s (the synchronous exit save "
+          f"{kept_s[2]:.3f} s, host clock); the step-1001 one equals the "
+          f"exit save leaf for leaf and stream for stream ({len(a_leaves)} "
+          f"leaves); restored from the step-501 one and run 500 steps, every "
+          f"leaf bit-equal to the exit save; {smi}")
+    for path in kept + [ck]:
+        shutil.rmtree(path)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2096,11 +2500,13 @@ def main() -> int:
     # the port's package: an ImportError here (no checkout around the
     # script) ends the run before anything is printed
     from mcmc_ammsb_tpu_torch import (chains_flat, checkpoint, cli, config,
-                                      data, kernels, native, rng, testing)
+                                      data, kernels, native, refckpt, rng,
+                                      testing)
     from mcmc_ammsb_tpu_torch import learner as learner_mod
     from mcmc_ammsb_tpu_torch.models import mmsb
     from mcmc_ammsb_tpu_torch.ops import (device_sampling, edgeset, neighbor,
-                                          phi_pallas, window, window_mmsb)
+                                          phi_pallas, sort, window,
+                                          window_mmsb)
     from mcmc_ammsb_tpu_torch.ops import phi as phi_ops
     from mcmc_ammsb_tpu_torch.rng import reference as ref_rng
     from mcmc_ammsb_tpu_torch.rng import refblock
@@ -2122,6 +2528,8 @@ def main() -> int:
     w_err, w_t = check_window_kernel(window, kernels, testing, phi_ops, smi)
     c_err, c_t = check_chain_kernel(window, kernels, chains_flat, testing,
                                     phi_ops, smi)
+    bf16_k = check_bf16_kernels(window, chains_flat, testing, smi)
+    check_sort(sort)
     phi = check_phi_kernel(phi_pallas, kernels, testing)
     m_err, m_t = check_mmsb_kernel(window, window_mmsb, kernels, testing,
                                    phi_ops, smi)
@@ -2130,9 +2538,12 @@ def main() -> int:
     check_slices(smods, window, window_mmsb, phi_pallas, chains_flat, testing)
     check_mmsb_engine_slices(smods, testing)
     kmods = (window, window_mmsb, phi_pallas, refblock)
-    main_l, main_ppx0, main_rate = run_main(cli, kmods)
+    torch.cuda.reset_peak_memory_stats()
+    main_l, main_ppx, main_rate = run_main(cli, kmods)
+    main_mem = torch.cuda.max_memory_allocated()
     shard = run_sharded_phases(cli, kmods, main_l, main_rate, testing, bench,
                                smi)
+    bf16 = run_bf16_phases(cli, kmods, main_ppx, main_mem, smi)
     mmsb_l = run_mmsb_main(cli, kmods)
     phi_l = run_phi_main(cli, kmods)
     chain_l, _, _ = run_chain_main(cli, kmods)
@@ -2146,15 +2557,30 @@ def main() -> int:
     run_profile_tune_main(cli, kmods, smi)
     check_ref_api(cli, native, kmods, window, bench, smi)
     with tempfile.TemporaryDirectory() as tmp:
-        run_cache_main(cli, tmp, main_ppx0)
+        run_cache_main(cli, tmp, main_ppx[0])
+        run_refckpt_phase(cli, refckpt, kmods, bench, tmp, smi)
         for name in RESUME_RUNS:
             check_resume(cli, checkpoint, kmods, bench, tmp, name, smi)
         check_cli_resume(cli, kmods, tmp)
+        check_cli_async(cli, checkpoint, bench, tmp, smi)
 
     def times(t):
         # no single PyTorch call computes any of these functions
         return {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2],
                 "bound_by": t[3], "library_ms": None}
+
+    def bf16_fields(kernel, run):
+        # the kernel's bf16 row mode: its launches on the CLI's bf16 run,
+        # the rows' ulp gaps to the plain version, its ms beside the
+        # float32 launch's in the same call, and its bound
+        gaps, err, ms16, ms32, b_ms, b_by = bf16_k[kernel]
+        return {"bf16_launches": bf16[run]["window_chain" if run == "chains"
+                                              else "window"],
+                "bf16_one_ulp": gaps["one_ulp"],
+                "bf16_more_ulps": gaps["more_ulps"],
+                "bf16_max_ulps": gaps["max_ulps"], "bf16_max_abs_err": err,
+                "bf16_ms": ms16, "bf16_f32_ms": ms32, "bf16_bound_ms": b_ms,
+                "bf16_bound_by": b_by}
 
     def ref_times(name):
         # ms and bound_ms are the main path's launch (a 200-step chunk);
@@ -2175,7 +2601,8 @@ def main() -> int:
          "sharded_launches": shard["mesh"]["window"],
          "partitioned_launches": shard["partitioned"]["window"],
          "sharded_window_max_abs_err": shard["window"][0],
-         "sharded_window_ms": shard["window"][1]},
+         "sharded_window_ms": shard["window"][1],
+         **bf16_fields("window_kernel", "main")},
         # the same kernel and entry, one cluster per chain: the chain
         # engine's launches
         {"name": "window_kernel_chains", "route": "cuda",
@@ -2184,7 +2611,8 @@ def main() -> int:
          "launches": chain_l["window_chain"], "max_abs_err": c_err,
          **times(c_t),
          # ShardedChainLearner, G = 1, C = 4, 1008 steps
-         "sharded_launches": shard["chains"]["window_chain"]},
+         "sharded_launches": shard["chains"]["window_chain"],
+         **bf16_fields("window_kernel_chains", "chains")},
         {"name": "mmsb_window_kernel", "route": "cuda",
          "source": src + "mmsb_window_kernel.cu",
          "replaces": "mcmc_ammsb_tpu/ops/window_mmsb.py:96",

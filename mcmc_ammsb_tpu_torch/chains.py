@@ -89,11 +89,10 @@ class MultiChainLearner:
         if cfg.pi_dtype != "float32":
             raise ValueError(
                 "the vmap chain engine keeps pi in fp32 (it is the slow "
-                "golden cross-check); use the flat chain engine for "
-                "pi_dtype=bfloat16")
+                "golden cross-check); use the flat/sharded chain engines "
+                "for pi_dtype=bfloat16")
         cfg = cfg.replace(device_sampling=True)
         lrn.check_learner_config(cfg)
-        lrn.check_ported(cfg)
         self.device = lrn.resolve_device(device)
         self.cfg = cfg
         self.num_chains = num_chains

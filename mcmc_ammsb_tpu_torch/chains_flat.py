@@ -39,7 +39,7 @@ from mcmc_ammsb_tpu_torch import rng
 from mcmc_ammsb_tpu_torch.chains import beta_rhat_series
 from mcmc_ammsb_tpu_torch.config import Config, PhiImpl, RngBackend
 from mcmc_ammsb_tpu_torch.learner import (DeviceBatch, Learner, gamma_draws,
-                                          gamma_rows)
+                                          gamma_rows, pi_storage_dtype)
 from mcmc_ammsb_tpu_torch.ops import beta as beta_ops
 from mcmc_ammsb_tpu_torch.ops import phi as phi_ops
 from mcmc_ammsb_tpu_torch.ops.device_sampling import sample_minibatches_device
@@ -71,9 +71,10 @@ def init_chain_state(cfg: Config, num_chains: int, heldout_size: int,
                      device, dtype=torch.float32) -> ChainState:
     """Chain c is ``learner.init_state`` with ``init_seed + c`` (theta,
     then its pi rows from the same host stream), written straight into
-    its block of the flat buffers."""
+    its block of the flat buffers; pi in its storage dtype."""
     n, k = cfg.N, cfg.K
-    pi = torch.empty(num_chains * n, k, dtype=dtype, device=device)
+    pi = torch.empty(num_chains * n, k, dtype=pi_storage_dtype(cfg),
+                     device=device)
     phi_sum = torch.empty(num_chains * n, dtype=dtype, device=device)
     thetas = []
     for c in range(num_chains):

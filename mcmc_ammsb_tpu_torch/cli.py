@@ -8,16 +8,20 @@ states, the slow cross-check; on several GPUs ``--mesh D,M``, the
 row-sharded learner, ``--num-chains C --chain-devices G``, chains spread
 over G GPUs, and ``--partitioned-ingest``, each process parsing its byte
 range of ``--file``). ``--checkpoint`` saves the run at exit,
-after SIGINT and every ``--checkpoint-interval`` steps, ``--restore``
-resumes it; ``--dump-data`` / ``--load-data`` write and read the dataset
-cache.
+after SIGINT and every ``--checkpoint-interval`` steps (one npz file, or
+with ``--checkpoint-backend orbax`` a DCP directory, saved
+asynchronously at the intervals), ``--restore`` resumes it;
+``--checkpoint-ref`` also writes the state in the reference binary's
+format at the end and ``--restore-ref`` imports such a file;
+``--pi-dtype bfloat16`` stores pi in bf16 (the a-MMSB engines);
+``--dump-data`` / ``--load-data`` write and read the dataset cache.
 
 The same flag names, ``resolve_fast_defaults`` semantics and log lines
 (config echo, ``ppx[i] = ...`` with the link/non-link quadruple, the
 stats table) as the JAX CLI; SIGINT drains the loop. ``--device cuda``
 (the default) runs on the GPU and fails when there is none — it never
-falls back to the CPU. A flag that selects an engine the port lacks
-exits non-zero and names the ROADMAP item that will port it.
+falls back to the CPU. Every flag of the JAX CLI is taken; a combination
+the JAX CLI refuses exits 1 with its message.
 
 Multi-GPU runs are one process per GPU (``parallel/``): started by
 ``torchrun --nproc-per-node G -m mcmc_ammsb_tpu_torch.cli --mesh D,M ...``
@@ -61,6 +65,13 @@ Usage:
         --chain-devices 4 --synthetic 317080,7 -k 256 -x 1008 -i 504
     python -m mcmc_ammsb_tpu_torch.cli --partitioned-ingest --file graph.txt \\
         --mesh 1,1 -k 256 -x 1000 -i 500
+    python -m mcmc_ammsb_tpu_torch.cli --synthetic 317080,7 -k 256 \\
+        -x 2000 -i 500 --pi-dtype bfloat16
+    python -m mcmc_ammsb_tpu_torch.cli --synthetic 317080,7 -k 256 \\
+        -x 1000 -i 500 --checkpoint run.ckpt --checkpoint-backend orbax \\
+        --checkpoint-interval 500 --checkpoint-ref run.ref
+    python -m mcmc_ammsb_tpu_torch.cli --synthetic 317080,7 -k 256 \\
+        -x 1000 -i 500 --restore-ref run.ref
 """
 
 from __future__ import annotations
@@ -77,14 +88,16 @@ import torch.distributed as dist
 
 from mcmc_ammsb_tpu_torch.chains import MultiChainLearner
 from mcmc_ammsb_tpu_torch.chains_flat import FlatChainLearner
-from mcmc_ammsb_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+from mcmc_ammsb_tpu_torch import refckpt
+from mcmc_ammsb_tpu_torch.checkpoint import (load_checkpoint, save_checkpoint,
+                                             wait_for_async_saves)
 from mcmc_ammsb_tpu_torch.config import (Config, EdgeSetBackend, PhiImpl,
                                          RngBackend, SampleStrategy)
 from mcmc_ammsb_tpu_torch.data import (Graph, dump_dataset, generate_sets,
                                        load_dataset, load_snap_edges,
                                        synthetic_edges,
                                        synthetic_powerlaw_edges)
-from mcmc_ammsb_tpu_torch.learner import Learner, check_ported
+from mcmc_ammsb_tpu_torch.learner import Learner
 from mcmc_ammsb_tpu_torch.models.mmsb import (FullMMSBLearner,
                                               MMSBChainLearner)
 from mcmc_ammsb_tpu_torch.parallel import multihost
@@ -95,14 +108,6 @@ from mcmc_ammsb_tpu_torch.parallel.partitioned import partitioned_ingest
 from mcmc_ammsb_tpu_torch.parallel.sharded import ShardedLearner
 
 log = logging.getLogger("mcmc_ammsb_tpu_torch")
-
-#: Flags of the JAX CLI whose engines are not ported yet:
-#: (argparse dest, the only accepted value, ROADMAP queue 1 item).
-_UNPORTED = (
-    ("checkpoint_backend", "npz", "item 15 (the orbax backend)"),
-    ("checkpoint_ref", "", "item 15 (reference-format checkpoints)"),
-    ("restore_ref", "", "item 15 (reference-format checkpoints)"),
-)
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -160,7 +165,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "std::gamma_distribution host stream through the "
                         "native library")
     p.add_argument("--pi-dtype", choices=["float32", "bfloat16"],
-                   default="float32")
+                   default="float32",
+                   help="storage of the pi rows; bfloat16 halves pi's "
+                        "device memory, compute stays float32 (the "
+                        "a-MMSB engines: single-GPU, flat chains, --mesh "
+                        "and --chain-devices)")
     p.add_argument("--calc-train-ppx", action="store_true",
                    help="also log the training perplexity at every "
                         "evaluation (train_ppx[i]; the a-MMSB learner)")
@@ -245,9 +254,36 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-interval", type=int, default=0,
                    metavar="ITERS",
                    help="also checkpoint every ITERS training steps "
-                        "(rounded up to eval-loop boundaries)")
+                        "(rounded up to eval-loop boundaries); with "
+                        "--checkpoint-backend orbax the save is "
+                        "asynchronous: training resumes once the state "
+                        "is copied off the live tensors")
+    p.add_argument("--checkpoint-backend", choices=["npz", "orbax"],
+                   default="npz",
+                   help="npz = one file; orbax (the JAX CLI's name) = a "
+                        "torch.distributed.checkpoint directory, each rank "
+                        "of a sharded run writing its own rows. The port "
+                        "and the JAX package read each other's npz files, "
+                        "not each other's directories")
     p.add_argument("--restore", type=str, default="",
-                   help="restore a checkpoint before training")
+                   help="restore a checkpoint before training (a file is "
+                        "npz, a directory the orbax backend's)")
+    p.add_argument("--restore-ref", type=str, default="",
+                   help="import a checkpoint written by the REFERENCE "
+                        "binary (its length-prefixed protobuf stream) as "
+                        "the initial state; match its "
+                        "MCMC_CALC_TRAIN_PPX layout with --calc-train-ppx. "
+                        "The single-GPU a-MMSB engine only")
+    p.add_argument("--checkpoint-ref", type=str, default="",
+                   help="at the end of training, also write the state in "
+                        "the reference binary's checkpoint format (buffers "
+                        "sized to its allocation laws, in-flight Sample "
+                        "sections included; refckpt.ReferenceLayout)")
+    p.add_argument("--ref-rows-in-block", type=int, default=0,
+                   help="rows_in_block of the exported pi row blocks: the "
+                        "reference rejects any value but the target "
+                        "device's RowsPerBlock; 0 = the CUDA build's "
+                        "512 MiB / (K * 4)")
     p.add_argument("--auto-tune-window", action="store_true",
                    help="probe candidate window sizes on the device before "
                         "training and keep the fastest (autotune.py)")
@@ -283,11 +319,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="seed of the held-out split (the hash rule under "
                         "--partitioned-ingest; generate_sets' shuffle "
                         "otherwise uses its own default)")
-    # engines of the JAX CLI that the port does not have yet (_UNPORTED)
-    p.add_argument("--checkpoint-backend", choices=["npz", "orbax"],
-                   default="npz")
-    p.add_argument("--checkpoint-ref", type=str, default="")
-    p.add_argument("--restore-ref", type=str, default="")
     return p
 
 
@@ -437,26 +468,26 @@ def main(argv=None) -> int:
         stream=sys.stderr)
     args = build_arg_parser().parse_args(argv)
     log.info(" ".join(sys.argv if argv is None else argv))
-    for dest, accepted, item in _UNPORTED:
-        if getattr(args, dest) != accepted:
-            log.fatal("--%s is not ported yet (ROADMAP queue 1 %s)",
-                      dest.replace("_", "-"), item)
-            return 2
+    if args.restore_ref and (args.num_chains > 1 or args.model == "mmsb"
+                             or args.mesh):
+        log.fatal("--restore-ref imports the reference's single-GPU "
+                  "state; use the single-chip a-MMSB engine")
+        return 1
     if args.rhat_draws and (args.rhat_draws < 2 or args.num_chains < 2
                             or args.model == "mmsb"):
         log.fatal("--rhat-draws needs >= 2 draws and --num-chains >= 2 "
                   "a-MMSB chains (R-hat is a between-chain statistic)")
+        return 1
+    if args.checkpoint_ref and (args.num_chains > 1 or args.model == "mmsb"):
+        log.fatal("--checkpoint-ref exports the a-MMSB single-model state "
+                  "the reference binary can read (chains/mmsb have no "
+                  "reference-format counterpart)")
         return 1
     chains = args.num_chains > 1
     resolve_fast_defaults(args)
     cfg = config_from_args(args)
     if chains:
         cfg = cfg.replace(device_sampling=True)  # as the JAX chain engine
-    try:
-        check_ported(cfg)
-    except NotImplementedError as e:
-        log.fatal("%s", e)
-        return 2
 
     if args.device == "cuda" and not torch.cuda.is_available():
         log.fatal("--device cuda: no CUDA device is available (pass "
@@ -544,9 +575,6 @@ def _main(args, cfg: Config, chains: bool, device) -> int:
     log.info("config: %s", cfg)
     try:
         learner = make_learner(args, cfg, graph, split, device)
-    except NotImplementedError as e:
-        log.fatal("%s", e)
-        return 2
     except ValueError as e:           # the learner's config guards
         log.fatal("%s", e)
         return 1
@@ -575,6 +603,8 @@ def _main(args, cfg: Config, chains: bool, device) -> int:
             return 1
         log.info("restored checkpoint %s (step=%d)", args.restore,
                  learner.step_count)
+    if args.restore_ref:
+        _import_reference(args, cfg, learner, split)
     if learner.sampler is not None:
         # single batches (steps_per_call 1) are always numpy-sampled
         chunked = cfg.steps_per_call > 1
@@ -595,12 +625,40 @@ def _main(args, cfg: Config, chains: bool, device) -> int:
     try:
         _train(args, cfg, learner, signaled)
         if args.checkpoint:       # at exit, and after SIGINT
-            save_checkpoint(args.checkpoint, learner)
+            save_checkpoint(args.checkpoint, learner,
+                            backend=args.checkpoint_backend)
             log.info("checkpoint saved to %s", args.checkpoint)
+        wait_for_async_saves()
+        if args.checkpoint_ref:
+            refckpt.export_learner(args.checkpoint_ref, learner, graph,
+                                   split,
+                                   rows_in_block=args.ref_rows_in_block)
+            log.info("reference-format checkpoint saved to %s (step=%d)",
+                     args.checkpoint_ref, learner.step_count)
     finally:
         signal.signal(signal.SIGINT, previous)
         learner.close()
     return 0
+
+
+def _import_reference(args, cfg: Config, learner, split) -> None:
+    """--restore-ref: the reference binary's checkpoint becomes the
+    learner's state (the JAX CLI's path); with another held-out
+    population the running averages restart."""
+    raw = refckpt.read_reference_checkpoint(
+        args.restore_ref, with_train_ppx=cfg.calc_train_ppx)
+    h = len(split.heldout_edges_u)
+    if len(raw["ppx_per_edge"]) != h:
+        # another held-out population (e.g. another split seed): the
+        # model state still imports
+        log.warning("reference checkpoint held-out size %d != %d here; "
+                    "ppx running averages restart",
+                    len(raw["ppx_per_edge"]), h)
+        raw = dict(raw, ppx_per_edge=np.zeros(h, np.float32), ppx_count=0)
+    learner.state = refckpt.to_train_state(cfg, raw, h, learner.device,
+                                           state=learner.state)
+    log.info("imported reference checkpoint %s (step=%d)", args.restore_ref,
+             learner.step_count)
 
 
 def _main_partitioned(args, device) -> int:
@@ -654,8 +712,10 @@ def _main_partitioned(args, device) -> int:
     try:
         _train(args, cfg, learner, signaled)
         if args.checkpoint:
-            save_checkpoint(args.checkpoint, learner)
+            save_checkpoint(args.checkpoint, learner,
+                            backend=args.checkpoint_backend)
             log.info("checkpoint saved to %s", args.checkpoint)
+        wait_for_async_saves()
     finally:
         signal.signal(signal.SIGINT, previous)
     return 0
@@ -722,11 +782,15 @@ def _train(args, cfg: Config, learner: Learner, signaled: dict) -> None:
 
     def maybe_checkpoint(i):
         """Periodic checkpoint (--checkpoint-interval), checked at
-        eval-loop boundaries."""
+        eval-loop boundaries; the directory backend's is asynchronous, so
+        training resumes once the state is copied."""
         if ck_next[0] is None or i < ck_next[0] or not args.checkpoint:
             return
-        save_checkpoint(args.checkpoint, learner)
-        log.info("checkpoint saved to %s (step %d)", args.checkpoint, i)
+        directory = args.checkpoint_backend == "orbax"
+        save_checkpoint(args.checkpoint, learner,
+                        backend=args.checkpoint_backend, async_save=directory)
+        log.info("checkpoint saved to %s (step %d)%s", args.checkpoint, i,
+                 " [async]" if directory else "")
         while ck_next[0] <= i:
             ck_next[0] += args.checkpoint_interval
 

@@ -87,11 +87,27 @@
 //     IEEE (no fast math): 1/p and 1/phi amplify error. No wgmma and no
 //     TF32: the products are 33x32 outputs over a 64-deep slice, far
 //     below a 64-row warpgroup tile, and TF32's ~3 digits would feed 1/p.
+//
+// Storage type of pi (--pi-dtype): the kernel is a template on it. With
+// float32 (window_kernel<float>) the rows are copied by cp.async as above.
+// With bfloat16 storage (window_kernel<__nv_bfloat16>; JAX's bf16 window,
+// ops/window.py:241,252, which gathers the rows upcast and quantizes them
+// only at the scatter) the gather loads 8 bf16 values per 16-byte load
+// (one at a time on a ragged slice) and widens them to float32 in the
+// same step row buffers; everything after the gather is the float32 code,
+// the staged rows stay float32 (a redirected read sees the earlier step's
+// float32 value), and the scatter rounds each kept value to nearest-even
+// (__float2bfloat16_rn, torch's .to(torch.bfloat16)). No staging buffer:
+// the shared-memory layout is the float32 one. The bf16 loads are
+// synchronous, so unlike the float32 copies they do not overlap the
+// previous step's compute.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -212,9 +228,10 @@ __device__ __forceinline__ void cp_async_wait_older() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
+template <typename PiT>
 struct Params {
   // state, per chain block of the flat layout; updated in place
-  float* pi;               // [C*N, K]
+  PiT* pi;                 // [C*N, K], float32 or bfloat16 storage
   float* phi_sum;          // [C*N]
   // operands, chain-major ([C, T, ...]); R = B + n; bools one byte each
   const bool* y;           // [T, B, n] neighbor edge labels
@@ -282,7 +299,15 @@ __device__ __forceinline__ void pack_bits(unsigned* bits, const bool* src,
   }
 }
 
-__global__ void __launch_bounds__(kThreads) window_kernel(Params P) {
+// A kept value as pi stores it: itself, or rounded to nearest-even.
+__device__ __forceinline__ float to_store(float v, float*) { return v; }
+__device__ __forceinline__ __nv_bfloat16 to_store(float v, __nv_bfloat16*) {
+  return __float2bfloat16_rn(v);
+}
+
+template <typename PiT>
+__global__ void __launch_bounds__(kThreads) window_kernel(Params<PiT> P) {
+  constexpr bool kF32 = std::is_same<PiT, float>::value;
   extern __shared__ __align__(16) float smem[];
   __shared__ unsigned s_off[kLayoutFields];
 #ifdef WINDOW_PHASES
@@ -314,7 +339,7 @@ __global__ void __launch_bounds__(kThreads) window_kernel(Params P) {
   // ([C, T, ...] chain-major; the offsets are taken where they are used)
   const size_t chain = blockIdx.x / S;
   const size_t TB = (size_t)T * B, TE = (size_t)T * E;
-  float* const pi_c = P.pi + chain * P.N * K;
+  PiT* const pi_c = P.pi + chain * P.N * K;
   float* const sum_c = P.phi_sum + chain * P.N;
   __syncthreads();
 
@@ -368,19 +393,56 @@ __global__ void __launch_bounds__(kThreads) window_kernel(Params P) {
     else
       cp_async4(dst, src);
   };
+  // bf16 rows: 16-byte loads of 8 values where K and KW are multiples of
+  // 8, else one value at a time, with the same warp-to-row mapping
+  const bool vec8 = (K % 8 == 0) && (KW % 8 == 0);
+  const int width8 = vec8 ? 8 : 1;
+  const int nchunk8 = (kw + width8 - 1) / width8;
+  const int rpp8 = nchunk8 < 32 ? 32 / nchunk8 : 1;
+  const int sub8 = nchunk8 < 32 ? lane / nchunk8 : 0;
+  const int c08 = nchunk8 < 32 ? lane - sub8 * nchunk8 : lane;
+  const int cstep8 = nchunk8 < 32 ? nchunk8 : 32;
   auto gather = [&](int t, int p) {
     const int* mct = SI(smc) + t * R;
     const int* nd = SI(snodes) + t * B;
     const int* nb = SI(snbrs) + t * n;
-    if (sub < rpp) {
+    if constexpr (!kF32) {
       float* rbuf = p ? SM(rows1) : SM(rows0);
-      for (int r = warp * rpp + sub; r < R; r += kWarps * rpp) {
-        if (mct[r] > 0) continue;   // staged in-window: read after the barrier
-        // the sentinel N reads the chain's own last row (see the note)
-        const int id = r < B ? min(nd[r], P.N - 1) : nb[r - B];
-        const float* src = pi_c + (size_t)id * K + k0;
-        for (int c = c0; c < nchunk; c += cstep)
-          copy(rbuf + r * ld + c * width, src + c * width);
+      if (sub8 < rpp8) {
+        for (int r = warp * rpp8 + sub8; r < R; r += kWarps * rpp8) {
+          if (mct[r] > 0) continue;
+          const int id = r < B ? min(nd[r], P.N - 1) : nb[r - B];
+          const PiT* src = pi_c + (size_t)id * K + k0;
+          for (int c = c08; c < nchunk8; c += cstep8) {
+            float* dst = rbuf + r * ld + c * width8;
+            if (vec8) {
+              const uint4 raw = *reinterpret_cast<const uint4*>(src + c * 8);
+              const __nv_bfloat162* h =
+                  reinterpret_cast<const __nv_bfloat162*>(&raw);
+              const float2 a = __bfloat1622float2(h[0]);
+              const float2 b = __bfloat1622float2(h[1]);
+              const float2 e = __bfloat1622float2(h[2]);
+              const float2 f = __bfloat1622float2(h[3]);
+              reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
+              reinterpret_cast<float4*>(dst)[1] = make_float4(e.x, e.y, f.x, f.y);
+            } else {
+              dst[0] = __bfloat162float(src[c]);
+            }
+          }
+        }
+      }
+    }
+    if (sub < rpp) {
+      if constexpr (kF32) {
+        float* rbuf = p ? SM(rows1) : SM(rows0);
+        for (int r = warp * rpp + sub; r < R; r += kWarps * rpp) {
+          if (mct[r] > 0) continue;   // staged in-window: read after the barrier
+          // the sentinel N reads the chain's own last row (see the note)
+          const int id = r < B ? min(nd[r], P.N - 1) : nb[r - B];
+          const float* src = pi_c + (size_t)id * K + k0;
+          for (int c = c0; c < nchunk; c += cstep)
+            copy(rbuf + r * ld + c * width, src + c * width);
+        }
       }
       float* nbuf = p ? SM(nz1) : SM(nz0);
       const float* noise_t = P.noise + (chain * T + t) * B * K + k0;
@@ -733,8 +795,9 @@ __global__ void __launch_bounds__(kThreads) window_kernel(Params P) {
     const float* staged = SM(staged);
     for (int tb = warp; tb < T * B; tb += kWarps) {
       if (!keep[tb]) continue;
-      float* dst = pi_c + (size_t)snodes[tb] * K + k0;
-      for (int kk = lane; kk < kw; kk += 32) dst[kk] = staged[(size_t)tb * KW + kk];
+      PiT* dst = pi_c + (size_t)snodes[tb] * K + k0;
+      for (int kk = lane; kk < kw; kk += 32)
+        dst[kk] = to_store(staged[(size_t)tb * KW + kk], dst);
     }
     if (rank == 0) {
       const float* ssum = SM(ssum);
@@ -760,57 +823,24 @@ __global__ void __launch_bounds__(kThreads) window_kernel(Params P) {
 #undef SU
 #undef SI
 
-}  // namespace
-
-// Bytes of shared memory per CTA with a cluster of S CTAs.
-extern "C" size_t window_kernel_smem_bytes(int T, int B, int n, int E, int K,
-                                           int S) {
-  return layout(T, B, n, E, slice_width(K, S), S).total * sizeof(float);
-}
-
-// Launches C clusters of S CTAs (one cluster per chain) on `stream`;
-// returns the launch's CUDA error (0 on success). pi [C*N, K] and
-// phi_sum [C*N] are updated in place; every operand holds the C chains'
-// slices one after another (chain-major); `eps_phi` and `eps_theta` are
-// host arrays of T floats, shared by the chains.
-extern "C" int window_kernel_launch(
-    float* pi, float* phi_sum, const bool* y, const int* nodes,
-    const int* nbrs, const bool* node_mask, const bool* keep,
-    const float* noise, const float* bnoise, const bool* y_edges,
-    const bool* edge_mask, const int* lanes_u, const int* lanes_v,
-    const int* mcode, const float* wts, const float* theta_in,
-    const float* beta_in, float* theta_out, float* beta_out, int C, int T,
-    int B, int n, int E, int K, int N, int S, float eps, float one_minus_eps,
-    float alpha, float n_nodes, float eta0, float eta1, float inv_k,
-    const float* eps_phi, const float* eps_theta, void* stream) {
-  // lanes are packed in 16 bits each
-  if (C < 1 || T < 1 || T > kMaxWindow || n > kMaxNeighbors || S < 1
-      || S > kMaxCluster || B > 0xffff)
-    return (int)cudaErrorInvalidValue;
-  const int kw = slice_width(K, S);
-  if ((S - 1) * kw >= K) return (int)cudaErrorInvalidValue;  // empty slice
-  Params P{pi, phi_sum, y, nodes, nbrs, node_mask, keep, noise, bnoise,
-           y_edges, edge_mask, lanes_u, lanes_v, mcode, wts, theta_in,
-           beta_in, theta_out, beta_out, T, B, n, E, K, N, kw,
-           eps, one_minus_eps, alpha, n_nodes, eta0, eta1, inv_k, {}, {}};
-  for (int t = 0; t < T; ++t) {
-    P.eps_phi[t] = eps_phi[t];
-    P.eps_theta[t] = eps_theta[t];
-  }
-  const size_t smem = window_kernel_smem_bytes(T, B, n, E, K, S);
+// Sets the kernel's attributes and launches C clusters of S CTAs.
+template <typename PiT>
+cudaError_t launch(const Params<PiT>& P, int C, int S, size_t smem,
+                   cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+      window_kernel<PiT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
   if (S > 8) {
     err = cudaFuncSetAttribute(
-        window_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
+        window_kernel<PiT>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C * S);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = S;
@@ -818,21 +848,95 @@ extern "C" int window_kernel_launch(
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, window_kernel, P);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  err = cudaLaunchKernelEx(&cfg, window_kernel<PiT>, P);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename PiT>
+Params<PiT> make_params(void* pi, float* phi_sum, const bool* y,
+                        const int* nodes, const int* nbrs,
+                        const bool* node_mask, const bool* keep,
+                        const float* noise, const float* bnoise,
+                        const bool* y_edges, const bool* edge_mask,
+                        const int* lanes_u, const int* lanes_v,
+                        const int* mcode, const float* wts,
+                        const float* theta_in, const float* beta_in,
+                        float* theta_out, float* beta_out, int T, int B,
+                        int n, int E, int K, int N, int kw, float eps,
+                        float one_minus_eps, float alpha, float n_nodes,
+                        float eta0, float eta1, float inv_k,
+                        const float* eps_phi, const float* eps_theta) {
+  Params<PiT> P{static_cast<PiT*>(pi), phi_sum, y, nodes, nbrs, node_mask,
+                keep, noise, bnoise, y_edges, edge_mask, lanes_u, lanes_v,
+                mcode, wts, theta_in, beta_in, theta_out, beta_out, T, B, n,
+                E, K, N, kw, eps, one_minus_eps, alpha, n_nodes, eta0, eta1,
+                inv_k, {}, {}};
+  for (int t = 0; t < T; ++t) {
+    P.eps_phi[t] = eps_phi[t];
+    P.eps_theta[t] = eps_theta[t];
+  }
+  return P;
+}
+
+}  // namespace
+
+// Bytes of shared memory per CTA with a cluster of S CTAs (either storage
+// type).
+extern "C" size_t window_kernel_smem_bytes(int T, int B, int n, int E, int K,
+                                           int S) {
+  return layout(T, B, n, E, slice_width(K, S), S).total * sizeof(float);
+}
+
+// Launches C clusters of S CTAs (one cluster per chain) on `stream`;
+// returns the launch's CUDA error (0 on success). pi [C*N, K] (float32,
+// or bfloat16 when pi_bf16 is 1) and phi_sum [C*N] (float32) are updated
+// in place; every operand holds the C chains' slices one after another
+// (chain-major); `eps_phi` and `eps_theta` are host arrays of T floats,
+// shared by the chains.
+extern "C" int window_kernel_launch(
+    void* pi, float* phi_sum, const bool* y, const int* nodes,
+    const int* nbrs, const bool* node_mask, const bool* keep,
+    const float* noise, const float* bnoise, const bool* y_edges,
+    const bool* edge_mask, const int* lanes_u, const int* lanes_v,
+    const int* mcode, const float* wts, const float* theta_in,
+    const float* beta_in, float* theta_out, float* beta_out, int C, int T,
+    int B, int n, int E, int K, int N, int S, int pi_bf16, float eps,
+    float one_minus_eps, float alpha, float n_nodes, float eta0, float eta1,
+    float inv_k, const float* eps_phi, const float* eps_theta, void* stream) {
+  // lanes are packed in 16 bits each
+  if (C < 1 || T < 1 || T > kMaxWindow || n > kMaxNeighbors || S < 1
+      || S > kMaxCluster || B > 0xffff || (pi_bf16 != 0 && pi_bf16 != 1))
+    return (int)cudaErrorInvalidValue;
+  const int kw = slice_width(K, S);
+  if ((S - 1) * kw >= K) return (int)cudaErrorInvalidValue;  // empty slice
+  const size_t smem = window_kernel_smem_bytes(T, B, n, E, K, S);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define WINDOW_PARAMS(PiT)                                                  \
+  make_params<PiT>(pi, phi_sum, y, nodes, nbrs, node_mask, keep, noise,    \
+                   bnoise, y_edges, edge_mask, lanes_u, lanes_v, mcode, wts, \
+                   theta_in, beta_in, theta_out, beta_out, T, B, n, E, K, N, \
+                   kw, eps, one_minus_eps, alpha, n_nodes, eta0, eta1,      \
+                   inv_k, eps_phi, eps_theta)
+  const cudaError_t err =
+      pi_bf16 ? launch(WINDOW_PARAMS(__nv_bfloat16), C, S, smem, st)
+              : launch(WINDOW_PARAMS(float), C, S, smem, st);
+#undef WINDOW_PARAMS
+  return (int)err;
 }
 
 // The most clusters of S CTAs (with their shared memory) that the card
-// runs at once, or a negative CUDA error.
+// runs at once, or a negative CUDA error (the float32 instantiation).
 extern "C" int window_kernel_max_clusters(int T, int B, int n, int E, int K,
                                           int S) {
   const size_t smem = window_kernel_smem_bytes(T, B, n, E, K, S);
   cudaError_t err = cudaFuncSetAttribute(
-      window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      window_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err == cudaSuccess && S > 8)
     err = cudaFuncSetAttribute(
-        window_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        window_kernel<float>, cudaFuncAttributeNonPortableClusterSizeAllowed,
+        1);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(S);
@@ -846,7 +950,7 @@ extern "C" int window_kernel_max_clusters(int T, int B, int n, int E, int K,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, window_kernel, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&clusters, window_kernel<float>, &cfg);
   return err == cudaSuccess ? clusters : -(int)err;
 }
 

@@ -71,7 +71,7 @@ from mcmc_ammsb_tpu_torch.ops import perplexity as ppx_ops
 from mcmc_ammsb_tpu_torch.ops import phi as phi_ops
 from mcmc_ammsb_tpu_torch.ops import phi_pallas
 from mcmc_ammsb_tpu_torch.ops.device_sampling import (
-    Adjacency, sample_minibatches_device)
+    Adjacency, sample_minibatch_device, sample_minibatches_device)
 from mcmc_ammsb_tpu_torch.ops.edgeset import EdgeSet, build_edge_set
 from mcmc_ammsb_tpu_torch.ops.neighbor import sample_neighbors
 from mcmc_ammsb_tpu_torch.ops.window import index_operands, windowed_scan
@@ -171,12 +171,17 @@ def _as_stacked(item) -> StackedBatches:
         item.node_mask, item.weight)))
 
 
-def check_ported(cfg: Config) -> None:
-    """Raise for a configuration whose engine the port lacks, naming
-    the ROADMAP item that will port it."""
-    if cfg.pi_dtype != "float32":
-        raise NotImplementedError("bfloat16 pi storage (item 4) is not "
-                                  "ported yet (ROADMAP queue 1)")
+def pi_storage_dtype(cfg: Config) -> torch.dtype:
+    """Storage dtype of the pi rows (``cfg.pi_dtype``). Everything else
+    in the state (phi_sum, theta, beta, the perplexity state) stays
+    float32, and all compute is float32: gathered rows are upcast, staged
+    rows are rounded to nearest-even only at the write-back."""
+    if cfg.pi_dtype == "bfloat16":
+        return torch.bfloat16
+    if cfg.pi_dtype == "float32":
+        return torch.float32
+    raise ValueError(f"unknown pi_dtype {cfg.pi_dtype!r} "
+                     "(float32 | bfloat16)")
 
 
 def check_learner_config(cfg: Config) -> None:
@@ -188,9 +193,11 @@ def check_learner_config(cfg: Config) -> None:
             "shared_neighbors requires rng_backend=native and "
             "phi_impl=jnp (the per-node phi kernel takes per-node "
             "neighbor rows)")
-    if cfg.pi_dtype != "float32" and not jnp_native:
-        raise ValueError("pi_dtype=bfloat16 requires rng_backend=native "
-                         "and phi_impl=jnp")
+    if pi_storage_dtype(cfg) != torch.float32 and not jnp_native:
+        raise ValueError(
+            "pi_dtype=bfloat16 requires rng_backend=native and "
+            "phi_impl=jnp (bit-exact reference trajectories and the "
+            "phi kernel's layout are fp32 semantics)")
     if cfg.window > 1 and not (cfg.shared_neighbors and jnp_native):
         raise ValueError("window > 1 (the T-step window engine) requires "
                          "shared_neighbors, rng_backend=native and "
@@ -212,10 +219,15 @@ def gamma_rows(cfg: Config, draws: np.random.Generator, device,
     """pi [N, K]: rows ~ Gamma(eta0, eta1) normalized, and phi_sum [N],
     the raw row sums. The rows are drawn on the host in blocks and
     written into the device buffer block by block, so peak memory is pi
-    plus one block. ``out``, a (pi, phi_sum) pair of views, receives them
-    in place of new buffers (one chain's rows of the chain engine)."""
+    plus one block (JAX's ``chunked_pi_rows``): each block is normalized
+    in ``dtype`` and then cast to pi's storage dtype
+    (``pi_storage_dtype``), bit-identical to normalizing the whole array
+    and then casting. ``out``, a (pi, phi_sum) pair of views, receives
+    them in place of new buffers (one chain's rows of the chain
+    engine)."""
     if out is None:
-        out = (torch.empty(cfg.N, cfg.K, dtype=dtype, device=device),
+        out = (torch.empty(cfg.N, cfg.K, dtype=pi_storage_dtype(cfg),
+                           device=device),
                torch.empty(cfg.N, dtype=dtype, device=device))
     pi, phi_sum = out
     block = max(1, (1 << 24) // max(cfg.K, 1))
@@ -271,7 +283,7 @@ def init_state(cfg: Config, heldout_size: int, device,
                                               plain=not cfg.ref_rng_block)
         theta, phi_raw = theta.to(dtype), phi_raw.to(dtype)
         phi_sum = phi_raw.sum(dim=-1)
-        pi = phi_raw / phi_sum[:, None]
+        pi = (phi_raw / phi_sum[:, None]).to(pi_storage_dtype(cfg))
         b_cap = cfg.max_batch_nodes
         ref_seeds = RefRngState(
             phi=ref_rng.make_seeds(cfg.phi_seed, b_cap, device),
@@ -560,6 +572,20 @@ def step_operands(cfg: Config, streams: rng.Streams, state: TrainState,
             state._replace(ref_seeds=seeds))
 
 
+def train_step_device_sampled(cfg: Config, edge_set: EdgeSet,
+                              heldout_set: EdgeSet, state: TrainState,
+                              adjacency: Adjacency, streams: rng.Streams
+                              ) -> TrainState:
+    """One step on a minibatch sampled on the device (the JAX package's
+    ``train_step_device_sampled``): ``sample_minibatch_device`` draws it
+    from ``streams.sample``, ``draw_step_operands`` its random operands,
+    and ``train_step`` runs it."""
+    batch = DeviceBatch(*sample_minibatch_device(
+        cfg, edge_set, heldout_set, streams.sample, adjacency))
+    operands, state = step_operands(cfg, streams, state, batch)
+    return train_step(cfg, edge_set, state, batch, *operands)
+
+
 def train_steps_fused(cfg: Config, edge_set: EdgeSet, heldout_set: EdgeSet,
                       state: TrainState, num_steps: int,
                       adjacency: Adjacency, streams: rng.Streams
@@ -691,7 +717,6 @@ class Learner(HostSamplingPipeline):
                  device="cuda", prefetch: bool = True):
         self.device = resolve_device(device)
         self._check(cfg)
-        check_ported(cfg)
         self.cfg = cfg
         if self.device.type == "cuda":
             # the q and contrib products feed 1/p: keep them full fp32

@@ -377,7 +377,8 @@ class FullMMSBLearner(learner.Learner):
     def _check(cfg: Config) -> None:
         if cfg.pi_dtype != "float32":
             raise ValueError("the full-MMSB family keeps pi in fp32; "
-                             "pi_dtype=bfloat16 is a-MMSB only")
+                             "pi_dtype=bfloat16 is a-MMSB single-chip "
+                             "only")
 
     def _init_state(self, heldout_size: int) -> MMSBState:
         return init_mmsb_state(self.cfg, heldout_size, self.device)

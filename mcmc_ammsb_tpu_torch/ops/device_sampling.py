@@ -494,3 +494,13 @@ def sample_minibatches_device(cfg: Config, training_set: EdgeSet,
             eu, ev, mask, weight, pivot = out
             nodes, node_mask = _structural_nodes(cfg, eu, ev, mask, pivot)
     return DeviceSamples(eu, ev, mask, nodes, node_mask, weight)
+
+
+def sample_minibatch_device(cfg: Config, training_set: EdgeSet,
+                            heldout_set: EdgeSet, gen: torch.Generator,
+                            adjacency: Adjacency) -> DeviceSamples:
+    """One minibatch (the S = 1 case of ``sample_minibatches_device``,
+    without the leading axis; the JAX package's single-step wrapper)."""
+    s = sample_minibatches_device(cfg, training_set, heldout_set, gen, 1,
+                                  adjacency)
+    return DeviceSamples(*(x[0] for x in s))

@@ -12,7 +12,10 @@ On a CUDA tensor the three are one launch of the hand-written Hopper
 kernel ``csrc/window_kernel.cu`` (``window_apply_cuda``): it reads its
 rows from pi by index, runs the steps on a thread-block cluster that
 splits K (``window_cluster_size``), and writes the surviving rows back
-itself. On a CPU tensor, and on any device with ``cfg.window_impl ==
+itself. With bfloat16 pi storage (``cfg.pi_dtype``) both versions gather
+the rows upcast to float32, compute and stage in float32, and round the
+kept rows to nearest-even only at the write-back, as the JAX package's
+bf16 window does; the kernel takes the storage type from ``s.pi``. On a CPU tensor, and on any device with ``cfg.window_impl ==
 "jnp"`` (``plain_or``), the plain PyTorch version ``window_apply_torch``
 runs them as ``_window_gather``, ``window_core_torch`` and
 ``_window_scatter``.
@@ -396,7 +399,7 @@ def bind_window_lib(lib):
     lib.window_kernel_smem_bytes.restype = ctypes.c_size_t
     lib.window_kernel_max_clusters.argtypes = [_I] * 6
     lib.window_kernel_max_clusters.restype = _I
-    lib.window_kernel_launch.argtypes = ([_P] * 19 + [_I] * 8 + [_F] * 7
+    lib.window_kernel_launch.argtypes = ([_P] * 19 + [_I] * 9 + [_F] * 7
                                          + [_P] * 3)
     lib.window_kernel_launch.restype = _I
     return lib
@@ -461,9 +464,12 @@ def _launch(cfg: Config, s, xs_t, mcode, keep, chained: bool,
         return kernels.pointer(x, dtype, dev)
 
     f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    if s.pi.dtype not in (f32, torch.bfloat16):
+        raise ValueError(f"the window kernel stores pi as float32 or "
+                         f"bfloat16, got {s.pi.dtype}")
     theta = torch.empty_like(s.theta)
     beta = torch.empty_like(s.beta)
-    ptrs = [arg(s.pi, f32), arg(s.phi_sum, f32), arg(y_w, b8),
+    ptrs = [arg(s.pi, s.pi.dtype), arg(s.phi_sum, f32), arg(y_w, b8),
             arg(batch.nodes, i32), arg(nbrs_s[..., 0, :], i32),
             arg(batch.node_mask, b8), arg(keep, b8), arg(nphi_w, f32),
             arg(nbeta_w, f32), arg(ye_w, b8), arg(batch.edge_mask, b8),
@@ -474,7 +480,7 @@ def _launch(cfg: Config, s, xs_t, mcode, keep, chained: bool,
     eps_theta = _step_sizes(cfg, s.beta_count + 1, t_win)
     err = lib.window_kernel_launch(
         *ptrs, n_chains, t_win, b_cap, n_smpl, e_cap, k, n_rows, cluster,
-        cfg.epsilon, 1.0 - cfg.epsilon, cfg.alpha_value, float(cfg.N),
+        int(s.pi.dtype == torch.bfloat16), cfg.epsilon, 1.0 - cfg.epsilon, cfg.alpha_value, float(cfg.N),
         cfg.eta0, cfg.eta1, 1.0 / k, eps_phi.ctypes.data,
         eps_theta.ctypes.data, torch.cuda.current_stream(dev).cuda_stream)
     kernels.check_launch(err, "window kernel")
@@ -489,6 +495,7 @@ def window_apply_cuda(cfg: Config, s, xs_t, mcode, keep,
     selects back into them IN PLACE; theta and beta are new tensors.
     ``table_rows``: ``s.pi`` is a table of that many rows and the ids
     index it (``parallel/sharded.py``'s fetched rows), not pi [N, K].
+    ``s.pi`` is float32 or bfloat16 (the kernel's bf16 row mode).
     CUDA tensors only: the kernel is launched or this raises — there is
     no fallback."""
     out = _launch(cfg, s, xs_t, mcode, keep, chained=False,

@@ -143,5 +143,17 @@ class ShardedChainLearner(FlatChainLearner):
         return {f: at for f in ("pi", "phi_sum", "theta", "beta",
                                 "ppx_per_edge")}
 
+    def dtensor_layout(self) -> dict:
+        """The split fields as DTensors for the directory checkpoint,
+        sharded on dim 0 over a 1-D DeviceMesh of the chain group."""
+        from torch.distributed.device_mesh import DeviceMesh
+        from torch.distributed.tensor import Shard
+
+        if getattr(self, "_device_mesh", None) is None:
+            self._device_mesh = DeviceMesh.from_group(self.mesh.group,
+                                                      self.device.type)
+        at = (self._device_mesh, [Shard(0)])
+        return {f: at for f in self.shard_layout()}
+
     def stream_generators(self) -> dict:
         return dict(zip(self.streams._fields, self.streams))

@@ -162,12 +162,15 @@ def tiny_problem(seed: int = 0):
 
 def gather_rows(learner, name: str = "pi"):
     """A sharded learner's global ``name`` field ([N_pad, ...], the model
-    shards in order) on every rank of its model group."""
+    shards in order; bf16 pi as float32) on every rank of its model
+    group."""
     import torch
     import torch.distributed as dist
 
     group, _ = learner.shard_layout()[name]
     x = getattr(learner.state, name)
+    if x.dtype == torch.bfloat16:
+        x = x.float()              # losslessly, as the checkpoint does
     out = x.new_empty((dist.get_world_size(group) * x.shape[0],
                        *x.shape[1:]))
     dist.all_gather_into_tensor(out, x.contiguous(), group=group)
@@ -176,8 +179,8 @@ def gather_rows(learner, name: str = "pi"):
 
 def _dryrun_rank(n: int) -> str:
     """Every rank of the dry run: the JAX dry run's contracts on n gloo
-    ranks (the bfloat16 one is dropped: bfloat16 pi is not ported,
-    ROADMAP queue 1 item 4)."""
+    ranks."""
+    import torch
     import torch.distributed as dist
 
     from mcmc_ammsb_tpu_torch.learner import Learner
@@ -234,8 +237,15 @@ def _dryrun_rank(n: int) -> str:
         np.testing.assert_allclose(base.heldout_perplexity(), pw,
                                    rtol=1e-4)
 
-    # the windowed path reproduces the unwindowed one on the (a,b) mesh
+    # bfloat16 pi storage composes with the mesh
     mesh = make_mesh(*shapes[-1], device="cpu")
+    bf = ShardedLearner(fused_cfg.replace(pi_dtype="bfloat16"), graph,
+                        split, mesh)
+    bf.run(8)
+    assert bf.state.pi.dtype == torch.bfloat16
+    assert np.isfinite(bf.heldout_perplexity())
+
+    # the windowed path reproduces the unwindowed one on the (a,b) mesh
     wcfg = fused_cfg.replace(shared_neighbors=True, window=4,
                              steps_per_call=12)
     seqw = ShardedLearner(wcfg.replace(window=0), graph, split, mesh)
@@ -275,7 +285,8 @@ def dryrun_multichip(n_ranks: int, timeout: float = 120.0) -> str:
     CPU: the (n,1), (1,n) and (a,b) meshes train and run the fused eval
     series across two calls, the sharded evaluator equals the single-GPU
     ``Learner``'s held-out ppx on the identical state, (1,n) reproduces
-    (1,1), the windowed path reproduces the unwindowed one, and the
+    (1,1), bfloat16 pi trains on the (a,b) mesh, the windowed path
+    reproduces the unwindowed one, and the
     chain mesh is deterministic with windowed == sequential chains.
     Raises on a broken contract; returns rank 0's report."""
     return spawn(_dryrun_rank, n_ranks, (n_ranks,), timeout=timeout)[0]

@@ -20,6 +20,12 @@ Collectives per step (NCCL on cards, gloo on the CPU):
                  over the data group; each model shard applies the rows
                  that land in its range (the node list is globally
                  deduplicated, so writes are collision-free).
+
+With bfloat16 pi storage (``cfg.pi_dtype``) only the local rows are
+bf16: the fetch upcasts them to float32 before the all-reduce (a masked
+row plus zeros is exact in float32, and gloo's bf16 collectives are not
+relied on), every collective carries float32, and the write-back rounds
+to nearest-even (``ops/phi.scatter_rows``).
   * beta grads:  all-reduce of per-edge partial gradients over the data
                  group.
 
@@ -64,8 +70,8 @@ from mcmc_ammsb_tpu_torch.config import Config, PhiImpl, RngBackend
 from mcmc_ammsb_tpu_torch.data import (DataSplit, Graph,
                                        make_training_ppx_edges)
 from mcmc_ammsb_tpu_torch.learner import (DeviceBatch, Learner, TrainState,
-                                          check_ported, edge_lanes,
-                                          gamma_draws, hoist_operands)
+                                          edge_lanes, gamma_draws,
+                                          hoist_operands, pi_storage_dtype)
 from mcmc_ammsb_tpu_torch.ops import beta as beta_ops
 from mcmc_ammsb_tpu_torch.ops import perplexity as ppx_ops
 from mcmc_ammsb_tpu_torch.ops import phi as phi_ops
@@ -493,13 +499,15 @@ def init_local_state(cfg: Config, lo: int, hi: int, n_padded: int,
                      device) -> TrainState:
     """The rows [lo, hi) of ``learner.init_state``'s state (native RNG):
     theta, then pi's rows drawn from the one host stream in the same
-    blocks and normalized on ``device`` as the single-GPU init does, so
-    the shard holds exactly the single-GPU rows; rows past N (padding to
-    the model axis) are 1/K with phi_sum 1."""
+    blocks and normalized on ``device`` as the single-GPU init does, then
+    cast to pi's storage dtype, so the shard holds exactly the single-GPU
+    rows; rows past N (padding to the model axis) are 1/K with phi_sum
+    1."""
     k = cfg.K
     draws = rng.host_gamma_rng(cfg)
     theta = gamma_draws(cfg, draws, (k, 2), device)
-    pi = torch.full((hi - lo, k), 1.0 / k, device=device)
+    pi = torch.full((hi - lo, k), 1.0 / k, dtype=pi_storage_dtype(cfg),
+                    device=device)
     phi_sum = torch.ones(hi - lo, device=device)
     block = max(1, (1 << 24) // max(k, 1))
     for start in range(0, min(cfg.N, hi), block):
@@ -565,7 +573,6 @@ class ShardedLearner(Learner):
                     "minibatch sampling needs the full host graph, which "
                     "no process holds")
         check_sharded_config(cfg)
-        check_ported(cfg)
         self.device = mesh.device
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -702,6 +709,19 @@ class ShardedLearner(Learner):
                 "phi_sum": (m.model_group, m.m_idx),
                 "ppx_per_edge": (m.data_group, m.d_idx),
                 "train_ppx_per_edge": (m.data_group, m.d_idx)}
+
+    def dtensor_layout(self) -> dict:
+        """The split fields as DTensors for the directory checkpoint:
+        {field: (the mesh's DeviceMesh, placements)}: pi's rows and
+        phi_sum sharded over 'model' and replicated over 'data', the
+        running averages the other way round."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        mesh = self.mesh.device_mesh
+        rows = (mesh, [Replicate(), Shard(0)])
+        edges = (mesh, [Shard(0), Replicate()])
+        return {"pi": rows, "phi_sum": rows, "ppx_per_edge": edges,
+                "train_ppx_per_edge": edges}
 
     def stream_generators(self) -> dict:
         """This rank's generators by name: the four ``rng.Streams`` and

@@ -71,6 +71,45 @@ def window_case(seed: int, t_win: int, b_cap: int, n_smpl: int,
         lanes_u=lanes_u, lanes_v=lanes_v)
 
 
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise distance in bfloat16 ulps of two bf16 tensors (0 where
+    the bits are equal): each value's bits as a signed 16-bit integer
+    mapped onto a line that is monotone in the value (-0.0 and +0.0 are
+    the same point)."""
+    def line(x):
+        i = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -32768 - i, i)
+
+    return (line(a) - line(b)).abs()
+
+
+def bf16_gaps(got: torch.Tensor, want: torch.Tensor, got32: torch.Tensor,
+              want32: torch.Tensor) -> dict:
+    """How two versions' bf16 stored values ``got`` and ``want`` differ,
+    given the float32 values each version computed before rounding
+    (``got32``, ``want32``: the same version run on the same operands
+    with the bf16 table upcast to float32). Rounding to nearest moves a
+    value by at most half an ulp, so |got - want| <= |got32 - want32| +
+    one ulp: ``unexplained`` counts the values past that bound (a fault
+    of the bf16 mode, never of the float32 arithmetic); ``one_ulp`` and
+    ``more_ulps`` count the values 1 and more than 1 ulp apart (the
+    latter only where the float32 values themselves differ by more than
+    an ulp, as the few elements that come out of a cancellation do)."""
+    ulps = bf16_ulps(got, want)
+
+    def ulp(x):
+        up = (x.contiguous().view(torch.int16) + 1).view(torch.bfloat16)
+        return (up.float() - x.float()).abs()
+
+    slack = (got32.float() - want32.float()).abs() + torch.maximum(
+        ulp(got), ulp(want))
+    gap = (got.float() - want.float()).abs()
+    return {"one_ulp": int((ulps == 1).sum()),
+            "more_ulps": int((ulps > 1).sum()),
+            "max_ulps": int(ulps.max()) if ulps.numel() else 0,
+            "unexplained": int((gap > slack).sum())}
+
+
 def window_case_config(case: dict) -> Config:
     t_win, b_cap, n_smpl = case["y_phi"].shape
     return Config(K=case["pi"].shape[1], window=t_win,

@@ -67,23 +67,31 @@ def test_cli_chains_on_cpu(flags, caplog):
      "chain mesh needs 2 devices, only 1 available"),
     (["--num-chains", "2", "--model", "mmsb", "--chain-devices", "2"], 1,
      "chain mesh needs 2 devices, only 1 available"),
+    # ported (item 15, bf16 pi): the JAX CLI's behaviour
     (["--num-chains", "2", "--checkpoint", "ck", "--checkpoint-backend",
-      "orbax"], 2, "item 15"),
-    (["--num-chains", "2", "--restore-ref", "ck.bin"], 2, "item 15"),
+      "orbax"], 0, "checkpoint saved to ck"),
+    (["--num-chains", "2", "--restore-ref", "ck.bin"], 1,
+     "--restore-ref imports the reference's single-GPU state"),
     (["--num-chains", "2", "--chain-engine", "vmap", "--pi-dtype",
-      "bfloat16"], 2, "item 4"),
+      "bfloat16"], 1, "the vmap chain engine keeps pi in fp32"),
 ])
-def test_cli_refuses_unported_chain_engines(flags, rc, message, caplog):
-    """The orbax and reference checkpoint formats and bfloat16 pi still
-    wait (exit 2, naming the ROADMAP item). Chains over several GPUs are
-    ported (tests/test_torch_chains_sharded.py runs them on two ranks):
-    in one process --chain-devices 2 exits 1 with the JAX CLI's message.
-    The vmap engine, the MMSB chains and npz checkpoints of chain runs
-    are ported: test_cli_chain_engines_and_checkpoints below."""
+def test_cli_refuses_unported_chain_engines(flags, rc, message, caplog,
+                                            tmp_path, monkeypatch):
+    """No chain engine of the JAX CLI is refused any more: each flag runs,
+    or exits 1 with the JAX CLI's message where the JAX CLI refuses the
+    combination (in the run's directory). In one process --chain-devices
+    2 exits 1 as on one device (tests/test_torch_chains_sharded.py runs
+    two ranks); the directory backend saves a chain run; --restore-ref
+    and bf16 pi on the vmap engine are refused as in JAX. The vmap
+    engine, the MMSB chains and checkpoints of chain runs are driven by
+    test_cli_chain_engines_and_checkpoints below."""
+    monkeypatch.chdir(tmp_path)
     got, messages = _run(TINY + flags, caplog)
     assert got == rc
     assert any(message in m and (rc != 2 or "ROADMAP" in m)
                for m in messages)
+    if "--checkpoint-backend" in flags:
+        assert (tmp_path / "ck" / "streams.npz").is_file()
 
 
 @pytest.mark.parametrize("flags, rhat, falls", [

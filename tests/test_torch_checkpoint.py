@@ -354,3 +354,161 @@ def _check_jax_checkpoint(dataset, tmp_path, rng_backend):
         interop.state_from_jax_checkpoint(path, cfg.replace(K=4), "cpu")
     jl.close()
     tl.close()
+
+
+# ---------------------------------------------------------------------------
+# The directory backend (backend="orbax": a torch.distributed.checkpoint
+# directory), the contract of tests/test_checkpoint.py:109-290
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_dir_bit_exact_resume(dataset, tmp_path, name):
+    """test_bit_exact_resume through the directory backend on every
+    learner: run 20, save, run 15 == restore (the directory is detected),
+    run 15, bit for bit; the directory holds JAX's sidecars and the
+    generators' states."""
+    import os
+
+    path = str(tmp_path / "ck_dir")
+    a = _build(dataset, name)
+    a.heldout_perplexity()
+    a.run(20)
+    checkpoint.save_checkpoint(path, a, backend="orbax")
+    a.run(15)
+    ppx_a = a.heldout_perplexity()
+    a.close()
+    assert sorted(os.listdir(path)) == ["manifest.json", "pending.pkl",
+                                        "sampler_rng.pkl", "state",
+                                        "streams.npz"]
+    b = _build(dataset, name)
+    checkpoint.load_checkpoint(path, b)
+    assert b.step_count == 21
+    assert b.timers.calls["device_step"] > 0
+    b.run(15)
+    ppx_b = b.heldout_perplexity()
+    b.close()
+    np.testing.assert_array_equal(ppx_a, ppx_b)
+    for x, y in zip(_leaves(a), _leaves(b)):
+        np.testing.assert_array_equal(x, y)
+
+
+def _dir_learner(dataset):
+    return _build(dataset, "learner-device-windowed")
+
+
+def test_dir_overwrite_is_atomic(dataset, tmp_path):
+    """Saving over a directory checkpoint replaces it whole, and no
+    staging or parking directory stays behind."""
+    import os
+
+    path = str(tmp_path / "ck_dir")
+    a = _dir_learner(dataset)
+    checkpoint.save_checkpoint(path, a, backend="orbax")
+    a.run(10)
+    checkpoint.save_checkpoint(path, a, backend="orbax")
+    b = _dir_learner(dataset)
+    checkpoint.load_checkpoint(path, b)
+    assert b.step_count == a.step_count == 11
+    assert torch.equal(a.state.pi, b.state.pi)
+    assert sorted(os.listdir(tmp_path)) == ["ck_dir"]
+
+
+def test_dir_crash_mid_promote_recovers_from_parking_spot(dataset, tmp_path):
+    """A crash between the promote's renames leaves the previous
+    checkpoint at .orbax-old; load_checkpoint falls back to it."""
+    import shutil
+
+    path = str(tmp_path / "ck_dir")
+    a = _dir_learner(dataset)
+    a.run(10)
+    checkpoint.save_checkpoint(path, a, backend="orbax")
+    shutil.move(path, path + ".orbax-old")
+    b = _dir_learner(dataset)
+    checkpoint.load_checkpoint(path, b)
+    assert b.step_count == a.step_count
+    assert torch.equal(a.state.pi, b.state.pi)
+
+
+def test_dir_async_save_is_a_snapshot(dataset, tmp_path):
+    """async_save returns once the state is copied off the live tensors:
+    training goes on, updating pi and phi_sum in place, while the save is
+    in flight, and the finalized checkpoint holds the state at the save,
+    from which the resumed run is bit-exact."""
+    path = str(tmp_path / "ck_async")
+    a = _dir_learner(dataset)
+    a.run(10)
+    checkpoint.save_checkpoint(path, a, backend="orbax", async_save=True)
+    a.run(20)
+    checkpoint.wait_for_async_saves()
+    b = _dir_learner(dataset)
+    checkpoint.load_checkpoint(path, b)
+    assert b.step_count == 11
+    b.run(20)
+    for f in ("pi", "phi_sum", "theta", "beta"):
+        assert torch.equal(getattr(a.state, f), getattr(b.state, f)), f
+
+
+def test_dir_async_save_finalized_by_load(dataset, tmp_path):
+    """load_checkpoint finalizes an in-flight async save to its path."""
+    path = str(tmp_path / "ck_async2")
+    a = _dir_learner(dataset)
+    a.run(5)
+    checkpoint.save_checkpoint(path, a, backend="orbax", async_save=True)
+    b = _dir_learner(dataset)
+    checkpoint.load_checkpoint(path, b)
+    assert b.step_count == 6
+    assert not checkpoint._ASYNC_PENDING
+
+
+@pytest.mark.parametrize("kw, match", [
+    (dict(async_save=True), "orbax"),
+    (dict(backend="hdf5"), "backend"),
+])
+def test_backend_arguments_raise(dataset, tmp_path, kw, match):
+    """async_save needs the directory backend; an unknown backend
+    raises."""
+    a = _dir_learner(dataset)
+    with pytest.raises(ValueError, match=match):
+        checkpoint.save_checkpoint(str(tmp_path / "x"), a, **kw)
+
+
+def test_npz_save_finalizes_pending_async_first(dataset, tmp_path):
+    """A pending async save to a path is promoted before an npz save to
+    the same path string proceeds, so its deferred promote can never
+    rename the npz file away; a later directory save works again."""
+    import os
+
+    path = str(tmp_path / "ck")
+    a = _dir_learner(dataset)
+    a.run(5)
+    checkpoint.save_checkpoint(path, a, backend="orbax", async_save=True)
+    assert checkpoint._ASYNC_PENDING
+    checkpoint.save_checkpoint(path + ".npz", a)
+    checkpoint.save_checkpoint(path, a, backend="orbax")
+    assert os.path.isdir(path) and not checkpoint._ASYNC_PENDING
+    b = _dir_learner(dataset)
+    checkpoint.load_checkpoint(path, b)
+    assert b.step_count == 6
+
+
+def test_dir_sharded_roundtrip(tmp_path):
+    """Two gloo ranks on a (1, 2) mesh, pi's rows as DTensors sharded
+    over 'model' so each rank writes and reads its own rows: run, save,
+    run == restore, run, bit for bit, synchronously and asynchronously
+    (training on before the finalize); the chain engine over a chain mesh
+    of both ranks likewise."""
+    from mcmc_ammsb_tpu_torch.parallel.dryrun import spawn
+
+    import torch_dist_workers as W
+
+    out = spawn(W.suite, 2, ([("dir", "dir_checkpoints",
+                               (5, 1, 2, str(tmp_path)))],), timeout=150)
+    for r in out:
+        for mode in ("sync", "async"):
+            a, b, step, listing = r["dir"][mode]
+            assert step == 25 and a["step"] == b["step"] == 49
+            assert listing == ["manifest.json", "pending.pkl",
+                               "sampler_rng.pkl", "state", "streams.npz"]
+            for f in ("pi", "phi", "theta", "beta"):
+                np.testing.assert_array_equal(a[f], b[f])
+        assert r["dir"]["chains"]

@@ -156,29 +156,39 @@ def test_cli_guard_exits_1():
     (["--num-chains", "2", "--chain-devices", "2"], 1,
      "chain mesh needs 2 devices, only 1 available"),
     (["--split-seed", "7"], 0, "ppx[60] = "),
-    # still waiting: exit 2, naming the ROADMAP item
-    (["--pi-dtype", "bfloat16"], 2, "item 4"),
-    (["--checkpoint", "ck", "--checkpoint-backend", "orbax"], 2, "item 15"),
-    (["--restore-ref", "ck.bin"], 2, "item 15"),
-    (["--checkpoint-ref", "ck.bin"], 2, "item 15"),
+    # ported (bf16 pi, item 15): the JAX CLI's behaviour
+    (["--pi-dtype", "bfloat16"], 0, "ppx[60] = "),
+    (["--checkpoint", "ck", "--checkpoint-backend", "orbax"], 0,
+     "checkpoint saved to ck"),
+    (["--restore-ref", "ck.bin", "--model", "mmsb"], 1,
+     "--restore-ref imports the reference's single-GPU state"),
+    (["--checkpoint-ref", "ck.bin"], 0,
+     "reference-format checkpoint saved to ck.bin (step=61)"),
 ])
-def test_cli_refuses_unported_engines(flags, rc, message, caplog):
-    """An engine the port lacks exits 2, naming the ROADMAP item. The
-    multi-GPU flags of item 14 are ported: in one process (world size 1)
+def test_cli_refuses_unported_engines(flags, rc, message, caplog, tmp_path,
+                                      monkeypatch):
+    """No engine of the JAX CLI is refused any more: every flag runs, or
+    exits 1 with the JAX CLI's message where the JAX CLI refuses the
+    combination (in the run's directory). In one process (world size 1)
     --mesh 1,2 and --chain-devices 2 fail as the JAX CLI fails on one
-    device (exit 1, its message), and --split-seed outside
-    --partitioned-ingest trains as without it (the JAX CLI reads it only
-    there). What this file refused before and now runs (checkpoints,
-    training perplexity, host-sampled MMSB, the vmap and the MMSB chain
-    engines; device-sampled BF, the reference RNG, --profile, the
-    sharded engines) is driven end to end below, in
-    tests/test_torch_chains_cli.py, test_torch_rng_reference.py,
-    test_torch_profiling.py and test_torch_sharded.py."""
+    device; --split-seed outside --partitioned-ingest trains as without
+    it (the JAX CLI reads it only there); --pi-dtype bfloat16 trains;
+    --checkpoint-backend orbax writes a directory; --restore-ref refuses
+    --model mmsb; --checkpoint-ref writes the reference-format file. The
+    engines are driven end to end below, in tests/test_torch_chains_cli.py,
+    test_torch_rng_reference.py, test_torch_profiling.py,
+    test_torch_sharded.py, test_torch_bf16.py and
+    test_torch_refckpt.py."""
+    monkeypatch.chdir(tmp_path)
     with caplog.at_level(logging.INFO, logger="mcmc_ammsb_tpu_torch"):
         assert cli.main(TINY + flags) == rc
     messages = [r.getMessage() for r in caplog.records]
     assert any(message in m and (rc != 2 or "ROADMAP" in m)
                for m in messages)
+    if "--checkpoint-backend" in flags:
+        assert (tmp_path / "ck" / "manifest.json").is_file()
+    if "--checkpoint-ref" in flags:
+        assert (tmp_path / "ck.bin").stat().st_size > 0
 
 
 def _messages(args, caplog, rc=0):

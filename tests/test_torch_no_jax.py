@@ -23,6 +23,9 @@ def test_port_imports_without_jax():
             "import mcmc_ammsb_tpu_torch.chains_flat\n"
             "import mcmc_ammsb_tpu_torch.chains\n"
             "import mcmc_ammsb_tpu_torch.checkpoint\n"
+            "import mcmc_ammsb_tpu_torch.refckpt\n"
+            "import mcmc_ammsb_tpu_torch.ops.sort\n"
+            "import mcmc_ammsb_tpu_torch.ops.rowops\n"
             "import mcmc_ammsb_tpu_torch.models.ammsb\n"
             "import mcmc_ammsb_tpu_torch.native\n"
             "import mcmc_ammsb_tpu_torch.sampling\n"

@@ -57,6 +57,28 @@ def test_row_normalize():
     assert_close(sums, jsums, RTOL, ATOL)
 
 
+@pytest.mark.parametrize("cols", [1, 2, 5, 16, 33, 127, 128, 200])
+def test_row_sums_and_sort(cols):
+    """row_sums and row_sort against the JAX package's on ragged row
+    lengths (tests/test_ops.py::test_rowops, test_row_sort)."""
+    x = np.random.RandomState(cols).rand(7, cols).astype(np.float32) + 0.1
+    assert_close(rowops.row_sums(torch.from_numpy(x)),
+                 jax_rowops.row_sums(jnp.asarray(x)), RTOL, ATOL)
+    np.testing.assert_array_equal(rowops.row_sort(torch.from_numpy(x)),
+                                  np.asarray(jax_rowops.row_sort(
+                                      jnp.asarray(x))))
+
+
+def test_slice_normalize():
+    """slice_normalize (theta pairs into beta) against the JAX
+    package's."""
+    flat = np.random.RandomState(1).rand(12).astype(np.float32) + 0.1
+    for size in (2, 3):
+        assert_close(rowops.slice_normalize(torch.from_numpy(flat), size),
+                     jax_rowops.slice_normalize(jnp.asarray(flat), size),
+                     RTOL, ATOL)
+
+
 @pytest.mark.parametrize("form", ["shared_nbr_mask", "private"])
 def test_phi_update_core(cfg, form):
     """phi_update_core, shared neighbor rows with the self-collision

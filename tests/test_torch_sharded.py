@@ -37,7 +37,7 @@ from mcmc_ammsb_tpu.learner import Learner as JaxLearner
 from mcmc_ammsb_tpu.ops import window as jax_window
 from mcmc_ammsb_tpu.parallel import sharded as jsh
 from mcmc_ammsb_tpu_torch import cli, testing
-from mcmc_ammsb_tpu_torch.config import RngBackend
+from mcmc_ammsb_tpu_torch.config import PhiImpl, RngBackend
 from mcmc_ammsb_tpu_torch.learner import Learner
 from mcmc_ammsb_tpu_torch.parallel.dryrun import spawn
 from mcmc_ammsb_tpu_torch.parallel.mesh import make_mesh
@@ -297,12 +297,14 @@ def test_mesh_1x1_is_the_learner(kw, world1):
     (dict(window=4, device_sampling=False), ValueError, "window"),
     (dict(window=4, shared_neighbors=False), ValueError, "shared_neighbors"),
     (dict(window=4, window_impl="mosaic"), ValueError, "window_impl"),
-    (dict(pi_dtype="bfloat16"), NotImplementedError, "item 4"),
+    (dict(pi_dtype="bfloat16", phi_impl=PhiImpl.PALLAS,
+          shared_neighbors=False), ValueError,
+     "pi_dtype=bfloat16 requires phi_impl=jnp"),
 ])
 def test_sharded_guards_raise(kw, error, match, world1):
     """The JAX ShardedLearner's guards (sharded.py:592-620) raise as
-    its own do; bfloat16 pi is refused as the single-GPU learner refuses
-    it (ROADMAP queue 1 item 4)."""
+    its own do; bfloat16 pi trains sharded (tests/test_torch_bf16.py)
+    and is refused, as in JAX, only with --phi-impl pallas."""
     base = dict(device_sampling=True, shared_neighbors=True)
     base.update(kw)
     cfg, graph, split = W.graph_case(SEED, **base)

@@ -115,3 +115,46 @@ def test_learner_run_with_ppx_trains_on_cpu(slice_setup):
     ppx = [e["ppx"] for e in series]
     assert np.isfinite([p0, *ppx]).all()
     assert ppx[-1] < p0
+
+
+def test_train_step_device_sampled_is_one_step(slice_setup):
+    """The one-step device-sampled API (the JAX package's
+    train_step_device_sampled and sample_minibatch_device) on the port's
+    streams: sample_minibatch_device is the S = 1 block of
+    sample_minibatches_device, and train_step_device_sampled is that
+    minibatch, draw_step_operands and train_step, bit for bit, from
+    equal streams; three steps train the state on."""
+    from mcmc_ammsb_tpu_torch import rng
+    from mcmc_ammsb_tpu_torch.ops.device_sampling import (
+        Adjacency, sample_minibatch_device, sample_minibatches_device)
+
+    n, split, graph, cfg = slice_setup
+    cfg = cfg.replace(window=0)
+    lrn = learner.Learner(cfg, graph, split, "cpu")
+    tr, ho, adj = lrn.training_set, lrn.heldout_set, lrn.adjacency
+    assert isinstance(adj, Adjacency)
+    one = sample_minibatch_device(cfg, tr, ho, rng.make_streams(cfg, "cpu")
+                                  .sample, adj)
+    block = sample_minibatches_device(cfg, tr, ho, rng.make_streams(
+        cfg, "cpu").sample, 1, adj)
+    for a, b in zip(one, block):
+        assert torch.equal(a, b[0])
+    streams_a = rng.make_streams(cfg, "cpu")
+    streams_b = rng.make_streams(cfg, "cpu")
+    state = lrn.state
+    got = learner.train_step_device_sampled(
+        cfg, tr, ho, state._replace(pi=state.pi.clone(),
+                                    phi_sum=state.phi_sum.clone()), adj,
+        streams_a)
+    batch = learner.DeviceBatch(*sample_minibatch_device(
+        cfg, tr, ho, streams_b.sample, adj))
+    ops = learner.draw_step_operands(cfg, streams_b, batch)
+    want = learner.train_step(cfg, tr, state._replace(
+        pi=state.pi.clone(), phi_sum=state.phi_sum.clone()), batch, *ops)
+    for f in ("pi", "phi_sum", "theta", "beta"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert got.step_count == want.step_count == 2
+    for _ in range(3):
+        got = learner.train_step_device_sampled(cfg, tr, ho, got, adj,
+                                                streams_a)
+    assert got.step_count == 5 and torch.isfinite(got.pi).all()

@@ -359,6 +359,115 @@ def theta_bits(seed: int, n_data: int, n_model: int) -> bytes:
     return lrn.state.theta.numpy().tobytes()
 
 
+def bf16_runs(seed: int, n_data: int, n_model: int, ck_dir: str) -> dict:
+    """bfloat16 pi on the mesh: the unwindowed and the windowed run
+    (their globals, pi's dtype, the held-out ppx), and run, save, run ==
+    restore, run in both checkpoint backends."""
+    from mcmc_ammsb_tpu_torch.checkpoint import (load_checkpoint,
+                                                 save_checkpoint)
+
+    cfg, graph, split = graph_case(seed, device_sampling=True,
+                                   shared_neighbors=True, steps_per_call=24,
+                                   pi_dtype="bfloat16")
+    mesh = make_mesh(n_data, n_model, device="cpu")
+
+    def make(window):
+        return sharded.ShardedLearner(cfg.replace(window=window), graph,
+                                      split, mesh)
+
+    out = {}
+    for w in (0, 4):
+        lrn = make(w)
+        p0 = lrn.heldout_perplexity()
+        lrn.run(24)
+        lrn.run(24)
+        out[f"w{w}"] = dict(_global(lrn), dtype=str(lrn.state.pi.dtype),
+                            ppx=(p0, lrn.heldout_perplexity()))
+    for backend in ("npz", "orbax"):
+        path = os.path.join(ck_dir, f"bf16_{backend}")
+        c1 = make(4)
+        c1.run(24)
+        save_checkpoint(path, c1, backend=backend)
+        c1.run(24)
+        c2 = make(4)
+        load_checkpoint(path, c2)
+        c2.run(24)
+        out[f"resume_{backend}"] = (_global(c1), _global(c2),
+                                    str(c2.state.pi.dtype))
+    return out
+
+
+def dir_checkpoints(seed: int, n_data: int, n_model: int,
+                    ck_dir: str) -> dict:
+    """The directory backend on the mesh, each rank writing and reading
+    its own rows: run, save, run == restore, run (synchronous, then
+    asynchronous with training going on before the finalize), and the
+    chain engine on a chain mesh of every rank."""
+    from mcmc_ammsb_tpu_torch.checkpoint import (load_checkpoint,
+                                                 save_checkpoint,
+                                                 wait_for_async_saves)
+    from mcmc_ammsb_tpu_torch.parallel.chains_sharded import (
+        ShardedChainLearner, make_chain_mesh)
+
+    cfg, graph, split = graph_case(seed, device_sampling=True,
+                                   shared_neighbors=True, steps_per_call=24,
+                                   window=4)
+    mesh = make_mesh(n_data, n_model, device="cpu")
+    out = {}
+    for mode in ("sync", "async"):
+        path = os.path.join(ck_dir, f"dir_{mode}")
+        c1 = sharded.ShardedLearner(cfg, graph, split, mesh)
+        c1.run(24)
+        save_checkpoint(path, c1, backend="orbax", async_save=mode == "async")
+        c1.run(24)                 # the in-place updates of a live save
+        wait_for_async_saves()
+        c2 = sharded.ShardedLearner(cfg, graph, split, mesh)
+        load_checkpoint(path, c2)
+        restored_step = c2.step_count
+        c2.run(24)
+        out[mode] = (_global(c1), _global(c2), restored_step,
+                     sorted(os.listdir(path)))
+    cmesh = make_chain_mesh(dist.get_world_size(), device="cpu")
+    path = os.path.join(ck_dir, "dir_chains")
+    ch = ShardedChainLearner(cfg.replace(steps_per_call=10), graph, split,
+                             4, cmesh)
+    ch.run(20)
+    save_checkpoint(path, ch, backend="orbax")
+    ch.run(20)
+    again = ShardedChainLearner(ch.cfg, graph, split, 4, cmesh)
+    load_checkpoint(path, again)
+    again.run(20)
+    out["chains"] = all(
+        np.array_equal(ch._gather(getattr(ch.state, f)).numpy(),
+                       again._gather(getattr(again.state, f)).numpy())
+        for f in ("pi", "phi_sum", "theta", "beta", "ppx_per_edge"))
+    return out
+
+
+def reference_export(seed: int, n_data: int, n_model: int,
+                     path: str) -> dict:
+    """``refckpt.export_learner`` of a trained sharded learner with a
+    training-perplexity population of 63 edges, which the data axis pads
+    (rank 0 writes the gathered state at the true population sizes): the
+    global state the file should hold and the padded sizes."""
+    from mcmc_ammsb_tpu_torch import refckpt
+
+    cfg, graph, split = graph_case(seed, device_sampling=True,
+                                   steps_per_call=5, calc_train_ppx=True,
+                                   training_ppx_ratio=0.01)
+    lrn = sharded.ShardedLearner(cfg, graph, split,
+                                 make_mesh(n_data, n_model, device="cpu"))
+    lrn.run(10)
+    lrn.heldout_perplexity()
+    lrn.training_perplexity()
+    refckpt.export_learner(path, lrn, graph, split)
+    return dict(_global(lrn),
+                padded=(int(lrn.heldout_u.shape[0]) * n_data,
+                        int(lrn.train_ppx_u.shape[0]) * n_data),
+                ppx_per_edge=gather_rows(lrn, "ppx_per_edge"),
+                train_ppx_per_edge=gather_rows(lrn, "train_ppx_per_edge"))
+
+
 # ---------------------------------------------------------------------------
 # Chains
 # ---------------------------------------------------------------------------
