@@ -6,7 +6,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
   1. device  — a CUDA device is required; prints the card's name and
                power limit as nvidia-smi reports them;
   2. build   — compiles the four kernels from csrc/ with nvcc, one
-               process per source, and the native host library
+               process per source, the window kernel's source from before
+               its wide mode (PARENT_SRC) and the native host library
                (csrc/sampler.cpp) with g++, all started together;
      native  — the native CHD build and the numpy build give
                byte-equal perfect-hash tables on the bench graph's
@@ -27,15 +28,23 @@ Phases, one line each; any failure raises and the exit code is not 0:
                the fused a-MMSB window kernel (gather, T steps on a
                thread-block cluster that splits K, scatter; it writes
                pi in place, so each version gets its own copy of the
-               state) at (T, B, n, E, K) = (12, 33, 32, 32, 256), the
-               bench shape, (3, 6, 7, 5, 12), (12, 33, 32, 32, 100) and
-               (48, 33, 32, 32, 256) (a cluster of 16), with its cluster
-               size, shared memory per CTA and us per step; its chain
-               mode (one cluster per chain) at (C, T, B, n, E, K) = (16,
-               6, 33, 32, 32, 256), the bench chain shape, (3, 4, 9, 8,
-               8, 16) and (2, 3, 6, 7, 5, 12), also bit-equal to C
-               single-chain launches — both no farther from float64 than
-               2x the plain version; both phi entries
+               state) in its resident mode at (T, B, n, E, K) = (12, 33,
+               32, 32, 256), the bench shape, (3, 6, 7, 5, 12), (12, 33,
+               32, 32, 100) and (48, 33, 32, 32, 256) (a cluster of 16),
+               and in its wide mode (staged rows in a global scratch,
+               column chunks) at (12, 33, 32, 32, 4096), the -k 4096
+               path's, the ragged (12, 33, 32, 32, 2050) (4-byte copies),
+               (6, 33, 32, 32, 8192) and (3, 33, 32, 32, 16384), with its
+               mode, cluster size, chunk width, shared memory per CTA
+               (equal to the rule's) and us per step; its chain mode (one
+               cluster per chain) at (C, T, B, n, E, K) = (16, 6, 33, 32,
+               32, 256), the bench chain shape, (3, 4, 9, 8, 8, 16), (2,
+               3, 6, 7, 5, 12) and, wide, (2, 12, 33, 32, 32, 2048), also
+               bit-equal to C single-chain launches — both no farther
+               from float64 than 2x the plain version; the resident mode
+               bit-equal to the build of PARENT_SRC at every resident
+               shape above, float32 and bf16 pi, with both timed in turns
+               at the main and the chain shapes; both phi entries
                (pre-gathered, by index) at (B, n, K) = (33, 32, 256),
                (64, 32, 256) (the host-sampled paths' 64 node lanes),
                (5, 7, 12), the ragged (33, 32, 100) and (33, 32, 4096)
@@ -67,7 +76,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
                and 0.3 (the boost pre-pass) on 1280 lanes, with the
                kernel's and the plain version's times;
      bf16    — the window kernel's bf16 row mode (bfloat16 pi storage) at
-               the main path's and the chain path's shapes: the bf16
+               the main path's and the chain path's shapes and in the wide
+               mode at the -k 4096 path's: the bf16
                launch equals the float32 launch on the upcast rows,
                rounded to nearest-even, bit for bit; against the plain
                version at bf16 the stored values are equal or 1 ulp
@@ -97,18 +107,21 @@ Phases, one line each; any failure raises and the exit code is not 0:
   5. main    — the port's CLI in-process, at N=317,080:
                the a-MMSB main path (K=256, window 12, 2000 steps): the
                fused window kernel launches once per window, ppx falls
-               below ppx[0];
+               below ppx[0]; the same at -k 4096 (pi 5.2 GB): window 12
+               unclamped, as many launches as at K=256, every one in the
+               wide mode, ppx falls, its updates/s and peak memory;
      sharded — the multi-GPU paths on the one card, through NCCL process
                groups of size 1 and the sharded code (row fetch over the
                model ranks, write-back, collectives): the CLI at --mesh
                1,1 on the main path (2000 steps; as many window-kernel
                launches as the main path, its steady-state updates/s
                beside the main path's, ppx falls); one ShardedLearner
-               window at (1,1) on the bench window case (fetch, ONE
-               launch of the window kernel on the fetched rows as its
-               table, local write-back) against the single-GPU kernel
-               and its own --window-impl jnp version, normwise rtol
-               1e-5, with its ms; ShardedChainLearner with G = 1, C = 4,
+               window at (1,1) on the bench window case and on the -k
+               4096 path's (the wide mode) (fetch, ONE launch of the
+               window kernel on the fetched rows as its table, local
+               write-back) against the single-GPU kernel and its own
+               --window-impl jnp version, normwise rtol 1e-5, with its
+               ms; ShardedChainLearner with G = 1, C = 4,
                window 6, 1008 steps (168 launches of the chain entry,
                every chain's ppx falls); --partitioned-ingest --mesh 1,1
                on the bench graph written as a SNAP file (1000 steps, 82
@@ -216,6 +229,7 @@ script began.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import logging
 import math
@@ -225,6 +239,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import torch
 
@@ -385,13 +400,25 @@ REF_API_ARGS = ["--rng", "reference", "--synthetic", "317080,7", "-k", "256",
                 "--steps-per-call", "10"]
 AUTO_ARGS = ["--synthetic", "317080,7", "-k", "256", "--steps-per-call",
              "1008"]
+# the main path at K = 4096, every window in the kernel's wide mode
+WIDE_ARGS = ["--synthetic", "317080,7", "-k", "4096", "-x", "2000", "-i",
+             "500", "--device", "cuda"]
 # (T, B, n, E, K) of the fused window kernel's checks; the first is the
-# main path's
+# main path's; the first four run its resident mode, the rest its wide
+# mode: the K = 4096 path's, the ragged K = 2050 (4-byte copies), and the
+# JAX package's longest windows at K = 8192 and 16384
 WINDOW_SHAPES = [(12, 33, 32, 32, 256), (3, 6, 7, 5, 12),
-                 (12, 33, 32, 32, 100), (48, 33, 32, 32, 256)]
-# (C, T, B, n, E, K) of its chain mode; the first is the chain path's
+                 (12, 33, 32, 32, 100), (48, 33, 32, 32, 256),
+                 (12, 33, 32, 32, 4096), (12, 33, 32, 32, 2050),
+                 (6, 33, 32, 32, 8192), (3, 33, 32, 32, 16384)]
+WIDE_MAIN_SHAPE = WINDOW_SHAPES[4]
+# (C, T, B, n, E, K) of its chain mode; the first is the chain path's,
+# the last runs the wide mode
 CHAIN_SHAPES = [(CHAINS, 6, 33, 32, 32, 256), (3, 4, 9, 8, 8, 16),
-                (2, 3, 6, 7, 5, 12)]
+                (2, 3, 6, 7, 5, 12), (2, 12, 33, 32, 32, 2048)]
+# the window kernel's source from before its wide mode: the resident
+# mode's bits are held against its build
+PARENT_SRC = "scripts/window_kernel_resident.cu"
 # (T, B, n, E, K) of the fused MMSB window's checks; the second is the
 # MMSB path's, (..., 256) fits only a cluster of 16, K = 50 takes 13 CTAs
 # with a ragged last slice and 4-byte copies
@@ -502,23 +529,65 @@ def _to(x, dev):
     return x
 
 
+def build_parent(kernels, src: Path = None) -> Path:
+    """A build of PARENT_SRC (the window kernel from before its wide
+    mode), or of another source with its C interface, beside the
+    kernels' builds."""
+    src = src or Path(__file__).resolve().parent / PARENT_SRC
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = kernels.BUILD_DIR / "libwindow_kernel_resident.so"
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(out),
+                    str(src)], check=True, capture_output=True)
+    return out
+
+
+class ParentWindowLib:
+    """A build of PARENT_SRC behind this build's C interface: its
+    window_kernel_launch takes neither the wide mode's staged scratch
+    nor its chunk width, and runs the resident mode only."""
+
+    #: positions of the scratch pointer and of the chunk width among the
+    #: arguments of this build's window_kernel_launch
+    STAGED, WC = 19, 28
+
+    def __init__(self, path: Path):
+        lib = ctypes.CDLL(str(path))
+        _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.window_kernel_launch.argtypes = ([_P] * 19 + [_I] * 9 + [_F] * 7
+                                             + [_P] * 3)
+        lib.window_kernel_launch.restype = _I
+        self.lib = lib
+
+    def window_kernel_launch(self, *args):
+        if args[self.WC] != 0 or args[self.STAGED] is not None:
+            raise ValueError("the parent's kernel runs the resident mode "
+                             "only")
+        return self.lib.window_kernel_launch(
+            *args[:self.STAGED], *args[self.STAGED + 1:self.WC],
+            *args[self.WC + 1:])
+
+
 def build_all(kernels, native):
-    """Phase 2: one nvcc per source and one g++ for the native host
-    library, all started together."""
+    """Phase 2: one nvcc per source, one for PARENT_SRC and one g++ for
+    the native host library, all started together. Returns the parent's
+    build."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES) + 1) as pool:
+    with ThreadPoolExecutor(len(SOURCES) + 2) as pool:
         host_lib = pool.submit(native.build)
+        parent = pool.submit(build_parent, kernels)
         libs = dict(zip(SOURCES, pool.map(kernels.build, SOURCES)))
         host_lib = host_lib.result()
+        parent = parent.result()
     for name, lib in libs.items():
         ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
                  .splitlines() if "registers" in ln or "spill" in ln]
         phase("build", f"{name}: {'; '.join(ptxas)}")
     if not native.available():
         raise AssertionError(f"native host library: {native.build_error}")
-    phase("build", f"{len(SOURCES)} CUDA sources and {host_lib.name} (g++) "
-          f"built in "
+    phase("build", f"{len(SOURCES)} CUDA sources, {PARENT_SRC} and "
+          f"{host_lib.name} (g++) built in "
           f"{time.perf_counter() - t0:.2f} s")
+    return parent
 
 
 def _bench_graph(data):
@@ -778,24 +847,104 @@ def bf16_agree(testing, cfg, state, args, cuda, plain, what):
     return gaps, err
 
 
-def _cluster_line(window, lib, shape, limit):
-    """(cluster size, shared bytes per CTA) of a per-chain shape; the
-    kernel's own layout must give the rule's byte count."""
-    s_cl = window.window_cluster_size(*shape, limit)
-    smem = window.window_smem_bytes(*shape, s_cl)
-    if lib.window_kernel_smem_bytes(*shape, s_cl) != smem:
-        raise AssertionError(f"shared memory of {shape}: kernel "
-                             f"{lib.window_kernel_smem_bytes(*shape, s_cl)}"
-                             f" B, rule {smem} B")
-    return s_cl, smem
+def _plan_line(window, lib, shape, limit):
+    """(the plan (S, mode, wc) of a per-chain shape, shared bytes per CTA,
+    and its words for a phase line); the kernel's own layout must give
+    the rule's byte count."""
+    plan = window.window_plan(*shape, limit)
+    s_cl, mode, wc = plan
+    smem = window.plan_smem_bytes(shape, plan)
+    got = lib.window_kernel_smem_bytes(*shape, s_cl, wc)
+    if got != smem:
+        raise AssertionError(f"shared memory of {shape} in the {mode} "
+                             f"mode: kernel {got} B, rule {smem} B")
+    if (mode == "wide") != (shape[4] >= 1536):
+        raise AssertionError(f"{shape}: the {mode} mode, expected the "
+                             f"{'wide' if shape[4] >= 1536 else 'resident'}")
+    text = (f"{mode} mode, cluster of {s_cl} CTAs"
+            + (f", chunks of {wc} columns" if wc else "")
+            + f", {smem} B shared per CTA")
+    return plan, smem, text
+
+
+def window_operands(window, chains_flat, testing, shape, seed=0):
+    """The seeded window of a single-chain (T, B, n, E, K) or chain (C,
+    T, B, n, E, K) shape on the card: (cfg, state, (xs, mcode, keep),
+    the kernel's entry, its plain version)."""
+    if len(shape) == 5:
+        case = testing.window_case(seed, *shape)
+        cfg = testing.window_case_config(case)
+        state, xs = testing.window_case_torch(case, "cuda")
+        batch, nbrs = xs[0], xs[1][:, 0, :]
+        args = (xs, window._correction_codes(cfg, batch.nodes,
+                                             batch.node_mask, nbrs),
+                window._last_write_wins(batch.nodes, batch.node_mask,
+                                        shape[0]))
+        return (cfg, state, args, window.window_apply_cuda,
+                window.window_apply_torch)
+    case = testing.chain_window_case(seed, *shape)
+    cfg = testing.chain_window_case_config(case)
+    state, xw = testing.chain_window_case_torch(case, "cuda")
+    win = chains_flat.chain_windows(cfg, shape[0], xw).at(0)
+    return (cfg, state, (win.xs_t, win.mcode, win.keep),
+            window.window_chain_apply_cuda, window.window_chain_apply_torch)
+
+
+def check_resident_parent(window, chains_flat, testing, kernels, parent,
+                          reps=50):
+    """Phase kernel: the resident mode of this build against the build of
+    PARENT_SRC at every shape of WINDOW_SHAPES and CHAIN_SHAPES the plan
+    runs in it, with float32 and with bfloat16 pi: the same bits in every
+    output; then the float32 launches at the main path's and the chain
+    path's shapes timed in turns (parent, change, change, parent).
+    Returns {shape: (parent ms, change ms, the four turns)}."""
+    old = ParentWindowLib(parent)
+    real = window._window_lib
+    new = real()
+    limit = kernels.smem_limit(torch.device("cuda"))
+    shapes = [sh for sh in WINDOW_SHAPES + CHAIN_SHAPES
+              if window.window_plan(*sh[-5:], limit)[1] == "resident"]
+    out = {}
+    try:
+        for shape in shapes:
+            cfg, state, args, cuda, _ = window_operands(
+                window, chains_flat, testing, shape, seed=1)
+            for dtype in (torch.float32, torch.bfloat16):
+                st = state._replace(pi=state.pi.to(dtype))
+                outs = []
+                for lib in (old, new):
+                    window._window_lib = lambda lib=lib: lib
+                    outs.append(_outs(cuda(cfg, _fresh(st), *args)))
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(*outs)):
+                    raise AssertionError(f"{shape} {dtype}: the resident "
+                                         f"mode differs from {PARENT_SRC}")
+            if shape in (WINDOW_SHAPES[0], CHAIN_SHAPES[0]):
+                scratch = _fresh(state)
+                t = []
+                for lib in (old, new, new, old):
+                    window._window_lib = lambda lib=lib: lib
+                    t.append(time_ms(lambda: cuda(cfg, scratch, *args),
+                                     reps, hold=True))
+                out[shape] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t)
+    finally:
+        window._window_lib = real
+    phase("kernel", f"resident mode bit-equal to {PARENT_SRC} at "
+          f"{len(shapes)} shapes, float32 and bf16 pi; ms/window in turns "
+          f"(parent, change, change, parent): "
+          + "; ".join(f"{sh}: {' '.join(f'{x:.4f}' for x in v[2])}"
+                      for sh, v in out.items()))
+    return out
 
 
 def check_window_kernel(window, kernels, testing, phi_ops, smi):
-    """Phase 3, the fused a-MMSB window: (max abs err, and the kernel ms,
-    plain ms, bound ms and what sets it at the main path's shape)."""
+    """Phase 3, the fused a-MMSB window: {mode: (max abs err over the
+    mode's shapes held normwise, and the kernel ms, plain ms, bound ms
+    and what sets it at the mode's main shape: the main path's for the
+    resident mode, the K = 4096 path's for the wide)}."""
     lib = window._window_lib()
     limit = kernels.smem_limit(torch.device("cuda"))
-    worst, main = 0.0, None
+    worst, main = {"resident": 0.0, "wide": 0.0}, {}
     for seed, shape in enumerate(WINDOW_SHAPES):
         t_win = shape[0]
         case = testing.window_case(seed, *shape)
@@ -807,12 +956,12 @@ def check_window_kernel(window, kernels, testing, phi_ops, smi):
         keep = window._last_write_wins(batch.nodes, batch.node_mask, t_win)
         if not (mcode > 0).any():
             raise AssertionError("the case has no in-window collision")
-        s_cl, smem = _cluster_line(window, lib, shape, limit)
+        (_, mode, _), _, plan_text = _plan_line(window, lib, shape, limit)
         normwise = t_win <= 12
         _, err, f64 = _agree(window, phi_ops, cfg, state, xs, mcode, keep,
                              False, f"window at {shape}", normwise)
         if normwise:
-            worst = max(worst, err)
+            worst[mode] = max(worst[mode], err)
         scratch, plain_scratch = _fresh(state), _fresh(state)
         ms = time_ms(lambda: window.window_apply_cuda(cfg, scratch, xs,
                                                       mcode, keep),
@@ -822,9 +971,10 @@ def check_window_kernel(window, kernels, testing, phi_ops, smi):
         plain_ms = time_ms(lambda: window.window_apply_torch(
             cfg, plain_scratch, xs, mcode, keep), reps=10)
         b_ms, b_by = window_bound(xs, mcode, keep, shape[4], cfg.N)
-        main = main or (ms, plain_ms, b_ms, b_by)
+        if shape in (WINDOW_SHAPES[0], WIDE_MAIN_SHAPE):
+            main[mode] = (ms, plain_ms, b_ms, b_by)
         phase("kernel", f"window T,B,n,E,K={','.join(map(str, shape))}: "
-              f"cluster of {s_cl} CTAs, {smem} B shared per CTA; kernel vs "
+              f"{plan_text}; kernel vs "
               f"plain max abs {'err' if normwise else 'diff (not held)'} "
               f"{err:.3e} (vs float64: kernel {f64[0]:.3e}, plain "
               f"{f64[1]:.3e}); {ms:.4f} ms/window on the device = "
@@ -832,7 +982,7 @@ def check_window_kernel(window, kernels, testing, phi_ops, smi):
               f"back to back with the host, {plain_ms:.4f} ms/window "
               f"plain; bound {b_ms * 1e3:.3f} us ({b_by}), "
               f"{100 * b_ms / ms:.2f}% of it; {smi}")
-    return worst, main
+    return {mode: (worst[mode], main[mode]) for mode in worst}
 
 
 def check_chain_kernel(window, kernels, chains_flat, testing, phi_ops, smi):
@@ -851,7 +1001,7 @@ def check_chain_kernel(window, kernels, chains_flat, testing, phi_ops, smi):
         win = chains_flat.chain_windows(cfg, c, xw).at(0)
         if not all((win.mcode[i] > 0).any() for i in range(c)):
             raise AssertionError("a chain of the case has no collision")
-        s_cl, smem = _cluster_line(window, lib, shape[1:], limit)
+        _, _, plan_text = _plan_line(window, lib, shape[1:], limit)
         args = (win.xs_t, win.mcode, win.keep)
         got, err, f64 = _agree(window, phi_ops, cfg, state, *args, True,
                                f"chain window at {shape}")
@@ -882,7 +1032,7 @@ def check_chain_kernel(window, kernels, chains_flat, testing, phi_ops, smi):
                                   cfg.N)
         main = main or (ms, plain_ms, b_ms, b_by)
         phase("kernel", f"chain window C,T,B,n,E,K={','.join(map(str, shape))}"
-              f": {c} clusters of {s_cl} CTAs, {smem} B shared per CTA; "
+              f": {c} clusters, {plan_text}; "
               f"kernel vs plain max abs err {err:.3e} (vs float64: kernel "
               f"{f64[0]:.3e}, plain {f64[1]:.3e}); bit-equal to {c} "
               f"single-chain launches; {ms:.4f} ms/window on the device = "
@@ -1325,20 +1475,23 @@ def _counts(mods, what):
     {kernel: launches}, and "chains", the chains the chain-mode launches
     ran in all."""
     window, window_mmsb, phi_pallas, refblock = mods
-    counters = {"window": window.window_apply_cuda,
-                "window_chain": window.window_chain_apply_cuda,
-                "mmsb": window_mmsb.mmsb_window_apply_cuda,
-                "phi": phi_pallas.phi_update_core_cuda,
-                "phi_gather": phi_pallas.phi_update_rows_cuda,
-                "randn": refblock.randn_lanes,
-                "neighbors": refblock.neighbors_lanes,
-                "gamma": refblock.gamma_lanes}
+    counters = {"window": (window.window_apply_cuda, "launches"),
+                "window_wide": (window.window_apply_cuda, "wide_launches"),
+                "window_chain": (window.window_chain_apply_cuda, "launches"),
+                "window_chain_wide": (window.window_chain_apply_cuda,
+                                      "wide_launches"),
+                "mmsb": (window_mmsb.mmsb_window_apply_cuda, "launches"),
+                "phi": (phi_pallas.phi_update_core_cuda, "launches"),
+                "phi_gather": (phi_pallas.phi_update_rows_cuda, "launches"),
+                "randn": (refblock.randn_lanes, "launches"),
+                "neighbors": (refblock.neighbors_lanes, "launches"),
+                "gamma": (refblock.gamma_lanes, "launches")}
     if what is None:
-        for c in counters.values():
-            c.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
         window.window_chain_apply_cuda.chains = 0
         return None
-    return {**{k: c.launches for k, c in counters.items()},
+    return {**{k: getattr(fn, attr) for k, (fn, attr) in counters.items()},
             "chains": window.window_chain_apply_cuda.chains}
 
 
@@ -1367,6 +1520,43 @@ def run_main(cli, kmods):
           f"{launches['window']} (= {expected} windows), steady state "
           f"{rate:.1f} updates/s")
     return launches, ppx, rate
+
+
+def run_wide_main(cli, kmods, main_l, smi):
+    """Phase 5, the main path at K = 4096 (WIDE_ARGS, 2000 steps): the
+    automatic window 12 runs unclamped on the window kernel, with as many
+    launches as the K = 256 main path, every one in the wide mode, and
+    no other kernel entry; ppx falls below ppx[0]. Returns (launches, ppx,
+    steady-state updates/s, peak device memory, seconds of the run)."""
+    torch.cuda.reset_peak_memory_stats()
+    _counts(kmods, None)
+    t0 = time.perf_counter()
+    series, messages = _run_cli(cli, WIDE_ARGS)
+    seconds = time.perf_counter() - t0
+    mem = torch.cuda.max_memory_allocated()
+    launches = _counts(kmods, "read")
+    if (any("window auto-clamped" in m for m in messages)
+            or not any(m.startswith("windows of 12 steps run the window "
+                                    "kernel") for m in messages)):
+        raise AssertionError(f"-k 4096: not windowed at T = 12 on the "
+                             f"kernel: {[m for m in messages if 'window' in m]}")
+    ppx = [p for _, p, _ in series]
+    if ([st for st, _, _ in series] != [0, 500, 1000, 1500, 2000]
+            or not all(p < ppx[0] for p in ppx[1:])):
+        raise AssertionError(f"-k 4096: ppx series {series}")
+    want = {k: 0 for k in launches}
+    want.update(window=main_l["window"], window_wide=main_l["window"])
+    if launches != want:
+        raise AssertionError(f"-k 4096: launches {launches}, expected "
+                             f"{want}")
+    t = {st: c for st, _, c in series}
+    rate = 1000 / (t[2000] - t[1000])
+    phase("main", f"a-MMSB -k 4096: rc 0, ppx {ppx}, window-kernel "
+          f"launches {launches['window']} (the K = 256 main path: "
+          f"{main_l['window']}), all {launches['window_wide']} in the wide "
+          f"mode; steady state {rate:.1f} updates/s; peak device memory "
+          f"{mem} B; {seconds:.1f} s in all (host init included); {smi}")
+    return launches, ppx, rate, mem, seconds
 
 
 def run_mmsb_main(cli, kmods):
@@ -1960,43 +2150,54 @@ def run_sharded_phases(cli, kmods, main_l, main_rate, testing, bench, smi):
     started = multihost.initialize(device="cuda")
     try:
         # one sharded window against the single-GPU kernel on the same
-        # operand tuple, and against its own plain version
-        case = testing.window_case(0, *WINDOW_SHAPES[0])
-        cfg = testing.window_case_config(case)
-        state, xs = testing.window_case_torch(case, "cuda")
-        batch, nbrs = xs[0], xs[1][:, 0, :]
-        mcode = window._correction_codes(cfg, batch.nodes, batch.node_mask,
-                                          nbrs)
-        keep = window._last_write_wins(batch.nodes, batch.node_mask,
-                                        cfg.window)
-        ctx = ShardCtx(cfg, make_mesh(1, 1, device="cuda"), cfg.N, None)
-        want = window.window_apply_cuda(cfg, _fresh(state), xs, mcode, keep)
-        before = window.window_apply_cuda.launches
-        got = sharded_window_apply(ctx, _fresh(state), xs, mcode, keep)
-        if window.window_apply_cuda.launches != before + 1:
-            raise AssertionError("the sharded window did not launch the "
-                                 "window kernel once")
-        plain = sharded_window_apply(
-            ctx._replace(cfg=cfg.replace(window_impl="jnp")), _fresh(state),
-            xs, mcode, keep)
-        err = max(max_err(a, b, f"sharded window {f}") for a, b, f in
-                  zip(_outs(got), _outs(want), STATE_FIELDS))
-        err_plain = max(max_err(a, b, f"sharded window vs plain {f}")
-                        for a, b, f in zip(_outs(got), _outs(plain),
-                                           STATE_FIELDS))
-        scratch = _fresh(state)
-        ms = time_ms(lambda: sharded_window_apply(ctx, scratch, xs, mcode,
-                                                  keep))
-        ms_single = time_ms(lambda: window.window_apply_cuda(
-            cfg, scratch, xs, mcode, keep))
-        out["window"] = (err, ms, ms_single)
-        phase("sharded", f"ShardedLearner window at (1,1), (T,B,n,E,K) = "
-              f"{WINDOW_SHAPES[0]}: row fetch + one window-kernel launch on "
-              f"the fetched table + local write-back vs the single-GPU "
-              f"kernel max abs err {err:.3e}, vs its --window-impl jnp "
-              f"version {err_plain:.3e} (normwise rtol {RTOL}); "
-              f"{ms:.4f} ms/window against {ms_single:.4f} back to back "
-              f"with the host; {smi}")
+        # operand tuple, and against its own plain version: at the main
+        # path's shape (the resident mode) and the K = 4096 path's (wide)
+        for key, shape in (("window", WINDOW_SHAPES[0]),
+                           ("wide_window", WIDE_MAIN_SHAPE)):
+            case = testing.window_case(0, *shape)
+            cfg = testing.window_case_config(case)
+            state, xs = testing.window_case_torch(case, "cuda")
+            batch, nbrs = xs[0], xs[1][:, 0, :]
+            mcode = window._correction_codes(cfg, batch.nodes,
+                                              batch.node_mask, nbrs)
+            keep = window._last_write_wins(batch.nodes, batch.node_mask,
+                                            cfg.window)
+            ctx = ShardCtx(cfg, make_mesh(1, 1, device="cuda"), cfg.N, None)
+            want = window.window_apply_cuda(cfg, _fresh(state), xs, mcode,
+                                            keep)
+            before = (window.window_apply_cuda.launches,
+                      window.window_apply_cuda.wide_launches)
+            got = sharded_window_apply(ctx, _fresh(state), xs, mcode, keep)
+            wide = int(key == "wide_window")
+            if (window.window_apply_cuda.launches != before[0] + 1
+                    or window.window_apply_cuda.wide_launches
+                    != before[1] + wide):
+                raise AssertionError(f"the sharded window at {shape} did "
+                                     f"not launch the window kernel once "
+                                     f"in the {'wide' if wide else 'resident'}"
+                                     f" mode")
+            plain = sharded_window_apply(
+                ctx._replace(cfg=cfg.replace(window_impl="jnp")),
+                _fresh(state), xs, mcode, keep)
+            err = max(max_err(a, b, f"sharded window {f}") for a, b, f in
+                      zip(_outs(got), _outs(want), STATE_FIELDS))
+            err_plain = max(max_err(a, b, f"sharded window vs plain {f}")
+                            for a, b, f in zip(_outs(got), _outs(plain),
+                                               STATE_FIELDS))
+            scratch = _fresh(state)
+            ms = time_ms(lambda: sharded_window_apply(ctx, scratch, xs,
+                                                      mcode, keep))
+            ms_single = time_ms(lambda: window.window_apply_cuda(
+                cfg, scratch, xs, mcode, keep))
+            out[key] = (err, ms, ms_single)
+            phase("sharded", f"ShardedLearner window at (1,1), (T,B,n,E,K) "
+                  f"= {shape}: row fetch + one window-kernel launch "
+                  f"({'wide' if wide else 'resident'} mode) on the fetched "
+                  f"table + local write-back vs the single-GPU kernel max "
+                  f"abs err {err:.3e}, vs its --window-impl jnp version "
+                  f"{err_plain:.3e} (normwise rtol {RTOL}); {ms:.4f} "
+                  f"ms/window against {ms_single:.4f} back to back with the "
+                  f"host; {smi}")
 
         # chains over the ranks of a chain mesh of one
         n, split, graph = bench
@@ -2191,31 +2392,17 @@ def check_cli_resume(cli, kmods, tmp):
 
 def check_bf16_kernels(window, chains_flat, testing, smi):
     """Phase bf16, the window kernel's bf16 row mode at the main path's
-    and the chain path's shapes (``bf16_agree``), timed against the
+    and the chain path's shapes, and in the wide mode at the K = 4096
+    path's (``bf16_agree``), timed against the
     float32 launches on the same operands in this call (turns: f32,
     bf16, bf16, f32). Returns {kernel: (gaps, max abs err, bf16 ms, f32
     ms, bound ms with pi's row bytes halved, what sets it)}."""
     out = {}
     for name, shape in (("window_kernel", WINDOW_SHAPES[0]),
-                        ("window_kernel_chains", CHAIN_SHAPES[0])):
-        if name == "window_kernel":
-            case = testing.window_case(0, *shape)
-            cfg = testing.window_case_config(case)
-            state, xs = testing.window_case_torch(case, "cuda")
-            batch, nbrs = xs[0], xs[1][:, 0, :]
-            args = (xs, window._correction_codes(cfg, batch.nodes,
-                                                 batch.node_mask, nbrs),
-                    window._last_write_wins(batch.nodes, batch.node_mask,
-                                            shape[0]))
-            cuda, plain = window.window_apply_cuda, window.window_apply_torch
-        else:
-            case = testing.chain_window_case(0, *shape)
-            cfg = testing.chain_window_case_config(case)
-            state, xw = testing.chain_window_case_torch(case, "cuda")
-            win = chains_flat.chain_windows(cfg, shape[0], xw).at(0)
-            args = (win.xs_t, win.mcode, win.keep)
-            cuda = window.window_chain_apply_cuda
-            plain = window.window_chain_apply_torch
+                        ("window_kernel_chains", CHAIN_SHAPES[0]),
+                        ("window_kernel_wide", WIDE_MAIN_SHAPE)):
+        cfg, state, args, cuda, plain = window_operands(
+            window, chains_flat, testing, shape)
         gaps, err = bf16_agree(testing, cfg, state, args, cuda, plain,
                                f"{name} at {shape}")
         s32 = _fresh(state)
@@ -2519,13 +2706,15 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}; {smi}")
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    build_all(kernels, native)
+    parent = build_all(kernels, native)
     n, split, graph = _bench_graph(data)
     check_native(edgeset, graph)
     check_membership((config, edgeset, device_sampling, neighbor, rng), n,
                      split, graph, smi)
     bench = (n, split, graph)
-    w_err, w_t = check_window_kernel(window, kernels, testing, phi_ops, smi)
+    w = check_window_kernel(window, kernels, testing, phi_ops, smi)
+    parent_t = check_resident_parent(window, chains_flat, testing, kernels,
+                                     parent)
     c_err, c_t = check_chain_kernel(window, kernels, chains_flat, testing,
                                     phi_ops, smi)
     bf16_k = check_bf16_kernels(window, chains_flat, testing, smi)
@@ -2541,6 +2730,8 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     main_l, main_ppx, main_rate = run_main(cli, kmods)
     main_mem = torch.cuda.max_memory_allocated()
+    wide_l, _, wide_rate, wide_mem, _ = run_wide_main(cli, kmods, main_l,
+                                                      smi)
     shard = run_sharded_phases(cli, kmods, main_l, main_rate, testing, bench,
                                smi)
     bf16 = run_bf16_phases(cli, kmods, main_ppx, main_mem, smi)
@@ -2594,7 +2785,24 @@ def main() -> int:
         {"name": "window_kernel", "route": "cuda",
          "source": src + "window_kernel.cu",
          "replaces": "mcmc_ammsb_tpu/ops/window.py:321",
-         "launches": main_l["window"], "max_abs_err": w_err, **times(w_t),
+         "launches": main_l["window"], "max_abs_err": w["resident"][0],
+         **times(w["resident"][1]),
+         # the resident mode against the build of PARENT_SRC, float32, at
+         # the main path's shape, in turns (bit-equal at every shape)
+         "resident_parent_ms": parent_t[WINDOW_SHAPES[0]][0],
+         "resident_change_ms": parent_t[WINDOW_SHAPES[0]][1],
+         # the wide mode: its launches on the -k 4096 main path (2000
+         # steps), its checks at the wide shapes, its times at the K = 4096
+         # path's window, the path's rate and peak memory
+         "wide_launches": wide_l["window_wide"],
+         "wide_max_abs_err": w["wide"][0], "wide_ms": w["wide"][1][0],
+         "wide_plain_ms": w["wide"][1][1], "wide_bound_ms": w["wide"][1][2],
+         "wide_bound_by": w["wide"][1][3],
+         "wide_updates_per_s": wide_rate, "wide_peak_bytes": wide_mem,
+         "wide_sharded_window_max_abs_err": shard["wide_window"][0],
+         "wide_bf16_max_abs_err": bf16_k["window_kernel_wide"][1],
+         "wide_bf16_ms": bf16_k["window_kernel_wide"][2],
+         "wide_bf16_f32_ms": bf16_k["window_kernel_wide"][3],
          # the same kernel on the sharded paths (NCCL groups of size 1):
          # --mesh 1,1 (2000 steps), --partitioned-ingest (1000 steps), and
          # one sharded window (fetch, launch, write-back) against it
@@ -2603,6 +2811,13 @@ def main() -> int:
          "sharded_window_max_abs_err": shard["window"][0],
          "sharded_window_ms": shard["window"][1],
          **bf16_fields("window_kernel", "main")},
+        # the wide mode's kernel (window_kernel_wide, the same entry and
+        # source) on its own: the -k 4096 main path's launches, all wide
+        {"name": "window_kernel_wide", "route": "cuda",
+         "source": src + "window_kernel.cu",
+         "replaces": "mcmc_ammsb_tpu/ops/window.py:321 (K >= 1536)",
+         "launches": wide_l["window_wide"], "max_abs_err": w["wide"][0],
+         **times(w["wide"][1])},
         # the same kernel and entry, one cluster per chain: the chain
         # engine's launches
         {"name": "window_kernel_chains", "route": "cuda",

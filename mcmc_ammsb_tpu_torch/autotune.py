@@ -9,8 +9,9 @@ float reduction order), so tuning T is a pure performance choice.
 
 The JAX package's rule is kept: best of two timed probes per candidate,
 the largest rate wins. Two changes: the TPU's VMEM envelope becomes the
-port's shared-memory rule (``ops/window.window_cluster_size``): a T whose
-window fits no thread-block cluster on the card is not a candidate; and
+port's shared-memory rule (``ops/window.window_plan``, the rule the
+kernel's launch goes by): a T whose window fits the card's shared memory
+in neither of the kernel's modes is not a candidate; and
 only a candidate that the config guards refuse (``ValueError``) or that
 runs out of device memory is recorded as failed. Any other error, such as
 a kernel that does not build or launch, ends the tuning: a broken kernel
@@ -39,8 +40,9 @@ def window_candidates(cfg: Config,
     """Candidate window sizes valid for ``cfg`` (always including 0): the
     window engine's preconditions (device sampling, shared draws, the
     native RNG, the jnp phi), the auto rule's fallback for hub-padded
-    batches (max_batch_nodes > 64), and the window kernel's shared-memory
-    rule at the card's limit (``smem_limit``, the H100's by default),
+    batches (max_batch_nodes > 64), and the window kernel's plan
+    (``window_plan``) at the card's limit (``smem_limit``, the H100's by
+    default),
     which does not depend on the chain count: each chain is a cluster."""
     from mcmc_ammsb_tpu_torch.ops import window
 
@@ -54,9 +56,8 @@ def window_candidates(cfg: Config,
         if t <= 1 or t in out or t > window.MAX_WINDOW:
             continue
         try:
-            window.window_cluster_size(t, cfg.max_batch_nodes,
-                                       cfg.num_node_sample,
-                                       cfg.max_batch_edges, cfg.K, limit)
+            window.window_plan(t, cfg.max_batch_nodes, cfg.num_node_sample,
+                               cfg.max_batch_edges, cfg.K, limit)
         except ValueError:
             continue
         out.append(t)

@@ -100,6 +100,7 @@ from mcmc_ammsb_tpu_torch.data import (Graph, dump_dataset, generate_sets,
 from mcmc_ammsb_tpu_torch.learner import Learner
 from mcmc_ammsb_tpu_torch.models.mmsb import (FullMMSBLearner,
                                               MMSBChainLearner)
+from mcmc_ammsb_tpu_torch.ops.window import window_plan
 from mcmc_ammsb_tpu_torch.parallel import multihost
 from mcmc_ammsb_tpu_torch.parallel.chains_sharded import (ShardedChainLearner,
                                                           make_chain_mesh)
@@ -379,6 +380,76 @@ def resolve_fast_defaults(args) -> None:
         args.window = 0
 
 
+#: The automatic window's fallbacks, largest first, when the window
+#: kernel's rule refuses its T (the JAX CLI's, ops/window.max_safe_window).
+WINDOW_CLAMP = (12, 8, 6, 4, 3, 2)
+
+
+def fit_window(t_win: int, auto: bool, b_cap: int, n_smpl: int, e_cap: int,
+               k: int, smem_limit: int) -> int:
+    """The window size a run on the card takes, by the rule the kernel's
+    launch itself goes by (``ops/window.window_plan`` at ``smem_limit``
+    bytes of shared memory per block, for one chain's (B, n, E, K)):
+    ``t_win`` where the plan admits it; else, for an automatic T
+    (``auto``), the largest smaller one of WINDOW_CLAMP that it admits,
+    or 0 (no windows) when none; for an explicit T the plan's
+    ValueError. The pi storage type does not enter: both share the
+    layout."""
+    try:
+        window_plan(t_win, b_cap, n_smpl, e_cap, k, smem_limit)
+        return t_win
+    except ValueError:
+        if not auto:
+            raise
+    for t in WINDOW_CLAMP:
+        if t < t_win:
+            try:
+                window_plan(t, b_cap, n_smpl, e_cap, k, smem_limit)
+                return t
+            except ValueError:
+                continue
+    return 0
+
+
+def kernel_smem_limit(device):
+    """Shared memory per block of the card the window kernel runs on
+    (``kernels.smem_limit``), or None on the CPU, whose plain window runs
+    any T."""
+    if device.type != "cuda":
+        return None
+    from mcmc_ammsb_tpu_torch import kernels
+    return kernels.smem_limit(device)
+
+
+def resolve_kernel_window(args, cfg: Config, device) -> Config:
+    """``cfg`` with its window checked against the window kernel's rule
+    before any learner is made, where the kernel runs: a card
+    (``kernel_smem_limit``), T > 1, the a-MMSB on an engine that
+    launches it (one GPU, the flat chains, --chain-devices, --mesh),
+    --window-impl pallas. An automatic T that does not fit is clamped and
+    logged (the JAX CLI's ``window auto-clamped``); an explicit one
+    raises ValueError. The shape is one chain's (never C); --mesh pads
+    the batch to a multiple of its data ranks, as ShardedLearner does."""
+    limit = kernel_smem_limit(device)
+    if (limit is None or cfg.window <= 1 or args.model != "ammsb"
+            or cfg.window_impl != "pallas"
+            or (args.num_chains > 1 and args.chain_engine != "flat")):
+        return cfg
+    b_cap, e_cap = cfg.max_batch_nodes, cfg.max_batch_edges
+    if args.mesh:
+        d = int(args.mesh.split(",")[0])
+        b_cap, e_cap = -(-b_cap // d) * d, -(-e_cap // d) * d
+    t_win = fit_window(cfg.window, getattr(args, "window_auto", False),
+                       b_cap, cfg.num_node_sample, e_cap, cfg.K, limit)
+    if t_win != cfg.window:
+        log.info("window auto-clamped %d -> %d (window kernel's shared "
+                 "memory, %d B per block, at K=%d, B=%d, n=%d, E=%d)",
+                 cfg.window, t_win, limit, cfg.K, b_cap,
+                 cfg.num_node_sample, e_cap)
+        cfg = cfg.replace(window=t_win)
+    return cfg
+
+
 def config_from_args(args) -> Config:
     return Config(
         K=args.K, alpha=args.alpha, a=args.a, b=args.b, c=args.c,
@@ -567,6 +638,11 @@ def _main(args, cfg: Config, chains: bool, device) -> int:
         log.info("window auto-disabled: max_batch_nodes=%d > 64",
                  cfg.max_batch_nodes)
         cfg = cfg.replace(window=0)
+    try:
+        cfg = resolve_kernel_window(args, cfg, device)
+    except ValueError as e:
+        log.fatal("--window %d: %s", cfg.window, e)
+        return 1
     if args.auto_tune_window:
         cfg = _auto_tune_window(args, cfg, graph, split, device)
     log.info("Loaded %s (N=%d, E=%d, training max fan out = %d)",
@@ -692,6 +768,11 @@ def _main_partitioned(args, device) -> int:
              pdata.local_parse_edges, pdata.max_shard_edges)
     cfg = config_from_args(args).finalize(pdata.num_nodes, pdata.num_edges,
                                           pdata.max_fan_out)
+    try:
+        cfg = resolve_kernel_window(args, cfg, device)
+    except ValueError as e:
+        log.fatal("--window %d: %s", cfg.window, e)
+        return 1
     log.info("config: %s", cfg)
     try:
         learner = ShardedLearner.from_partitioned(cfg, pdata, mesh)

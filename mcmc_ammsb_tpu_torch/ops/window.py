@@ -11,14 +11,19 @@ with ``window_correction="always"``:
 On a CUDA tensor the three are one launch of the hand-written Hopper
 kernel ``csrc/window_kernel.cu`` (``window_apply_cuda``): it reads its
 rows from pi by index, runs the steps on a thread-block cluster that
-splits K (``window_cluster_size``), and writes the surviving rows back
-itself. With bfloat16 pi storage (``cfg.pi_dtype``) both versions gather
-the rows upcast to float32, compute and stage in float32, and round the
-kept rows to nearest-even only at the write-back, as the JAX package's
-bf16 window does; the kernel takes the storage type from ``s.pi``. On a CPU tensor, and on any device with ``cfg.window_impl ==
-"jnp"`` (``plain_or``), the plain PyTorch version ``window_apply_torch``
-runs them as ``_window_gather``, ``window_core_torch`` and
-``_window_scatter``.
+splits K, and writes the surviving rows back itself. ``window_plan``
+picks its mode from the per-chain shape and the card's shared memory:
+the resident mode (the window's rows in shared memory,
+``window_cluster_size``) wherever it fits, else the wide mode (the
+staged rows in a global scratch, the rows taken in column chunks; K =
+1536-16384 at the main path's shape). With bfloat16 pi storage
+(``cfg.pi_dtype``) both versions gather the rows upcast to float32,
+compute and stage in float32, and round the kept rows to nearest-even
+only at the write-back, as the JAX package's bf16 window does; the
+kernel takes the storage type from ``s.pi``. On a CPU tensor, and on any
+device with ``cfg.window_impl == "jnp"`` (``plain_or``), the plain
+PyTorch version ``window_apply_torch`` runs them as ``_window_gather``,
+``window_core_torch`` and ``_window_scatter``.
 
 A step may read a row that an earlier step of the same window wrote.
 ``_correction_codes`` gives every read lane the staged slot of the
@@ -365,27 +370,120 @@ def window_smem_bytes(t_win: int, b_cap: int, n_smpl: int, e_cap: int,
     return 4 * words
 
 
-@functools.lru_cache(maxsize=None)
-def window_cluster_size(t_win: int, b_cap: int, n_smpl: int, e_cap: int,
-                        k: int, smem_limit: int = H100_SMEM) -> int:
-    """The cluster size S of one chain's window, from the per-chain
-    shape and the card's shared memory per block (never from the number
-    of chains, so one C-chain launch gives the bits of C single-chain
-    launches). The first of: the powers of two from
-    min(8, ceil(K / 64)) up to 16, then any other S <= 16 — whose slices
-    are all non-empty and whose per-CTA shared memory (the window's
-    staged slice above all) fits. Raises when none does."""
+def _tiles(k: int, s: int) -> bool:
+    """The S column slices of width ``window_slice_width(k, s)`` tile K
+    with none empty."""
+    return s <= k and (s - 1) * window_slice_width(k, s) < k
+
+
+def _resident_cluster(t_win, b_cap, n_smpl, e_cap, k, smem_limit):
+    """The resident mode's cluster size (``window_cluster_size``), or None
+    when its layout fits no S <= 16."""
     s0 = min(8, max(1, -(-k // _COLUMNS_PER_CTA)))
     pow2 = [s for s in (1, 2, 4, 8, 16) if s >= s0]
     for s in pow2 + [s for s in range(1, MAX_CLUSTER + 1) if s not in pow2]:
-        if s > k or (s - 1) * window_slice_width(k, s) >= k:
-            continue
-        if window_smem_bytes(t_win, b_cap, n_smpl, e_cap, k, s) <= smem_limit:
+        if (_tiles(k, s) and window_smem_bytes(t_win, b_cap, n_smpl, e_cap,
+                                                k, s) <= smem_limit):
             return s
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def window_cluster_size(t_win: int, b_cap: int, n_smpl: int, e_cap: int,
+                        k: int, smem_limit: int = H100_SMEM) -> int:
+    """The resident mode's cluster size S of one chain's window, from the
+    per-chain shape and the card's shared memory per block (never from
+    the number of chains, so one C-chain launch gives the bits of C
+    single-chain launches). The first of: the powers of two from
+    min(8, ceil(K / 64)) up to 16, then any other S <= 16 — whose slices
+    are all non-empty and whose per-CTA shared memory (the window's
+    staged slice above all) fits. Raises when none does (``window_plan``
+    then takes the wide mode)."""
+    s = _resident_cluster(t_win, b_cap, n_smpl, e_cap, k, smem_limit)
+    if s is None:
+        raise ValueError(
+            f"window kernel: (T, B, n, E, K) = ({t_win}, {b_cap}, "
+            f"{n_smpl}, {e_cap}, {k}) fits {smem_limit} B of shared memory "
+            f"per CTA at no cluster size <= {MAX_CLUSTER}; use a smaller "
+            f"--window or K")
+    return s
+
+
+#: Column chunk widths of the wide mode, widest first (multiples of 8:
+#: 16-byte copies of float32 and of bf16 rows).
+WIDE_CHUNKS = (128, 64)
+#: Cluster sizes the wide mode tries, in order: the most SMs per window
+#: first, powers of two (even slices) before the rest.
+_WIDE_CLUSTERS = (16, 8, 4, 2, 1) + tuple(s for s in range(15, 2, -1)
+                                          if s & (s - 1))
+
+
+def window_wide_smem_bytes(t_win: int, b_cap: int, n_smpl: int, e_cap: int,
+                           k: int, s: int, wc: int) -> int:
+    """Shared memory per CTA of the wide mode with chunks of ``wc``
+    columns (``layout_wide``, struct ``WideLayout`` of
+    csrc/window_kernel.cu, term by term): two chunks of the step rows
+    [B+n, ld(wc)] and of the phi noise [B, wc]; beta - eps, theta0,
+    theta1 and beta [w] (padded to 4); the coefficients and the q
+    accumulators [B, n] (padded to 4); the 16 warps' fan-in partials of
+    a chunk [wc, 2]; the staged rows' sums [T*B]; the node vectors [B]
+    x 6; each lane's row and edge partials over the chunks [B, 32] and
+    [E, 32, 2]; prsum [E]; the partials pushed by the cluster (as the
+    resident mode's); the window's codes, ids, lane maps and bits."""
+    w = window_slice_width(k, s)
+    q4 = -(-wc // 4)
+    ldc = 4 * (q4 + 1 + q4 % 2)
+    n_read = b_cap + n_smpl
+    tb, te = t_win * b_cap, t_win * e_cap
+    bits = (-(-tb * n_smpl // 32) + -(-tb // 32) + 2 * -(-te // 32))
+    up4 = 4 * -(-w // 4)
+    bn4 = 4 * -(-(b_cap * n_smpl) // 4)
+    words = (2 * n_read * ldc + 2 * b_cap * wc + 4 * up4 + 2 * bn4
+             + 16 * wc * 2 + tb + 6 * b_cap + 32 * b_cap + 65 * e_cap
+             + s * (-(-b_cap // s) * n_smpl + b_cap + 2 * e_cap)
+             + t_win * (n_read + b_cap + n_smpl + e_cap) + bits)
+    return 4 * words
+
+
+@functools.lru_cache(maxsize=None)
+def window_plan(t_win: int, b_cap: int, n_smpl: int, e_cap: int, k: int,
+                smem_limit: int = H100_SMEM):
+    """How one chain's window runs on the card: ``(S, mode, wc)``. The
+    resident mode (``window_cluster_size``'s S, ``wc`` 0) wherever its
+    layout fits; else the wide mode: the first S of 16, 8, 4, 2, 1, then
+    the other S <= 16, whose slices tile K, with the widest chunk of
+    ``WIDE_CHUNKS`` whose layout fits ``smem_limit``. From the per-chain
+    shape only, never from the number of chains. Raises ValueError past
+    the kernel's limits (n, T) or when no layout fits; the launch and the
+    CLI's window resolution both go through it."""
+    if n_smpl > MAX_NEIGHBORS or t_win > MAX_WINDOW:
+        raise ValueError(
+            f"window kernel takes n <= {MAX_NEIGHBORS} neighbors and "
+            f"windows of <= {MAX_WINDOW} steps, got n={n_smpl}, "
+            f"T={t_win}; use a smaller --window or --window -1")
+    s = _resident_cluster(t_win, b_cap, n_smpl, e_cap, k, smem_limit)
+    if s is not None:
+        return s, "resident", 0
+    for s in _WIDE_CLUSTERS:
+        if not _tiles(k, s):
+            continue
+        for wc in WIDE_CHUNKS:
+            if window_wide_smem_bytes(t_win, b_cap, n_smpl, e_cap, k, s,
+                                      wc) <= smem_limit:
+                return s, "wide", wc
     raise ValueError(
         f"window kernel: (T, B, n, E, K) = ({t_win}, {b_cap}, {n_smpl}, "
-        f"{e_cap}, {k}) fits {smem_limit} B of shared memory per CTA at no "
-        f"cluster size <= {MAX_CLUSTER}; use a smaller --window or K")
+        f"{e_cap}, {k}) fits {smem_limit} B of shared memory per CTA in "
+        f"neither mode at any cluster size <= {MAX_CLUSTER}; use a "
+        f"smaller --window")
+
+
+def plan_smem_bytes(shape, plan) -> int:
+    """Shared memory per CTA of ``window_plan(*shape)``'s layout."""
+    s, mode, wc = plan
+    if mode == "wide":
+        return window_wide_smem_bytes(*shape, s, wc)
+    return window_smem_bytes(*shape, s)
 
 
 _P = ctypes.c_void_p
@@ -395,11 +493,11 @@ _F = ctypes.c_float
 
 def bind_window_lib(lib):
     """Declare the C interface of a build of csrc/window_kernel.cu."""
-    lib.window_kernel_smem_bytes.argtypes = [_I] * 6
+    lib.window_kernel_smem_bytes.argtypes = [_I] * 7
     lib.window_kernel_smem_bytes.restype = ctypes.c_size_t
-    lib.window_kernel_max_clusters.argtypes = [_I] * 6
+    lib.window_kernel_max_clusters.argtypes = [_I] * 7
     lib.window_kernel_max_clusters.restype = _I
-    lib.window_kernel_launch.argtypes = ([_P] * 19 + [_I] * 9 + [_F] * 7
+    lib.window_kernel_launch.argtypes = ([_P] * 20 + [_I] * 10 + [_F] * 7
                                          + [_P] * 3)
     lib.window_kernel_launch.restype = _I
     return lib
@@ -451,13 +549,8 @@ def _launch(cfg: Config, s, xs_t, mcode, keep, chained: bool,
             f"chain(s): nodes {tuple(batch.nodes.shape)}, pi "
             f"{tuple(s.pi.shape)}, theta {tuple(s.theta.shape)}, beta "
             f"{tuple(s.beta.shape)}, keep {tuple(keep.shape)}")
-    if n_smpl > MAX_NEIGHBORS or t_win > MAX_WINDOW:
-        raise ValueError(
-            f"window kernel takes n <= {MAX_NEIGHBORS} neighbors and "
-            f"windows of <= {MAX_WINDOW} steps, got n={n_smpl}, "
-            f"T={t_win}; use a smaller --window or --window -1")
-    cluster = window_cluster_size(t_win, b_cap, n_smpl, e_cap, k,
-                                  kernels.smem_limit(dev))
+    cluster, mode, wc = window_plan(t_win, b_cap, n_smpl, e_cap, k,
+                                    kernels.smem_limit(dev))
     lib = _window_lib()
 
     def arg(x, dtype):
@@ -469,22 +562,27 @@ def _launch(cfg: Config, s, xs_t, mcode, keep, chained: bool,
                          f"bfloat16, got {s.pi.dtype}")
     theta = torch.empty_like(s.theta)
     beta = torch.empty_like(s.beta)
+    # the wide mode's staged rows: [C, T*B, K] float32 (6.5 MB at the main
+    # path's T = 12, B = 33, K = 4096)
+    staged = (torch.empty((n_chains, t_win * b_cap, k), dtype=f32,
+                          device=dev) if mode == "wide" else None)
     ptrs = [arg(s.pi, s.pi.dtype), arg(s.phi_sum, f32), arg(y_w, b8),
             arg(batch.nodes, i32), arg(nbrs_s[..., 0, :], i32),
             arg(batch.node_mask, b8), arg(keep, b8), arg(nphi_w, f32),
             arg(nbeta_w, f32), arg(ye_w, b8), arg(batch.edge_mask, b8),
             arg(lu, i32), arg(lv, i32), arg(mcode, i32),
             arg(batch.weight, f32), arg(s.theta, f32), arg(s.beta, f32),
-            theta.data_ptr(), beta.data_ptr()]
+            theta.data_ptr(), beta.data_ptr(),
+            None if staged is None else staged.data_ptr()]
     eps_phi = _step_sizes(cfg, s.step_count, t_win)
     eps_theta = _step_sizes(cfg, s.beta_count + 1, t_win)
     err = lib.window_kernel_launch(
-        *ptrs, n_chains, t_win, b_cap, n_smpl, e_cap, k, n_rows, cluster,
+        *ptrs, n_chains, t_win, b_cap, n_smpl, e_cap, k, n_rows, cluster, wc,
         int(s.pi.dtype == torch.bfloat16), cfg.epsilon, 1.0 - cfg.epsilon, cfg.alpha_value, float(cfg.N),
         cfg.eta0, cfg.eta1, 1.0 / k, eps_phi.ctypes.data,
         eps_theta.ctypes.data, torch.cuda.current_stream(dev).cuda_stream)
     kernels.check_launch(err, "window kernel")
-    return _advance(s, t_win, theta=theta, beta=beta)
+    return _advance(s, t_win, theta=theta, beta=beta), mode
 
 
 def window_apply_cuda(cfg: Config, s, xs_t, mcode, keep,
@@ -497,16 +595,18 @@ def window_apply_cuda(cfg: Config, s, xs_t, mcode, keep,
     index it (``parallel/sharded.py``'s fetched rows), not pi [N, K].
     ``s.pi`` is float32 or bfloat16 (the kernel's bf16 row mode).
     CUDA tensors only: the kernel is launched or this raises — there is
-    no fallback."""
-    out = _launch(cfg, s, xs_t, mcode, keep, chained=False,
-                  table_rows=table_rows)
+    no fallback. The mode (resident or wide) is ``window_plan``'s."""
+    out, mode = _launch(cfg, s, xs_t, mcode, keep, chained=False,
+                        table_rows=table_rows)
     window_apply_cuda.launches += 1
+    window_apply_cuda.wide_launches += mode == "wide"
     return out
 
 
-#: Launches of the single-chain entry in this process (reset by callers
-#: that check a run went through it).
+#: Launches of the single-chain entry in this process, and those of them
+#: in the wide mode (reset by callers that check a run went through it).
 window_apply_cuda.launches = 0
+window_apply_cuda.wide_launches = 0
 
 
 def window_chain_apply_cuda(cfg: Config, s, xs_t, mcode, keep):
@@ -515,12 +615,15 @@ def window_chain_apply_cuda(cfg: Config, s, xs_t, mcode, keep):
     kernel's blocked ``n_chains = C`` mode with its gather and scatter,
     C >= 1); ``s.pi`` [C*N, K] and ``s.phi_sum`` are updated IN PLACE.
     CUDA tensors only: the kernel is launched or this raises."""
-    out = _launch(cfg, s, xs_t, mcode, keep, chained=True)
+    out, mode = _launch(cfg, s, xs_t, mcode, keep, chained=True)
     window_chain_apply_cuda.launches += 1
+    window_chain_apply_cuda.wide_launches += mode == "wide"
     window_chain_apply_cuda.chains += keep.shape[0]
     return out
 
 
-#: Launches of the chain entry, and the chains they ran in all.
+#: Launches of the chain entry, those of them in the wide mode, and the
+#: chains they ran in all.
 window_chain_apply_cuda.launches = 0
+window_chain_apply_cuda.wide_launches = 0
 window_chain_apply_cuda.chains = 0

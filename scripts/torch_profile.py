@@ -3,9 +3,9 @@
 Run from the root of a checkout (the package must be importable):
 
     PYTHONPATH=. python3 scripts/torch_profile.py [--reps 5]
-        [--paths single,chains,mmsb,phi,hostphi,hoststep,hostbf,powerlaw,
-                 mmsbchains,hostmmsb,vmap,refrng,refplain,refphi,devbf,
-                 devbfalt,devbfnon,mesh,refkernel,checkpoint]
+        [--paths single,wide,chains,mmsb,phi,hostphi,hoststep,hostbf,
+                 powerlaw,mmsbchains,hostmmsb,vmap,refrng,refplain,refphi,
+                 devbf,devbfalt,devbfnon,mesh,refkernel,checkpoint]
         [--out FILE]
 
 Each path at N=317,080 (``--synthetic 317080,7``), the CLI's defaults
@@ -13,6 +13,8 @@ otherwise:
 
   single  the a-MMSB main path, K=256: window 12, 1008 steps per call
           (84 windows);
+  wide    the same at ``-k 4096`` (pi 5.2 GB): every window in the
+          window kernel's wide mode, 1008 steps per call;
   chains  ``--num-chains 16 --node-coin alternate``, K=256: window
           96 // 16 = 6, 504 steps per call (84 windows of 16 chains);
   mmsb    ``--model mmsb --window 12``, K=64: 1008 steps per call (84
@@ -100,6 +102,7 @@ from torch.profiler import ProfilerActivity, profile
 
 PATHS = {
     "single": (["--synthetic", "317080,7", "-k", "256"], 1008),
+    "wide": (["--synthetic", "317080,7", "-k", "4096"], 1008),
     "chains": (["--num-chains", "16", "--node-coin", "alternate",
                 "--synthetic", "317080,7", "-k", "256"], 504),
     "mmsb": (["--model", "mmsb", "--synthetic", "317080,7", "-k", "64",
@@ -221,6 +224,8 @@ def make_learner(flags):
     cfg = cfg.finalize(n, split.total_edges, graph.max_fan_out)
     if getattr(args, "window_auto", False) and cfg.max_batch_nodes > 64:
         cfg = cfg.replace(window=0)              # the CLI's fallback
+    if hasattr(cli, "resolve_kernel_window"):    # the kernel's rule
+        cfg = cli.resolve_kernel_window(args, cfg, torch.device("cuda"))
     if args.num_chains > 1:
         cfg = cfg.replace(device_sampling=True)
     lrn = cli.make_learner(args, cfg, graph, split, "cuda")

@@ -9,7 +9,9 @@ Run from the root of a checkout:
         [--sizes 2,4,8,16]
 
 window: at the single-chain bench shape (T, B, n, E, K) = (12, 33, 32, 32, 256)
-and the chain shape (16 chains of (6, 33, 32, 32, 256)), for each cluster
+and the chain shape (16 chains of (6, 33, 32, 32, 256)) in the resident
+mode, and at the K = 4096 path's (12, 33, 32, 32, 4096) in the wide mode
+(with the plan's chunk width), for each cluster
 size S that fits: the clusters the card runs at once, the device time per
 window (CUDA events; the device sleeps while the host queues 50
 windows, so the host's launch cost is not in it), and the clock cycles
@@ -59,6 +61,15 @@ STAGES = ["init + first gather", "gather issue + redirect + wait",
           "fan-in partials", "theta step", "scatter + final barrier",
           "calibration: bare block barrier",
           "calibration: bare cluster barrier"]
+# the wide mode's stages (window_kernel_wide's PHASE slots)
+WIDE_STAGES = ["init", "(unused)",
+               "a: q partials by chunk, pushed + cluster barrier",
+               "b: owners' coefficients pushed + cluster barrier",
+               "(unused)", "c: contrib + phi step + row partials by chunk, "
+               "pushed + cluster barrier", "(unused)",
+               "d: normalize + edge partials by chunk, pushed + cluster "
+               "barrier", "(unused)", "e: fan-in + theta step by chunk",
+               "scatter + final barrier"]
 REPS = 50
 
 
@@ -109,21 +120,33 @@ def run_window(sizes, kernels, result):
     cfgc = testing.chain_window_case_config(ccase)
     stc, xw = testing.chain_window_case_torch(ccase, "cuda")
     win = chains_flat.chain_windows(cfgc, 16, xw).at(0)
+    wcase = testing.window_case(0, 12, 33, 32, 32, 4096)
+    cfgw = testing.window_case_config(wcase)
+    stw, xsw = testing.window_case_torch(wcase, "cuda")
+    bw = xsw[0]
+    mcw = window._correction_codes(cfgw, bw.nodes, bw.node_mask,
+                                   xsw[1][:, 0, :])
+    keepw = window._last_write_wins(bw.nodes, bw.node_mask, 12)
     runs = {
         "single (12,33,32,32,256)": ((12, 33, 32, 32, 256), 12, lambda st:
             window.window_apply_cuda(cfg1, st, xs1, mc1, keep1), st1),
         "16 chains (6,33,32,32,256)": ((6, 33, 32, 32, 256), 6, lambda st:
             window.window_chain_apply_cuda(cfgc, st, win.xs_t, win.mcode,
                                            win.keep), stc),
+        "wide (12,33,32,32,4096)": ((12, 33, 32, 32, 4096), 12, lambda st:
+            window.window_apply_cuda(cfgw, st, xsw, mcw, keepw), stw),
     }
+    real_plan = window.window_plan
     for name, (shape, t_win, run, state) in runs.items():
         k = shape[4]
+        mode, wc = real_plan(*shape, limit)[1:]
         for s in sizes:
             w = window.window_slice_width(k, s)
-            if ((s - 1) * w >= k
-                    or window.window_smem_bytes(*shape, s) > limit):
+            plan = (s, mode, wc)
+            if (s - 1) * w >= k or window.plan_smem_bytes(shape,
+                                                          plan) > limit:
                 continue
-            window.window_cluster_size = lambda *args, _s=s: _s
+            window.window_plan = lambda *args, _p=plan: _p
             scratch = state._replace(pi=state.pi.clone(),
                                      phi_sum=state.phi_sum.clone())
             window._window_lib = lambda: lib
@@ -137,13 +160,16 @@ def run_window(sizes, kernels, result):
             plib.window_kernel_phases(phases)
             cyc = [phases[i] / t_win for i in range(len(STAGES))]
             result["runs"].append({
-                "run": name, "S": s,
+                "run": name, "S": s, "mode": mode, "wc": wc,
+                "smem_per_cta": window.plan_smem_bytes(shape, plan),
                 "max_active_clusters": lib.window_kernel_max_clusters(
-                    *shape, s),
+                    *shape, s, wc),
                 "ms_per_window": ms, "us_per_step": 1e3 * ms / t_win,
                 "cycles_per_step": sum(cyc[1:10]),
-                "stage_cycles_per_step": [round(c, 1) for c in cyc]})
+                "stage_cycles_per_step": [round(c, 1) for c in cyc],
+                "stages": WIDE_STAGES if mode == "wide" else STAGES})
             print(json.dumps(result["runs"][-1]), flush=True)
+    window.window_plan = real_plan
 
 
 def run_mmsb(kernels, result):

@@ -26,6 +26,8 @@ from torch_parity import assert_close, blocked, jax_chain_window, jax_config
 # (C, T, B, n, E, K): a collision-heavy tiny window, the odd shape and
 # one with m > n
 SHAPES = [(3, 4, 9, 8, 8, 16), (2, 3, 6, 7, 5, 12), (2, 5, 14, 3, 13, 24)]
+# two chains at the K where the kernel runs its wide mode
+WIDE_SHAPES = [(2, 3, 6, 7, 5, 1536), (2, 4, 9, 8, 8, 2048)]
 SEED = 1
 
 
@@ -134,14 +136,15 @@ def test_windowed_chain_scan_matches_jax(shape):
 
 
 @pytest.mark.parametrize("jax_core", ["jnp", "pallas_interpret"])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + WIDE_SHAPES)
 def test_window_chain_apply_torch_matches_jax(shape, jax_core):
     """The fused chain window's plain version (flat gather, chain core,
     chain-major last-write-wins scatter in one call) == JAX's gather ->
     _windowed_chain_jnp / the blocked Pallas kernel (interpret mode) ->
     scatter of _windowed_chain_scan on the same operands: pi, phi_sum,
     theta and beta after the window, at rtol 5e-5, atol 1e-8 (the bound
-    of test_chain_window_core_torch_matches_jax, for the same reason)."""
+    of test_chain_window_core_torch_matches_jax, for the same reason),
+    also at the K where the kernel runs its wide mode (WIDE_SHAPES)."""
     c, case, cfg, state, _, win = _setup(shape)
     got = window.window_chain_apply_torch(cfg, state, win.xs_t, win.mcode,
                                           win.keep)

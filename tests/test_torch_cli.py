@@ -150,6 +150,112 @@ def test_cli_guard_exits_1():
     assert cli.main(TINY + ["--no-shared-neighbors"]) == 1
 
 
+# ---------------------------------------------------------------------------
+# The window against the kernel's rule (ops/window.window_plan)
+# ---------------------------------------------------------------------------
+
+def _wide_k_config(k=4096):
+    """The main path's resolved config at K = ``k`` on a small graph (no
+    learner is built)."""
+    args = cli.build_arg_parser().parse_args(
+        ["--synthetic", "300,8", "-k", str(k), "--device", "cpu"])
+    cli.resolve_fast_defaults(args)
+    return args, cli.config_from_args(args).finalize(300, 1200, 20)
+
+
+def _fit_limit(t_win, b_cap, n_smpl, e_cap, k):
+    """The least shared memory in which some layout of the kernel (either
+    mode, any cluster size that tiles K, any chunk) takes a window of
+    ``t_win``: it admits that window and no longer one (the words that
+    grow with T do not depend on S)."""
+    from mcmc_ammsb_tpu_torch.ops import window
+    shape = (t_win, b_cap, n_smpl, e_cap, k)
+    return min(min(window.window_smem_bytes(*shape, s),
+                   *(window.window_wide_smem_bytes(*shape, s, wc)
+                     for wc in window.WIDE_CHUNKS))
+               for s in range(1, window.MAX_CLUSTER + 1)
+               if window._tiles(k, s))
+
+
+def test_fit_window_rule():
+    """fit_window keeps a T the kernel's plan admits (T = 12 at K = 4096
+    and the main path's B = 33, n = 32, E = 32 on an H100), clamps an
+    automatic T it refuses to the largest of WINDOW_CLAMP below it that
+    it admits, gives 0 when it admits none, and raises for an explicit
+    T it refuses."""
+    from mcmc_ammsb_tpu_torch.ops import window
+    h100 = window.H100_SMEM
+    assert cli.fit_window(12, True, 33, 32, 32, 4096, h100) == 12
+    assert cli.fit_window(12, False, 33, 32, 32, 16384, h100) == 12
+    assert cli.fit_window(64, False, 33, 32, 32, 16384, h100) == 64
+    limit = _fit_limit(4, 33, 32, 32, 4096)
+    assert cli.fit_window(12, True, 33, 32, 32, 4096, limit) == 4
+    assert cli.fit_window(3, True, 33, 32, 32, 4096, limit) == 3
+    assert cli.fit_window(12, True, 33, 32, 32, 4096, 1000) == 0
+    with pytest.raises(ValueError, match="fits 1000 B"):
+        cli.fit_window(12, False, 33, 32, 32, 4096, 1000)
+    with pytest.raises(ValueError, match="<= 64 steps"):
+        cli.fit_window(65, False, 33, 32, 32, 256, h100)
+
+
+def test_auto_window_clamped_and_logged(monkeypatch, caplog):
+    """On a card whose blocks fit a window of 4 but not of 6 at K = 4096,
+    the main path's automatic 12 is clamped to 4 and logged in the JAX
+    CLI's words; where none fits it becomes 0; at the H100's limit 12
+    stays. The limit is passed in through kernel_smem_limit, which gives
+    None on the CPU (nothing is clamped there)."""
+    from mcmc_ammsb_tpu_torch.ops import window
+    args, cfg = _wide_k_config()
+    assert args.window_auto and cfg.window == 12
+    dev = torch.device("cpu")
+    assert cli.kernel_smem_limit(dev) is None
+    assert cli.resolve_kernel_window(args, cfg, dev).window == 12
+    shape = (cfg.max_batch_nodes, cfg.num_node_sample, cfg.max_batch_edges,
+             cfg.K)
+    for limit, want in ((_fit_limit(4, *shape), 4), (1000, 0),
+                        (window.H100_SMEM, 12)):
+        monkeypatch.setattr(cli, "kernel_smem_limit", lambda d, x=limit: x)
+        caplog.clear()
+        with caplog.at_level(logging.INFO, logger="mcmc_ammsb_tpu_torch"):
+            got = cli.resolve_kernel_window(args, cfg, dev)
+        assert got.window == want
+        clamped = [r.getMessage() for r in caplog.records
+                   if "window auto-clamped" in r.getMessage()]
+        if want == 12:
+            assert clamped == []
+        else:
+            assert len(clamped) == 1
+            assert clamped[0].startswith(f"window auto-clamped 12 -> {want} (")
+
+
+def test_explicit_window_that_does_not_fit_exits_1(monkeypatch, caplog):
+    """An explicit --window that the kernel's plan refuses on the card
+    ends the run with exit 1 and the plan's reason, before any learner is
+    built or any step trained: never a traceback from the first window.
+    The card's limit is passed in through kernel_smem_limit; the same
+    run with the automatic window trains, clamped."""
+    built = []
+    real = cli.make_learner
+    monkeypatch.setattr(cli, "make_learner",
+                        lambda *a, **k: built.append(1) or real(*a, **k))
+    monkeypatch.setattr(cli, "kernel_smem_limit", lambda d: 1000)
+    with caplog.at_level(logging.INFO, logger="mcmc_ammsb_tpu_torch"):
+        assert cli.main(TINY) == 1
+    messages = [r.getMessage() for r in caplog.records]
+    assert any(m.startswith("--window 4: window kernel: (T, B, n, E, K) = "
+                            "(4, ") and "fits 1000 B" in m
+               for m in messages)
+    assert not built
+    assert not any(m.startswith("ppx[") for m in messages)
+    caplog.clear()
+    auto = [a for a in TINY if a not in ("--window", "4")]
+    with caplog.at_level(logging.INFO, logger="mcmc_ammsb_tpu_torch"):
+        assert cli.main(auto) == 0
+    messages = [r.getMessage() for r in caplog.records]
+    assert "window auto-clamped 12 -> 0" in " ".join(messages)
+    assert built and any(m.startswith("ppx[60] = ") for m in messages)
+
+
 @pytest.mark.parametrize("flags, rc, message", [
     # ported (item 14): at world size 1 the JAX CLI's behaviour
     (["--mesh", "1,2"], 1, "mesh 1x2 needs 2 devices, only 1 available"),

@@ -26,7 +26,8 @@ from mcmc_ammsb_tpu_torch import config, learner
 from mcmc_ammsb_tpu_torch.interop import state_from_numpy
 from mcmc_ammsb_tpu_torch.ops.edgeset import build_edge_set
 
-from torch_parity import assert_close, jax_config, jax_hoist, to_torch
+from torch_parity import (assert_close, assert_normwise, jax_config,
+                          jax_hoist, to_torch)
 
 INTERVAL, EVALS, WINDOW = 10, 2, 4        # 2 windows + 2 tail steps each
 
@@ -55,7 +56,24 @@ def test_slice_matches_jax(slice_setup):
     2.56e-5, beta 6.6e-7 / 1.8e-6, pi 2.0e-7 / 3.8e-7, ppx 2.0e-7 /
     1.0e-7. (The gap keeps growing with the run, as any reordering of
     float32 sums does: theta 2.4e-4 after four intervals.)"""
+    _slice_matches_jax(*slice_setup)
+
+
+def test_slice_matches_jax_wide_k(slice_setup):
+    """test_slice_matches_jax at K = 2048, where the window kernel runs
+    its wide mode on the card: the same two intervals, the port's plain
+    window on the CPU against JAX's. pi, phi_sum, beta and ppx keep the
+    elementwise bounds; theta is held normwise (max |diff| <= 1e-8 +
+    1e-5 max |theta|, chip_smoke.py's rule), since with 4096 theta
+    elements one of them comes out of the abs() of a cancellation: a
+    value of ~1e-3 that differs by 1.0e-7 (1.05e-4 relative) after
+    interval 0, where every other element stays inside rtol 5e-5."""
     n, split, graph, cfg = slice_setup
+    _slice_matches_jax(n, split, graph, cfg.replace(K=2048),
+                       theta_normwise=True)
+
+
+def _slice_matches_jax(n, split, graph, cfg, theta_normwise=False):
     jcfg = jax_config(cfg)
     jtr = jax_build_edge_set(JaxEdgeSetBackend.ADJACENCY, n, graph.edges_u,
                              graph.edges_v)
@@ -94,8 +112,12 @@ def test_slice_matches_jax(slice_setup):
         assert tstate.step_count == int(jstate.step_count)
         assert tstate.beta_count == int(jstate.beta_count)
         for f in ("pi", "phi_sum", "theta", "beta"):
-            assert_close(getattr(tstate, f), getattr(jstate, f), 5e-5,
-                         1e-8, f"interval {i}: {f}")
+            if f == "theta" and theta_normwise:
+                assert_normwise(tstate.theta, jstate.theta, 1e-5, 1e-8,
+                                f"interval {i}: theta")
+            else:
+                assert_close(getattr(tstate, f), getattr(jstate, f), 5e-5,
+                             1e-8, f"interval {i}: {f}")
         assert_close(torch.exp(tres.neg_avg_log),
                      np.exp(np.asarray(jres.neg_avg_log)), 1e-5, 0.0,
                      f"interval {i}: ppx")

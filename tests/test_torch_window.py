@@ -21,6 +21,8 @@ from torch_parity import assert_close, jax_config, jax_window_case
 # (T, B, n, E, K): a collision-heavy tiny window, the odd shape
 # (m, n, K, T) = (5, 7, 12, 3) and the m > n shape (13, 3, 24, 5)
 SHAPES = [(4, 9, 8, 8, 16), (3, 6, 7, 5, 12), (5, 14, 3, 13, 24)]
+# windows at the K where the kernel runs its wide mode
+WIDE_SHAPES = [(3, 6, 7, 5, 1536), (4, 9, 8, 8, 2048)]
 
 
 def _both(seed, shape):
@@ -111,7 +113,7 @@ def _codes(cfg, xs):
 
 
 @pytest.mark.parametrize("jax_core", ["jnp", "pallas_interpret"])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + WIDE_SHAPES)
 def test_window_apply_torch_matches_jax(shape, jax_core):
     """The fused window's plain version (gather, core, scatter in one
     call) == JAX's _window_gather -> _window_core_jnp / the Pallas kernel
@@ -119,7 +121,8 @@ def test_window_apply_torch_matches_jax(shape, jax_core):
     phi_sum, theta and beta after the window, with the in-window
     collisions, masked lanes and padded lanes of the case, at rtol 5e-5,
     atol 1e-8 (the bound of test_window_core_torch_matches_jax, for the
-    same reason). The counters advance by T."""
+    same reason), also at the K where the kernel runs its wide mode
+    (WIDE_SHAPES). The counters advance by T."""
     case, cfg, jcfg = _both(5, shape)
     state, xs = testing.window_case_torch(case, "cpu")
     js, jxs = jax_window_case(case)
@@ -184,6 +187,115 @@ def test_window_cluster_size_bench_shapes():
     assert window.window_cluster_size(48, 33, 32, 32, 256) == 16
     with pytest.raises(ValueError, match=r"\(64, 33, 32, 32, 4096\)"):
         window.window_cluster_size(64, 33, 32, 32, 4096)
+
+
+# (T, K) of the wide mode at the main path's (B, n, E) = (33, 32, 32): the
+# JAX package's max_safe_window T at each K from 1536 to 16384, and the
+# ragged K = 2050 (not a multiple of 4: 4-byte copies)
+WIDE_PLANS = [(12, 1536), (12, 2048), (12, 2050), (12, 3072), (12, 4096),
+              (8, 6144), (6, 8192), (3, 16384)]
+
+
+@pytest.mark.parametrize("shape", [
+    (12, 33, 32, 32, 256), (3, 6, 7, 5, 12), (12, 33, 32, 32, 100),
+    (6, 33, 32, 32, 256), (4, 9, 8, 8, 16), (12, 33, 32, 32, 128),
+    (5, 14, 3, 13, 24), (48, 33, 32, 32, 256), (64, 33, 32, 32, 256),
+    (12, 33, 32, 32, 1024), (8, 33, 32, 32, 1536), (3, 33, 32, 32, 2048),
+    (1, 33, 32, 32, 3072)])
+def test_window_plan_resident_where_it_fits(shape):
+    """window_plan keeps the resident mode, at window_cluster_size's S,
+    wherever that rule finds a cluster: the shapes chip_smoke.py runs in
+    it and the largest T of each K up to 3072 whose resident layout
+    fits an H100."""
+    assert window.window_plan(*shape) == (window.window_cluster_size(*shape),
+                                          "resident", 0)
+
+
+@pytest.mark.parametrize("t_win,k", WIDE_PLANS)
+def test_window_plan_wide_covers_jax_windows(t_win, k):
+    """At every K from 1536 to 16384 the JAX package windows at the main
+    path's shape (its max_safe_window T), the resident layout fits no
+    cluster of an H100 and window_plan takes the wide mode: its layout
+    fits 232,448 B, its column slices tile K with none empty, its chunk
+    is one of WIDE_CHUNKS; every shorter window runs in one mode or the
+    other."""
+    shape = (t_win, 33, 32, 32, k)
+    with pytest.raises(ValueError):
+        window.window_cluster_size(*shape)
+    s, mode, wc = window.window_plan(*shape)
+    assert mode == "wide" and wc in window.WIDE_CHUNKS
+    assert 1 <= s <= window.MAX_CLUSTER
+    assert window.window_wide_smem_bytes(*shape, s, wc) <= window.H100_SMEM
+    assert window.plan_smem_bytes(shape, (s, mode, wc)) == \
+        window.window_wide_smem_bytes(*shape, s, wc)
+    w = window.window_slice_width(k, s)
+    cols = [c for r in range(s) for c in range(r * w, min(k, (r + 1) * w))]
+    assert cols == list(range(k))
+    assert all(min(k, (r + 1) * w) > r * w for r in range(s))
+    for t in range(1, t_win):
+        window.window_plan(t, 33, 32, 32, k)
+
+
+def test_window_plan_limits():
+    """The plan refuses what the kernel refuses (n > 32 neighbors, T >
+    64) and a limit that fits neither mode, naming the shape; with a
+    smaller card the wide mode takes narrower chunks and clusters."""
+    with pytest.raises(ValueError, match="n <= 32"):
+        window.window_plan(12, 33, 64, 32, 256)
+    with pytest.raises(ValueError, match="<= 64 steps"):
+        window.window_plan(65, 33, 32, 32, 256)
+    with pytest.raises(ValueError, match=r"\(12, 33, 32, 32, 4096\)"):
+        window.window_plan(12, 33, 32, 32, 4096, 50_000)
+    narrow = window.window_wide_smem_bytes(12, 33, 32, 32, 4096, 16, 64)
+    assert window.window_plan(12, 33, 32, 32, 4096, narrow) == (16, "wide",
+                                                                 64)
+
+
+def _cu_layout_words(fn: str, **dims) -> int:
+    """The word count of csrc/window_kernel.cu's ``fn`` (``layout`` or
+    ``layout_wide``) at ``dims``, evaluated from the source text: each
+    ``o += <expr>;`` of the function, its casts dropped and its integer
+    divisions made Python's."""
+    import re
+    from pathlib import Path
+
+    src = (Path(window.__file__).resolve().parent.parent / "csrc"
+           / "window_kernel.cu").read_text()
+    body = re.search(rf"inline \w+ {fn}\(.*?\n}}\n", src, re.S).group(0)
+    env = dict(dims, kWarps=16,
+               up4=lambda x: -(-x // 4) * 4,
+               words_of_bits=lambda x: -(-x // 32),
+               row_stride=lambda w: 4 * (-(-w // 4) + 1 + (-(-w // 4)) % 2))
+
+    def py(expr):
+        return re.sub(r"\(size_t\)", "", expr).replace("/", "//")
+
+    for name, expr in re.findall(r"const size_t (\w+) = ([^,;]+)", body):
+        env[name] = eval(py(expr), {}, env)
+    for decl in re.findall(r"const size_t ([^;]+);", body):
+        for name, expr in re.findall(r"(\w+) = ([^,]+)", decl):
+            env[name] = eval(py(expr), {}, env)
+    return sum(eval(py(e), {}, env)
+               for e in re.findall(r"o \+= ([^;]+);", body))
+
+
+@pytest.mark.parametrize("shape", [(12, 33, 32, 32, 4096),
+                                   (3, 6, 7, 5, 12), (6, 33, 32, 32, 8192),
+                                   (12, 33, 32, 32, 2050), (64, 9, 8, 8, 100)])
+@pytest.mark.parametrize("s,wc", [(16, 128), (16, 64), (3, 64), (1, 128)])
+def test_window_smem_bytes_mirror_the_kernel_layouts(shape, s, wc):
+    """window_wide_smem_bytes is struct WideLayout's layout_wide, and
+    window_smem_bytes struct Layout's layout, term by term: both equal
+    the sums of csrc/window_kernel.cu's own expressions, read from the
+    source (on the card chip_smoke.py also holds them against the built
+    kernel's window_kernel_smem_bytes)."""
+    t_win, b_cap, n_smpl, e_cap, k = shape
+    kw = window.window_slice_width(k, s)
+    dims = dict(T=t_win, B=b_cap, n=n_smpl, E=e_cap, kw=kw, S=s)
+    assert 4 * _cu_layout_words("layout_wide", wc=wc, **dims) == \
+        window.window_wide_smem_bytes(*shape, s, wc)
+    assert 4 * _cu_layout_words("layout", **dims) == \
+        window.window_smem_bytes(*shape, s)
 
 
 def test_window_core_cuda_rejects_cpu_tensors():
