@@ -7,8 +7,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
                power limit as nvidia-smi reports them;
   2. build   — compiles the four kernels from csrc/ with nvcc, one
                process per source, the window kernel's source from before
-               its wide mode (PARENT_SRC) and the native host library
-               (csrc/sampler.cpp) with g++, all started together;
+               its wide mode's step layout (PARENT_SRC) and the native
+               host library (csrc/sampler.cpp) with g++, all started
+               together;
      native  — the native CHD build and the numpy build give
                byte-equal perfect-hash tables on the bench graph's
                training edges (E ~ 1.1 M), with the seconds of each;
@@ -31,12 +32,14 @@ Phases, one line each; any failure raises and the exit code is not 0:
                state) in its resident mode at (T, B, n, E, K) = (12, 33,
                32, 32, 256), the bench shape, (3, 6, 7, 5, 12), (12, 33,
                32, 32, 100) and (48, 33, 32, 32, 256) (a cluster of 16),
-               and in its wide mode (staged rows in a global scratch,
-               column chunks) at (12, 33, 32, 32, 4096), the -k 4096
-               path's, the ragged (12, 33, 32, 32, 2050) (4-byte copies),
-               (6, 33, 32, 32, 8192) and (3, 33, 32, 32, 16384), with its
-               mode, cluster size, chunk width, shared memory per CTA
-               (equal to the rule's) and us per step; its chain mode (one
+               and in its wide mode (staged rows in a global scratch) at
+               (12, 33, 32, 32, 4096), the -k 4096 path's, and the
+               ragged (12, 33, 32, 32, 2050) (4-byte copies) in its step
+               layout (a step's rows in shared memory, bulk copies) and
+               at (6, 33, 32, 32, 8192) and (3, 33, 32, 32, 16384) in its
+               chunked layout, with its mode, layout, cluster size, chunk
+               width, shared memory per CTA (equal to the rule's) and us
+               per step; its chain mode (one
                cluster per chain) at (C, T, B, n, E, K) = (16, 6, 33, 32,
                32, 256), the bench chain shape, (3, 4, 9, 8, 8, 16), (2,
                3, 6, 7, 5, 12) and, wide, (2, 12, 33, 32, 32, 2048), also
@@ -44,7 +47,10 @@ Phases, one line each; any failure raises and the exit code is not 0:
                from float64 than 2x the plain version; the resident mode
                bit-equal to the build of PARENT_SRC at every resident
                shape above, float32 and bf16 pi, with both timed in turns
-               at the main and the chain shapes; both phi entries
+               at the main and the chain shapes, and the wide mode timed
+               in turns against PARENT_SRC's (its chunked layout, at the
+               plan of its own rule) at the four wide shapes and the
+               wide chain shape, with the layout each took; both phi entries
                (pre-gathered, by index) at (B, n, K) = (33, 32, 256),
                (64, 32, 256) (the host-sampled paths' 64 node lanes),
                (5, 7, 12), the ragged (33, 32, 100) and (33, 32, 4096)
@@ -416,9 +422,10 @@ WIDE_MAIN_SHAPE = WINDOW_SHAPES[4]
 # the last runs the wide mode
 CHAIN_SHAPES = [(CHAINS, 6, 33, 32, 32, 256), (3, 4, 9, 8, 8, 16),
                 (2, 3, 6, 7, 5, 12), (2, 12, 33, 32, 32, 2048)]
-# the window kernel's source from before its wide mode: the resident
-# mode's bits are held against its build
-PARENT_SRC = "scripts/window_kernel_resident.cu"
+# the window kernel's source from before the wide mode's step layout: the
+# resident mode's bits are held against its build, and the wide mode's
+# times against its chunked layout's
+PARENT_SRC = "scripts/window_kernel_pr11.cu"
 # (T, B, n, E, K) of the fused MMSB window's checks; the second is the
 # MMSB path's, (..., 256) fits only a cluster of 16, K = 50 takes 13 CTAs
 # with a ragged last slice and 4-byte copies
@@ -530,41 +537,52 @@ def _to(x, dev):
 
 
 def build_parent(kernels, src: Path = None) -> Path:
-    """A build of PARENT_SRC (the window kernel from before its wide
-    mode), or of another source with its C interface, beside the
-    kernels' builds."""
+    """A build of PARENT_SRC (the window kernel from before the wide
+    mode's step layout), or of another source with its C interface,
+    beside the kernels' builds."""
     src = src or Path(__file__).resolve().parent / PARENT_SRC
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = kernels.BUILD_DIR / "libwindow_kernel_resident.so"
+    out = kernels.BUILD_DIR / "libwindow_kernel_parent.so"
     subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(out),
                     str(src)], check=True, capture_output=True)
     return out
 
 
 class ParentWindowLib:
-    """A build of PARENT_SRC behind this build's C interface: its
-    window_kernel_launch takes neither the wide mode's staged scratch
-    nor its chunk width, and runs the resident mode only."""
+    """A build of PARENT_SRC behind this build's C interface (the same
+    one). Its wide mode has the chunked layout only, so a wide launch
+    goes to it at the plan its own rule gives the shape (the first
+    cluster size of window._WIDE_CLUSTERS whose slices tile K, with the
+    widest chunk of WIDE_CHUNKS whose layout, by the parent's own
+    window_kernel_smem_bytes, fits the card); a resident launch goes
+    unchanged."""
 
-    #: positions of the scratch pointer and of the chunk width among the
-    #: arguments of this build's window_kernel_launch
-    STAGED, WC = 19, 28
+    #: positions of T..K, the cluster size and the chunk width among the
+    #: arguments of window_kernel_launch
+    SHAPE, S, WC = slice(21, 26), 27, 28
 
-    def __init__(self, path: Path):
-        lib = ctypes.CDLL(str(path))
-        _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.window_kernel_launch.argtypes = ([_P] * 19 + [_I] * 9 + [_F] * 7
-                                             + [_P] * 3)
-        lib.window_kernel_launch.restype = _I
-        self.lib = lib
+    def __init__(self, path: Path, window, limit: int):
+        self.lib = window.bind_window_lib(ctypes.CDLL(str(path)))
+        self.window, self.limit = window, limit
+
+    def plan(self, t_win, b_cap, n_smpl, e_cap, k):
+        """The parent's (S, wc) of a wide shape."""
+        w = self.window
+        for s in w._WIDE_CLUSTERS:
+            if not w._tiles(k, s):
+                continue
+            for wc in w.WIDE_CHUNKS:
+                if self.lib.window_kernel_smem_bytes(
+                        t_win, b_cap, n_smpl, e_cap, k, s, wc) <= self.limit:
+                    return s, wc
+        raise ValueError(f"no layout of {PARENT_SRC} fits "
+                         f"{(t_win, b_cap, n_smpl, e_cap, k)}")
 
     def window_kernel_launch(self, *args):
-        if args[self.WC] != 0 or args[self.STAGED] is not None:
-            raise ValueError("the parent's kernel runs the resident mode "
-                             "only")
-        return self.lib.window_kernel_launch(
-            *args[:self.STAGED], *args[self.STAGED + 1:self.WC],
-            *args[self.WC + 1:])
+        args = list(args)
+        if args[self.WC] != 0:
+            args[self.S], args[self.WC] = self.plan(*args[self.SHAPE])
+        return self.lib.window_kernel_launch(*args)
 
 
 def build_all(kernels, native):
@@ -858,11 +876,13 @@ def _plan_line(window, lib, shape, limit):
     if got != smem:
         raise AssertionError(f"shared memory of {shape} in the {mode} "
                              f"mode: kernel {got} B, rule {smem} B")
-    if (mode == "wide") != (shape[4] >= 1536):
+    if (mode != "resident") != (shape[4] >= 1536):
         raise AssertionError(f"{shape}: the {mode} mode, expected the "
                              f"{'wide' if shape[4] >= 1536 else 'resident'}")
-    text = (f"{mode} mode, cluster of {s_cl} CTAs"
-            + (f", chunks of {wc} columns" if wc else "")
+    text = ({"resident": "resident mode", "step": "wide mode, step layout",
+             "wide": "wide mode, chunked layout"}[mode]
+            + f", cluster of {s_cl} CTAs"
+            + (f", chunks of {wc} columns" if mode == "wide" else "")
             + f", {smem} B shared per CTA")
     return plan, smem, text
 
@@ -898,10 +918,10 @@ def check_resident_parent(window, chains_flat, testing, kernels, parent,
     output; then the float32 launches at the main path's and the chain
     path's shapes timed in turns (parent, change, change, parent).
     Returns {shape: (parent ms, change ms, the four turns)}."""
-    old = ParentWindowLib(parent)
+    limit = kernels.smem_limit(torch.device("cuda"))
+    old = ParentWindowLib(parent, window, limit)
     real = window._window_lib
     new = real()
-    limit = kernels.smem_limit(torch.device("cuda"))
     shapes = [sh for sh in WINDOW_SHAPES + CHAIN_SHAPES
               if window.window_plan(*sh[-5:], limit)[1] == "resident"]
     out = {}
@@ -937,6 +957,53 @@ def check_resident_parent(window, chains_flat, testing, kernels, parent,
     return out
 
 
+def check_wide_parent(window, chains_flat, testing, kernels, parent,
+                      reps=50):
+    """Phase kernel: the wide mode of this build against the build of
+    PARENT_SRC (its chunked layout, at the plan of its own rule) at every
+    shape of WINDOW_SHAPES and CHAIN_SHAPES the plan runs in the wide
+    mode, timed in turns (parent, change, change, parent) on the same
+    operands, device time only. Returns {shape: (parent ms, change ms,
+    the four turns, this build's layout, the parent's (S, wc), max abs
+    difference of the two builds' outputs)}."""
+    limit = kernels.smem_limit(torch.device("cuda"))
+    old = ParentWindowLib(parent, window, limit)
+    real = window._window_lib
+    new = real()
+    shapes = [sh for sh in WINDOW_SHAPES + CHAIN_SHAPES
+              if window.window_plan(*sh[-5:], limit)[1] != "resident"]
+    out = {}
+    try:
+        for shape in shapes:
+            cfg, state, args, cuda, _ = window_operands(
+                window, chains_flat, testing, shape, seed=2)
+            outs = []
+            for lib in (old, new):
+                window._window_lib = lambda lib=lib: lib
+                outs.append(_outs(cuda(cfg, _fresh(state), *args)))
+            torch.cuda.synchronize()
+            diff = max(float((a - b).abs().max()) for a, b in zip(*outs))
+            scratch = _fresh(state)
+            t = []
+            for lib in (old, new, new, old):
+                window._window_lib = lambda lib=lib: lib
+                t.append(time_ms(lambda: cuda(cfg, scratch, *args), reps,
+                                 hold=True))
+            s_cl, mode, wc = window.window_plan(*shape[-5:], limit)
+            out[shape] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t,
+                          f"{mode} S={s_cl} wc={wc}",
+                          old.plan(*shape[-5:]), diff)
+    finally:
+        window._window_lib = real
+    phase("kernel", "wide mode against " + PARENT_SRC + ", ms/window in "
+          "turns (parent, change, change, parent): " + "; ".join(
+              f"{sh}: this build {v[3]}, parent chunked S={v[4][0]} "
+              f"wc={v[4][1]}: {' '.join(f'{x:.4f}' for x in v[2])} "
+              f"(change/parent {v[1] / v[0]:.3f}; builds differ by max "
+              f"abs {v[5]:.3e})" for sh, v in out.items()))
+    return out
+
+
 def check_window_kernel(window, kernels, testing, phi_ops, smi):
     """Phase 3, the fused a-MMSB window: {mode: (max abs err over the
     mode's shapes held normwise, and the kernel ms, plain ms, bound ms
@@ -957,6 +1024,7 @@ def check_window_kernel(window, kernels, testing, phi_ops, smi):
         if not (mcode > 0).any():
             raise AssertionError("the case has no in-window collision")
         (_, mode, _), _, plan_text = _plan_line(window, lib, shape, limit)
+        mode = "resident" if mode == "resident" else "wide"
         normwise = t_win <= 12
         _, err, f64 = _agree(window, phi_ops, cfg, state, xs, mcode, keep,
                              False, f"window at {shape}", normwise)
@@ -1522,12 +1590,13 @@ def run_main(cli, kmods):
     return launches, ppx, rate
 
 
-def run_wide_main(cli, kmods, main_l, smi):
+def run_wide_main(cli, kmods, main_l, main_rate, main_mem, smi):
     """Phase 5, the main path at K = 4096 (WIDE_ARGS, 2000 steps): the
     automatic window 12 runs unclamped on the window kernel, with as many
-    launches as the K = 256 main path, every one in the wide mode, and
-    no other kernel entry; ppx falls below ppx[0]. Returns (launches, ppx,
-    steady-state updates/s, peak device memory, seconds of the run)."""
+    launches as the K = 256 main path, every one in the wide mode (the
+    layout of the plan printed), and no other kernel entry; ppx falls
+    below ppx[0]. Returns (launches, ppx, steady-state updates/s, peak
+    device memory, seconds of the run)."""
     torch.cuda.reset_peak_memory_stats()
     _counts(kmods, None)
     t0 = time.perf_counter()
@@ -1551,11 +1620,16 @@ def run_wide_main(cli, kmods, main_l, smi):
                              f"{want}")
     t = {st: c for st, _, c in series}
     rate = 1000 / (t[2000] - t[1000])
+    win = kmods[0]
+    s_cl, layout, wc = win.window_plan(
+        *WIDE_MAIN_SHAPE, win.kernels.smem_limit(torch.device("cuda")))
     phase("main", f"a-MMSB -k 4096: rc 0, ppx {ppx}, window-kernel "
           f"launches {launches['window']} (the K = 256 main path: "
           f"{main_l['window']}), all {launches['window_wide']} in the wide "
-          f"mode; steady state {rate:.1f} updates/s; peak device memory "
-          f"{mem} B; {seconds:.1f} s in all (host init included); {smi}")
+          f"mode ({layout} layout, S = {s_cl}, wc = {wc}); steady state "
+          f"{rate:.1f} updates/s (the K = 256 main path: {main_rate:.1f}); "
+          f"peak device memory {mem} B (K = 256: {main_mem} B); "
+          f"{seconds:.1f} s in all (host init included); {smi}")
     return launches, ppx, rate, mem, seconds
 
 
@@ -2715,6 +2789,7 @@ def main() -> int:
     w = check_window_kernel(window, kernels, testing, phi_ops, smi)
     parent_t = check_resident_parent(window, chains_flat, testing, kernels,
                                      parent)
+    wide_t = check_wide_parent(window, chains_flat, testing, kernels, parent)
     c_err, c_t = check_chain_kernel(window, kernels, chains_flat, testing,
                                     phi_ops, smi)
     bf16_k = check_bf16_kernels(window, chains_flat, testing, smi)
@@ -2731,7 +2806,7 @@ def main() -> int:
     main_l, main_ppx, main_rate = run_main(cli, kmods)
     main_mem = torch.cuda.max_memory_allocated()
     wide_l, _, wide_rate, wide_mem, _ = run_wide_main(cli, kmods, main_l,
-                                                      smi)
+                                                      main_rate, main_mem, smi)
     shard = run_sharded_phases(cli, kmods, main_l, main_rate, testing, bench,
                                smi)
     bf16 = run_bf16_phases(cli, kmods, main_ppx, main_mem, smi)
@@ -2799,10 +2874,20 @@ def main() -> int:
          "wide_plain_ms": w["wide"][1][1], "wide_bound_ms": w["wide"][1][2],
          "wide_bound_by": w["wide"][1][3],
          "wide_updates_per_s": wide_rate, "wide_peak_bytes": wide_mem,
+         "main_updates_per_s": main_rate, "main_peak_bytes": main_mem,
          "wide_sharded_window_max_abs_err": shard["wide_window"][0],
          "wide_bf16_max_abs_err": bf16_k["window_kernel_wide"][1],
          "wide_bf16_ms": bf16_k["window_kernel_wide"][2],
          "wide_bf16_f32_ms": bf16_k["window_kernel_wide"][3],
+         # the wide mode against the build of PARENT_SRC (its chunked
+         # layout) in turns, at the K = 4096 path's window and at every
+         # wide shape, with the layout this build took there
+         "wide_parent_ms": wide_t[WIDE_MAIN_SHAPE][0],
+         "wide_change_ms": wide_t[WIDE_MAIN_SHAPE][1],
+         "wide_turns_ms": {",".join(map(str, sh)): v[2]
+                           for sh, v in wide_t.items()},
+         "wide_layouts": {",".join(map(str, sh)): v[3]
+                          for sh, v in wide_t.items()},
          # the same kernel on the sharded paths (NCCL groups of size 1):
          # --mesh 1,1 (2000 steps), --partitioned-ingest (1000 steps), and
          # one sharded window (fetch, launch, write-back) against it

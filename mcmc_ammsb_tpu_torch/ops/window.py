@@ -15,9 +15,11 @@ splits K, and writes the surviving rows back itself. ``window_plan``
 picks its mode from the per-chain shape and the card's shared memory:
 the resident mode (the window's rows in shared memory,
 ``window_cluster_size``) wherever it fits, else the wide mode (the
-staged rows in a global scratch, the rows taken in column chunks; K =
-1536-16384 at the main path's shape). With bfloat16 pi storage
-(``cfg.pi_dtype``) both versions gather the rows upcast to float32,
+staged rows in a global scratch; K = 1536-16384 at the main path's
+shape) in one of its two layouts: "step" (a step's rows in shared
+memory through the step, the next step's in flight; up to K = 4096 at
+T = 12) or "wide" (the rows taken in column chunks). With bfloat16 pi
+storage (``cfg.pi_dtype``) both versions gather the rows upcast to float32,
 compute and stage in float32, and round the kept rows to nearest-even
 only at the write-back, as the JAX package's bf16 window does; the
 kernel takes the storage type from ``s.pi``. On a CPU tensor, and on any
@@ -409,9 +411,12 @@ def window_cluster_size(t_win: int, b_cap: int, n_smpl: int, e_cap: int,
     return s
 
 
-#: Column chunk widths of the wide mode, widest first (multiples of 8:
-#: 16-byte copies of float32 and of bf16 rows).
+#: Column chunk widths of the wide mode's chunked layout, widest first
+#: (multiples of 8: 16-byte copies of float32 and of bf16 rows).
 WIDE_CHUNKS = (128, 64)
+#: kQNodes of csrc/window_kernel.cu: the nodes of a warp's q tile in the
+#: step layout.
+_Q_NODES = 11
 #: Cluster sizes the wide mode tries, in order: the most SMs per window
 #: first, powers of two (even slices) before the rest.
 _WIDE_CLUSTERS = (16, 8, 4, 2, 1) + tuple(s for s in range(15, 2, -1)
@@ -445,17 +450,62 @@ def window_wide_smem_bytes(t_win: int, b_cap: int, n_smpl: int, e_cap: int,
     return 4 * words
 
 
+def window_step_smem_bytes(t_win: int, b_cap: int, n_smpl: int,
+                           e_cap: int, k: int, s: int) -> int:
+    """Shared memory per CTA of the wide mode's step layout
+    (``layout_step``, struct ``StepLayout`` of csrc/window_kernel.cu, term
+    by term): three mbarriers (32 B); two sets of the step rows [B+n,
+    ld(w)]; the phi noise, earlier in the step x * (beta - eps), [B,
+    ld(w)]; the theta noise [w, 2] (padded to 4); beta - eps, theta0,
+    theta1 and beta [w] and the coefficients [B, n] (padded to 4); one
+    region (padded to 4) for the q partials of the splits [ks, B, n] (ks
+    = 16 // ceil(B / 11)) and later the fan-in partials [G, w, 2] (G =
+    512 // w); the staged rows' sums [T*B]; the node vectors [B] x 7 and
+    prsum [E]; the partials pushed by the cluster, the window's codes,
+    ids, lane maps and bits (as the other layouts')."""
+    w = window_slice_width(k, s)
+    q4 = -(-w // 4)
+    ld = 4 * (q4 + 1 + q4 % 2)
+    n_read = b_cap + n_smpl
+    tb, te = t_win * b_cap, t_win * e_cap
+    bits = (-(-tb * n_smpl // 32) + -(-tb // 32) + 2 * -(-te // 32))
+    groups = -(-b_cap // _Q_NODES)
+    splits = 1 if groups >= 16 else 16 // groups
+    fan = 512 // w if w <= 512 else 1
+
+    def up4(x):
+        return 4 * -(-x // 4)
+
+    words = (8 + 2 * n_read * ld + b_cap * ld + up4(2 * w)
+             + 4 * up4(w) + up4(b_cap * n_smpl)
+             + up4(max(splits * b_cap * n_smpl, 2 * fan * w))
+             + tb + 7 * b_cap + e_cap
+             + s * (-(-b_cap // s) * n_smpl + b_cap + 2 * e_cap)
+             + t_win * (n_read + b_cap + n_smpl + e_cap) + bits)
+    return 4 * words
+
+
+def step_chunk(k: int, s: int) -> int:
+    """The chunk width the launch passes for the step layout: the slice
+    width rounded up to a multiple of 8, one chunk that covers the
+    slice."""
+    return -(-window_slice_width(k, s) // 8) * 8
+
+
 @functools.lru_cache(maxsize=None)
 def window_plan(t_win: int, b_cap: int, n_smpl: int, e_cap: int, k: int,
                 smem_limit: int = H100_SMEM):
     """How one chain's window runs on the card: ``(S, mode, wc)``. The
     resident mode (``window_cluster_size``'s S, ``wc`` 0) wherever its
-    layout fits; else the wide mode: the first S of 16, 8, 4, 2, 1, then
-    the other S <= 16, whose slices tile K, with the widest chunk of
-    ``WIDE_CHUNKS`` whose layout fits ``smem_limit``. From the per-chain
-    shape only, never from the number of chains. Raises ValueError past
-    the kernel's limits (n, T) or when no layout fits; the launch and the
-    CLI's window resolution both go through it."""
+    layout fits; else the wide mode at the first S of 16, 8, 4, 2, 1,
+    then the other S <= 16, whose slices tile K and where one of its
+    layouts fits ``smem_limit``: the step layout (``"step"``, ``wc`` =
+    ``step_chunk``, a chunk that covers the slice), else the chunked one
+    (``"wide"``) with the widest chunk of ``WIDE_CHUNKS`` narrower than
+    the slice. From the per-chain shape only, never from the number of
+    chains. Raises ValueError past the kernel's limits (n, T) or when no
+    layout fits; the launch and the CLI's window resolution both go
+    through it."""
     if n_smpl > MAX_NEIGHBORS or t_win > MAX_WINDOW:
         raise ValueError(
             f"window kernel takes n <= {MAX_NEIGHBORS} neighbors and "
@@ -467,9 +517,12 @@ def window_plan(t_win: int, b_cap: int, n_smpl: int, e_cap: int, k: int,
     for s in _WIDE_CLUSTERS:
         if not _tiles(k, s):
             continue
+        if window_step_smem_bytes(t_win, b_cap, n_smpl, e_cap, k,
+                                  s) <= smem_limit:
+            return s, "step", step_chunk(k, s)
         for wc in WIDE_CHUNKS:
-            if window_wide_smem_bytes(t_win, b_cap, n_smpl, e_cap, k, s,
-                                      wc) <= smem_limit:
+            if wc < window_slice_width(k, s) and window_wide_smem_bytes(
+                    t_win, b_cap, n_smpl, e_cap, k, s, wc) <= smem_limit:
                 return s, "wide", wc
     raise ValueError(
         f"window kernel: (T, B, n, E, K) = ({t_win}, {b_cap}, {n_smpl}, "
@@ -481,6 +534,8 @@ def window_plan(t_win: int, b_cap: int, n_smpl: int, e_cap: int, k: int,
 def plan_smem_bytes(shape, plan) -> int:
     """Shared memory per CTA of ``window_plan(*shape)``'s layout."""
     s, mode, wc = plan
+    if mode == "step":
+        return window_step_smem_bytes(*shape, s)
     if mode == "wide":
         return window_wide_smem_bytes(*shape, s, wc)
     return window_smem_bytes(*shape, s)
@@ -565,7 +620,7 @@ def _launch(cfg: Config, s, xs_t, mcode, keep, chained: bool,
     # the wide mode's staged rows: [C, T*B, K] float32 (6.5 MB at the main
     # path's T = 12, B = 33, K = 4096)
     staged = (torch.empty((n_chains, t_win * b_cap, k), dtype=f32,
-                          device=dev) if mode == "wide" else None)
+                          device=dev) if mode != "resident" else None)
     ptrs = [arg(s.pi, s.pi.dtype), arg(s.phi_sum, f32), arg(y_w, b8),
             arg(batch.nodes, i32), arg(nbrs_s[..., 0, :], i32),
             arg(batch.node_mask, b8), arg(keep, b8), arg(nphi_w, f32),
@@ -595,16 +650,18 @@ def window_apply_cuda(cfg: Config, s, xs_t, mcode, keep,
     index it (``parallel/sharded.py``'s fetched rows), not pi [N, K].
     ``s.pi`` is float32 or bfloat16 (the kernel's bf16 row mode).
     CUDA tensors only: the kernel is launched or this raises — there is
-    no fallback. The mode (resident or wide) is ``window_plan``'s."""
+    no fallback. The mode (resident or wide, in its step or chunked
+    layout) is ``window_plan``'s."""
     out, mode = _launch(cfg, s, xs_t, mcode, keep, chained=False,
                         table_rows=table_rows)
     window_apply_cuda.launches += 1
-    window_apply_cuda.wide_launches += mode == "wide"
+    window_apply_cuda.wide_launches += mode != "resident"
     return out
 
 
 #: Launches of the single-chain entry in this process, and those of them
-#: in the wide mode (reset by callers that check a run went through it).
+#: in the wide mode, either layout (reset by callers that check a run
+#: went through it).
 window_apply_cuda.launches = 0
 window_apply_cuda.wide_launches = 0
 
@@ -617,7 +674,7 @@ def window_chain_apply_cuda(cfg: Config, s, xs_t, mcode, keep):
     CUDA tensors only: the kernel is launched or this raises."""
     out, mode = _launch(cfg, s, xs_t, mcode, keep, chained=True)
     window_chain_apply_cuda.launches += 1
-    window_chain_apply_cuda.wide_launches += mode == "wide"
+    window_chain_apply_cuda.wide_launches += mode != "resident"
     window_chain_apply_cuda.chains += keep.shape[0]
     return out
 

@@ -14,8 +14,8 @@ per window of the float32 and the bf16 launches on the same operands,
 in turns (f32, bf16, bf16, f32), device time only.
 
 With ``--parent-src FILE`` (a ``window_kernel.cu`` with the C interface
-of chip_smoke.PARENT_SRC, scripts/window_kernel_resident.cu, the kernel
-from before its wide mode) that source is built too and
+of chip_smoke.PARENT_SRC, scripts/window_kernel_pr11.cu, the kernel from
+before the wide mode's step layout) that source is built too and
 chip_smoke.py's ``check_resident_parent`` holds the resident mode of
 this build against it bit for bit, float32 and bf16, at every resident
 shape of chip_smoke.py's kernel phase, with the main and chain shapes

@@ -1,9 +1,3 @@
-// The a-MMSB window kernel (mcmc_ammsb_tpu_torch/csrc/window_kernel.cu) as
-// it was before its wide mode: the resident mode only, behind that build's
-// C interface (no staged scratch, no chunk width). The port does not use
-// it: chip_smoke.py and scripts/window_bf16.py build it and hold the
-// resident mode of the current kernel against it, bit for bit.
-//
 // One whole a-MMSB window per chain in ONE launch: the rows are read from
 // pi by index, the T sequential SGRLD steps run on a thread-block
 // cluster that splits K, and the surviving rows are written back into pi
@@ -22,10 +16,19 @@
 // Layout of the launch: chain c gets a cluster of S CTAs (grid C*S).
 // CTA r owns the column slice [r*kw, min(K, (r+1)*kw)) of every row,
 // theta, beta and noise, kw = slice_width(K, S); the last slice may be
-// ragged (K = 100). S comes from the per-chain shape and the card's
-// shared memory (ops/window.py::window_cluster_size: 4 at K = 256),
+// ragged (K = 100). S and the mode come from the per-chain shape and the
+// card's shared memory (ops/window.py::window_plan: the resident mode at
+// S = 4 at K = 256, the wide mode at S = 16 from K = 1536 at T = 12),
 // never from C, so one C-chain launch gives the same bits as C
 // single-chain launches.
+//
+// Two modes, one function. The resident mode (window_kernel) keeps a
+// CTA's whole slice of the step rows and of the window's staged rows in
+// shared memory; it is chosen wherever that fits. The wide mode
+// (window_kernel_wide, described above it) stages the rows in a global
+// scratch and takes the slice in column chunks, so its shared memory
+// hardly grows with K; it runs T = 12 up to K = 4096 and K = 16384 at T =
+// 12 on an H100. What follows describes the resident mode.
 //
 // Per step t, exactly the JAX kernel's math:
 //   1. read rows: lane r reads staged row mcode-1 when mcode > 0 (a row
@@ -71,8 +74,8 @@
 //   - The window's staged rows ([T*B, kw] per CTA, 101 KB at T=12, B=33,
 //     kw=64) and their sums live in shared memory: redirected reads and
 //     edge-endpoint reads are shared-memory loads. There is no global
-//     staging buffer; the wrapper picks S so that the slice fits and
-//     raises when no S <= 16 does.
+//     staging buffer; the wrapper picks S so that the slice fits, and the
+//     wide mode where none does.
 //   - The gather is in the kernel: step t+1's pre-window rows (lanes with
 //     mcode 0), their phi sums and the step's noise slices are copied with
 //     cp.async (16-byte chunks where K and kw are multiples of 4) into a
@@ -206,6 +209,64 @@ __host__ __device__ inline Layout layout(int T, int B, int n, int E, int kw,
   return L;
 }
 
+// Offsets (in 4-byte words) of the shared arrays of one CTA in the wide
+// mode, whose rows are taken in chunks of wc columns (a multiple of 8);
+// mirrored by ops/window.py::window_wide_smem_bytes. Every array of
+// float4 loads starts at a multiple of 16 bytes. Of the slice width kw
+// only beta - eps, theta and beta grow with K.
+struct WideLayout {
+  size_t ch0, ch1, nz0, nz1, bme, coef, qacc, gpart, th0, th1, bet, ssum,
+      phis, ce, nval, scale, invphi, racc, rsv, eacc, epr, qin, rin, ein, smc,
+      snodes, snbrs, slanes, ybits, mbits, yebits, embits, total;
+};
+
+__host__ __device__ inline size_t up4(size_t words) {
+  return (words + 3) / 4 * 4;
+}
+
+__host__ __device__ inline WideLayout layout_wide(int T, int B, int n, int E,
+                                                  int kw, int S, int wc) {
+  const size_t R = (size_t)B + n, ldc = row_stride(wc);
+  const size_t TB = (size_t)T * B, TE = (size_t)T * E, Bn = (size_t)B * n;
+  const size_t nl = (B + S - 1) / S;
+  WideLayout L;
+  size_t o = 0;
+  L.ch0 = o;    o += R * ldc;          // chunk of the step rows [R, ldc]
+  L.ch1 = o;    o += R * ldc;          // the next chunk
+  L.nz0 = o;    o += (size_t)B * wc;   // chunk of the phi noise [B, wc]
+  L.nz1 = o;    o += (size_t)B * wc;
+  L.bme = o;    o += up4(kw);          // beta - eps, zero-padded
+  L.coef = o;   o += up4(Bn);          // s/p * mask [B, n], from the owners
+  L.qacc = o;   o += up4(Bn);          // q partials over the chunks so far
+  L.gpart = o;  o += (size_t)kWarps * wc * 2;  // fan-in partials of a chunk
+  L.th0 = o;    o += up4(kw);
+  L.th1 = o;    o += up4(kw);
+  L.bet = o;    o += up4(kw);
+  L.ssum = o;   o += TB;               // the staged rows' sums
+  L.phis = o;   o += B;                // the step's phi sums
+  L.ce = o;     o += B;
+  L.nval = o;   o += B;
+  L.scale = o;  o += B;
+  L.invphi = o; o += B;
+  L.racc = o;   o += 32 * (size_t)B;   // row partials of each lane [B, 32]
+  L.rsv = o;    o += B;                // the step's row sums
+  L.eacc = o;   o += 64 * (size_t)E;   // edge partials of each lane [E, 32, 2]
+  L.epr = o;    o += E;                // per-edge prsum
+  L.qin = o;    o += S * nl * n;
+  L.rin = o;    o += (size_t)S * B;
+  L.ein = o;    o += (size_t)S * 2 * E;
+  L.smc = o;    o += (size_t)T * R;
+  L.snodes = o; o += TB;
+  L.snbrs = o;  o += (size_t)T * n;
+  L.slanes = o; o += TE;
+  L.ybits = o;  o += words_of_bits(TB * n);
+  L.mbits = o;  o += words_of_bits(TB);
+  L.yebits = o; o += words_of_bits(TE);
+  L.embits = o; o += words_of_bits(TE);
+  L.total = o;
+  return L;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -257,7 +318,9 @@ struct Params {
   const float* beta_in;    // [K]
   float* theta_out;        // [K, 2]
   float* beta_out;         // [K]
+  float* staged;           // [T*B, K] wide mode's staged rows; else unused
   int T, B, n, E, K, N, kw;
+  int wc;                  // wide mode's chunk width; 0 in the resident mode
   float eps, one_minus_eps, alpha, n_nodes, eta0, eta1, inv_k;
   float eps_phi[kMaxWindow];    // phi step sizes of the T steps
   float eps_theta[kMaxWindow];  // theta step sizes
@@ -311,6 +374,169 @@ __device__ __forceinline__ __nv_bfloat16 to_store(float v, __nv_bfloat16*) {
   return __float2bfloat16_rn(v);
 }
 
+// Both modes, once per window: the window's indices, labels, masks and
+// lane maps into shared memory (ids and codes as ints, the bool arrays as
+// bits, the two lane maps packed u | v << 16), and this CTA's slice
+// [k0, k0 + kw) of theta and beta.
+template <typename PiT>
+__device__ __forceinline__ void stage_window(
+    const Params<PiT>& P, size_t chain, int k0, int kw, int* smc,
+    int* snodes, int* snbrs, unsigned* slanes, unsigned* ybits,
+    unsigned* mbits, unsigned* yebits, unsigned* embits, float* th0,
+    float* th1, float* bet, int tid, int warp, int lane) {
+  const int T = P.T, B = P.B, n = P.n, E = P.E, K = P.K, R = P.B + P.n;
+  const size_t TB = (size_t)T * B, TE = (size_t)T * E;
+  for (int i = tid; i < T * R; i += kThreads) smc[i] = P.mcode[chain * T * R + i];
+  for (int i = tid; i < T * B; i += kThreads) snodes[i] = P.nodes[chain * TB + i];
+  for (int i = tid; i < T * n; i += kThreads) snbrs[i] = P.nbrs[chain * T * n + i];
+  for (int i = tid; i < T * E; i += kThreads)
+    slanes[i] = (unsigned)P.lanes_u[chain * TE + i]
+                | ((unsigned)P.lanes_v[chain * TE + i] << 16);
+  pack_bits(ybits, P.y + chain * TB * n, T * B * n, warp, lane);
+  pack_bits(mbits, P.node_mask + chain * TB, T * B, warp, lane);
+  pack_bits(yebits, P.y_edges + chain * TE, T * E, warp, lane);
+  pack_bits(embits, P.edge_mask + chain * TE, T * E, warp, lane);
+  for (int kk = tid; kk < kw; kk += kThreads) {
+    th0[kk] = P.theta_in[chain * K * 2 + 2 * (k0 + kk)];
+    th1[kk] = P.theta_in[chain * K * 2 + 2 * (k0 + kk) + 1];
+    bet[kk] = P.beta_in[chain * K + k0 + kk];
+  }
+}
+
+// The wide mode's sum over the ranks, of x[0], x[stride], ...,
+// x[(S-1)*stride]: pairwise in a fixed order, so every CTA gets the same
+// bits and the rounding grows with log2(S), not with S.
+__device__ __forceinline__ float rank_sum(const float* x, int stride,
+                                          int S) {
+  float v[kMaxCluster];
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r) v[r] = r < S ? x[r * stride] : 0.f;
+#pragma unroll
+  for (int w = 1; w < kMaxCluster; w *= 2)
+#pragma unroll
+    for (int r = 0; r + w < kMaxCluster; r += 2 * w) v[r] += v[r + w];
+  return v[0];
+}
+
+// Both modes, stage 2b of step t: each CTA finishes its own nodes (b mod
+// S == rank, one warp per node): q summed over the ranks from qin [S,
+// ceil(B/S), n] (in order; pairwise with kPairwise, the wide mode), the
+// pair coefficients, the e/p sum, the mask count, 1/phi and N/n_valid,
+// pushed to every CTA of the cluster (the arrays are this CTA's; the
+// peers' copies sit at the same offsets).
+template <bool kPairwise>
+__device__ __forceinline__ void node_coefficients(
+    cg::cluster_group& cluster, const float* qin, const unsigned* ybits,
+    const int* nd, const int* nb, const float* phis, float* coef, float* ce,
+    float* nval, float* scale, float* invphi, int t, int B, int n, int S,
+    int rank, int warp, int lane, float eps, float one_minus_eps,
+    float n_nodes) {
+  const size_t ybase = (size_t)t * B * n;
+  const int nl = (B + S - 1) / S;
+  for (int lb = warp; lb * S + rank < B; lb += kWarps) {
+    const int b = lb * S + rank;
+    float s_ce = 0.f, s_n = 0.f;
+    for (int j = lane; j < n; j += 32) {
+      float q = 0.f;
+      if (kPairwise)
+        q = rank_sum(qin + lb * n + j, nl * n, S);
+      else
+        for (int r = 0; r < S; ++r) q += qin[(r * nl + lb) * n + j];
+      const int pair = b * n + j;
+      const float y = bit(ybits, ybase + pair) ? 1.f : 0.f;
+      // a shared neighbor that is the node itself is excluded
+      const float m = nb[j] != nd[b] ? 1.f : 0.f;
+      const float sgn = 2.f * y - 1.f;
+      const float e = y > 0.5f ? eps : one_minus_eps;
+      float p = sgn * q + e;
+      if (!(m > 0.5f)) p = 1.f;   // masked lanes must not turn into NaN
+      const float inv_p = 1.f / p;
+      const float a = sgn * inv_p * m;
+      for (int x = 0; x < S; ++x) cluster.map_shared_rank(coef, x)[pair] = a;
+      s_ce += e * inv_p * m;
+      s_n += m;
+    }
+    s_ce = warp_sum(s_ce);
+    s_n = warp_sum(s_n);
+    if (lane < S) {   // lane x writes CTA x's copy
+      cluster.map_shared_rank(ce, lane)[b] = s_ce;
+      cluster.map_shared_rank(nval, lane)[b] = s_n;
+      cluster.map_shared_rank(scale, lane)[b] = n_nodes / s_n;
+      cluster.map_shared_rank(invphi, lane)[b] = 1.f / phis[b];
+    }
+  }
+}
+
+// Both modes: the theta SGRLD step of one column (abs, floor) from its
+// gradient fan-in (g0, g1) and theta noise (z0, z1), then beta and beta -
+// eps, in place.
+__device__ __forceinline__ void theta_column(float g0, float g1, float z0,
+                                             float z1, float eps_b, float wt,
+                                             float eta0, float eta1,
+                                             float eps, float& th0,
+                                             float& th1, float& bet,
+                                             float& bme) {
+  const float t0 = th0, t1 = th1;
+  float n0 = fabsf(t0 + eps_b / 2.f * (eta0 - t0 + wt * g0)
+                   + sqrtf(eps_b * t0) * z0);
+  float n1 = fabsf(t1 + eps_b / 2.f * (eta1 - t1 + wt * g1)
+                   + sqrtf(eps_b * t1) * z1);
+  n0 = fmaxf(n0, 1e-24f);
+  n1 = fmaxf(n1, 1e-24f);
+  th0 = n0;
+  th1 = n1;
+  bet = n1 / (n0 + n1);
+  bme = bet - eps;
+}
+
+// Both modes: 8 bf16 values (one 16-byte load) widened to float32 into
+// dst (16-byte aligned).
+__device__ __forceinline__ void widen8(float* dst, const __nv_bfloat16* src) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+  const float2 a = __bfloat1622float2(h[0]);
+  const float2 b = __bfloat1622float2(h[1]);
+  const float2 e = __bfloat1622float2(h[2]);
+  const float2 f = __bfloat1622float2(h[3]);
+  reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(e.x, e.y, f.x, f.y);
+}
+
+// Both modes, the contrib of one column: acc = coef[b, :] . col and acc2 =
+// coef[b2, :] . col over the n neighbors, the two chains of FMAs
+// interleaved; 16-byte coefficient loads with coef4.
+__device__ __forceinline__ void contrib_pair(const float* coef_a,
+                                             const float* col, int b, int b2,
+                                             int n, bool coef4, float& acc,
+                                             float& acc2) {
+  if (coef4) {
+    const float4* cb = reinterpret_cast<const float4*>(coef_a + b * n);
+    const float4* cb2 = reinterpret_cast<const float4*>(coef_a + b2 * n);
+#pragma unroll
+    for (int j4 = 0; j4 < kMaxNeighbors / 4; ++j4) {
+      if (4 * j4 < n) {
+        const float4 c = cb[j4], c2 = cb2[j4];
+        acc += c.x * col[4 * j4];
+        acc2 += c2.x * col[4 * j4];
+        acc += c.y * col[4 * j4 + 1];
+        acc2 += c2.y * col[4 * j4 + 1];
+        acc += c.z * col[4 * j4 + 2];
+        acc2 += c2.z * col[4 * j4 + 2];
+        acc += c.w * col[4 * j4 + 3];
+        acc2 += c2.w * col[4 * j4 + 3];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kMaxNeighbors; ++j) {
+      if (j < n) {
+        acc += coef_a[b * n + j] * col[j];
+        acc2 += coef_a[b2 * n + j] * col[j];
+      }
+    }
+  }
+}
+
 template <typename PiT>
 __global__ void __launch_bounds__(kThreads) window_kernel(Params<PiT> P) {
   constexpr bool kF32 = std::is_same<PiT, float>::value;
@@ -344,7 +570,7 @@ __global__ void __launch_bounds__(kThreads) window_kernel(Params<PiT> P) {
   // this cluster's chain: its block of pi and its slice of every operand
   // ([C, T, ...] chain-major; the offsets are taken where they are used)
   const size_t chain = blockIdx.x / S;
-  const size_t TB = (size_t)T * B, TE = (size_t)T * E;
+  const size_t TB = (size_t)T * B;
   PiT* const pi_c = P.pi + chain * P.N * K;
   float* const sum_c = P.phi_sum + chain * P.N;
   __syncthreads();
@@ -352,25 +578,9 @@ __global__ void __launch_bounds__(kThreads) window_kernel(Params<PiT> P) {
   // The window's indices, labels, masks and lane maps, once: ids and
   // codes as ints, the bool arrays as bits, the two lane maps packed.
   {
-    int* smc = SI(smc);
-    int* snodes = SI(snodes);
-    int* snbrs = SI(snbrs);
-    unsigned* slanes = SU(slanes);
-    for (int i = tid; i < T * R; i += kThreads) smc[i] = P.mcode[chain * T * R + i];
-    for (int i = tid; i < T * B; i += kThreads) snodes[i] = P.nodes[chain * TB + i];
-    for (int i = tid; i < T * n; i += kThreads) snbrs[i] = P.nbrs[chain * T * n + i];
-    for (int i = tid; i < T * E; i += kThreads)
-      slanes[i] = (unsigned)P.lanes_u[chain * TE + i]
-                  | ((unsigned)P.lanes_v[chain * TE + i] << 16);
-    pack_bits(SU(ybits), P.y + chain * TB * n, T * B * n, warp, lane);
-    pack_bits(SU(mbits), P.node_mask + chain * TB, T * B, warp, lane);
-    pack_bits(SU(yebits), P.y_edges + chain * TE, T * E, warp, lane);
-    pack_bits(SU(embits), P.edge_mask + chain * TE, T * E, warp, lane);
-    for (int kk = tid; kk < kw; kk += kThreads) {
-      SM(th0)[kk] = P.theta_in[chain * K * 2 + 2 * (k0 + kk)];
-      SM(th1)[kk] = P.theta_in[chain * K * 2 + 2 * (k0 + kk) + 1];
-      SM(bet)[kk] = P.beta_in[chain * K + k0 + kk];
-    }
+    stage_window(P, chain, k0, kw, SI(smc), SI(snodes), SI(snbrs),
+                 SU(slanes), SU(ybits), SU(mbits), SU(yebits), SU(embits),
+                 SM(th0), SM(th1), SM(bet), tid, warp, lane);
     // zero the columns past the slice once (both row buffers, and beta -
     // eps): the 16-byte loads of step 2 read them
     float* rows_a = SM(rows0);
@@ -422,15 +632,7 @@ __global__ void __launch_bounds__(kThreads) window_kernel(Params<PiT> P) {
           for (int c = c08; c < nchunk8; c += cstep8) {
             float* dst = rbuf + r * ld + c * width8;
             if (vec8) {
-              const uint4 raw = *reinterpret_cast<const uint4*>(src + c * 8);
-              const __nv_bfloat162* h =
-                  reinterpret_cast<const __nv_bfloat162*>(&raw);
-              const float2 a = __bfloat1622float2(h[0]);
-              const float2 b = __bfloat1622float2(h[1]);
-              const float2 e = __bfloat1622float2(h[2]);
-              const float2 f = __bfloat1622float2(h[3]);
-              reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
-              reinterpret_cast<float4*>(dst)[1] = make_float4(e.x, e.y, f.x, f.y);
+              widen8(dst, src + c * 8);
             } else {
               dst[0] = __bfloat162float(src[c]);
             }
@@ -548,43 +750,10 @@ __global__ void __launch_bounds__(kThreads) window_kernel(Params<PiT> P) {
     //          per node): q summed over the ranks in order, the pair
     //          coefficients, the e/p sum, the mask count, 1/phi and
     //          N/n_valid, pushed to every CTA of the cluster -------------
-    {
-      const unsigned* ybits = SU(ybits);
-      const int* nd = SI(snodes) + t * B;
-      const int* nb = SI(snbrs) + t * n;
-      const size_t ybase = (size_t)t * B * n;
-      const float* qin = SM(qin);
-      const int nl = (B + S - 1) / S;
-      for (int lb = warp; lb * S + rank < B; lb += kWarps) {
-        const int b = lb * S + rank;
-        float s_ce = 0.f, s_n = 0.f;
-        for (int j = lane; j < n; j += 32) {
-          float q = 0.f;
-          for (int r = 0; r < S; ++r) q += qin[(r * nl + lb) * n + j];
-          const int pair = b * n + j;
-          const float y = bit(ybits, ybase + pair) ? 1.f : 0.f;
-          // a shared neighbor that is the node itself is excluded
-          const float m = nb[j] != nd[b] ? 1.f : 0.f;
-          const float sgn = 2.f * y - 1.f;
-          const float e = y > 0.5f ? eps : P.one_minus_eps;
-          float p = sgn * q + e;
-          if (!(m > 0.5f)) p = 1.f;   // masked lanes must not turn into NaN
-          const float inv_p = 1.f / p;
-          const float a = sgn * inv_p * m;
-          for (int x = 0; x < S; ++x) cluster.map_shared_rank(SM(coef), x)[pair] = a;
-          s_ce += e * inv_p * m;
-          s_n += m;
-        }
-        s_ce = warp_sum(s_ce);
-        s_n = warp_sum(s_n);
-        if (lane < S) {   // lane x writes CTA x's copy
-          cluster.map_shared_rank(SM(ce), lane)[b] = s_ce;
-          cluster.map_shared_rank(SM(nval), lane)[b] = s_n;
-          cluster.map_shared_rank(SM(scale), lane)[b] = P.n_nodes / s_n;
-          cluster.map_shared_rank(SM(invphi), lane)[b] = 1.f / phis[b];
-        }
-      }
-    }
+    node_coefficients<false>(cluster, SM(qin), SU(ybits), SI(snodes) + t * B,
+                      SI(snbrs) + t * n, phis, SM(coef), SM(ce), SM(nval),
+                      SM(scale), SM(invphi), t, B, n, S, rank, warp, lane,
+                      eps, P.one_minus_eps, P.n_nodes);
     cluster.sync();
     PHASE(3);
 
@@ -624,32 +793,7 @@ __global__ void __launch_bounds__(kThreads) window_kernel(Params<PiT> P) {
         for (int b = grp; b < B; b += 2 * groups) {
           const int b2 = b + groups < B ? b + groups : b;   // b again: discarded
           float acc = 0.f, acc2 = 0.f;
-          if (coef4) {
-            const float4* cb = reinterpret_cast<const float4*>(coef_a + b * n);
-            const float4* cb2 = reinterpret_cast<const float4*>(coef_a + b2 * n);
-#pragma unroll
-            for (int j4 = 0; j4 < kMaxNeighbors / 4; ++j4) {
-              if (4 * j4 < n) {
-                const float4 c = cb[j4], c2 = cb2[j4];
-                acc += c.x * col[4 * j4];
-                acc2 += c2.x * col[4 * j4];
-                acc += c.y * col[4 * j4 + 1];
-                acc2 += c2.y * col[4 * j4 + 1];
-                acc += c.z * col[4 * j4 + 2];
-                acc2 += c2.z * col[4 * j4 + 2];
-                acc += c.w * col[4 * j4 + 3];
-                acc2 += c2.w * col[4 * j4 + 3];
-              }
-            }
-          } else {
-#pragma unroll
-            for (int j = 0; j < kMaxNeighbors; ++j) {
-              if (j < n) {
-                acc += coef_a[b * n + j] * col[j];
-                acc2 += coef_a[b2 * n + j] * col[j];
-              }
-            }
-          }
+          contrib_pair(coef_a, col, b, b2, n, coef4, acc, acc2);
           finish(b, kk, acc, bk);
           if (b2 != b) finish(b2, kk, acc2, bk);
         }
@@ -774,17 +918,8 @@ __global__ void __launch_bounds__(kThreads) window_kernel(Params<PiT> P) {
           g0 += gpart[(w * KW + kk) * 2];
           g1 += gpart[(w * KW + kk) * 2 + 1];
         }
-        const float t0 = th0[kk], t1 = th1[kk];
-        float n0 = fabsf(t0 + eps_b / 2.f * (P.eta0 - t0 + wt * g0)
-                         + sqrtf(eps_b * t0) * bz[2 * kk]);
-        float n1 = fabsf(t1 + eps_b / 2.f * (P.eta1 - t1 + wt * g1)
-                         + sqrtf(eps_b * t1) * bz[2 * kk + 1]);
-        n0 = fmaxf(n0, 1e-24f);
-        n1 = fmaxf(n1, 1e-24f);
-        th0[kk] = n0;
-        th1[kk] = n1;
-        bet[kk] = n1 / (n0 + n1);
-        bme[kk] = bet[kk] - eps;
+        theta_column(g0, g1, bz[2 * kk], bz[2 * kk + 1], eps_b, wt, P.eta0,
+                     P.eta1, eps, th0[kk], th1[kk], bet[kk], bme[kk]);
       }
     }
     __syncthreads();
@@ -829,19 +964,499 @@ __global__ void __launch_bounds__(kThreads) window_kernel(Params<PiT> P) {
 #undef SU
 #undef SI
 
-// Sets the kernel's attributes and launches C clusters of S CTAs.
+// The wide mode's shared arrays, as SM / SU / SI above.
+constexpr int kWideFields = sizeof(WideLayout) / sizeof(size_t);
+#define WM(name) (smem + s_off[offsetof(WideLayout, name) / sizeof(size_t)])
+#define WU(name) reinterpret_cast<unsigned*>(WM(name))
+#define WI(name) reinterpret_cast<int*>(WM(name))
+
+// The same window as window_kernel, for the shapes whose resident layout
+// fits no cluster (the step rows [B+n, kw] and the staged slice [T*B, kw]
+// grow with K): the staged rows go to a global scratch P.staged [C, T*B,
+// K] that the wrapper allocates (6.5 MB at T=12, B=33, K=4096: it stays in
+// the 50 MB L2), and each CTA takes its slice in chunks of wc columns.
+// A CTA reads back only the columns it wrote itself, so the scratch needs
+// no ordering across CTAs. Per step t:
+//   a. per chunk: the step rows' chunk (pre-window rows from pi, rows an
+//      earlier step wrote from the scratch) by cp.async, the next chunk
+//      in flight while this one computes; the q partials accumulate over
+//      the chunks in column order (the resident mode's order at the same
+//      slice), then go to the nodes' owners;
+//   b. the coefficients (node_coefficients, as in the resident mode);
+//   c. per chunk: the rows and the phi noise again; contrib and the phi
+//      step; phi' is written to the scratch and its row partials
+//      accumulate; then the row-sum exchange;
+//   d. per chunk: the staged rows normalized in place in the scratch and
+//      copied (masked lanes as 1/K) to shared memory, the edge partials
+//      accumulated; then the edge-sum exchange;
+//   e. per chunk: the normalized rows again, the gradient fan-in over the
+//      edges and the theta step of the chunk's columns.
+// Sums over columns (q, the row sums, the edge sums) are taken in another
+// order than the resident mode's, so the two modes agree to float32
+// rounding, not bit for bit; the result does not depend on C. Their
+// rounding is kept near a pairwise sum's, the plain version's: q in four
+// sums per node (one per column mod 4) joined per chunk, the row and edge
+// sums per lane over the chunks and then over the warp, and the ranks'
+// partials pairwise (rank_sum) — at K = 4096 the row sums (phi_sum ~
+// 2000) would otherwise round several ulps farther from float64.
+template <typename PiT>
+__global__ void __launch_bounds__(kThreads) window_kernel_wide(Params<PiT> P) {
+  constexpr bool kF32 = std::is_same<PiT, float>::value;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ unsigned s_off[kWideFields];
+#ifdef WINDOW_PHASES
+  __shared__ unsigned long long s_phase[kPhases];
+  long long t_last = clock64();
+#endif
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int B = P.B, n = P.n, E = P.E, K = P.K, T = P.T, R = P.B + P.n;
+  const int KW = P.kw;
+  const int k0 = rank * KW;
+  const int kw = min(K, k0 + KW) - k0;
+  const int WC = P.wc;
+  const int ldc = row_stride(WC);
+  const int nck = (kw + WC - 1) / WC;       // chunks of this CTA's slice
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float eps = P.eps;
+  if (tid == 0) {
+    const WideLayout L = layout_wide(T, B, n, E, KW, S, WC);
+    const size_t* f = reinterpret_cast<const size_t*>(&L);
+    for (int i = 0; i < kWideFields; ++i) s_off[i] = (unsigned)f[i];
+#ifdef WINDOW_PHASES
+    for (int i = 0; i < kPhases; ++i) s_phase[i] = 0;
+#endif
+  }
+  const size_t chain = blockIdx.x / S;
+  const size_t TB = (size_t)T * B;
+  PiT* const pi_c = P.pi + chain * P.N * K;
+  float* const sum_c = P.phi_sum + chain * P.N;
+  // this CTA's columns of the chain's staged rows [T*B, K]
+  float* const stg = P.staged + chain * TB * K + k0;
+  __syncthreads();
+  stage_window(P, chain, k0, kw, WI(smc), WI(snodes), WI(snbrs), WU(slanes),
+               WU(ybits), WU(mbits), WU(yebits), WU(embits), WM(th0),
+               WM(th1), WM(bet), tid, warp, lane);
+  for (int kk = tid; kk < (KW + 3) / 4 * 4; kk += kThreads)
+    WM(bme)[kk] = kk < kw ? P.beta_in[chain * K + k0 + kk] - eps : 0.f;
+  __syncthreads();
+
+  // The chunk c of step t (columns [c*WC, c*WC + cw) of the slice) into
+  // the buffers of parity p, asynchronously (one group): every lane's
+  // row, from pi when it holds its pre-window value, else from the
+  // scratch; with `noise` the step's phi noise too. 16-byte copies where
+  // K and kw are multiples of 4; else 4-byte copies, and the columns up
+  // to the next multiple of 4 are zeroed (the q loop reads them).
+  const bool vec = (K % 4 == 0) && (KW % 4 == 0);
+  const bool vec8 = (K % 8 == 0) && (KW % 8 == 0);
+  auto load_chunk = [&](int t, int c, int p, bool noise) {
+    const int* mct = WI(smc) + t * R;
+    const int* nd = WI(snodes) + t * B;
+    const int* nb = WI(snbrs) + t * n;
+    float* rbuf = p ? WM(ch1) : WM(ch0);
+    const int c0 = c * WC;
+    const int cw = min(WC, kw - c0);
+    auto src_id = [&](int r) { return r < B ? min(nd[r], P.N - 1) : nb[r - B]; };
+    if constexpr (!kF32) {
+      // bf16 pre-window rows: synchronous loads widened to float32
+      if (vec8) {
+        const int nq = cw / 8;
+        for (int i = tid; i < R * nq; i += kThreads) {
+          const int r = i / nq, q = i - r * nq;
+          if (mct[r] > 0) continue;
+          widen8(rbuf + r * ldc + 8 * q,
+                 pi_c + (size_t)src_id(r) * K + k0 + c0 + 8 * q);
+        }
+      } else {
+        for (int i = tid; i < R * cw; i += kThreads) {
+          const int r = i / cw, x = i - r * cw;
+          if (mct[r] > 0) continue;
+          rbuf[r * ldc + x] =
+              __bfloat162float(pi_c[(size_t)src_id(r) * K + k0 + c0 + x]);
+        }
+      }
+    }
+    if (vec) {
+      const int nq = cw / 4;
+      for (int i = tid; i < R * nq; i += kThreads) {
+        const int r = i / nq, q = i - r * nq;
+        const int m = mct[r];
+        float* dst = rbuf + r * ldc + 4 * q;
+        if (m > 0)
+          cp_async16(dst, stg + (size_t)(m - 1) * K + c0 + 4 * q);
+        else if constexpr (kF32)
+          cp_async16(dst, pi_c + (size_t)src_id(r) * K + k0 + c0 + 4 * q);
+      }
+    } else {
+      const int cw4 = (cw + 3) / 4 * 4;
+      for (int i = tid; i < R * cw4; i += kThreads) {
+        const int r = i / cw4, x = i - r * cw4;
+        const int m = mct[r];
+        float* dst = rbuf + r * ldc + x;
+        if (x >= cw)
+          *dst = 0.f;
+        else if (m > 0)
+          cp_async4(dst, stg + (size_t)(m - 1) * K + c0 + x);
+        else if constexpr (kF32)
+          cp_async4(dst, pi_c + (size_t)src_id(r) * K + k0 + c0 + x);
+      }
+    }
+    if (noise) {
+      float* nbuf = p ? WM(nz1) : WM(nz0);
+      const float* noise_t = P.noise + (chain * T + t) * B * K + k0 + c0;
+      if (vec) {
+        const int nq = cw / 4;
+        for (int i = tid; i < B * nq; i += kThreads) {
+          const int b = i / nq, q = i - b * nq;
+          cp_async16(nbuf + b * WC + 4 * q, noise_t + (size_t)b * K + 4 * q);
+        }
+      } else {
+        for (int i = tid; i < B * cw; i += kThreads) {
+          const int b = i / cw, x = i - b * cw;
+          cp_async4(nbuf + b * WC + x, noise_t + (size_t)b * K + x);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // start chunk c + 1's copies (or an empty group), then wait for chunk c
+  auto next_chunk = [&](int t, int c, bool noise) {
+    if (c + 1 < nck)
+      load_chunk(t, c + 1, (c + 1) & 1, noise);
+    else
+      cp_async_commit();
+    cp_async_wait_older();
+    __syncthreads();
+  };
+  PHASE(0);
+
+  for (int t = 0; t < T; ++t) {
+    const int* mct = WI(smc) + t * R;
+    const int* nd = WI(snodes) + t * B;
+    const unsigned* mbits = WU(mbits);
+    float* const phis = WM(phis);
+    // ---- a. q partials, chunk by chunk; the step's phi sums --------------
+    load_chunk(t, 0, 0, false);
+    for (int b = tid; b < B; b += kThreads)
+      phis[b] = mct[b] > 0 ? WM(ssum)[mct[b] - 1] : sum_c[min(nd[b], P.N - 1)];
+    {
+      const float* bme = WM(bme);
+      float* const qacc = WM(qacc);
+      float* const qin = WM(qin);
+      const int nl = (B + S - 1) / S;
+      for (int c = 0; c < nck; ++c) {
+        next_chunk(t, c, false);
+        const float* rows = (c & 1) ? WM(ch1) : WM(ch0);
+        const int c0 = c * WC;
+        const int cw = min(WC, kw - c0);
+        const float4* bm4 = reinterpret_cast<const float4*>(bme + c0);
+        for (int base = warp; base < B; base += kNodesPerWarp * kWarps) {
+          for (int j = lane; j < n; j += 32) {
+            const float4* pb = reinterpret_cast<const float4*>(rows + (B + j) * ldc);
+            // four sums per node, one per column mod 4, joined per chunk
+            float4 acc[kNodesPerWarp] = {};
+            for (int k4 = 0; k4 < (cw + 3) / 4; ++k4) {
+              const float4 v = pb[k4];
+              const float4 bm = bm4[k4];
+#pragma unroll
+              for (int q = 0; q < kNodesPerWarp; ++q) {
+                const int b = base + q * kWarps;
+                if (b < B) {
+                  const float4 x = reinterpret_cast<const float4*>(rows + b * ldc)[k4];
+                  acc[q].x += (x.x * bm.x) * v.x;
+                  acc[q].y += (x.y * bm.y) * v.y;
+                  acc[q].z += (x.z * bm.z) * v.z;
+                  acc[q].w += (x.w * bm.w) * v.w;
+                }
+              }
+            }
+#pragma unroll
+            for (int q = 0; q < kNodesPerWarp; ++q) {
+              const int b = base + q * kWarps;
+              if (b >= B) continue;
+              const float part = (acc[q].x + acc[q].y) + (acc[q].z + acc[q].w);
+              const float sum = c > 0 ? qacc[b * n + j] + part : part;
+              if (c + 1 < nck)
+                qacc[b * n + j] = sum;
+              else
+                cluster.map_shared_rank(qin, b % S)[(rank * nl + b / S) * n + j] = sum;
+            }
+          }
+        }
+        __syncthreads();
+      }
+    }
+    cluster.sync();
+    PHASE(2);
+
+    // ---- b. the coefficients of this CTA's nodes, to every CTA -----------
+    node_coefficients<true>(cluster, WM(qin), WU(ybits), nd, WI(snbrs) + t * n,
+                      phis, WM(coef), WM(ce), WM(nval), WM(scale),
+                      WM(invphi), t, B, n, S, rank, warp, lane, eps,
+                      P.one_minus_eps, P.n_nodes);
+    cluster.sync();
+    PHASE(3);
+
+    // ---- c. contrib and the phi step, chunk by chunk: phi' to the scratch
+    //         and to the chunk's node rows, whose partial sums (one warp per
+    //         row) accumulate; then pushed to every CTA -------------------
+    float* const stg_t = stg + (size_t)t * B * K;
+    {
+      const float eps_t = P.eps_phi[t];
+      const float* coef_a = WM(coef);
+      const float* ce = WM(ce);
+      const float* nval = WM(nval);
+      const float* scale = WM(scale);
+      const float* invphi = WM(invphi);
+      float* const racc = WM(racc);
+      const bool coef4 = (n % 4 == 0);
+      load_chunk(t, 0, 0, true);
+      for (int c = 0; c < nck; ++c) {
+        next_chunk(t, c, true);
+        float* const rows = (c & 1) ? WM(ch1) : WM(ch0);
+        const float* nz = (c & 1) ? WM(nz1) : WM(nz0);
+        const int c0 = c * WC;
+        const int cw = min(WC, kw - c0);
+        const float* bme = WM(bme) + c0;
+        const int groups = kThreads >= cw ? kThreads / cw : 1;
+        auto finish = [&](int b, int kk, float acc, float bk) {
+          const float s_contrib = bk * acc + ce[b];
+          const float grads = (s_contrib - nval[b]) * invphi[b];
+          const float phi_k = rows[b * ldc + kk] * phis[b];
+          const float v = fabsf(phi_k
+                                + eps_t / 2.f * (P.alpha - phi_k + scale[b] * grads)
+                                + sqrtf(eps_t * phi_k) * nz[b * WC + kk]);
+          const float vf = fmaxf(v, 1e-24f);
+          rows[b * ldc + kk] = vf;
+          stg_t[(size_t)b * K + c0 + kk] = vf;
+        };
+        for (int item = tid; item < cw * groups; item += kThreads) {
+          const int grp = item / cw;
+          const int kk = item - grp * cw;
+          float col[kMaxNeighbors];
+#pragma unroll
+          for (int j = 0; j < kMaxNeighbors; ++j)
+            col[j] = j < n ? rows[(B + j) * ldc + kk] : 0.f;
+          const float bk = bme[kk];
+          for (int b = grp; b < B; b += 2 * groups) {
+            const int b2 = b + groups < B ? b + groups : b;   // b again: discarded
+            float acc = 0.f, acc2 = 0.f;
+            contrib_pair(coef_a, col, b, b2, n, coef4, acc, acc2);
+            finish(b, kk, acc, bk);
+            if (b2 != b) finish(b2, kk, acc2, bk);
+          }
+        }
+        __syncthreads();
+        // each lane's columns of a row (one warp per row) accumulate over
+        // the chunks
+        for (int b = warp; b < B; b += kWarps) {
+          float acc = c > 0 ? racc[b * 32 + lane] : 0.f;
+          for (int kk = lane; kk < cw; kk += 32) acc += rows[b * ldc + kk];
+          racc[b * 32 + lane] = acc;
+        }
+        __syncthreads();
+      }
+      for (int b = warp; b < B; b += kWarps) {
+        const float rs = warp_sum(racc[b * 32 + lane]);
+        if (lane < S) cluster.map_shared_rank(WM(rin), lane)[rank * B + b] = rs;
+      }
+    }
+    cluster.sync();
+    PHASE(5);
+
+    // ---- d. the row sums (ranks in order); per chunk the staged rows
+    //         normalized in place and copied to shared memory (masked lanes
+    //         as 1/K), the edge partials (one warp per edge) accumulated;
+    //         then pushed to every CTA ----------------------------------------
+    const unsigned* const slanes = WU(slanes) + t * E;
+    const unsigned* const yebits = WU(yebits);
+    {
+      const float* rin = WM(rin);
+      float* const rsv = WM(rsv);
+      float* const eacc = WM(eacc);
+      for (int b = tid; b < B; b += kThreads) {
+        const float rs = rank_sum(rin + b, B, S);
+        rsv[b] = rs;
+        WM(ssum)[t * B + b] = rs;
+      }
+      __syncthreads();
+      float* const rows = WM(ch0);
+      for (int c = 0; c < nck; ++c) {
+        const int c0 = c * WC;
+        const int cw = min(WC, kw - c0);
+        for (int i = tid; i < B * cw; i += kThreads) {
+          const int b = i / cw, x = i - b * cw;
+          float* g = stg_t + (size_t)b * K + c0 + x;
+          const float v = *g / rsv[b];
+          *g = v;
+          rows[b * ldc + x] = bit(mbits, (size_t)t * B + b) ? v : P.inv_k;
+        }
+        __syncthreads();
+        const float* bet = WM(bet) + c0;
+        for (int e = warp; e < E; e += kWarps) {
+          const unsigned pk = slanes[e];
+          const float* pu = rows + (pk & 0xffffu) * ldc;
+          const float* pv = rows + (pk >> 16) * ldc;
+          const bool link = bit(yebits, (size_t)t * E + e);
+          float* acc = eacc + (e * 32 + lane) * 2;   // this lane's, over the chunks
+          float s_pp = c > 0 ? acc[0] : 0.f, s_pr = c > 0 ? acc[1] : 0.f;
+          for (int kk = lane; kk < cw; kk += 32) {
+            const float pp = pu[kk] * pv[kk];
+            s_pp += pp;
+            s_pr += (link ? bet[kk] : 1.f - bet[kk]) * pp;
+          }
+          acc[0] = s_pp;
+          acc[1] = s_pr;
+        }
+        __syncthreads();
+      }
+      for (int e = warp; e < E; e += kWarps) {
+        const float s_pp = warp_sum(eacc[(e * 32 + lane) * 2]);
+        const float s_pr = warp_sum(eacc[(e * 32 + lane) * 2 + 1]);
+        if (lane < S) {
+          float* peer = cluster.map_shared_rank(WM(ein), lane);
+          peer[(rank * E + e) * 2] = s_pp;
+          peer[(rank * E + e) * 2 + 1] = s_pr;
+        }
+      }
+    }
+    cluster.sync();
+    PHASE(7);
+
+    // ---- e. per edge the sums over the ranks in order; per chunk the
+    //         normalized rows again, the gradient fan-in (warp w takes the
+    //         edges e = w mod kWarps for lane-strided columns, then one
+    //         thread per column adds the kWarps partials in warp order) and
+    //         the theta step ---------------------------------------------------
+    {
+      const unsigned* embits = WU(embits);
+      const float* ein = WM(ein);
+      float* const epr = WM(epr);
+      for (int e = tid; e < E; e += kThreads) {
+        const float s_pp = rank_sum(ein + 2 * e, 2 * E, S);
+        const float s_pr = rank_sum(ein + 2 * e + 1, 2 * E, S);
+        const bool link = bit(yebits, (size_t)t * E + e);
+        epr[e] = s_pr + (link ? eps : P.one_minus_eps) * (1.f - s_pp);
+      }
+      const float eps_b = P.eps_theta[t];
+      const float wt = P.wts[chain * T + t];
+      const float* bnoise_t = P.bnoise + (chain * T + t) * K * 2 + 2 * k0;
+      float* const rows = WM(ch0);
+      float* const gpart = WM(gpart);
+      for (int c = 0; c < nck; ++c) {
+        const int c0 = c * WC;
+        const int cw = min(WC, kw - c0);
+        for (int i = tid; i < B * cw; i += kThreads) {
+          const int b = i / cw, x = i - b * cw;
+          rows[b * ldc + x] = bit(mbits, (size_t)t * B + b)
+                                  ? stg_t[(size_t)b * K + c0 + x] : P.inv_k;
+        }
+        __syncthreads();
+        float* const th0 = WM(th0) + c0;
+        float* const th1 = WM(th1) + c0;
+        float* const bet = WM(bet) + c0;
+        for (int kk = lane; kk < cw; kk += 32) {
+          const float t0 = th0[kk], t1 = th1[kk], bk = bet[kk];
+          const float inv_ts = 1.f / (t0 + t1);
+          const float inv_t0 = 1.f / t0, inv_t1 = 1.f / t1;
+          float g0 = 0.f, g1 = 0.f;
+          for (int e = warp; e < E; e += kWarps) {
+            const bool link = bit(yebits, (size_t)t * E + e);
+            const float prsum = epr[e];
+            const float m = bit(embits, (size_t)t * E + e) ? 1.f : 0.f;
+            const unsigned pk = slanes[e];
+            const float pp = rows[(pk & 0xffffu) * ldc + kk] * rows[(pk >> 16) * ldc + kk];
+            const float f = ((link ? bk : 1.f - bk) * pp) / prsum;
+            g0 += (f * ((link ? 0.f : inv_t0) - inv_ts)) * m;
+            g1 += (f * ((link ? inv_t1 : 0.f) - inv_ts)) * m;
+          }
+          gpart[(warp * WC + kk) * 2] = g0;
+          gpart[(warp * WC + kk) * 2 + 1] = g1;
+        }
+        __syncthreads();
+        float* const bme = WM(bme) + c0;
+        for (int kk = tid; kk < cw; kk += kThreads) {
+          float g0 = 0.f, g1 = 0.f;
+          for (int w = 0; w < kWarps; ++w) {
+            g0 += gpart[(w * WC + kk) * 2];
+            g1 += gpart[(w * WC + kk) * 2 + 1];
+          }
+          theta_column(g0, g1, bnoise_t[2 * (c0 + kk)],
+                       bnoise_t[2 * (c0 + kk) + 1], eps_b, wt, P.eta0,
+                       P.eta1, eps, th0[kk], th1[kk], bet[kk], bme[kk]);
+        }
+        __syncthreads();
+      }
+    }
+    PHASE(9);
+  }
+
+  // ---- the scatter: the kept rows from the scratch (each CTA its own
+  //      columns), their sums by CTA 0, theta and beta by slice -------------
+  {
+    const bool* keep = P.keep + chain * TB;
+    const int* snodes = WI(snodes);
+    for (int tb = warp; tb < T * B; tb += kWarps) {
+      if (!keep[tb]) continue;
+      PiT* dst = pi_c + (size_t)snodes[tb] * K + k0;
+      const float* src = stg + (size_t)tb * K;
+      for (int kk = lane; kk < kw; kk += 32) dst[kk] = to_store(src[kk], dst);
+    }
+    if (rank == 0) {
+      const float* ssum = WM(ssum);
+      for (int tb = tid; tb < T * B; tb += kThreads)
+        if (keep[tb]) sum_c[snodes[tb]] = ssum[tb];
+    }
+    for (int kk = tid; kk < kw; kk += kThreads) {
+      P.theta_out[chain * K * 2 + 2 * (k0 + kk)] = WM(th0)[kk];
+      P.theta_out[chain * K * 2 + 2 * (k0 + kk) + 1] = WM(th1)[kk];
+      P.beta_out[chain * K + k0 + kk] = WM(bet)[kk];
+    }
+  }
+  // the peers may still be reading this CTA's last partials
+  cluster.sync();
+  PHASE(10);
+#ifdef WINDOW_PHASES
+  if (tid == 0 && blockIdx.x == 0)
+    for (int i = 0; i < kPhases; ++i) g_phase_cycles[i] += s_phase[i];
+#endif
+}
+
+#undef WM
+#undef WU
+#undef WI
+
+// The kernel of a mode: the resident one, or with a chunk width the wide.
+template <typename PiT>
+using KernelFn = void (*)(Params<PiT>);
+
+template <typename PiT>
+KernelFn<PiT> kernel_of(int wc) {
+  return wc > 0 ? window_kernel_wide<PiT> : window_kernel<PiT>;
+}
+
+// Sets a kernel's shared memory (and, past 8, the non-portable cluster
+// size) attributes.
+template <typename PiT>
+cudaError_t set_attributes(KernelFn<PiT> fn, int S, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && S > 8)
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return err;
+}
+
+// Launches C clusters of S CTAs of the mode's kernel.
 template <typename PiT>
 cudaError_t launch(const Params<PiT>& P, int C, int S, size_t smem,
                    cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      window_kernel<PiT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const KernelFn<PiT> fn = kernel_of<PiT>(P.wc);
+  cudaError_t err = set_attributes<PiT>(fn, S, smem);
   if (err != cudaSuccess) return err;
-  if (S > 8) {
-    err = cudaFuncSetAttribute(
-        window_kernel<PiT>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C * S);
   cfg.blockDim = dim3(kThreads);
@@ -854,7 +1469,7 @@ cudaError_t launch(const Params<PiT>& P, int C, int S, size_t smem,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, window_kernel<PiT>, P);
+  err = cudaLaunchKernelEx(&cfg, fn, P);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -868,16 +1483,16 @@ Params<PiT> make_params(void* pi, float* phi_sum, const bool* y,
                         const int* lanes_u, const int* lanes_v,
                         const int* mcode, const float* wts,
                         const float* theta_in, const float* beta_in,
-                        float* theta_out, float* beta_out, int T, int B,
-                        int n, int E, int K, int N, int kw, float eps,
-                        float one_minus_eps, float alpha, float n_nodes,
-                        float eta0, float eta1, float inv_k,
+                        float* theta_out, float* beta_out, float* staged,
+                        int T, int B, int n, int E, int K, int N, int kw,
+                        int wc, float eps, float one_minus_eps, float alpha,
+                        float n_nodes, float eta0, float eta1, float inv_k,
                         const float* eps_phi, const float* eps_theta) {
   Params<PiT> P{static_cast<PiT*>(pi), phi_sum, y, nodes, nbrs, node_mask,
                 keep, noise, bnoise, y_edges, edge_mask, lanes_u, lanes_v,
-                mcode, wts, theta_in, beta_in, theta_out, beta_out, T, B, n,
-                E, K, N, kw, eps, one_minus_eps, alpha, n_nodes, eta0, eta1,
-                inv_k, {}, {}};
+                mcode, wts, theta_in, beta_in, theta_out, beta_out, staged,
+                T, B, n, E, K, N, kw, wc, eps, one_minus_eps, alpha, n_nodes,
+                eta0, eta1, inv_k, {}, {}};
   for (int t = 0; t < T; ++t) {
     P.eps_phi[t] = eps_phi[t];
     P.eps_theta[t] = eps_theta[t];
@@ -888,10 +1503,13 @@ Params<PiT> make_params(void* pi, float* phi_sum, const bool* y,
 }  // namespace
 
 // Bytes of shared memory per CTA with a cluster of S CTAs (either storage
-// type).
+// type): the resident mode's (wc = 0) or the wide mode's with chunks of wc
+// columns.
 extern "C" size_t window_kernel_smem_bytes(int T, int B, int n, int E, int K,
-                                           int S) {
-  return layout(T, B, n, E, slice_width(K, S), S).total * sizeof(float);
+                                           int S, int wc) {
+  const int kw = slice_width(K, S);
+  return (wc > 0 ? layout_wide(T, B, n, E, kw, S, wc).total
+                 : layout(T, B, n, E, kw, S).total) * sizeof(float);
 }
 
 // Launches C clusters of S CTAs (one cluster per chain) on `stream`;
@@ -899,31 +1517,35 @@ extern "C" size_t window_kernel_smem_bytes(int T, int B, int n, int E, int K,
 // or bfloat16 when pi_bf16 is 1) and phi_sum [C*N] (float32) are updated
 // in place; every operand holds the C chains' slices one after another
 // (chain-major); `eps_phi` and `eps_theta` are host arrays of T floats,
-// shared by the chains.
+// shared by the chains. wc = 0 runs the resident mode; wc > 0 (a
+// multiple of 8) the wide mode, whose staged rows go to `staged`, a
+// float32 scratch [C, T*B, K] (unused and may be null when wc = 0).
 extern "C" int window_kernel_launch(
     void* pi, float* phi_sum, const bool* y, const int* nodes,
     const int* nbrs, const bool* node_mask, const bool* keep,
     const float* noise, const float* bnoise, const bool* y_edges,
     const bool* edge_mask, const int* lanes_u, const int* lanes_v,
     const int* mcode, const float* wts, const float* theta_in,
-    const float* beta_in, float* theta_out, float* beta_out, int C, int T,
-    int B, int n, int E, int K, int N, int S, int pi_bf16, float eps,
-    float one_minus_eps, float alpha, float n_nodes, float eta0, float eta1,
-    float inv_k, const float* eps_phi, const float* eps_theta, void* stream) {
+    const float* beta_in, float* theta_out, float* beta_out, float* staged,
+    int C, int T, int B, int n, int E, int K, int N, int S, int wc,
+    int pi_bf16, float eps, float one_minus_eps, float alpha, float n_nodes,
+    float eta0, float eta1, float inv_k, const float* eps_phi,
+    const float* eps_theta, void* stream) {
   // lanes are packed in 16 bits each
   if (C < 1 || T < 1 || T > kMaxWindow || n > kMaxNeighbors || S < 1
-      || S > kMaxCluster || B > 0xffff || (pi_bf16 != 0 && pi_bf16 != 1))
+      || S > kMaxCluster || B > 0xffff || (pi_bf16 != 0 && pi_bf16 != 1)
+      || wc < 0 || wc % 8 != 0 || (wc > 0 && staged == nullptr))
     return (int)cudaErrorInvalidValue;
   const int kw = slice_width(K, S);
   if ((S - 1) * kw >= K) return (int)cudaErrorInvalidValue;  // empty slice
-  const size_t smem = window_kernel_smem_bytes(T, B, n, E, K, S);
+  const size_t smem = window_kernel_smem_bytes(T, B, n, E, K, S, wc);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define WINDOW_PARAMS(PiT)                                                  \
   make_params<PiT>(pi, phi_sum, y, nodes, nbrs, node_mask, keep, noise,    \
                    bnoise, y_edges, edge_mask, lanes_u, lanes_v, mcode, wts, \
-                   theta_in, beta_in, theta_out, beta_out, T, B, n, E, K, N, \
-                   kw, eps, one_minus_eps, alpha, n_nodes, eta0, eta1,      \
-                   inv_k, eps_phi, eps_theta)
+                   theta_in, beta_in, theta_out, beta_out, staged, T, B, n, \
+                   E, K, N, kw, wc, eps, one_minus_eps, alpha, n_nodes,     \
+                   eta0, eta1, inv_k, eps_phi, eps_theta)
   const cudaError_t err =
       pi_bf16 ? launch(WINDOW_PARAMS(__nv_bfloat16), C, S, smem, st)
               : launch(WINDOW_PARAMS(float), C, S, smem, st);
@@ -932,17 +1554,13 @@ extern "C" int window_kernel_launch(
 }
 
 // The most clusters of S CTAs (with their shared memory) that the card
-// runs at once, or a negative CUDA error (the float32 instantiation).
+// runs at once in the mode of `wc`, or a negative CUDA error (the float32
+// instantiation).
 extern "C" int window_kernel_max_clusters(int T, int B, int n, int E, int K,
-                                          int S) {
-  const size_t smem = window_kernel_smem_bytes(T, B, n, E, K, S);
-  cudaError_t err = cudaFuncSetAttribute(
-      window_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err == cudaSuccess && S > 8)
-    err = cudaFuncSetAttribute(
-        window_kernel<float>, cudaFuncAttributeNonPortableClusterSizeAllowed,
-        1);
+                                          int S, int wc) {
+  const size_t smem = window_kernel_smem_bytes(T, B, n, E, K, S, wc);
+  const KernelFn<float> fn = kernel_of<float>(wc);
+  cudaError_t err = set_attributes<float>(fn, S, smem);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(S);
@@ -956,7 +1574,7 @@ extern "C" int window_kernel_max_clusters(int T, int B, int n, int E, int K,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, window_kernel<float>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
   return err == cudaSuccess ? clusters : -(int)err;
 }
 

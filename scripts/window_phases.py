@@ -11,13 +11,17 @@ Run from the root of a checkout:
 window: at the single-chain bench shape (T, B, n, E, K) = (12, 33, 32, 32, 256)
 and the chain shape (16 chains of (6, 33, 32, 32, 256)) in the resident
 mode, and at the K = 4096 path's (12, 33, 32, 32, 4096) in the wide mode
-(with the plan's chunk width), for each cluster
-size S that fits: the clusters the card runs at once, the device time per
-window (CUDA events; the device sleeps while the host queues 50
-windows, so the host's launch cost is not in it), and the clock cycles
-per step of each stage, from a second build of the source with
--DWINDOW_PHASES (thread 0 of the first CTA adds the cycles between
-consecutive barriers into one slot per stage).
+(in the plan's layout: the step layout, whose chunk covers the slice)
+and at (6, 33, 32, 32, 8192) (its chunked layout), for each cluster size
+S that fits: the clusters the card runs at once,
+the device time per window (CUDA events; the device sleeps while the
+host queues 50 windows, so the host's launch cost is not in it), and the
+clock cycles per step of each stage, from a second build of the source
+with -DWINDOW_PHASES (thread 0 of the first CTA adds the cycles between
+consecutive barriers into one slot per stage). The two wide windows also
+run on the build of chip_smoke.PARENT_SRC (the kernel before the step
+layout: its chunked layout at that source's own plan), the same two
+ways, so that its stages stand beside this build's in one run.
 
 mmsb: the same for the MMSB window at (T, B, n, E, K) = (12, 33, 32, 32,
 64), the --model mmsb --window 12 shape, and (12, 33, 32, 32, 128), for
@@ -38,6 +42,7 @@ import ctypes
 import json
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
@@ -61,15 +66,43 @@ STAGES = ["init + first gather", "gather issue + redirect + wait",
           "fan-in partials", "theta step", "scatter + final barrier",
           "calibration: bare block barrier",
           "calibration: bare cluster barrier"]
-# the wide mode's stages (window_kernel_wide's PHASE slots)
-WIDE_STAGES = ["init", "(unused)",
-               "a: q partials by chunk, pushed + cluster barrier",
-               "b: owners' coefficients pushed + cluster barrier",
-               "(unused)", "c: contrib + phi step + row partials by chunk, "
-               "pushed + cluster barrier", "(unused)",
-               "d: normalize + edge partials by chunk, pushed + cluster "
-               "barrier", "(unused)", "e: fan-in + theta step by chunk",
-               "scatter + final barrier"]
+# the wide mode's stages in its step layout (window_kernel_step's PHASE
+# slots)
+WIDE_STAGES = ["init + first gather + first noise",
+               "rows of step t-1",
+               "a: q partials pushed + noise issue + cluster barrier",
+               "b: owners' coefficients pushed + next gather issue + "
+               "cluster barrier",
+               "c: contrib + phi step",
+               "row and edge partials pushed + cluster barrier",
+               "d: row sums, prsum, normalize + scratch stores",
+               "(unused)", "e: fan-in partials", "e: theta step",
+               "scatter + final barrier",
+               "calibration: bare block barrier",
+               "calibration: bare cluster barrier",
+               "wait for the step's rows", "a: q partials (register-tiled)",
+               "c: wait for the step's noise"]
+# the slots of a step's stages, for each kind of stage list (calibration,
+# init and scatter left out)
+STEP_SLOTS = {"resident": range(1, 10), "step": [*range(1, 10), 13, 14, 15],
+              "wide": range(1, 10)}
+# its chunked layout's stages (window_kernel_wide's PHASE slots)
+CHUNKED_STAGES = ["init", "(unused)",
+                  "a: q partials by chunk, pushed + cluster barrier",
+                  "b: owners' coefficients pushed + cluster barrier",
+                  "(unused)", "c: contrib + phi step + row and edge "
+                  "partials by chunk, pushed + cluster barrier", "(unused)",
+                  "(unused)", "(unused)", "e: normalize + scratch stores + "
+                  "fan-in + theta step by chunk", "scatter + final barrier"]
+# the chunked layout's stages in the build of chip_smoke.PARENT_SRC
+PARENT_STAGES = ["init", "(unused)",
+                 "a: q partials by chunk, pushed + cluster barrier",
+                 "b: owners' coefficients pushed + cluster barrier",
+                 "(unused)", "c: contrib + phi step + row partials by chunk, "
+                 "pushed + cluster barrier", "(unused)",
+                 "d: normalize + edge partials by chunk, pushed + cluster "
+                 "barrier", "(unused)", "e: fan-in + theta step by chunk",
+                 "scatter + final barrier"]
 REPS = 50
 
 
@@ -87,9 +120,10 @@ def device_ms(fn) -> float:
     return start.elapsed_time(end) / REPS
 
 
-def _phase_build(kernels, name: str, flag: str):
-    """A second build of csrc/<name>.cu with the phase counters on."""
-    src = kernels._CSRC / f"{name}.cu"
+def _phase_build(kernels, name: str, flag: str, src=None):
+    """A second build of csrc/<name>.cu (or of ``src``) with the phase
+    counters on."""
+    src = src or kernels._CSRC / f"{name}.cu"
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = kernels.BUILD_DIR / f"lib{name}_phases.so"
     subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, flag, "-o",
@@ -102,11 +136,20 @@ def run_window(sizes, kernels, result):
     from mcmc_ammsb_tpu_torch import chains_flat, testing
     from mcmc_ammsb_tpu_torch.ops import window
 
+    import chip_smoke
+
     plib = window.bind_window_lib(_phase_build(kernels, "window_kernel",
                                                "-DWINDOW_PHASES"))
     plib.window_kernel_phases.argtypes = [ctypes.c_void_p]
     lib = window._window_lib()
     limit = kernels.smem_limit(torch.device("cuda"))
+    parent_src = Path(chip_smoke.__file__).resolve().parent / \
+        chip_smoke.PARENT_SRC
+    old_lib = chip_smoke.ParentWindowLib(
+        chip_smoke.build_parent(kernels), window, limit)
+    old_plib = window.bind_window_lib(_phase_build(
+        kernels, "window_kernel_parent", "-DWINDOW_PHASES", parent_src))
+    old_plib.window_kernel_phases.argtypes = [ctypes.c_void_p]
     phases = (ctypes.c_ulonglong * 16)()
 
     case = testing.window_case(0, 12, 33, 32, 32, 256)
@@ -127,49 +170,79 @@ def run_window(sizes, kernels, result):
     mcw = window._correction_codes(cfgw, bw.nodes, bw.node_mask,
                                    xsw[1][:, 0, :])
     keepw = window._last_write_wins(bw.nodes, bw.node_mask, 12)
+    wide = lambda st: window.window_apply_cuda(cfgw, st, xsw, mcw, keepw)
+    ccase8 = testing.window_case(0, 6, 33, 32, 32, 8192)
+    cfg8 = testing.window_case_config(ccase8)
+    st8, xs8 = testing.window_case_torch(ccase8, "cuda")
+    mc8 = window._correction_codes(cfg8, xs8[0].nodes, xs8[0].node_mask,
+                                   xs8[1][:, 0, :])
+    keep8 = window._last_write_wins(xs8[0].nodes, xs8[0].node_mask, 6)
+    wide8 = lambda st: window.window_apply_cuda(cfg8, st, xs8, mc8, keep8)
     runs = {
         "single (12,33,32,32,256)": ((12, 33, 32, 32, 256), 12, lambda st:
-            window.window_apply_cuda(cfg1, st, xs1, mc1, keep1), st1),
+            window.window_apply_cuda(cfg1, st, xs1, mc1, keep1), st1,
+            lib, plib),
         "16 chains (6,33,32,32,256)": ((6, 33, 32, 32, 256), 6, lambda st:
             window.window_chain_apply_cuda(cfgc, st, win.xs_t, win.mcode,
-                                           win.keep), stc),
-        "wide (12,33,32,32,4096)": ((12, 33, 32, 32, 4096), 12, lambda st:
-            window.window_apply_cuda(cfgw, st, xsw, mcw, keepw), stw),
+                                           win.keep), stc, lib, plib),
+        "wide (12,33,32,32,4096)": ((12, 33, 32, 32, 4096), 12, wide, stw,
+                                    lib, plib),
+        "wide (12,33,32,32,4096), parent build": (
+            (12, 33, 32, 32, 4096), 12, wide, stw, old_lib, old_plib),
+        "wide (6,33,32,32,8192)": ((6, 33, 32, 32, 8192), 6, wide8, st8,
+                                   lib, plib),
+        "wide (6,33,32,32,8192), parent build": (
+            (6, 33, 32, 32, 8192), 6, wide8, st8, old_lib, old_plib),
     }
-    real_plan = window.window_plan
-    for name, (shape, t_win, run, state) in runs.items():
+    real_plan, real_lib = window.window_plan, window._window_lib
+    for name, (shape, t_win, run, state, tlib, phlib) in runs.items():
         k = shape[4]
-        mode, wc = real_plan(*shape, limit)[1:]
+        mode = real_plan(*shape, limit)[1]
+        if tlib is old_lib:
+            mode = "wide"           # its chunked layout, at its own plan
         for s in sizes:
             w = window.window_slice_width(k, s)
-            plan = (s, mode, wc)
-            if (s - 1) * w >= k or window.plan_smem_bytes(shape,
-                                                          plan) > limit:
+            if (s - 1) * w >= k:
                 continue
-            window.window_plan = lambda *args, _p=plan: _p
+            if tlib is old_lib:
+                if s != old_lib.plan(*shape)[0]:
+                    continue
+                wc = old_lib.plan(*shape)[1]
+                smem = old_lib.lib.window_kernel_smem_bytes(*shape, s, wc)
+            else:
+                wc = (window.step_chunk(k, s) if mode == "step"
+                      else real_plan(*shape, limit)[2])
+                smem = window.plan_smem_bytes(shape, (s, mode, wc))
+            if smem > limit:
+                continue
+            window.window_plan = lambda *args, _p=(s, mode, wc): _p
             scratch = state._replace(pi=state.pi.clone(),
                                      phi_sum=state.phi_sum.clone())
-            window._window_lib = lambda: lib
+            window._window_lib = lambda: tlib
             ms = device_ms(lambda: run(scratch))
-            window._window_lib = lambda: plib
+            window._window_lib = lambda: phlib
             run(scratch)
             torch.cuda.synchronize()
-            plib.window_kernel_phases(phases)      # reads and zeroes
+            phlib.window_kernel_phases(phases)     # reads and zeroes
             run(scratch)
             torch.cuda.synchronize()
-            plib.window_kernel_phases(phases)
-            cyc = [phases[i] / t_win for i in range(len(STAGES))]
+            phlib.window_kernel_phases(phases)
+            stages = (PARENT_STAGES if tlib is old_lib else
+                      {"resident": STAGES, "step": WIDE_STAGES,
+                       "wide": CHUNKED_STAGES}[mode])
+            cyc = [phases[i] / t_win for i in range(len(stages))]
+            clusters_of = (lib if tlib is lib else
+                           old_lib.lib).window_kernel_max_clusters
             result["runs"].append({
                 "run": name, "S": s, "mode": mode, "wc": wc,
-                "smem_per_cta": window.plan_smem_bytes(shape, plan),
-                "max_active_clusters": lib.window_kernel_max_clusters(
-                    *shape, s, wc),
+                "smem_per_cta": smem,
+                "max_active_clusters": clusters_of(*shape, s, wc),
                 "ms_per_window": ms, "us_per_step": 1e3 * ms / t_win,
-                "cycles_per_step": sum(cyc[1:10]),
+                "cycles_per_step": sum(cyc[i] for i in STEP_SLOTS[mode]),
                 "stage_cycles_per_step": [round(c, 1) for c in cyc],
-                "stages": WIDE_STAGES if mode == "wide" else STAGES})
+                "stages": stages})
             print(json.dumps(result["runs"][-1]), flush=True)
-    window.window_plan = real_plan
+    window.window_plan, window._window_lib = real_plan, real_lib
 
 
 def run_mmsb(kernels, result):

@@ -120,7 +120,7 @@ def test_mesh_at_world_size_one():
 def test_mesh_layout_on_four_ranks():
     """Rank r = d*M + m: a model group is consecutive ranks, a data
     group strides by M; the default split of 4 ranks is (1, 4)."""
-    out = spawn(W.mesh_layout, 4, (2, 2), timeout=90)
+    out = spawn(W.mesh_layout, 4, (2, 2), timeout=150)
     for r in out:
         assert (r["d"], r["m"]) == divmod(r["rank"], 2)
         assert r["model"] == [2 * r["d"], 2 * r["d"] + 1]

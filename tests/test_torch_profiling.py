@@ -144,11 +144,12 @@ def test_window_candidates_filtering():
         cfg.replace(rng_backend=config.RngBackend.REFERENCE)) == [0]
     assert autotune.window_candidates(cfg.replace(batch_nodes_cap=65)) == [0]
     big = cfg.replace(K=256)
-    # a card whose blocks take what the T = 8 window needs at the largest
-    # cluster: the longer windows fit at no cluster size
-    limit = window.window_smem_bytes(8, big.max_batch_nodes,
-                                     big.num_node_sample,
-                                     big.max_batch_edges, 256, 16)
+    # a card whose blocks take what the T = 8 window needs in its smallest
+    # layout (the wide mode's step layout at the largest cluster): the
+    # longer windows fit in no layout at any cluster size
+    limit = window.window_step_smem_bytes(8, big.max_batch_nodes,
+                                          big.num_node_sample,
+                                          big.max_batch_edges, 256, 16)
     assert autotune.window_candidates(big, smem_limit=limit) == [0, 6, 8]
 
 

@@ -21,8 +21,9 @@ from torch_parity import assert_close, jax_config, jax_window_case
 # (T, B, n, E, K): a collision-heavy tiny window, the odd shape
 # (m, n, K, T) = (5, 7, 12, 3) and the m > n shape (13, 3, 24, 5)
 SHAPES = [(4, 9, 8, 8, 16), (3, 6, 7, 5, 12), (5, 14, 3, 13, 24)]
-# windows at the K where the kernel runs its wide mode
-WIDE_SHAPES = [(3, 6, 7, 5, 1536), (4, 9, 8, 8, 2048)]
+# windows at the K where the kernel of the main path's shape runs its
+# wide mode; the last takes the wide mode's step layout itself
+WIDE_SHAPES = [(3, 6, 7, 5, 1536), (4, 9, 8, 8, 2048), (4, 9, 8, 8, 8192)]
 
 
 def _both(seed, shape):
@@ -189,11 +190,14 @@ def test_window_cluster_size_bench_shapes():
         window.window_cluster_size(64, 33, 32, 32, 4096)
 
 
-# (T, K) of the wide mode at the main path's (B, n, E) = (33, 32, 32): the
-# JAX package's max_safe_window T at each K from 1536 to 16384, and the
-# ragged K = 2050 (not a multiple of 4: 4-byte copies)
-WIDE_PLANS = [(12, 1536), (12, 2048), (12, 2050), (12, 3072), (12, 4096),
-              (8, 6144), (6, 8192), (3, 16384)]
+# (T, K, layout) of the wide mode at the main path's (B, n, E) = (33, 32,
+# 32): the JAX package's max_safe_window T at each K from 1536 to 16384,
+# and the ragged K = 2050 (not a multiple of 4: 4-byte copies); the step
+# layout (a step's rows in shared memory) up to K = 4096, the chunked one
+# past it
+WIDE_PLANS = [(12, 1536, "step"), (12, 2048, "step"), (12, 2050, "step"),
+              (12, 3072, "step"), (12, 4096, "step"), (8, 6144, "wide"),
+              (6, 8192, "wide"), (3, 16384, "wide")]
 
 
 @pytest.mark.parametrize("shape", [
@@ -211,24 +215,32 @@ def test_window_plan_resident_where_it_fits(shape):
                                           "resident", 0)
 
 
-@pytest.mark.parametrize("t_win,k", WIDE_PLANS)
-def test_window_plan_wide_covers_jax_windows(t_win, k):
+@pytest.mark.parametrize("t_win,k,layout", WIDE_PLANS)
+def test_window_plan_wide_covers_jax_windows(t_win, k, layout):
     """At every K from 1536 to 16384 the JAX package windows at the main
     path's shape (its max_safe_window T), the resident layout fits no
-    cluster of an H100 and window_plan takes the wide mode: its layout
-    fits 232,448 B, its column slices tile K with none empty, its chunk
-    is one of WIDE_CHUNKS; every shorter window runs in one mode or the
-    other."""
+    cluster of an H100 and window_plan takes the wide mode in the layout
+    WIDE_PLANS names, at S = 16: the step layout with a chunk that covers
+    the slice (a multiple of 8), or the chunked one with a chunk of
+    WIDE_CHUNKS narrower than the slice; its layout fits 232,448 B, its
+    column slices tile K with none empty; every shorter window runs in
+    one mode or another."""
     shape = (t_win, 33, 32, 32, k)
     with pytest.raises(ValueError):
         window.window_cluster_size(*shape)
     s, mode, wc = window.window_plan(*shape)
-    assert mode == "wide" and wc in window.WIDE_CHUNKS
-    assert 1 <= s <= window.MAX_CLUSTER
-    assert window.window_wide_smem_bytes(*shape, s, wc) <= window.H100_SMEM
-    assert window.plan_smem_bytes(shape, (s, mode, wc)) == \
-        window.window_wide_smem_bytes(*shape, s, wc)
     w = window.window_slice_width(k, s)
+    assert (s, mode) == (16, layout)
+    if mode == "step":
+        assert wc == window.step_chunk(k, s) and w <= wc < w + 8
+        assert wc % 8 == 0
+        smem = window.window_step_smem_bytes(*shape, s)
+    else:
+        assert wc in window.WIDE_CHUNKS and wc < w
+        assert window.window_step_smem_bytes(*shape, s) > window.H100_SMEM
+        smem = window.window_wide_smem_bytes(*shape, s, wc)
+    assert smem <= window.H100_SMEM
+    assert window.plan_smem_bytes(shape, (s, mode, wc)) == smem
     cols = [c for r in range(s) for c in range(r * w, min(k, (r + 1) * w))]
     assert cols == list(range(k))
     assert all(min(k, (r + 1) * w) > r * w for r in range(s))
@@ -239,7 +251,8 @@ def test_window_plan_wide_covers_jax_windows(t_win, k):
 def test_window_plan_limits():
     """The plan refuses what the kernel refuses (n > 32 neighbors, T >
     64) and a limit that fits neither mode, naming the shape; with a
-    smaller card the wide mode takes narrower chunks and clusters."""
+    smaller card the wide mode takes the chunked layout, narrower chunks
+    and clusters; each plan's bytes fit its limit and 232,448 B."""
     with pytest.raises(ValueError, match="n <= 32"):
         window.window_plan(12, 33, 64, 32, 256)
     with pytest.raises(ValueError, match="<= 64 steps"):
@@ -249,13 +262,30 @@ def test_window_plan_limits():
     narrow = window.window_wide_smem_bytes(12, 33, 32, 32, 4096, 16, 64)
     assert window.window_plan(12, 33, 32, 32, 4096, narrow) == (16, "wide",
                                                                  64)
+    shape = (12, 33, 32, 32, 4096)
+    step = window.window_step_smem_bytes(*shape, 16)
+    assert step <= window.H100_SMEM
+    assert window.window_plan(*shape, step) == (16, "step", 256)
+    assert window.window_plan(*shape, step - 1) == (16, "wide", 128)
+    for limit in (narrow, step - 1, step, window.H100_SMEM):
+        plan = window.window_plan(*shape, limit)
+        assert window.plan_smem_bytes(shape, plan) <= min(limit,
+                                                          window.H100_SMEM)
+    # the longest window the step layout holds at K = 4096 takes it; one
+    # more step falls back to the chunked layout
+    longest = max(t for t in range(1, 65) if window.window_step_smem_bytes(
+        t, 33, 32, 32, 4096, 16) <= window.H100_SMEM)
+    assert longest >= 12
+    assert window.window_plan(longest, 33, 32, 32, 4096)[1] == "step"
+    assert window.window_plan(longest + 1, 33, 32, 32, 4096)[1] == "wide"
 
 
 def _cu_layout_words(fn: str, **dims) -> int:
-    """The word count of csrc/window_kernel.cu's ``fn`` (``layout`` or
-    ``layout_wide``) at ``dims``, evaluated from the source text: each
-    ``o += <expr>;`` of the function, its casts dropped and its integer
-    divisions made Python's."""
+    """The word count of csrc/window_kernel.cu's ``fn`` (``layout``,
+    ``layout_wide`` or ``layout_step``) at ``dims``, evaluated from the
+    source text: each ``o += <expr>;`` of the function, its casts dropped
+    and its integer divisions made Python's (the helpers it calls written
+    out again here)."""
     import re
     from pathlib import Path
 
@@ -263,7 +293,10 @@ def _cu_layout_words(fn: str, **dims) -> int:
            / "window_kernel.cu").read_text()
     body = re.search(rf"inline \w+ {fn}\(.*?\n}}\n", src, re.S).group(0)
     env = dict(dims, kWarps=16,
-               up4=lambda x: -(-x // 4) * 4,
+               up4=lambda x: -(-x // 4) * 4, larger=max,
+               q_splits=lambda b: (1 if -(-b // 11) >= 16
+                                   else 16 // -(-b // 11)),
+               fan_groups=lambda kw: 512 // kw if kw <= 512 else 1,
                words_of_bits=lambda x: -(-x // 32),
                row_stride=lambda w: 4 * (-(-w // 4) + 1 + (-(-w // 4)) % 2))
 
@@ -284,9 +317,10 @@ def _cu_layout_words(fn: str, **dims) -> int:
                                    (12, 33, 32, 32, 2050), (64, 9, 8, 8, 100)])
 @pytest.mark.parametrize("s,wc", [(16, 128), (16, 64), (3, 64), (1, 128)])
 def test_window_smem_bytes_mirror_the_kernel_layouts(shape, s, wc):
-    """window_wide_smem_bytes is struct WideLayout's layout_wide, and
-    window_smem_bytes struct Layout's layout, term by term: both equal
-    the sums of csrc/window_kernel.cu's own expressions, read from the
+    """window_wide_smem_bytes is struct WideLayout's layout_wide,
+    window_step_smem_bytes struct StepLayout's layout_step and
+    window_smem_bytes struct Layout's layout, term by term: each equals
+    the sum of csrc/window_kernel.cu's own expressions, read from the
     source (on the card chip_smoke.py also holds them against the built
     kernel's window_kernel_smem_bytes)."""
     t_win, b_cap, n_smpl, e_cap, k = shape
@@ -296,6 +330,8 @@ def test_window_smem_bytes_mirror_the_kernel_layouts(shape, s, wc):
         window.window_wide_smem_bytes(*shape, s, wc)
     assert 4 * _cu_layout_words("layout", **dims) == \
         window.window_smem_bytes(*shape, s)
+    assert 4 * _cu_layout_words("layout_step", **dims) == \
+        window.window_step_smem_bytes(*shape, s)
 
 
 def test_window_core_cuda_rejects_cpu_tensors():
@@ -308,14 +344,26 @@ def test_window_core_cuda_rejects_cpu_tensors():
         window.window_apply_cuda(cfg, state, xs, mcode, keep)
 
 
-@pytest.mark.cuda
-def test_window_core_cuda_matches_plain_on_gpu():
-    """On a GPU: the fused kernel against its plain version at the bench
-    shape, each on its own copy of the state (the kernel writes pi in
-    place): rtol 1e-5, atol 1e-8 normwise, as chip_smoke.py checks it."""
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip: decided when the test runs, never at
+    import."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
-    case = testing.window_case(0, 12, 33, 32, 32, 256)
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(12, 33, 32, 32, 256),
+                                   (12, 33, 32, 32, 4096),
+                                   (6, 33, 32, 32, 8192)])
+def test_window_core_cuda_matches_plain_on_gpu(cuda_device, shape):
+    """On a GPU: the fused kernel against its plain version at the bench
+    shape (resident mode) and at the K = 4096 and 8192 windows (the wide
+    mode's step and chunked layouts), each on its own copy of the state
+    (the kernel writes pi in place): rtol 1e-5, atol 1e-8 normwise, as
+    chip_smoke.py checks it."""
+    case = testing.window_case(0, *shape)
     cfg = testing.window_case_config(case)
     state, xs = testing.window_case_torch(case, "cuda")
     mcode, keep = _codes(cfg, xs)
