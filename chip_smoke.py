@@ -31,9 +31,11 @@ Phases, one line each; any failure raises and the exit code is not 0:
                pi in place, so each version gets its own copy of the
                state) in its resident mode at (T, B, n, E, K) = (12, 33,
                32, 32, 256), the bench shape, (3, 6, 7, 5, 12), (12, 33,
-               32, 32, 100) and (48, 33, 32, 32, 256) (a cluster of 16),
+               32, 32, 100), (48, 33, 32, 32, 256) (a cluster of 16) and
+               (12, 33, 32, 32, 1024), the com-youtube rung's window,
                and in its wide mode (staged rows in a global scratch) at
-               (12, 33, 32, 32, 4096), the -k 4096 path's, and the
+               (12, 33, 32, 32, 4096), the -k 4096 path's and the
+               com-lj rung's, and the
                ragged (12, 33, 32, 32, 2050) (4-byte copies) in its step
                layout (a step's rows in shared memory, bulk copies) and
                at (6, 33, 32, 32, 8192) and (3, 33, 32, 32, 16384) in its
@@ -82,8 +84,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
                and 0.3 (the boost pre-pass) on 1280 lanes, with the
                kernel's and the plain version's times;
      bf16    — the window kernel's bf16 row mode (bfloat16 pi storage) at
-               the main path's and the chain path's shapes and in the wide
-               mode at the -k 4096 path's: the bf16
+               the main path's, the chain path's and the com-youtube
+               rung's shapes and in the wide mode at the -k 4096 path's:
+               the bf16
                launch equals the float32 launch on the upcast rows,
                rounded to nearest-even, bit for bit; against the plain
                version at bf16 the stored values are equal or 1 ulp
@@ -93,7 +96,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
                pi's row bytes halved;
      sort    — ops/sort.bitonic_sort_rows on the card equals torch.sort;
   4. slice   — hoisted loops on the GPU against the same loops on the
-               CPU from one state and one operand tuple, N=300: the
+               CPU from one state and one operand tuple, N=300 (the
+               states' pi drawn by the numpy host law, host_law_pi): the
                a-MMSB windows (normwise rtol 1e-5, atol 1e-8), the
                MMSB windows (the measured envelope of
                tests/test_window_mmsb.py), --phi-impl pallas with
@@ -144,7 +148,7 @@ Phases, one line each; any failure raises and the exit code is not 0:
                launches 2 x 84 = 168 times with C = 16 and the single-chain
                entry
                never, every chain's ppx falls below its ppx[0]; the
-               aggregate rate and the host time of the chains' init are
+               aggregate rate and the seconds of the chains' init are
                printed; then a small --num-chains 3 --rhat-draws 2 run
                logs a finite R-hat line;
                the host-sampled paths and the perfect-hash main path
@@ -227,6 +231,27 @@ Phases, one line each; any failure raises and the exit code is not 0:
                equals the synchronous exit save leaf for leaf, and a run
                restored from the async save of step 501 ends in the exit
                save's state, bit for bit;
+  7. ladder — ladder.run_rung on every rung at its full graph size (N =
+               12,008, 310,497, 1,086,089 and 3,997,409: the power-law
+               surrogates, whose N, E and max fan-out must equal the JAX
+               package's artifacts, bench_results/ppx_*.json), 2000 steps
+               each with an evaluation every 1000; the rungs' host data
+               (generation, split, CSR) is built in two worker processes
+               started with the script, so it overlaps the earlier
+               phases; each rung prints its stage seconds (data, split,
+               graph, edge sets, init, training, evaluations), updates/s,
+               ppx series, peak device memory beside pi's bytes and the K
+               rule's working set (the peak minus pi must stay within
+               it), and its window launches by mode, layout, pi dtype and
+               K: none at ca-HepPh (window 0), all resident at com-dblp
+               (K = 256) and com-youtube (K = 1024), all in the wide
+               mode's step layout on bf16 rows at com-lj (K = 4096, the
+               reference K, pi 32.75 GB: the K rule on this card); every
+               ppx finite and ppx at step 2000 below ppx[0]; com-lj's
+               init seconds beside the host law's, estimated from this
+               host's rate of numpy Gamma draws;
+     entry   — graft.entry()'s step once on the card: step_count 2, pi
+               finite with rows summing to 1 within 1e-5;
 then a JSON line of the kernels, the card's name and power limit, and
 the result line last. Each phase line ends with the seconds since the
 script began.
@@ -410,14 +435,28 @@ AUTO_ARGS = ["--synthetic", "317080,7", "-k", "256", "--steps-per-call",
 WIDE_ARGS = ["--synthetic", "317080,7", "-k", "4096", "-x", "2000", "-i",
              "500", "--device", "cuda"]
 # (T, B, n, E, K) of the fused window kernel's checks; the first is the
-# main path's; the first four run its resident mode, the rest its wide
-# mode: the K = 4096 path's, the ragged K = 2050 (4-byte copies), and the
-# JAX package's longest windows at K = 8192 and 16384
+# main path's; the first four run its resident mode, the next four its
+# wide mode: the K = 4096 path's, the ragged K = 2050 (4-byte copies), and
+# the JAX package's longest windows at K = 8192 and 16384; the last, in
+# the resident mode, is the com-youtube rung's window (K = 1024)
 WINDOW_SHAPES = [(12, 33, 32, 32, 256), (3, 6, 7, 5, 12),
                  (12, 33, 32, 32, 100), (48, 33, 32, 32, 256),
                  (12, 33, 32, 32, 4096), (12, 33, 32, 32, 2050),
-                 (6, 33, 32, 32, 8192), (3, 33, 32, 32, 16384)]
+                 (6, 33, 32, 32, 8192), (3, 33, 32, 32, 16384),
+                 (12, 33, 32, 32, 1024)]
 WIDE_MAIN_SHAPE = WINDOW_SHAPES[4]
+LADDER_SHAPE = WINDOW_SHAPES[8]
+# the ladder phase: every rung of ladder.RUNGS at full size, 2000 steps
+# each (two 1000-step calls), an evaluation after each call; the window
+# each rung's launches must take ((mode, pi dtype, K), or None: no
+# window); N, E and max fan-out come from the JAX package's artifacts
+LADDER_ITERS, LADDER_INTERVAL = 2000, 1000
+LADDER_WINDOWS = {"ca-HepPh": None, "com-dblp": ("resident", "float32", 256),
+                  "com-youtube": ("resident", "float32", 1024),
+                  "com-lj": ("step", "bfloat16", 4096)}
+# the host's Gamma(1, 1) float32 draws timed to estimate the host law's
+# init at com-lj's size
+HOST_GAMMA_DRAWS = 1 << 24
 # (C, T, B, n, E, K) of its chain mode; the first is the chain path's,
 # the last runs the wide mode
 CHAIN_SHAPES = [(CHAINS, 6, 33, 32, 32, 256), (3, 4, 9, 8, 8, 16),
@@ -1390,6 +1429,51 @@ def check_host_slices(mods, phi_pallas, testing_mod):
           f"{max(errs):.3e}")
 
 
+@contextlib.contextmanager
+def host_law_pi(learner_mod, chains_flat, rng):
+    """Within the block, pi is drawn by the numpy host law: each init's
+    rows continue its theta's host stream (``rng.host_gamma_rng``, one
+    block of ``pi_block_rows`` after another), not by pi's device. The
+    slice phases compare a GPU loop with a CPU loop over 23 steps from
+    one state, and their float32 gaps grow with that state's
+    conditioning (from the device law's CPU state of the a-MMSB slice, a
+    relative change of 1e-7 in pi moves beta after 23 steps much farther
+    than from this one); the host law keeps their states, and so their
+    tolerances, as they were before pi moved to the device."""
+    streams = {}
+    real_rng = rng.host_gamma_rng
+    real_rows = learner_mod.gamma_rows
+
+    def host_gamma_rng(cfg):
+        streams[cfg.init_seed] = real_rng(cfg)
+        return streams[cfg.init_seed]
+
+    def gamma_rows(cfg, device, dtype=torch.float32, out=None, rows=None):
+        if rows is not None:
+            raise ValueError("host_law_pi draws whole inits only")
+        draws = streams.pop(cfg.init_seed)
+        pi, phi_sum = out or (
+            torch.empty(cfg.N, cfg.K, device=device,
+                        dtype=learner_mod.pi_storage_dtype(cfg)),
+            torch.empty(cfg.N, dtype=dtype, device=device))
+        block = learner_mod.pi_block_rows(cfg.K)
+        for start in range(0, cfg.N, block):
+            g = learner_mod.gamma_draws(cfg, draws, (
+                min(block, cfg.N - start), cfg.K), device).to(dtype)
+            s = g.sum(dim=-1)
+            pi[start:start + g.shape[0]] = g / s[:, None]
+            phi_sum[start:start + g.shape[0]] = s
+        return pi, phi_sum
+
+    rng.host_gamma_rng = host_gamma_rng
+    learner_mod.gamma_rows = chains_flat.gamma_rows = gamma_rows
+    try:
+        yield
+    finally:
+        rng.host_gamma_rng = real_rng
+        learner_mod.gamma_rows = chains_flat.gamma_rows = real_rows
+
+
 def check_slices(mods, window, window_mmsb, phi_pallas, chains_flat,
                  testing_mod):
     """Phase 4: the hoisted loops on the GPU vs the CPU from one state."""
@@ -1713,8 +1797,8 @@ def run_chain_main(cli, kmods):
           f"{ppx[2]}; chain-kernel launches {launches['window_chain']} "
           f"(= {expected} windows, {launches['chains']} chain blocks), "
           f"single-chain launches {launches['window']}; aggregate "
-          f"{rate:.1f} updates/s over the second 504-step interval; host "
-          f"init of the {CHAINS} chains {init:.3f} s")
+          f"{rate:.1f} updates/s over the second 504-step interval; init "
+          f"of the {CHAINS} chains {init:.3f} s (pi drawn on the card)")
     return launches, rate, init
 
 
@@ -2465,16 +2549,17 @@ def check_cli_resume(cli, kmods, tmp):
 
 
 def check_bf16_kernels(window, chains_flat, testing, smi):
-    """Phase bf16, the window kernel's bf16 row mode at the main path's
-    and the chain path's shapes, and in the wide mode at the K = 4096
-    path's (``bf16_agree``), timed against the
+    """Phase bf16, the window kernel's bf16 row mode at the main path's,
+    the chain path's and the com-youtube rung's shapes, and in the wide
+    mode at the K = 4096 path's (``bf16_agree``), timed against the
     float32 launches on the same operands in this call (turns: f32,
     bf16, bf16, f32). Returns {kernel: (gaps, max abs err, bf16 ms, f32
     ms, bound ms with pi's row bytes halved, what sets it)}."""
     out = {}
     for name, shape in (("window_kernel", WINDOW_SHAPES[0]),
                         ("window_kernel_chains", CHAIN_SHAPES[0]),
-                        ("window_kernel_wide", WIDE_MAIN_SHAPE)):
+                        ("window_kernel_wide", WIDE_MAIN_SHAPE),
+                        ("window_kernel_ladder", LADDER_SHAPE)):
         cfg, state, args, cuda, plain = window_operands(
             window, chains_flat, testing, shape)
         gaps, err = bf16_agree(testing, cfg, state, args, cuda, plain,
@@ -2754,6 +2839,134 @@ def check_cli_async(cli, checkpoint, bench, tmp, smi):
         shutil.rmtree(path)
 
 
+def start_ladder_data(ladder, data_dir):
+    """Phase ladder's host data: ``ladder.rung_data`` of every rung in two
+    worker processes (spawned, so no CUDA state is inherited), the largest
+    rung first, while the earlier phases run. ``data_dir`` holds no SNAP
+    file, so each rung builds its power-law surrogate. Returns (the pool,
+    {rung: its pending result}); the caller terminates the pool."""
+    import multiprocessing
+
+    pool = multiprocessing.get_context("spawn").Pool(2)
+    order = sorted(ladder.RUNGS, key=lambda r: -ladder.RUNGS[r][2][0])
+    jobs = {name: pool.apply_async(ladder.rung_data, (name, data_dir))
+            for name in order}
+    pool.close()
+    return pool, jobs
+
+
+def host_gamma_ns() -> float:
+    """ns per float32 Gamma(1, 1) draw of numpy on this host: the rate of
+    the host init law the port drew pi with before it drew on the card."""
+    import numpy as np
+
+    draws = np.random.default_rng(0)
+    draws.standard_gamma(1.0, 1 << 16, dtype=np.float32)
+    t0 = time.perf_counter()
+    draws.standard_gamma(1.0, HOST_GAMMA_DRAWS, dtype=np.float32)
+    return (time.perf_counter() - t0) / HOST_GAMMA_DRAWS * 1e9
+
+
+def run_ladder_phase(ladder, window, kernels, kmods, jobs, smi):
+    """Phase 7, the config ladder at full size (LADDER_ITERS steps a rung,
+    ``ladder.run_rung`` on the workers' data): N, E and max fan-out equal
+    to the JAX artifact's, every ppx finite and the last below ppx[0],
+    the window launches all of the rung's LADDER_WINDOWS kind (mode, pi
+    dtype, K) and as many as its windows, the peak device memory minus pi
+    within the K rule's working set. Returns {rung: (launches by
+    "mode/dtype/K", stage seconds, updates/s, peak bytes)}."""
+    root = Path(__file__).resolve().parent
+    limit = kernels.smem_limit(torch.device("cuda"))
+    gamma_ns = host_gamma_ns()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ladder.RUNGS:
+            ref = json.loads((root / "bench_results" / f"ppx_{name}.json")
+                             .read_text())
+            t0 = time.perf_counter()
+            data = jobs[name].get()
+            waited = time.perf_counter() - t0
+            seen = {}
+
+            def record(cfg, s, xs_t, *args, **kwargs):
+                batch, nbrs, ye = xs_t[0], xs_t[1], xs_t[5]
+                mode = window.window_plan(
+                    *batch.nodes.shape[-2:], nbrs.shape[-1], ye.shape[-1],
+                    cfg.K, limit)[1]
+                key = (mode, str(s.pi.dtype).removeprefix("torch."), cfg.K)
+                seen[key] = seen.get(key, 0) + 1
+
+            _counts(kmods, None)
+            with spied(window, "_launch", record):
+                art = ladder.run_rung(name, tmp, tmp, LADDER_ITERS,
+                                      LADDER_INTERVAL, "cuda", data)
+            launches = _counts(kmods, "read")
+            series = [(p["iter"], p["ppx"]) for p in art["series"]]
+            ppx = [p for _, p in series]
+            want = LADDER_WINDOWS[name]
+            n_win = 0 if want is None else (
+                LADDER_ITERS // LADDER_INTERVAL) * (LADDER_INTERVAL // 12)
+            expect = {k: 0 for k in launches}
+            expect.update(window=n_win,
+                          window_wide=n_win if want and want[0] != "resident"
+                          else 0)
+            over = art["peak_memory_bytes"] - art["pi_bytes"]
+            rule = art["k_rule"]
+            work = rule["working_bytes"]
+            bad = [f"{f} {art[f]} (JAX artifact {ref[f]})"
+                   for f in ("N", "E", "max_fan_out") if art[f] != ref[f]]
+            if ([i for i, _ in series] != list(range(
+                    0, LADDER_ITERS + 1, LADDER_INTERVAL))
+                    or not all(math.isfinite(p) for p in ppx)
+                    or not ppx[-1] < ppx[0]):
+                bad.append(f"ppx series {series}")
+            if launches != expect or set(seen) != (
+                    set() if want is None else {want}):
+                bad.append(f"launches {launches} (expected {expect}), by "
+                           f"mode/dtype/K {seen} (expected {want})")
+            if over > work:
+                bad.append(f"peak {art['peak_memory_bytes']} B - pi "
+                           f"{art['pi_bytes']} B = {over} B over the K "
+                           f"rule's working set {work} B")
+            if bad:
+                raise AssertionError(f"ladder {name}: " + "; ".join(bad))
+            sec = art["seconds"]
+            host_s = art["N"] * art["K"] * gamma_ns * 1e-9
+            out[name] = ({"/".join(map(str, k)): v for k, v in seen.items()},
+                         sec, art["updates_per_s"], art["peak_memory_bytes"])
+            phase("ladder", f"{name}: N={art['N']} E={art['E']} max fan-out "
+                  f"{art['max_fan_out']} (the JAX artifact's), K={art['K']}"
+                  f" (reference {ladder.RUNGS[name][1]}), pi "
+                  f"{art['pi_dtype']}, window {art['window']}; seconds: "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in sec.items())
+                  + f" (waited {waited:.2f} s for the workers' data); "
+                  f"{art['updates_per_s']:.1f} updates/s; ppx {series}; "
+                  f"peak device memory {art['peak_memory_bytes']} B, minus "
+                  f"pi's {art['pi_bytes']} B: {over} B (the K rule's "
+                  f"working set {work} B of {rule['device_memory_bytes']} "
+                  f"B); window launches {launches['window']}, by "
+                  f"mode/dtype/K {seen}; pi init {sec['init']:.2f} s on the "
+                  f"card against ~{host_s:.1f} s for the host law ("
+                  f"{art['N'] * art['K']} numpy draws at {gamma_ns:.2f} ns "
+                  f"each on this host); {art['device']}")
+    return out
+
+
+def run_entry_phase(graft):
+    """Phase entry: ``graft.entry()`` on the card, its step once."""
+    fn, args = graft.entry()
+    state = fn(*args)
+    torch.cuda.synchronize()
+    gap = float((state.pi.sum(-1) - 1.0).abs().max())
+    if (state.step_count != 2 or not state.pi.is_cuda
+            or not torch.isfinite(state.pi).all() or gap > 1e-5):
+        raise AssertionError(f"entry(): step_count {state.step_count}, pi "
+                             f"on {state.pi.device}, row sums off by {gap}")
+    phase("entry", f"graft.entry(): one train_step on the card, pi "
+          f"{tuple(state.pi.shape)} rows sum to 1 within {gap:.2e}, "
+          f"step_count {state.step_count}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2761,8 +2974,8 @@ def main() -> int:
     # the port's package: an ImportError here (no checkout around the
     # script) ends the run before anything is printed
     from mcmc_ammsb_tpu_torch import (chains_flat, checkpoint, cli, config,
-                                      data, kernels, native, refckpt, rng,
-                                      testing)
+                                      data, graft, kernels, ladder, native,
+                                      refckpt, rng, testing)
     from mcmc_ammsb_tpu_torch import learner as learner_mod
     from mcmc_ammsb_tpu_torch.models import mmsb
     from mcmc_ammsb_tpu_torch.ops import (device_sampling, edgeset, neighbor,
@@ -2780,55 +2993,70 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}; {smi}")
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    parent = build_all(kernels, native)
-    n, split, graph = _bench_graph(data)
-    check_native(edgeset, graph)
-    check_membership((config, edgeset, device_sampling, neighbor, rng), n,
-                     split, graph, smi)
-    bench = (n, split, graph)
-    w = check_window_kernel(window, kernels, testing, phi_ops, smi)
-    parent_t = check_resident_parent(window, chains_flat, testing, kernels,
-                                     parent)
-    wide_t = check_wide_parent(window, chains_flat, testing, kernels, parent)
-    c_err, c_t = check_chain_kernel(window, kernels, chains_flat, testing,
-                                    phi_ops, smi)
-    bf16_k = check_bf16_kernels(window, chains_flat, testing, smi)
-    check_sort(sort)
-    phi = check_phi_kernel(phi_pallas, kernels, testing)
-    m_err, m_t = check_mmsb_kernel(window, window_mmsb, kernels, testing,
-                                   phi_ops, smi)
-    rr = check_ref_rng_kernel(cli, refblock, ref_rng, MiniBatchSampler, bench)
-    smods = (data, config, learner_mod, device_sampling, mmsb)
-    check_slices(smods, window, window_mmsb, phi_pallas, chains_flat, testing)
-    check_mmsb_engine_slices(smods, testing)
-    kmods = (window, window_mmsb, phi_pallas, refblock)
-    torch.cuda.reset_peak_memory_stats()
-    main_l, main_ppx, main_rate = run_main(cli, kmods)
-    main_mem = torch.cuda.max_memory_allocated()
-    wide_l, _, wide_rate, wide_mem, _ = run_wide_main(cli, kmods, main_l,
-                                                      main_rate, main_mem, smi)
-    shard = run_sharded_phases(cli, kmods, main_l, main_rate, testing, bench,
-                               smi)
-    bf16 = run_bf16_phases(cli, kmods, main_ppx, main_mem, smi)
-    mmsb_l = run_mmsb_main(cli, kmods)
-    phi_l = run_phi_main(cli, kmods)
-    chain_l, _, _ = run_chain_main(cli, kmods)
-    run_rhat(cli)
-    host_l = {name: run_host_main(cli, kmods, name, smi)
-              for name in HOST_RUNS}
-    for name in NEW_RUNS:
-        run_new_main(cli, kmods, name, smi)
-    run_train_ppx_main(cli, kmods, smi)
-    ref_l = {name: run_ref_main(cli, kmods, name, smi) for name in REF_RUNS}
-    run_profile_tune_main(cli, kmods, smi)
-    check_ref_api(cli, native, kmods, window, bench, smi)
-    with tempfile.TemporaryDirectory() as tmp:
-        run_cache_main(cli, tmp, main_ppx[0])
-        run_refckpt_phase(cli, refckpt, kmods, bench, tmp, smi)
-        for name in RESUME_RUNS:
-            check_resume(cli, checkpoint, kmods, bench, tmp, name, smi)
-        check_cli_resume(cli, kmods, tmp)
-        check_cli_async(cli, checkpoint, bench, tmp, smi)
+    ladder_dir = tempfile.TemporaryDirectory()
+    pool, jobs = start_ladder_data(ladder, ladder_dir.name)
+    try:
+        parent = build_all(kernels, native)
+        n, split, graph = _bench_graph(data)
+        check_native(edgeset, graph)
+        check_membership((config, edgeset, device_sampling, neighbor, rng), n,
+                         split, graph, smi)
+        bench = (n, split, graph)
+        w = check_window_kernel(window, kernels, testing, phi_ops, smi)
+        parent_t = check_resident_parent(window, chains_flat, testing,
+                                         kernels, parent)
+        wide_t = check_wide_parent(window, chains_flat, testing, kernels,
+                                   parent)
+        c_err, c_t = check_chain_kernel(window, kernels, chains_flat, testing,
+                                        phi_ops, smi)
+        bf16_k = check_bf16_kernels(window, chains_flat, testing, smi)
+        check_sort(sort)
+        phi = check_phi_kernel(phi_pallas, kernels, testing)
+        m_err, m_t = check_mmsb_kernel(window, window_mmsb, kernels, testing,
+                                       phi_ops, smi)
+        rr = check_ref_rng_kernel(cli, refblock, ref_rng, MiniBatchSampler,
+                                  bench)
+        smods = (data, config, learner_mod, device_sampling, mmsb)
+        with host_law_pi(learner_mod, chains_flat, rng):
+            check_slices(smods, window, window_mmsb, phi_pallas,
+                         chains_flat, testing)
+            check_mmsb_engine_slices(smods, testing)
+        kmods = (window, window_mmsb, phi_pallas, refblock)
+        torch.cuda.reset_peak_memory_stats()
+        main_l, main_ppx, main_rate = run_main(cli, kmods)
+        main_mem = torch.cuda.max_memory_allocated()
+        wide_l, _, wide_rate, wide_mem, _ = run_wide_main(
+            cli, kmods, main_l, main_rate, main_mem, smi)
+        shard = run_sharded_phases(cli, kmods, main_l, main_rate, testing,
+                                   bench, smi)
+        bf16 = run_bf16_phases(cli, kmods, main_ppx, main_mem, smi)
+        mmsb_l = run_mmsb_main(cli, kmods)
+        phi_l = run_phi_main(cli, kmods)
+        chain_l, _, _ = run_chain_main(cli, kmods)
+        run_rhat(cli)
+        host_l = {name: run_host_main(cli, kmods, name, smi)
+                  for name in HOST_RUNS}
+        for name in NEW_RUNS:
+            run_new_main(cli, kmods, name, smi)
+        run_train_ppx_main(cli, kmods, smi)
+        ref_l = {name: run_ref_main(cli, kmods, name, smi)
+                 for name in REF_RUNS}
+        run_profile_tune_main(cli, kmods, smi)
+        check_ref_api(cli, native, kmods, window, bench, smi)
+        with tempfile.TemporaryDirectory() as tmp:
+            run_cache_main(cli, tmp, main_ppx[0])
+            run_refckpt_phase(cli, refckpt, kmods, bench, tmp, smi)
+            for name in RESUME_RUNS:
+                check_resume(cli, checkpoint, kmods, bench, tmp, name, smi)
+            check_cli_resume(cli, kmods, tmp)
+            check_cli_async(cli, checkpoint, bench, tmp, smi)
+        ladder_l = run_ladder_phase(ladder, window, kernels, kmods, jobs,
+                                    smi)
+        run_entry_phase(graft)
+    finally:
+        pool.terminate()
+        pool.join()
+        ladder_dir.cleanup()
 
     def times(t):
         # no single PyTorch call computes any of these functions
@@ -2895,7 +3123,12 @@ def main() -> int:
          "partitioned_launches": shard["partitioned"]["window"],
          "sharded_window_max_abs_err": shard["window"][0],
          "sharded_window_ms": shard["window"][1],
-         **bf16_fields("window_kernel", "main")},
+         **bf16_fields("window_kernel", "main"),
+         # the config ladder (2000 steps a rung at full size): launches by
+         # mode/pi dtype/K, stage seconds, updates/s, peak device memory
+         "ladder": {name: {"launches": v[0], "seconds": v[1],
+                           "updates_per_s": v[2], "peak_bytes": v[3]}
+                    for name, v in ladder_l.items()}},
         # the wide mode's kernel (window_kernel_wide, the same entry and
         # source) on its own: the -k 4096 main path's launches, all wide
         {"name": "window_kernel_wide", "route": "cuda",

@@ -41,6 +41,7 @@ from mcmc_ammsb_tpu_torch.config import Config, PhiImpl, RngBackend
 from mcmc_ammsb_tpu_torch.learner import (DeviceBatch, Learner, gamma_draws,
                                           gamma_rows, pi_storage_dtype)
 from mcmc_ammsb_tpu_torch.ops import beta as beta_ops
+from mcmc_ammsb_tpu_torch.ops import perplexity as ppx_ops
 from mcmc_ammsb_tpu_torch.ops import phi as phi_ops
 from mcmc_ammsb_tpu_torch.ops.device_sampling import sample_minibatches_device
 from mcmc_ammsb_tpu_torch.ops.neighbor import sample_neighbors
@@ -69,9 +70,10 @@ class ChainState(NamedTuple):
 
 def init_chain_state(cfg: Config, num_chains: int, heldout_size: int,
                      device, dtype=torch.float32) -> ChainState:
-    """Chain c is ``learner.init_state`` with ``init_seed + c`` (theta,
-    then its pi rows from the same host stream), written straight into
-    its block of the flat buffers; pi in its storage dtype."""
+    """Chain c is ``learner.init_state`` with ``init_seed + c`` (theta
+    from its host stream, its pi rows drawn on ``device`` in blocks),
+    written straight into its block of the flat buffers; pi in its
+    storage dtype."""
     n, k = cfg.N, cfg.K
     pi = torch.empty(num_chains * n, k, dtype=pi_storage_dtype(cfg),
                      device=device)
@@ -79,9 +81,9 @@ def init_chain_state(cfg: Config, num_chains: int, heldout_size: int,
     thetas = []
     for c in range(num_chains):
         cfg_c = cfg.replace(init_seed=cfg.init_seed + c)
-        draws = rng.host_gamma_rng(cfg_c)
-        thetas.append(gamma_draws(cfg_c, draws, (k, 2), device).to(dtype))
-        gamma_rows(cfg_c, draws, device, dtype,
+        thetas.append(gamma_draws(cfg_c, rng.host_gamma_rng(cfg_c), (k, 2),
+                                  device).to(dtype))
+        gamma_rows(cfg_c, device, dtype,
                    out=(pi[c * n:(c + 1) * n], phi_sum[c * n:(c + 1) * n]))
     theta = torch.stack(thetas)
     return ChainState(
@@ -322,22 +324,13 @@ def run_chain_hoisted(cfg: Config, c: int, state: ChainState,
 def chain_perplexity(cfg: Config, c: int, heldout_set, eu, ev,
                      state: ChainState):
     """Per-chain held-out perplexity over the shared held-out population:
-    (state, -mean log running-averaged likelihood [C] on the device)."""
-    h, k = eu.shape[0], cfg.K
+    (state, -mean log running-averaged likelihood [C] on the device). The
+    rows are gathered in blocks of pairs (``ppx_ops.blocked_likelihood``),
+    so the transient memory is bounded whatever C x H x K is."""
     count = state.ppx_count + 1
     y = heldout_set.has_edges(eu, ev)                          # [H]
-    offsets = (torch.arange(c, device=eu.device) * cfg.N)[:, None]
-    pi_u = state.pi[(eu.long()[None, :] + offsets).reshape(-1)].float(
-    ).reshape(c, h, k)
-    pi_v = state.pi[(ev.long()[None, :] + offsets).reshape(-1)].float(
-    ).reshape(c, h, k)
-    eps = cfg.epsilon
-    pp = pi_u * pi_v
-    pi_sum = torch.sum(pp, dim=-1)
-    s_link = torch.sum(pp * state.beta[:, None, :], dim=-1)
-    s_non = (torch.sum(pp * (1.0 - state.beta[:, None, :]), dim=-1)
-             + (1.0 - pi_sum) * (1.0 - eps))
-    lik = torch.clamp(torch.where(y[None, :], s_link, s_non), min=1e-30)
+    lik = ppx_ops.blocked_likelihood(cfg, state.pi, state.beta[:, None, :],
+                                     eu, ev, y[None, :], lead=c)  # [C, H]
     cnt = float(count)
     ppx_new = (state.ppx_per_edge * (cnt - 1.0) + lik) / cnt   # [C, H]
     neg_avg = -torch.mean(torch.log(ppx_new), dim=-1)          # [C]
@@ -352,7 +345,7 @@ class FlatChainLearner(Learner):
     """C chains in one flat row space, on ``Learner``'s surface (``run``,
     ``run_with_ppx``, ``heldout_perplexity``, ``print_stats``) with a [C]
     perplexity per evaluation, and ``beta_rhat``. ``init_seconds`` is the
-    host time of the per-chain init draws."""
+    time of the per-chain init draws, the device's included."""
 
     keeps_train_ppx = False
 

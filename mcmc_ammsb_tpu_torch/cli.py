@@ -510,8 +510,9 @@ def make_learner(args, cfg: Config, graph, split, device):
         return MultiChainLearner(cfg, graph, split, args.num_chains, device)
     if args.num_chains > 1:
         learner = FlatChainLearner(cfg, graph, split, args.num_chains, device)
-        log.info("%d chains initialized in %.3f s (host init draws of "
-                 "C x N x K gammas)", args.num_chains, learner.init_seconds)
+        log.info("%d chains initialized in %.3f s (init draws of "
+                 "C x N x K gammas on the device)", args.num_chains,
+                 learner.init_seconds)
         return learner
     if args.model == "mmsb":
         if args.mesh:

@@ -214,29 +214,55 @@ def gamma_draws(cfg: Config, draws: np.random.Generator, shape,
     return torch.from_numpy(g * np.float32(cfg.eta1)).to(device)
 
 
-def gamma_rows(cfg: Config, draws: np.random.Generator, device,
-               dtype=torch.float32, out=None):
+def pi_block_rows(k: int) -> int:
+    """Rows per block of the pi init: 2^24 values (JAX's
+    ``chunked_pi_rows``)."""
+    return max(1, (1 << 24) // max(k, 1))
+
+
+def pi_gamma_block(cfg: Config, i: int, rows: int, device) -> torch.Tensor:
+    """Block ``i`` of the pi init, [rows, K] float32 ~ Gamma(eta0, eta1),
+    drawn on ``device`` by a generator of that device seeded from
+    ``(cfg.init_seed, i)`` (``rng.block_seed``; JAX folds ``i`` into its
+    init key). The draws depend on the device's kind: a CPU run and a
+    card run of one seed start from different pi."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(rng.block_seed(cfg.init_seed, i))
+    shape = torch.full((rows, cfg.K), cfg.eta0, dtype=torch.float32,
+                       device=device)
+    return torch._standard_gamma(shape, generator=gen) * cfg.eta1
+
+
+def gamma_rows(cfg: Config, device, dtype=torch.float32, out=None,
+               rows=None):
     """pi [N, K]: rows ~ Gamma(eta0, eta1) normalized, and phi_sum [N],
-    the raw row sums. The rows are drawn on the host in blocks and
-    written into the device buffer block by block, so peak memory is pi
-    plus one block (JAX's ``chunked_pi_rows``): each block is normalized
-    in ``dtype`` and then cast to pi's storage dtype
+    the raw row sums, drawn on ``device`` in blocks of ``pi_block_rows``
+    (``pi_gamma_block``) and written into the buffers block by block, so
+    peak memory is pi plus one block (JAX's ``chunked_pi_rows``): each
+    block is normalized in ``dtype`` and then cast to pi's storage dtype
     (``pi_storage_dtype``), bit-identical to normalizing the whole array
     and then casting. ``out``, a (pi, phi_sum) pair of views, receives
-    them in place of new buffers (one chain's rows of the chain
-    engine)."""
+    them in place of new buffers (one chain's rows of the chain engine).
+    ``rows``, a range [lo, hi) of [0, N), draws only the blocks that
+    overlap it and fills ``out`` with its rows (a rank's shard): the same
+    values as those rows of the whole init."""
+    lo, hi = rows or (0, cfg.N)
     if out is None:
-        out = (torch.empty(cfg.N, cfg.K, dtype=pi_storage_dtype(cfg),
+        out = (torch.empty(hi - lo, cfg.K, dtype=pi_storage_dtype(cfg),
                            device=device),
-               torch.empty(cfg.N, dtype=dtype, device=device))
+               torch.empty(hi - lo, dtype=dtype, device=device))
     pi, phi_sum = out
-    block = max(1, (1 << 24) // max(cfg.K, 1))
-    for start in range(0, cfg.N, block):
-        g = gamma_draws(cfg, draws, (min(block, cfg.N - start), cfg.K),
-                        device).to(dtype)
+    block = pi_block_rows(cfg.K)
+    for i, start in enumerate(range(0, cfg.N, block)):
+        stop = min(cfg.N, start + block)
+        a, b = max(start, lo), min(stop, hi)
+        if a >= b:
+            continue
+        g = pi_gamma_block(cfg, i, stop - start, device)[a - start:b - start]
+        g = g.to(dtype)
         s = g.sum(dim=-1)
-        pi[start:start + g.shape[0]] = g / s[:, None]
-        phi_sum[start:start + g.shape[0]] = s
+        pi[a - lo:b - lo] = g / s[:, None]
+        phi_sum[a - lo:b - lo] = s
     return pi, phi_sum
 
 
@@ -290,9 +316,9 @@ def init_state(cfg: Config, heldout_size: int, device,
             beta=ref_rng.make_seeds(cfg.beta_seed, cfg.K, device),
             neighbor=ref_rng.make_seeds(cfg.neighbor_seed, b_cap, device))
     else:
-        draws = rng.host_gamma_rng(cfg)
-        theta = gamma_draws(cfg, draws, (cfg.K, 2), device).to(dtype)
-        pi, phi_sum = gamma_rows(cfg, draws, device, dtype)
+        theta = gamma_draws(cfg, rng.host_gamma_rng(cfg), (cfg.K, 2),
+                            device).to(dtype)
+        pi, phi_sum = gamma_rows(cfg, device, dtype)
     if cfg.theta_init == "libstdc++":
         # the reference's exact host bit stream (learner.cc:149-153)
         theta = torch.from_numpy(native.ref_theta_init(

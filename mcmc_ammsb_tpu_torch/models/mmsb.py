@@ -70,16 +70,15 @@ def init_mmsb_state(cfg: Config, heldout_size: int, device,
                     dtype=torch.float32) -> MMSBState:
     """theta_b ~ Gamma(eta0, eta1), symmetrized, with the 1 + 2 I tilt of
     its link component; pi rows as ``learner.gamma_rows`` draws them."""
-    draws = rng.host_gamma_rng(cfg)
-    theta_b = learner.gamma_draws(cfg, draws, (cfg.K, cfg.K, 2),
-                                  device).to(dtype)
+    theta_b = learner.gamma_draws(cfg, rng.host_gamma_rng(cfg),
+                                  (cfg.K, cfg.K, 2), device).to(dtype)
     # undirected graphs: B is symmetric, and stays so (symmetrized
     # gradients and noise)
     theta_b = 0.5 * (theta_b + theta_b.transpose(0, 1))
     # break the label-symmetry saddle with a diagonal tilt at init
     diag_boost = 1.0 + 2.0 * torch.eye(cfg.K, dtype=dtype, device=device)
     theta_b[..., 1] *= diag_boost
-    pi, phi_sum = learner.gamma_rows(cfg, draws, device, dtype)
+    pi, phi_sum = learner.gamma_rows(cfg, device, dtype)
     return MMSBState(
         pi=pi, phi_sum=phi_sum, theta_b=theta_b,
         b=theta_b[..., 1] / theta_b.sum(-1), step_count=1, theta_count=0,

@@ -70,7 +70,7 @@ from mcmc_ammsb_tpu_torch.config import Config, PhiImpl, RngBackend
 from mcmc_ammsb_tpu_torch.data import (DataSplit, Graph,
                                        make_training_ppx_edges)
 from mcmc_ammsb_tpu_torch.learner import (DeviceBatch, Learner, TrainState,
-                                          edge_lanes, gamma_draws,
+                                          edge_lanes, gamma_draws, gamma_rows,
                                           hoist_operands, pi_storage_dtype)
 from mcmc_ammsb_tpu_torch.ops import beta as beta_ops
 from mcmc_ammsb_tpu_torch.ops import perplexity as ppx_ops
@@ -498,27 +498,20 @@ def init_local_state(cfg: Config, lo: int, hi: int, n_padded: int,
                      heldout_size: int, train_ppx_size: int,
                      device) -> TrainState:
     """The rows [lo, hi) of ``learner.init_state``'s state (native RNG):
-    theta, then pi's rows drawn from the one host stream in the same
-    blocks and normalized on ``device`` as the single-GPU init does, then
-    cast to pi's storage dtype, so the shard holds exactly the single-GPU
-    rows; rows past N (padding to the model axis) are 1/K with phi_sum
-    1."""
+    theta from the host stream, then the pi blocks that overlap the rows
+    drawn and normalized on ``device`` as the single-GPU init does
+    (``learner.gamma_rows``), then cast to pi's storage dtype, so the
+    shard holds exactly the single-GPU rows; rows past N (padding to the
+    model axis) are 1/K with phi_sum 1."""
     k = cfg.K
-    draws = rng.host_gamma_rng(cfg)
-    theta = gamma_draws(cfg, draws, (k, 2), device)
+    theta = gamma_draws(cfg, rng.host_gamma_rng(cfg), (k, 2), device)
     pi = torch.full((hi - lo, k), 1.0 / k, dtype=pi_storage_dtype(cfg),
                     device=device)
     phi_sum = torch.ones(hi - lo, device=device)
-    block = max(1, (1 << 24) // max(k, 1))
-    for start in range(0, min(cfg.N, hi), block):
-        stop = min(cfg.N, start + block)
-        g = gamma_draws(cfg, draws, (stop - start, k), device)
-        a, b = max(start, lo), min(stop, hi)
-        if a >= b:
-            continue
-        s = g.sum(dim=-1)
-        pi[a - lo:b - lo] = (g / s[:, None])[a - start:b - start]
-        phi_sum[a - lo:b - lo] = s[a - start:b - start]
+    real = min(cfg.N, hi) - lo
+    if real > 0:
+        gamma_rows(cfg, device, out=(pi[:real], phi_sum[:real]),
+                   rows=(lo, lo + real))
     if cfg.theta_init == "libstdc++":
         theta = torch.from_numpy(native.ref_theta_init(
             cfg.eta0, cfg.eta1, cfg.init_seed, 2 * k).reshape(k, 2)).to(

@@ -7,8 +7,10 @@ compute device (Philox on CUDA), seeded from the same ``Config`` seed
 pairs. The two packages therefore draw different numbers from the same
 seeds: the tests hand both the same numpy-made operands instead.
 
-The init draws (theta, pi) come from a seeded numpy ``Generator`` on the
-host, because ``torch._standard_gamma`` takes no generator.
+theta's init draws come from a seeded numpy ``Generator`` on the host
+(``host_gamma_rng``); pi's are drawn on the compute device in blocks, each
+by a generator of that device (``learner.pi_gamma_block``), so they depend
+on the device's kind.
 """
 
 from __future__ import annotations
@@ -25,6 +27,18 @@ def seed_from_pair(seed_pair) -> int:
     """One 62-bit seed from the reference's (x, y) ulong2 pair."""
     x, y = seed_pair
     return ((int(x) & 0x7FFFFFFF) << 31) | (int(y) & 0x7FFFFFFF)
+
+
+def block_seed(seed: int, i: int) -> int:
+    """A 63-bit seed for block ``i`` of the stream seeded ``seed``: the
+    splitmix64 finalizer of ``seed + (i + 1) * golden``, so distinct
+    pairs differ in the low 32 bits too (all that a CPU generator's
+    mt19937 keeps of its seed)."""
+    m = (1 << 64) - 1
+    z = (seed + (i + 1) * 0x9E3779B97F4A7C15) & m
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & m
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & m
+    return (z ^ (z >> 31)) >> 1
 
 
 def generator(seed_pair, device) -> torch.Generator:
@@ -64,5 +78,6 @@ def randint(gen: torch.Generator, high: int, shape,
 
 
 def host_gamma_rng(cfg: Config) -> np.random.Generator:
-    """The init-law stream: Gamma(eta0, eta1) draws for theta and pi."""
+    """theta's init stream: its Gamma(eta0, eta1) draws (and the MMSB's
+    theta_b)."""
     return np.random.default_rng(cfg.init_seed)

@@ -90,7 +90,7 @@ def test_state_dtypes(problem, kind):
 def test_init_is_normalize_then_cast(problem, kind):
     """The bf16 init is the float32 init's rows rounded to nearest-even,
     bit for bit (JAX's chunked_pi_rows: normalize each block in float32,
-    then cast), from the same host draws; phi_sum and theta are the
+    then cast), from the same device draws; phi_sum and theta are the
     float32 init's exactly."""
     cfg, graph, split = problem
     a = _make(kind, cfg, graph, split).state
@@ -99,14 +99,11 @@ def test_init_is_normalize_then_cast(problem, kind):
     assert torch.equal(a.phi_sum, b.phi_sum)
     assert torch.equal(a.theta, b.theta)
     if kind == "learner":
-        # and the same law written out: rows of the init stream, divided
-        # by their sums in float32, then rounded
-        from mcmc_ammsb_tpu_torch import rng
-        draws = rng.host_gamma_rng(cfg)
-        draws.standard_gamma(cfg.eta0, (cfg.K, 2), dtype=np.float32)
-        g = torch.from_numpy(draws.standard_gamma(
-            cfg.eta0, (cfg.N, cfg.K), dtype=np.float32)
-            * np.float32(cfg.eta1))
+        # and the same law written out: the blocks of the device law (one
+        # here), divided by their row sums in float32, then rounded
+        from mcmc_ammsb_tpu_torch import learner as lrn
+        assert lrn.pi_block_rows(cfg.K) >= cfg.N
+        g = lrn.pi_gamma_block(cfg, 0, cfg.N, "cpu")
         assert torch.equal(a.pi, (g / g.sum(-1, keepdim=True)).to(BF16))
 
 

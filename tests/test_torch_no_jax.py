@@ -1,7 +1,8 @@
 """The port never imports JAX or the JAX package: with ``jax`` and
 ``mcmc_ammsb_tpu`` made unimportable, every module of the port and its
 CLI still import (the GPU machine has no JAX), the multi-GPU package
-``parallel/`` among them, and the native library builds and loads."""
+``parallel/`` among them, the config ladder and the entry() twin, and the
+native library builds and loads."""
 
 import os
 import subprocess
@@ -46,6 +47,8 @@ def test_port_imports_without_jax():
             "import mcmc_ammsb_tpu_torch.parallel.chains_sharded\n"
             "import mcmc_ammsb_tpu_torch.parallel.partitioned\n"
             "import mcmc_ammsb_tpu_torch.parallel.dryrun\n"
+            "import mcmc_ammsb_tpu_torch.ladder\n"
+            "import mcmc_ammsb_tpu_torch.graft\n"
             "from mcmc_ammsb_tpu_torch import rng\n"
             "assert rng.make_streams and rng.reference.make_seeds\n"
             "mcmc_ammsb_tpu_torch.native.available()\n"

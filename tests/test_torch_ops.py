@@ -182,3 +182,113 @@ def test_perplexity_step(cfg, small_dataset):
             assert_close(a, b, RTOL, ATOL)
         tavg, javg = res.ppx_per_edge, jres.ppx_per_edge
         pi = _pi(r, n)
+
+
+def _unblocked(monkeypatch):
+    """Every evaluation in one block (the unblocked gather)."""
+    monkeypatch.setattr(perplexity, "EVAL_BLOCK_BYTES", 1 << 62)
+
+
+@pytest.mark.parametrize("rows", [1, 7, 64])
+def test_blocked_heldout_perplexity_matches_unblocked(cfg, small_dataset,
+                                                      monkeypatch, rows):
+    """perplexity_step in blocks of ``rows`` pairs (EVAL_BLOCK_BYTES set
+    to ``rows`` float32 rows of K) against the unblocked path on the same
+    inputs, two successive calls: the scalar, the link and non-link sums
+    and each pair's running average within rtol 2e-5 (the float32 reorder
+    tolerance), the counts exact."""
+    n, split, _ = small_dataset
+    r = np.random.default_rng(11)
+    pi = torch.from_numpy(_pi(r, n))
+    beta_v = torch.from_numpy(r.uniform(0.05, 0.95, K).astype(np.float32))
+    hu = torch.from_numpy(split.heldout_edges_u)
+    hv = torch.from_numpy(split.heldout_edges_v)
+    ho = build_edge_set(config.EdgeSetBackend.ADJACENCY, n, split.heldout_u,
+                        split.heldout_v, "cpu")
+    assert perplexity.eval_block_rows(K) > len(hu)
+    avg = {b: torch.zeros(len(hu)) for b in ("blocked", "unblocked")}
+    for count in (1, 2):
+        res = {}
+        for kind in avg:
+            if kind == "unblocked":
+                _unblocked(monkeypatch)
+            else:
+                monkeypatch.setattr(perplexity, "EVAL_BLOCK_BYTES",
+                                    rows * 4 * K)
+                assert perplexity.eval_block_rows(K) == rows
+            res[kind] = perplexity.perplexity_step(
+                cfg, pi, beta_v, ho, hu, hv, avg[kind], count)
+            avg[kind] = res[kind].ppx_per_edge
+        for a, b in zip(res["blocked"], res["unblocked"]):
+            torch.testing.assert_close(a, b, rtol=2e-5, atol=0.0)
+        pi = torch.from_numpy(_pi(r, n))
+
+
+@pytest.mark.parametrize("rows", [1, 5, 33])
+def test_blocked_training_perplexity_matches_unblocked(small_dataset,
+                                                       monkeypatch, rows):
+    """learner.training_perplexity_step over its population in blocks of
+    ``rows`` pairs against the unblocked path: -mean log and the running
+    averages within rtol 2e-5 over three calls."""
+    from mcmc_ammsb_tpu_torch import data, learner
+
+    n, split, graph = small_dataset
+    tu, tv = (torch.from_numpy(a)
+              for a in data.make_training_ppx_edges(split, 0.05))
+    lcfg = config.Config(K=K, mini_batch_size=8, num_node_sample=8,
+                         calc_train_ppx=True, training_ppx_ratio=0.05
+                         ).finalize(n, split.total_edges, graph.max_fan_out)
+    tset = build_edge_set(config.EdgeSetBackend.ADJACENCY, n, graph.edges_u,
+                          graph.edges_v, "cpu")
+    state = learner.init_state(lcfg, 0, "cpu", train_ppx_size=len(tu))
+    states = {"blocked": state, "unblocked": state}
+    r = np.random.default_rng(12)
+    for _ in range(3):
+        res = {}
+        for kind, st in states.items():
+            monkeypatch.setattr(perplexity, "EVAL_BLOCK_BYTES",
+                                rows * 4 * K if kind == "blocked"
+                                else 1 << 62)
+            states[kind], res[kind] = learner.training_perplexity_step(
+                lcfg, tset, tu, tv, st)
+        torch.testing.assert_close(res["blocked"].neg_avg_log,
+                                   res["unblocked"].neg_avg_log,
+                                   rtol=2e-5, atol=0.0)
+        torch.testing.assert_close(states["blocked"].train_ppx_per_edge,
+                                   states["unblocked"].train_ppx_per_edge,
+                                   rtol=2e-5, atol=0.0)
+        pi = torch.from_numpy(_pi(r, n))
+        states = {k: s._replace(pi=pi) for k, s in states.items()}
+
+
+@pytest.mark.parametrize("rows", [1, 6, 40])
+def test_blocked_chain_perplexity_matches_unblocked(monkeypatch, rows):
+    """chains_flat.chain_perplexity over C = 3 chains in blocks of
+    ``rows`` pairs (a block holds [C, rows, K]) against the unblocked
+    gather: the [C] scalars and the [C, H] running averages within rtol
+    2e-5 over two calls."""
+    from mcmc_ammsb_tpu_torch import chains_flat, data
+
+    n, u, v = data.synthetic_edges(num_nodes=300, avg_degree=8, seed=2)
+    split = data.generate_sets(n, u, v, heldout_ratio=0.2, seed=3)
+    graph = data.Graph.from_edges(n, split.training_u, split.training_v)
+    ccfg = config.Config(K=K, mini_batch_size=8, num_node_sample=8
+                         ).finalize(n, split.total_edges, graph.max_fan_out)
+    lrn = chains_flat.FlatChainLearner(ccfg, graph, split, 3, "cpu")
+    assert lrn.heldout_u.shape[0] > rows
+    states = {"blocked": lrn.state, "unblocked": lrn.state}
+    for _ in range(2):
+        out = {}
+        for kind, st in states.items():
+            monkeypatch.setattr(perplexity, "EVAL_BLOCK_BYTES",
+                                rows * 4 * K * 3 if kind == "blocked"
+                                else 1 << 62)
+            states[kind], out[kind] = chains_flat.chain_perplexity(
+                ccfg, 3, lrn.heldout_set, lrn.heldout_u, lrn.heldout_v, st)
+        torch.testing.assert_close(out["blocked"], out["unblocked"],
+                                   rtol=2e-5, atol=0.0)
+        torch.testing.assert_close(states["blocked"].ppx_per_edge,
+                                   states["unblocked"].ppx_per_edge,
+                                   rtol=2e-5, atol=0.0)
+        pi = lrn.state.pi.flip(0).contiguous()
+        states = {k: s._replace(pi=pi) for k, s in states.items()}
