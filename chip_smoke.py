@@ -8,8 +8,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
   2. build   — compiles the four kernels from csrc/ with nvcc, one
                process per source, the window kernel's source from before
                its wide mode's step layout (PARENT_SRC) and the native
-               host library (csrc/sampler.cpp) with g++, all started
-               together;
+               host library (the port's mcmc_ammsb_tpu_torch/csrc/
+               sampler.cpp) with g++, all started together;
      native  — the native CHD build and the numpy build give
                byte-equal perfect-hash tables on the bench graph's
                training edges (E ~ 1.1 M), with the seconds of each;
@@ -98,12 +98,15 @@ Phases, one line each; any failure raises and the exit code is not 0:
   4. slice   — hoisted loops on the GPU against the same loops on the
                CPU from one state and one operand tuple, N=300 (the
                states' pi drawn by the numpy host law, host_law_pi): the
-               a-MMSB windows (normwise rtol 1e-5, atol 1e-8), the
+               a-MMSB windows on SLICE_DRAWS = 5 draws of the port's CPU
+               learner, kernel and plain version each against float64
+               (the kernel within 2x the plain version on most draws,
+               per field; check_f64_slice), the
                MMSB windows (the measured envelope of
                tests/test_window_mmsb.py), --phi-impl pallas with
                private draws (normwise rtol 1e-5, atol 1e-8), the flat
-               chain engine with C=3 (4 fused chain launches, normwise
-               rtol 1e-5, atol 1e-8), 23 host-sampled steps from the
+               chain engine with C=3 (4 fused chain launches, held as
+               the a-MMSB windows), 23 host-sampled steps from the
                same host batches, one train_step per step with
                --phi-impl pallas (23 launches of the pre-gathered phi
                entry) and one scanned chunk with the jnp phi (both
@@ -250,6 +253,27 @@ Phases, one line each; any failure raises and the exit code is not 0:
                ppx finite and ppx at step 2000 below ppx[0]; com-lj's
                init seconds beside the host law's, estimated from this
                host's rate of numpy Gamma draws;
+     carry   — runs carried in from the JAX package and across device
+               kinds, through the CLI: the two committed JAX-written
+               checkpoints (tests/fixtures/jax_ckpt/, the JAX CLI's
+               Learner at N=1,000, K=16 after 10 steps with a host chunk
+               in flight) restored on the card with their own arguments
+               and continued 10 steps: restored at step 11, ppx[0] within
+               rtol 1e-5 of JAX's (the sidecar's), the first minibatch
+               bit-equal to the sidecar's; the --rng reference one (the
+               reference RNG's kernel: 2 randn_lanes and 1
+               neighbors_lanes launches) also ppx[10] within rtol 1e-5
+               and the digest of pi, theta and phi_sum (sum, 2-norm,
+               largest magnitude) within what the normwise contract
+               (rtol 5e-5, atol 1e-8) implies, nothing re-seeded; the
+               host-sampled one re-seeds its torch streams once; then
+               the main path (K=256) 1000 steps on the card (82 window
+               launches) and saved, restored on the CPU for 24 steps
+               (the plain window) and saved, restored on the card for one
+               window (1 launch): at each restore every state leaf
+               bit-equal to the file's and the streams re-seeded with
+               the log line, every later ppx finite and below the card
+               run's ppx[0];
      entry   — graft.entry()'s step once on the card: step_count 2, pi
                finite with rows summing to 1 within 1e-5;
 then a JSON line of the kernels, the card's name and power limit, and
@@ -424,6 +448,19 @@ REF_EXPORT_ARGS = ["--synthetic", "317080,7", "-k", "256", "-x", "1000",
 ASYNC_ARGS = ["--synthetic", "317080,7", "-k", "256", "-x", "1000", "-i",
               "500", "--steps-per-call", "500", "--checkpoint-interval",
               "500", "--checkpoint-backend", "orbax", "--device", "cuda"]
+# the carry phase: the committed JAX-written checkpoints (made by
+# tests/jax_fixtures.py) continued on the card, with the next ppx held
+# against the sidecar's at the rtol of the CPU tests; then the main path
+# carried across device kinds: CARRY_STEPS on the card, a save, a restore
+# on the CPU for CARRY_CPU_STEPS (two windows), a CPU save restored on
+# the card for one window
+FIXTURE_DIR = Path(__file__).resolve().parent / "tests" / "fixtures" / \
+    "jax_ckpt"
+CARRY_RTOL, CARRY_PPX_RTOL = 5e-5, 1e-5
+CARRY_ARGS = ["--synthetic", "317080,7", "-k", "256"]
+CARRY_STEPS, CARRY_CPU_STEPS, CARRY_BACK_STEPS = 1000, 24, 12
+# the draws of the window kernel's GPU-vs-CPU slices (check_f64_slice)
+SLICE_DRAWS = 5
 # steps at the end of the phi-noise chunk the plain version draws in the
 # kernel phase
 REF_PLAIN_STEPS = 10
@@ -1474,6 +1511,87 @@ def host_law_pi(learner_mod, chains_flat, rng):
         learner_mod.gamma_rows = chains_flat.gamma_rows = real_rows
 
 
+@contextlib.contextmanager
+def float64_plain():
+    """Within the block ``Tensor.float()`` leaves a float64 tensor as it
+    is: the plain version casts gathered rows to float32 (pi may be
+    stored in bf16), so on float64 operands it runs in float64."""
+    real = torch.Tensor.float
+
+    def keep64(self, *args, **kwargs):
+        return self if self.dtype == torch.float64 else real(self, *args,
+                                                             **kwargs)
+
+    torch.Tensor.float = keep64
+    try:
+        yield
+    finally:
+        torch.Tensor.float = real
+
+
+def _rel_dist(got, want) -> float:
+    """Normwise relative distance max |got - want| / max |want|."""
+    got, want = got.double().cpu(), want.double().cpu()
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite values")
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _slice_seeds(config, shift):
+    """Config fields of a slice's draw ``shift``: the stream seeds'
+    second words and the sample seed moved by ``shift`` (0: the
+    config's own)."""
+    base = config.Config()
+    out = {f: (getattr(base, f)[0], getattr(base, f)[1] + shift)
+           for f in ("phi_seed", "beta_seed", "neighbor_seed")}
+    return dict(out, sample_seed=base.sample_seed + shift)
+
+
+def check_f64_slice(what, draw, run, counter, fields):
+    """Phase 4, a window-kernel slice: 23 hoisted steps (4 windows of 5
+    through the kernel, 3 tail steps) on the GPU and the plain version on
+    the CPU from one state, each against a float64 evaluation of the same
+    steps on the CPU, on SLICE_DRAWS draws of the port's own CPU learner
+    (``draw(shift)``: (cfg, CPU state, GPU state, operands); ``run(cfg,
+    state, operands)``; ``counter``, the kernel wrapper, must launch 4
+    times a draw). Per field the kernel may be no farther from float64
+    than 2x the plain version on most draws: the 23 steps carry a
+    window's rounding through the trajectory, whose conditioning the
+    draw sets, so the ratio has a tail and a draw past 2x is not the
+    rule."""
+    rows, within2 = [], {f: 0 for f in fields}
+    for shift in range(SLICE_DRAWS):
+        cfg, cpu_state, gpu_state, xs = draw(shift)
+        with float64_plain():
+            exact = run(cfg, *_float64((cpu_state, xs)))
+        counter.launches = 0
+        got = run(cfg, gpu_state, _to(xs, "cuda"))
+        launched = counter.launches
+        want = run(cfg, cpu_state, xs)
+        if launched != 4:
+            raise AssertionError(f"{what} slice: {launched} kernel "
+                                 f"launches, not 4")
+        d = {f: (_rel_dist(getattr(got, f), getattr(exact, f)),
+                 _rel_dist(getattr(want, f), getattr(exact, f)))
+             for f in fields}
+        for f, (k, p) in d.items():
+            within2[f] += k <= 2 * p
+        gap = max(float((getattr(got, f).cpu() - getattr(want, f)).abs()
+                        .max()) for f in fields)
+        rows.append(f"draw {shift}: " + ", ".join(
+            f"{f} {k:.3e}/{p:.3e}" for f, (k, p) in d.items())
+            + f", GPU vs CPU max abs {gap:.3e}")
+    phase("slice", f"{what} 23 steps (4 windows of 5 + 3 tail steps, 4 "
+          f"kernel launches each), N=300 K=24, {SLICE_DRAWS} draws, normwise "
+          f"distance to float64 kernel/plain: {'; '.join(rows)}; draws with "
+          f"the kernel within 2x the plain version: {within2}")
+    short = {f: n for f, n in within2.items() if 2 * n <= SLICE_DRAWS}
+    if short:
+        raise AssertionError(f"{what} slice: the kernel within 2x the plain "
+                             f"version's distance to float64 on only "
+                             f"{short} of {SLICE_DRAWS} draws")
+
+
 def check_slices(mods, window, window_mmsb, phi_pallas, chains_flat,
                  testing_mod):
     """Phase 4: the hoisted loops on the GPU vs the CPU from one state."""
@@ -1481,17 +1599,10 @@ def check_slices(mods, window, window_mmsb, phi_pallas, chains_flat,
     fields = ("pi", "phi_sum", "theta", "beta")
 
     a_mmsb = (learner_mod.Learner, learner_mod.hoist_operands)
-    cfg, cpu_state, gpu_state, xs = _slice_learner(
-        mods, *a_mmsb, K=24, shared_neighbors=True, window=5)
-    window.window_apply_cuda.launches = 0
-    got = learner_mod.run_hoisted(cfg, gpu_state, _to(xs, "cuda"))
-    launched = window.window_apply_cuda.launches
-    want = learner_mod.run_hoisted(cfg, cpu_state, xs)
-    errs = [max_err(getattr(got, f), getattr(want, f), f"slice {f}")
-            for f in fields]
-    phase("slice", f"a-MMSB 23 steps (4 windows of 5 + 3 tail steps, "
-          f"{launched} kernel launches), N=300 K=24: GPU kernel vs CPU "
-          f"plain max abs err {max(errs):.3e}")
+    check_f64_slice("a-MMSB", lambda shift: _slice_learner(
+        mods, *a_mmsb, K=24, shared_neighbors=True, window=5,
+        **_slice_seeds(config, shift)), learner_mod.run_hoisted,
+        window.window_apply_cuda, fields)
 
     cfg, cpu_state, gpu_state, xs = _slice_learner(
         mods, mmsb.FullMMSBLearner, mmsb.mmsb_hoist_operands, K=8,
@@ -1530,29 +1641,26 @@ def check_slices(mods, window, window_mmsb, phi_pallas, chains_flat,
     n, u, v = data.synthetic_edges(300, 8, seed=9)
     split = data.generate_sets(n, u, v, heldout_ratio=0.1, seed=10)
     graph = data.Graph.from_edges(n, split.training_u, split.training_v)
-    cfg = config.Config(K=24, mini_batch_size=8, num_node_sample=8,
-                        device_sampling=True, shared_neighbors=True,
-                        window=5).finalize(n, split.total_edges,
-                                           graph.max_fan_out)
-    cpu = chains_flat.FlatChainLearner(cfg, graph, split, 3, "cpu")
-    xs = chains_flat.hoist_chain_operands(cfg, 3, cpu.training_set,
-                                          cpu.heldout_set, cpu.adjacency,
-                                          cpu.streams, 23)
-    gpu_state = _to(cpu.state._replace(pi=cpu.state.pi.clone(),
-                                       phi_sum=cpu.state.phi_sum.clone()),
-                    "cuda")
-    window.window_chain_apply_cuda.launches = 0
-    got = chains_flat.run_chain_hoisted(cfg, 3, gpu_state, _to(xs, "cuda"))
-    launched = window.window_chain_apply_cuda.launches
-    want = chains_flat.run_chain_hoisted(cfg, 3, cpu.state, xs)
-    errs = [max_err(getattr(got, f), getattr(want, f), f"chain slice {f}")
-            for f in fields]
-    if launched != 4:
-        raise AssertionError(f"chain slice: {launched} kernel launches, "
-                             f"not 4")
-    phase("slice", f"flat chains, C=3, 23 steps (4 windows of 5 + 3 tail "
-          f"steps, {launched} fused chain launches), N=300 K=24: GPU "
-          f"kernel vs CPU plain max abs err {max(errs):.3e}")
+
+    def chain_draw(shift):
+        cfg = config.Config(K=24, mini_batch_size=8, num_node_sample=8,
+                            device_sampling=True, shared_neighbors=True,
+                            window=5, **_slice_seeds(config, shift)
+                            ).finalize(n, split.total_edges,
+                                       graph.max_fan_out)
+        cpu = chains_flat.FlatChainLearner(cfg, graph, split, 3, "cpu")
+        xs = chains_flat.hoist_chain_operands(cfg, 3, cpu.training_set,
+                                              cpu.heldout_set, cpu.adjacency,
+                                              cpu.streams, 23)
+        gpu_state = _to(cpu.state._replace(
+            pi=cpu.state.pi.clone(), phi_sum=cpu.state.phi_sum.clone()),
+            "cuda")
+        return cfg, cpu.state, gpu_state, xs
+
+    check_f64_slice("flat chains, C=3,", chain_draw,
+                    lambda cfg, st, xs: chains_flat.run_chain_hoisted(
+                        cfg, 3, st, xs),
+                    window.window_chain_apply_cuda, fields)
 
     check_host_slices(mods, phi_pallas, testing_mod)
 
@@ -2952,6 +3060,161 @@ def run_ladder_phase(ladder, window, kernels, kmods, jobs, smi):
     return out
 
 
+def _npz_leaves(path):
+    """The state leaves (``leaf_i``) of an npz checkpoint, as numpy."""
+    import numpy as np
+
+    with np.load(path, allow_pickle=False) as z:
+        return [z[f"leaf_{i}"] for i in range(len(z.files))
+                if f"leaf_{i}" in z.files]
+
+
+@contextlib.contextmanager
+def restored_leaves(cli, checkpoint, out):
+    """The CLI's ``load_checkpoint`` for the block, with the leaves of
+    the learner's state right after the restore appended to ``out``."""
+    real = cli.load_checkpoint
+
+    def load(path, learner):
+        real(path, learner)
+        out.append([leaf.copy() for st in checkpoint._states(learner)
+                    for leaf in checkpoint.state_leaves(st)])
+
+    cli.load_checkpoint = load
+    try:
+        yield
+    finally:
+        cli.load_checkpoint = real
+
+
+def _carry_fixture(cli, learner_mod, testing, kmods, tmp, name):
+    """One committed JAX-written checkpoint continued on the card through
+    the CLI with the fixture's own arguments: (launches, ppx series,
+    messages)."""
+    import os
+
+    import numpy as np
+
+    side = json.loads((FIXTURE_DIR / f"{name}.json").read_text())
+    path = str(FIXTURE_DIR / f"{name}.npz")
+    cont = os.path.join(tmp, f"carry_{name}.npz")
+    first = []
+    _counts(kmods, None)
+    with spied(learner_mod.Learner, "_scan_chunk",
+               lambda lrn, state, batches: first.append(batches)):
+        series, messages = _run_cli(cli, side["argv"] + [
+            "--restore", path, "--device", "cuda", "--checkpoint", cont])
+    launches = _counts(kmods, "read")
+    ppx = {s: p for s, p, _ in series}
+    reseeded = [m for m in messages if "re-seeded" in m]
+    bad = []
+    if f"restored checkpoint {path} (step=11)" not in messages:
+        bad.append("no 'restored checkpoint ... (step=11)' line")
+    for f, want in side["first_minibatch"].items():
+        if not np.array_equal(getattr(first[0], f)[0].cpu().numpy(),
+                              np.asarray(want)):
+            bad.append(f"first minibatch's {f} differs")
+    if not math.isclose(ppx[0], side["ppx"]["0"], rel_tol=CARRY_PPX_RTOL):
+        bad.append(f"ppx[0] {ppx[0]} vs JAX {side['ppx']['0']}")
+    if "reference" in side["argv"]:
+        leaves = _npz_leaves(cont)
+        got = testing.digest({"pi": leaves[0], "theta": leaves[2],
+                              "phi_sum": leaves[1]})
+        bad += testing.digest_misses(got, side["digest"], CARRY_RTOL, ATOL)
+        if not math.isclose(ppx[10], side["ppx"]["10"],
+                            rel_tol=CARRY_PPX_RTOL):
+            bad.append(f"ppx[10] {ppx[10]} vs JAX {side['ppx']['10']}")
+        # one chunk of 10 steps: its phi and theta noise, its neighbors
+        # (and the init's gamma draws before the restore)
+        drawn = {k: v for k, v in launches.items() if v and k != "gamma"}
+        if (drawn != {"randn": 2, "neighbors": 1} or reseeded
+                or "reference RNG: the kernel" not in " ".join(messages)):
+            bad.append(f"launches {launches}, re-seed lines {reseeded}")
+    elif reseeded != ["random streams re-seeded at step 11 (checkpoint "
+                      "written by jax)"] or not math.isfinite(ppx[10]):
+        bad.append(f"re-seed lines {reseeded}, ppx {ppx}")
+    if bad:
+        raise AssertionError(f"carry {name}: {bad}")
+    return launches, ppx, side
+
+
+def run_carry_phase(cli, checkpoint, learner_mod, testing, kmods, tmp, smi):
+    """Phase carry: the committed JAX-written checkpoints continued on the
+    card, then a main-path run carried card -> CPU -> card. Returns
+    {run: launches}."""
+    import os
+
+    out = {}
+    for name in ("learner_reference", "learner_host"):
+        launches, ppx, side = _carry_fixture(cli, learner_mod, testing,
+                                             kmods, tmp, name)
+        out[name] = launches
+        phase("carry", f"JAX-written {name} (--restore, "
+              f"{' '.join(side['argv'])}): restored at step 11, ppx {ppx} "
+              f"against JAX's {side['ppx']} (rtol {CARRY_PPX_RTOL}), the "
+              f"first minibatch bit-equal to JAX's"
+              + (", pi/theta/phi_sum digest within the normwise contract, "
+                 "nothing re-seeded" if "reference" in side["argv"]
+                 else ", torch streams re-seeded once")
+              + f"; launches {({k: v for k, v in launches.items() if v})}")
+
+    # the main path on the card, on the CPU from its checkpoint, and back
+    first, second = (os.path.join(tmp, f"carry_{d}.npz")
+                     for d in ("cuda", "cpu"))
+    legs = [("cuda", CARRY_STEPS, [], first),
+            ("cpu", CARRY_CPU_STEPS, ["--restore", first], second),
+            ("cuda", CARRY_BACK_STEPS, ["--restore", second], None)]
+    ppx0, runs = None, []
+    for device, steps, extra, save in legs:
+        restored = []
+        argv = CARRY_ARGS + ["-x", str(steps), "-i", str(min(500, steps)),
+                             "--device", device] + extra
+        t0 = time.perf_counter()
+        _counts(kmods, None)
+        with restored_leaves(cli, checkpoint, restored):
+            series, messages = _run_cli(
+                cli, argv + (["--checkpoint", save] if save else []))
+        launches = _counts(kmods, "read")
+        secs = time.perf_counter() - t0
+        ppx = [p for _, p, _ in series]
+        ppx0 = ppx[0] if ppx0 is None else ppx0
+        if not all(math.isfinite(p) and p < ppx0 for p in ppx[1:]):
+            raise AssertionError(f"carry on {device}: ppx {ppx} against the "
+                                 f"first run's ppx[0] {ppx0}")
+        want_launches = (0 if device == "cpu"
+                         else (steps // min(500, steps)) * (
+                             min(500, steps) // 12))
+        if launches["window"] != want_launches:
+            raise AssertionError(f"carry on {device}: {launches['window']} "
+                                 f"window launches, expected {want_launches}")
+        note = ""
+        if extra:
+            src = extra[1]
+            wrote = "cuda" if src == first else "cpu"
+            file_leaves = _npz_leaves(src)
+            # every leaf (pi, theta, the counters...) bit-equal
+            differ = [i for i, (a, b) in enumerate(zip(file_leaves,
+                                                       restored[0]))
+                      if not (a.dtype == b.dtype and a.shape == b.shape
+                              and (a == b).all())]
+            line = (f"random streams re-seeded at step "
+                    f"{int(file_leaves[4])} (checkpoint written by {wrote})")
+            if differ or line not in messages:
+                raise AssertionError(f"carry to {device}: leaves {differ} "
+                                     f"differ at the restore, or no "
+                                     f"{line!r} in the log")
+            note = (f"restored from the {wrote} save at step "
+                    f"{int(file_leaves[4])}: its {len(file_leaves)} state "
+                    f"leaves bit-equal, '{line}'; ")
+        runs.append(launches)
+        phase("carry", f"main path ({' '.join(CARRY_ARGS)}) on {device}, "
+              f"{steps} steps: {note}ppx {ppx} (below the card run's "
+              f"ppx[0] {ppx0}), {launches['window']} window launches, "
+              f"{secs:.1f} s" + (f"; {smi}" if device == "cuda" else ""))
+    out["there"], out["back"] = runs[0], runs[2]
+    return out
+
+
 def run_entry_phase(graft):
     """Phase entry: ``graft.entry()`` on the card, its step once."""
     fn, args = graft.entry()
@@ -3050,6 +3313,8 @@ def main() -> int:
                 check_resume(cli, checkpoint, kmods, bench, tmp, name, smi)
             check_cli_resume(cli, kmods, tmp)
             check_cli_async(cli, checkpoint, bench, tmp, smi)
+            carry = run_carry_phase(cli, checkpoint, learner_mod, testing,
+                                    kmods, tmp, smi)
         ladder_l = run_ladder_phase(ladder, window, kernels, kmods, jobs,
                                     smi)
         run_entry_phase(graft)
@@ -3080,7 +3345,11 @@ def main() -> int:
         # ms and bound_ms are the main path's launch (a 200-step chunk);
         # plain_ms covers the plain_steps the plain version drew of it
         err, t, plain_steps = rr[name]
-        return {"max_abs_err": err, **times(t), "plain_steps": plain_steps}
+        # carry_launches: the JAX-written --rng reference fixture's
+        # continuation on the card (its init's gamma draws included)
+        entry = name.replace("_lanes", "")
+        return {"max_abs_err": err, **times(t), "plain_steps": plain_steps,
+                "carry_launches": carry["learner_reference"][entry]}
 
     src = "mcmc_ammsb_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
@@ -3090,6 +3359,9 @@ def main() -> int:
          "replaces": "mcmc_ammsb_tpu/ops/window.py:321",
          "launches": main_l["window"], "max_abs_err": w["resident"][0],
          **times(w["resident"][1]),
+         # the carry phase's card legs: 1000 main-path steps before the
+         # save, one window after the CPU leg's restore
+         "carry_launches": carry["there"]["window"] + carry["back"]["window"],
          # the resident mode against the build of PARENT_SRC, float32, at
          # the main path's shape, in turns (bit-equal at every shape)
          "resident_parent_ms": parent_t[WINDOW_SHAPES[0]][0],

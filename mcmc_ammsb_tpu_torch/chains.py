@@ -115,6 +115,14 @@ class MultiChainLearner:
         lockstep)."""
         return self.states[0].step_count
 
+    def reseed_streams(self, step: int) -> None:
+        """Every chain's streams seeded anew from its ``chain_config``
+        with ``step`` folded in (``learner.Learner.reseed_streams``)."""
+        for c, streams in enumerate(self.chain_streams):
+            rng.seed_streams(streams,
+                             rng.stream_pairs(chain_config(self.cfg, c)),
+                             step)
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

@@ -16,7 +16,23 @@ The JAX package's random streams are keys inside its state. The port's
 are stateful ``torch.Generator``s, so the file also holds the state of
 every generator of ``rng.Streams`` (``stream_<c>_<name>``; C sets for
 ``chains.MultiChainLearner``) and the manifest the device kind they were
-saved from: a CPU generator's state does not fit a CUDA generator.
+saved from (``stream_device``).
+
+Runs move between device kinds and from the JAX package. A CPU
+generator's state does not fit a CUDA generator, and a threefry key fits
+neither, so a file of another device kind, or one that the JAX package
+wrote (no ``stream_device``; its learner one of ``interop.JAX_LEARNERS``,
+its leaves mapped by ``interop.jax_leaf_keys``, the keys skipped),
+restores everything else exactly: the state bit for bit (bf16 pi from
+its float32 leaf), the counters, the host sampler's numpy
+``RandomState`` (both packages sample with one) and the pending batches.
+Its torch streams are seeded anew from the config with the restored
+``step_count`` folded in (``reseed_streams``), logged once, so the run
+does not replay the draws of step 1; under the reference RNG nothing is
+re-seeded, its seeds travel in the state. The two pickled blobs are read
+by an allow-list unpickler (``_loads``): numpy arrays, dtypes and
+scalars, and the two batch classes of either package's ``sampling``
+module, which become the port's.
 
 Every learner of the port is taken: ``Learner``, ``FullMMSBLearner``,
 ``FlatChainLearner``, ``MMSBChainLearner`` and ``MultiChainLearner``
@@ -84,7 +100,10 @@ from __future__ import annotations
 import atexit
 import contextlib
 import dataclasses
+import importlib
+import io
 import json
+import logging
 import os
 import pickle
 import shutil
@@ -96,10 +115,54 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from mcmc_ammsb_tpu_torch import interop, sampling
 from mcmc_ammsb_tpu_torch.config import (Config, EdgeSetBackend, PhiImpl,
                                          RngBackend, SampleStrategy)
 
+log = logging.getLogger(__name__)
+
 _FORMAT_VERSION = 2  # the JAX package's npz layout version
+
+
+def _numpy_module(name: str):
+    # numpy 2 moved numpy.core to numpy._core; either may be named
+    try:
+        return importlib.import_module(name.replace("numpy.core",
+                                                    "numpy._core"))
+    except ImportError:
+        return importlib.import_module(name)
+
+
+class _BlobUnpickler(pickle.Unpickler):
+    """Reads a checkpoint's pickled blobs (the sampler's ``RandomState``
+    state tuple, the pending batches) with an allow-list: numpy's array,
+    dtype and scalar reconstructors, and ``MiniBatch`` /
+    ``StackedBatches`` of either package's ``sampling`` module (their
+    fields are the same), as the port's classes. Any other class raises
+    ValueError: unpickling runs the code a class names, and a JAX file's
+    classes would import JAX."""
+
+    _NUMPY = {("numpy", "ndarray"), ("numpy", "dtype"),
+              ("numpy.core.multiarray", "_reconstruct"),
+              ("numpy.core.multiarray", "scalar"),
+              ("numpy.core.numeric", "_frombuffer")}
+    _BATCHES = {"MiniBatch", "StackedBatches"}
+
+    def find_class(self, module, name):
+        plain = module.replace("numpy._core", "numpy.core")
+        if (plain, name) in self._NUMPY:
+            return getattr(_numpy_module(plain), name)
+        if (module in ("mcmc_ammsb_tpu.sampling",
+                       "mcmc_ammsb_tpu_torch.sampling")
+                and name in self._BATCHES):
+            return getattr(sampling, name)
+        raise ValueError(f"checkpoint blob names the class {module}.{name}, "
+                         f"which is not a numpy array or a minibatch: not "
+                         f"read")
+
+
+def _loads(blob: bytes):
+    return _BlobUnpickler(io.BytesIO(blob)).load()
 
 
 def _config_to_json(cfg: Config) -> dict:
@@ -205,10 +268,6 @@ def _check_manifest(manifest: dict, learner) -> None:
             f"{_FORMAT_VERSION}: the state leaf layout changed (v2 added "
             "the reference-backend neighbor RNG stream); re-train or "
             "migrate the checkpoint")
-    if "stream_device" not in manifest:
-        raise ValueError(
-            "checkpoint holds no random-stream states (written by the JAX "
-            "package?): load it with interop.state_from_jax_checkpoint")
     saved_cfg = _config_from_json(manifest["config"])
     if saved_cfg.K != learner.cfg.K or saved_cfg.N != learner.cfg.N:
         raise ValueError("checkpoint geometry mismatch")
@@ -217,8 +276,10 @@ def _check_manifest(manifest: dict, learner) -> None:
         raise ValueError(
             f"checkpoint geometry mismatch: num_chains {saved_chains} "
             f"!= {_num_chains(learner)}")
+    # a JAX file's leaves are counted by interop.jax_leaf_names
+    ours = "stream_device" in manifest
     expected = _num_leaves(learner)
-    if manifest["num_leaves"] != expected:
+    if ours and manifest["num_leaves"] != expected:
         raise ValueError(
             f"checkpoint has {manifest['num_leaves']} state leaves, "
             f"learner expects {expected} (different learner "
@@ -229,17 +290,36 @@ def _check_manifest(manifest: dict, learner) -> None:
             f"checkpoint was saved by {manifest.get('learner')}, this "
             f"learner is a {type(learner).__name__} (different learner "
             "class)")
-    if manifest["stream_device"] != learner.device.type:
-        raise ValueError(
-            f"checkpoint streams were saved on "
-            f"{manifest['stream_device']!r}, this learner runs on "
-            f"{learner.device.type!r}: a generator's state does not move "
-            "between device kinds")
+    if not ours:
+        return      # the JAX manifest records no mesh
     mesh = getattr(getattr(learner, "mesh", None), "shape", None)
     if manifest.get("mesh") != mesh:
         raise ValueError(f"checkpoint was saved on the mesh "
                          f"{manifest.get('mesh')}, this learner runs on "
                          f"{mesh}")
+
+
+def _leaf_keys(manifest: dict, learner) -> list:
+    """The npz key of each of the learner's state leaves: ``leaf_i`` in
+    a port file, the JAX leaf of the same field in a JAX file (None for
+    an absent field)."""
+    if "stream_device" in manifest:
+        return [f"leaf_{i}" for i in range(_num_leaves(learner))]
+    return interop.jax_leaf_keys(manifest, _states(learner)[0])
+
+
+def _restore_streams(learner, manifest: dict, arrays) -> None:
+    """The generators from the file's states when they were saved on
+    this device kind; else (another kind, or the JAX package's keys)
+    seeded anew with the restored step folded in, unless the reference
+    RNG runs (its seeds are in the state)."""
+    saved = manifest.get("stream_device", "jax")
+    if saved == learner.device.type:
+        _set_streams(learner, arrays)
+    elif learner.cfg.rng_backend != RngBackend.REFERENCE:
+        learner.reseed_streams(learner.step_count)
+        log.info("random streams re-seeded at step %d (checkpoint written "
+                 "by %s)", learner.step_count, saved)
 
 
 def _apply_host_state(learner, manifest: dict, sampler_rng_blob: bytes,
@@ -249,13 +329,24 @@ def _apply_host_state(learner, manifest: dict, sampler_rng_blob: bytes,
         # while it is restored
         learner.drain_sampling()
     sampler = getattr(learner, "sampler", None)
-    sampler_rng = pickle.loads(sampler_rng_blob)
+    sampler_rng = _loads(sampler_rng_blob)
     if sampler is not None and sampler_rng is not None:
         sampler.rng.set_state(sampler_rng)
         sampler._native_call_count = int(
             manifest.get("native_call_count", 0))
     if pending_blob is not None and hasattr(learner, "_pending"):
-        learner._pending = pickle.loads(pending_blob)
+        pending = _loads(pending_blob)
+        cfg = learner.cfg
+        for b in pending:
+            if (b.nodes.shape[-1], b.edges_u.shape[-1]) != (
+                    cfg.max_batch_nodes, cfg.max_batch_edges):
+                # a sharded learner pads its batches to its data axis
+                raise ValueError(
+                    f"the checkpoint's pending batches hold "
+                    f"{b.nodes.shape[-1]} nodes and {b.edges_u.shape[-1]} "
+                    f"edges, this learner's {cfg.max_batch_nodes} and "
+                    f"{cfg.max_batch_edges} (another mesh or config)")
+        learner._pending = pending
     for k, v in manifest.get("timers", {}).items():
         learner.timers.seconds[k] = v
     for k, v in manifest.get("timer_calls", {}).items():
@@ -357,9 +448,11 @@ def _save_sharded(path: str, learner, compress: bool) -> None:
     dist.barrier()
 
 
-def _npz_rows(path: str, key: str, lo: int, hi: int) -> np.ndarray:
-    """Rows [lo, hi) of the array ``key`` of an npz file, read from their
-    offset in the member (a compressed member is inflated up to there)."""
+def _npz_rows(path: str, key: str, lo: int, hi: int,
+              total: int) -> np.ndarray:
+    """Rows [lo, hi) of the array ``key`` of an npz file, which must have
+    ``total`` rows, read from their offset in the member (a compressed
+    member is inflated up to there)."""
     with zipfile.ZipFile(path) as zf, zf.open(key + ".npy") as f:
         version = np.lib.format.read_magic(f)
         read_header = (np.lib.format.read_array_header_1_0 if version[0] == 1
@@ -367,6 +460,9 @@ def _npz_rows(path: str, key: str, lo: int, hi: int) -> np.ndarray:
         shape, fortran, dtype = read_header(f)
         if fortran:
             raise ValueError(f"{key}: a Fortran-ordered array")
+        if shape[0] != total:
+            raise ValueError(f"checkpoint geometry mismatch: {key} has "
+                             f"{shape[0]} rows, this mesh holds {total}")
         row = int(np.prod(shape[1:], dtype=np.int64)) * dtype.itemsize
         f.seek(f.tell() + lo * row)
         buf = bytearray(f.read((hi - lo) * row))     # writable
@@ -380,18 +476,18 @@ def _check_world(manifest: dict) -> None:
                          f"has {dist.get_world_size()}")
 
 
-def _load_sharded(path: str, z, manifest: dict, learner) -> None:
-    _check_world(manifest)
+def _load_sharded(path: str, z, keys: list, learner) -> None:
+    """Each rank's rows of the split fields and the whole of the others,
+    from the npz ``keys`` of the state's fields."""
     layout = learner.shard_layout()
     fields = {}
-    for i, (name, old) in enumerate(zip(learner.state._fields,
-                                        learner.state)):
-        key = f"leaf_{i}"
+    for name, old, key in zip(learner.state._fields, learner.state, keys):
         if isinstance(old, torch.Tensor):
             if name in layout and old.numel():
+                group, idx = layout[name]
                 n = old.shape[0]
-                at = layout[name][1] * n
-                leaf = _npz_rows(path, key, at, at + n)
+                leaf = _npz_rows(path, key, idx * n, (idx + 1) * n,
+                                 n * dist.get_world_size(group))
             else:
                 leaf = z[key]
             fields[name] = _restore_tensor(name, old, leaf)
@@ -400,7 +496,6 @@ def _load_sharded(path: str, z, manifest: dict, learner) -> None:
         else:
             fields[name] = int(z[key])
     learner.state = type(learner.state)(**fields)
-    _set_streams(learner, z)
 
 
 def _set_streams(learner, arrays) -> None:
@@ -421,6 +516,9 @@ def _restore_tensor(name, old, leaf):
         raise ValueError(
             f"checkpoint geometry mismatch: {name} has shape "
             f"{tuple(leaf.shape)}, the learner's {tuple(old.shape)}")
+    if leaf.dtype == np.uint32:
+        # the JAX package's reference-RNG seed words; the port's are int64
+        leaf = leaf.astype(np.int64)
     old.copy_(torch.from_numpy(np.ascontiguousarray(leaf)))
     return old
 
@@ -451,10 +549,11 @@ def _restore_state(ref, leaves):
 
 def load_checkpoint(path: str, learner):
     """Restore state into an already-constructed learner of the same
-    class on the same dataset and device kind; the graph, split and edge
-    sets are rebuilt from data. Raises ValueError on a mismatch of format
-    version, K or N, number of chains, learner class or device kind. A
-    directory is the DCP backend's; a path missing beside an
+    class on the same dataset; the graph, split and edge sets are rebuilt
+    from data. The file may come from another device kind or from the
+    JAX package (module docstring). Raises ValueError on a mismatch of
+    format version, K or N, number of chains, learner class, RNG backend
+    or mesh. A directory is the DCP backend's; a path missing beside an
     ``.orbax-old`` directory (a promote cut between its renames) loads
     that one. An in-flight async save to ``path`` is finalized first."""
     wait_for_async_saves(path)
@@ -465,23 +564,25 @@ def load_checkpoint(path: str, learner):
     z = np.load(path, allow_pickle=False)
     manifest = json.loads(bytes(z["manifest"]).decode())
     _check_manifest(manifest, learner)
+    keys = _leaf_keys(manifest, learner)
     if hasattr(learner, "shard_layout"):
-        _load_sharded(path, z, manifest, learner)
-        _apply_host_state(learner, manifest, bytes(z["sampler_rng"]),
-                          bytes(z["pending"]) if "pending" in z else None)
-        return learner
-    refs = _states(learner)
-    at, restored = 0, []
-    for ref in refs:
-        n = _leaf_count(ref)
-        restored.append(_restore_state(
-            ref, [z[f"leaf_{i}"] for i in range(at, at + n)]))
-        at += n
-    if getattr(learner, "states", None) is not None:
-        learner.states = restored
+        if "stream_device" in manifest:
+            _check_world(manifest)
+        _load_sharded(path, z, keys, learner)
     else:
-        learner.state = restored[0]
-    _set_streams(learner, z)
+        refs = _states(learner)
+        at, restored = 0, []
+        for ref in refs:
+            n = _leaf_count(ref)
+            restored.append(_restore_state(ref, [
+                np.zeros(0, np.float32) if k is None else z[k]
+                for k in keys[at:at + n]]))
+            at += n
+        if getattr(learner, "states", None) is not None:
+            learner.states = restored
+        else:
+            learner.state = restored[0]
+    _restore_streams(learner, manifest, z)
     _apply_host_state(learner, manifest, bytes(z["sampler_rng"]),
                       bytes(z["pending"]) if "pending" in z else None)
     return learner
@@ -650,6 +751,11 @@ def _load_dir(path: str, learner):
 
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
+    if manifest.get("backend") != "dcp":
+        raise ValueError(
+            f"{path} is the JAX package's orbax directory: reading one needs "
+            f"orbax, which the port does not use; save the JAX run with "
+            f"--checkpoint-backend npz and restore that file")
     _check_manifest(manifest, learner)
     sharded = hasattr(learner, "shard_layout")
     if sharded:
@@ -684,7 +790,7 @@ def _load_dir(path: str, learner):
     else:
         learner.state = restored[0]
     with np.load(os.path.join(path, "streams.npz")) as z:
-        _set_streams(learner, z)
+        _restore_streams(learner, manifest, z)
     with open(os.path.join(path, "sampler_rng.pkl"), "rb") as f:
         sampler_rng = f.read()
     with open(os.path.join(path, "pending.pkl"), "rb") as f:

@@ -1,7 +1,10 @@
 """Build the port's state and membership tables from the JAX package's,
 so that both packages can run the same computation from the same numbers
 (the parity tests), from arrays or from a checkpoint file that the JAX
-package wrote."""
+package wrote: ``JAX_LEARNERS`` names the JAX learners whose npz files
+are read and the leaf order of their state; ``checkpoint.load_checkpoint``
+reads such a file into the port's learner of the same name through
+``jax_leaf_keys``."""
 
 from __future__ import annotations
 
@@ -61,34 +64,97 @@ _JAX_TRAIN_STATE_LEAVES = (
     "ppx_per_edge", "ppx_count", "phi_key", "beta_key", "neighbor_key",
     "sample_key", "train_ppx_per_edge", "train_ppx_count")
 _JAX_REF_LEAVES = tuple(f"ref_seeds.{f}" for f in RefRngState._fields)
+#: ``MMSBState`` and ``MMSBChainState`` (models/mmsb.py:70, :564).
+_JAX_MMSB_STATE_LEAVES = (
+    "pi", "phi_sum", "theta_b", "b", "step_count", "theta_count",
+    "ppx_per_edge", "ppx_count", "phi_key", "theta_key", "neighbor_key",
+    "sample_key")
+#: ``ChainState`` (chains_flat.py:35; parallel/chains_sharded.py:74).
+_JAX_CHAIN_STATE_LEAVES = (
+    "pi", "phi_sum", "theta", "beta", "step_count", "beta_count",
+    "ppx_per_edge", "ppx_count", "phi_key", "beta_key", "neighbor_key",
+    "sample_key")
+#: The JAX learners whose npz checkpoints the port reads (the manifest's
+#: ``learner``; each has the port class of the same name as its
+#: counterpart) and the leaf order of their state. The sharded learners'
+#: files hold the global state: pi's rows padded to the model axis, the
+#: running averages to the data axis.
+JAX_LEARNERS = {
+    "Learner": _JAX_TRAIN_STATE_LEAVES,
+    "ShardedLearner": _JAX_TRAIN_STATE_LEAVES,
+    "FullMMSBLearner": _JAX_MMSB_STATE_LEAVES,
+    "MMSBChainLearner": _JAX_MMSB_STATE_LEAVES,
+    "FlatChainLearner": _JAX_CHAIN_STATE_LEAVES,
+    "ShardedChainLearner": _JAX_CHAIN_STATE_LEAVES,
+}
+
+
+def jax_leaf_names(manifest: dict) -> list:
+    """The field of each ``leaf_i`` of a JAX npz checkpoint, from its
+    manifest: a ``TrainState`` with the reference RNG has the three seed
+    arrays as ``ref_seeds.<stream>``. Raises ValueError for another
+    learner or another number of leaves."""
+    name = manifest.get("learner")
+    if name not in JAX_LEARNERS:
+        raise ValueError(
+            f"checkpoint of the JAX package's {name}: the port reads those "
+            f"of {', '.join(JAX_LEARNERS)} (the JAX CLI checkpoints no "
+            f"other engine)")
+    names = list(JAX_LEARNERS[name])
+    train = JAX_LEARNERS[name] is _JAX_TRAIN_STATE_LEAVES
+    if train and manifest["num_leaves"] == len(names) + len(_JAX_REF_LEAVES):
+        at = names.index("neighbor_key") + 1
+        names[at:at] = _JAX_REF_LEAVES
+    if manifest["num_leaves"] != len(names):
+        raise ValueError(
+            f"checkpoint has {manifest['num_leaves']} state leaves, the JAX "
+            f"{name}'s state has {len(names)}"
+            + (f" (native RNG) or {len(names) + len(_JAX_REF_LEAVES)} "
+               "(reference RNG)" if train else ""))
+    return names
+
+
+def jax_leaf_keys(manifest: dict, state) -> list:
+    """The npz key of each leaf of the port's ``state`` (in
+    ``checkpoint.state_leaves`` order) in a JAX checkpoint: None where
+    the port's leaf is an absent field (an empty leaf). The JAX keys are
+    skipped: threefry keys have no torch counterpart. Raises ValueError
+    when the file's RNG backend is not the state's."""
+    at = {n: f"leaf_{i}" for i, n in enumerate(jax_leaf_names(manifest))}
+    keys = []
+    for name, v in zip(state._fields, state):
+        if isinstance(v, tuple):
+            keys.extend(at.get(f"{name}.{sub}") for sub in v._fields)
+        else:
+            keys.append(at.get(name))
+    seeds = getattr(state, "ref_seeds", None)
+    if ("ref_seeds.phi" in at) != (seeds is not None):
+        raise ValueError(
+            "the checkpoint was written with the "
+            f"{'reference' if 'ref_seeds.phi' in at else 'native'} RNG, "
+            f"this learner runs the "
+            f"{'reference' if seeds is not None else 'native'} RNG")
+    return keys
 
 
 def state_from_jax_checkpoint(path: str, cfg: Config, device) -> TrainState:
     """The port's ``TrainState`` from an npz checkpoint that the JAX
     package's ``save_checkpoint`` wrote for its single-chain ``Learner``
-    (``leaf_i`` arrays in the field order of its ``TrainState``), with the
-    native RNG or the reference RNG (whose seeds the run continues from).
-    The four key leaves are skipped: the port's native streams are
-    generators seeded from the config."""
+    (leaves named by ``jax_leaf_names``), with the native RNG or the
+    reference RNG (whose seeds the run continues from). The four key
+    leaves are skipped: the port's native streams are generators seeded
+    from the config. Every other learner's file is read into a learner by
+    ``checkpoint.load_checkpoint``."""
     import json
 
-    z = np.load(path, allow_pickle=False)
-    manifest = json.loads(bytes(z["manifest"]).decode())
-    if manifest.get("learner") != "Learner":
-        raise ValueError(f"checkpoint of a {manifest.get('learner')}: only "
-                         f"the single-chain Learner's state is read")
-    names = list(_JAX_TRAIN_STATE_LEAVES)
-    if manifest["num_leaves"] == len(names) + len(_JAX_REF_LEAVES):
-        at = names.index("neighbor_key") + 1
-        names[at:at] = _JAX_REF_LEAVES
-    if manifest["num_leaves"] != len(names):
-        raise ValueError(
-            f"checkpoint has {manifest['num_leaves']} state leaves, the "
-            f"JAX TrainState has {len(_JAX_TRAIN_STATE_LEAVES)} (native RNG) "
-            f"or {len(_JAX_TRAIN_STATE_LEAVES) + len(_JAX_REF_LEAVES)} "
-            f"(reference RNG)")
-    arrays = {name: z[f"leaf_{i}"] for i, name in enumerate(names)
-              if not name.endswith("_key")}
+    with np.load(path, allow_pickle=False) as z:
+        manifest = json.loads(bytes(z["manifest"]).decode())
+        if manifest.get("learner") != "Learner":
+            raise ValueError(f"checkpoint of a {manifest.get('learner')}: "
+                             f"only the single-chain Learner's state is read")
+        arrays = {name: z[f"leaf_{i}"]
+                  for i, name in enumerate(jax_leaf_names(manifest))
+                  if not name.endswith("_key")}
     return state_from_numpy(arrays, cfg, device)
 
 

@@ -789,6 +789,12 @@ class Learner(HostSamplingPipeline):
         """The 1-based number of the next step."""
         return self.state.step_count
 
+    def reseed_streams(self, step: int) -> None:
+        """Seed the streams anew from the config with ``step`` folded in
+        (``rng.seed_streams``): a restore whose file holds no generator
+        states that fit this device."""
+        rng.seed_streams(self.streams, rng.stream_pairs(self.cfg), step)
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

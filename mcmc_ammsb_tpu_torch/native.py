@@ -1,9 +1,10 @@
 """ctypes binding and lazy build of the native C++ host library
 (counterpart of ``mcmc_ammsb_tpu/native.py``).
 
-``csrc/sampler.cpp`` at the root of the checkout (the source the JAX
-package compiles too; it is never edited) is built with ``g++`` at first
-use into ``build/torch_native/`` under a name that carries a hash of the
+The port's own ``csrc/sampler.cpp`` (a copy of the source the JAX
+package compiles, byte for byte, so the two host samplers draw alike) is
+built with ``g++`` at first use into ``build/torch_native/`` at the root
+of the checkout under a name that carries a hash of the
 source, the flags and the host CPU's features (``-march=native``), as
 ``kernels.build`` names the CUDA libraries. The
 JAX package keeps its own ``build/libmcmc_sampler.so``: the two packages
@@ -34,7 +35,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 _ROOT = Path(__file__).resolve().parent.parent
-SOURCE = _ROOT / "csrc" / "sampler.cpp"
+SOURCE = Path(__file__).resolve().parent / "csrc" / "sampler.cpp"
 BUILD_DIR = _ROOT / "build" / "torch_native"
 GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
 

@@ -157,3 +157,7 @@ class ShardedChainLearner(FlatChainLearner):
 
     def stream_generators(self) -> dict:
         return dict(zip(self.streams._fields, self.streams))
+
+    def reseed_streams(self, step: int) -> None:
+        rng.seed_streams(self.streams, rng.stream_pairs(
+            chain_config(self.cfg, self.mesh.g_idx)), step)

@@ -611,15 +611,13 @@ class ShardedLearner(Learner):
                 _padded_population(tu, tv, n_data, mesh.d_idx, dev))
 
         self.ctx = ShardCtx(cfg, mesh, self.rows_per_shard, self.training_set)
-        self.phi_streams = [rng.generator(fold_seed(cfg.phi_seed, d), dev)
+        pairs = self._stream_pairs()
+        self.phi_streams = [rng.generator(pairs[f"phi{d}"], dev)
                             for d in range(n_data)]
         self.streams = rng.Streams(
             phi=self.phi_streams[mesh.d_idx],
-            beta=rng.generator(cfg.beta_seed, dev),
-            neighbor=rng.generator(
-                cfg.neighbor_seed if cfg.shared_neighbors
-                else fold_seed(cfg.neighbor_seed, mesh.d_idx), dev),
-            sample=rng.generator((cfg.sample_seed, 0x5A), dev))
+            **{name: rng.generator(pairs[name], dev)
+               for name in ("beta", "neighbor", "sample")})
         self.state = init_local_state(
             cfg, lo, lo + self.rows_per_shard, self.n_padded,
             self.heldout_u.shape[0],
@@ -722,3 +720,20 @@ class ShardedLearner(Learner):
         gens = dict(zip(self.streams._fields, self.streams))
         gens.update({f"phi{d}": g for d, g in enumerate(self.phi_streams)})
         return gens
+
+    def _stream_pairs(self) -> dict:
+        """The seed pair of each of ``stream_generators`` (module
+        docstring): data shard d's phi stream and, with private draws,
+        its neighbor stream fold d in."""
+        cfg, d = self.cfg, self.mesh.d_idx
+        pairs = dict(zip(rng.Streams._fields, rng.stream_pairs(cfg)))
+        pairs.update({f"phi{e}": fold_seed(cfg.phi_seed, e)
+                      for e in range(self.n_data)})
+        pairs["phi"] = pairs[f"phi{d}"]
+        if not cfg.shared_neighbors:
+            pairs["neighbor"] = fold_seed(cfg.neighbor_seed, d)
+        return pairs
+
+    def reseed_streams(self, step: int) -> None:
+        gens, pairs = self.stream_generators(), self._stream_pairs()
+        rng.seed_streams([gens[n] for n in pairs], pairs.values(), step)

@@ -71,6 +71,38 @@ def window_case(seed: int, t_win: int, b_cap: int, n_smpl: int,
         lanes_u=lanes_u, lanes_v=lanes_v)
 
 
+def digest(arrays: dict) -> dict:
+    """A float64 digest of each named array (numpy or torch): its sum,
+    2-norm, largest magnitude and size. The sidecars of the JAX-written
+    checkpoint fixtures (tests/jax_fixtures.py) hold JAX's continuation
+    as one."""
+    out = {}
+    for name, x in arrays.items():
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().double().numpy()
+        x = np.asarray(x, np.float64)
+        out[name] = {"sum": float(x.sum()), "norm": float(np.linalg.norm(x)),
+                     "max_abs": float(np.abs(x).max()), "size": int(x.size)}
+    return out
+
+
+def digest_misses(got: dict, want: dict, rtol: float, atol: float) -> list:
+    """Where the digest ``got`` breaks what the normwise contract
+    max |got - want| <= atol + rtol * max |want| implies for the digest of
+    arrays of ``want``'s sizes: |d max_abs| <= b, |d norm| <= sqrt(n) b,
+    |d sum| <= n b, with b that bound. [] when it holds."""
+    misses = []
+    for name, w in want.items():
+        g, n = got[name], w["size"]
+        b = atol + rtol * w["max_abs"]
+        for key, limit in (("max_abs", b), ("norm", np.sqrt(n) * b),
+                           ("sum", n * b)):
+            if not abs(g[key] - w[key]) <= limit:
+                misses.append(f"{name}.{key}: {g[key]!r} vs {w[key]!r} "
+                              f"(limit {limit:.3e})")
+    return misses
+
+
 def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Elementwise distance in bfloat16 ulps of two bf16 tensors (0 where
     the bits are equal): each value's bits as a signed 16-bit integer

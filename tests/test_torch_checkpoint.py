@@ -3,7 +3,7 @@ on the CPU: the contract of tests/test_checkpoint.py (run 20, save, run
 15 equals restore, run 15, bit for bit) on every learner and sampling
 mode, the manifest guards with the JAX package's messages, the layout
 against the JAX package's, and a checkpoint written by the JAX package
-read through interop.state_from_jax_checkpoint."""
+read through interop.state_from_jax_checkpoint and load_checkpoint."""
 
 import dataclasses
 import json
@@ -221,18 +221,32 @@ def _rewrite_manifest(src, dst, **changes):
                                            np.uint8), **arrays)
 
 
-def test_checkpoint_rejects_format_version_and_device_kind(dataset, tmp_path):
+def test_checkpoint_rejects_format_version_and_device_kind(dataset, tmp_path,
+                                                          caplog):
+    """Another format version is refused. A file of another device kind
+    is not (since streams are re-seeded there): its state loads bit for
+    bit and the re-seed is logged once. A file without the port's
+    ``stream_device`` is read as the JAX package's, whose Learner state
+    has other leaves."""
     src, dst = str(tmp_path / "ck.npz"), str(tmp_path / "bad.npz")
     a = _build(dataset, "learner-device-windowed")
+    a.run(5)
     checkpoint.save_checkpoint(src, a)
     _rewrite_manifest(src, dst, format_version=1)
     with pytest.raises(ValueError, match="checkpoint format 1 != 2"):
         checkpoint.load_checkpoint(dst, a)
     _rewrite_manifest(src, dst, stream_device="cuda")
-    with pytest.raises(ValueError, match="saved on 'cuda'.*runs on 'cpu'"):
-        checkpoint.load_checkpoint(dst, a)
+    b = _build(dataset, "learner-device-windowed")
+    with caplog.at_level("INFO", logger="mcmc_ammsb_tpu_torch"):
+        checkpoint.load_checkpoint(dst, b)
+    for x, y in zip(_leaves(a), _leaves(b)):
+        np.testing.assert_array_equal(x, y)
+    assert [r.getMessage() for r in caplog.records
+            if "re-seeded" in r.getMessage()] == [
+        "random streams re-seeded at step 6 (checkpoint written by cuda)"]
     _rewrite_manifest(src, dst, stream_device=None)
-    with pytest.raises(ValueError, match="state_from_jax_checkpoint"):
+    with pytest.raises(ValueError, match=r"checkpoint has 11 state leaves, "
+                       r"the JAX Learner's state has 14 \(native RNG\)"):
         checkpoint.load_checkpoint(dst, a)
 
 
@@ -347,9 +361,13 @@ def _check_jax_checkpoint(dataset, tmp_path, rng_backend):
     assert_close(tl.state.ppx_per_edge, jl.state.ppx_per_edge, 1e-5, 1e-7,
                  "running averages")
 
-    # and the port's own loader says where such a file goes
-    with pytest.raises(ValueError, match="state_from_jax_checkpoint"):
-        checkpoint.load_checkpoint(path, tl)
+    # and the port's own loader restores the file into a learner
+    tl2 = learner.Learner(cfg, graph, split, "cpu", prefetch=False)
+    checkpoint.load_checkpoint(path, tl2)
+    for f in ("pi", "phi_sum", "theta", "beta", "ppx_per_edge"):
+        assert torch.equal(getattr(tl2.state, f), getattr(state, f)), f
+    assert tl2.step_count == 13
+    tl2.close()
     with pytest.raises(ValueError, match="pi has shape"):
         interop.state_from_jax_checkpoint(path, cfg.replace(K=4), "cpu")
     jl.close()

@@ -21,14 +21,17 @@ def _native_or_skip():
 
 
 def test_library_is_the_ports_own():
-    """Built from the repo's csrc/sampler.cpp into build/torch_native/
+    """Built from the port's own copy of csrc/sampler.cpp (byte-equal
+    to the JAX package's source, another file) into build/torch_native/
     under a hashed name; the JAX package's build/libmcmc_sampler.so is
     another file; a second build is a no-op; no temporary file stays."""
     path = native.library_path()
     assert path.exists() and path == native.build()
     assert path.parent.name == "torch_native"
     assert path.name.startswith("libsampler_") and len(path.stem) == 23
-    assert os.path.samefile(native.SOURCE, jax_native._SRC)
+    assert not os.path.samefile(native.SOURCE, jax_native._SRC)
+    with open(native.SOURCE, "rb") as a, open(jax_native._SRC, "rb") as b:
+        assert a.read() == b.read()
     assert os.path.abspath(jax_native._LIB_PATH) != str(path)
     assert not [f for f in os.listdir(path.parent) if f.endswith(".tmp")]
     assert native.build_error == ""

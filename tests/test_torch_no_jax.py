@@ -52,9 +52,37 @@ def test_port_imports_without_jax():
             "from mcmc_ammsb_tpu_torch import rng\n"
             "assert rng.make_streams and rng.reference.make_seeds\n"
             "mcmc_ammsb_tpu_torch.native.available()\n"
+            "from pathlib import Path\n"
+            "pkg = Path(mcmc_ammsb_tpu_torch.__file__).resolve().parent\n"
+            "assert pkg in mcmc_ammsb_tpu_torch.native.SOURCE.parents\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', "
             "'mcmc_ammsb_tpu.')) or m == 'mcmc_ammsb_tpu' "
             "for m, v in sys.modules.items() if v is not None)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_jax_fixtures_restore_without_jax():
+    """``cli.main(... --restore <fixture>)`` of each committed JAX-written
+    checkpoint (tests/fixtures/jax_ckpt/) with ``jax`` and
+    ``mcmc_ammsb_tpu`` unimportable: rc 0, restored at step 11, and no
+    module of either imported (the pickled batches name the JAX
+    package's classes)."""
+    code = (
+        "import json, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['mcmc_ammsb_tpu'] = None\n"
+        "from mcmc_ammsb_tpu_torch import cli\n"
+        "for name in ('learner_host', 'learner_reference'):\n"
+        "    base = 'tests/fixtures/jax_ckpt/' + name\n"
+        "    argv = json.load(open(base + '.json'))['argv']\n"
+        "    assert cli.main(argv + ['--restore', base + '.npz', '--device',\n"
+        "                            'cpu', '-x', '0']) == 0\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', "
+        "'mcmc_ammsb_tpu.')) or m == 'mcmc_ammsb_tpu' "
+        "for m, v in sys.modules.items() if v is not None)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stderr.count("(step=11)") == 2, proc.stderr

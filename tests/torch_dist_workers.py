@@ -348,6 +348,41 @@ def run_cli(argv) -> tuple:
     return rc, records
 
 
+def cli_learner(argv, device="cpu"):
+    """The learner ``cli.main(argv)`` trains, built as the CLI builds it
+    (in a rank of a group for the multi-rank flags), on ``device``."""
+    from mcmc_ammsb_tpu_torch import cli
+
+    args = cli.build_arg_parser().parse_args(list(argv) + ["--device",
+                                                           device])
+    cli.resolve_fast_defaults(args)
+    cfg = cli.config_from_args(args)
+    if args.num_chains > 1:
+        cfg = cfg.replace(device_sampling=True)
+    nn, deg = (int(x) for x in args.synthetic.split(","))
+    n, u, v = synthetic_edges(nn, deg, seed=1)
+    split = generate_sets(n, u, v, args.heldout_ratio)
+    graph = Graph.from_edges(n, split.training_u, split.training_v)
+    cfg = cli.resolve_kernel_window(
+        args, cfg.finalize(n, split.total_edges, graph.max_fan_out),
+        torch.device(device))
+    return cli.make_learner(args, cfg, graph, split, device)
+
+
+def restore_and_save(argv, path: str, out: str) -> int:
+    """This rank's share of ``load_checkpoint(path)`` into the CLI's
+    learner for ``argv``, saved again to ``out`` (rank 0 writes the
+    global state): the restored step."""
+    from mcmc_ammsb_tpu_torch.checkpoint import (load_checkpoint,
+                                                 save_checkpoint)
+
+    lrn = cli_learner(argv)
+    load_checkpoint(path, lrn)
+    save_checkpoint(out, lrn)
+    lrn.close()
+    return lrn.step_count
+
+
 def theta_bits(seed: int, n_data: int, n_model: int) -> bytes:
     """theta after a device-sampled chunk, as bytes (bit-equality across
     ranks)."""
