@@ -7,7 +7,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
                power limit as nvidia-smi reports them;
   2. build   — compiles the four kernels from csrc/ with nvcc, one
                process per source, the window kernel's source from before
-               its wide mode's step layout (PARENT_SRC) and the native
+               its wide mode's step layout (PARENT_SRC), the reference
+               RNG kernel's from before its split (PARENT_RNG_SRC) and the
+               native
                host library (the port's mcmc_ammsb_tpu_torch/csrc/
                sampler.cpp) with g++, all started together;
      native  — the native CHD build and the numpy build give
@@ -70,8 +72,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
                conditioning, docs/design.md "Windowed MMSB tolerances")
                finite and no farther from float64 than 2x the plain
                version; theta bit-symmetric at every shape; the
-               reference RNG's three entries (csrc/ref_rng_kernel.cu: one
-               thread per stream, a chunk per launch) against the plain
+               reference RNG's three entries (csrc/ref_rng_kernel.cu:
+               each stream split across a warp or a block by exact
+               jump-ahead, a chunk per launch) against the plain
                version on the same CUDA seeds, values and seeds bit for
                bit, at the main path's launch shapes: randn_lanes over a
                200-step chunk of a real host mask of 64 lanes, K=256 (one
@@ -81,8 +84,14 @@ Phases, one line each; any failure raises and the exit code is not 0:
                launch's) and at (200, 256, 2), neighbors_lanes at (200,
                64, 32) with N = 317,080, gamma_lanes over 317,080 x 32
                lanes and 8 column blocks (the pi init) and with a = 0.5
-               and 0.3 (the boost pre-pass) on 1280 lanes, with the
-               kernel's and the plain version's times;
+               and 0.3 (the boost pre-pass) on 1280 lanes; the stress
+               cases neighbors_lanes at N = 40 (50 steps), randn_lanes
+               on one long stream (2000, 1, 256) and with whole lanes
+               off (the phi and the theta noise's shapes), the plain
+               version drawing the long launches' last 3 steps; the
+               main entries and the long stream also bit-equal to
+               PARENT_RNG_SRC's build and timed against it in turns,
+               with the kernel's device time and the plain version's;
      bf16    — the window kernel's bf16 row mode (bfloat16 pi storage) at
                the main path's, the chain path's and the com-youtube
                rung's shapes and in the wide mode at the -k 4096 path's:
@@ -462,8 +471,12 @@ CARRY_STEPS, CARRY_CPU_STEPS, CARRY_BACK_STEPS = 1000, 24, 12
 # the draws of the window kernel's GPU-vs-CPU slices (check_f64_slice)
 SLICE_DRAWS = 5
 # steps at the end of the phi-noise chunk the plain version draws in the
-# kernel phase
-REF_PLAIN_STEPS = 10
+# kernel phase, and at the end of the reference RNG's stress launches
+REF_PLAIN_STEPS, REF_STRESS_STEPS = 10, 3
+# the reference RNG kernel's source from before its streams were split
+# (one thread per stream): its build is held bit-equal to this one and
+# timed against it
+PARENT_RNG_SRC = "scripts/ref_rng_kernel_per_lane.cu"
 REF_API_ARGS = ["--rng", "reference", "--synthetic", "317080,7", "-k", "256",
                 "--steps-per-call", "10"]
 AUTO_ARGS = ["--synthetic", "317080,7", "-k", "256", "--steps-per-call",
@@ -612,13 +625,14 @@ def _to(x, dev):
     return x
 
 
-def build_parent(kernels, src: Path = None) -> Path:
+def build_parent(kernels, src: Path = None,
+                 name: str = "window_kernel_parent") -> Path:
     """A build of PARENT_SRC (the window kernel from before the wide
-    mode's step layout), or of another source with its C interface,
-    beside the kernels' builds."""
+    mode's step layout), or of another source, beside the kernels'
+    builds."""
     src = src or Path(__file__).resolve().parent / PARENT_SRC
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = kernels.BUILD_DIR / "libwindow_kernel_parent.so"
+    out = kernels.BUILD_DIR / f"lib{name}.so"
     subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(out),
                     str(src)], check=True, capture_output=True)
     return out
@@ -662,26 +676,30 @@ class ParentWindowLib:
 
 
 def build_all(kernels, native):
-    """Phase 2: one nvcc per source, one for PARENT_SRC and one g++ for
-    the native host library, all started together. Returns the parent's
-    build."""
+    """Phase 2: one nvcc per source, one each for PARENT_SRC and
+    PARENT_RNG_SRC and one g++ for the native host library, all started
+    together. Returns the parents' builds (window kernel, reference
+    RNG)."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(SOURCES) + 2) as pool:
+    root = Path(__file__).resolve().parent
+    with ThreadPoolExecutor(len(SOURCES) + 3) as pool:
         host_lib = pool.submit(native.build)
         parent = pool.submit(build_parent, kernels)
+        parent_rng = pool.submit(build_parent, kernels,
+                                 root / PARENT_RNG_SRC, "ref_rng_parent")
         libs = dict(zip(SOURCES, pool.map(kernels.build, SOURCES)))
         host_lib = host_lib.result()
-        parent = parent.result()
+        parent, parent_rng = parent.result(), parent_rng.result()
     for name, lib in libs.items():
         ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
                  .splitlines() if "registers" in ln or "spill" in ln]
         phase("build", f"{name}: {'; '.join(ptxas)}")
     if not native.available():
         raise AssertionError(f"native host library: {native.build_error}")
-    phase("build", f"{len(SOURCES)} CUDA sources, {PARENT_SRC} and "
-          f"{host_lib.name} (g++) built in "
+    phase("build", f"{len(SOURCES)} CUDA sources, {PARENT_SRC}, "
+          f"{PARENT_RNG_SRC} and {host_lib.name} (g++) built in "
           f"{time.perf_counter() - t0:.2f} s")
-    return parent
+    return parent, parent_rng
 
 
 def _bench_graph(data):
@@ -2112,23 +2130,92 @@ def _ref_host_chunk(cli, sampler_cls, bench, steps):
             torch.as_tensor(chunk.node_mask, device="cuda"), cfg)
 
 
-def check_ref_rng_kernel(cli, refblock, ref_rng, sampler_cls, bench):
+class ParentRngLib:
+    """A build of PARENT_RNG_SRC (one thread per stream) behind the
+    wrapper's calls: each entry on the same CUDA operands, returning
+    (values, seeds') as the wrapper does."""
+
+    def __init__(self, path: Path, ref_rng):
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib = ctypes.CDLL(str(path))
+        lib.randn_lanes_launch.argtypes = [P, P, P, I, I, I, P, P, P, P]
+        lib.neighbors_lanes_launch.argtypes = [P, P, P, P, I, I, I, I, P]
+        lib.gamma_lanes_launch.argtypes = [P, P, P, I, ctypes.c_longlong,
+                                           F, F, F, I, F, P, P, P, P]
+        self.lib, self.ref = lib, ref_rng
+
+    def _tables(self):
+        return [t.data_ptr() for t in self.ref.ziggurat_tables("cuda")]
+
+    @staticmethod
+    def _stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def randn_lanes(self, seeds, k, mask):
+        new = seeds.clone()
+        s_len, lanes = mask.shape
+        out = torch.empty(s_len, lanes, k, device="cuda")
+        if self.lib.randn_lanes_launch(new.data_ptr(), mask.data_ptr(),
+                                       out.data_ptr(), s_len, lanes, k,
+                                       *self._tables(), self._stream()):
+            raise AssertionError("parent randn_lanes launch failed")
+        return out, new
+
+    def neighbors_lanes(self, seeds, nodes, mask, n, num):
+        new = seeds.clone()
+        s_len, lanes = mask.shape
+        out = torch.empty(s_len, lanes, num, dtype=torch.int64,
+                          device="cuda")
+        if self.lib.neighbors_lanes_launch(
+                new.data_ptr(), nodes.data_ptr(), mask.data_ptr(),
+                out.data_ptr(), s_len, lanes, n, num, self._stream()):
+            raise AssertionError("parent neighbors_lanes launch failed")
+        return out, new
+
+    def gamma_lanes(self, seeds, a, b, mask):
+        import numpy as np
+
+        if a < 1.0:
+            raise ValueError("the parent's gamma_lanes is called with a >= 1")
+        new = seeds.clone()
+        s_len, lanes = mask.shape
+        out = torch.empty(s_len, lanes, device="cuda")
+        if self.lib.gamma_lanes_launch(
+                new.data_ptr(), mask.data_ptr(), out.data_ptr(), s_len,
+                lanes, float(np.float32(a - 1.0 / 3.0)),
+                float(np.float32((1.0 / 3.0) / np.sqrt(a - 1.0 / 3.0))),
+                float(np.float32(b)), 0, 1.0, *self._tables(),
+                self._stream()):
+            raise AssertionError("parent gamma_lanes launch failed")
+        return out, new
+
+
+def check_ref_rng_kernel(cli, refblock, ref_rng, sampler_cls, bench,
+                         parent):
     """Phase 3, csrc/ref_rng_kernel.cu: each entry against the plain
     version (rng/reference.py) on the same CUDA seeds, values and seeds
     bit for bit, at the --rng reference path's launch shapes: the phi
     noise of a 200-step chunk of real host batches (64 lanes, K=256) in
     one launch, its theta noise (200, 256 lanes, 2), its neighbor draws
     (200, 64 lanes, n=32, N=317,080) and the pi init's Gamma draws
-    (317,080 x 32 lanes, 8 column blocks); and Gamma draws with a < 1
-    (the boost pre-pass) on 1280 lanes. The plain phi noise runs a
-    rejection loop per draw (~1 s per step of the chunk on the card), so
-    it draws only the chunk's last REF_PLAIN_STEPS steps, from the seeds a
-    kernel launch over the steps before them leaves; the whole launch's
-    earlier steps equal that launch's values. Kernel times by CUDA events
-    (20 calls at the launch shape), the plain version's by its one
-    comparison call (for the phi noise: its REF_PLAIN_STEPS steps).
-    Returns {entry: (0.0, (ms, plain_ms, bound_ms, bound_by), plain
-    steps)} for the main path's three entries."""
+    (317,080 x 32 lanes, 8 column blocks); Gamma draws with a < 1 (the
+    boost pre-pass) on 1280 lanes; and the stress cases: neighbors at
+    N = 40 (frequent redraws, several warp rounds a step; the chunk's
+    first 50 steps), one long stream (2000, 1, 256), the phi mask with
+    whole lanes off and the theta noise with whole lanes off. The plain
+    phi noise runs a rejection loop per draw (~1 s per step of the chunk
+    on the card), so it draws only a launch's last steps
+    (REF_PLAIN_STEPS, REF_STRESS_STEPS), from the seeds a launch over the
+    steps before them leaves, whose values equal the whole launch's
+    first steps. The main entries and the long stream are also held,
+    whole, against the build of PARENT_RNG_SRC (one thread per stream),
+    bit for bit, and timed against it in turns (parent, change, change,
+    parent). Kernel times by CUDA events over 20 calls at the launch
+    shape while the host is held back (device time), the plain version's
+    by its one comparison call. Returns ({entry: (0.0, (ms, plain_ms,
+    bound_ms, bound_by), plain steps)} for the main path's three entries
+    and the theta noise, {entry: (parent ms, change ms)}, {entry: the
+    layout's threads per stream})."""
     nodes, mask, cfg = _ref_host_chunk(cli, sampler_cls, bench, 200)
     s_len, lanes = mask.shape
     seeds = ref_rng.make_seeds(cfg.phi_seed, lanes, "cuda")
@@ -2141,24 +2228,48 @@ def check_ref_rng_kernel(cli, refblock, ref_rng, sampler_cls, bench):
     g_seeds = ref_rng.make_seeds((11, 113), cfg.N * 32, "cuda")
     boost_seeds = ref_rng.make_seeds((5, 7), 1280, "cuda")
     boost_mask = torch.ones(4, 1280, dtype=torch.bool, device="cuda")
-    cut = s_len - REF_PLAIN_STEPS
-    head, head_seeds = refblock.randn_lanes(seeds, cfg.K, mask[:cut])
+    # the stress cases' operands: ids in [0, 40), one long stream, whole
+    # lanes off
+    gen = torch.Generator().manual_seed(40)
+    nodes40 = torch.randint(0, 40, (50, lanes), generator=gen,
+                            dtype=torch.int32).cuda()
+    long_seeds = ref_rng.make_seeds((2000, 256), 1, "cuda")
+    long_mask = torch.ones(2000, 1, dtype=torch.bool, device="cuda")
+    off_mask = mask.clone()
+    off_mask[:, [0, 17, lanes - 1]] = False
+    off_every = every.clone()
+    off_every[:, [0, 100, cfg.K - 1]] = False
+
+    # the randn cases whose plain version draws only the last steps: the
+    # values and seeds of a launch over the steps before them
+    heads = {}
+    for name, (kmask, k, n, sd) in {
+            "randn_lanes": (mask, cfg.K, REF_PLAIN_STEPS, seeds),
+            "randn_lanes (one long stream)": (long_mask, 256,
+                                              REF_STRESS_STEPS, long_seeds),
+            "randn_lanes (whole lanes off)": (off_mask, cfg.K,
+                                              REF_STRESS_STEPS, seeds)
+            }.items():
+        heads[name] = (*refblock.randn_lanes(sd, k, kmask[:-n]), n)
 
     def state(streams):
         # xorshift128+ state: four 32-bit words per stream, read and written
         return 2 * 16 * streams
+
+    def tail_case(name, kernel_mask, k, seeds_):
+        head, head_seeds, n = heads[name]
+        return (lambda: refblock.randn_lanes(seeds_, k, kernel_mask),
+                lambda: ref_rng.randn_lanes(head_seeds, k, kernel_mask[-n:]),
+                lambda got: (got[0][-n:], got[1]),
+                state(kernel_mask.shape[1]) + nbytes(kernel_mask)
+                + kernel_mask.numel() * k * 4, int(kernel_mask.sum()) * k)
 
     # entry: (kernel, plain, the kernel's (values, seeds) the plain ones
     # are held against, the bytes the function must move, its float32
     # operations: one product per Gaussian draw (the ziggurat's j * w), one
     # for the rest at least)
     cases = {
-        "randn_lanes": (
-            lambda: refblock.randn_lanes(seeds, cfg.K, mask),
-            lambda: ref_rng.randn_lanes(head_seeds, cfg.K, mask[cut:]),
-            lambda got: (got[0][cut:], got[1]),
-            state(lanes) + nbytes(mask) + s_len * lanes * cfg.K * 4,
-            int(mask.sum()) * cfg.K),
+        "randn_lanes": tail_case("randn_lanes", mask, cfg.K, seeds),
         "randn_lanes (theta noise)": (
             lambda: refblock.randn_lanes(beta_seeds, 2, every),
             lambda: ref_rng.randn_lanes(beta_seeds, 2, every),
@@ -2185,7 +2296,35 @@ def check_ref_rng_kernel(cli, refblock, ref_rng, sampler_cls, bench):
             lambda a=a: ref_rng.gamma_lanes(boost_seeds, a, 2.0, boost_mask),
             lambda got: got, state(1280) + boost_mask.numel() * 4,
             boost_mask.numel())
-    out = {}
+    cases["neighbors_lanes (N=40)"] = (
+        lambda: refblock.neighbors_lanes(seeds, nodes40, mask[:50], 40,
+                                         cfg.num_node_sample),
+        lambda: ref_rng.neighbors_lanes(seeds, nodes40, mask[:50], 40,
+                                        cfg.num_node_sample),
+        lambda got: got, state(lanes) + nbytes(mask[:50]) + 50 * lanes
+        * (1 + cfg.num_node_sample) * 4, 0)
+    cases["randn_lanes (one long stream)"] = tail_case(
+        "randn_lanes (one long stream)", long_mask, 256, long_seeds)
+    cases["randn_lanes (whole lanes off)"] = tail_case(
+        "randn_lanes (whole lanes off)", off_mask, cfg.K, seeds)
+    cases["randn_lanes (theta noise, whole lanes off)"] = (
+        lambda: refblock.randn_lanes(beta_seeds, 2, off_every),
+        lambda: ref_rng.randn_lanes(beta_seeds, 2, off_every),
+        lambda got: got, state(cfg.K) + s_len * cfg.K * 2 * 4,
+        int(off_every.sum()) * 2)
+    # the entries held, whole, against PARENT_RNG_SRC's build and timed
+    # against it
+    against_parent = {
+        "randn_lanes": lambda lib: lib.randn_lanes(seeds, cfg.K, mask),
+        "randn_lanes (theta noise)":
+            lambda lib: lib.randn_lanes(beta_seeds, 2, every),
+        "neighbors_lanes": lambda lib: lib.neighbors_lanes(
+            seeds, nodes, mask, cfg.N, cfg.num_node_sample),
+        "gamma_lanes": lambda lib: lib.gamma_lanes(g_seeds, cfg.eta0,
+                                                   cfg.eta1, g_mask),
+        "randn_lanes (one long stream)":
+            lambda lib: lib.randn_lanes(long_seeds, 256, long_mask)}
+    out, turns, layouts = {}, {}, {}
     for name, (kernel, plain, pick, need, draws) in cases.items():
         got = kernel()
         start = torch.cuda.Event(enable_timing=True)
@@ -2201,23 +2340,50 @@ def check_ref_rng_kernel(cli, refblock, ref_rng, sampler_cls, bench):
                     f"{name}: kernel {what} differ from the plain version's "
                     f"at {int((g != w).sum())} of {g.numel()} elements")
         note = ""
-        if name == "randn_lanes":
+        if name in heads:
+            head, _, n = heads[name]
+            cut = got[0].shape[0] - n
             if not torch.equal(got[0][:cut], head):
                 raise AssertionError(
-                    f"randn_lanes: the {s_len}-step launch's first {cut} "
-                    f"steps differ from a {cut}-step launch's")
-            note = (f" (its last {REF_PLAIN_STEPS} steps, from the seeds a "
-                    f"{cut}-step launch leaves; the first {cut} equal that "
-                    f"launch's)")
+                    f"{name}: the launch's first {cut} steps differ from a "
+                    f"{cut}-step launch's")
+            note = (f" (its last {n} steps, from the seeds a {cut}-step "
+                    f"launch leaves; the first {cut} equal that launch's)")
+        if name in against_parent:
+            old = against_parent[name](parent)
+            for g, w, what in zip(got, old, ("values", "seeds")):
+                if not torch.equal(g, w):
+                    raise AssertionError(
+                        f"{name}: {what} differ from {PARENT_RNG_SRC}'s "
+                        f"build at {int((g != w).sum())} elements")
+            first = time_ms(lambda: against_parent[name](parent), reps=20,
+                            hold=True)
+            mid = [time_ms(kernel, reps=20, hold=True) for _ in range(2)]
+            last = time_ms(lambda: against_parent[name](parent), reps=20,
+                           hold=True)
+            turns[name] = ((first + last) / 2, sum(mid) / 2)
+            note += (f"; bit-equal to {PARENT_RNG_SRC}'s build, in turns "
+                     f"{first:.4f} / {mid[0]:.4f} / {mid[1]:.4f} / "
+                     f"{last:.4f} ms (parent, change, change, parent): "
+                     f"{turns[name][0] / turns[name][1]:.1f}x")
+        if name.startswith("randn_lanes"):
+            k_draws = got[0].shape[2]
+            layouts[name] = refblock.randn_layout(got[0].shape[0],
+                                                  got[0].shape[1],
+                                                  k_draws)[0]
+            note += (f"; {'a block' if layouts[name] > 32 else 'a warp'} "
+                     f"per stream")
         plain_steps = want[0].shape[0]
-        ms = time_ms(kernel, reps=20)
+        ms = time_ms(kernel, reps=20, hold=True)
         b_ms, by = bound(need, draws)
-        out[name] = (0.0, (ms, plain_ms, b_ms, by), plain_steps)
+        if name in ("randn_lanes", "randn_lanes (theta noise)",
+                    "neighbors_lanes", "gamma_lanes"):
+            out[name] = (0.0, (ms, plain_ms, b_ms, by), plain_steps)
         phase("kernel", f"ref_rng {name} {tuple(got[0].shape)}: values and "
               f"seeds bit-equal to the plain version{note}; {ms:.4f} ms per "
-              f"launch vs plain {plain_ms:.1f} ms (one call of {plain_steps} "
-              f"steps); bound {b_ms * 1e3:.3f} us ({by})")
-    return out
+              f"launch (device) vs plain {plain_ms:.1f} ms (one call of "
+              f"{plain_steps} steps); bound {b_ms * 1e3:.3f} us ({by})")
+    return out, turns, layouts
 
 
 def run_ref_main(cli, kmods, name, smi):
@@ -3259,7 +3425,7 @@ def main() -> int:
     ladder_dir = tempfile.TemporaryDirectory()
     pool, jobs = start_ladder_data(ladder, ladder_dir.name)
     try:
-        parent = build_all(kernels, native)
+        parent, parent_rng = build_all(kernels, native)
         n, split, graph = _bench_graph(data)
         check_native(edgeset, graph)
         check_membership((config, edgeset, device_sampling, neighbor, rng), n,
@@ -3277,8 +3443,9 @@ def main() -> int:
         phi = check_phi_kernel(phi_pallas, kernels, testing)
         m_err, m_t = check_mmsb_kernel(window, window_mmsb, kernels, testing,
                                        phi_ops, smi)
-        rr = check_ref_rng_kernel(cli, refblock, ref_rng, MiniBatchSampler,
-                                  bench)
+        rr, rr_turns, rr_layouts = check_ref_rng_kernel(
+            cli, refblock, ref_rng, MiniBatchSampler, bench,
+            ParentRngLib(parent_rng, ref_rng))
         smods = (data, config, learner_mod, device_sampling, mmsb)
         with host_law_pi(learner_mod, chains_flat, rng):
             check_slices(smods, window, window_mmsb, phi_pallas,
@@ -3342,14 +3509,29 @@ def main() -> int:
                 "bf16_bound_by": b_by}
 
     def ref_times(name):
-        # ms and bound_ms are the main path's launch (a 200-step chunk);
-        # plain_ms covers the plain_steps the plain version drew of it
+        # ms and bound_ms are the main path's launch (a 200-step chunk),
+        # device time; plain_ms covers the plain_steps the plain version
+        # drew of it; parent_ms and change_ms: PARENT_RNG_SRC's build and
+        # this one in turns
         err, t, plain_steps = rr[name]
         # carry_launches: the JAX-written --rng reference fixture's
         # continuation on the card (its init's gamma draws included)
         entry = name.replace("_lanes", "")
         return {"max_abs_err": err, **times(t), "plain_steps": plain_steps,
+                "parent_ms": rr_turns[name][0],
+                "change_ms": rr_turns[name][1],
                 "carry_launches": carry["learner_reference"][entry]}
+
+    theta = "randn_lanes (theta noise)"
+    theta_fields = {
+        # the theta noise's launch (200, 256, 2) beside the phi noise's,
+        # and the threads per stream of each
+        "theta_ms": rr[theta][1][0], "theta_plain_ms": rr[theta][1][1],
+        "theta_bound_ms": rr[theta][1][2],
+        "theta_bound_by": rr[theta][1][3],
+        "theta_parent_ms": rr_turns[theta][0],
+        "theta_change_ms": rr_turns[theta][1],
+        "threads_per_stream": rr_layouts}
 
     src = "mcmc_ammsb_tpu_torch/csrc/"
     print(json.dumps({"kernels": [
@@ -3436,7 +3618,8 @@ def main() -> int:
          "replaces": "mcmc_ammsb_tpu/ops/phi_pallas.py:84",
          "launches": phi_l["phi_gather"],
          "max_abs_err": phi["by-index"][0], **times(phi["by-index"][1:])},
-        # the reference RNG: one thread per stream, a chunk per launch;
+        # the reference RNG: streams split across a warp or a block (the
+        # Gamma draws: one thread per stream), a chunk per launch;
         # launches are the --rng reference run's (400 steps, chunks of 200:
         # the phi and theta noise and the neighbors of each chunk, the
         # theta and pi init)
@@ -3445,7 +3628,7 @@ def main() -> int:
          "replaces": "mcmc_ammsb_tpu/rng/refblock.py:144,291 (no "
                      "pallas_call)",
          "launches": ref_l["--rng reference"]["randn"],
-         **ref_times("randn_lanes")},
+         **ref_times("randn_lanes"), **theta_fields},
         {"name": "ref_rng_neighbors_lanes", "route": "cuda",
          "source": src + "ref_rng_kernel.cu",
          "replaces": "mcmc_ammsb_tpu/rng/refblock.py:144,291 (no "
