@@ -285,6 +285,18 @@ Phases, one line each; any failure raises and the exit code is not 0:
                run's ppx[0];
      entry   — graft.entry()'s step once on the card: step_count 2, pi
                finite with rows summing to 1 within 1e-5;
+     bench   — mcmc_ammsb_tpu_torch.bench.main on the card at the bench's
+               widths (its graphs at full size, K = 256, m = n = 32, T =
+               12), its run lengths and trials cut (BENCH_CUT): one JSON
+               line (kept off this script's output) with every key
+               non-null but vs_baseline, every rate positive, the graphs'
+               N, E and max fan-out the JAX bench's, the SBM perplexity
+               falling, the measured copy rate within 3.35 TB/s and the
+               device nvidia-smi's; each bench phase's kernel launches
+               counted: exact in the headline, sharded, chains and
+               bit-exact-rng phases, none where a phase runs window 0,
+               some in stratified-coin, power-law and autotune
+               (bench_launches in the kernels line);
 then a JSON line of the kernels, the card's name and power limit, and
 the result line last. Each phase line ends with the seconds since the
 script began.
@@ -294,6 +306,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import io
 import json
 import logging
 import math
@@ -470,6 +483,16 @@ CARRY_ARGS = ["--synthetic", "317080,7", "-k", "256"]
 CARRY_STEPS, CARRY_CPU_STEPS, CARRY_BACK_STEPS = 1000, 24, 12
 # the draws of the window kernel's GPU-vs-CPU slices (check_f64_slice)
 SLICE_DRAWS = 5
+# phase bench: the port's bench at its widths (N = 317,080, K = 256, m = n =
+# 32, T = 12), its run lengths and trials cut (bench.Sizes' other fields
+# are the JAX bench's)
+BENCH_CUT = dict(iters=2000, trials=2, bitexact_iters=200, chain_iters=504,
+                 series_iters=4000, probe_steps=1000, sbm_steps=2000)
+BENCH_RATES = ("reference_semantics_rate", "bit_exact_rng_rate",
+               "device_bflink_rate", "stratified_coin_rate",
+               "chains_aggregate_rate", "sharded_1x1_rate",
+               "powerlaw_updates_per_sec", "powerlaw_capped_updates_per_sec",
+               "powerlaw_capped_eval_inclusive_updates_per_sec")
 # steps at the end of the phi-noise chunk the plain version draws in the
 # kernel phase, and at the end of the reference RNG's stress launches
 REF_PLAIN_STEPS, REF_STRESS_STEPS = 10, 3
@@ -3396,6 +3419,91 @@ def run_entry_phase(graft):
           f"step_count {state.step_count}")
 
 
+def _nulls(x, where=""):
+    """The paths of every null in a JSON value."""
+    if isinstance(x, dict):
+        return [p for k, v in x.items() for p in _nulls(v, f"{where}.{k}")]
+    return [where] if x is None else []
+
+
+def run_bench_phase(bench, kmods, smi):
+    """Phase bench: ``bench.main`` on the card at BENCH_CUT (the bench's
+    widths, its run lengths and trials cut), each phase's kernel launches
+    counted: {phase: launches}. The line must have every key non-null
+    but ``vs_baseline``, every rate positive, the three graphs' N, E and
+    max fan-out the JAX bench's, the SBM perplexity falling, the measured
+    copy rate within the card's 3.35 TB/s and the device nvidia-smi's."""
+    per_phase = {}
+
+    @contextlib.contextmanager
+    def counted(label):
+        _counts(kmods, None)
+        yield
+        per_phase[label] = _counts(kmods, "read")
+
+    s = bench.Sizes(**BENCH_CUT)
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        line = bench.main(device="cuda", sizes=s, phase=counted)
+    seconds = time.perf_counter() - t0
+    if [json.loads(x) for x in out.getvalue().splitlines()] != [line]:
+        raise AssertionError(f"bench printed {out.getvalue()!r}")
+    x = line["extra"]
+    if (set(line) != {"metric", "value", "unit", "vs_baseline", "extra"}
+            or line["vs_baseline"] is not None
+            or _nulls(dict(line, vs_baseline=0))):
+        raise AssertionError(f"bench line keys or nulls: {line}")
+    rates = {"value": line["value"], **{k: x[k] for k in BENCH_RATES},
+             **{f"autotune {w}": r for w, r in
+                x["autotune_table"]["rates_by_window"].items()}}
+    if not all(r > 0 for r in rates.values()):
+        raise AssertionError(f"bench rates {rates}")
+    graphs = [(x["N"], x["E"]), (x["powerlaw_N"], x["powerlaw_E"],
+                                 x["powerlaw_max_fan_out"])]
+    if graphs != [(317_079, 1_109_780), (310_310, 1_021_641, 330)]:
+        raise AssertionError(f"bench graphs {graphs}")
+    roof = x["roofline"]
+    if not (0 < roof["hbm_bw_gbps_measured"] <= 3350
+            and roof["random_row_gather_ns_per_row_measured"] > 0
+            and roof["random_row_scatter_ns_per_row_measured"] > 0
+            and x["sbm_ppx_end"] < x["sbm_ppx_start"]
+            and ", ".join(x["device"].values()) == smi):
+        raise AssertionError(f"bench roofline, SBM or device: {x}")
+    calls = 1 + s.trials * s.iters // s.steps_per_call
+    want = {"windowed-shared-neighbors": {"window": calls * (
+                s.steps_per_call // 12), "window_chain": 0},
+            "sharded-1x1": {"window": calls * (s.steps_per_call // 12)},
+            "chains-c16": {"window": 0, "window_chain": (
+                1 + s.trials * s.chain_iters // s.chain_steps_per_call)
+                * (s.chain_steps_per_call // 6)},
+            "reference-semantics": {"window": 0},
+            "device-bflink": {"window": 0},
+            "bit-exact-rng": {"randn": 2 * (
+                1 + s.short_trials * s.bitexact_iters
+                // s.bitexact_steps_per_call), "gamma": 2, "window": 0}}
+    want["bit-exact-rng"]["neighbors"] = want["bit-exact-rng"]["randn"] // 2
+    for label, counts in want.items():
+        got = {k: per_phase[label][k] for k in counts}
+        if got != counts:
+            raise AssertionError(f"bench {label}: launches {got}, expected "
+                                 f"{counts}")
+    for label in ("stratified-coin", "power-law", "autotune"):
+        if per_phase[label]["window"] == 0:
+            raise AssertionError(f"bench {label}: no window launch")
+    windows = {k: v["window"] for k, v in per_phase.items() if v["window"]}
+    ref = {k: per_phase["bit-exact-rng"][k]
+           for k in ("randn", "neighbors", "gamma")}
+    phase("bench", f"mcmc_ammsb_tpu_torch.bench at {BENCH_CUT}: "
+          f"{seconds:.1f} s, headline {line['value']} updates/s, rates "
+          f"{rates}, roofline {roof['hbm_bw_gbps_measured']} GB/s, gather "
+          f"{roof['random_row_gather_ns_per_row_measured']} ns/row, scatter "
+          f"{roof['random_row_scatter_ns_per_row_measured']} ns/row; "
+          f"window launches {windows}, chain launches "
+          f"{per_phase['chains-c16']['window_chain']}, ref RNG {ref}")
+    return per_phase
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3405,6 +3513,7 @@ def main() -> int:
     from mcmc_ammsb_tpu_torch import (chains_flat, checkpoint, cli, config,
                                       data, graft, kernels, ladder, native,
                                       refckpt, rng, testing)
+    from mcmc_ammsb_tpu_torch import bench as port_bench
     from mcmc_ammsb_tpu_torch import learner as learner_mod
     from mcmc_ammsb_tpu_torch.models import mmsb
     from mcmc_ammsb_tpu_torch.ops import (device_sampling, edgeset, neighbor,
@@ -3485,6 +3594,7 @@ def main() -> int:
         ladder_l = run_ladder_phase(ladder, window, kernels, kmods, jobs,
                                     smi)
         run_entry_phase(graft)
+        bench_l = run_bench_phase(port_bench, kmods, smi)
     finally:
         pool.terminate()
         pool.join()
@@ -3494,6 +3604,10 @@ def main() -> int:
         # no single PyTorch call computes any of these functions
         return {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2],
                 "bound_by": t[3], "library_ms": None}
+
+    def bench_launches(counter):
+        # the bench phase's launches of one counter, by the bench's phase
+        return {label: c[counter] for label, c in bench_l.items()}
 
     def bf16_fields(kernel, run):
         # the kernel's bf16 row mode: its launches on the CLI's bf16 run,
@@ -3520,7 +3634,8 @@ def main() -> int:
         return {"max_abs_err": err, **times(t), "plain_steps": plain_steps,
                 "parent_ms": rr_turns[name][0],
                 "change_ms": rr_turns[name][1],
-                "carry_launches": carry["learner_reference"][entry]}
+                "carry_launches": carry["learner_reference"][entry],
+                "bench_launches": bench_launches(entry)}
 
     theta = "randn_lanes (theta noise)"
     theta_fields = {
@@ -3582,7 +3697,9 @@ def main() -> int:
          # mode/pi dtype/K, stage seconds, updates/s, peak device memory
          "ladder": {name: {"launches": v[0], "seconds": v[1],
                            "updates_per_s": v[2], "peak_bytes": v[3]}
-                    for name, v in ladder_l.items()}},
+                    for name, v in ladder_l.items()},
+         # the port's bench (phase bench): launches in each of its phases
+         "bench_launches": bench_launches("window")},
         # the wide mode's kernel (window_kernel_wide, the same entry and
         # source) on its own: the -k 4096 main path's launches, all wide
         {"name": "window_kernel_wide", "route": "cuda",
@@ -3599,7 +3716,8 @@ def main() -> int:
          **times(c_t),
          # ShardedChainLearner, G = 1, C = 4, 1008 steps
          "sharded_launches": shard["chains"]["window_chain"],
-         **bf16_fields("window_kernel_chains", "chains")},
+         **bf16_fields("window_kernel_chains", "chains"),
+         "bench_launches": bench_launches("window_chain")},
         {"name": "mmsb_window_kernel", "route": "cuda",
          "source": src + "mmsb_window_kernel.cu",
          "replaces": "mcmc_ammsb_tpu/ops/window_mmsb.py:96",

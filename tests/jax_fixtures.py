@@ -43,11 +43,12 @@ BATCH_FIELDS = ("edges_u", "edges_v", "edge_mask", "nodes", "node_mask",
                 "weight")
 
 
-def jax_cli_learner(argv):
+def jax_cli_learner(argv, **cfg_fields):
     """The JAX learner that the JAX CLI builds for ``argv`` (its engine
     from ``--num-chains``, ``--chain-devices``, ``--model`` and
     ``--mesh``), with the single-model learners' prefetch producer off,
-    so the batches they draw are drawn in this thread."""
+    so the batches they draw are drawn in this thread; ``cfg_fields``
+    replace Config fields the CLI has no flag for (e.g. ``init_seed``)."""
     from mcmc_ammsb_tpu import cli as jcli
     from mcmc_ammsb_tpu import data as jdata
     from mcmc_ammsb_tpu.chains_flat import FlatChainLearner
@@ -63,8 +64,8 @@ def jax_cli_learner(argv):
     n, u, v = jdata.synthetic_edges(nn, deg, seed=1)
     split = jdata.generate_sets(n, u, v, args.heldout_ratio)
     graph = jdata.Graph.from_edges(n, split.training_u, split.training_v)
-    cfg = jcli.config_from_args(args).finalize(n, split.total_edges,
-                                               graph.max_fan_out)
+    cfg = jcli.config_from_args(args).replace(**cfg_fields).finalize(
+        n, split.total_edges, graph.max_fan_out)
     c = args.num_chains
     if c > 1 and args.chain_devices > 1:
         return ShardedChainLearner(cfg, graph, split, c,

@@ -34,7 +34,8 @@ import torch_dist_workers as W
 from mcmc_ammsb_tpu import checkpoint as jax_checkpoint
 from mcmc_ammsb_tpu import config as jax_config
 from mcmc_ammsb_tpu import sampling as jax_sampling
-from mcmc_ammsb_tpu_torch import checkpoint, cli, learner, sampling, testing
+from mcmc_ammsb_tpu_torch import (checkpoint, cli, learner, rng, sampling,
+                                  testing)
 from torch_parity import assert_normwise
 
 RTOL, ATOL, PPX_RTOL = 5e-5, 1e-8, 1e-5
@@ -194,6 +195,41 @@ def test_host_sampling_continues_jax_batches(jax_host, monkeypatch):
             np.testing.assert_array_equal(getattr(got, f).numpy(),
                                           np.asarray(getattr(w, f)),
                                           err_msg=f)
+
+
+#: the stream seeds of the restored host run's continuations
+NOISE_SEEDS = range(16)
+#: the margin on each side of the continuations' ppx[10] range: half the
+#: range's width (fixed before any continuation was read)
+NOISE_MARGIN = 0.5
+
+
+def test_restored_native_run_noise_holds_jax():
+    """The host fixture continued 10 steps in the port under each of 16
+    fixed stream seeds (the torch streams re-seeded after the restore;
+    the batches are the file's sampler's): JAX's ppx[10] (the sidecar's)
+    lies within the continuations' range widened by NOISE_MARGIN of its
+    width on each side. A restored native-RNG run carries JAX's state
+    exactly but not its noise, so it matches JAX's only in
+    distribution; this holds it there."""
+    path, side = _fixture("learner_host")
+    ends = []
+    for s in NOISE_SEEDS:
+        tl = W.cli_learner(side["argv"])
+        checkpoint.load_checkpoint(path, tl)
+        rng.seed_streams(tl.streams, rng.Streams(
+            phi=(1000 + s, 1), beta=(2000 + s, 1), neighbor=(3000 + s, 1),
+            sample=(4000 + s, 1)), tl.step_count)
+        np.testing.assert_allclose(tl.heldout_perplexity(),
+                                   side["ppx"]["0"], rtol=PPX_RTOL)
+        tl.run(side["steps"])
+        ends.append(tl.heldout_perplexity())
+        tl.close()
+    lo, hi = min(ends), max(ends)
+    assert hi > lo, ends
+    margin = NOISE_MARGIN * (hi - lo)
+    assert lo - margin <= side["ppx"]["10"] <= hi + margin, (
+        side["ppx"]["10"], sorted(ends))
 
 
 def test_batch_classes_have_the_same_fields():
