@@ -7,9 +7,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
                power limit as nvidia-smi reports them;
   2. build   — compiles the four kernels from csrc/ with nvcc, one
                process per source, the window kernel's source from before
-               its wide mode's step layout (PARENT_SRC), the reference
-               RNG kernel's from before its split (PARENT_RNG_SRC) and the
-               native
+               its wide mode's step layout with one set of rows
+               (PARENT_SRC), the reference RNG kernel's from before its
+               split (PARENT_RNG_SRC) and the native
                host library (the port's mcmc_ammsb_tpu_torch/csrc/
                sampler.cpp) with g++, all started together;
      native  — the native CHD build and the numpy build give
@@ -39,22 +39,30 @@ Phases, one line each; any failure raises and the exit code is not 0:
                (12, 33, 32, 32, 4096), the -k 4096 path's and the
                com-lj rung's, and the
                ragged (12, 33, 32, 32, 2050) (4-byte copies) in its step
-               layout (a step's rows in shared memory, bulk copies) and
-               at (6, 33, 32, 32, 8192) and (3, 33, 32, 32, 16384) in its
+               layout (a step's rows in shared memory, two sets, bulk
+               copies), at (8, 33, 32, 32, 6144), (6, 33, 32, 32, 8192)
+               and the -k 8192 path's (12, 33, 32, 32, 8192) in its step
+               layout with one set of rows (each also on five more draws
+               against float64: the kernel within 2x the plain version on
+               most draws, per field) and at (3, 33, 32, 32, 16384) in its
                chunked layout, with its mode, layout, cluster size, chunk
                width, shared memory per CTA (equal to the rule's) and us
                per step; its chain mode (one
                cluster per chain) at (C, T, B, n, E, K) = (16, 6, 33, 32,
                32, 256), the bench chain shape, (3, 4, 9, 8, 8, 16), (2,
-               3, 6, 7, 5, 12) and, wide, (2, 12, 33, 32, 32, 2048), also
+               3, 6, 7, 5, 12) and, wide, (2, 12, 33, 32, 32, 2048) and
+               (2, 12, 33, 32, 32, 8192), also
                bit-equal to C single-chain launches — both no farther
                from float64 than 2x the plain version; the resident mode
-               bit-equal to the build of PARENT_SRC at every resident
-               shape above, float32 and bf16 pi, with both timed in turns
+               and the step layout bit-equal to the build of PARENT_SRC
+               at every shape above they run, float32 and bf16 pi, with
+               both timed in turns
                at the main and the chain shapes, and the wide mode timed
-               in turns against PARENT_SRC's (its chunked layout, at the
-               plan of its own rule) at the four wide shapes and the
-               wide chain shape, with the layout each took; both phi entries
+               in turns against PARENT_SRC's (at the plan of its own
+               rule: its chunked layout where this build takes the step
+               layout with one set of rows) at the six wide shapes and
+               the two wide chain shapes, with the layout each took; both
+               phi entries
                (pre-gathered, by index) at (B, n, K) = (33, 32, 256),
                (64, 32, 256) (the host-sampled paths' 64 node lanes),
                (5, 7, 12), the ragged (33, 32, 100) and (33, 32, 4096)
@@ -94,10 +102,11 @@ Phases, one line each; any failure raises and the exit code is not 0:
                with the kernel's device time and the plain version's;
      bf16    — the window kernel's bf16 row mode (bfloat16 pi storage) at
                the main path's, the chain path's and the com-youtube
-               rung's shapes and in the wide mode at the -k 4096 path's:
-               the bf16
-               launch equals the float32 launch on the upcast rows,
-               rounded to nearest-even, bit for bit; against the plain
+               rung's shapes and in the wide mode at the -k 4096 path's
+               (its step layout) and the -k 8192 path's (its step layout
+               with one set of rows): the bf16 launch equals the float32
+               launch on the upcast rows, rounded to nearest-even, bit
+               for bit; against the plain
                version at bf16 the stored values are equal or 1 ulp
                apart, farther only within their float32 gap
                (testing.bf16_gaps), the counts printed; its ms against
@@ -131,7 +140,10 @@ Phases, one line each; any failure raises and the exit code is not 0:
                fused window kernel launches once per window, ppx falls
                below ppx[0]; the same at -k 4096 (pi 5.2 GB): window 12
                unclamped, as many launches as at K=256, every one in the
-               wide mode, ppx falls, its updates/s and peak memory;
+               wide mode's step layout, ppx falls, its updates/s and peak
+               memory; the same at -k 8192 (pi 10.4 GB) and at -k 8192
+               --pi-dtype bfloat16, every launch in the step layout with
+               one set of rows;
      sharded — the multi-GPU paths on the one card, through NCCL process
                groups of size 1 and the sharded code (row fetch over the
                model ranks, write-back, collectives): the CLI at --mesh
@@ -507,18 +519,36 @@ AUTO_ARGS = ["--synthetic", "317080,7", "-k", "256", "--steps-per-call",
 # the main path at K = 4096, every window in the kernel's wide mode
 WIDE_ARGS = ["--synthetic", "317080,7", "-k", "4096", "-x", "2000", "-i",
              "500", "--device", "cuda"]
+# the main path at K = 8192 (pi 10.4 GB), every window in the wide mode's
+# step layout with one set of rows, in float32 and with bf16 pi (the JAX
+# package's own K = 8192 configuration)
+STEP1_ARGS = ["--synthetic", "317080,7", "-k", "8192", "-x", "2000", "-i",
+              "500", "--device", "cuda"]
 # (T, B, n, E, K) of the fused window kernel's checks; the first is the
 # main path's; the first four run its resident mode, the next four its
 # wide mode: the K = 4096 path's, the ragged K = 2050 (4-byte copies), and
-# the JAX package's longest windows at K = 8192 and 16384; the last, in
-# the resident mode, is the com-youtube rung's window (K = 1024)
+# the JAX package's longest windows at K = 8192 and 16384; then, in the
+# resident mode, the com-youtube rung's window (K = 1024); the last two
+# the JAX package's longest window at K = 6144 and the -k 8192 path's (T =
+# 12), in the wide mode
 WINDOW_SHAPES = [(12, 33, 32, 32, 256), (3, 6, 7, 5, 12),
                  (12, 33, 32, 32, 100), (48, 33, 32, 32, 256),
                  (12, 33, 32, 32, 4096), (12, 33, 32, 32, 2050),
                  (6, 33, 32, 32, 8192), (3, 33, 32, 32, 16384),
-                 (12, 33, 32, 32, 1024)]
+                 (12, 33, 32, 32, 1024), (8, 33, 32, 32, 6144),
+                 (12, 33, 32, 32, 8192)]
 WIDE_MAIN_SHAPE = WINDOW_SHAPES[4]
 LADDER_SHAPE = WINDOW_SHAPES[8]
+STEP1_MAIN_SHAPE = WINDOW_SHAPES[10]
+# the shape of each layout whose times the kernels line carries: the main
+# path's, the -k 4096 path's, the -k 8192 path's and the JAX package's
+# window at K = 16384
+LAYOUT_SHAPES = {"resident": WINDOW_SHAPES[0], "step": WIDE_MAIN_SHAPE,
+                 "step1": STEP1_MAIN_SHAPE, "wide": WINDOW_SHAPES[7]}
+# the phase lines' names of the plan's layouts
+LAYOUT_TEXT = {"resident": "resident mode", "step": "wide mode, step layout",
+               "step1": "wide mode, step layout with one set of rows",
+               "wide": "wide mode, chunked layout"}
 # the ladder phase: every rung of ladder.RUNGS at full size, 2000 steps
 # each (two 1000-step calls), an evaluation after each call; the window
 # each rung's launches must take ((mode, pi dtype, K), or None: no
@@ -531,13 +561,16 @@ LADDER_WINDOWS = {"ca-HepPh": None, "com-dblp": ("resident", "float32", 256),
 # init at com-lj's size
 HOST_GAMMA_DRAWS = 1 << 24
 # (C, T, B, n, E, K) of its chain mode; the first is the chain path's,
-# the last runs the wide mode
+# the last two run the wide mode (its step layout and its step layout with
+# one set of rows)
 CHAIN_SHAPES = [(CHAINS, 6, 33, 32, 32, 256), (3, 4, 9, 8, 8, 16),
-                (2, 3, 6, 7, 5, 12), (2, 12, 33, 32, 32, 2048)]
-# the window kernel's source from before the wide mode's step layout: the
-# resident mode's bits are held against its build, and the wide mode's
-# times against its chunked layout's
-PARENT_SRC = "scripts/window_kernel_pr11.cu"
+                (2, 3, 6, 7, 5, 12), (2, 12, 33, 32, 32, 2048),
+                (2, 12, 33, 32, 32, 8192)]
+# the window kernel's source from before the wide mode's step layout with
+# one set of rows: the resident mode's and the step layout's bits are held
+# against its build, and the wide mode's times against it (its chunked
+# layout where this build takes the new one)
+PARENT_SRC = "scripts/window_kernel_pr16.cu"
 # (T, B, n, E, K) of the fused MMSB window's checks; the second is the
 # MMSB path's, (..., 256) fits only a cluster of 16, K = 50 takes 13 CTAs
 # with a ragged last slice and 4-byte copies
@@ -651,8 +684,8 @@ def _to(x, dev):
 def build_parent(kernels, src: Path = None,
                  name: str = "window_kernel_parent") -> Path:
     """A build of PARENT_SRC (the window kernel from before the wide
-    mode's step layout), or of another source, beside the kernels'
-    builds."""
+    mode's step layout with one set of rows), or of another source,
+    beside the kernels' builds."""
     src = src or Path(__file__).resolve().parent / PARENT_SRC
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = kernels.BUILD_DIR / f"lib{name}.so"
@@ -661,40 +694,63 @@ def build_parent(kernels, src: Path = None,
     return out
 
 
+def bind_parent_lib(lib):
+    """Declare the C interface of a build of PARENT_SRC: this build's
+    without the layout argument (its wide mode's layout follows from the
+    chunk width, the step layout where the chunk covers the slice)."""
+    i, p = ctypes.c_int, ctypes.c_void_p
+    lib.window_kernel_smem_bytes.argtypes = [i] * 7
+    lib.window_kernel_smem_bytes.restype = ctypes.c_size_t
+    lib.window_kernel_max_clusters.argtypes = [i] * 7
+    lib.window_kernel_max_clusters.restype = i
+    lib.window_kernel_launch.argtypes = ([p] * 20 + [i] * 10
+                                         + [ctypes.c_float] * 7 + [p] * 3)
+    lib.window_kernel_launch.restype = i
+    return lib
+
+
 class ParentWindowLib:
-    """A build of PARENT_SRC behind this build's C interface (the same
-    one). Its wide mode has the chunked layout only, so a wide launch
-    goes to it at the plan its own rule gives the shape (the first
-    cluster size of window._WIDE_CLUSTERS whose slices tile K, with the
-    widest chunk of WIDE_CHUNKS whose layout, by the parent's own
-    window_kernel_smem_bytes, fits the card); a resident launch goes
-    unchanged."""
+    """A build of PARENT_SRC (a path, or one already loaded) behind this
+    build's C interface. A resident launch goes to it unchanged, without
+    the layout argument; a wide launch at the plan the parent's own rule
+    gives the shape: the first cluster size of window._WIDE_CLUSTERS whose
+    slices tile K, with its step layout (a chunk of window.step_chunk)
+    where that fits the card by the parent's own window_kernel_smem_bytes,
+    else the widest chunk of WIDE_CHUNKS narrower than the slice that
+    fits. So the resident mode and the step layout run as in this build,
+    and the shapes this build takes in its step layout with one set of
+    rows in the parent's chunked layout."""
 
-    #: positions of T..K, the cluster size and the chunk width among the
-    #: arguments of window_kernel_launch
-    SHAPE, S, WC = slice(21, 26), 27, 28
+    #: positions of T..K, the cluster size, the chunk width and the layout
+    #: among the arguments of this build's window_kernel_launch
+    SHAPE, S, WC, MODE = slice(21, 26), 27, 28, 29
 
-    def __init__(self, path: Path, window, limit: int):
-        self.lib = window.bind_window_lib(ctypes.CDLL(str(path)))
+    def __init__(self, lib, window, limit: int):
+        if isinstance(lib, (str, Path)):
+            lib = ctypes.CDLL(str(lib))
+        self.lib = bind_parent_lib(lib)
         self.window, self.limit = window, limit
 
     def plan(self, t_win, b_cap, n_smpl, e_cap, k):
-        """The parent's (S, wc) of a wide shape."""
+        """The parent's (S, wc, layout name) of a wide shape."""
         w = self.window
         for s in w._WIDE_CLUSTERS:
             if not w._tiles(k, s):
                 continue
-            for wc in w.WIDE_CHUNKS:
+            kw = w.window_slice_width(k, s)
+            for wc in (w.step_chunk(k, s),
+                       *(c for c in w.WIDE_CHUNKS if c < kw)):
                 if self.lib.window_kernel_smem_bytes(
                         t_win, b_cap, n_smpl, e_cap, k, s, wc) <= self.limit:
-                    return s, wc
+                    return s, wc, "step" if wc >= kw else "wide"
         raise ValueError(f"no layout of {PARENT_SRC} fits "
                          f"{(t_win, b_cap, n_smpl, e_cap, k)}")
 
     def window_kernel_launch(self, *args):
         args = list(args)
         if args[self.WC] != 0:
-            args[self.S], args[self.WC] = self.plan(*args[self.SHAPE])
+            args[self.S], args[self.WC], _ = self.plan(*args[self.SHAPE])
+        del args[self.MODE]
         return self.lib.window_kernel_launch(*args)
 
 
@@ -989,16 +1045,15 @@ def _plan_line(window, lib, shape, limit):
     plan = window.window_plan(*shape, limit)
     s_cl, mode, wc = plan
     smem = window.plan_smem_bytes(shape, plan)
-    got = lib.window_kernel_smem_bytes(*shape, s_cl, wc)
+    got = lib.window_kernel_smem_bytes(*shape, s_cl, wc,
+                                       window.LAYOUTS[mode])
     if got != smem:
         raise AssertionError(f"shared memory of {shape} in the {mode} "
                              f"mode: kernel {got} B, rule {smem} B")
     if (mode != "resident") != (shape[4] >= 1536):
         raise AssertionError(f"{shape}: the {mode} mode, expected the "
                              f"{'wide' if shape[4] >= 1536 else 'resident'}")
-    text = ({"resident": "resident mode", "step": "wide mode, step layout",
-             "wide": "wide mode, chunked layout"}[mode]
-            + f", cluster of {s_cl} CTAs"
+    text = (LAYOUT_TEXT[mode] + f", cluster of {s_cl} CTAs"
             + (f", chunks of {wc} columns" if mode == "wide" else "")
             + f", {smem} B shared per CTA")
     return plan, smem, text
@@ -1029,18 +1084,20 @@ def window_operands(window, chains_flat, testing, shape, seed=0):
 
 def check_resident_parent(window, chains_flat, testing, kernels, parent,
                           reps=50):
-    """Phase kernel: the resident mode of this build against the build of
-    PARENT_SRC at every shape of WINDOW_SHAPES and CHAIN_SHAPES the plan
-    runs in it, with float32 and with bfloat16 pi: the same bits in every
-    output; then the float32 launches at the main path's and the chain
-    path's shapes timed in turns (parent, change, change, parent).
-    Returns {shape: (parent ms, change ms, the four turns)}."""
+    """Phase kernel: the resident mode and the wide mode's step layout of
+    this build against the build of PARENT_SRC at every shape of
+    WINDOW_SHAPES and CHAIN_SHAPES the plan runs in them, with float32
+    and with bfloat16 pi: the same bits in every output; then the float32
+    launches at the main path's and the chain path's shapes timed in
+    turns (parent, change, change, parent). Returns {shape: (parent ms,
+    change ms, the four turns)}."""
     limit = kernels.smem_limit(torch.device("cuda"))
     old = ParentWindowLib(parent, window, limit)
     real = window._window_lib
     new = real()
     shapes = [sh for sh in WINDOW_SHAPES + CHAIN_SHAPES
-              if window.window_plan(*sh[-5:], limit)[1] == "resident"]
+              if window.window_plan(*sh[-5:], limit)[1] in ("resident",
+                                                            "step")]
     out = {}
     try:
         for shape in shapes:
@@ -1054,8 +1111,9 @@ def check_resident_parent(window, chains_flat, testing, kernels, parent,
                     outs.append(_outs(cuda(cfg, _fresh(st), *args)))
                 torch.cuda.synchronize()
                 if not all(torch.equal(a, b) for a, b in zip(*outs)):
-                    raise AssertionError(f"{shape} {dtype}: the resident "
-                                         f"mode differs from {PARENT_SRC}")
+                    layout = window.window_plan(*shape[-5:], limit)[1]
+                    raise AssertionError(f"{shape} {dtype}: the {layout} "
+                                         f"layout differs from {PARENT_SRC}")
             if shape in (WINDOW_SHAPES[0], CHAIN_SHAPES[0]):
                 scratch = _fresh(state)
                 t = []
@@ -1066,8 +1124,9 @@ def check_resident_parent(window, chains_flat, testing, kernels, parent,
                 out[shape] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t)
     finally:
         window._window_lib = real
-    phase("kernel", f"resident mode bit-equal to {PARENT_SRC} at "
-          f"{len(shapes)} shapes, float32 and bf16 pi; ms/window in turns "
+    phase("kernel", f"resident mode and step layout bit-equal to "
+          f"{PARENT_SRC} at {len(shapes)} shapes, float32 and bf16 pi; "
+          f"ms/window in turns "
           f"(parent, change, change, parent): "
           + "; ".join(f"{sh}: {' '.join(f'{x:.4f}' for x in v[2])}"
                       for sh, v in out.items()))
@@ -1077,12 +1136,13 @@ def check_resident_parent(window, chains_flat, testing, kernels, parent,
 def check_wide_parent(window, chains_flat, testing, kernels, parent,
                       reps=50):
     """Phase kernel: the wide mode of this build against the build of
-    PARENT_SRC (its chunked layout, at the plan of its own rule) at every
-    shape of WINDOW_SHAPES and CHAIN_SHAPES the plan runs in the wide
-    mode, timed in turns (parent, change, change, parent) on the same
-    operands, device time only. Returns {shape: (parent ms, change ms,
-    the four turns, this build's layout, the parent's (S, wc), max abs
-    difference of the two builds' outputs)}."""
+    PARENT_SRC (at the plan of its own rule: its step layout where that
+    fits, else its chunked one) at every shape of WINDOW_SHAPES and
+    CHAIN_SHAPES the plan runs in the wide mode, timed in turns (parent,
+    change, change, parent) on the same operands, device time only.
+    Returns {shape: (parent ms, change ms, the four turns, this build's
+    layout, the parent's (S, wc, layout), max abs difference of the two
+    builds' outputs)}."""
     limit = kernels.smem_limit(torch.device("cuda"))
     old = ParentWindowLib(parent, window, limit)
     real = window._window_lib
@@ -1114,21 +1174,67 @@ def check_wide_parent(window, chains_flat, testing, kernels, parent,
         window._window_lib = real
     phase("kernel", "wide mode against " + PARENT_SRC + ", ms/window in "
           "turns (parent, change, change, parent): " + "; ".join(
-              f"{sh}: this build {v[3]}, parent chunked S={v[4][0]} "
+              f"{sh}: this build {v[3]}, parent {v[4][2]} S={v[4][0]} "
               f"wc={v[4][1]}: {' '.join(f'{x:.4f}' for x in v[2])} "
               f"(change/parent {v[1] / v[0]:.3f}; builds differ by max "
               f"abs {v[5]:.3e})" for sh, v in out.items()))
     return out
 
 
+def check_window_f64_draws(window, phi_ops, testing, shape):
+    """Phase 3, a layout's five-draw float64 check: SLICE_DRAWS windows of
+    ``shape`` (seeds 100, 101, ...), each through the kernel and the
+    plain version on their own copies of the state and against a float64
+    evaluation (``_window_f64``): per field the kernel no farther from
+    float64 than 2x the plain version on most draws, check_f64_slice's
+    rule. The normwise difference of kernel and plain is printed per
+    draw and not held here (check_window_kernel holds it on the shape's
+    own draw): on some draws two float32 evaluations of a window drift
+    past it, each as far from float64 (beta at (8, ..., 6144) and (12,
+    ..., 8192): the chunked layout of PARENT_SRC and this layout both
+    1.0-1.8e-5 from the plain version on the same draws, NVIDIA H100)."""
+    rows, within2 = [], {f: 0 for f in STATE_FIELDS}
+    for draw in range(SLICE_DRAWS):
+        case = testing.window_case(100 + draw, *shape)
+        cfg = testing.window_case_config(case)
+        state, xs = testing.window_case_torch(case, "cuda")
+        batch, nbrs = xs[0], xs[1][:, 0, :]
+        mcode = window._correction_codes(cfg, batch.nodes, batch.node_mask,
+                                          nbrs)
+        keep = window._last_write_wins(batch.nodes, batch.node_mask,
+                                        shape[0])
+        got = window.window_apply_cuda(cfg, _fresh(state), xs, mcode, keep)
+        torch.cuda.synchronize()
+        want = window.window_apply_torch(cfg, _fresh(state), xs, mcode, keep)
+        gap = max(_rel_dist(a, b) for a, b in zip(_outs(got), _outs(want)))
+        exact = _window_f64(window, phi_ops, cfg, _fresh(state), xs, mcode,
+                            keep, False)
+        d = {f: (_rel_dist(a, r), _rel_dist(b, r)) for a, b, r, f in
+             zip(_outs(got), _outs(want), exact, STATE_FIELDS)}
+        for f, (k, p) in d.items():
+            within2[f] += k <= 2 * p
+        rows.append(f"draw {draw}: " + ", ".join(
+            f"{f} {k:.3e}/{p:.3e}" for f, (k, p) in d.items())
+            + f", kernel vs plain {gap:.3e}")
+    phase("kernel", f"window at {shape}, {SLICE_DRAWS} draws, normwise "
+          f"distance to float64 kernel/plain: {'; '.join(rows)}; draws with "
+          f"the kernel within 2x the plain version: {within2}")
+    short = {f: n for f, n in within2.items() if 2 * n <= SLICE_DRAWS}
+    if short:
+        raise AssertionError(f"window at {shape}: the kernel within 2x the "
+                             f"plain version's distance to float64 on only "
+                             f"{short} of {SLICE_DRAWS} draws")
+
+
 def check_window_kernel(window, kernels, testing, phi_ops, smi):
-    """Phase 3, the fused a-MMSB window: {mode: (max abs err over the
-    mode's shapes held normwise, and the kernel ms, plain ms, bound ms
-    and what sets it at the mode's main shape: the main path's for the
-    resident mode, the K = 4096 path's for the wide)}."""
+    """Phase 3, the fused a-MMSB window: {layout: (max abs err over the
+    layout's shapes held normwise, and the kernel ms, plain ms, bound ms
+    and what sets it at the layout's shape of LAYOUT_SHAPES)}. Each shape
+    of the step layout with one set of rows also takes the five-draw
+    float64 check (check_window_f64_draws)."""
     lib = window._window_lib()
     limit = kernels.smem_limit(torch.device("cuda"))
-    worst, main = {"resident": 0.0, "wide": 0.0}, {}
+    worst, main = {mode: 0.0 for mode in LAYOUT_SHAPES}, {}
     for seed, shape in enumerate(WINDOW_SHAPES):
         t_win = shape[0]
         case = testing.window_case(seed, *shape)
@@ -1141,7 +1247,6 @@ def check_window_kernel(window, kernels, testing, phi_ops, smi):
         if not (mcode > 0).any():
             raise AssertionError("the case has no in-window collision")
         (_, mode, _), _, plan_text = _plan_line(window, lib, shape, limit)
-        mode = "resident" if mode == "resident" else "wide"
         normwise = t_win <= 12
         _, err, f64 = _agree(window, phi_ops, cfg, state, xs, mcode, keep,
                              False, f"window at {shape}", normwise)
@@ -1156,7 +1261,7 @@ def check_window_kernel(window, kernels, testing, phi_ops, smi):
         plain_ms = time_ms(lambda: window.window_apply_torch(
             cfg, plain_scratch, xs, mcode, keep), reps=10)
         b_ms, b_by = window_bound(xs, mcode, keep, shape[4], cfg.N)
-        if shape in (WINDOW_SHAPES[0], WIDE_MAIN_SHAPE):
+        if shape == LAYOUT_SHAPES[mode]:
             main[mode] = (ms, plain_ms, b_ms, b_by)
         phase("kernel", f"window T,B,n,E,K={','.join(map(str, shape))}: "
               f"{plan_text}; kernel vs "
@@ -1167,6 +1272,8 @@ def check_window_kernel(window, kernels, testing, phi_ops, smi):
               f"back to back with the host, {plain_ms:.4f} ms/window "
               f"plain; bound {b_ms * 1e3:.3f} us ({b_by}), "
               f"{100 * b_ms / ms:.2f}% of it; {smi}")
+        if mode == "step1":
+            check_window_f64_draws(window, phi_ops, testing, shape)
     return {mode: (worst[mode], main[mode]) for mode in worst}
 
 
@@ -1823,46 +1930,67 @@ def run_main(cli, kmods):
     return launches, ppx, rate
 
 
-def run_wide_main(cli, kmods, main_l, main_rate, main_mem, smi):
-    """Phase 5, the main path at K = 4096 (WIDE_ARGS, 2000 steps): the
-    automatic window 12 runs unclamped on the window kernel, with as many
-    launches as the K = 256 main path, every one in the wide mode (the
-    layout of the plan printed), and no other kernel entry; ppx falls
-    below ppx[0]. Returns (launches, ppx, steady-state updates/s, peak
-    device memory, seconds of the run)."""
+def run_wide_main(cli, kmods, main_l, args, shape, smi, beside=""):
+    """Phase 5, the main path at a wide K (``args``, 2000 steps; -k 4096
+    and -k 8192): the automatic window 12 runs unclamped on the window
+    kernel, with as many launches as the K = 256 main path, every one in
+    the wide mode, in the plan's layout of ``shape`` (the layout each
+    launch took is recorded where it is launched) and on rows of the
+    run's pi dtype, and no other kernel entry; ppx falls below ppx[0].
+    ``beside`` ends the phase line. Returns (launches, ppx, steady-state
+    updates/s, peak device memory, seconds of the run)."""
+    win = kmods[0]
+    k = args[args.index("-k") + 1]
+    dtype = (args[args.index("--pi-dtype") + 1] if "--pi-dtype" in args
+             else "float32")
+    s_cl, layout, wc = win.window_plan(
+        *shape, win.kernels.smem_limit(torch.device("cuda")))
+    layouts, dtypes = [], set()
+    real = win._launch
+
+    def launch(cfg, st, *a, **kw):
+        dtypes.add(str(st.pi.dtype))
+        res = real(cfg, st, *a, **kw)
+        layouts.append(res[1])
+        return res
+
     torch.cuda.reset_peak_memory_stats()
     _counts(kmods, None)
     t0 = time.perf_counter()
-    series, messages = _run_cli(cli, WIDE_ARGS)
+    win._launch = launch
+    try:
+        series, messages = _run_cli(cli, args)
+    finally:
+        win._launch = real
     seconds = time.perf_counter() - t0
     mem = torch.cuda.max_memory_allocated()
     launches = _counts(kmods, "read")
     if (any("window auto-clamped" in m for m in messages)
             or not any(m.startswith("windows of 12 steps run the window "
                                     "kernel") for m in messages)):
-        raise AssertionError(f"-k 4096: not windowed at T = 12 on the "
-                             f"kernel: {[m for m in messages if 'window' in m]}")
+        raise AssertionError(f"-k {k} {dtype}: not windowed at T = 12 on "
+                             f"the kernel: "
+                             f"{[m for m in messages if 'window' in m]}")
     ppx = [p for _, p, _ in series]
     if ([st for st, _, _ in series] != [0, 500, 1000, 1500, 2000]
             or not all(p < ppx[0] for p in ppx[1:])):
-        raise AssertionError(f"-k 4096: ppx series {series}")
-    want = {k: 0 for k in launches}
+        raise AssertionError(f"-k {k} {dtype}: ppx series {series}")
+    want = {name: 0 for name in launches}
     want.update(window=main_l["window"], window_wide=main_l["window"])
-    if launches != want:
-        raise AssertionError(f"-k 4096: launches {launches}, expected "
-                             f"{want}")
+    if (launches != want or layouts != [layout] * main_l["window"]
+            or dtypes != {f"torch.{dtype}"}):
+        raise AssertionError(f"-k {k} {dtype}: launches {launches}, "
+                             f"expected {want}; layouts "
+                             f"{sorted(set(layouts))}, expected {layout}; "
+                             f"pi {dtypes}")
     t = {st: c for st, _, c in series}
     rate = 1000 / (t[2000] - t[1000])
-    win = kmods[0]
-    s_cl, layout, wc = win.window_plan(
-        *WIDE_MAIN_SHAPE, win.kernels.smem_limit(torch.device("cuda")))
-    phase("main", f"a-MMSB -k 4096: rc 0, ppx {ppx}, window-kernel "
-          f"launches {launches['window']} (the K = 256 main path: "
-          f"{main_l['window']}), all {launches['window_wide']} in the wide "
-          f"mode ({layout} layout, S = {s_cl}, wc = {wc}); steady state "
-          f"{rate:.1f} updates/s (the K = 256 main path: {main_rate:.1f}); "
-          f"peak device memory {mem} B (K = 256: {main_mem} B); "
-          f"{seconds:.1f} s in all (host init included); {smi}")
+    phase("main", f"a-MMSB -k {k}, {dtype} pi: rc 0, ppx {ppx}, "
+          f"window-kernel launches {launches['window']} (the K = 256 main "
+          f"path: {main_l['window']}), all {len(layouts)} in the wide mode's "
+          f"{layout} layout (S = {s_cl}, wc = {wc}); steady state "
+          f"{rate:.1f} updates/s; peak device memory {mem} B; "
+          f"{seconds:.1f} s in all (host init included){beside}; {smi}")
     return launches, ppx, rate, mem, seconds
 
 
@@ -2848,15 +2976,18 @@ def check_cli_resume(cli, kmods, tmp):
 def check_bf16_kernels(window, chains_flat, testing, smi):
     """Phase bf16, the window kernel's bf16 row mode at the main path's,
     the chain path's and the com-youtube rung's shapes, and in the wide
-    mode at the K = 4096 path's (``bf16_agree``), timed against the
-    float32 launches on the same operands in this call (turns: f32,
-    bf16, bf16, f32). Returns {kernel: (gaps, max abs err, bf16 ms, f32
-    ms, bound ms with pi's row bytes halved, what sets it)}."""
+    mode at the K = 4096 path's (its step layout) and the K = 8192 path's
+    (its step layout with one set of rows) (``bf16_agree``), timed
+    against the float32 launches on the same operands in this call
+    (turns: f32, bf16, bf16, f32). Returns {kernel: (gaps, max abs err,
+    bf16 ms, f32 ms, bound ms with pi's row bytes halved, what sets
+    it)}."""
     out = {}
     for name, shape in (("window_kernel", WINDOW_SHAPES[0]),
                         ("window_kernel_chains", CHAIN_SHAPES[0]),
                         ("window_kernel_wide", WIDE_MAIN_SHAPE),
-                        ("window_kernel_ladder", LADDER_SHAPE)):
+                        ("window_kernel_ladder", LADDER_SHAPE),
+                        ("window_kernel_step1", STEP1_MAIN_SHAPE)):
         cfg, state, args, cuda, plain = window_operands(
             window, chains_flat, testing, shape)
         gaps, err = bf16_agree(testing, cfg, state, args, cuda, plain,
@@ -3565,7 +3696,15 @@ def main() -> int:
         main_l, main_ppx, main_rate = run_main(cli, kmods)
         main_mem = torch.cuda.max_memory_allocated()
         wide_l, _, wide_rate, wide_mem, _ = run_wide_main(
-            cli, kmods, main_l, main_rate, main_mem, smi)
+            cli, kmods, main_l, WIDE_ARGS, WIDE_MAIN_SHAPE, smi,
+            f"; the K = 256 main path: {main_rate:.1f} updates/s, peak "
+            f"{main_mem} B")
+        step1_runs = {dtype: run_wide_main(cli, kmods, main_l,
+                                           STEP1_ARGS + extra,
+                                           STEP1_MAIN_SHAPE, smi)
+                      for dtype, extra in (("float32", []),
+                                           ("bfloat16", ["--pi-dtype",
+                                                         "bfloat16"]))}
         shard = run_sharded_phases(cli, kmods, main_l, main_rate, testing,
                                    bench, smi)
         bf16 = run_bf16_phases(cli, kmods, main_ppx, main_mem, smi)
@@ -3667,18 +3806,18 @@ def main() -> int:
          # steps), its checks at the wide shapes, its times at the K = 4096
          # path's window, the path's rate and peak memory
          "wide_launches": wide_l["window_wide"],
-         "wide_max_abs_err": w["wide"][0], "wide_ms": w["wide"][1][0],
-         "wide_plain_ms": w["wide"][1][1], "wide_bound_ms": w["wide"][1][2],
-         "wide_bound_by": w["wide"][1][3],
+         "wide_max_abs_err": w["step"][0], "wide_ms": w["step"][1][0],
+         "wide_plain_ms": w["step"][1][1], "wide_bound_ms": w["step"][1][2],
+         "wide_bound_by": w["step"][1][3],
          "wide_updates_per_s": wide_rate, "wide_peak_bytes": wide_mem,
          "main_updates_per_s": main_rate, "main_peak_bytes": main_mem,
          "wide_sharded_window_max_abs_err": shard["wide_window"][0],
          "wide_bf16_max_abs_err": bf16_k["window_kernel_wide"][1],
          "wide_bf16_ms": bf16_k["window_kernel_wide"][2],
          "wide_bf16_f32_ms": bf16_k["window_kernel_wide"][3],
-         # the wide mode against the build of PARENT_SRC (its chunked
-         # layout) in turns, at the K = 4096 path's window and at every
-         # wide shape, with the layout this build took there
+         # the wide mode against the build of PARENT_SRC (at its own
+         # plan) in turns, at the K = 4096 path's window and at every wide
+         # shape, with the layout this build took there
          "wide_parent_ms": wide_t[WIDE_MAIN_SHAPE][0],
          "wide_change_ms": wide_t[WIDE_MAIN_SHAPE][1],
          "wide_turns_ms": {",".join(map(str, sh)): v[2]
@@ -3699,14 +3838,44 @@ def main() -> int:
                            "updates_per_s": v[2], "peak_bytes": v[3]}
                     for name, v in ladder_l.items()},
          # the port's bench (phase bench): launches in each of its phases
-         "bench_launches": bench_launches("window")},
-        # the wide mode's kernel (window_kernel_wide, the same entry and
-        # source) on its own: the -k 4096 main path's launches, all wide
+         "bench_launches": bench_launches("window"),
+         # every layout of the plan: its shape of LAYOUT_SHAPES, its
+         # largest normwise difference over its shapes and its times there
+         "layouts": {mode: {"shape": list(LAYOUT_SHAPES[mode]),
+                            "max_abs_err": w[mode][0], **times(w[mode][1])}
+                     for mode in LAYOUT_SHAPES}},
+        # the wide mode's step layout (window_kernel_step, the same entry
+        # and source) on its own: the -k 4096 main path's launches
         {"name": "window_kernel_wide", "route": "cuda",
          "source": src + "window_kernel.cu",
-         "replaces": "mcmc_ammsb_tpu/ops/window.py:321 (K >= 1536)",
-         "launches": wide_l["window_wide"], "max_abs_err": w["wide"][0],
-         **times(w["wide"][1])},
+         "replaces": "mcmc_ammsb_tpu/ops/window.py:321 (K = 1536-4096)",
+         "launches": wide_l["window_wide"], "max_abs_err": w["step"][0],
+         **times(w["step"][1])},
+        # the wide mode's step layout with one set of rows
+        # (window_kernel_step1) on its own: the -k 8192 main path's
+        # launches, its times at that path's window (T = 12), against the
+        # build of PARENT_SRC (its chunked layout) in turns at every shape
+        # it takes, and the path's bf16 run
+        {"name": "window_kernel_step1", "route": "cuda",
+         "source": src + "window_kernel.cu",
+         "replaces": "mcmc_ammsb_tpu/ops/window.py:321 (K = 6144-8192)",
+         "launches": step1_runs["float32"][0]["window_wide"],
+         "max_abs_err": w["step1"][0], **times(w["step1"][1]),
+         "parent_ms": wide_t[STEP1_MAIN_SHAPE][0],
+         "change_ms": wide_t[STEP1_MAIN_SHAPE][1],
+         "turns_ms": {",".join(map(str, sh)): v[2]
+                      for sh, v in wide_t.items()
+                      if v[3].startswith("step1")},
+         "updates_per_s": step1_runs["float32"][2],
+         "peak_bytes": step1_runs["float32"][3],
+         "bf16_launches": step1_runs["bfloat16"][0]["window_wide"],
+         "bf16_updates_per_s": step1_runs["bfloat16"][2],
+         "bf16_peak_bytes": step1_runs["bfloat16"][3],
+         "bf16_one_ulp": bf16_k["window_kernel_step1"][0]["one_ulp"],
+         "bf16_more_ulps": bf16_k["window_kernel_step1"][0]["more_ulps"],
+         "bf16_max_abs_err": bf16_k["window_kernel_step1"][1],
+         "bf16_ms": bf16_k["window_kernel_step1"][2],
+         "bf16_f32_ms": bf16_k["window_kernel_step1"][3]},
         # the same kernel and entry, one cluster per chain: the chain
         # engine's launches
         {"name": "window_kernel_chains", "route": "cuda",

@@ -16,9 +16,11 @@ picks its mode from the per-chain shape and the card's shared memory:
 the resident mode (the window's rows in shared memory,
 ``window_cluster_size``) wherever it fits, else the wide mode (the
 staged rows in a global scratch; K = 1536-16384 at the main path's
-shape) in one of its two layouts: "step" (a step's rows in shared
-memory through the step, the next step's in flight; up to K = 4096 at
-T = 12) or "wide" (the rows taken in column chunks). With bfloat16 pi
+shape) in one of its three layouts: "step" (a step's rows in shared
+memory through the step, the next step's in flight in a second set;
+up to K = 4096 at T = 12), "step1" (the same with one set of rows,
+the next step's gathered into it as its regions free up; K = 6144-8192
+at T = 12) or "wide" (the rows taken in column chunks). With bfloat16 pi
 storage (``cfg.pi_dtype``) both versions gather the rows upcast to float32,
 compute and stage in float32, and round the kept rows to nearest-even
 only at the write-back, as the JAX package's bf16 window does; the
@@ -485,9 +487,43 @@ def window_step_smem_bytes(t_win: int, b_cap: int, n_smpl: int,
     return 4 * words
 
 
+def window_step1_smem_bytes(t_win: int, b_cap: int, n_smpl: int,
+                            e_cap: int, k: int, s: int) -> int:
+    """Shared memory per CTA of the wide mode's step layout with one set
+    of rows (``layout_step1``, struct ``Step1Layout`` of
+    csrc/window_kernel.cu, term by term): three mbarriers (32 B); one set
+    of the step rows [B+n, ld(w)]; the theta noise [w, 2], beta - eps,
+    theta0, theta1 and beta [w] and the coefficients [B, n] (each padded
+    to 4); the q partials of the splits and later the fan-in partials, as
+    the step layout's; the staged rows' sums [T*B]; the node vectors [B]
+    x 6 and prsum [E]; the partials pushed by the cluster, the window's
+    codes, ids, lane maps and bits (as the other layouts'). No phi noise
+    buffer: the kernel reads the noise where it uses it."""
+    w = window_slice_width(k, s)
+    q4 = -(-w // 4)
+    ld = 4 * (q4 + 1 + q4 % 2)
+    n_read = b_cap + n_smpl
+    tb, te = t_win * b_cap, t_win * e_cap
+    bits = (-(-tb * n_smpl // 32) + -(-tb // 32) + 2 * -(-te // 32))
+    groups = -(-b_cap // _Q_NODES)
+    splits = 1 if groups >= 16 else 16 // groups
+    fan = 512 // w if w <= 512 else 1
+
+    def up4(x):
+        return 4 * -(-x // 4)
+
+    words = (8 + n_read * ld + up4(2 * w) + 4 * up4(w)
+             + up4(b_cap * n_smpl)
+             + up4(max(splits * b_cap * n_smpl, 2 * fan * w))
+             + tb + 6 * b_cap + e_cap
+             + s * (-(-b_cap // s) * n_smpl + b_cap + 2 * e_cap)
+             + t_win * (n_read + b_cap + n_smpl + e_cap) + bits)
+    return 4 * words
+
+
 def step_chunk(k: int, s: int) -> int:
-    """The chunk width the launch passes for the step layout: the slice
-    width rounded up to a multiple of 8, one chunk that covers the
+    """The chunk width the launch passes for either step layout: the
+    slice width rounded up to a multiple of 8, one chunk that covers the
     slice."""
     return -(-window_slice_width(k, s) // 8) * 8
 
@@ -499,13 +535,14 @@ def window_plan(t_win: int, b_cap: int, n_smpl: int, e_cap: int, k: int,
     resident mode (``window_cluster_size``'s S, ``wc`` 0) wherever its
     layout fits; else the wide mode at the first S of 16, 8, 4, 2, 1,
     then the other S <= 16, whose slices tile K and where one of its
-    layouts fits ``smem_limit``: the step layout (``"step"``, ``wc`` =
-    ``step_chunk``, a chunk that covers the slice), else the chunked one
-    (``"wide"``) with the widest chunk of ``WIDE_CHUNKS`` narrower than
-    the slice. From the per-chain shape only, never from the number of
-    chains. Raises ValueError past the kernel's limits (n, T) or when no
-    layout fits; the launch and the CLI's window resolution both go
-    through it."""
+    layouts fits ``smem_limit``, tried in this order: the step layout
+    (``"step"``, ``wc`` = ``step_chunk``, a chunk that covers the slice),
+    the step layout with one set of rows (``"step1"``, the same ``wc``),
+    the chunked one (``"wide"``) with the widest chunk of ``WIDE_CHUNKS``
+    narrower than the slice. From the per-chain shape only, never from
+    the number of chains. Raises ValueError past the kernel's limits (n,
+    T) or when no layout fits; the launch and the CLI's window resolution
+    both go through it."""
     if n_smpl > MAX_NEIGHBORS or t_win > MAX_WINDOW:
         raise ValueError(
             f"window kernel takes n <= {MAX_NEIGHBORS} neighbors and "
@@ -520,6 +557,9 @@ def window_plan(t_win: int, b_cap: int, n_smpl: int, e_cap: int, k: int,
         if window_step_smem_bytes(t_win, b_cap, n_smpl, e_cap, k,
                                   s) <= smem_limit:
             return s, "step", step_chunk(k, s)
+        if window_step1_smem_bytes(t_win, b_cap, n_smpl, e_cap, k,
+                                   s) <= smem_limit:
+            return s, "step1", step_chunk(k, s)
         for wc in WIDE_CHUNKS:
             if wc < window_slice_width(k, s) and window_wide_smem_bytes(
                     t_win, b_cap, n_smpl, e_cap, k, s, wc) <= smem_limit:
@@ -536,10 +576,16 @@ def plan_smem_bytes(shape, plan) -> int:
     s, mode, wc = plan
     if mode == "step":
         return window_step_smem_bytes(*shape, s)
+    if mode == "step1":
+        return window_step1_smem_bytes(*shape, s)
     if mode == "wide":
         return window_wide_smem_bytes(*shape, s, wc)
     return window_smem_bytes(*shape, s)
 
+
+#: The kernel's code of each layout of the plan (``Mode`` of
+#: csrc/window_kernel.cu).
+LAYOUTS = {"resident": 0, "step": 1, "step1": 2, "wide": 3}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -547,12 +593,14 @@ _F = ctypes.c_float
 
 
 def bind_window_lib(lib):
-    """Declare the C interface of a build of csrc/window_kernel.cu."""
-    lib.window_kernel_smem_bytes.argtypes = [_I] * 7
+    """Declare the C interface of a build of csrc/window_kernel.cu: the
+    byte count and the cluster occupancy of a (T, B, n, E, K, S, wc,
+    layout), and the launch."""
+    lib.window_kernel_smem_bytes.argtypes = [_I] * 8
     lib.window_kernel_smem_bytes.restype = ctypes.c_size_t
-    lib.window_kernel_max_clusters.argtypes = [_I] * 7
+    lib.window_kernel_max_clusters.argtypes = [_I] * 8
     lib.window_kernel_max_clusters.restype = _I
-    lib.window_kernel_launch.argtypes = ([_P] * 20 + [_I] * 10 + [_F] * 7
+    lib.window_kernel_launch.argtypes = ([_P] * 20 + [_I] * 11 + [_F] * 7
                                          + [_P] * 3)
     lib.window_kernel_launch.restype = _I
     return lib
@@ -633,7 +681,8 @@ def _launch(cfg: Config, s, xs_t, mcode, keep, chained: bool,
     eps_theta = _step_sizes(cfg, s.beta_count + 1, t_win)
     err = lib.window_kernel_launch(
         *ptrs, n_chains, t_win, b_cap, n_smpl, e_cap, k, n_rows, cluster, wc,
-        int(s.pi.dtype == torch.bfloat16), cfg.epsilon, 1.0 - cfg.epsilon, cfg.alpha_value, float(cfg.N),
+        LAYOUTS[mode], int(s.pi.dtype == torch.bfloat16), cfg.epsilon,
+        1.0 - cfg.epsilon, cfg.alpha_value, float(cfg.N),
         cfg.eta0, cfg.eta1, 1.0 / k, eps_phi.ctypes.data,
         eps_theta.ctypes.data, torch.cuda.current_stream(dev).cuda_stream)
     kernels.check_launch(err, "window kernel")
@@ -650,8 +699,8 @@ def window_apply_cuda(cfg: Config, s, xs_t, mcode, keep,
     index it (``parallel/sharded.py``'s fetched rows), not pi [N, K].
     ``s.pi`` is float32 or bfloat16 (the kernel's bf16 row mode).
     CUDA tensors only: the kernel is launched or this raises — there is
-    no fallback. The mode (resident or wide, in its step or chunked
-    layout) is ``window_plan``'s."""
+    no fallback. The mode (resident or wide, in one of its three
+    layouts) is ``window_plan``'s."""
     out, mode = _launch(cfg, s, xs_t, mcode, keep, chained=False,
                         table_rows=table_rows)
     window_apply_cuda.launches += 1
@@ -660,8 +709,8 @@ def window_apply_cuda(cfg: Config, s, xs_t, mcode, keep,
 
 
 #: Launches of the single-chain entry in this process, and those of them
-#: in the wide mode, either layout (reset by callers that check a run
-#: went through it).
+#: in the wide mode, any layout (reset by callers that check a run went
+#: through it).
 window_apply_cuda.launches = 0
 window_apply_cuda.wide_launches = 0
 

@@ -24,11 +24,14 @@
 //
 // Two modes, one function. The resident mode (window_kernel) keeps a
 // CTA's whole slice of the step rows and of the window's staged rows in
-// shared memory; it is chosen wherever that fits. The wide mode
-// (window_kernel_wide, described above it) stages the rows in a global
-// scratch and takes the slice in column chunks, so its shared memory
-// hardly grows with K; it runs T = 12 up to K = 4096 and K = 16384 at T =
-// 12 on an H100. What follows describes the resident mode.
+// shared memory; it is chosen wherever that fits. The wide mode stages
+// the rows in a global scratch, in one of two layouts: the step layout
+// (window_kernel_step, described above it) keeps a step's rows in shared
+// memory through all its stages, with the next step's rows in flight by
+// bulk copies, wherever that fits (T = 12 up to K = 4096 on an H100);
+// the chunked layout (window_kernel_wide) takes the slice in column
+// chunks, so its shared memory hardly grows with K (K = 16384 at T = 12).
+// What follows describes the resident mode.
 //
 // Per step t, exactly the JAX kernel's math:
 //   1. read rows: lane r reads staged row mcode-1 when mcode > 0 (a row
@@ -267,6 +270,89 @@ __host__ __device__ inline WideLayout layout_wide(int T, int B, int n, int E,
   return L;
 }
 
+__host__ __device__ inline size_t larger(size_t a, size_t b) {
+  return a > b ? a : b;
+}
+
+// The step layout's q tile: a warp takes up to this many nodes at once,
+// so each neighbor-row load serves them all.
+constexpr int kQNodes = 11;
+// The step layout's contrib tile: a thread takes this many nodes for
+// four columns.
+constexpr int kCNodes = 5;
+
+// The step layout's q splits: the warps that share a group of kQNodes
+// nodes, each over its own run of columns.
+__host__ __device__ inline int q_splits(int B) {
+  const int groups = (B + kQNodes - 1) / kQNodes;
+  return groups >= kWarps ? 1 : kWarps / groups;
+}
+
+// The step layout's fan-in groups: the threads that share a column, each
+// over its own edges.
+__host__ __device__ inline int fan_groups(int kw) {
+  return kw <= kThreads ? kThreads / kw : 1;
+}
+
+// Offsets (in 4-byte words) of the shared arrays of one CTA in the step
+// layout, which keeps the step's rows in shared memory for the whole
+// step (two sets: step t's and step t+1's in flight); mirrored by
+// ops/window.py::window_step_smem_bytes. The mbarriers come first (8
+// bytes each), then the arrays of bulk copies and float4 loads, each at a
+// multiple of 16 bytes.
+struct StepLayout {
+  size_t bars, rows0, rows1, nz, bz, bme, coef, part, th0,
+      th1, bet, ssum, phis0, phis1, ce, nval, scale, invphi, rsv, epr, qin,
+      rin, ein, smc, snodes, snbrs, slanes, ybits, mbits, yebits, embits,
+      total;
+};
+
+__host__ __device__ inline StepLayout layout_step(int T, int B, int n,
+                                                  int E, int kw, int S) {
+  const size_t R = (size_t)B + n, ld = row_stride(kw);
+  const size_t TB = (size_t)T * B, TE = (size_t)T * E, Bn = (size_t)B * n;
+  const size_t nl = (B + S - 1) / S;
+  const size_t ks = q_splits(B), G = fan_groups(kw);
+  StepLayout L;
+  size_t o = 0;
+  L.bars = o;   o += 8;               // 3 mbarriers: rows0, rows1, noise
+  L.rows0 = o;  o += R * ld;          // step rows, even steps [R, ld]
+  L.rows1 = o;  o += R * ld;          // step rows, odd steps
+  L.nz = o;     o += (size_t)B * ld;   // the phi noise [B, kw]; before it
+                                      // x * (beta - eps) [B, ld]
+  L.bz = o;     o += up4(2 * (size_t)kw);  // theta noise [kw, 2]
+  L.bme = o;    o += up4(kw);         // beta - eps, zero-padded
+  L.coef = o;   o += up4(Bn);         // s/p * mask [B, n], from the owners
+  // stage a's q partials of the splits [ks, B, n], later stage e's fan-in
+  // partials [G, kw, 2]
+  L.part = o;   o += up4(larger(ks * Bn, 2 * G * kw));
+  L.th0 = o;    o += up4(kw);
+  L.th1 = o;    o += up4(kw);
+  L.bet = o;    o += up4(kw);
+  L.ssum = o;   o += TB;              // the staged rows' sums
+  L.phis0 = o;  o += B;               // the step's phi sums, even steps
+  L.phis1 = o;  o += B;               // odd steps
+  L.ce = o;     o += B;
+  L.nval = o;   o += B;
+  L.scale = o;  o += B;
+  L.invphi = o; o += B;
+  L.rsv = o;    o += B;               // the step's row sums
+  L.epr = o;    o += E;               // per-edge prsum
+  L.qin = o;    o += S * nl * n;
+  L.rin = o;    o += (size_t)S * B;
+  L.ein = o;    o += (size_t)S * 2 * E;
+  L.smc = o;    o += (size_t)T * R;
+  L.snodes = o; o += TB;
+  L.snbrs = o;  o += (size_t)T * n;
+  L.slanes = o; o += TE;
+  L.ybits = o;  o += words_of_bits(TB * n);
+  L.mbits = o;  o += words_of_bits(TB);
+  L.yebits = o; o += words_of_bits(TE);
+  L.embits = o; o += words_of_bits(TE);
+  L.total = o;
+  return L;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -293,6 +379,57 @@ __device__ __forceinline__ void cp_async_commit() {
 // Wait until at most the newest group is in flight.
 __device__ __forceinline__ void cp_async_wait_older() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The step layout's bulk copies (Hopper's 1-D TMA): completion is counted
+// in bytes on an mbarrier of the CTA.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// The one arrival of a phase, expecting `bytes` of bulk copies.
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar,
+                                            unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// Wait for the completion of the phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  const unsigned a = smem_u32(bar);
+  unsigned done = 0;
+  while (!done)
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(a), "r"(parity) : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// to this CTA's shared memory, counted on `bar`.
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+               "::bytes [%0], [%1], %2, [%3];\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(bytes),
+                  "r"(smem_u32(bar)) : "memory");
+}
+
+// Orders this thread's earlier generic accesses to shared memory before
+// its later bulk copies (the async proxy) into it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 template <typename PiT>
@@ -416,6 +553,56 @@ __device__ __forceinline__ float rank_sum(const float* x, int stride,
 #pragma unroll
     for (int r = 0; r + w < kMaxCluster; r += 2 * w) v[r] += v[r + w];
   return v[0];
+}
+
+// A kept value as pi stores it, four at a time (16 or 8 bytes, aligned).
+__device__ __forceinline__ void store4(float* dst, float4 v) {
+  *reinterpret_cast<float4*>(dst) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&a);
+  u.y = *reinterpret_cast<const unsigned*>(&b);
+  *reinterpret_cast<uint2*>(dst) = u;
+}
+
+// The wide mode's scatter: the rows _last_write_wins keeps, from the
+// scratch (this CTA's columns, stg) into pi (pi_k0 = the CTA's first
+// column of the chain's block). With 16-byte rows a warp takes eight
+// rows at a time, every lane a float4 of each, so that eight loads from
+// L2 are in flight; else one warp per row, one value at a time.
+template <typename PiT>
+__device__ __forceinline__ void scatter_kept(PiT* pi_k0, const float* stg,
+                                             const bool* keep,
+                                             const int* snodes, int TB,
+                                             int K, int kw, bool vec,
+                                             int warp, int lane) {
+  if (vec) {
+    constexpr int kRows = 8;
+    const int nq = kw / 4;
+    for (int tb0 = warp * kRows; tb0 < TB; tb0 += kRows * kWarps) {
+      for (int q = lane; q < nq; q += 32) {
+        float4 v[kRows];
+#pragma unroll
+        for (int u = 0; u < kRows; ++u)
+          v[u] = *reinterpret_cast<const float4*>(
+              stg + (size_t)min(tb0 + u, TB - 1) * K + 4 * q);
+#pragma unroll
+        for (int u = 0; u < kRows; ++u)
+          if (tb0 + u < TB && keep[tb0 + u])
+            store4(pi_k0 + (size_t)snodes[tb0 + u] * K + 4 * q, v[u]);
+      }
+    }
+  } else {
+    for (int tb = warp; tb < TB; tb += kWarps) {
+      if (!keep[tb]) continue;
+      PiT* dst = pi_k0 + (size_t)snodes[tb] * K;
+      const float* src = stg + (size_t)tb * K;
+      for (int kk = lane; kk < kw; kk += 32) dst[kk] = to_store(src[kk], dst);
+    }
+  }
 }
 
 // Both modes, stage 2b of step t: each CTA finishes its own nodes (b mod
@@ -984,21 +1171,24 @@ constexpr int kWideFields = sizeof(WideLayout) / sizeof(size_t);
 //      slice), then go to the nodes' owners;
 //   b. the coefficients (node_coefficients, as in the resident mode);
 //   c. per chunk: the rows and the phi noise again; contrib and the phi
-//      step; phi' is written to the scratch and its row partials
-//      accumulate; then the row-sum exchange;
-//   d. per chunk: the staged rows normalized in place in the scratch and
-//      copied (masked lanes as 1/K) to shared memory, the edge partials
-//      accumulated; then the edge-sum exchange;
-//   e. per chunk: the normalized rows again, the gradient fan-in over the
-//      edges and the theta step of the chunk's columns.
-// Sums over columns (q, the row sums, the edge sums) are taken in another
-// order than the resident mode's, so the two modes agree to float32
-// rounding, not bit for bit; the result does not depend on C. Their
-// rounding is kept near a pairwise sum's, the plain version's: q in four
-// sums per node (one per column mod 4) joined per chunk, the row and edge
-// sums per lane over the chunks and then over the warp, and the ranks'
-// partials pairwise (rank_sum) — at K = 4096 the row sums (phi_sum ~
-// 2000) would otherwise round several ulps farther from float64.
+//      step; phi' is written to the scratch, and its row partials and the
+//      edge partials accumulate: s_pp and s_pr are bilinear in the two
+//      endpoint rows, so they are taken on phi' as it is (a masked
+//      endpoint as 1/K) and divided by the endpoints' row sums after the
+//      exchange; then one exchange of both;
+//   e. per chunk: phi' from the scratch again (the next chunk in flight),
+//      normalized in shared memory and written back (masked lanes as 1/K
+//      in shared memory), the gradient fan-in over the edges and the theta
+//      step of the chunk's columns.
+// Three cluster barriers a step: after a, b and c. Sums over columns (q,
+// the row sums, the edge sums) are taken in another order than the
+// resident mode's, so the two modes agree to float32 rounding, not bit for
+// bit; the result does not depend on C. Their rounding is kept near a
+// pairwise sum's, the plain version's: q in four sums per node (one per
+// column mod 4) joined per chunk, the row and edge sums per lane over the
+// chunks and then over the warp, and the ranks' partials pairwise
+// (rank_sum) — at K = 4096 the row sums (phi_sum ~ 2000) would otherwise
+// round several ulps farther from float64.
 template <typename PiT>
 __global__ void __launch_bounds__(kThreads) window_kernel_wide(Params<PiT> P) {
   constexpr bool kF32 = std::is_same<PiT, float>::value;
@@ -1201,9 +1391,13 @@ __global__ void __launch_bounds__(kThreads) window_kernel_wide(Params<PiT> P) {
     PHASE(3);
 
     // ---- c. contrib and the phi step, chunk by chunk: phi' to the scratch
-    //         and to the chunk's node rows, whose partial sums (one warp per
-    //         row) accumulate; then pushed to every CTA -------------------
+    //         and to the chunk's node rows, whose row partials (one warp
+    //         per row) and edge partials (one warp per edge) accumulate;
+    //         then both pushed to every CTA ---------------------------------
     float* const stg_t = stg + (size_t)t * B * K;
+    const unsigned* const slanes = WU(slanes) + t * E;
+    const unsigned* const yebits = WU(yebits);
+    float* const eacc = WM(eacc);
     {
       const float eps_t = P.eps_phi[t];
       const float* coef_a = WM(coef);
@@ -1257,54 +1451,22 @@ __global__ void __launch_bounds__(kThreads) window_kernel_wide(Params<PiT> P) {
           for (int kk = lane; kk < cw; kk += 32) acc += rows[b * ldc + kk];
           racc[b * 32 + lane] = acc;
         }
-        __syncthreads();
-      }
-      for (int b = warp; b < B; b += kWarps) {
-        const float rs = warp_sum(racc[b * 32 + lane]);
-        if (lane < S) cluster.map_shared_rank(WM(rin), lane)[rank * B + b] = rs;
-      }
-    }
-    cluster.sync();
-    PHASE(5);
-
-    // ---- d. the row sums (ranks in order); per chunk the staged rows
-    //         normalized in place and copied to shared memory (masked lanes
-    //         as 1/K), the edge partials (one warp per edge) accumulated;
-    //         then pushed to every CTA ----------------------------------------
-    const unsigned* const slanes = WU(slanes) + t * E;
-    const unsigned* const yebits = WU(yebits);
-    {
-      const float* rin = WM(rin);
-      float* const rsv = WM(rsv);
-      float* const eacc = WM(eacc);
-      for (int b = tid; b < B; b += kThreads) {
-        const float rs = rank_sum(rin + b, B, S);
-        rsv[b] = rs;
-        WM(ssum)[t * B + b] = rs;
-      }
-      __syncthreads();
-      float* const rows = WM(ch0);
-      for (int c = 0; c < nck; ++c) {
-        const int c0 = c * WC;
-        const int cw = min(WC, kw - c0);
-        for (int i = tid; i < B * cw; i += kThreads) {
-          const int b = i / cw, x = i - b * cw;
-          float* g = stg_t + (size_t)b * K + c0 + x;
-          const float v = *g / rsv[b];
-          *g = v;
-          rows[b * ldc + x] = bit(mbits, (size_t)t * B + b) ? v : P.inv_k;
-        }
-        __syncthreads();
+        // and each lane's edge partials (one warp per edge) over phi' as
+        // it is, masked endpoints as 1/K: the sums are bilinear in the
+        // two rows, so stage e scales them by the row sums
         const float* bet = WM(bet) + c0;
         for (int e = warp; e < E; e += kWarps) {
           const unsigned pk = slanes[e];
-          const float* pu = rows + (pk & 0xffffu) * ldc;
-          const float* pv = rows + (pk >> 16) * ldc;
+          const int u = pk & 0xffffu, v = pk >> 16;
+          const bool vu = bit(mbits, (size_t)t * B + u);
+          const bool vv = bit(mbits, (size_t)t * B + v);
+          const float* pu = rows + u * ldc;
+          const float* pv = rows + v * ldc;
           const bool link = bit(yebits, (size_t)t * E + e);
           float* acc = eacc + (e * 32 + lane) * 2;   // this lane's, over the chunks
           float s_pp = c > 0 ? acc[0] : 0.f, s_pr = c > 0 ? acc[1] : 0.f;
           for (int kk = lane; kk < cw; kk += 32) {
-            const float pp = pu[kk] * pv[kk];
+            const float pp = (vu ? pu[kk] : P.inv_k) * (vv ? pv[kk] : P.inv_k);
             s_pp += pp;
             s_pr += (link ? bet[kk] : 1.f - bet[kk]) * pp;
           }
@@ -1312,6 +1474,11 @@ __global__ void __launch_bounds__(kThreads) window_kernel_wide(Params<PiT> P) {
           acc[1] = s_pr;
         }
         __syncthreads();
+      }
+      // the row and the edge partials to every CTA: one exchange
+      for (int b = warp; b < B; b += kWarps) {
+        const float rs = warp_sum(racc[b * 32 + lane]);
+        if (lane < S) cluster.map_shared_rank(WM(rin), lane)[rank * B + b] = rs;
       }
       for (int e = warp; e < E; e += kWarps) {
         const float s_pp = warp_sum(eacc[(e * 32 + lane) * 2]);
@@ -1324,35 +1491,78 @@ __global__ void __launch_bounds__(kThreads) window_kernel_wide(Params<PiT> P) {
       }
     }
     cluster.sync();
-    PHASE(7);
+    PHASE(5);
 
-    // ---- e. per edge the sums over the ranks in order; per chunk the
-    //         normalized rows again, the gradient fan-in (warp w takes the
-    //         edges e = w mod kWarps for lane-strided columns, then one
-    //         thread per column adds the kWarps partials in warp order) and
-    //         the theta step ---------------------------------------------------
+    // ---- e. the row sums (ranks pairwise); per edge the sums over the
+    //         ranks (pairwise), divided by the endpoints' row sums (a masked
+    //         endpoint's by 1), and prsum; per chunk the staged rows from
+    //         the scratch (the next chunk in flight), normalized in shared
+    //         memory and written back (masked lanes as 1/K in shared
+    //         memory), the gradient fan-in (warp w takes the edges e = w
+    //         mod kWarps for lane-strided columns, then one thread per
+    //         column adds the kWarps partials in warp order) and the theta
+    //         step ----------------------------------------------------------
     {
       const unsigned* embits = WU(embits);
       const float* ein = WM(ein);
+      float* const rsv = WM(rsv);
       float* const epr = WM(epr);
+      for (int b = tid; b < B; b += kThreads) {
+        const float rs = rank_sum(WM(rin) + b, B, S);
+        rsv[b] = rs;
+        WM(ssum)[t * B + b] = rs;
+      }
+      __syncthreads();
       for (int e = tid; e < E; e += kThreads) {
-        const float s_pp = rank_sum(ein + 2 * e, 2 * E, S);
-        const float s_pr = rank_sum(ein + 2 * e + 1, 2 * E, S);
+        const unsigned pk = slanes[e];
+        const int u = pk & 0xffffu, v = pk >> 16;
+        const float du = bit(mbits, (size_t)t * B + u) ? rsv[u] : 1.f;
+        const float dv = bit(mbits, (size_t)t * B + v) ? rsv[v] : 1.f;
+        const float s_pp = rank_sum(ein + 2 * e, 2 * E, S) / (du * dv);
+        const float s_pr = rank_sum(ein + 2 * e + 1, 2 * E, S) / (du * dv);
         const bool link = bit(yebits, (size_t)t * E + e);
         epr[e] = s_pr + (link ? eps : P.one_minus_eps) * (1.f - s_pp);
       }
       const float eps_b = P.eps_theta[t];
       const float wt = P.wts[chain * T + t];
       const float* bnoise_t = P.bnoise + (chain * T + t) * K * 2 + 2 * k0;
-      float* const rows = WM(ch0);
       float* const gpart = WM(gpart);
+      // chunk c of the step's staged rows into the buffers of parity p
+      // (one cp.async group)
+      auto load_staged = [&](int c, int p) {
+        float* rbuf = p ? WM(ch1) : WM(ch0);
+        const int c0 = c * WC;
+        const int cw = min(WC, kw - c0);
+        if (vec) {
+          const int nq = cw / 4;
+          for (int i = tid; i < B * nq; i += kThreads) {
+            const int b = i / nq, q = i - b * nq;
+            cp_async16(rbuf + b * ldc + 4 * q, stg_t + (size_t)b * K + c0 + 4 * q);
+          }
+        } else {
+          for (int i = tid; i < B * cw; i += kThreads) {
+            const int b = i / cw, x = i - b * cw;
+            cp_async4(rbuf + b * ldc + x, stg_t + (size_t)b * K + c0 + x);
+          }
+        }
+        cp_async_commit();
+      };
+      load_staged(0, 0);
       for (int c = 0; c < nck; ++c) {
+        if (c + 1 < nck)
+          load_staged(c + 1, (c + 1) & 1);
+        else
+          cp_async_commit();
+        cp_async_wait_older();
+        __syncthreads();
+        float* const rows = (c & 1) ? WM(ch1) : WM(ch0);
         const int c0 = c * WC;
         const int cw = min(WC, kw - c0);
         for (int i = tid; i < B * cw; i += kThreads) {
           const int b = i / cw, x = i - b * cw;
-          rows[b * ldc + x] = bit(mbits, (size_t)t * B + b)
-                                  ? stg_t[(size_t)b * K + c0 + x] : P.inv_k;
+          const float v = rows[b * ldc + x] / rsv[b];
+          stg_t[(size_t)b * K + c0 + x] = v;
+          rows[b * ldc + x] = bit(mbits, (size_t)t * B + b) ? v : P.inv_k;
         }
         __syncthreads();
         float* const th0 = WM(th0) + c0;
@@ -1399,12 +1609,7 @@ __global__ void __launch_bounds__(kThreads) window_kernel_wide(Params<PiT> P) {
   {
     const bool* keep = P.keep + chain * TB;
     const int* snodes = WI(snodes);
-    for (int tb = warp; tb < T * B; tb += kWarps) {
-      if (!keep[tb]) continue;
-      PiT* dst = pi_c + (size_t)snodes[tb] * K + k0;
-      const float* src = stg + (size_t)tb * K;
-      for (int kk = lane; kk < kw; kk += 32) dst[kk] = to_store(src[kk], dst);
-    }
+    scatter_kept(pi_c + k0, stg, keep, snodes, T * B, K, kw, vec, warp, lane);
     if (rank == 0) {
       const float* ssum = WM(ssum);
       for (int tb = tid; tb < T * B; tb += kThreads)
@@ -1429,13 +1634,622 @@ __global__ void __launch_bounds__(kThreads) window_kernel_wide(Params<PiT> P) {
 #undef WU
 #undef WI
 
-// The kernel of a mode: the resident one, or with a chunk width the wide.
+// The step layout's shared arrays, as SM / SU / SI above.
+constexpr int kStepFields = sizeof(StepLayout) / sizeof(size_t);
+#define TM(name) (smem + s_off[offsetof(StepLayout, name) / sizeof(size_t)])
+#define TU(name) reinterpret_cast<unsigned*>(TM(name))
+#define TI(name) reinterpret_cast<int*>(TM(name))
+
+// The wide mode where a CTA's whole slice of one step's rows fits in
+// shared memory (the step layout: the launch's chunk covers the slice;
+// K = 1536-4096 at T = 12 on an H100). The staged rows go to the global
+// scratch P.staged [C, T*B, K] as in the chunked layout, but a step's
+// rows stay in shared memory through all its stages, so each row is read
+// from L2 once per step and written to the scratch once:
+//   0. step t's rows were gathered during step t-1 into the buffers of
+//      parity t & 1: the pre-window rows by bulk copies (one
+//      cp.async.bulk of kw floats per row, issued by one lane of each
+//      warp, counted in bytes on the buffer's mbarrier), the rows steps
+//      <= t-2 wrote from the scratch by cp.async; the rows step t-1 wrote
+//      are copied from the other buffer's node rows, which still hold
+//      them. Step t+1's gather into the other buffers is issued in stage
+//      b (its buffers are free since step t's start);
+//   a. q = (pi_n * (beta - eps)) . pi_nb over the slice, register-tiled:
+//      pi_n * (beta - eps) is formed once into the noise buffer; a warp
+//      takes kQNodes nodes over one of q_splits(B) runs of columns, lane
+//      l neighbors l % 16 and l % 16 + 16 over the run's float4 columns
+//      of parity l / 16, so each neighbor-row load serves kQNodes nodes
+//      and each node-row load 32 neighbors; the splits are summed in
+//      order and pushed to the nodes' owners;
+//   b. the coefficients (node_coefficients, as in the other layouts);
+//   c. contrib and the phi step in place on the node rows, register-tiled
+//      (a thread takes kCNodes nodes for four columns: each neighbor-row
+//      float4 serves kCNodes nodes, each coefficient float4 four columns
+//      and four neighbors), the phi noise from its bulk copies, started
+//      after stage a into the buffer that held pi_n * (beta - eps); the
+//      row partials and the edge partials,
+//      taken on phi' as it is (s_pp and s_pr are bilinear in the two rows,
+//      a masked endpoint counts as 1/K), pushed to every CTA in one
+//      exchange;
+//   d. the row sums; the edge sums divided by the endpoints' row sums;
+//      the rows normalized in shared memory and written to the scratch
+//      (plain coalesced stores, never read back before a later step's
+//      gather or the scatter), masked lanes as 1/K in shared memory;
+//   e. the gradient fan-in (fan_groups(kw) threads per column, each over
+//      its own edges) and the theta step.
+// Three cluster barriers a step, after a, b and c. No inner loop branches
+// between its loads (a short group of nodes repeats its last node), so
+// the loads of a tile are in flight together.
+// Sums over columns are taken in another order than the resident mode's
+// (its bits are not these): q per lane over its columns, the two column
+// parities, then the splits in order; the row and edge sums per lane then
+// over the warp; the ranks pairwise. On an H100 a K = 4096 window takes
+// about half the chunked layout's time (PERF.md).
+// Ragged slices (K % 4 != 0) copy 4 bytes at a time, bf16 rows are loaded
+// and widened synchronously, as in the other layouts.
+template <typename PiT>
+__global__ void __launch_bounds__(kThreads) window_kernel_step(Params<PiT> P) {
+  constexpr bool kF32 = std::is_same<PiT, float>::value;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ unsigned s_off[kStepFields];
+#ifdef WINDOW_PHASES
+  __shared__ unsigned long long s_phase[kPhases];
+  long long t_last = clock64();
+#endif
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int B = P.B, n = P.n, E = P.E, K = P.K, T = P.T, R = P.B + P.n;
+  const int KW = P.kw;
+  const int k0 = rank * KW;
+  const int kw = min(K, k0 + KW) - k0;
+  const int ld = row_stride(KW);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float eps = P.eps;
+  if (tid == 0) {
+    const StepLayout L = layout_step(T, B, n, E, KW, S);
+    const size_t* f = reinterpret_cast<const size_t*>(&L);
+    for (int i = 0; i < kStepFields; ++i) s_off[i] = (unsigned)f[i];
+#ifdef WINDOW_PHASES
+    for (int i = 0; i < kPhases; ++i) s_phase[i] = 0;
+#endif
+  }
+  const size_t chain = blockIdx.x / S;
+  const size_t TB = (size_t)T * B;
+  PiT* const pi_c = P.pi + chain * P.N * K;
+  float* const sum_c = P.phi_sum + chain * P.N;
+  float* const stg = P.staged + chain * TB * K + k0;
+  __syncthreads();
+  unsigned long long* const bars =
+      reinterpret_cast<unsigned long long*>(TM(bars));
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  stage_window(P, chain, k0, kw, TI(smc), TI(snodes), TI(snbrs), TU(slanes),
+               TU(ybits), TU(mbits), TU(yebits), TU(embits), TM(th0),
+               TM(th1), TM(bet), tid, warp, lane);
+  for (int kk = tid; kk < (KW + 3) / 4 * 4; kk += kThreads)
+    TM(bme)[kk] = kk < kw ? P.beta_in[chain * K + k0 + kk] - eps : 0.f;
+  // the columns past the slice, zeroed once in both row buffers: the
+  // float4 loads of stage a read them
+  for (int i = tid; i < 2 * R * (ld - kw); i += kThreads)
+    TM(rows0)[(i / (ld - kw)) * ld + kw + i % (ld - kw)] = 0.f;
+  __syncthreads();
+
+  // 16-byte copies where K and KW are multiples of 4; float32 rows and
+  // the noise then go by bulk copies
+  const bool vec = (K % 4 == 0) && (KW % 4 == 0);
+  const bool vec8 = (K % 8 == 0) && (KW % 8 == 0);
+  const unsigned row_bytes = 4u * kw;
+  // The gather of step u into the buffers of parity p (all threads; one
+  // cp.async group): its pre-window rows (bulk copies by warp 0 when
+  // float32 and vec, counted on the buffer's mbarrier, else 4-byte
+  // copies or the bf16 loads), the rows steps <= u-2 wrote from the
+  // scratch, the pre-window phi sums. Called after a block barrier, so
+  // nothing reads the buffers any more.
+  auto gather = [&](int u, int p) {
+    const int* mct = TI(smc) + u * R;
+    const int* nd = TI(snodes) + u * B;
+    const int* nb = TI(snbrs) + u * n;
+    float* rbuf = p ? TM(rows1) : TM(rows0);
+    auto src_id = [&](int r) { return r < B ? min(nd[r], P.N - 1) : nb[r - B]; };
+    if (warp == 0) {
+      unsigned pre = 0;
+      if (kF32 && vec)
+        for (int r0 = 0; r0 < R; r0 += 32)
+          pre += __popc(__ballot_sync(0xffffffffu,
+                                      r0 + lane < R && mct[r0 + lane] == 0));
+      if (lane == 0) mbar_expect(bars + p, pre * row_bytes);
+    }
+    // one lane of each warp issues its rows' copies: the copy engine
+    // takes them one at a time, and a warp that issued them all would
+    // hold its block back (the transaction count may run ahead of the
+    // expectation: the phase cannot complete before warp 0 arrives)
+    if constexpr (kF32)
+      if (vec && lane == 0) {
+        fence_proxy_async();
+        for (int r = warp; r < R; r += kWarps)
+          if (mct[r] == 0)
+            bulk_copy(rbuf + r * ld, pi_c + (size_t)src_id(r) * K + k0,
+                      row_bytes, bars + p);
+      }
+    for (int r = warp; r < R; r += kWarps) {
+      const int m = mct[r];
+      float* dst = rbuf + r * ld;
+      if (m > 0) {
+        if ((m - 1) / B > u - 2) continue;   // step u-1's: at step u's start
+        const float* src = stg + (size_t)(m - 1) * K;
+        if (vec)
+          for (int q = lane; q < kw / 4; q += 32) cp_async16(dst + 4 * q, src + 4 * q);
+        else
+          for (int x = lane; x < kw; x += 32) cp_async4(dst + x, src + x);
+      } else if constexpr (kF32) {
+        if (!vec) {
+          const float* src = pi_c + (size_t)src_id(r) * K + k0;
+          for (int x = lane; x < kw; x += 32) cp_async4(dst + x, src + x);
+        }
+      } else {
+        const PiT* src = pi_c + (size_t)src_id(r) * K + k0;
+        if (vec8)
+          for (int q = lane; q < kw / 8; q += 32) widen8(dst + 8 * q, src + 8 * q);
+        else
+          for (int x = lane; x < kw; x += 32) dst[x] = __bfloat162float(src[x]);
+      }
+    }
+    float* sbuf = p ? TM(phis1) : TM(phis0);
+    for (int b = tid; b < B; b += kThreads)
+      if (mct[b] == 0) cp_async4(sbuf + b, sum_c + min(nd[b], P.N - 1));
+    cp_async_commit();
+  };
+  // The phi noise of step u into nz and its theta noise into bz: bulk
+  // copies by one lane of each warp (counted on the noise mbarrier) when
+  // vec, else 4-byte copies (one cp.async group).
+  auto load_noise = [&](int u) {
+    float* const nz = TM(nz);
+    float* const bzb = TM(bz);
+    const float* noise_u = P.noise + (chain * T + u) * B * K + k0;
+    const float* bnoise_u = P.bnoise + (chain * T + u) * K * 2 + 2 * k0;
+    if (tid == 0) mbar_expect(bars + 2, vec ? (B + 2) * row_bytes : 0u);
+    if (vec && lane == 0) {
+      fence_proxy_async();
+      for (int b = warp; b < B; b += kWarps)
+        bulk_copy(nz + b * ld, noise_u + (size_t)b * K, row_bytes, bars + 2);
+      if (warp == kWarps - 1) bulk_copy(bzb, bnoise_u, 2 * row_bytes, bars + 2);
+    }
+    if (!vec) {
+      for (int b = warp; b < B; b += kWarps)
+        for (int x = lane; x < kw; x += 32)
+          cp_async4(nz + b * ld + x, noise_u + (size_t)b * K + x);
+      for (int i = tid; i < 2 * kw; i += kThreads) cp_async4(bzb + i, bnoise_u + i);
+      cp_async_commit();
+    }
+  };
+  gather(0, 0);
+  PHASE(0);
+
+  for (int t = 0; t < T; ++t) {
+    const int par = t & 1;
+    const int* mct = TI(smc) + t * R;
+    const unsigned* mbits = TU(mbits);
+    float* const rows = par ? TM(rows1) : TM(rows0);
+    float* const phis = par ? TM(phis1) : TM(phis0);
+#ifdef WINDOW_PHASES
+    __syncthreads();
+    PHASE(11);
+    cluster.sync();
+    PHASE(12);
+#endif
+    // ---- 0. wait for step t's gather; the rows step t-1 wrote from the
+    //         other buffer's node rows, the redirected phi sums ---------
+    mbar_wait(bars + par, (t >> 1) & 1);
+    cp_async_wait_all();
+    PHASE(13);
+    {
+      const float* prev = par ? TM(rows0) : TM(rows1);
+      for (int r = warp; r < R; r += kWarps) {
+        const int m = mct[r];
+        if (m == 0 || (m - 1) / B != t - 1) continue;
+        const float* src = prev + ((m - 1) - (t - 1) * B) * ld;
+        for (int kk = lane; kk < kw; kk += 32) rows[r * ld + kk] = src[kk];
+      }
+      for (int b = tid; b < B; b += kThreads)
+        if (mct[b] > 0) phis[b] = TM(ssum)[mct[b] - 1];
+    }
+    __syncthreads();
+    PHASE(1);
+
+    // ---- a. q partials: x * (beta - eps) once into nz; each split's
+    //         partials; the step's noise started into nz; the splits
+    //         summed in order and pushed to the nodes' owners ------------
+    {
+      const int nk4 = (kw + 3) / 4;
+      const int ld4 = ld / 4;
+      const float4* bm4 = reinterpret_cast<const float4*>(TM(bme));
+      float4* const xb4 = reinterpret_cast<float4*>(TM(nz));
+      for (int i = tid; i < B * nk4; i += kThreads) {
+        const int b = i / nk4, k4 = i - b * nk4;
+        const float4 x = reinterpret_cast<const float4*>(rows)[b * ld4 + k4];
+        const float4 bm = bm4[k4];
+        xb4[b * ld4 + k4] = make_float4(x.x * bm.x, x.y * bm.y, x.z * bm.z,
+                                        x.w * bm.w);
+      }
+      __syncthreads();
+      // a warp takes kQNodes nodes over a split's columns; lane l holds
+      // neighbors l % 16 and l % 16 + 16 over the split's float4 columns
+      // of parity l / 16, one sum per (node, neighbor)
+      float* const qpart = TM(part);
+      const int ks = q_splits(B);
+      const int groups = (B + kQNodes - 1) / kQNodes;
+      const int jn = lane & 15, kp = lane >> 4;
+      const float4* pv0 =
+          reinterpret_cast<const float4*>(rows + (B + min(jn, n - 1)) * ld);
+      const float4* pv1 =
+          reinterpret_cast<const float4*>(rows + (B + min(jn + 16, n - 1)) * ld);
+      for (int task = warp; task < groups * ks; task += kWarps) {
+        const int g = task / ks, sp = task - g * ks;
+        const int b0 = g * kQNodes;
+        const int nb = min(kQNodes, B - b0);
+        const float4* px = xb4 + b0 * ld4;
+        float acc0[kQNodes] = {}, acc1[kQNodes] = {};
+        for (int k4 = sp * nk4 / ks + kp; k4 < (sp + 1) * nk4 / ks; k4 += 2) {
+          const float4 v0 = pv0[k4];
+          const float4 v1 = pv1[k4];
+          // no branch between the loads: a short group repeats its last
+          // node, whose sums are not stored
+#pragma unroll
+          for (int q = 0; q < kQNodes; ++q) {
+            const float4 x = px[min(q, nb - 1) * ld4 + k4];
+            acc0[q] += x.x * v0.x;
+            acc1[q] += x.x * v1.x;
+            acc0[q] += x.y * v0.y;
+            acc1[q] += x.y * v1.y;
+            acc0[q] += x.z * v0.z;
+            acc1[q] += x.z * v1.z;
+            acc0[q] += x.w * v0.w;
+            acc1[q] += x.w * v1.w;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kQNodes; ++q) {
+          // the even columns' sums, then the odd ones'
+          acc0[q] += __shfl_down_sync(0xffffffffu, acc0[q], 16);
+          acc1[q] += __shfl_down_sync(0xffffffffu, acc1[q], 16);
+          if (kp == 0 && q < nb) {
+            float* out = qpart + (sp * B + b0 + q) * n;
+            if (jn < n) out[jn] = acc0[q];
+            if (jn + 16 < n) out[jn + 16] = acc1[q];
+          }
+        }
+      }
+
+      __syncthreads();
+      PHASE(14);
+      float* const qin = TM(qin);
+      const int nl = (B + S - 1) / S;
+      for (int i = tid; i < B * n; i += kThreads) {
+        const int b = i / n, jj = i - b * n;
+        float q = 0.f;
+        for (int sp = 0; sp < ks; ++sp) q += qpart[sp * B * n + i];
+        cluster.map_shared_rank(qin, b % S)[(rank * nl + b / S) * n + jj] = q;
+      }
+    }
+    // the step's noise into the buffer x * (beta - eps) held, its issue
+    // in the shadow of the cluster barrier
+    load_noise(t);
+    cluster.sync();
+    PHASE(2);
+
+    // ---- b. the coefficients of this CTA's nodes, to every CTA -----------
+    node_coefficients<true>(cluster, TM(qin), TU(ybits), TI(snodes) + t * B,
+                            TI(snbrs) + t * n, phis, TM(coef), TM(ce),
+                            TM(nval), TM(scale), TM(invphi), t, B, n, S,
+                            rank, warp, lane, eps, P.one_minus_eps,
+                            P.n_nodes);
+    // step t+1's gather into the other buffers (free since this step's
+    // start); the noise's 4-byte copies (ragged slices) land before it,
+    // the gather's group may not
+    if (t + 1 < T)
+      gather(t + 1, par ^ 1);
+    else
+      cp_async_commit();
+    cp_async_wait_older();
+    cluster.sync();
+    PHASE(3);
+
+    // ---- c. contrib and the phi step on the slice, register-tiled: a
+    //         thread takes kCNodes nodes for four columns (a float4 of each
+    //         neighbor row, one coefficient load per node and four
+    //         neighbors), the sums over the neighbors in order; phi'
+    //         overwrites the node rows -------------------------------------
+    mbar_wait(bars + 2, par);
+    PHASE(15);
+    {
+      const float eps_t = P.eps_phi[t];
+      const float4* nz4 = reinterpret_cast<const float4*>(TM(nz));
+      const float* coef_a = TM(coef);
+      const float* ce = TM(ce);
+      const float* nval = TM(nval);
+      const float* scale = TM(scale);
+      const float* invphi = TM(invphi);
+      const float4* bm4 = reinterpret_cast<const float4*>(TM(bme));
+      const int nq4 = (kw + 3) / 4, ld4 = ld / 4;
+      const int groups = (B + kCNodes - 1) / kCNodes;
+      float4* const rows4 = reinterpret_cast<float4*>(rows);
+      for (int item = tid; item < groups * nq4; item += kThreads) {
+        const int g = item / nq4, q4 = item - g * nq4;
+        const int b0 = g * kCNodes, nb = min(kCNodes, B - b0);
+        float4 acc[kCNodes];
+#pragma unroll
+        for (int i = 0; i < kCNodes; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int j4 = 0; j4 < n; j4 += 4) {
+          float4 v[4];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            v[jj] = rows4[(B + min(j4 + jj, n - 1)) * ld4 + q4];
+#pragma unroll
+          for (int i = 0; i < kCNodes; ++i) {
+            // a short group repeats its last node, which is not stored
+            const float* cb = coef_a + (b0 + min(i, nb - 1)) * n + j4;
+            float c[4];
+            if (n % 4 == 0) {
+              const float4 c4 = *reinterpret_cast<const float4*>(cb);
+              c[0] = c4.x; c[1] = c4.y; c[2] = c4.z; c[3] = c4.w;
+            } else {
+#pragma unroll
+              for (int jj = 0; jj < 4; ++jj) c[jj] = j4 + jj < n ? cb[jj] : 0.f;
+            }
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              acc[i].x += c[jj] * v[jj].x;
+              acc[i].y += c[jj] * v[jj].y;
+              acc[i].z += c[jj] * v[jj].z;
+              acc[i].w += c[jj] * v[jj].w;
+            }
+          }
+        }
+        const float4 bk = bm4[q4];
+#pragma unroll
+        for (int i = 0; i < kCNodes; ++i) {
+          if (i >= nb) break;
+          const int b = b0 + i;
+          const float n_ce = ce[b], n_val = nval[b], n_inv = invphi[b];
+          const float n_scale = scale[b], n_phis = phis[b];
+          const float4 x = rows4[b * ld4 + q4];
+          const float4 z = nz4[b * ld4 + q4];
+          auto step = [&](float a, float bkk, float xk, float zk) {
+            const float s_contrib = bkk * a + n_ce;
+            const float grads = (s_contrib - n_val) * n_inv;
+            const float phi_k = xk * n_phis;
+            const float vv = fabsf(phi_k
+                                   + eps_t / 2.f * (P.alpha - phi_k + n_scale * grads)
+                                   + sqrtf(eps_t * phi_k) * zk);
+            return fmaxf(vv, 1e-24f);
+          };
+          const float4 out = make_float4(step(acc[i].x, bk.x, x.x, z.x),
+                                         step(acc[i].y, bk.y, x.y, z.y),
+                                         step(acc[i].z, bk.z, x.z, z.z),
+                                         step(acc[i].w, bk.w, x.w, z.w));
+          if (4 * q4 + 4 <= kw) {
+            rows4[b * ld4 + q4] = out;
+          } else {   // the ragged end of the slice: its pad stays zero
+            float* r = rows + b * ld + 4 * q4;
+            if (4 * q4 + 0 < kw) r[0] = out.x;
+            if (4 * q4 + 1 < kw) r[1] = out.y;
+            if (4 * q4 + 2 < kw) r[2] = out.z;
+          }
+        }
+      }
+    }
+    __syncthreads();
+    PHASE(4);
+
+    // ---- row partials of phi' (one warp per row) and edge partials (one
+    //         warp per edge) over phi' as it is, masked endpoints as 1/K
+    //         (s_pp and s_pr are bilinear in the two rows: stage d divides
+    //         them by the row sums), to every CTA in one exchange ----------
+    const unsigned* const slanes = TU(slanes) + t * E;
+    const unsigned* const yebits = TU(yebits);
+    // float4 columns (the pad is zero); each lane's in order
+    const int nq4 = (kw + 3) / 4, ld4 = ld / 4;
+    for (int b = warp; b < B; b += kWarps) {
+      const float4* r4 = reinterpret_cast<const float4*>(rows) + b * ld4;
+      float acc = 0.f;
+      for (int q = lane; q < nq4; q += 32) {
+        const float4 x = r4[q];
+        acc += (x.x + x.y) + (x.z + x.w);
+      }
+      acc = warp_sum(acc);
+      if (lane < S) cluster.map_shared_rank(TM(rin), lane)[rank * B + b] = acc;
+    }
+    {
+      const float4* bet4 = reinterpret_cast<const float4*>(TM(bet));
+      const float ik = P.inv_k;
+      const float4 ik4 = make_float4(ik, ik, ik, ik);
+      for (int e = warp; e < E; e += kWarps) {
+        const unsigned pk = slanes[e];
+        const int u = pk & 0xffffu, v = pk >> 16;
+        const bool vu = bit(mbits, (size_t)t * B + u);
+        const bool vv = bit(mbits, (size_t)t * B + v);
+        const float4* pu = reinterpret_cast<const float4*>(rows) + u * ld4;
+        const float4* pv = reinterpret_cast<const float4*>(rows) + v * ld4;
+        const bool link = bit(yebits, (size_t)t * E + e);
+        float s_pp = 0.f, s_pr = 0.f;
+        for (int q = lane; q < nq4; q += 32) {
+          // a masked endpoint counts as 1/K, on the slice's columns only
+          const float4 a = vu ? pu[q] : ik4, c = vv ? pv[q] : ik4;
+          const float4 bt = bet4[q];
+          const float pp[4] = {a.x * c.x, a.y * c.y, a.z * c.z, a.w * c.w};
+          const float w[4] = {bt.x, bt.y, bt.z, bt.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (4 * q + i < kw) {
+              s_pp += pp[i];
+              s_pr += (link ? w[i] : 1.f - w[i]) * pp[i];
+            }
+          }
+        }
+        s_pp = warp_sum(s_pp);
+        s_pr = warp_sum(s_pr);
+        if (lane < S) {
+          float* peer = cluster.map_shared_rank(TM(ein), lane);
+          peer[(rank * E + e) * 2] = s_pp;
+          peer[(rank * E + e) * 2 + 1] = s_pr;
+        }
+      }
+    }
+    cluster.sync();
+    PHASE(5);
+
+    // ---- d. the row sums (ranks pairwise); per edge the sums over the
+    //         ranks (pairwise) divided by the endpoints' row sums (a masked
+    //         endpoint's by 1), and prsum; the rows normalized in shared
+    //         memory and written to the scratch; masked lanes as 1/K -------
+    float* const stg_t = stg + (size_t)t * B * K;
+    {
+      float* const rsv = TM(rsv);
+      for (int b = tid; b < B; b += kThreads) {
+        const float rs = rank_sum(TM(rin) + b, B, S);
+        rsv[b] = rs;
+        TM(ssum)[t * B + b] = rs;
+      }
+      __syncthreads();
+      const float* ein = TM(ein);
+      float* const epr = TM(epr);
+      for (int e = tid; e < E; e += kThreads) {
+        const unsigned pk = slanes[e];
+        const int u = pk & 0xffffu, v = pk >> 16;
+        const float du = bit(mbits, (size_t)t * B + u) ? rsv[u] : 1.f;
+        const float dv = bit(mbits, (size_t)t * B + v) ? rsv[v] : 1.f;
+        const float s_pp = rank_sum(ein + 2 * e, 2 * E, S) / (du * dv);
+        const float s_pr = rank_sum(ein + 2 * e + 1, 2 * E, S) / (du * dv);
+        const bool link = bit(yebits, (size_t)t * E + e);
+        epr[e] = s_pr + (link ? eps : P.one_minus_eps) * (1.f - s_pp);
+      }
+      if (vec) {
+        const int nq = kw / 4;
+        for (int i = tid; i < B * nq; i += kThreads) {
+          const int b = i / nq, q = i - b * nq;
+          float4* row = reinterpret_cast<float4*>(rows + b * ld) + q;
+          const float rs = rsv[b];
+          const float4 x = *row;
+          const float4 v = make_float4(x.x / rs, x.y / rs, x.z / rs, x.w / rs);
+          *reinterpret_cast<float4*>(stg_t + (size_t)b * K + 4 * q) = v;
+          const float ik = P.inv_k;
+          *row = bit(mbits, (size_t)t * B + b) ? v : make_float4(ik, ik, ik, ik);
+        }
+      } else {
+        for (int i = tid; i < B * kw; i += kThreads) {
+          const int b = i / kw, kk = i - b * kw;
+          const float v = rows[b * ld + kk] / rsv[b];
+          stg_t[(size_t)b * K + kk] = v;
+          rows[b * ld + kk] = bit(mbits, (size_t)t * B + b) ? v : P.inv_k;
+        }
+      }
+    }
+    __syncthreads();
+    PHASE(6);
+
+    // ---- e. the gradient fan-in (G threads per column, thread g over the
+    //         edges e = g mod G), the G partials added in order, the theta
+    //         step -----------------------------------------------------------
+    {
+      const unsigned* embits = TU(embits);
+      const float* epr = TM(epr);
+      const int G = fan_groups(KW);
+      float* const gpart = TM(part);
+      const float* th0 = TM(th0);
+      const float* th1 = TM(th1);
+      const float* bet = TM(bet);
+      for (int item = tid; item < G * KW; item += kThreads) {
+        const int g = item / KW, kk = item - g * KW;
+        if (kk >= kw) continue;
+        const float t0 = th0[kk], t1 = th1[kk], bk = bet[kk];
+        const float inv_ts = 1.f / (t0 + t1);
+        const float inv_t0 = 1.f / t0, inv_t1 = 1.f / t1;
+        float g0 = 0.f, g1 = 0.f;
+#pragma unroll 4
+        for (int e = g; e < E; e += G) {
+          const bool link = bit(yebits, (size_t)t * E + e);
+          const float m = bit(embits, (size_t)t * E + e) ? 1.f : 0.f;
+          const unsigned pk = slanes[e];
+          const float pp = rows[(pk & 0xffffu) * ld + kk] * rows[(pk >> 16) * ld + kk];
+          const float f = ((link ? bk : 1.f - bk) * pp) / epr[e];
+          g0 += (f * ((link ? 0.f : inv_t0) - inv_ts)) * m;
+          g1 += (f * ((link ? inv_t1 : 0.f) - inv_ts)) * m;
+        }
+        gpart[(g * KW + kk) * 2] = g0;
+        gpart[(g * KW + kk) * 2 + 1] = g1;
+      }
+    }
+    __syncthreads();
+    PHASE(8);
+    {
+      const int G = fan_groups(KW);
+      const float eps_b = P.eps_theta[t];
+      const float wt = P.wts[chain * T + t];
+      const float* bz = TM(bz);
+      const float* gpart = TM(part);
+      float* th0 = TM(th0);
+      float* th1 = TM(th1);
+      float* bet = TM(bet);
+      float* bme = TM(bme);
+      for (int kk = tid; kk < kw; kk += kThreads) {
+        float g0 = 0.f, g1 = 0.f;
+        for (int g = 0; g < G; ++g) {
+          g0 += gpart[(g * KW + kk) * 2];
+          g1 += gpart[(g * KW + kk) * 2 + 1];
+        }
+        theta_column(g0, g1, bz[2 * kk], bz[2 * kk + 1], eps_b, wt, P.eta0,
+                     P.eta1, eps, th0[kk], th1[kk], bet[kk], bme[kk]);
+      }
+    }
+    __syncthreads();
+    PHASE(9);
+  }
+
+  // ---- the scatter, as the chunked layout's: the kept rows from the
+  //      scratch (each CTA its own columns), their sums by CTA 0, theta
+  //      and beta by slice ---------------------------------------------------
+  {
+    const bool* keep = P.keep + chain * TB;
+    const int* snodes = TI(snodes);
+    scatter_kept(pi_c + k0, stg, keep, snodes, T * B, K, kw, vec, warp, lane);
+    if (rank == 0) {
+      const float* ssum = TM(ssum);
+      for (int tb = tid; tb < T * B; tb += kThreads)
+        if (keep[tb]) sum_c[snodes[tb]] = ssum[tb];
+    }
+    for (int kk = tid; kk < kw; kk += kThreads) {
+      P.theta_out[chain * K * 2 + 2 * (k0 + kk)] = TM(th0)[kk];
+      P.theta_out[chain * K * 2 + 2 * (k0 + kk) + 1] = TM(th1)[kk];
+      P.beta_out[chain * K + k0 + kk] = TM(bet)[kk];
+    }
+  }
+  // the peers may still be reading this CTA's last partials
+  cluster.sync();
+  PHASE(10);
+#ifdef WINDOW_PHASES
+  if (tid == 0 && blockIdx.x == 0)
+    for (int i = 0; i < kPhases; ++i) g_phase_cycles[i] += s_phase[i];
+#endif
+}
+
+#undef TM
+#undef TU
+#undef TI
+
+// The kernel of a mode: the resident one (wc = 0), the wide mode's step
+// layout (a chunk that covers the slice, wc >= kw) or its chunked one.
 template <typename PiT>
 using KernelFn = void (*)(Params<PiT>);
 
 template <typename PiT>
-KernelFn<PiT> kernel_of(int wc) {
-  return wc > 0 ? window_kernel_wide<PiT> : window_kernel<PiT>;
+KernelFn<PiT> kernel_of(int wc, int kw) {
+  if (wc == 0) return window_kernel<PiT>;
+  return wc >= kw ? window_kernel_step<PiT> : window_kernel_wide<PiT>;
 }
 
 // Sets a kernel's shared memory (and, past 8, the non-portable cluster
@@ -1454,7 +2268,7 @@ cudaError_t set_attributes(KernelFn<PiT> fn, int S, size_t smem) {
 template <typename PiT>
 cudaError_t launch(const Params<PiT>& P, int C, int S, size_t smem,
                    cudaStream_t stream) {
-  const KernelFn<PiT> fn = kernel_of<PiT>(P.wc);
+  const KernelFn<PiT> fn = kernel_of<PiT>(P.wc, P.kw);
   cudaError_t err = set_attributes<PiT>(fn, S, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
@@ -1503,13 +2317,15 @@ Params<PiT> make_params(void* pi, float* phi_sum, const bool* y,
 }  // namespace
 
 // Bytes of shared memory per CTA with a cluster of S CTAs (either storage
-// type): the resident mode's (wc = 0) or the wide mode's with chunks of wc
-// columns.
+// type): the resident mode's (wc = 0), or the wide mode's with chunks of
+// wc columns: its step layout where a chunk covers the slice (wc >= kw),
+// else its chunked layout.
 extern "C" size_t window_kernel_smem_bytes(int T, int B, int n, int E, int K,
                                            int S, int wc) {
   const int kw = slice_width(K, S);
-  return (wc > 0 ? layout_wide(T, B, n, E, kw, S, wc).total
-                 : layout(T, B, n, E, kw, S).total) * sizeof(float);
+  if (wc == 0) return layout(T, B, n, E, kw, S).total * sizeof(float);
+  return (wc >= kw ? layout_step(T, B, n, E, kw, S).total
+                   : layout_wide(T, B, n, E, kw, S, wc).total) * sizeof(float);
 }
 
 // Launches C clusters of S CTAs (one cluster per chain) on `stream`;
@@ -1518,8 +2334,10 @@ extern "C" size_t window_kernel_smem_bytes(int T, int B, int n, int E, int K,
 // in place; every operand holds the C chains' slices one after another
 // (chain-major); `eps_phi` and `eps_theta` are host arrays of T floats,
 // shared by the chains. wc = 0 runs the resident mode; wc > 0 (a
-// multiple of 8) the wide mode, whose staged rows go to `staged`, a
-// float32 scratch [C, T*B, K] (unused and may be null when wc = 0).
+// multiple of 8) the wide mode, in its step layout when wc covers the
+// slice (wc >= slice_width(K, S)), else in chunks of wc columns; its
+// staged rows go to `staged`, a float32 scratch [C, T*B, K] (unused and
+// may be null when wc = 0).
 extern "C" int window_kernel_launch(
     void* pi, float* phi_sum, const bool* y, const int* nodes,
     const int* nbrs, const bool* node_mask, const bool* keep,
@@ -1559,7 +2377,7 @@ extern "C" int window_kernel_launch(
 extern "C" int window_kernel_max_clusters(int T, int B, int n, int E, int K,
                                           int S, int wc) {
   const size_t smem = window_kernel_smem_bytes(T, B, n, E, K, S, wc);
-  const KernelFn<float> fn = kernel_of<float>(wc);
+  const KernelFn<float> fn = kernel_of<float>(wc, slice_width(K, S));
   cudaError_t err = set_attributes<float>(fn, S, smem);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg = {};

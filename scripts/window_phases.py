@@ -10,18 +10,21 @@ Run from the root of a checkout:
 
 window: at the single-chain bench shape (T, B, n, E, K) = (12, 33, 32, 32, 256)
 and the chain shape (16 chains of (6, 33, 32, 32, 256)) in the resident
-mode, and at the K = 4096 path's (12, 33, 32, 32, 4096) in the wide mode
-(in the plan's layout: the step layout, whose chunk covers the slice)
-and at (6, 33, 32, 32, 8192) (its chunked layout), for each cluster size
-S that fits: the clusters the card runs at once,
-the device time per window (CUDA events; the device sleeps while the
-host queues 50 windows, so the host's launch cost is not in it), and the
-clock cycles per step of each stage, from a second build of the source
-with -DWINDOW_PHASES (thread 0 of the first CTA adds the cycles between
-consecutive barriers into one slot per stage). The two wide windows also
-run on the build of chip_smoke.PARENT_SRC (the kernel before the step
-layout: its chunked layout at that source's own plan), the same two
-ways, so that its stages stand beside this build's in one run.
+mode, and in the wide mode at the K = 4096 path's (12, 33, 32, 32, 4096)
+(in the plan's layout: the step layout, whose chunk covers the slice),
+at (6, 33, 32, 32, 8192) and the K = 8192 path's (12, 33, 32, 32, 8192)
+(the step layout with one set of rows) and at (3, 33, 32, 32, 16384)
+(the chunked layout), and at (12, 33, 32, 32, 4096) also in the step
+layout with one set of rows, for each cluster size S that fits: the
+clusters the card runs at once, the device time per window (CUDA events;
+the device sleeps while the host queues 50 windows, so the host's launch
+cost is not in it), and the clock cycles per step of each stage, from a
+second build of the source with -DWINDOW_PHASES (thread 0 of the first
+CTA adds the cycles between consecutive barriers into one slot per
+stage). The K = 8192 windows also run on the build of
+chip_smoke.PARENT_SRC (the kernel before the step layout with one set of
+rows: its chunked layout at that source's own plan), the same two ways,
+so that its stages stand beside this build's in one run.
 
 mmsb: the same for the MMSB window at (T, B, n, E, K) = (12, 33, 32, 32,
 64), the --model mmsb --window 12 shape, and (12, 33, 32, 32, 128), for
@@ -82,11 +85,28 @@ WIDE_STAGES = ["init + first gather + first noise",
                "calibration: bare cluster barrier",
                "wait for the step's rows", "a: q partials (register-tiled)",
                "c: wait for the step's noise"]
+# the wide mode's stages in its step layout with one set of rows
+# (window_kernel_step1's PHASE slots)
+STEP1_STAGES = ["init + first gather", "redirected phi sums",
+                "a: theta noise issue + phi noise prefetch + q partials "
+                "pushed + cluster barrier",
+                "b: owners' coefficients pushed + cluster barrier",
+                "c: contrib + phi step (noise from global memory)",
+                "row and edge partials pushed + next neighbor rows issue + "
+                "cluster barrier",
+                "d: row sums, prsum, normalize + scratch stores",
+                "e: next node rows issue", "e: fan-in partials",
+                "e: theta step", "scatter + final barrier",
+                "calibration: bare block barrier",
+                "calibration: bare cluster barrier",
+                "wait for the step's rows", "a: q partials (register-tiled)",
+                "e: wait for the theta noise"]
 # the slots of a step's stages, for each kind of stage list (calibration,
 # init and scatter left out)
 STEP_SLOTS = {"resident": range(1, 10), "step": [*range(1, 10), 13, 14, 15],
-              "wide": range(1, 10)}
-# its chunked layout's stages (window_kernel_wide's PHASE slots)
+              "step1": [*range(1, 10), 13, 14, 15], "wide": range(1, 10)}
+# its chunked layout's stages (window_kernel_wide's PHASE slots; the same
+# in the build of chip_smoke.PARENT_SRC)
 CHUNKED_STAGES = ["init", "(unused)",
                   "a: q partials by chunk, pushed + cluster barrier",
                   "b: owners' coefficients pushed + cluster barrier",
@@ -94,15 +114,9 @@ CHUNKED_STAGES = ["init", "(unused)",
                   "partials by chunk, pushed + cluster barrier", "(unused)",
                   "(unused)", "(unused)", "e: normalize + scratch stores + "
                   "fan-in + theta step by chunk", "scatter + final barrier"]
-# the chunked layout's stages in the build of chip_smoke.PARENT_SRC
-PARENT_STAGES = ["init", "(unused)",
-                 "a: q partials by chunk, pushed + cluster barrier",
-                 "b: owners' coefficients pushed + cluster barrier",
-                 "(unused)", "c: contrib + phi step + row partials by chunk, "
-                 "pushed + cluster barrier", "(unused)",
-                 "d: normalize + edge partials by chunk, pushed + cluster "
-                 "barrier", "(unused)", "e: fan-in + theta step by chunk",
-                 "scatter + final barrier"]
+# the stage list of each layout
+LAYOUT_STAGES = {"resident": STAGES, "step": WIDE_STAGES,
+                 "step1": STEP1_STAGES, "wide": CHUNKED_STAGES}
 REPS = 50
 
 
@@ -147,9 +161,10 @@ def run_window(sizes, kernels, result):
         chip_smoke.PARENT_SRC
     old_lib = chip_smoke.ParentWindowLib(
         chip_smoke.build_parent(kernels), window, limit)
-    old_plib = window.bind_window_lib(_phase_build(
-        kernels, "window_kernel_parent", "-DWINDOW_PHASES", parent_src))
-    old_plib.window_kernel_phases.argtypes = [ctypes.c_void_p]
+    old_plib = chip_smoke.ParentWindowLib(_phase_build(
+        kernels, "window_kernel_parent", "-DWINDOW_PHASES", parent_src),
+        window, limit)
+    old_plib.lib.window_kernel_phases.argtypes = [ctypes.c_void_p]
     phases = (ctypes.c_ulonglong * 16)()
 
     case = testing.window_case(0, 12, 33, 32, 32, 256)
@@ -163,21 +178,21 @@ def run_window(sizes, kernels, result):
     cfgc = testing.chain_window_case_config(ccase)
     stc, xw = testing.chain_window_case_torch(ccase, "cuda")
     win = chains_flat.chain_windows(cfgc, 16, xw).at(0)
-    wcase = testing.window_case(0, 12, 33, 32, 32, 4096)
-    cfgw = testing.window_case_config(wcase)
-    stw, xsw = testing.window_case_torch(wcase, "cuda")
-    bw = xsw[0]
-    mcw = window._correction_codes(cfgw, bw.nodes, bw.node_mask,
-                                   xsw[1][:, 0, :])
-    keepw = window._last_write_wins(bw.nodes, bw.node_mask, 12)
-    wide = lambda st: window.window_apply_cuda(cfgw, st, xsw, mcw, keepw)
-    ccase8 = testing.window_case(0, 6, 33, 32, 32, 8192)
-    cfg8 = testing.window_case_config(ccase8)
-    st8, xs8 = testing.window_case_torch(ccase8, "cuda")
-    mc8 = window._correction_codes(cfg8, xs8[0].nodes, xs8[0].node_mask,
-                                   xs8[1][:, 0, :])
-    keep8 = window._last_write_wins(xs8[0].nodes, xs8[0].node_mask, 6)
-    wide8 = lambda st: window.window_apply_cuda(cfg8, st, xs8, mc8, keep8)
+    def wide_run(shape):
+        """(the window's launch on a state, its state) at ``shape``."""
+        case = testing.window_case(0, *shape)
+        cfg = testing.window_case_config(case)
+        st, xs = testing.window_case_torch(case, "cuda")
+        mc = window._correction_codes(cfg, xs[0].nodes, xs[0].node_mask,
+                                      xs[1][:, 0, :])
+        keep = window._last_write_wins(xs[0].nodes, xs[0].node_mask,
+                                       shape[0])
+        return (lambda s: window.window_apply_cuda(cfg, s, xs, mc, keep)), st
+
+    wide, stw = wide_run((12, 33, 32, 32, 4096))
+    wide8, st8 = wide_run((6, 33, 32, 32, 8192))
+    wide12, st12 = wide_run((12, 33, 32, 32, 8192))
+    wide16, st16 = wide_run((3, 33, 32, 32, 16384))
     runs = {
         "single (12,33,32,32,256)": ((12, 33, 32, 32, 256), 12, lambda st:
             window.window_apply_cuda(cfg1, st, xs1, mc1, keep1), st1,
@@ -187,19 +202,27 @@ def run_window(sizes, kernels, result):
                                            win.keep), stc, lib, plib),
         "wide (12,33,32,32,4096)": ((12, 33, 32, 32, 4096), 12, wide, stw,
                                     lib, plib),
-        "wide (12,33,32,32,4096), parent build": (
-            (12, 33, 32, 32, 4096), 12, wide, stw, old_lib, old_plib),
+        # the plan's step layout against the one-set layout on one shape
+        "wide (12,33,32,32,4096), one set of rows": (
+            (12, 33, 32, 32, 4096), 12, wide, stw, lib, plib, "step1"),
         "wide (6,33,32,32,8192)": ((6, 33, 32, 32, 8192), 6, wide8, st8,
                                    lib, plib),
         "wide (6,33,32,32,8192), parent build": (
             (6, 33, 32, 32, 8192), 6, wide8, st8, old_lib, old_plib),
+        "wide (12,33,32,32,8192)": ((12, 33, 32, 32, 8192), 12, wide12,
+                                    st12, lib, plib),
+        "wide (12,33,32,32,8192), parent build": (
+            (12, 33, 32, 32, 8192), 12, wide12, st12, old_lib, old_plib),
+        "wide (3,33,32,32,16384)": ((3, 33, 32, 32, 16384), 3, wide16,
+                                    st16, lib, plib),
     }
     real_plan, real_lib = window.window_plan, window._window_lib
-    for name, (shape, t_win, run, state, tlib, phlib) in runs.items():
+    for name, (shape, t_win, run, state, tlib, phlib, *forced) in \
+            runs.items():
         k = shape[4]
-        mode = real_plan(*shape, limit)[1]
+        mode = forced[0] if forced else real_plan(*shape, limit)[1]
         if tlib is old_lib:
-            mode = "wide"           # its chunked layout, at its own plan
+            mode = old_lib.plan(*shape)[2]      # at its own plan
         for s in sizes:
             w = window.window_slice_width(k, s)
             if (s - 1) * w >= k:
@@ -210,7 +233,7 @@ def run_window(sizes, kernels, result):
                 wc = old_lib.plan(*shape)[1]
                 smem = old_lib.lib.window_kernel_smem_bytes(*shape, s, wc)
             else:
-                wc = (window.step_chunk(k, s) if mode == "step"
+                wc = (window.step_chunk(k, s) if mode in ("step", "step1")
                       else real_plan(*shape, limit)[2])
                 smem = window.plan_smem_bytes(shape, (s, mode, wc))
             if smem > limit:
@@ -221,22 +244,23 @@ def run_window(sizes, kernels, result):
             window._window_lib = lambda: tlib
             ms = device_ms(lambda: run(scratch))
             window._window_lib = lambda: phlib
+            phases_of = (phlib if phlib is plib
+                         else phlib.lib).window_kernel_phases
             run(scratch)
             torch.cuda.synchronize()
-            phlib.window_kernel_phases(phases)     # reads and zeroes
+            phases_of(phases)                       # reads and zeroes
             run(scratch)
             torch.cuda.synchronize()
-            phlib.window_kernel_phases(phases)
-            stages = (PARENT_STAGES if tlib is old_lib else
-                      {"resident": STAGES, "step": WIDE_STAGES,
-                       "wide": CHUNKED_STAGES}[mode])
+            phases_of(phases)
+            stages = LAYOUT_STAGES[mode]
             cyc = [phases[i] / t_win for i in range(len(stages))]
-            clusters_of = (lib if tlib is lib else
-                           old_lib.lib).window_kernel_max_clusters
+            clusters = (lib.window_kernel_max_clusters(
+                *shape, s, wc, window.LAYOUTS[mode]) if tlib is lib else
+                old_lib.lib.window_kernel_max_clusters(*shape, s, wc))
             result["runs"].append({
                 "run": name, "S": s, "mode": mode, "wc": wc,
                 "smem_per_cta": smem,
-                "max_active_clusters": clusters_of(*shape, s, wc),
+                "max_active_clusters": clusters,
                 "ms_per_window": ms, "us_per_step": 1e3 * ms / t_win,
                 "cycles_per_step": sum(cyc[i] for i in STEP_SLOTS[mode]),
                 "stage_cycles_per_step": [round(c, 1) for c in cyc],
