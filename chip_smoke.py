@@ -7,7 +7,7 @@ Phases, one line each; any failure raises and the exit code is not 0:
                power limit as nvidia-smi reports them;
   2. build   — compiles the four kernels from csrc/ with nvcc, one
                process per source, the window kernel's source from before
-               its wide mode's step layout with one set of rows
+               its wide mode's node-resident layout
                (PARENT_SRC), the reference RNG kernel's from before its
                split (PARENT_RNG_SRC) and the native
                host library (the port's mcmc_ammsb_tpu_torch/csrc/
@@ -42,26 +42,32 @@ Phases, one line each; any failure raises and the exit code is not 0:
                layout (a step's rows in shared memory, two sets, bulk
                copies), at (8, 33, 32, 32, 6144), (6, 33, 32, 32, 8192)
                and the -k 8192 path's (12, 33, 32, 32, 8192) in its step
-               layout with one set of rows (each also on five more draws
-               against float64: the kernel within 2x the plain version on
-               most draws, per field) and at (3, 33, 32, 32, 16384) in its
-               chunked layout, with its mode, layout, cluster size, chunk
-               width, shared memory per CTA (equal to the rule's) and us
-               per step; its chain mode (one
+               layout with one set of rows, at (3, 33, 32, 32, 16384),
+               the -k 16384 path's (12, 33, 32, 32, 16384) and (12, 33,
+               32, 32, 12288) in its node-resident layout (node rows in
+               shared memory, neighbor rows streamed in tiles; each of
+               these six also on five more draws against float64: the
+               kernel within 2x the plain version on most draws, per
+               field; the ragged (12, 33, 32, 32, 10242), 4-byte copies,
+               on those five draws only: see RAGGED_NODES_SHAPE) and at
+               (23, 33, 32, 32, 16384) in its chunked layout, with its
+               mode, layout,
+               cluster size, chunk width, shared memory per CTA (equal to
+               the rule's) and us per step; its chain mode (one
                cluster per chain) at (C, T, B, n, E, K) = (16, 6, 33, 32,
                32, 256), the bench chain shape, (3, 4, 9, 8, 8, 16), (2,
-               3, 6, 7, 5, 12) and, wide, (2, 12, 33, 32, 32, 2048) and
-               (2, 12, 33, 32, 32, 8192), also
+               3, 6, 7, 5, 12) and, wide, (2, 12, 33, 32, 32, 2048), (2,
+               12, 33, 32, 32, 8192) and (2, 12, 33, 32, 32, 16384), also
                bit-equal to C single-chain launches — both no farther
-               from float64 than 2x the plain version; the resident mode
-               and the step layout bit-equal to the build of PARENT_SRC
-               at every shape above they run, float32 and bf16 pi, with
-               both timed in turns
+               from float64 than 2x the plain version; the resident mode,
+               both step layouts and the chunked layout bit-equal to the
+               build of PARENT_SRC at every shape above they run, float32
+               and bf16 pi, with both timed in turns
                at the main and the chain shapes, and the wide mode timed
                in turns against PARENT_SRC's (at the plan of its own
-               rule: its chunked layout where this build takes the step
-               layout with one set of rows) at the six wide shapes and
-               the two wide chain shapes, with the layout each took; both
+               rule: its chunked layout where this build takes the
+               node-resident layout) at the ten wide shapes and the three
+               wide chain shapes, with the layout each took; both
                phi entries
                (pre-gathered, by index) at (B, n, K) = (33, 32, 256),
                (64, 32, 256) (the host-sampled paths' 64 node lanes),
@@ -103,8 +109,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
      bf16    — the window kernel's bf16 row mode (bfloat16 pi storage) at
                the main path's, the chain path's and the com-youtube
                rung's shapes and in the wide mode at the -k 4096 path's
-               (its step layout) and the -k 8192 path's (its step layout
-               with one set of rows): the bf16 launch equals the float32
+               (its step layout), the -k 8192 path's (its step layout
+               with one set of rows) and the -k 16384 path's (its
+               node-resident layout): the bf16 launch equals the float32
                launch on the upcast rows, rounded to nearest-even, bit
                for bit; against the plain
                version at bf16 the stored values are equal or 1 ulp
@@ -143,7 +150,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
                wide mode's step layout, ppx falls, its updates/s and peak
                memory; the same at -k 8192 (pi 10.4 GB) and at -k 8192
                --pi-dtype bfloat16, every launch in the step layout with
-               one set of rows;
+               one set of rows, and at -k 16384 (pi 20.8 GB) and -k 16384
+               --pi-dtype bfloat16, every launch in the node-resident
+               layout;
      sharded — the multi-GPU paths on the one card, through NCCL process
                groups of size 1 and the sharded code (row fetch over the
                model ranks, write-back, collectives): the CLI at --mesh
@@ -524,30 +533,47 @@ WIDE_ARGS = ["--synthetic", "317080,7", "-k", "4096", "-x", "2000", "-i",
 # package's own K = 8192 configuration)
 STEP1_ARGS = ["--synthetic", "317080,7", "-k", "8192", "-x", "2000", "-i",
               "500", "--device", "cuda"]
+# the main path at K = 16384 (pi 20.8 GB), every window in the wide mode's
+# node-resident layout, in float32 and with bf16 pi
+NODES_ARGS = ["--synthetic", "317080,7", "-k", "16384", "-x", "2000", "-i",
+              "500", "--device", "cuda"]
 # (T, B, n, E, K) of the fused window kernel's checks; the first is the
 # main path's; the first four run its resident mode, the next four its
 # wide mode: the K = 4096 path's, the ragged K = 2050 (4-byte copies), and
 # the JAX package's longest windows at K = 8192 and 16384; then, in the
-# resident mode, the com-youtube rung's window (K = 1024); the last two
-# the JAX package's longest window at K = 6144 and the -k 8192 path's (T =
-# 12), in the wide mode
+# resident mode, the com-youtube rung's window (K = 1024); then in the
+# wide mode the JAX package's longest window at K = 6144, the -k 8192
+# path's (T = 12), the -k 16384 path's, T = 12 at K = 12288, and the
+# shortest window at K = 16384 that the node-resident layout does not
+# hold (the chunked layout)
 WINDOW_SHAPES = [(12, 33, 32, 32, 256), (3, 6, 7, 5, 12),
                  (12, 33, 32, 32, 100), (48, 33, 32, 32, 256),
                  (12, 33, 32, 32, 4096), (12, 33, 32, 32, 2050),
                  (6, 33, 32, 32, 8192), (3, 33, 32, 32, 16384),
                  (12, 33, 32, 32, 1024), (8, 33, 32, 32, 6144),
-                 (12, 33, 32, 32, 8192)]
+                 (12, 33, 32, 32, 8192), (12, 33, 32, 32, 16384),
+                 (12, 33, 32, 32, 12288), (23, 33, 32, 32, 16384)]
 WIDE_MAIN_SHAPE = WINDOW_SHAPES[4]
 LADDER_SHAPE = WINDOW_SHAPES[8]
 STEP1_MAIN_SHAPE = WINDOW_SHAPES[10]
+NODES_MAIN_SHAPE = WINDOW_SHAPES[11]
+# the node-resident layout's ragged slices (K not a multiple of 4: 4-byte
+# copies), held on five draws against float64 only (check_window_f64_
+# draws): on the draw its place in WINDOW_SHAPES would give it (seed 13)
+# the plain version's beta is 1.39e-5 from float64 and the kernel's
+# 1.22e-6 (the chunked layout's 1.25e-6), so kernel and plain are 1.48e-5
+# apart, past the normwise bound (NVIDIA H100)
+RAGGED_NODES_SHAPE = (12, 33, 32, 32, 10242)
 # the shape of each layout whose times the kernels line carries: the main
-# path's, the -k 4096 path's, the -k 8192 path's and the JAX package's
-# window at K = 16384
+# path's, the -k 4096 path's, the -k 8192 path's, the -k 16384 path's and
+# the shortest window the node-resident layout does not hold at K = 16384
 LAYOUT_SHAPES = {"resident": WINDOW_SHAPES[0], "step": WIDE_MAIN_SHAPE,
-                 "step1": STEP1_MAIN_SHAPE, "wide": WINDOW_SHAPES[7]}
+                 "step1": STEP1_MAIN_SHAPE, "nodes": NODES_MAIN_SHAPE,
+                 "wide": WINDOW_SHAPES[13]}
 # the phase lines' names of the plan's layouts
 LAYOUT_TEXT = {"resident": "resident mode", "step": "wide mode, step layout",
                "step1": "wide mode, step layout with one set of rows",
+               "nodes": "wide mode, node-resident layout",
                "wide": "wide mode, chunked layout"}
 # the ladder phase: every rung of ladder.RUNGS at full size, 2000 steps
 # each (two 1000-step calls), an evaluation after each call; the window
@@ -561,16 +587,16 @@ LADDER_WINDOWS = {"ca-HepPh": None, "com-dblp": ("resident", "float32", 256),
 # init at com-lj's size
 HOST_GAMMA_DRAWS = 1 << 24
 # (C, T, B, n, E, K) of its chain mode; the first is the chain path's,
-# the last two run the wide mode (its step layout and its step layout with
-# one set of rows)
+# the last three run the wide mode (its step layout, its step layout with
+# one set of rows and its node-resident layout)
 CHAIN_SHAPES = [(CHAINS, 6, 33, 32, 32, 256), (3, 4, 9, 8, 8, 16),
                 (2, 3, 6, 7, 5, 12), (2, 12, 33, 32, 32, 2048),
-                (2, 12, 33, 32, 32, 8192)]
-# the window kernel's source from before the wide mode's step layout with
-# one set of rows: the resident mode's and the step layout's bits are held
-# against its build, and the wide mode's times against it (its chunked
-# layout where this build takes the new one)
-PARENT_SRC = "scripts/window_kernel_pr16.cu"
+                (2, 12, 33, 32, 32, 8192), (2, 12, 33, 32, 32, 16384)]
+# the window kernel's source from before the wide mode's node-resident
+# layout: the bits of the resident mode, both step layouts and the
+# chunked layout are held against its build, and the wide mode's times
+# against it (its chunked layout where this build takes the new one)
+PARENT_SRC = "scripts/window_kernel_pr17.cu"
 # (T, B, n, E, K) of the fused MMSB window's checks; the second is the
 # MMSB path's, (..., 256) fits only a cluster of 16, K = 50 takes 13 CTAs
 # with a ragged last slice and 4-byte copies
@@ -684,8 +710,8 @@ def _to(x, dev):
 def build_parent(kernels, src: Path = None,
                  name: str = "window_kernel_parent") -> Path:
     """A build of PARENT_SRC (the window kernel from before the wide
-    mode's step layout with one set of rows), or of another source,
-    beside the kernels' builds."""
+    mode's node-resident layout), or of another source, beside the
+    kernels' builds."""
     src = src or Path(__file__).resolve().parent / PARENT_SRC
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = kernels.BUILD_DIR / f"lib{name}.so"
@@ -694,32 +720,24 @@ def build_parent(kernels, src: Path = None,
     return out
 
 
-def bind_parent_lib(lib):
-    """Declare the C interface of a build of PARENT_SRC: this build's
-    without the layout argument (its wide mode's layout follows from the
-    chunk width, the step layout where the chunk covers the slice)."""
-    i, p = ctypes.c_int, ctypes.c_void_p
-    lib.window_kernel_smem_bytes.argtypes = [i] * 7
-    lib.window_kernel_smem_bytes.restype = ctypes.c_size_t
-    lib.window_kernel_max_clusters.argtypes = [i] * 7
-    lib.window_kernel_max_clusters.restype = i
-    lib.window_kernel_launch.argtypes = ([p] * 20 + [i] * 10
-                                         + [ctypes.c_float] * 7 + [p] * 3)
-    lib.window_kernel_launch.restype = i
-    return lib
+#: The layouts of PARENT_SRC's wide mode, in the order its plan tries
+#: them, with their codes (its C interface is this build's; it has no
+#: node-resident layout).
+PARENT_LAYOUTS = (("step", 1), ("step1", 2), ("wide", 3))
 
 
 class ParentWindowLib:
     """A build of PARENT_SRC (a path, or one already loaded) behind this
-    build's C interface. A resident launch goes to it unchanged, without
-    the layout argument; a wide launch at the plan the parent's own rule
-    gives the shape: the first cluster size of window._WIDE_CLUSTERS whose
-    slices tile K, with its step layout (a chunk of window.step_chunk)
-    where that fits the card by the parent's own window_kernel_smem_bytes,
-    else the widest chunk of WIDE_CHUNKS narrower than the slice that
-    fits. So the resident mode and the step layout run as in this build,
-    and the shapes this build takes in its step layout with one set of
-    rows in the parent's chunked layout."""
+    build's C interface. A resident launch goes to it unchanged; a wide
+    launch at the plan the parent's own rule gives the shape: the first
+    cluster size of window._WIDE_CLUSTERS whose slices tile K, with its
+    step layout (a chunk of window.step_chunk), else its step layout with
+    one set of rows (the same chunk), where that fits the card by the
+    parent's own window_kernel_smem_bytes, else the widest chunk of
+    WIDE_CHUNKS narrower than the slice that fits. So the resident mode,
+    both step layouts and the chunked layout run as in this build, and
+    the shapes this build takes in its node-resident layout in the
+    parent's chunked layout."""
 
     #: positions of T..K, the cluster size, the chunk width and the layout
     #: among the arguments of this build's window_kernel_launch
@@ -728,7 +746,7 @@ class ParentWindowLib:
     def __init__(self, lib, window, limit: int):
         if isinstance(lib, (str, Path)):
             lib = ctypes.CDLL(str(lib))
-        self.lib = bind_parent_lib(lib)
+        self.lib = window.bind_window_lib(lib)
         self.window, self.limit = window, limit
 
     def plan(self, t_win, b_cap, n_smpl, e_cap, k):
@@ -738,19 +756,23 @@ class ParentWindowLib:
             if not w._tiles(k, s):
                 continue
             kw = w.window_slice_width(k, s)
-            for wc in (w.step_chunk(k, s),
-                       *(c for c in w.WIDE_CHUNKS if c < kw)):
+            tries = [(w.step_chunk(k, s), name, code)
+                     for name, code in PARENT_LAYOUTS[:2]]
+            tries += [(c, *PARENT_LAYOUTS[2]) for c in w.WIDE_CHUNKS
+                      if c < kw]
+            for wc, name, code in tries:
                 if self.lib.window_kernel_smem_bytes(
-                        t_win, b_cap, n_smpl, e_cap, k, s, wc) <= self.limit:
-                    return s, wc, "step" if wc >= kw else "wide"
+                        t_win, b_cap, n_smpl, e_cap, k, s, wc,
+                        code) <= self.limit:
+                    return s, wc, name
         raise ValueError(f"no layout of {PARENT_SRC} fits "
                          f"{(t_win, b_cap, n_smpl, e_cap, k)}")
 
     def window_kernel_launch(self, *args):
         args = list(args)
-        if args[self.WC] != 0:
-            args[self.S], args[self.WC], _ = self.plan(*args[self.SHAPE])
-        del args[self.MODE]
+        if args[self.MODE] != 0:
+            args[self.S], args[self.WC], name = self.plan(*args[self.SHAPE])
+            args[self.MODE] = dict(PARENT_LAYOUTS)[name]
         return self.lib.window_kernel_launch(*args)
 
 
@@ -1084,20 +1106,20 @@ def window_operands(window, chains_flat, testing, shape, seed=0):
 
 def check_resident_parent(window, chains_flat, testing, kernels, parent,
                           reps=50):
-    """Phase kernel: the resident mode and the wide mode's step layout of
-    this build against the build of PARENT_SRC at every shape of
-    WINDOW_SHAPES and CHAIN_SHAPES the plan runs in them, with float32
-    and with bfloat16 pi: the same bits in every output; then the float32
-    launches at the main path's and the chain path's shapes timed in
-    turns (parent, change, change, parent). Returns {shape: (parent ms,
-    change ms, the four turns)}."""
+    """Phase kernel: the resident mode and the wide mode's step layout,
+    step layout with one set of rows and chunked layout of this build
+    against the build of PARENT_SRC at every shape of WINDOW_SHAPES and
+    CHAIN_SHAPES the plan runs in them (the parent at the same plan),
+    with float32 and with bfloat16 pi: the same bits in every output;
+    then the float32 launches at the main path's and the chain path's
+    shapes timed in turns (parent, change, change, parent). Returns
+    {shape: (parent ms, change ms, the four turns)}."""
     limit = kernels.smem_limit(torch.device("cuda"))
     old = ParentWindowLib(parent, window, limit)
     real = window._window_lib
     new = real()
     shapes = [sh for sh in WINDOW_SHAPES + CHAIN_SHAPES
-              if window.window_plan(*sh[-5:], limit)[1] in ("resident",
-                                                            "step")]
+              if window.window_plan(*sh[-5:], limit)[1] != "nodes"]
     out = {}
     try:
         for shape in shapes:
@@ -1124,8 +1146,9 @@ def check_resident_parent(window, chains_flat, testing, kernels, parent,
                 out[shape] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t)
     finally:
         window._window_lib = real
-    phase("kernel", f"resident mode and step layout bit-equal to "
-          f"{PARENT_SRC} at {len(shapes)} shapes, float32 and bf16 pi; "
+    phase("kernel", f"resident mode, step layouts and chunked layout "
+          f"bit-equal to {PARENT_SRC} at {len(shapes)} shapes, float32 and "
+          f"bf16 pi; "
           f"ms/window in turns "
           f"(parent, change, change, parent): "
           + "; ".join(f"{sh}: {' '.join(f'{x:.4f}' for x in v[2])}"
@@ -1136,7 +1159,7 @@ def check_resident_parent(window, chains_flat, testing, kernels, parent,
 def check_wide_parent(window, chains_flat, testing, kernels, parent,
                       reps=50):
     """Phase kernel: the wide mode of this build against the build of
-    PARENT_SRC (at the plan of its own rule: its step layout where that
+    PARENT_SRC (at the plan of its own rule: either step layout where one
     fits, else its chunked one) at every shape of WINDOW_SHAPES and
     CHAIN_SHAPES the plan runs in the wide mode, timed in turns (parent,
     change, change, parent) on the same operands, device time only.
@@ -1191,8 +1214,9 @@ def check_window_f64_draws(window, phi_ops, testing, shape):
     draw and not held here (check_window_kernel holds it on the shape's
     own draw): on some draws two float32 evaluations of a window drift
     past it, each as far from float64 (beta at (8, ..., 6144) and (12,
-    ..., 8192): the chunked layout of PARENT_SRC and this layout both
-    1.0-1.8e-5 from the plain version on the same draws, NVIDIA H100)."""
+    ..., 8192): the chunked layout and the step layout with one set of
+    rows both 1.0-1.8e-5 from the plain version on the same draws, NVIDIA
+    H100)."""
     rows, within2 = [], {f: 0 for f in STATE_FIELDS}
     for draw in range(SLICE_DRAWS):
         case = testing.window_case(100 + draw, *shape)
@@ -1228,13 +1252,15 @@ def check_window_f64_draws(window, phi_ops, testing, shape):
 
 def check_window_kernel(window, kernels, testing, phi_ops, smi):
     """Phase 3, the fused a-MMSB window: {layout: (max abs err over the
-    layout's shapes held normwise, and the kernel ms, plain ms, bound ms
-    and what sets it at the layout's shape of LAYOUT_SHAPES)}. Each shape
-    of the step layout with one set of rows also takes the five-draw
-    float64 check (check_window_f64_draws)."""
+    layout's shapes held normwise, None where it has none (the chunked
+    layout runs only windows longer than 12 on an H100), and the kernel
+    ms, plain ms, bound ms and what sets it at the layout's shape of
+    LAYOUT_SHAPES)}. Each shape of the step layout with one set of rows
+    and of the node-resident layout also takes the five-draw float64
+    check (check_window_f64_draws)."""
     lib = window._window_lib()
     limit = kernels.smem_limit(torch.device("cuda"))
-    worst, main = {mode: 0.0 for mode in LAYOUT_SHAPES}, {}
+    worst, main = {mode: None for mode in LAYOUT_SHAPES}, {}
     for seed, shape in enumerate(WINDOW_SHAPES):
         t_win = shape[0]
         case = testing.window_case(seed, *shape)
@@ -1251,7 +1277,7 @@ def check_window_kernel(window, kernels, testing, phi_ops, smi):
         _, err, f64 = _agree(window, phi_ops, cfg, state, xs, mcode, keep,
                              False, f"window at {shape}", normwise)
         if normwise:
-            worst[mode] = max(worst[mode], err)
+            worst[mode] = max(worst[mode] or 0.0, err)
         scratch, plain_scratch = _fresh(state), _fresh(state)
         ms = time_ms(lambda: window.window_apply_cuda(cfg, scratch, xs,
                                                       mcode, keep),
@@ -1272,8 +1298,16 @@ def check_window_kernel(window, kernels, testing, phi_ops, smi):
               f"back to back with the host, {plain_ms:.4f} ms/window "
               f"plain; bound {b_ms * 1e3:.3f} us ({b_by}), "
               f"{100 * b_ms / ms:.2f}% of it; {smi}")
-        if mode == "step1":
+        if mode in ("step1", "nodes"):
             check_window_f64_draws(window, phi_ops, testing, shape)
+    (_, mode, _), _, plan_text = _plan_line(window, lib, RAGGED_NODES_SHAPE,
+                                            limit)
+    if mode != "nodes":
+        raise AssertionError(f"{RAGGED_NODES_SHAPE}: the {mode} layout, "
+                             f"expected the node-resident one")
+    phase("kernel", f"window T,B,n,E,K="
+          f"{','.join(map(str, RAGGED_NODES_SHAPE))}: {plan_text}")
+    check_window_f64_draws(window, phi_ops, testing, RAGGED_NODES_SHAPE)
     return {mode: (worst[mode], main[mode]) for mode in worst}
 
 
@@ -1931,8 +1965,8 @@ def run_main(cli, kmods):
 
 
 def run_wide_main(cli, kmods, main_l, args, shape, smi, beside=""):
-    """Phase 5, the main path at a wide K (``args``, 2000 steps; -k 4096
-    and -k 8192): the automatic window 12 runs unclamped on the window
+    """Phase 5, the main path at a wide K (``args``, 2000 steps; -k 4096,
+    -k 8192 and -k 16384): the automatic window 12 runs unclamped on the window
     kernel, with as many launches as the K = 256 main path, every one in
     the wide mode, in the plan's layout of ``shape`` (the layout each
     launch took is recorded where it is launched) and on rows of the
@@ -2987,7 +3021,8 @@ def check_bf16_kernels(window, chains_flat, testing, smi):
                         ("window_kernel_chains", CHAIN_SHAPES[0]),
                         ("window_kernel_wide", WIDE_MAIN_SHAPE),
                         ("window_kernel_ladder", LADDER_SHAPE),
-                        ("window_kernel_step1", STEP1_MAIN_SHAPE)):
+                        ("window_kernel_step1", STEP1_MAIN_SHAPE),
+                        ("window_kernel_nodes", NODES_MAIN_SHAPE)):
         cfg, state, args, cuda, plain = window_operands(
             window, chains_flat, testing, shape)
         gaps, err = bf16_agree(testing, cfg, state, args, cuda, plain,
@@ -3705,6 +3740,18 @@ def main() -> int:
                       for dtype, extra in (("float32", []),
                                            ("bfloat16", ["--pi-dtype",
                                                          "bfloat16"]))}
+        nodes_runs = {dtype: run_wide_main(cli, kmods, main_l,
+                                           NODES_ARGS + extra,
+                                           NODES_MAIN_SHAPE, smi)
+                      for dtype, extra in (("float32", []),
+                                           ("bfloat16", ["--pi-dtype",
+                                                         "bfloat16"]))}
+        for dtype, run in nodes_runs.items():
+            # the peak stays within pi plus 3 GB of working set
+            pi_bytes = 317080 * 16384 * (4 if dtype == "float32" else 2)
+            if run[3] > pi_bytes + 3e9:
+                raise AssertionError(f"-k 16384 {dtype}: peak {run[3]} B, "
+                                     f"pi {pi_bytes} B + 3 GB allowed")
         shard = run_sharded_phases(cli, kmods, main_l, main_rate, testing,
                                    bench, smi)
         bf16 = run_bf16_phases(cli, kmods, main_ppx, main_mem, smi)
@@ -3876,6 +3923,31 @@ def main() -> int:
          "bf16_max_abs_err": bf16_k["window_kernel_step1"][1],
          "bf16_ms": bf16_k["window_kernel_step1"][2],
          "bf16_f32_ms": bf16_k["window_kernel_step1"][3]},
+        # the wide mode's node-resident layout (window_kernel_nodes) on
+        # its own: the -k 16384 main path's launches, its times at that
+        # path's window (T = 12), against the build of PARENT_SRC (its
+        # chunked layout) in turns at every shape it takes, and the path's
+        # bf16 run
+        {"name": "window_kernel_nodes", "route": "cuda",
+         "source": src + "window_kernel.cu",
+         "replaces": "mcmc_ammsb_tpu/ops/window.py:321 (K = 10240-16384)",
+         "launches": nodes_runs["float32"][0]["window_wide"],
+         "max_abs_err": w["nodes"][0], **times(w["nodes"][1]),
+         "parent_ms": wide_t[NODES_MAIN_SHAPE][0],
+         "change_ms": wide_t[NODES_MAIN_SHAPE][1],
+         "turns_ms": {",".join(map(str, sh)): v[2]
+                      for sh, v in wide_t.items()
+                      if v[3].startswith("nodes")},
+         "updates_per_s": nodes_runs["float32"][2],
+         "peak_bytes": nodes_runs["float32"][3],
+         "bf16_launches": nodes_runs["bfloat16"][0]["window_wide"],
+         "bf16_updates_per_s": nodes_runs["bfloat16"][2],
+         "bf16_peak_bytes": nodes_runs["bfloat16"][3],
+         "bf16_one_ulp": bf16_k["window_kernel_nodes"][0]["one_ulp"],
+         "bf16_more_ulps": bf16_k["window_kernel_nodes"][0]["more_ulps"],
+         "bf16_max_abs_err": bf16_k["window_kernel_nodes"][1],
+         "bf16_ms": bf16_k["window_kernel_nodes"][2],
+         "bf16_f32_ms": bf16_k["window_kernel_nodes"][3]},
         # the same kernel and entry, one cluster per chain: the chain
         # engine's launches
         {"name": "window_kernel_chains", "route": "cuda",

@@ -25,16 +25,18 @@
 // Two modes, one function. The resident mode (window_kernel) keeps a
 // CTA's whole slice of the step rows and of the window's staged rows in
 // shared memory; it is chosen wherever that fits. The wide mode stages
-// the rows in a global scratch, in one of three layouts, each described
+// the rows in a global scratch, in one of four layouts, each described
 // above its kernel: the step layout (window_kernel_step) keeps a step's
 // rows in shared memory through all its stages, with the next step's rows
 // in flight by bulk copies in a second set of buffers, wherever that fits
 // (T = 12 up to K = 4096 on an H100); the step layout with one set of
 // rows (window_kernel_step1) gathers the next step's rows into the one
-// set as its regions free up (T = 12 at K = 6144-8192); the chunked
-// layout (window_kernel_wide) takes the slice in column chunks, so its
-// shared memory hardly grows with K (K = 16384). What follows describes
-// the resident mode.
+// set as its regions free up (T = 12 at K = 6144-8192); the node-resident
+// layout (window_kernel_nodes) keeps a step's node rows and streams its
+// neighbor rows in tiles (T = 12 at K = 10240-16384); the chunked layout
+// (window_kernel_wide) takes the slice in column chunks, so its shared
+// memory hardly grows with K (where none of the others fits: T >= 23 at
+// K = 16384). What follows describes the resident mode.
 //
 // Per step t, exactly the JAX kernel's math:
 //   1. read rows: lane r reads staged row mcode-1 when mcode > 0 (a row
@@ -413,6 +415,61 @@ __host__ __device__ inline Step1Layout layout_step1(int T, int B, int n,
   return L;
 }
 
+// Offsets (in 4-byte words) of the shared arrays of one CTA in the
+// node-resident layout (window_kernel_nodes), which keeps a step's node
+// rows in shared memory for the whole step and streams its neighbor rows
+// through two tiles of n rows x wc columns; mirrored by ops/window.py::
+// window_nodes_smem_bytes. Every array of float4 loads starts at a
+// multiple of 16 bytes. No noise buffer: the kernel reads the phi and
+// theta noise from global memory.
+struct NodesLayout {
+  size_t rows, tiles, bme, coef, gpart, th0, th1, bet, ssum, phis, ce, nval,
+      scale, invphi, rsv, epr, qin, rin, ein, smc, snodes, snbrs, slanes,
+      ybits, mbits, yebits, embits, total;
+};
+
+__host__ __device__ inline NodesLayout layout_nodes(int T, int B, int n,
+                                                    int E, int kw, int S,
+                                                    int wc) {
+  const size_t R = (size_t)B + n, ld = row_stride(kw), ldt = row_stride(wc);
+  const size_t TB = (size_t)T * B, TE = (size_t)T * E, Bn = (size_t)B * n;
+  const size_t nl = (B + S - 1) / S;
+  const size_t ks = q_splits(B), G = fan_groups(kw);
+  NodesLayout L;
+  size_t o = 0;
+  L.rows = o;   o += B * ld;          // the step's node rows [B, ld]
+  // two tiles of the neighbor rows [2, n, ldt]; at stage a's end the q
+  // partials of the splits [ks, B, n]
+  L.tiles = o;  o += up4(larger(2 * n * ldt, ks * Bn));
+  L.bme = o;    o += up4(kw);         // beta - eps, zero-padded
+  L.coef = o;   o += up4(Bn);         // s/p * mask [B, n], from the owners
+  L.gpart = o;  o += up4(2 * G * kw);  // stage e's fan-in partials [G, kw, 2]
+  L.th0 = o;    o += up4(kw);
+  L.th1 = o;    o += up4(kw);
+  L.bet = o;    o += up4(kw);
+  L.ssum = o;   o += TB;              // the staged rows' sums
+  L.phis = o;   o += B;               // the step's phi sums
+  L.ce = o;     o += B;
+  L.nval = o;   o += B;
+  L.scale = o;  o += B;
+  L.invphi = o; o += B;
+  L.rsv = o;    o += B;               // the step's row sums
+  L.epr = o;    o += E;               // per-edge prsum
+  L.qin = o;    o += S * nl * n;
+  L.rin = o;    o += (size_t)S * B;
+  L.ein = o;    o += (size_t)S * 2 * E;
+  L.smc = o;    o += (size_t)T * R;
+  L.snodes = o; o += TB;
+  L.snbrs = o;  o += (size_t)T * n;
+  L.slanes = o; o += TE;
+  L.ybits = o;  o += words_of_bits(TB * n);
+  L.mbits = o;  o += words_of_bits(TB);
+  L.yebits = o; o += words_of_bits(TE);
+  L.embits = o; o += words_of_bits(TE);
+  L.total = o;
+  return L;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -499,8 +556,10 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
 
 // The kernel's layouts, as the launch names them (ops/window.py::LAYOUTS):
 // the resident mode, and the wide mode's step layout, its step layout with
-// one set of rows and its chunked layout.
-enum Mode : int { kResident = 0, kStep = 1, kStep1 = 2, kChunked = 3 };
+// one set of rows, its chunked layout and its node-resident layout.
+enum Mode : int {
+  kResident = 0, kStep = 1, kStep1 = 2, kChunked = 3, kNodes = 4
+};
 
 template <typename PiT>
 struct Params {
@@ -527,7 +586,8 @@ struct Params {
   float* beta_out;         // [K]
   float* staged;           // [T*B, K] wide mode's staged rows; else unused
   int T, B, n, E, K, N, kw;
-  int wc;                  // wide mode's chunk width; 0 in the resident mode
+  int wc;                  // wide mode's chunk or tile width; 0 in the
+                           // resident mode
   int mode;                // the layout (Mode)
   float eps, one_minus_eps, alpha, n_nodes, eta0, eta1, inv_k;
   float eps_phi[kMaxWindow];    // phi step sizes of the T steps
@@ -1698,32 +1758,55 @@ __global__ void __launch_bounds__(kThreads) window_kernel_wide(Params<PiT> P) {
 // first).
 // ---------------------------------------------------------------------------
 
-// Stage c: contrib and the phi step on the slice, register-tiled: a
-// thread takes kCNodes nodes for four columns (a float4 of each neighbor
-// row, one coefficient load per node and four neighbors), the sums over
-// the neighbors in order; phi' overwrites the node rows. noise(b, q4) is
-// node b's phi noise at the slice's float4 column q4.
-template <typename Noise>
+// Stage c: contrib and the phi step on the columns [c0, c0 + cw) of the
+// slice, register-tiled: a thread takes kCNodes nodes for four columns (a
+// float4 of each neighbor row, one coefficient load per node and four
+// neighbors), the sums over the neighbors in order; phi' overwrites the
+// node rows (rows [B, ld]). The neighbor rows are nbr [n, ldn], at the
+// same columns (the step layouts: the rows after the node rows, c0 = 0,
+// cw = kw; the node-resident layout: a tile). noise(b, q4) is node b's
+// phi noise at the slice's float4 column q4. With kJ = 2 two lanes share
+// an item, each over half the neighbors (a multiple of 4 first), their
+// sums joined by one shuffle (a + b and b + a are the same bits), and
+// each finishes every other node: twice the threads on a narrow tile.
+template <int kJ, typename Noise>
 __device__ __forceinline__ void step_contrib(
-    float* rows, int ld, int kw, int B, int n, const float* coef_a,
-    const float* ce, const float* nval, const float* scale,
-    const float* invphi, const float* phis, const float* bme, float eps_t,
-    float alpha, int tid, Noise noise) {
-  const float4* bm4 = reinterpret_cast<const float4*>(bme);
-  const int nq4 = (kw + 3) / 4, ld4 = ld / 4;
+    float* rows, int ld, const float* nbr, int ldn, int c0, int cw, int kw,
+    int B, int n, const float* coef_a, const float* ce, const float* nval,
+    const float* scale, const float* invphi, const float* phis,
+    const float* bme, float eps_t, float alpha, int tid, Noise noise) {
+  static_assert(kJ == 1 || kJ == 2, "one or two lanes per item");
+  const int q0 = c0 / 4;
+  const float4* bm4 = reinterpret_cast<const float4*>(bme) + q0;
+  const float4* nb4 = reinterpret_cast<const float4*>(nbr);
+  const int nq4 = (cw + 3) / 4, ld4 = ld / 4, ldn4 = ldn / 4;
   const int groups = (B + kCNodes - 1) / kCNodes;
   float4* const rows4 = reinterpret_cast<float4*>(rows);
-  for (int item = tid; item < groups * nq4; item += kThreads) {
-    const int g = item / nq4, q4 = item - g * nq4;
+  const int half = kJ == 1 ? 0 : tid & 1;
+  const int jh = kJ == 1 ? n : ((n + 1) / 2 + 3) / 4 * 4;
+  const int j_lo = half ? jh : 0, j_hi = half ? n : min(jh, n);
+  // item (g, q4): nodes g * kCNodes ... of float4 column q4 (a dead lane
+  // of kJ = 2's last pass takes the last item and stores nothing)
+  auto item_of = [&](int item, bool live) {
+    const int it = live ? item : groups * nq4 - 1;
+    const int g = it / nq4, q4 = it - g * nq4;
     const int b0 = g * kCNodes, nb = min(kCNodes, B - b0);
+    // kJ = 2: this lane's nodes' noise, loaded before the sums so that
+    // its latency hides behind them
+    float4 zs[(kCNodes + 1) / 2];
+    if constexpr (kJ == 2) {
+#pragma unroll
+      for (int m = 0; m < (kCNodes + 1) / 2; ++m)
+        zs[m] = noise(b0 + min(2 * m + half, nb - 1), q0 + q4);
+    }
     float4 acc[kCNodes];
 #pragma unroll
     for (int i = 0; i < kCNodes; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int j4 = 0; j4 < n; j4 += 4) {
+    for (int j4 = j_lo; j4 < j_hi; j4 += 4) {
       float4 v[4];
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
-        v[jj] = rows4[(B + min(j4 + jj, n - 1)) * ld4 + q4];
+        v[jj] = nb4[min(j4 + jj, n - 1) * ldn4 + q4];
 #pragma unroll
       for (int i = 0; i < kCNodes; ++i) {
         // a short group repeats its last node, which is not stored
@@ -1745,15 +1828,27 @@ __device__ __forceinline__ void step_contrib(
         }
       }
     }
+    if constexpr (kJ == 2) {
+#pragma unroll
+      for (int i = 0; i < kCNodes; ++i) {
+        acc[i].x += __shfl_xor_sync(0xffffffffu, acc[i].x, 1);
+        acc[i].y += __shfl_xor_sync(0xffffffffu, acc[i].y, 1);
+        acc[i].z += __shfl_xor_sync(0xffffffffu, acc[i].z, 1);
+        acc[i].w += __shfl_xor_sync(0xffffffffu, acc[i].w, 1);
+      }
+    }
+    if (!live) return;
+    const int qc = q0 + q4;   // the float4 column in the slice
     const float4 bk = bm4[q4];
 #pragma unroll
     for (int i = 0; i < kCNodes; ++i) {
       if (i >= nb) break;
+      if (kJ == 2 && (i & 1) != half) continue;
       const int b = b0 + i;
       const float n_ce = ce[b], n_val = nval[b], n_inv = invphi[b];
       const float n_scale = scale[b], n_phis = phis[b];
-      const float4 x = rows4[b * ld4 + q4];
-      const float4 z = noise(b, q4);
+      const float4 x = rows4[b * ld4 + qc];
+      const float4 z = kJ == 2 ? zs[i >> 1] : noise(b, qc);
       auto step = [&](float a, float bkk, float xk, float zk) {
         const float s_contrib = bkk * a + n_ce;
         const float grads = (s_contrib - n_val) * n_inv;
@@ -1767,14 +1862,25 @@ __device__ __forceinline__ void step_contrib(
                                      step(acc[i].y, bk.y, x.y, z.y),
                                      step(acc[i].z, bk.z, x.z, z.z),
                                      step(acc[i].w, bk.w, x.w, z.w));
-      if (4 * q4 + 4 <= kw) {
-        rows4[b * ld4 + q4] = out;
+      if (4 * qc + 4 <= kw) {
+        rows4[b * ld4 + qc] = out;
       } else {   // the ragged end of the slice: its pad stays zero
-        float* r = rows + b * ld + 4 * q4;
-        if (4 * q4 + 0 < kw) r[0] = out.x;
-        if (4 * q4 + 1 < kw) r[1] = out.y;
-        if (4 * q4 + 2 < kw) r[2] = out.z;
+        float* r = rows + b * ld + 4 * qc;
+        if (4 * qc + 0 < kw) r[0] = out.x;
+        if (4 * qc + 1 < kw) r[1] = out.y;
+        if (4 * qc + 2 < kw) r[2] = out.z;
       }
+    }
+  };
+  if constexpr (kJ == 1) {
+    for (int item = tid; item < groups * nq4; item += kThreads)
+      item_of(item, true);
+  } else {
+    // every lane of a warp stays in the loop for the shuffles; a lane
+    // pair shares one item
+    for (int base = tid & ~31; base < 2 * groups * nq4; base += kThreads) {
+      const int item = (base + (tid & 31)) >> 1;
+      item_of(item, item < groups * nq4);
     }
   }
 }
@@ -2287,9 +2393,10 @@ __global__ void __launch_bounds__(kThreads) window_kernel_step(Params<PiT> P) {
     {
       const float4* nz4 = reinterpret_cast<const float4*>(TM(nz));
       const int ld4 = ld / 4;
-      step_contrib(rows, ld, kw, B, n, TM(coef), TM(ce), TM(nval), TM(scale),
-                   TM(invphi), phis, TM(bme), P.eps_phi[t], P.alpha, tid,
-                   [&](int b, int q4) { return nz4[b * ld4 + q4]; });
+      step_contrib<1>(rows, ld, rows + B * ld, ld, 0, kw, kw, B, n, TM(coef),
+                      TM(ce), TM(nval), TM(scale), TM(invphi), phis, TM(bme),
+                      P.eps_phi[t], P.alpha, tid,
+                      [&](int b, int q4) { return nz4[b * ld4 + q4]; });
     }
     __syncthreads();
     PHASE(4);
@@ -2639,9 +2746,9 @@ __global__ void __launch_bounds__(kThreads) window_kernel_step1(Params<PiT> P) {
                                  4 * q4 + 2 < kw ? zr[2] : 0.f,
                                  4 * q4 + 3 < kw ? zr[3] : 0.f);
       };
-      step_contrib(rows, ld, kw, B, n, OM(coef), OM(ce), OM(nval), OM(scale),
-                   OM(invphi), phis, OM(bme), P.eps_phi[t], P.alpha, tid,
-                   noise);
+      step_contrib<1>(rows, ld, rows + B * ld, ld, 0, kw, kw, B, n, OM(coef),
+                      OM(ce), OM(nval), OM(scale), OM(invphi), phis, OM(bme),
+                      P.eps_phi[t], P.alpha, tid, noise);
     }
     __syncthreads();
     PHASE(4);
@@ -2698,6 +2805,416 @@ __global__ void __launch_bounds__(kThreads) window_kernel_step1(Params<PiT> P) {
 #undef OU
 #undef OI
 
+// The node-resident layout's shared arrays, as SM / SU / SI.
+constexpr int kNodesFields = sizeof(NodesLayout) / sizeof(size_t);
+#define NM(name) (smem + s_off[offsetof(NodesLayout, name) / sizeof(size_t)])
+#define NU(name) reinterpret_cast<unsigned*>(NM(name))
+#define NI(name) reinterpret_cast<int*>(NM(name))
+
+// The wide mode where not even one set of a CTA's slice of a step's rows
+// fits in shared memory (one set of 65 rows at w = 1024 is 266 KB: K =
+// 10240-16384 at T = 12 on an H100, where the chunked layout read every
+// row from L2 twice a step and the node rows twice more through the
+// scratch). The node rows stay in shared memory through the whole step,
+// as in window_kernel_step1; the neighbor rows, the only rows a step
+// reads and never writes, stream through two tiles of n rows x wc
+// columns, twice a step: once for q, once for contrib. The stages and
+// their arithmetic are step1's but for:
+//   - the tiles. Tile i holds columns [i*wc, (i+1)*wc) of the slice of
+//     every neighbor row, copied by 16-byte cp.async from pi or, for a row
+//     an earlier step wrote, from the scratch (one group a tile; bf16 rows
+//     of pi loaded and widened, ragged slices 4 bytes at a time). Not bulk
+//     copies: the copy engine takes those one row at a time, and 32 rows
+//     a tile cost more to issue than the tile's compute (on an H100). The
+//     window's tiles alternate between the two buffers; tile i+2 is issued
+//     by every warp once the block is done with tile i, so that one tile's
+//     copies are in flight while the other is computed (a ring of three,
+//     one barrier a tile, or the issue left to the warps without compute,
+//     were no faster). Step t+1's first two tiles are issued once stage d
+//     of step t has stored its scratch rows, contrib's first two once q's
+//     partials are pushed (they alias the tiles). Both passes read the
+//     same values: pi is written only at the end, and step t writes only
+//     its own scratch slots, which its neighbors never read. Step t+1's
+//     pre-window rows are prefetched into L2 at step t's start;
+//   - q keeps each warp's (nodes, split) sums in registers across the
+//     tiles, the split taking its run of each tile's float4 columns; the
+//     order of q's sums over the columns is not step1's;
+//   - contrib is step_contrib on a tile with two lanes per item (kJ = 2),
+//     its neighbor sums joined by a shuffle;
+//   - the node rows and phi sums of step t+1 are gathered by cp.async
+//     after stage e's fan-in (a row step t wrote in the same lane is in
+//     place), waited for at step t+1's start; the theta noise is read
+//     from global memory (prefetched into L2 at the step's start) in the
+//     theta step.
+// Three cluster barriers a step, after a, b and c, as in the step layouts.
+template <typename PiT>
+__global__ void __launch_bounds__(kThreads) window_kernel_nodes(Params<PiT> P) {
+  constexpr bool kF32 = std::is_same<PiT, float>::value;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ unsigned s_off[kNodesFields];
+#ifdef WINDOW_PHASES
+  __shared__ unsigned long long s_phase[kPhases];
+  long long t_last = clock64();
+#endif
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int B = P.B, n = P.n, E = P.E, K = P.K, T = P.T, R = P.B + P.n;
+  const int KW = P.kw;
+  const int k0 = rank * KW;
+  const int kw = min(K, k0 + KW) - k0;
+  const int ld = row_stride(KW);
+  const int TC = P.wc;                    // the tiles' width
+  const int ldt = row_stride(TC);
+  const int NT = (kw + TC - 1) / TC;      // tiles a pass
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float eps = P.eps;
+  if (tid == 0) {
+    const NodesLayout L = layout_nodes(T, B, n, E, KW, S, TC);
+    const size_t* f = reinterpret_cast<const size_t*>(&L);
+    for (int i = 0; i < kNodesFields; ++i) s_off[i] = (unsigned)f[i];
+#ifdef WINDOW_PHASES
+    for (int i = 0; i < kPhases; ++i) s_phase[i] = 0;
+#endif
+  }
+  const size_t chain = blockIdx.x / S;
+  const size_t TB = (size_t)T * B;
+  PiT* const pi_c = P.pi + chain * P.N * K;
+  float* const sum_c = P.phi_sum + chain * P.N;
+  float* const stg = P.staged + chain * TB * K + k0;
+  __syncthreads();
+  stage_window(P, chain, k0, kw, NI(smc), NI(snodes), NI(snbrs), NU(slanes),
+               NU(ybits), NU(mbits), NU(yebits), NU(embits), NM(th0),
+               NM(th1), NM(bet), tid, warp, lane);
+  for (int kk = tid; kk < (KW + 3) / 4 * 4; kk += kThreads)
+    NM(bme)[kk] = kk < kw ? P.beta_in[chain * K + k0 + kk] - eps : 0.f;
+  float* const rows = NM(rows);
+  float* const phis = NM(phis);
+  float* const tiles = NM(tiles);
+  // the node rows' columns past the slice, zeroed once (the float4 loads
+  // read them), and the tiles (a ragged tile's last float4 reads up to
+  // three columns past it, times the zero columns of the node rows)
+  for (int i = tid; i < B * (ld - kw); i += kThreads)
+    rows[(i / (ld - kw)) * ld + kw + i % (ld - kw)] = 0.f;
+  for (int i = tid; i < 2 * n * ldt; i += kThreads) tiles[i] = 0.f;
+  __syncthreads();
+
+  // 16-byte copies where K and KW are multiples of 4, 4-byte ones else;
+  // bf16 rows of pi: 16-byte loads of 8 values where K and KW are
+  // multiples of 8
+  const bool vec = (K % 4 == 0) && (KW % 4 == 0);
+  const bool vec8 = (K % 8 == 0) && (KW % 8 == 0);
+  // The gather of step u's node rows and pre-window phi sums (all
+  // threads, once stage e's fan-in of step u-1 is done; one cp.async
+  // group): pre-window rows from pi (cp.async, or the bf16 loads), rows
+  // an earlier step wrote from the scratch; a row step u-1 wrote in the
+  // same lane is in place.
+  auto gather_nodes = [&](int u) {
+    const int* mct = NI(smc) + u * R;
+    const int* nd = NI(snodes) + u * B;
+    for (int r = warp; r < B; r += kWarps) {
+      const int m = mct[r];
+      float* dst = rows + r * ld;
+      if (m > 0) {
+        if (m - 1 == (u - 1) * B + r) continue;   // in place
+        const float* src = stg + (size_t)(m - 1) * K;
+        if (vec)
+          for (int q = lane; q < kw / 4; q += 32) cp_async16(dst + 4 * q, src + 4 * q);
+        else
+          for (int x = lane; x < kw; x += 32) cp_async4(dst + x, src + x);
+      } else if constexpr (kF32) {
+        const float* src = pi_c + (size_t)min(nd[r], P.N - 1) * K + k0;
+        if (vec)
+          for (int q = lane; q < kw / 4; q += 32) cp_async16(dst + 4 * q, src + 4 * q);
+        else
+          for (int x = lane; x < kw; x += 32) cp_async4(dst + x, src + x);
+      } else {
+        const PiT* src = pi_c + (size_t)min(nd[r], P.N - 1) * K + k0;
+        if (vec8)
+          for (int q = lane; q < kw / 8; q += 32) widen8(dst + 8 * q, src + 8 * q);
+        else
+          for (int x = lane; x < kw; x += 32) dst[x] = __bfloat162float(src[x]);
+      }
+    }
+    for (int b = tid; b < B; b += kThreads)
+      if (mct[b] == 0) cp_async4(phis + b, sum_c + min(nd[b], P.N - 1));
+    cp_async_commit();
+  };
+  // Tile i of step u's neighbor rows (the slice's columns [i*TC, i*TC +
+  // tw)) into buffer g & 1, g its place in the window's sequence of tiles
+  // (all threads, after a block barrier that follows the last reads of
+  // the buffer; one cp.async group, an empty one for i >= NT, so that a
+  // tile's group is the second newest when it is waited for): every row
+  // from pi or, for a row an earlier step wrote, from the scratch.
+  auto issue_tile = [&](int u, int i, int g) {
+    if (i < NT) {
+      const int c0 = i * TC, tw = min(TC, kw - c0);
+      const int* mct = NI(smc) + u * R + B;
+      const int* nb = NI(snbrs) + u * n;
+      float* const buf = tiles + (g & 1) * n * ldt;
+      for (int j = warp; j < n; j += kWarps) {
+        const int m = mct[j];
+        float* dst = buf + j * ldt;
+        if (m > 0) {
+          const float* src = stg + (size_t)(m - 1) * K + c0;
+          if (vec)
+            for (int q = lane; q < tw / 4; q += 32) cp_async16(dst + 4 * q, src + 4 * q);
+          else
+            for (int x = lane; x < tw; x += 32) cp_async4(dst + x, src + x);
+        } else if constexpr (kF32) {
+          const float* src = pi_c + (size_t)nb[j] * K + k0 + c0;
+          if (vec)
+            for (int q = lane; q < tw / 4; q += 32) cp_async16(dst + 4 * q, src + 4 * q);
+          else
+            for (int x = lane; x < tw; x += 32) cp_async4(dst + x, src + x);
+        } else {
+          const PiT* src = pi_c + (size_t)nb[j] * K + k0 + c0;
+          if (vec8)
+            for (int q = lane; q < tw / 8; q += 32) widen8(dst + 8 * q, src + 8 * q);
+          else
+            for (int x = lane; x < tw; x += 32) dst[x] = __bfloat162float(src[x]);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // Waits for a tile: its group (the newest but one), then a block
+  // barrier.
+  auto wait_tile = [&]() {
+    cp_async_wait_older();
+    __syncthreads();
+  };
+  issue_tile(0, 0, 0);
+  issue_tile(0, 1, 1);
+  gather_nodes(0);
+  PHASE(0);
+
+  for (int t = 0; t < T; ++t) {
+    const int* mct = NI(smc) + t * R;
+    const unsigned* mbits = NU(mbits);
+    const float* const noise_t = P.noise + (chain * T + t) * B * K + k0;
+    const float* const bnoise_t = P.bnoise + (chain * T + t) * K * 2 + 2 * k0;
+    const int gq = 2 * NT * t, gc = gq + NT;   // the passes' first tiles
+#ifdef WINDOW_PHASES
+    __syncthreads();
+    PHASE(11);
+    cluster.sync();
+    PHASE(12);
+#endif
+    // ---- 0. wait for step t's node rows; the redirected phi sums; the
+    //         step's phi and theta noise and step t+1's pre-window rows
+    //         into L2 ----------------------------------------------------
+    cp_async_wait_all();
+    PHASE(13);
+    for (int b = tid; b < B; b += kThreads)
+      if (mct[b] > 0) phis[b] = NM(ssum)[mct[b] - 1];
+    {
+      // 128-byte lines of a row's slice, one more for a slice that
+      // starts inside a line
+      const int lines = (4 * kw + 127) / 128 + 1;
+      const int nrows = B + 2 + (t + 1 < T ? R : 0);
+      const int* mcn = mct + R;
+      const int* ndn = NI(snodes) + (t + 1) * B;
+      const int* nbn = NI(snbrs) + (t + 1) * n;
+      for (int i = tid; i < nrows * lines; i += kThreads) {
+        const int b = i / lines, l = i - b * lines;
+        const int col = min(32 * l, kw - 1);
+        if (b < B) {
+          prefetch_l2(noise_t + (size_t)b * K + col);
+        } else if (b < B + 2) {
+          prefetch_l2(bnoise_t + (b - B) * kw + col);
+        } else {
+          const int r = b - B - 2;
+          if (mcn[r] == 0)
+            prefetch_l2(pi_c + (size_t)(r < B ? min(ndn[r], P.N - 1)
+                                               : nbn[r - B]) * K + k0 + col);
+        }
+      }
+    }
+    __syncthreads();
+    PHASE(1);
+
+    // ---- a. q partials over the tiles: a warp takes kQNodes nodes over
+    //         its split's run of each tile's float4 columns, its sums in
+    //         registers across the tiles (lane l: neighbors l % 16 and
+    //         l % 16 + 16, columns of parity l / 16); then the splits
+    //         summed in order and pushed to the nodes' owners; contrib's
+    //         first two tiles issued --------------------------------------
+    {
+      const int ld4 = ld / 4, ldt4 = ldt / 4;
+      const float4* bm4 = reinterpret_cast<const float4*>(NM(bme));
+      const float4* rows4 = reinterpret_cast<const float4*>(rows);
+      const int ks = q_splits(B);
+      const int groups = (B + kQNodes - 1) / kQNodes;
+      const bool busy = warp < groups * ks;   // warp-uniform
+      const int g = warp / ks, sp = warp - g * ks;
+      const int b0 = g * kQNodes;
+      const int nb = busy ? min(kQNodes, B - b0) : 1;
+      const int jn = lane & 15, kp = lane >> 4;
+      float acc0[kQNodes] = {}, acc1[kQNodes] = {};
+      for (int i = 0; i < NT; ++i) {
+        wait_tile();
+        PHASE(15);
+        if (busy) {
+          const int nt4 = (min(TC, kw - i * TC) + 3) / 4, q0 = i * TC / 4;
+          const float4* tile4 = reinterpret_cast<const float4*>(
+              tiles + ((gq + i) & 1) * n * ldt);
+          const float4* pv0 = tile4 + min(jn, n - 1) * ldt4;
+          const float4* pv1 = tile4 + min(jn + 16, n - 1) * ldt4;
+          const float4* px = rows4 + b0 * ld4 + q0;
+          const float4* bm = bm4 + q0;
+          for (int k4 = sp * nt4 / ks + kp; k4 < (sp + 1) * nt4 / ks;
+               k4 += 2) {
+            const float4 bmk = bm[k4];
+            const float4 a0 = pv0[k4];
+            const float4 a1 = pv1[k4];
+            const float4 v0 = make_float4(a0.x * bmk.x, a0.y * bmk.y,
+                                          a0.z * bmk.z, a0.w * bmk.w);
+            const float4 v1 = make_float4(a1.x * bmk.x, a1.y * bmk.y,
+                                          a1.z * bmk.z, a1.w * bmk.w);
+            // no branch between the loads: a short group repeats its
+            // last node, whose sums are not stored
+#pragma unroll
+            for (int q = 0; q < kQNodes; ++q) {
+              const float4 x = px[min(q, nb - 1) * ld4 + k4];
+              acc0[q] += x.x * v0.x;
+              acc1[q] += x.x * v1.x;
+              acc0[q] += x.y * v0.y;
+              acc1[q] += x.y * v1.y;
+              acc0[q] += x.z * v0.z;
+              acc1[q] += x.z * v1.z;
+              acc0[q] += x.w * v0.w;
+              acc1[q] += x.w * v1.w;
+            }
+          }
+        }
+        __syncthreads();
+        issue_tile(t, i + 2, gq + i + 2);
+        PHASE(14);
+      }
+      // the q partials of the splits into the tiles' region (no copy is
+      // in flight into it: the pass's last two issues were empty)
+      float* const qpart = tiles;
+      if (busy) {
+#pragma unroll
+        for (int q = 0; q < kQNodes; ++q) {
+          // the even columns' sums, then the odd ones'
+          acc0[q] += __shfl_down_sync(0xffffffffu, acc0[q], 16);
+          acc1[q] += __shfl_down_sync(0xffffffffu, acc1[q], 16);
+          if (kp == 0 && q < nb) {
+            float* out = qpart + (sp * B + b0 + q) * n;
+            if (jn < n) out[jn] = acc0[q];
+            if (jn + 16 < n) out[jn + 16] = acc1[q];
+          }
+        }
+      }
+      __syncthreads();
+      float* const qin = NM(qin);
+      const int nl = (B + S - 1) / S;
+      for (int i = tid; i < B * n; i += kThreads) {
+        const int b = i / n, jj = i - b * n;
+        float q = 0.f;
+        for (int s2 = 0; s2 < ks; ++s2) q += qpart[s2 * B * n + i];
+        cluster.map_shared_rank(qin, b % S)[(rank * nl + b / S) * n + jj] = q;
+      }
+      __syncthreads();
+      issue_tile(t, 0, gc);
+      issue_tile(t, 1, gc + 1);
+    }
+    cluster.sync();
+    PHASE(2);
+
+    // ---- b. the coefficients of this CTA's nodes, to every CTA -----------
+    node_coefficients<true>(cluster, NM(qin), NU(ybits), NI(snodes) + t * B,
+                            NI(snbrs) + t * n, phis, NM(coef), NM(ce),
+                            NM(nval), NM(scale), NM(invphi), t, B, n, S,
+                            rank, warp, lane, eps, P.one_minus_eps,
+                            P.n_nodes);
+    cluster.sync();
+    PHASE(3);
+
+    // ---- c. contrib and the phi step over the tiles (step_contrib, two
+    //         lanes per item), the noise read from global memory --------
+    {
+      // one node's noise at a time, from L2 (prefetched above); the
+      // ragged end of the slice reads no column past it
+      auto noise = [&](int b, int q4) {
+        const float* zr = noise_t + (size_t)b * K + 4 * q4;
+        return vec ? __ldg(reinterpret_cast<const float4*>(zr))
+                   : make_float4(zr[0], 4 * q4 + 1 < kw ? zr[1] : 0.f,
+                                 4 * q4 + 2 < kw ? zr[2] : 0.f,
+                                 4 * q4 + 3 < kw ? zr[3] : 0.f);
+      };
+      for (int i = 0; i < NT; ++i) {
+        wait_tile();
+        PHASE(15);
+        step_contrib<2>(rows, ld, tiles + ((gc + i) & 1) * n * ldt, ldt,
+                        i * TC, min(TC, kw - i * TC), kw, B, n, NM(coef),
+                        NM(ce), NM(nval), NM(scale), NM(invphi), phis,
+                        NM(bme), P.eps_phi[t], P.alpha, tid, noise);
+        __syncthreads();
+        issue_tile(t, i + 2, gc + i + 2);
+        PHASE(4);
+      }
+    }
+
+    // ---- the row and edge partials of phi' to every CTA in one exchange
+    //         (step_partials) ----------------------------------------------
+    const unsigned* const slanes = NU(slanes) + t * E;
+    const unsigned* const yebits = NU(yebits);
+    step_partials(cluster, rows, ld, kw, B, E, t, slanes, mbits, yebits,
+                  NM(bet), P.inv_k, NM(rin), NM(ein), S, rank, warp, lane);
+    cluster.sync();
+    PHASE(5);
+
+    // ---- d. the row sums, prsum, the rows normalized and written to the
+    //         scratch (step_normalize); step t+1's first two tiles, which
+    //         may read those scratch rows ---------------------------------
+    float* const stg_t = stg + (size_t)t * B * K;
+    step_normalize(rows, ld, kw, B, E, K, t, vec, NM(rin), NM(ein), slanes,
+                   mbits, yebits, NM(rsv), NM(ssum) + t * B, NM(epr), stg_t,
+                   eps, P.one_minus_eps, P.inv_k, S, tid);
+    __syncthreads();
+    PHASE(6);
+    if (t + 1 < T) {
+      issue_tile(t + 1, 0, gq + 2 * NT);
+      issue_tile(t + 1, 1, gq + 2 * NT + 1);
+    }
+    PHASE(7);
+
+    // ---- e. the gradient fan-in (step_fan_in); step t+1's node rows
+    //         started into the node rows; the theta step (step_theta) with
+    //         the theta noise from global memory ---------------------------
+    step_fan_in(rows, ld, kw, KW, E, t, slanes, yebits, NU(embits), NM(epr),
+                NM(th0), NM(th1), NM(bet), NM(gpart), tid);
+    __syncthreads();
+    PHASE(8);
+    if (t + 1 < T) gather_nodes(t + 1);
+    step_theta(NM(gpart), bnoise_t, kw, KW, P.eps_theta[t],
+               P.wts[chain * T + t], P.eta0, P.eta1, eps, NM(th0), NM(th1),
+               NM(bet), NM(bme), tid);
+    __syncthreads();
+    PHASE(9);
+  }
+
+  // ---- the scatter, theta and beta (finish_wide) ------------------------
+  finish_wide(P, chain, pi_c, sum_c, stg, NI(snodes), NM(ssum), NM(th0),
+              NM(th1), NM(bet), k0, kw, vec, rank, tid, warp, lane);
+  // the peers may still be reading this CTA's last partials
+  cluster.sync();
+  PHASE(10);
+#ifdef WINDOW_PHASES
+  if (tid == 0 && blockIdx.x == 0)
+    for (int i = 0; i < kPhases; ++i) g_phase_cycles[i] += s_phase[i];
+#endif
+}
+
+#undef NM
+#undef NU
+#undef NI
+
 // The kernel of a layout (Mode).
 template <typename PiT>
 using KernelFn = void (*)(Params<PiT>);
@@ -2708,6 +3225,7 @@ KernelFn<PiT> kernel_of(int mode) {
     case kResident: return window_kernel<PiT>;
     case kStep: return window_kernel_step<PiT>;
     case kStep1: return window_kernel_step1<PiT>;
+    case kNodes: return window_kernel_nodes<PiT>;
     default: return window_kernel_wide<PiT>;
   }
 }
@@ -2779,8 +3297,9 @@ Params<PiT> make_params(void* pi, float* phi_sum, const bool* y,
 
 // Bytes of shared memory per CTA with a cluster of S CTAs (either storage
 // type) in the layout `mode` (Mode): the resident mode's, or the wide
-// mode's step layout, its step layout with one set of rows, or its chunked
-// layout with chunks of wc columns.
+// mode's step layout, its step layout with one set of rows, its chunked
+// layout with chunks of wc columns, or its node-resident layout with
+// tiles of wc columns.
 extern "C" size_t window_kernel_smem_bytes(int T, int B, int n, int E, int K,
                                            int S, int wc, int mode) {
   const int kw = slice_width(K, S);
@@ -2789,6 +3308,7 @@ extern "C" size_t window_kernel_smem_bytes(int T, int B, int n, int E, int K,
     case kResident: words = layout(T, B, n, E, kw, S).total; break;
     case kStep: words = layout_step(T, B, n, E, kw, S).total; break;
     case kStep1: words = layout_step1(T, B, n, E, kw, S).total; break;
+    case kNodes: words = layout_nodes(T, B, n, E, kw, S, wc).total; break;
     default: words = layout_wide(T, B, n, E, kw, S, wc).total;
   }
   return words * sizeof(float);
@@ -2796,11 +3316,13 @@ extern "C" size_t window_kernel_smem_bytes(int T, int B, int n, int E, int K,
 
 // The launch's layout and chunk width agree: the resident mode takes wc =
 // 0; the step layouts a chunk that covers the slice (wc >= kw), the
-// chunked one a narrower chunk (0 < wc < kw), a multiple of 8.
+// chunked one a narrower chunk (0 < wc < kw), the node-resident one any
+// tile (wc > 0), a multiple of 8.
 static bool mode_fits(int mode, int wc, int kw) {
-  if (mode < kResident || mode > kChunked || wc < 0 || wc % 8 != 0)
+  if (mode < kResident || mode > kNodes || wc < 0 || wc % 8 != 0)
     return false;
   if (mode == kResident) return wc == 0;
+  if (mode == kNodes) return wc > 0;
   return mode == kChunked ? wc > 0 && wc < kw : wc >= kw;
 }
 
@@ -2811,7 +3333,8 @@ static bool mode_fits(int mode, int wc, int kw) {
 // (chain-major); `eps_phi` and `eps_theta` are host arrays of T floats,
 // shared by the chains. `mode` (Mode) names the layout and wc its chunk
 // width (mode_fits): the resident mode, or the wide mode in its step
-// layout, its step layout with one set of rows or its chunked layout;
+// layout, its step layout with one set of rows, its chunked layout or its
+// node-resident layout (wc its tiles' width);
 // the wide mode's staged rows go to `staged`, a float32 scratch [C, T*B,
 // K] (unused and may be null in the resident mode).
 extern "C" int window_kernel_launch(
@@ -2833,6 +3356,9 @@ extern "C" int window_kernel_launch(
   const int kw = slice_width(K, S);
   if ((S - 1) * kw >= K) return (int)cudaErrorInvalidValue;  // empty slice
   if (!mode_fits(mode, wc, kw)) return (int)cudaErrorInvalidValue;
+  // the node-resident layout's q keeps one (nodes, split) task a warp
+  if (mode == kNodes && (B + kQNodes - 1) / kQNodes > kWarps)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = window_kernel_smem_bytes(T, B, n, E, K, S, wc, mode);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define WINDOW_PARAMS(PiT)                                                  \

@@ -16,11 +16,13 @@ picks its mode from the per-chain shape and the card's shared memory:
 the resident mode (the window's rows in shared memory,
 ``window_cluster_size``) wherever it fits, else the wide mode (the
 staged rows in a global scratch; K = 1536-16384 at the main path's
-shape) in one of its three layouts: "step" (a step's rows in shared
+shape) in one of its four layouts: "step" (a step's rows in shared
 memory through the step, the next step's in flight in a second set;
 up to K = 4096 at T = 12), "step1" (the same with one set of rows,
 the next step's gathered into it as its regions free up; K = 6144-8192
-at T = 12) or "wide" (the rows taken in column chunks). With bfloat16 pi
+at T = 12), "nodes" (a step's node rows in shared memory, its neighbor
+rows streamed through two tiles; K = 10240-16384 at T = 12) or "wide"
+(the rows taken in column chunks; the fallback). With bfloat16 pi
 storage (``cfg.pi_dtype``) both versions gather the rows upcast to float32,
 compute and stage in float32, and round the kept rows to nearest-even
 only at the write-back, as the JAX package's bf16 window does; the
@@ -521,6 +523,53 @@ def window_step1_smem_bytes(t_win: int, b_cap: int, n_smpl: int,
     return 4 * words
 
 
+#: The node-resident layout's tile width: columns of the neighbor rows a
+#: tile holds (a multiple of 8).
+NODES_TILE = 128
+#: The node-resident layout's q gives each warp one task of kQNodes nodes
+#: (csrc/window_kernel.cu refuses more groups than its 16 warps).
+_MAX_Q_GROUPS = 16
+
+
+def window_nodes_smem_bytes(t_win: int, b_cap: int, n_smpl: int,
+                            e_cap: int, k: int, s: int,
+                            wc: int = NODES_TILE) -> int:
+    """Shared memory per CTA of the wide mode's node-resident layout with
+    tiles of ``wc`` columns (``layout_nodes``, struct ``NodesLayout`` of
+    csrc/window_kernel.cu, term by term): the step's node rows [B,
+    ld(w)]; one region (padded to 4) for two tiles of the neighbor rows
+    [2, n, ld(wc)] and, at stage a's end, the q partials of the splits
+    [ks, B, n]; beta - eps [w] and the coefficients [B, n] (padded to
+    4); the fan-in partials [G, w, 2] (G = 512 // w, padded to 4);
+    theta0, theta1 and beta [w] (padded to 4); the staged rows' sums
+    [T*B]; the node vectors [B] x 6 and prsum [E]; the partials pushed by
+    the cluster, the window's codes, ids, lane maps and bits (as the other
+    layouts'). No phi or theta noise buffer: the kernel reads both where
+    it uses them."""
+    w = window_slice_width(k, s)
+    q4 = -(-w // 4)
+    ld = 4 * (q4 + 1 + q4 % 2)
+    t4 = -(-wc // 4)
+    ldt = 4 * (t4 + 1 + t4 % 2)
+    n_read = b_cap + n_smpl
+    tb, te = t_win * b_cap, t_win * e_cap
+    bits = (-(-tb * n_smpl // 32) + -(-tb // 32) + 2 * -(-te // 32))
+    groups = -(-b_cap // _Q_NODES)
+    splits = 1 if groups >= 16 else 16 // groups
+    fan = 512 // w if w <= 512 else 1
+
+    def up4(x):
+        return 4 * -(-x // 4)
+
+    words = (b_cap * ld
+             + up4(max(2 * n_smpl * ldt, splits * b_cap * n_smpl))
+             + 4 * up4(w) + up4(b_cap * n_smpl) + up4(2 * fan * w)
+             + tb + 6 * b_cap + e_cap
+             + s * (-(-b_cap // s) * n_smpl + b_cap + 2 * e_cap)
+             + t_win * (n_read + b_cap + n_smpl + e_cap) + bits)
+    return 4 * words
+
+
 def step_chunk(k: int, s: int) -> int:
     """The chunk width the launch passes for either step layout: the
     slice width rounded up to a multiple of 8, one chunk that covers the
@@ -538,11 +587,13 @@ def window_plan(t_win: int, b_cap: int, n_smpl: int, e_cap: int, k: int,
     layouts fits ``smem_limit``, tried in this order: the step layout
     (``"step"``, ``wc`` = ``step_chunk``, a chunk that covers the slice),
     the step layout with one set of rows (``"step1"``, the same ``wc``),
-    the chunked one (``"wide"``) with the widest chunk of ``WIDE_CHUNKS``
-    narrower than the slice. From the per-chain shape only, never from
-    the number of chains. Raises ValueError past the kernel's limits (n,
-    T) or when no layout fits; the launch and the CLI's window resolution
-    both go through it."""
+    the node-resident layout (``"nodes"``, ``wc`` = ``NODES_TILE``, the
+    tiles' width; B <= 176, one q task a warp), the chunked one
+    (``"wide"``) with the widest chunk of ``WIDE_CHUNKS`` narrower than
+    the slice. From the per-chain shape only, never from the number of
+    chains. Raises ValueError past the kernel's limits (n, T) or when no
+    layout fits; the launch and the CLI's window resolution both go
+    through it."""
     if n_smpl > MAX_NEIGHBORS or t_win > MAX_WINDOW:
         raise ValueError(
             f"window kernel takes n <= {MAX_NEIGHBORS} neighbors and "
@@ -560,6 +611,10 @@ def window_plan(t_win: int, b_cap: int, n_smpl: int, e_cap: int, k: int,
         if window_step1_smem_bytes(t_win, b_cap, n_smpl, e_cap, k,
                                    s) <= smem_limit:
             return s, "step1", step_chunk(k, s)
+        if (-(-b_cap // _Q_NODES) <= _MAX_Q_GROUPS
+                and window_nodes_smem_bytes(t_win, b_cap, n_smpl, e_cap, k,
+                                            s) <= smem_limit):
+            return s, "nodes", NODES_TILE
         for wc in WIDE_CHUNKS:
             if wc < window_slice_width(k, s) and window_wide_smem_bytes(
                     t_win, b_cap, n_smpl, e_cap, k, s, wc) <= smem_limit:
@@ -578,6 +633,8 @@ def plan_smem_bytes(shape, plan) -> int:
         return window_step_smem_bytes(*shape, s)
     if mode == "step1":
         return window_step1_smem_bytes(*shape, s)
+    if mode == "nodes":
+        return window_nodes_smem_bytes(*shape, s, wc)
     if mode == "wide":
         return window_wide_smem_bytes(*shape, s, wc)
     return window_smem_bytes(*shape, s)
@@ -585,7 +642,7 @@ def plan_smem_bytes(shape, plan) -> int:
 
 #: The kernel's code of each layout of the plan (``Mode`` of
 #: csrc/window_kernel.cu).
-LAYOUTS = {"resident": 0, "step": 1, "step1": 2, "wide": 3}
+LAYOUTS = {"resident": 0, "step": 1, "step1": 2, "wide": 3, "nodes": 4}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -699,7 +756,7 @@ def window_apply_cuda(cfg: Config, s, xs_t, mcode, keep,
     index it (``parallel/sharded.py``'s fetched rows), not pi [N, K].
     ``s.pi`` is float32 or bfloat16 (the kernel's bf16 row mode).
     CUDA tensors only: the kernel is launched or this raises — there is
-    no fallback. The mode (resident or wide, in one of its three
+    no fallback. The mode (resident or wide, in one of its four
     layouts) is ``window_plan``'s."""
     out, mode = _launch(cfg, s, xs_t, mcode, keep, chained=False,
                         table_rows=table_rows)

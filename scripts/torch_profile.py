@@ -3,7 +3,7 @@
 Run from the root of a checkout (the package must be importable):
 
     PYTHONPATH=. python3 scripts/torch_profile.py [--reps 5]
-        [--paths single,wide,chains,mmsb,phi,hostphi,hoststep,hostbf,
+        [--paths single,wide,k16384,chains,mmsb,phi,hostphi,hoststep,hostbf,
                  powerlaw,mmsbchains,hostmmsb,vmap,refrng,refplain,refphi,
                  devbf,devbfalt,devbfnon,mesh,refkernel,checkpoint]
         [--out FILE]
@@ -15,6 +15,9 @@ otherwise:
           (84 windows);
   wide    the same at ``-k 4096`` (pi 5.2 GB): every window in the
           window kernel's wide mode, 1008 steps per call;
+  k16384  the same at ``-k 16384`` (pi 20.8 GB): every window in the
+          wide mode (its node-resident layout; a tree from before it,
+          its chunked layout), 1008 steps per call;
   chains  ``--num-chains 16 --node-coin alternate``, K=256: window
           96 // 16 = 6, 504 steps per call (84 windows of 16 chains);
   mmsb    ``--model mmsb --window 12``, K=64: 1008 steps per call (84
@@ -103,6 +106,7 @@ from torch.profiler import ProfilerActivity, profile
 PATHS = {
     "single": (["--synthetic", "317080,7", "-k", "256"], 1008),
     "wide": (["--synthetic", "317080,7", "-k", "4096"], 1008),
+    "k16384": (["--synthetic", "317080,7", "-k", "16384"], 1008),
     "chains": (["--num-chains", "16", "--node-coin", "alternate",
                 "--synthetic", "317080,7", "-k", "256"], 504),
     "mmsb": (["--model", "mmsb", "--synthetic", "317080,7", "-k", "64",

@@ -6,8 +6,9 @@ resident mode against another build of the kernel.
 For the main path's window (T, B, n, E, K) = (12, 33, 32, 32, 256), the
 16-chain window (C, T, B, n, E, K) = (16, 6, 33, 32, 32, 256), the
 com-youtube rung's (12, 33, 32, 32, 1024) and, in the wide mode, the
-K = 4096 path's window (12, 33, 32, 32, 4096) and the K = 8192 path's
-(12, 33, 32, 32, 8192), chip_smoke.py's bf16 kernel phase
+K = 4096 path's window (12, 33, 32, 32, 4096), the K = 8192 path's
+(12, 33, 32, 32, 8192) and the K = 16384 path's (12, 33, 32, 32,
+16384), chip_smoke.py's bf16 kernel phase
 (``check_bf16_kernels``): the kernel with bf16 pi against its float32
 launch on the upcast rows (bit for bit, once rounded) and against the
 plain version at bf16 (the stored rows' ulp gaps, phi_sum, theta and
@@ -16,12 +17,12 @@ and the bf16 launches on the same operands, in turns (f32, bf16, bf16,
 f32), device time only.
 
 With ``--parent-src FILE`` (a ``window_kernel.cu`` with the C interface
-of chip_smoke.PARENT_SRC, scripts/window_kernel_pr16.cu, the kernel from
-before the wide mode's step layout with one set of rows) that source is
-built too and chip_smoke.py's ``check_resident_parent`` holds the
-resident mode and the step layout of this build against it bit for bit,
-float32 and bf16, at every shape of chip_smoke.py's kernel phase they
-run, with the main and chain shapes
+of chip_smoke.PARENT_SRC, scripts/window_kernel_pr17.cu, the kernel from
+before the wide mode's node-resident layout) that source is built too
+and chip_smoke.py's ``check_resident_parent`` holds the resident mode,
+both step layouts and the chunked layout of this build against it bit
+for bit, float32 and bf16, at every shape of chip_smoke.py's kernel
+phase they run, with the main and chain shapes
 timed in turns (parent, change, change, parent). Prints one line per
 check and a JSON line at the end; needs a CUDA card and nvcc.
 """

@@ -25,13 +25,16 @@
 // Two modes, one function. The resident mode (window_kernel) keeps a
 // CTA's whole slice of the step rows and of the window's staged rows in
 // shared memory; it is chosen wherever that fits. The wide mode stages
-// the rows in a global scratch, in one of two layouts: the step layout
-// (window_kernel_step, described above it) keeps a step's rows in shared
-// memory through all its stages, with the next step's rows in flight by
-// bulk copies, wherever that fits (T = 12 up to K = 4096 on an H100);
-// the chunked layout (window_kernel_wide) takes the slice in column
-// chunks, so its shared memory hardly grows with K (K = 16384 at T = 12).
-// What follows describes the resident mode.
+// the rows in a global scratch, in one of three layouts, each described
+// above its kernel: the step layout (window_kernel_step) keeps a step's
+// rows in shared memory through all its stages, with the next step's rows
+// in flight by bulk copies in a second set of buffers, wherever that fits
+// (T = 12 up to K = 4096 on an H100); the step layout with one set of
+// rows (window_kernel_step1) gathers the next step's rows into the one
+// set as its regions free up (T = 12 at K = 6144-8192); the chunked
+// layout (window_kernel_wide) takes the slice in column chunks, so its
+// shared memory hardly grows with K (K = 16384). What follows describes
+// the resident mode.
 //
 // Per step t, exactly the JAX kernel's math:
 //   1. read rows: lane r reads staged row mcode-1 when mcode > 0 (a row
@@ -353,6 +356,63 @@ __host__ __device__ inline StepLayout layout_step(int T, int B, int n,
   return L;
 }
 
+// Offsets (in 4-byte words) of the shared arrays of one CTA in the step
+// layout with one set of rows (window_kernel_step1), which keeps a single
+// set of a step's rows in shared memory: step t+1's rows are gathered into
+// it as step t's regions free up, and the phi noise is read from global
+// memory where it is used; mirrored by ops/window.py::
+// window_step1_smem_bytes. The mbarriers come first (8 bytes each), then
+// the arrays of bulk copies and float4 loads, each at a multiple of 16
+// bytes.
+struct Step1Layout {
+  size_t bars, rows, bz, bme, coef, part, th0, th1, bet, ssum, phis, ce,
+      nval, scale, invphi, rsv, epr, qin, rin, ein, smc, snodes, snbrs,
+      slanes, ybits, mbits, yebits, embits, total;
+};
+
+__host__ __device__ inline Step1Layout layout_step1(int T, int B, int n,
+                                                    int E, int kw, int S) {
+  const size_t R = (size_t)B + n, ld = row_stride(kw);
+  const size_t TB = (size_t)T * B, TE = (size_t)T * E, Bn = (size_t)B * n;
+  const size_t nl = (B + S - 1) / S;
+  const size_t ks = q_splits(B), G = fan_groups(kw);
+  Step1Layout L;
+  size_t o = 0;
+  L.bars = o;   o += 8;               // 3 mbarriers: node rows, neighbor
+                                      // rows, theta noise
+  L.rows = o;   o += R * ld;          // the step rows [R, ld], one set
+  L.bz = o;     o += up4(2 * (size_t)kw);  // theta noise [kw, 2]
+  L.bme = o;    o += up4(kw);         // beta - eps, zero-padded
+  L.coef = o;   o += up4(Bn);         // s/p * mask [B, n], from the owners
+  // stage a's q partials of the splits [ks, B, n], later stage e's fan-in
+  // partials [G, kw, 2]
+  L.part = o;   o += up4(larger(ks * Bn, 2 * G * kw));
+  L.th0 = o;    o += up4(kw);
+  L.th1 = o;    o += up4(kw);
+  L.bet = o;    o += up4(kw);
+  L.ssum = o;   o += TB;              // the staged rows' sums
+  L.phis = o;   o += B;               // the step's phi sums
+  L.ce = o;     o += B;
+  L.nval = o;   o += B;
+  L.scale = o;  o += B;
+  L.invphi = o; o += B;
+  L.rsv = o;    o += B;               // the step's row sums
+  L.epr = o;    o += E;               // per-edge prsum
+  L.qin = o;    o += S * nl * n;
+  L.rin = o;    o += (size_t)S * B;
+  L.ein = o;    o += (size_t)S * 2 * E;
+  L.smc = o;    o += (size_t)T * R;
+  L.snodes = o; o += TB;
+  L.snbrs = o;  o += (size_t)T * n;
+  L.slanes = o; o += TE;
+  L.ybits = o;  o += words_of_bits(TB * n);
+  L.mbits = o;  o += words_of_bits(TB);
+  L.yebits = o; o += words_of_bits(TE);
+  L.embits = o; o += words_of_bits(TE);
+  L.total = o;
+  return L;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -432,6 +492,16 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// Asks for the 128-byte line of global memory at p to be brought into L2.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.L2 [%0];\n" :: "l"(p));
+}
+
+// The kernel's layouts, as the launch names them (ops/window.py::LAYOUTS):
+// the resident mode, and the wide mode's step layout, its step layout with
+// one set of rows and its chunked layout.
+enum Mode : int { kResident = 0, kStep = 1, kStep1 = 2, kChunked = 3 };
+
 template <typename PiT>
 struct Params {
   // state, per chain block of the flat layout; updated in place
@@ -458,6 +528,7 @@ struct Params {
   float* staged;           // [T*B, K] wide mode's staged rows; else unused
   int T, B, n, E, K, N, kw;
   int wc;                  // wide mode's chunk width; 0 in the resident mode
+  int mode;                // the layout (Mode)
   float eps, one_minus_eps, alpha, n_nodes, eta0, eta1, inv_k;
   float eps_phi[kMaxWindow];    // phi step sizes of the T steps
   float eps_theta[kMaxWindow];  // theta step sizes
@@ -1604,23 +1675,9 @@ __global__ void __launch_bounds__(kThreads) window_kernel_wide(Params<PiT> P) {
     PHASE(9);
   }
 
-  // ---- the scatter: the kept rows from the scratch (each CTA its own
-  //      columns), their sums by CTA 0, theta and beta by slice -------------
-  {
-    const bool* keep = P.keep + chain * TB;
-    const int* snodes = WI(snodes);
-    scatter_kept(pi_c + k0, stg, keep, snodes, T * B, K, kw, vec, warp, lane);
-    if (rank == 0) {
-      const float* ssum = WM(ssum);
-      for (int tb = tid; tb < T * B; tb += kThreads)
-        if (keep[tb]) sum_c[snodes[tb]] = ssum[tb];
-    }
-    for (int kk = tid; kk < kw; kk += kThreads) {
-      P.theta_out[chain * K * 2 + 2 * (k0 + kk)] = WM(th0)[kk];
-      P.theta_out[chain * K * 2 + 2 * (k0 + kk) + 1] = WM(th1)[kk];
-      P.beta_out[chain * K + k0 + kk] = WM(bet)[kk];
-    }
-  }
+  // ---- the scatter, theta and beta (finish_wide) ------------------------
+  finish_wide(P, chain, pi_c, sum_c, stg, WI(snodes), WM(ssum), WM(th0),
+              WM(th1), WM(bet), k0, kw, vec, rank, tid, warp, lane);
   // the peers may still be reading this CTA's last partials
   cluster.sync();
   PHASE(10);
@@ -1633,6 +1690,270 @@ __global__ void __launch_bounds__(kThreads) window_kernel_wide(Params<PiT> P) {
 #undef WM
 #undef WU
 #undef WI
+
+// ---------------------------------------------------------------------------
+// Stages that the two step layouts share (window_kernel_step and
+// window_kernel_step1): the same arithmetic in the same order, on a CTA's
+// slice of a step's rows in shared memory (rows [R, ld], the node rows
+// first).
+// ---------------------------------------------------------------------------
+
+// Stage c: contrib and the phi step on the slice, register-tiled: a
+// thread takes kCNodes nodes for four columns (a float4 of each neighbor
+// row, one coefficient load per node and four neighbors), the sums over
+// the neighbors in order; phi' overwrites the node rows. noise(b, q4) is
+// node b's phi noise at the slice's float4 column q4.
+template <typename Noise>
+__device__ __forceinline__ void step_contrib(
+    float* rows, int ld, int kw, int B, int n, const float* coef_a,
+    const float* ce, const float* nval, const float* scale,
+    const float* invphi, const float* phis, const float* bme, float eps_t,
+    float alpha, int tid, Noise noise) {
+  const float4* bm4 = reinterpret_cast<const float4*>(bme);
+  const int nq4 = (kw + 3) / 4, ld4 = ld / 4;
+  const int groups = (B + kCNodes - 1) / kCNodes;
+  float4* const rows4 = reinterpret_cast<float4*>(rows);
+  for (int item = tid; item < groups * nq4; item += kThreads) {
+    const int g = item / nq4, q4 = item - g * nq4;
+    const int b0 = g * kCNodes, nb = min(kCNodes, B - b0);
+    float4 acc[kCNodes];
+#pragma unroll
+    for (int i = 0; i < kCNodes; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j4 = 0; j4 < n; j4 += 4) {
+      float4 v[4];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        v[jj] = rows4[(B + min(j4 + jj, n - 1)) * ld4 + q4];
+#pragma unroll
+      for (int i = 0; i < kCNodes; ++i) {
+        // a short group repeats its last node, which is not stored
+        const float* cb = coef_a + (b0 + min(i, nb - 1)) * n + j4;
+        float c[4];
+        if (n % 4 == 0) {
+          const float4 c4 = *reinterpret_cast<const float4*>(cb);
+          c[0] = c4.x; c[1] = c4.y; c[2] = c4.z; c[3] = c4.w;
+        } else {
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) c[jj] = j4 + jj < n ? cb[jj] : 0.f;
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          acc[i].x += c[jj] * v[jj].x;
+          acc[i].y += c[jj] * v[jj].y;
+          acc[i].z += c[jj] * v[jj].z;
+          acc[i].w += c[jj] * v[jj].w;
+        }
+      }
+    }
+    const float4 bk = bm4[q4];
+#pragma unroll
+    for (int i = 0; i < kCNodes; ++i) {
+      if (i >= nb) break;
+      const int b = b0 + i;
+      const float n_ce = ce[b], n_val = nval[b], n_inv = invphi[b];
+      const float n_scale = scale[b], n_phis = phis[b];
+      const float4 x = rows4[b * ld4 + q4];
+      const float4 z = noise(b, q4);
+      auto step = [&](float a, float bkk, float xk, float zk) {
+        const float s_contrib = bkk * a + n_ce;
+        const float grads = (s_contrib - n_val) * n_inv;
+        const float phi_k = xk * n_phis;
+        const float vv = fabsf(phi_k
+                               + eps_t / 2.f * (alpha - phi_k + n_scale * grads)
+                               + sqrtf(eps_t * phi_k) * zk);
+        return fmaxf(vv, 1e-24f);
+      };
+      const float4 out = make_float4(step(acc[i].x, bk.x, x.x, z.x),
+                                     step(acc[i].y, bk.y, x.y, z.y),
+                                     step(acc[i].z, bk.z, x.z, z.z),
+                                     step(acc[i].w, bk.w, x.w, z.w));
+      if (4 * q4 + 4 <= kw) {
+        rows4[b * ld4 + q4] = out;
+      } else {   // the ragged end of the slice: its pad stays zero
+        float* r = rows + b * ld + 4 * q4;
+        if (4 * q4 + 0 < kw) r[0] = out.x;
+        if (4 * q4 + 1 < kw) r[1] = out.y;
+        if (4 * q4 + 2 < kw) r[2] = out.z;
+      }
+    }
+  }
+}
+
+// The row partials of phi' (one warp per row) and the edge partials (one
+// warp per edge) over phi' as it is, masked endpoints as 1/K (s_pp and
+// s_pr are bilinear in the two rows: stage d divides them by the row
+// sums), pushed to slot [rank] of every CTA's rin [S, B] and ein [S, E,
+// 2] (this CTA's arrays; the peers' copies sit at the same offsets).
+__device__ __forceinline__ void step_partials(
+    cg::cluster_group& cluster, const float* rows, int ld, int kw, int B,
+    int E, int t, const unsigned* slanes, const unsigned* mbits,
+    const unsigned* yebits, const float* bet, float inv_k, float* rin,
+    float* ein, int S, int rank, int warp, int lane) {
+  // float4 columns (the pad is zero); each lane's in order
+  const int nq4 = (kw + 3) / 4, ld4 = ld / 4;
+  for (int b = warp; b < B; b += kWarps) {
+    const float4* r4 = reinterpret_cast<const float4*>(rows) + b * ld4;
+    float acc = 0.f;
+    for (int q = lane; q < nq4; q += 32) {
+      const float4 x = r4[q];
+      acc += (x.x + x.y) + (x.z + x.w);
+    }
+    acc = warp_sum(acc);
+    if (lane < S) cluster.map_shared_rank(rin, lane)[rank * B + b] = acc;
+  }
+  const float4* bet4 = reinterpret_cast<const float4*>(bet);
+  const float4 ik4 = make_float4(inv_k, inv_k, inv_k, inv_k);
+  for (int e = warp; e < E; e += kWarps) {
+    const unsigned pk = slanes[e];
+    const int u = pk & 0xffffu, v = pk >> 16;
+    const bool vu = bit(mbits, (size_t)t * B + u);
+    const bool vv = bit(mbits, (size_t)t * B + v);
+    const float4* pu = reinterpret_cast<const float4*>(rows) + u * ld4;
+    const float4* pv = reinterpret_cast<const float4*>(rows) + v * ld4;
+    const bool link = bit(yebits, (size_t)t * E + e);
+    float s_pp = 0.f, s_pr = 0.f;
+    for (int q = lane; q < nq4; q += 32) {
+      // a masked endpoint counts as 1/K, on the slice's columns only
+      const float4 a = vu ? pu[q] : ik4, c = vv ? pv[q] : ik4;
+      const float4 bt = bet4[q];
+      const float pp[4] = {a.x * c.x, a.y * c.y, a.z * c.z, a.w * c.w};
+      const float w[4] = {bt.x, bt.y, bt.z, bt.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (4 * q + i < kw) {
+          s_pp += pp[i];
+          s_pr += (link ? w[i] : 1.f - w[i]) * pp[i];
+        }
+      }
+    }
+    s_pp = warp_sum(s_pp);
+    s_pr = warp_sum(s_pr);
+    if (lane < S) {
+      float* peer = cluster.map_shared_rank(ein, lane);
+      peer[(rank * E + e) * 2] = s_pp;
+      peer[(rank * E + e) * 2 + 1] = s_pr;
+    }
+  }
+}
+
+// Stage d: the row sums (ranks pairwise) into rsv and ssum_t; per edge
+// the sums over the ranks (pairwise) divided by the endpoints' row sums
+// (a masked endpoint's by 1), and prsum into epr; the rows normalized in
+// shared memory and written to the scratch stg_t (this CTA's columns of
+// the step's staged rows; plain coalesced stores), masked lanes as 1/K
+// in shared memory. Ends without a barrier.
+__device__ __forceinline__ void step_normalize(
+    float* rows, int ld, int kw, int B, int E, int K, int t, bool vec,
+    const float* rin, const float* ein, const unsigned* slanes,
+    const unsigned* mbits, const unsigned* yebits, float* rsv,
+    float* ssum_t, float* epr, float* stg_t, float eps, float one_minus_eps,
+    float inv_k, int S, int tid) {
+  for (int b = tid; b < B; b += kThreads) {
+    const float rs = rank_sum(rin + b, B, S);
+    rsv[b] = rs;
+    ssum_t[b] = rs;
+  }
+  __syncthreads();
+  for (int e = tid; e < E; e += kThreads) {
+    const unsigned pk = slanes[e];
+    const int u = pk & 0xffffu, v = pk >> 16;
+    const float du = bit(mbits, (size_t)t * B + u) ? rsv[u] : 1.f;
+    const float dv = bit(mbits, (size_t)t * B + v) ? rsv[v] : 1.f;
+    const float s_pp = rank_sum(ein + 2 * e, 2 * E, S) / (du * dv);
+    const float s_pr = rank_sum(ein + 2 * e + 1, 2 * E, S) / (du * dv);
+    const bool link = bit(yebits, (size_t)t * E + e);
+    epr[e] = s_pr + (link ? eps : one_minus_eps) * (1.f - s_pp);
+  }
+  if (vec) {
+    const int nq = kw / 4;
+    for (int i = tid; i < B * nq; i += kThreads) {
+      const int b = i / nq, q = i - b * nq;
+      float4* row = reinterpret_cast<float4*>(rows + b * ld) + q;
+      const float rs = rsv[b];
+      const float4 x = *row;
+      const float4 v = make_float4(x.x / rs, x.y / rs, x.z / rs, x.w / rs);
+      *reinterpret_cast<float4*>(stg_t + (size_t)b * K + 4 * q) = v;
+      *row = bit(mbits, (size_t)t * B + b)
+                 ? v : make_float4(inv_k, inv_k, inv_k, inv_k);
+    }
+  } else {
+    for (int i = tid; i < B * kw; i += kThreads) {
+      const int b = i / kw, kk = i - b * kw;
+      const float v = rows[b * ld + kk] / rsv[b];
+      stg_t[(size_t)b * K + kk] = v;
+      rows[b * ld + kk] = bit(mbits, (size_t)t * B + b) ? v : inv_k;
+    }
+  }
+}
+
+// Stage e's gradient fan-in: G = fan_groups(KW) threads per column,
+// thread g over the edges e = g mod G, into gpart [G, KW, 2].
+__device__ __forceinline__ void step_fan_in(
+    const float* rows, int ld, int kw, int KW, int E, int t,
+    const unsigned* slanes, const unsigned* yebits, const unsigned* embits,
+    const float* epr, const float* th0, const float* th1, const float* bet,
+    float* gpart, int tid) {
+  const int G = fan_groups(KW);
+  for (int item = tid; item < G * KW; item += kThreads) {
+    const int g = item / KW, kk = item - g * KW;
+    if (kk >= kw) continue;
+    const float t0 = th0[kk], t1 = th1[kk], bk = bet[kk];
+    const float inv_ts = 1.f / (t0 + t1);
+    const float inv_t0 = 1.f / t0, inv_t1 = 1.f / t1;
+    float g0 = 0.f, g1 = 0.f;
+#pragma unroll 4
+    for (int e = g; e < E; e += G) {
+      const bool link = bit(yebits, (size_t)t * E + e);
+      const float m = bit(embits, (size_t)t * E + e) ? 1.f : 0.f;
+      const unsigned pk = slanes[e];
+      const float pp = rows[(pk & 0xffffu) * ld + kk] * rows[(pk >> 16) * ld + kk];
+      const float f = ((link ? bk : 1.f - bk) * pp) / epr[e];
+      g0 += (f * ((link ? 0.f : inv_t0) - inv_ts)) * m;
+      g1 += (f * ((link ? inv_t1 : 0.f) - inv_ts)) * m;
+    }
+    gpart[(g * KW + kk) * 2] = g0;
+    gpart[(g * KW + kk) * 2 + 1] = g1;
+  }
+}
+
+// Stage e's theta step: the G fan-in partials of each column added in
+// order, then theta_column with the theta noise bz [kw, 2].
+__device__ __forceinline__ void step_theta(
+    const float* gpart, const float* bz, int kw, int KW, float eps_b,
+    float wt, float eta0, float eta1, float eps, float* th0, float* th1,
+    float* bet, float* bme, int tid) {
+  const int G = fan_groups(KW);
+  for (int kk = tid; kk < kw; kk += kThreads) {
+    float g0 = 0.f, g1 = 0.f;
+    for (int g = 0; g < G; ++g) {
+      g0 += gpart[(g * KW + kk) * 2];
+      g1 += gpart[(g * KW + kk) * 2 + 1];
+    }
+    theta_column(g0, g1, bz[2 * kk], bz[2 * kk + 1], eps_b, wt, eta0, eta1,
+                 eps, th0[kk], th1[kk], bet[kk], bme[kk]);
+  }
+}
+
+// The wide layouts' end of a window: the kept rows from the scratch (each
+// CTA its own columns), their sums by CTA 0, theta and beta by slice.
+template <typename PiT>
+__device__ __forceinline__ void finish_wide(
+    const Params<PiT>& P, size_t chain, PiT* pi_c, float* sum_c,
+    const float* stg, const int* snodes, const float* ssum, const float* th0,
+    const float* th1, const float* bet, int k0, int kw, bool vec, int rank,
+    int tid, int warp, int lane) {
+  const int K = P.K, TB = P.T * P.B;
+  const bool* keep = P.keep + chain * TB;
+  scatter_kept(pi_c + k0, stg, keep, snodes, TB, K, kw, vec, warp, lane);
+  if (rank == 0)
+    for (int tb = tid; tb < TB; tb += kThreads)
+      if (keep[tb]) sum_c[snodes[tb]] = ssum[tb];
+  for (int kk = tid; kk < kw; kk += kThreads) {
+    P.theta_out[chain * K * 2 + 2 * (k0 + kk)] = th0[kk];
+    P.theta_out[chain * K * 2 + 2 * (k0 + kk) + 1] = th1[kk];
+    P.beta_out[chain * K + k0 + kk] = bet[kk];
+  }
+}
 
 // The step layout's shared arrays, as SM / SU / SI above.
 constexpr int kStepFields = sizeof(StepLayout) / sizeof(size_t);
@@ -1959,275 +2280,53 @@ __global__ void __launch_bounds__(kThreads) window_kernel_step(Params<PiT> P) {
     cluster.sync();
     PHASE(3);
 
-    // ---- c. contrib and the phi step on the slice, register-tiled: a
-    //         thread takes kCNodes nodes for four columns (a float4 of each
-    //         neighbor row, one coefficient load per node and four
-    //         neighbors), the sums over the neighbors in order; phi'
-    //         overwrites the node rows -------------------------------------
+    // ---- c. contrib and the phi step (step_contrib), the noise from the
+    //         noise buffer -------------------------------------------------
     mbar_wait(bars + 2, par);
     PHASE(15);
     {
-      const float eps_t = P.eps_phi[t];
       const float4* nz4 = reinterpret_cast<const float4*>(TM(nz));
-      const float* coef_a = TM(coef);
-      const float* ce = TM(ce);
-      const float* nval = TM(nval);
-      const float* scale = TM(scale);
-      const float* invphi = TM(invphi);
-      const float4* bm4 = reinterpret_cast<const float4*>(TM(bme));
-      const int nq4 = (kw + 3) / 4, ld4 = ld / 4;
-      const int groups = (B + kCNodes - 1) / kCNodes;
-      float4* const rows4 = reinterpret_cast<float4*>(rows);
-      for (int item = tid; item < groups * nq4; item += kThreads) {
-        const int g = item / nq4, q4 = item - g * nq4;
-        const int b0 = g * kCNodes, nb = min(kCNodes, B - b0);
-        float4 acc[kCNodes];
-#pragma unroll
-        for (int i = 0; i < kCNodes; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int j4 = 0; j4 < n; j4 += 4) {
-          float4 v[4];
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj)
-            v[jj] = rows4[(B + min(j4 + jj, n - 1)) * ld4 + q4];
-#pragma unroll
-          for (int i = 0; i < kCNodes; ++i) {
-            // a short group repeats its last node, which is not stored
-            const float* cb = coef_a + (b0 + min(i, nb - 1)) * n + j4;
-            float c[4];
-            if (n % 4 == 0) {
-              const float4 c4 = *reinterpret_cast<const float4*>(cb);
-              c[0] = c4.x; c[1] = c4.y; c[2] = c4.z; c[3] = c4.w;
-            } else {
-#pragma unroll
-              for (int jj = 0; jj < 4; ++jj) c[jj] = j4 + jj < n ? cb[jj] : 0.f;
-            }
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj) {
-              acc[i].x += c[jj] * v[jj].x;
-              acc[i].y += c[jj] * v[jj].y;
-              acc[i].z += c[jj] * v[jj].z;
-              acc[i].w += c[jj] * v[jj].w;
-            }
-          }
-        }
-        const float4 bk = bm4[q4];
-#pragma unroll
-        for (int i = 0; i < kCNodes; ++i) {
-          if (i >= nb) break;
-          const int b = b0 + i;
-          const float n_ce = ce[b], n_val = nval[b], n_inv = invphi[b];
-          const float n_scale = scale[b], n_phis = phis[b];
-          const float4 x = rows4[b * ld4 + q4];
-          const float4 z = nz4[b * ld4 + q4];
-          auto step = [&](float a, float bkk, float xk, float zk) {
-            const float s_contrib = bkk * a + n_ce;
-            const float grads = (s_contrib - n_val) * n_inv;
-            const float phi_k = xk * n_phis;
-            const float vv = fabsf(phi_k
-                                   + eps_t / 2.f * (P.alpha - phi_k + n_scale * grads)
-                                   + sqrtf(eps_t * phi_k) * zk);
-            return fmaxf(vv, 1e-24f);
-          };
-          const float4 out = make_float4(step(acc[i].x, bk.x, x.x, z.x),
-                                         step(acc[i].y, bk.y, x.y, z.y),
-                                         step(acc[i].z, bk.z, x.z, z.z),
-                                         step(acc[i].w, bk.w, x.w, z.w));
-          if (4 * q4 + 4 <= kw) {
-            rows4[b * ld4 + q4] = out;
-          } else {   // the ragged end of the slice: its pad stays zero
-            float* r = rows + b * ld + 4 * q4;
-            if (4 * q4 + 0 < kw) r[0] = out.x;
-            if (4 * q4 + 1 < kw) r[1] = out.y;
-            if (4 * q4 + 2 < kw) r[2] = out.z;
-          }
-        }
-      }
+      const int ld4 = ld / 4;
+      step_contrib(rows, ld, kw, B, n, TM(coef), TM(ce), TM(nval), TM(scale),
+                   TM(invphi), phis, TM(bme), P.eps_phi[t], P.alpha, tid,
+                   [&](int b, int q4) { return nz4[b * ld4 + q4]; });
     }
     __syncthreads();
     PHASE(4);
 
-    // ---- row partials of phi' (one warp per row) and edge partials (one
-    //         warp per edge) over phi' as it is, masked endpoints as 1/K
-    //         (s_pp and s_pr are bilinear in the two rows: stage d divides
-    //         them by the row sums), to every CTA in one exchange ----------
+    // ---- the row and edge partials of phi' to every CTA in one exchange
+    //         (step_partials) ----------------------------------------------
     const unsigned* const slanes = TU(slanes) + t * E;
     const unsigned* const yebits = TU(yebits);
-    // float4 columns (the pad is zero); each lane's in order
-    const int nq4 = (kw + 3) / 4, ld4 = ld / 4;
-    for (int b = warp; b < B; b += kWarps) {
-      const float4* r4 = reinterpret_cast<const float4*>(rows) + b * ld4;
-      float acc = 0.f;
-      for (int q = lane; q < nq4; q += 32) {
-        const float4 x = r4[q];
-        acc += (x.x + x.y) + (x.z + x.w);
-      }
-      acc = warp_sum(acc);
-      if (lane < S) cluster.map_shared_rank(TM(rin), lane)[rank * B + b] = acc;
-    }
-    {
-      const float4* bet4 = reinterpret_cast<const float4*>(TM(bet));
-      const float ik = P.inv_k;
-      const float4 ik4 = make_float4(ik, ik, ik, ik);
-      for (int e = warp; e < E; e += kWarps) {
-        const unsigned pk = slanes[e];
-        const int u = pk & 0xffffu, v = pk >> 16;
-        const bool vu = bit(mbits, (size_t)t * B + u);
-        const bool vv = bit(mbits, (size_t)t * B + v);
-        const float4* pu = reinterpret_cast<const float4*>(rows) + u * ld4;
-        const float4* pv = reinterpret_cast<const float4*>(rows) + v * ld4;
-        const bool link = bit(yebits, (size_t)t * E + e);
-        float s_pp = 0.f, s_pr = 0.f;
-        for (int q = lane; q < nq4; q += 32) {
-          // a masked endpoint counts as 1/K, on the slice's columns only
-          const float4 a = vu ? pu[q] : ik4, c = vv ? pv[q] : ik4;
-          const float4 bt = bet4[q];
-          const float pp[4] = {a.x * c.x, a.y * c.y, a.z * c.z, a.w * c.w};
-          const float w[4] = {bt.x, bt.y, bt.z, bt.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            if (4 * q + i < kw) {
-              s_pp += pp[i];
-              s_pr += (link ? w[i] : 1.f - w[i]) * pp[i];
-            }
-          }
-        }
-        s_pp = warp_sum(s_pp);
-        s_pr = warp_sum(s_pr);
-        if (lane < S) {
-          float* peer = cluster.map_shared_rank(TM(ein), lane);
-          peer[(rank * E + e) * 2] = s_pp;
-          peer[(rank * E + e) * 2 + 1] = s_pr;
-        }
-      }
-    }
+    step_partials(cluster, rows, ld, kw, B, E, t, slanes, mbits, yebits,
+                  TM(bet), P.inv_k, TM(rin), TM(ein), S, rank, warp, lane);
     cluster.sync();
     PHASE(5);
 
-    // ---- d. the row sums (ranks pairwise); per edge the sums over the
-    //         ranks (pairwise) divided by the endpoints' row sums (a masked
-    //         endpoint's by 1), and prsum; the rows normalized in shared
-    //         memory and written to the scratch; masked lanes as 1/K -------
+    // ---- d. the row sums, prsum, the rows normalized and written to the
+    //         scratch (step_normalize) -------------------------------------
     float* const stg_t = stg + (size_t)t * B * K;
-    {
-      float* const rsv = TM(rsv);
-      for (int b = tid; b < B; b += kThreads) {
-        const float rs = rank_sum(TM(rin) + b, B, S);
-        rsv[b] = rs;
-        TM(ssum)[t * B + b] = rs;
-      }
-      __syncthreads();
-      const float* ein = TM(ein);
-      float* const epr = TM(epr);
-      for (int e = tid; e < E; e += kThreads) {
-        const unsigned pk = slanes[e];
-        const int u = pk & 0xffffu, v = pk >> 16;
-        const float du = bit(mbits, (size_t)t * B + u) ? rsv[u] : 1.f;
-        const float dv = bit(mbits, (size_t)t * B + v) ? rsv[v] : 1.f;
-        const float s_pp = rank_sum(ein + 2 * e, 2 * E, S) / (du * dv);
-        const float s_pr = rank_sum(ein + 2 * e + 1, 2 * E, S) / (du * dv);
-        const bool link = bit(yebits, (size_t)t * E + e);
-        epr[e] = s_pr + (link ? eps : P.one_minus_eps) * (1.f - s_pp);
-      }
-      if (vec) {
-        const int nq = kw / 4;
-        for (int i = tid; i < B * nq; i += kThreads) {
-          const int b = i / nq, q = i - b * nq;
-          float4* row = reinterpret_cast<float4*>(rows + b * ld) + q;
-          const float rs = rsv[b];
-          const float4 x = *row;
-          const float4 v = make_float4(x.x / rs, x.y / rs, x.z / rs, x.w / rs);
-          *reinterpret_cast<float4*>(stg_t + (size_t)b * K + 4 * q) = v;
-          const float ik = P.inv_k;
-          *row = bit(mbits, (size_t)t * B + b) ? v : make_float4(ik, ik, ik, ik);
-        }
-      } else {
-        for (int i = tid; i < B * kw; i += kThreads) {
-          const int b = i / kw, kk = i - b * kw;
-          const float v = rows[b * ld + kk] / rsv[b];
-          stg_t[(size_t)b * K + kk] = v;
-          rows[b * ld + kk] = bit(mbits, (size_t)t * B + b) ? v : P.inv_k;
-        }
-      }
-    }
+    step_normalize(rows, ld, kw, B, E, K, t, vec, TM(rin), TM(ein), slanes,
+                   mbits, yebits, TM(rsv), TM(ssum) + t * B, TM(epr), stg_t,
+                   eps, P.one_minus_eps, P.inv_k, S, tid);
     __syncthreads();
     PHASE(6);
 
-    // ---- e. the gradient fan-in (G threads per column, thread g over the
-    //         edges e = g mod G), the G partials added in order, the theta
-    //         step -----------------------------------------------------------
-    {
-      const unsigned* embits = TU(embits);
-      const float* epr = TM(epr);
-      const int G = fan_groups(KW);
-      float* const gpart = TM(part);
-      const float* th0 = TM(th0);
-      const float* th1 = TM(th1);
-      const float* bet = TM(bet);
-      for (int item = tid; item < G * KW; item += kThreads) {
-        const int g = item / KW, kk = item - g * KW;
-        if (kk >= kw) continue;
-        const float t0 = th0[kk], t1 = th1[kk], bk = bet[kk];
-        const float inv_ts = 1.f / (t0 + t1);
-        const float inv_t0 = 1.f / t0, inv_t1 = 1.f / t1;
-        float g0 = 0.f, g1 = 0.f;
-#pragma unroll 4
-        for (int e = g; e < E; e += G) {
-          const bool link = bit(yebits, (size_t)t * E + e);
-          const float m = bit(embits, (size_t)t * E + e) ? 1.f : 0.f;
-          const unsigned pk = slanes[e];
-          const float pp = rows[(pk & 0xffffu) * ld + kk] * rows[(pk >> 16) * ld + kk];
-          const float f = ((link ? bk : 1.f - bk) * pp) / epr[e];
-          g0 += (f * ((link ? 0.f : inv_t0) - inv_ts)) * m;
-          g1 += (f * ((link ? inv_t1 : 0.f) - inv_ts)) * m;
-        }
-        gpart[(g * KW + kk) * 2] = g0;
-        gpart[(g * KW + kk) * 2 + 1] = g1;
-      }
-    }
+    // ---- e. the gradient fan-in and the theta step (step_fan_in,
+    //         step_theta) --------------------------------------------------
+    step_fan_in(rows, ld, kw, KW, E, t, slanes, yebits, TU(embits), TM(epr),
+                TM(th0), TM(th1), TM(bet), TM(part), tid);
     __syncthreads();
     PHASE(8);
-    {
-      const int G = fan_groups(KW);
-      const float eps_b = P.eps_theta[t];
-      const float wt = P.wts[chain * T + t];
-      const float* bz = TM(bz);
-      const float* gpart = TM(part);
-      float* th0 = TM(th0);
-      float* th1 = TM(th1);
-      float* bet = TM(bet);
-      float* bme = TM(bme);
-      for (int kk = tid; kk < kw; kk += kThreads) {
-        float g0 = 0.f, g1 = 0.f;
-        for (int g = 0; g < G; ++g) {
-          g0 += gpart[(g * KW + kk) * 2];
-          g1 += gpart[(g * KW + kk) * 2 + 1];
-        }
-        theta_column(g0, g1, bz[2 * kk], bz[2 * kk + 1], eps_b, wt, P.eta0,
-                     P.eta1, eps, th0[kk], th1[kk], bet[kk], bme[kk]);
-      }
-    }
+    step_theta(TM(part), TM(bz), kw, KW, P.eps_theta[t], P.wts[chain * T + t],
+               P.eta0, P.eta1, eps, TM(th0), TM(th1), TM(bet), TM(bme), tid);
     __syncthreads();
     PHASE(9);
   }
 
-  // ---- the scatter, as the chunked layout's: the kept rows from the
-  //      scratch (each CTA its own columns), their sums by CTA 0, theta
-  //      and beta by slice ---------------------------------------------------
-  {
-    const bool* keep = P.keep + chain * TB;
-    const int* snodes = TI(snodes);
-    scatter_kept(pi_c + k0, stg, keep, snodes, T * B, K, kw, vec, warp, lane);
-    if (rank == 0) {
-      const float* ssum = TM(ssum);
-      for (int tb = tid; tb < T * B; tb += kThreads)
-        if (keep[tb]) sum_c[snodes[tb]] = ssum[tb];
-    }
-    for (int kk = tid; kk < kw; kk += kThreads) {
-      P.theta_out[chain * K * 2 + 2 * (k0 + kk)] = TM(th0)[kk];
-      P.theta_out[chain * K * 2 + 2 * (k0 + kk) + 1] = TM(th1)[kk];
-      P.beta_out[chain * K + k0 + kk] = TM(bet)[kk];
-    }
-  }
+  // ---- the scatter, theta and beta (finish_wide) ------------------------
+  finish_wide(P, chain, pi_c, sum_c, stg, TI(snodes), TM(ssum), TM(th0),
+              TM(th1), TM(bet), k0, kw, vec, rank, tid, warp, lane);
   // the peers may still be reading this CTA's last partials
   cluster.sync();
   PHASE(10);
@@ -2241,15 +2340,376 @@ __global__ void __launch_bounds__(kThreads) window_kernel_step(Params<PiT> P) {
 #undef TU
 #undef TI
 
-// The kernel of a mode: the resident one (wc = 0), the wide mode's step
-// layout (a chunk that covers the slice, wc >= kw) or its chunked one.
+// The step layout with one set of rows' shared arrays, as SM / SU / SI.
+constexpr int kStep1Fields = sizeof(Step1Layout) / sizeof(size_t);
+#define OM(name) (smem + s_off[offsetof(Step1Layout, name) / sizeof(size_t)])
+#define OU(name) reinterpret_cast<unsigned*>(OM(name))
+#define OI(name) reinterpret_cast<int*>(OM(name))
+
+// The wide mode where one set of a CTA's slice of a step's rows fits in
+// shared memory but the step layout's two sets and its noise buffer do
+// not (K = 6144-8192 at T = 12 on an H100, where the chunked layout read
+// the rows from L2 twice a step). As in the step layout, a step's rows
+// stay in shared memory through all its stages, so each row is read from
+// L2 once a step, and phi' goes to the scratch once and is not read back
+// in the step; the stages and their arithmetic are the step layout's
+// (three cluster barriers a step, after a, b and c), but for:
+//   - one set of rows. Step t+1's rows land in the regions step t has
+//     done with: its neighbor rows and pre-window phi sums after stage c
+//     (the neighbor rows are last read by contrib), its node rows after
+//     stage e's fan-in (the node rows' last reader), while the theta step
+//     runs. Pre-window float32 rows come by bulk copies counted on an
+//     mbarrier per region (node rows, neighbor rows); rows steps <= t-1
+//     wrote from the scratch by cp.async, a neighbor row that step t
+//     wrote with the node rows (its scratch row is stored in stage d); a
+//     node row that step t wrote in the same lane is in place already.
+//     bf16 rows are loaded and widened synchronously, ragged slices
+//     copied 4 bytes at a time, as in the other layouts;
+//   - no phi noise buffer: its rows are prefetched into L2 in stage a and
+//     each contrib thread reads its nodes' four columns in stage c;
+//   - no x * (beta - eps) buffer: q takes pi_nb * (beta - eps) of the
+//     tile's two neighbor float4s in registers, times pi_n (the step
+//     layout rounds x * (beta - eps) first; both are float32 products of
+//     the same three factors).
+template <typename PiT>
+__global__ void __launch_bounds__(kThreads) window_kernel_step1(Params<PiT> P) {
+  constexpr bool kF32 = std::is_same<PiT, float>::value;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ unsigned s_off[kStep1Fields];
+#ifdef WINDOW_PHASES
+  __shared__ unsigned long long s_phase[kPhases];
+  long long t_last = clock64();
+#endif
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int B = P.B, n = P.n, E = P.E, K = P.K, T = P.T, R = P.B + P.n;
+  const int KW = P.kw;
+  const int k0 = rank * KW;
+  const int kw = min(K, k0 + KW) - k0;
+  const int ld = row_stride(KW);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float eps = P.eps;
+  if (tid == 0) {
+    const Step1Layout L = layout_step1(T, B, n, E, KW, S);
+    const size_t* f = reinterpret_cast<const size_t*>(&L);
+    for (int i = 0; i < kStep1Fields; ++i) s_off[i] = (unsigned)f[i];
+#ifdef WINDOW_PHASES
+    for (int i = 0; i < kPhases; ++i) s_phase[i] = 0;
+#endif
+  }
+  const size_t chain = blockIdx.x / S;
+  const size_t TB = (size_t)T * B;
+  PiT* const pi_c = P.pi + chain * P.N * K;
+  float* const sum_c = P.phi_sum + chain * P.N;
+  float* const stg = P.staged + chain * TB * K + k0;
+  __syncthreads();
+  // mbarriers: node rows, neighbor rows, theta noise
+  unsigned long long* const bars =
+      reinterpret_cast<unsigned long long*>(OM(bars));
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bars + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  stage_window(P, chain, k0, kw, OI(smc), OI(snodes), OI(snbrs), OU(slanes),
+               OU(ybits), OU(mbits), OU(yebits), OU(embits), OM(th0),
+               OM(th1), OM(bet), tid, warp, lane);
+  for (int kk = tid; kk < (KW + 3) / 4 * 4; kk += kThreads)
+    OM(bme)[kk] = kk < kw ? P.beta_in[chain * K + k0 + kk] - eps : 0.f;
+  float* const rows = OM(rows);
+  float* const phis = OM(phis);
+  // the columns past the slice, zeroed once: the float4 loads read them
+  for (int i = tid; i < R * (ld - kw); i += kThreads)
+    rows[(i / (ld - kw)) * ld + kw + i % (ld - kw)] = 0.f;
+  __syncthreads();
+
+  // 16-byte copies where K and KW are multiples of 4; float32 rows and
+  // the theta noise then go by bulk copies
+  const bool vec = (K % 4 == 0) && (KW % 4 == 0);
+  const bool vec8 = (K % 8 == 0) && (KW % 8 == 0);
+  const unsigned row_bytes = 4u * kw;
+  // The gather of step u's neighbor rows and pre-window phi sums (nodes
+  // false; called once stage c of step u-1 is done) or of its node rows
+  // (nodes true; once stage e's fan-in of step u-1 is done), all threads,
+  // one cp.async group: pre-window rows from pi (bulk copies by lane 0 of
+  // each warp, counted on the region's mbarrier, when float32 and vec;
+  // else 4-byte copies or the bf16 loads), rows an earlier step wrote from
+  // the scratch. A neighbor row step u-1 wrote waits for the node rows'
+  // gather: its scratch row is stored in stage d; a node row step u-1
+  // wrote in the same lane is in place.
+  auto gather = [&](int u, bool nodes) {
+    const int* mct = OI(smc) + u * R;
+    const int* nd = OI(snodes) + u * B;
+    const int* nb = OI(snbrs) + u * n;
+    const int lo = nodes ? 0 : B, hi = nodes ? B : R;
+    unsigned long long* const bar = bars + (nodes ? 0 : 1);
+    auto src_id = [&](int r) { return r < B ? min(nd[r], P.N - 1) : nb[r - B]; };
+    if (warp == 0) {
+      unsigned pre = 0;
+      if (kF32 && vec)
+        for (int r0 = lo; r0 < hi; r0 += 32)
+          pre += __popc(__ballot_sync(0xffffffffu,
+                                      r0 + lane < hi && mct[r0 + lane] == 0));
+      if (lane == 0) mbar_expect(bar, pre * row_bytes);
+    }
+    // (the transaction count may run ahead of the expectation: the phase
+    // cannot complete before warp 0 arrives)
+    if constexpr (kF32)
+      if (vec && lane == 0) {
+        fence_proxy_async();
+        for (int r = lo + warp; r < hi; r += kWarps)
+          if (mct[r] == 0)
+            bulk_copy(rows + r * ld, pi_c + (size_t)src_id(r) * K + k0,
+                      row_bytes, bar);
+      }
+    for (int r = warp; r < R; r += kWarps) {
+      const int m = mct[r];
+      float* dst = rows + r * ld;
+      if (m > 0) {
+        const int slot = m - 1;
+        const bool last = slot / B == u - 1;   // step u-1's write
+        if (nodes ? (r >= B && !last) || slot - (u - 1) * B == r
+                  : r < B || last)
+          continue;
+        const float* src = stg + (size_t)slot * K;
+        if (vec)
+          for (int q = lane; q < kw / 4; q += 32) cp_async16(dst + 4 * q, src + 4 * q);
+        else
+          for (int x = lane; x < kw; x += 32) cp_async4(dst + x, src + x);
+      } else if (r >= lo && r < hi) {
+        if constexpr (kF32) {
+          if (!vec) {
+            const float* src = pi_c + (size_t)src_id(r) * K + k0;
+            for (int x = lane; x < kw; x += 32) cp_async4(dst + x, src + x);
+          }
+        } else {
+          const PiT* src = pi_c + (size_t)src_id(r) * K + k0;
+          if (vec8)
+            for (int q = lane; q < kw / 8; q += 32) widen8(dst + 8 * q, src + 8 * q);
+          else
+            for (int x = lane; x < kw; x += 32) dst[x] = __bfloat162float(src[x]);
+        }
+      }
+    }
+    if (!nodes)
+      for (int b = tid; b < B; b += kThreads)
+        if (mct[b] == 0) cp_async4(phis + b, sum_c + min(nd[b], P.N - 1));
+    cp_async_commit();
+  };
+  gather(0, false);
+  gather(0, true);
+  PHASE(0);
+
+  for (int t = 0; t < T; ++t) {
+    const int par = t & 1;
+    const int* mct = OI(smc) + t * R;
+    const unsigned* mbits = OU(mbits);
+    const float* const noise_t = P.noise + (chain * T + t) * B * K + k0;
+#ifdef WINDOW_PHASES
+    __syncthreads();
+    PHASE(11);
+    cluster.sync();
+    PHASE(12);
+#endif
+    // ---- 0. wait for step t's rows; the redirected phi sums ------------
+    mbar_wait(bars, par);
+    mbar_wait(bars + 1, par);
+    cp_async_wait_all();
+    PHASE(13);
+    for (int b = tid; b < B; b += kThreads)
+      if (mct[b] > 0) phis[b] = OM(ssum)[mct[b] - 1];
+    __syncthreads();
+    PHASE(1);
+
+    // ---- a. the step's theta noise into bz (a bulk copy by thread 0 when
+    //         vec, else plain loads); its phi noise into L2; q partials,
+    //         the splits summed in order and pushed to the nodes' owners --
+    {
+      float* const bzb = OM(bz);
+      const float* bnoise_t = P.bnoise + (chain * T + t) * K * 2 + 2 * k0;
+      if (vec) {
+        if (tid == 0) {
+          mbar_expect(bars + 2, 2 * row_bytes);
+          fence_proxy_async();
+          bulk_copy(bzb, bnoise_t, 2 * row_bytes, bars + 2);
+        }
+      } else {
+        if (tid == 0) mbar_expect(bars + 2, 0u);
+        for (int i = tid; i < 2 * kw; i += kThreads) bzb[i] = bnoise_t[i];
+      }
+      // 128-byte lines of a row's slice, one more for a slice that
+      // starts inside a line
+      const int lines = (4 * kw + 127) / 128 + 1;
+      for (int i = tid; i < B * lines; i += kThreads) {
+        const int b = i / lines, l = i - b * lines;
+        prefetch_l2(noise_t + (size_t)b * K + min(32 * l, kw - 1));
+      }
+    }
+    {
+      const int nk4 = (kw + 3) / 4;
+      const int ld4 = ld / 4;
+      const float4* bm4 = reinterpret_cast<const float4*>(OM(bme));
+      const float4* rows4 = reinterpret_cast<const float4*>(rows);
+      // a warp takes kQNodes nodes over a split's columns; lane l holds
+      // neighbors l % 16 and l % 16 + 16 over the split's float4 columns
+      // of parity l / 16, one sum per (node, neighbor)
+      float* const qpart = OM(part);
+      const int ks = q_splits(B);
+      const int groups = (B + kQNodes - 1) / kQNodes;
+      const int jn = lane & 15, kp = lane >> 4;
+      const float4* pv0 = rows4 + (B + min(jn, n - 1)) * ld4;
+      const float4* pv1 = rows4 + (B + min(jn + 16, n - 1)) * ld4;
+      for (int task = warp; task < groups * ks; task += kWarps) {
+        const int g = task / ks, sp = task - g * ks;
+        const int b0 = g * kQNodes;
+        const int nb = min(kQNodes, B - b0);
+        const float4* px = rows4 + b0 * ld4;
+        float acc0[kQNodes] = {}, acc1[kQNodes] = {};
+        for (int k4 = sp * nk4 / ks + kp; k4 < (sp + 1) * nk4 / ks; k4 += 2) {
+          const float4 bm = bm4[k4];
+          const float4 a0 = pv0[k4];
+          const float4 a1 = pv1[k4];
+          const float4 v0 = make_float4(a0.x * bm.x, a0.y * bm.y, a0.z * bm.z,
+                                        a0.w * bm.w);
+          const float4 v1 = make_float4(a1.x * bm.x, a1.y * bm.y, a1.z * bm.z,
+                                        a1.w * bm.w);
+          // no branch between the loads: a short group repeats its last
+          // node, whose sums are not stored
+#pragma unroll
+          for (int q = 0; q < kQNodes; ++q) {
+            const float4 x = px[min(q, nb - 1) * ld4 + k4];
+            acc0[q] += x.x * v0.x;
+            acc1[q] += x.x * v1.x;
+            acc0[q] += x.y * v0.y;
+            acc1[q] += x.y * v1.y;
+            acc0[q] += x.z * v0.z;
+            acc1[q] += x.z * v1.z;
+            acc0[q] += x.w * v0.w;
+            acc1[q] += x.w * v1.w;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kQNodes; ++q) {
+          // the even columns' sums, then the odd ones'
+          acc0[q] += __shfl_down_sync(0xffffffffu, acc0[q], 16);
+          acc1[q] += __shfl_down_sync(0xffffffffu, acc1[q], 16);
+          if (kp == 0 && q < nb) {
+            float* out = qpart + (sp * B + b0 + q) * n;
+            if (jn < n) out[jn] = acc0[q];
+            if (jn + 16 < n) out[jn + 16] = acc1[q];
+          }
+        }
+      }
+      __syncthreads();
+      PHASE(14);
+      float* const qin = OM(qin);
+      const int nl = (B + S - 1) / S;
+      for (int i = tid; i < B * n; i += kThreads) {
+        const int b = i / n, jj = i - b * n;
+        float q = 0.f;
+        for (int sp = 0; sp < ks; ++sp) q += qpart[sp * B * n + i];
+        cluster.map_shared_rank(qin, b % S)[(rank * nl + b / S) * n + jj] = q;
+      }
+    }
+    cluster.sync();
+    PHASE(2);
+
+    // ---- b. the coefficients of this CTA's nodes, to every CTA -----------
+    node_coefficients<true>(cluster, OM(qin), OU(ybits), OI(snodes) + t * B,
+                            OI(snbrs) + t * n, phis, OM(coef), OM(ce),
+                            OM(nval), OM(scale), OM(invphi), t, B, n, S,
+                            rank, warp, lane, eps, P.one_minus_eps,
+                            P.n_nodes);
+    cluster.sync();
+    PHASE(3);
+
+    // ---- c. contrib and the phi step (step_contrib), each node's four
+    //         noise values read from global memory after its sums --------
+    {
+      // the node's noise, from L2 (prefetched in stage a): loaded one
+      // node at a time, which keeps the thread's registers within 128
+      // (all kCNodes of a thread's at once spilled, and took 14% longer
+      // on an H100); the ragged end of the slice reads no column past it
+      auto noise = [&](int b, int q4) {
+        const float* zr = noise_t + (size_t)b * K + 4 * q4;
+        return vec ? __ldg(reinterpret_cast<const float4*>(zr))
+                   : make_float4(zr[0], 4 * q4 + 1 < kw ? zr[1] : 0.f,
+                                 4 * q4 + 2 < kw ? zr[2] : 0.f,
+                                 4 * q4 + 3 < kw ? zr[3] : 0.f);
+      };
+      step_contrib(rows, ld, kw, B, n, OM(coef), OM(ce), OM(nval), OM(scale),
+                   OM(invphi), phis, OM(bme), P.eps_phi[t], P.alpha, tid,
+                   noise);
+    }
+    __syncthreads();
+    PHASE(4);
+
+    // ---- the row and edge partials of phi' to every CTA in one exchange
+    //         (step_partials); step t+1's neighbor rows and phi sums
+    //         started into the regions contrib freed ------------------------
+    const unsigned* const slanes = OU(slanes) + t * E;
+    const unsigned* const yebits = OU(yebits);
+    step_partials(cluster, rows, ld, kw, B, E, t, slanes, mbits, yebits,
+                  OM(bet), P.inv_k, OM(rin), OM(ein), S, rank, warp, lane);
+    if (t + 1 < T) gather(t + 1, false);
+    cluster.sync();
+    PHASE(5);
+
+    // ---- d. the row sums, prsum, the rows normalized and written to the
+    //         scratch (step_normalize) -------------------------------------
+    float* const stg_t = stg + (size_t)t * B * K;
+    step_normalize(rows, ld, kw, B, E, K, t, vec, OM(rin), OM(ein), slanes,
+                   mbits, yebits, OM(rsv), OM(ssum) + t * B, OM(epr), stg_t,
+                   eps, P.one_minus_eps, P.inv_k, S, tid);
+    __syncthreads();
+    PHASE(6);
+
+    // ---- e. the gradient fan-in (step_fan_in); step t+1's node rows
+    //         started into the node rows; the theta step (step_theta) -----
+    step_fan_in(rows, ld, kw, KW, E, t, slanes, yebits, OU(embits), OM(epr),
+                OM(th0), OM(th1), OM(bet), OM(part), tid);
+    __syncthreads();
+    PHASE(8);
+    if (t + 1 < T) gather(t + 1, true);
+    PHASE(7);
+    mbar_wait(bars + 2, par);
+    PHASE(15);
+    step_theta(OM(part), OM(bz), kw, KW, P.eps_theta[t], P.wts[chain * T + t],
+               P.eta0, P.eta1, eps, OM(th0), OM(th1), OM(bet), OM(bme), tid);
+    __syncthreads();
+    PHASE(9);
+  }
+
+  // ---- the scatter, theta and beta (finish_wide) ------------------------
+  finish_wide(P, chain, pi_c, sum_c, stg, OI(snodes), OM(ssum), OM(th0),
+              OM(th1), OM(bet), k0, kw, vec, rank, tid, warp, lane);
+  // the peers may still be reading this CTA's last partials
+  cluster.sync();
+  PHASE(10);
+#ifdef WINDOW_PHASES
+  if (tid == 0 && blockIdx.x == 0)
+    for (int i = 0; i < kPhases; ++i) g_phase_cycles[i] += s_phase[i];
+#endif
+}
+
+#undef OM
+#undef OU
+#undef OI
+
+// The kernel of a layout (Mode).
 template <typename PiT>
 using KernelFn = void (*)(Params<PiT>);
 
 template <typename PiT>
-KernelFn<PiT> kernel_of(int wc, int kw) {
-  if (wc == 0) return window_kernel<PiT>;
-  return wc >= kw ? window_kernel_step<PiT> : window_kernel_wide<PiT>;
+KernelFn<PiT> kernel_of(int mode) {
+  switch (mode) {
+    case kResident: return window_kernel<PiT>;
+    case kStep: return window_kernel_step<PiT>;
+    case kStep1: return window_kernel_step1<PiT>;
+    default: return window_kernel_wide<PiT>;
+  }
 }
 
 // Sets a kernel's shared memory (and, past 8, the non-portable cluster
@@ -2268,7 +2728,7 @@ cudaError_t set_attributes(KernelFn<PiT> fn, int S, size_t smem) {
 template <typename PiT>
 cudaError_t launch(const Params<PiT>& P, int C, int S, size_t smem,
                    cudaStream_t stream) {
-  const KernelFn<PiT> fn = kernel_of<PiT>(P.wc, P.kw);
+  const KernelFn<PiT> fn = kernel_of<PiT>(P.mode);
   cudaError_t err = set_attributes<PiT>(fn, S, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
@@ -2299,14 +2759,15 @@ Params<PiT> make_params(void* pi, float* phi_sum, const bool* y,
                         const float* theta_in, const float* beta_in,
                         float* theta_out, float* beta_out, float* staged,
                         int T, int B, int n, int E, int K, int N, int kw,
-                        int wc, float eps, float one_minus_eps, float alpha,
-                        float n_nodes, float eta0, float eta1, float inv_k,
-                        const float* eps_phi, const float* eps_theta) {
+                        int wc, int mode, float eps, float one_minus_eps,
+                        float alpha, float n_nodes, float eta0, float eta1,
+                        float inv_k, const float* eps_phi,
+                        const float* eps_theta) {
   Params<PiT> P{static_cast<PiT*>(pi), phi_sum, y, nodes, nbrs, node_mask,
                 keep, noise, bnoise, y_edges, edge_mask, lanes_u, lanes_v,
                 mcode, wts, theta_in, beta_in, theta_out, beta_out, staged,
-                T, B, n, E, K, N, kw, wc, eps, one_minus_eps, alpha, n_nodes,
-                eta0, eta1, inv_k, {}, {}};
+                T, B, n, E, K, N, kw, wc, mode, eps, one_minus_eps, alpha,
+                n_nodes, eta0, eta1, inv_k, {}, {}};
   for (int t = 0; t < T; ++t) {
     P.eps_phi[t] = eps_phi[t];
     P.eps_theta[t] = eps_theta[t];
@@ -2317,15 +2778,30 @@ Params<PiT> make_params(void* pi, float* phi_sum, const bool* y,
 }  // namespace
 
 // Bytes of shared memory per CTA with a cluster of S CTAs (either storage
-// type): the resident mode's (wc = 0), or the wide mode's with chunks of
-// wc columns: its step layout where a chunk covers the slice (wc >= kw),
-// else its chunked layout.
+// type) in the layout `mode` (Mode): the resident mode's, or the wide
+// mode's step layout, its step layout with one set of rows, or its chunked
+// layout with chunks of wc columns.
 extern "C" size_t window_kernel_smem_bytes(int T, int B, int n, int E, int K,
-                                           int S, int wc) {
+                                           int S, int wc, int mode) {
   const int kw = slice_width(K, S);
-  if (wc == 0) return layout(T, B, n, E, kw, S).total * sizeof(float);
-  return (wc >= kw ? layout_step(T, B, n, E, kw, S).total
-                   : layout_wide(T, B, n, E, kw, S, wc).total) * sizeof(float);
+  size_t words;
+  switch (mode) {
+    case kResident: words = layout(T, B, n, E, kw, S).total; break;
+    case kStep: words = layout_step(T, B, n, E, kw, S).total; break;
+    case kStep1: words = layout_step1(T, B, n, E, kw, S).total; break;
+    default: words = layout_wide(T, B, n, E, kw, S, wc).total;
+  }
+  return words * sizeof(float);
+}
+
+// The launch's layout and chunk width agree: the resident mode takes wc =
+// 0; the step layouts a chunk that covers the slice (wc >= kw), the
+// chunked one a narrower chunk (0 < wc < kw), a multiple of 8.
+static bool mode_fits(int mode, int wc, int kw) {
+  if (mode < kResident || mode > kChunked || wc < 0 || wc % 8 != 0)
+    return false;
+  if (mode == kResident) return wc == 0;
+  return mode == kChunked ? wc > 0 && wc < kw : wc >= kw;
 }
 
 // Launches C clusters of S CTAs (one cluster per chain) on `stream`;
@@ -2333,11 +2809,11 @@ extern "C" size_t window_kernel_smem_bytes(int T, int B, int n, int E, int K,
 // or bfloat16 when pi_bf16 is 1) and phi_sum [C*N] (float32) are updated
 // in place; every operand holds the C chains' slices one after another
 // (chain-major); `eps_phi` and `eps_theta` are host arrays of T floats,
-// shared by the chains. wc = 0 runs the resident mode; wc > 0 (a
-// multiple of 8) the wide mode, in its step layout when wc covers the
-// slice (wc >= slice_width(K, S)), else in chunks of wc columns; its
-// staged rows go to `staged`, a float32 scratch [C, T*B, K] (unused and
-// may be null when wc = 0).
+// shared by the chains. `mode` (Mode) names the layout and wc its chunk
+// width (mode_fits): the resident mode, or the wide mode in its step
+// layout, its step layout with one set of rows or its chunked layout;
+// the wide mode's staged rows go to `staged`, a float32 scratch [C, T*B,
+// K] (unused and may be null in the resident mode).
 extern "C" int window_kernel_launch(
     void* pi, float* phi_sum, const bool* y, const int* nodes,
     const int* nbrs, const bool* node_mask, const bool* keep,
@@ -2345,25 +2821,26 @@ extern "C" int window_kernel_launch(
     const bool* edge_mask, const int* lanes_u, const int* lanes_v,
     const int* mcode, const float* wts, const float* theta_in,
     const float* beta_in, float* theta_out, float* beta_out, float* staged,
-    int C, int T, int B, int n, int E, int K, int N, int S, int wc,
+    int C, int T, int B, int n, int E, int K, int N, int S, int wc, int mode,
     int pi_bf16, float eps, float one_minus_eps, float alpha, float n_nodes,
     float eta0, float eta1, float inv_k, const float* eps_phi,
     const float* eps_theta, void* stream) {
   // lanes are packed in 16 bits each
   if (C < 1 || T < 1 || T > kMaxWindow || n > kMaxNeighbors || S < 1
       || S > kMaxCluster || B > 0xffff || (pi_bf16 != 0 && pi_bf16 != 1)
-      || wc < 0 || wc % 8 != 0 || (wc > 0 && staged == nullptr))
+      || (mode != kResident && staged == nullptr))
     return (int)cudaErrorInvalidValue;
   const int kw = slice_width(K, S);
   if ((S - 1) * kw >= K) return (int)cudaErrorInvalidValue;  // empty slice
-  const size_t smem = window_kernel_smem_bytes(T, B, n, E, K, S, wc);
+  if (!mode_fits(mode, wc, kw)) return (int)cudaErrorInvalidValue;
+  const size_t smem = window_kernel_smem_bytes(T, B, n, E, K, S, wc, mode);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define WINDOW_PARAMS(PiT)                                                  \
   make_params<PiT>(pi, phi_sum, y, nodes, nbrs, node_mask, keep, noise,    \
                    bnoise, y_edges, edge_mask, lanes_u, lanes_v, mcode, wts, \
                    theta_in, beta_in, theta_out, beta_out, staged, T, B, n, \
-                   E, K, N, kw, wc, eps, one_minus_eps, alpha, n_nodes,     \
-                   eta0, eta1, inv_k, eps_phi, eps_theta)
+                   E, K, N, kw, wc, mode, eps, one_minus_eps, alpha,        \
+                   n_nodes, eta0, eta1, inv_k, eps_phi, eps_theta)
   const cudaError_t err =
       pi_bf16 ? launch(WINDOW_PARAMS(__nv_bfloat16), C, S, smem, st)
               : launch(WINDOW_PARAMS(float), C, S, smem, st);
@@ -2372,12 +2849,14 @@ extern "C" int window_kernel_launch(
 }
 
 // The most clusters of S CTAs (with their shared memory) that the card
-// runs at once in the mode of `wc`, or a negative CUDA error (the float32
-// instantiation).
+// runs at once in the layout `mode`, or a negative CUDA error (the
+// float32 instantiation).
 extern "C" int window_kernel_max_clusters(int T, int B, int n, int E, int K,
-                                          int S, int wc) {
-  const size_t smem = window_kernel_smem_bytes(T, B, n, E, K, S, wc);
-  const KernelFn<float> fn = kernel_of<float>(wc, slice_width(K, S));
+                                          int S, int wc, int mode) {
+  if (!mode_fits(mode, wc, slice_width(K, S)))
+    return -(int)cudaErrorInvalidValue;
+  const size_t smem = window_kernel_smem_bytes(T, B, n, E, K, S, wc, mode);
+  const KernelFn<float> fn = kernel_of<float>(mode);
   cudaError_t err = set_attributes<float>(fn, S, smem);
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg = {};

@@ -13,18 +13,19 @@ and the chain shape (16 chains of (6, 33, 32, 32, 256)) in the resident
 mode, and in the wide mode at the K = 4096 path's (12, 33, 32, 32, 4096)
 (in the plan's layout: the step layout, whose chunk covers the slice),
 at (6, 33, 32, 32, 8192) and the K = 8192 path's (12, 33, 32, 32, 8192)
-(the step layout with one set of rows) and at (3, 33, 32, 32, 16384)
-(the chunked layout), and at (12, 33, 32, 32, 4096) also in the step
-layout with one set of rows, for each cluster size S that fits: the
-clusters the card runs at once, the device time per window (CUDA events;
-the device sleeps while the host queues 50 windows, so the host's launch
-cost is not in it), and the clock cycles per step of each stage, from a
-second build of the source with -DWINDOW_PHASES (thread 0 of the first
-CTA adds the cycles between consecutive barriers into one slot per
-stage). The K = 8192 windows also run on the build of
-chip_smoke.PARENT_SRC (the kernel before the step layout with one set of
-rows: its chunked layout at that source's own plan), the same two ways,
-so that its stages stand beside this build's in one run.
+(the step layout with one set of rows), at (3, 33, 32, 32, 16384) and
+the K = 16384 path's (12, 33, 32, 32, 16384) (the node-resident layout),
+and at (12, 33, 32, 32, 4096) also in the step layout with one set of
+rows, for each cluster size S that fits: the clusters the card runs at
+once, the device time per window (CUDA events; the device sleeps while
+the host queues 50 windows, so the host's launch cost is not in it), and
+the clock cycles per step of each stage, from a second build of the
+source with -DWINDOW_PHASES (thread 0 of the first CTA adds the cycles
+between consecutive barriers into one slot per stage). The K = 16384
+windows also run on the build of chip_smoke.PARENT_SRC (the kernel
+before the node-resident layout: its chunked layout at that source's
+own plan), the same two ways, so that its stages stand beside this
+build's in one run.
 
 mmsb: the same for the MMSB window at (T, B, n, E, K) = (12, 33, 32, 32,
 64), the --model mmsb --window 12 shape, and (12, 33, 32, 32, 128), for
@@ -101,10 +102,30 @@ STEP1_STAGES = ["init + first gather", "redirected phi sums",
                 "calibration: bare cluster barrier",
                 "wait for the step's rows", "a: q partials (register-tiled)",
                 "e: wait for the theta noise"]
+# the wide mode's stages in its node-resident layout
+# (window_kernel_nodes's PHASE slots)
+NODES_STAGES = ["init + first node rows + first tiles",
+                "redirected phi sums + noise and next rows' L2 prefetch",
+                "a: q partials pushed + contrib's first tiles issue + "
+                "cluster barrier",
+                "b: owners' coefficients pushed + cluster barrier",
+                "c: contrib + phi step by tile (noise from global memory) "
+                "+ next tiles issue",
+                "row and edge partials pushed + cluster barrier",
+                "d: row sums, prsum, normalize + scratch stores",
+                "d: next step's first tiles issue", "e: fan-in partials",
+                "e: next node rows issue + theta step",
+                "scatter + final barrier",
+                "calibration: bare block barrier",
+                "calibration: bare cluster barrier",
+                "wait for the step's node rows",
+                "a: q partials by tile (register-tiled) + next tiles issue",
+                "a and c: waits for the tiles"]
 # the slots of a step's stages, for each kind of stage list (calibration,
 # init and scatter left out)
 STEP_SLOTS = {"resident": range(1, 10), "step": [*range(1, 10), 13, 14, 15],
-              "step1": [*range(1, 10), 13, 14, 15], "wide": range(1, 10)}
+              "step1": [*range(1, 10), 13, 14, 15],
+              "nodes": [*range(1, 10), 13, 14, 15], "wide": range(1, 10)}
 # its chunked layout's stages (window_kernel_wide's PHASE slots; the same
 # in the build of chip_smoke.PARENT_SRC)
 CHUNKED_STAGES = ["init", "(unused)",
@@ -116,7 +137,8 @@ CHUNKED_STAGES = ["init", "(unused)",
                   "fan-in + theta step by chunk", "scatter + final barrier"]
 # the stage list of each layout
 LAYOUT_STAGES = {"resident": STAGES, "step": WIDE_STAGES,
-                 "step1": STEP1_STAGES, "wide": CHUNKED_STAGES}
+                 "step1": STEP1_STAGES, "nodes": NODES_STAGES,
+                 "wide": CHUNKED_STAGES}
 REPS = 50
 
 
@@ -193,6 +215,7 @@ def run_window(sizes, kernels, result):
     wide8, st8 = wide_run((6, 33, 32, 32, 8192))
     wide12, st12 = wide_run((12, 33, 32, 32, 8192))
     wide16, st16 = wide_run((3, 33, 32, 32, 16384))
+    wide16l, st16l = wide_run((12, 33, 32, 32, 16384))
     runs = {
         "single (12,33,32,32,256)": ((12, 33, 32, 32, 256), 12, lambda st:
             window.window_apply_cuda(cfg1, st, xs1, mc1, keep1), st1,
@@ -207,14 +230,17 @@ def run_window(sizes, kernels, result):
             (12, 33, 32, 32, 4096), 12, wide, stw, lib, plib, "step1"),
         "wide (6,33,32,32,8192)": ((6, 33, 32, 32, 8192), 6, wide8, st8,
                                    lib, plib),
-        "wide (6,33,32,32,8192), parent build": (
-            (6, 33, 32, 32, 8192), 6, wide8, st8, old_lib, old_plib),
         "wide (12,33,32,32,8192)": ((12, 33, 32, 32, 8192), 12, wide12,
                                     st12, lib, plib),
-        "wide (12,33,32,32,8192), parent build": (
-            (12, 33, 32, 32, 8192), 12, wide12, st12, old_lib, old_plib),
         "wide (3,33,32,32,16384)": ((3, 33, 32, 32, 16384), 3, wide16,
                                     st16, lib, plib),
+        "wide (3,33,32,32,16384), parent build": (
+            (3, 33, 32, 32, 16384), 3, wide16, st16, old_lib, old_plib),
+        "wide (12,33,32,32,16384)": ((12, 33, 32, 32, 16384), 12, wide16l,
+                                     st16l, lib, plib),
+        "wide (12,33,32,32,16384), parent build": (
+            (12, 33, 32, 32, 16384), 12, wide16l, st16l, old_lib,
+            old_plib),
     }
     real_plan, real_lib = window.window_plan, window._window_lib
     for name, (shape, t_win, run, state, tlib, phlib, *forced) in \
@@ -231,7 +257,8 @@ def run_window(sizes, kernels, result):
                 if s != old_lib.plan(*shape)[0]:
                     continue
                 wc = old_lib.plan(*shape)[1]
-                smem = old_lib.lib.window_kernel_smem_bytes(*shape, s, wc)
+                smem = old_lib.lib.window_kernel_smem_bytes(
+                    *shape, s, wc, window.LAYOUTS[mode])
             else:
                 wc = (window.step_chunk(k, s) if mode in ("step", "step1")
                       else real_plan(*shape, limit)[2])
@@ -254,9 +281,9 @@ def run_window(sizes, kernels, result):
             phases_of(phases)
             stages = LAYOUT_STAGES[mode]
             cyc = [phases[i] / t_win for i in range(len(stages))]
-            clusters = (lib.window_kernel_max_clusters(
-                *shape, s, wc, window.LAYOUTS[mode]) if tlib is lib else
-                old_lib.lib.window_kernel_max_clusters(*shape, s, wc))
+            clusters = (lib if tlib is lib else
+                        old_lib.lib).window_kernel_max_clusters(
+                *shape, s, wc, window.LAYOUTS[mode])
             result["runs"].append({
                 "run": name, "S": s, "mode": mode, "wc": wc,
                 "smem_per_cta": smem,

@@ -173,6 +173,7 @@ def _fit_limit(t_win, b_cap, n_smpl, e_cap, k):
     return min(min(window.window_smem_bytes(*shape, s),
                    window.window_step_smem_bytes(*shape, s),
                    window.window_step1_smem_bytes(*shape, s),
+                   window.window_nodes_smem_bytes(*shape, s),
                    *(window.window_wide_smem_bytes(*shape, s, wc)
                      for wc in window.WIDE_CHUNKS))
                for s in range(1, window.MAX_CLUSTER + 1)
@@ -200,16 +201,18 @@ def test_fit_window_rule():
         cli.fit_window(65, False, 33, 32, 32, 256, h100)
 
 
-@pytest.mark.parametrize("k", [6144, 8192])
+@pytest.mark.parametrize("k", [6144, 8192, 12288, 16384])
 def test_fit_window_keeps_t12_at_wide_k(k):
-    """On an H100 the CLI's automatic T = 12 stays 12 at K = 6144 and 8192
-    (no clamp): the window plan takes it in the wide mode's step layout
-    with one set of rows, at a cluster of 16."""
+    """On an H100 the CLI's automatic T = 12 stays 12 at K = 6144-16384
+    (no clamp): the window plan takes it at a cluster of 16 in the wide
+    mode's step layout with one set of rows up to K = 8192, in its
+    node-resident layout (tiles of NODES_TILE columns) past it."""
     from mcmc_ammsb_tpu_torch.ops import window
     h100 = window.H100_SMEM
     assert cli.fit_window(12, True, 33, 32, 32, k, h100) == 12
-    assert window.window_plan(12, 33, 32, 32, k, h100) == (
-        16, "step1", window.step_chunk(k, 16))
+    want = ((16, "step1", window.step_chunk(k, 16)) if k <= 8192
+            else (16, "nodes", window.NODES_TILE))
+    assert window.window_plan(12, 33, 32, 32, k, h100) == want
 
 
 def test_auto_window_clamped_and_logged(monkeypatch, caplog):

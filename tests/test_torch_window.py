@@ -193,13 +193,15 @@ def test_window_cluster_size_bench_shapes():
 # (T, K, layout) of the wide mode at the main path's (B, n, E) = (33, 32,
 # 32): the JAX package's max_safe_window T at each K from 1536 to 16384,
 # the ragged K = 2050 (not a multiple of 4: 4-byte copies) and the CLI's
-# T = 12 on the card at K = 6144 and 8192; the step layout (a step's rows
+# T = 12 on the card at K = 6144-16384; the step layout (a step's rows
 # in shared memory, two sets) up to K = 4096, the step layout with one set
-# of rows at K = 6144-8192, the chunked one at K = 16384
+# of rows at K = 6144-8192, the node-resident layout (node rows in shared
+# memory, neighbor rows streamed in tiles) at K = 10240-16384
 WIDE_PLANS = [(12, 1536, "step"), (12, 2048, "step"), (12, 2050, "step"),
               (12, 3072, "step"), (12, 4096, "step"), (8, 6144, "step1"),
-              (6, 8192, "step1"), (3, 16384, "wide"), (12, 6144, "step1"),
-              (12, 8192, "step1")]
+              (6, 8192, "step1"), (3, 16384, "nodes"), (12, 6144, "step1"),
+              (12, 8192, "step1"), (12, 10240, "nodes"),
+              (12, 12288, "nodes"), (12, 16384, "nodes")]
 
 
 @pytest.mark.parametrize("shape", [
@@ -221,21 +223,22 @@ def test_window_plan_resident_where_it_fits(shape):
 def test_window_plan_wide_covers_jax_windows(t_win, k, layout):
     """At every K from 1536 to 16384 the JAX package windows at the main
     path's shape (its max_safe_window T), and the CLI on the card at T =
-    12 up to K = 8192; there the resident layout fits no cluster of an
+    12 up to K = 16384; there the resident layout fits no cluster of an
     H100 and window_plan takes the wide mode in the layout WIDE_PLANS
     names, at S = 16: either step layout with a chunk that covers the
     slice (a multiple of 8; the one-set layout only where the two-set one
-    does not fit), or the chunked one with a chunk of WIDE_CHUNKS
-    narrower than the slice (only where neither step layout fits); its
-    layout fits 232,448 B, its column slices tile K with none empty;
-    every shorter window runs in one mode or another."""
+    does not fit), the node-resident one with tiles of NODES_TILE
+    columns (only where neither step layout fits), or the chunked one
+    with a chunk of WIDE_CHUNKS narrower than the slice (only where none
+    of those fits); its layout fits 232,448 B, its column slices tile K
+    with none empty; every shorter window runs in one mode or another."""
     shape = (t_win, 33, 32, 32, k)
     with pytest.raises(ValueError):
         window.window_cluster_size(*shape)
     s, mode, wc = window.window_plan(*shape)
     w = window.window_slice_width(k, s)
     assert (s, mode) == (16, layout)
-    if mode != "wide":
+    if mode in ("step", "step1"):
         assert wc == window.step_chunk(k, s) and w <= wc < w + 8
         assert wc % 8 == 0
     if mode == "step":
@@ -244,9 +247,14 @@ def test_window_plan_wide_covers_jax_windows(t_win, k, layout):
         assert window.window_step_smem_bytes(*shape, s) > window.H100_SMEM
     if mode == "step1":
         smem = window.window_step1_smem_bytes(*shape, s)
+    if mode in ("nodes", "wide"):
+        assert window.window_step1_smem_bytes(*shape, s) > window.H100_SMEM
+    if mode == "nodes":
+        assert wc == window.NODES_TILE and wc % 8 == 0
+        smem = window.window_nodes_smem_bytes(*shape, s, wc)
     if mode == "wide":
         assert wc in window.WIDE_CHUNKS and wc < w
-        assert window.window_step1_smem_bytes(*shape, s) > window.H100_SMEM
+        assert window.window_nodes_smem_bytes(*shape, s) > window.H100_SMEM
         smem = window.window_wide_smem_bytes(*shape, s, wc)
     assert smem <= window.H100_SMEM
     assert window.plan_smem_bytes(shape, (s, mode, wc)) == smem
@@ -261,17 +269,18 @@ def test_window_plan_limits():
     """The plan refuses what the kernel refuses (n > 32 neighbors, T >
     64) and a limit that fits neither mode, naming the shape; with a
     smaller card the wide mode takes the step layout with one set of
-    rows, then the chunked layout, narrower chunks and clusters; each
-    plan's bytes fit its limit and 232,448 B."""
+    rows, then the node-resident layout, then the chunked layout,
+    narrower chunks and clusters; each plan's bytes fit its limit and
+    232,448 B."""
     with pytest.raises(ValueError, match="n <= 32"):
         window.window_plan(12, 33, 64, 32, 256)
     with pytest.raises(ValueError, match="<= 64 steps"):
         window.window_plan(65, 33, 32, 32, 256)
     with pytest.raises(ValueError, match=r"\(12, 33, 32, 32, 4096\)"):
         window.window_plan(12, 33, 32, 32, 4096, 50_000)
-    narrow = window.window_wide_smem_bytes(12, 33, 32, 32, 4096, 16, 64)
-    assert window.window_plan(12, 33, 32, 32, 4096, narrow) == (16, "wide",
-                                                                 64)
+    big = (12, 33, 32, 32, 16384)
+    narrow = window.window_wide_smem_bytes(*big, 16, 64)
+    assert window.window_plan(*big, narrow) == (16, "wide", 64)
     shape = (12, 33, 32, 32, 4096)
     step = window.window_step_smem_bytes(*shape, 16)
     assert step <= window.H100_SMEM
@@ -280,12 +289,34 @@ def test_window_plan_limits():
     assert one_set < step
     assert window.window_plan(*shape, step - 1) == (16, "step1", 256)
     assert window.window_plan(*shape, one_set) == (16, "step1", 256)
-    assert window.window_plan(*shape, one_set - 1) == (16, "wide", 64)
-    for limit in (narrow, one_set - 1, one_set, step - 1, step,
+    nodes = window.window_nodes_smem_bytes(*shape, 16)
+    assert nodes < one_set
+    assert window.window_plan(*shape, one_set - 1) == (
+        16, "nodes", window.NODES_TILE)
+    assert window.window_plan(*shape, nodes) == (16, "nodes",
+                                                 window.NODES_TILE)
+    for limit in (nodes, one_set - 1, one_set, step - 1, step,
                   window.H100_SMEM):
         plan = window.window_plan(*shape, limit)
         assert window.plan_smem_bytes(shape, plan) <= min(limit,
                                                           window.H100_SMEM)
+    # at K = 16384: the node-resident layout one byte under the step layout
+    # with one set of rows, the chunked layout one byte under the
+    # node-resident layout, its narrower chunk one byte under its chunk of
+    # 128
+    one_set = window.window_step1_smem_bytes(*big, 16)
+    nodes = window.window_nodes_smem_bytes(*big, 16)
+    wide = window.window_wide_smem_bytes(*big, 16, 128)
+    assert narrow < wide < nodes <= window.H100_SMEM < one_set
+    assert window.window_plan(*big, one_set - 1) == (16, "nodes",
+                                                     window.NODES_TILE)
+    assert window.window_plan(*big) == (16, "nodes", window.NODES_TILE)
+    assert window.window_plan(*big, nodes - 1) == (16, "wide", 128)
+    assert window.window_plan(*big, wide - 1) == (16, "wide", 64)
+    for limit in (narrow, wide - 1, wide, nodes - 1, nodes, one_set - 1):
+        plan = window.window_plan(*big, limit)
+        assert window.plan_smem_bytes(big, plan) <= min(limit,
+                                                        window.H100_SMEM)
     # the longest window the step layout holds at K = 4096 takes it; one
     # more step takes the layout with one set of rows; at K = 8192 the
     # longest window that layout holds takes it, one more step the chunked
@@ -299,12 +330,20 @@ def test_window_plan_limits():
         t, 33, 32, 32, 8192, 16) <= window.H100_SMEM)
     assert longest >= 12
     assert window.window_plan(longest, 33, 32, 32, 8192)[1] == "step1"
-    assert window.window_plan(longest + 1, 33, 32, 32, 8192)[1] == "wide"
+    assert window.window_plan(longest + 1, 33, 32, 32, 8192)[1] == "nodes"
+    # at K = 16384 the longest window the node-resident layout holds takes
+    # it, one more step the chunked layout
+    longest = max(t for t in range(1, 65) if window.window_nodes_smem_bytes(
+        t, 33, 32, 32, 16384, 16) <= window.H100_SMEM)
+    assert longest >= 12
+    assert window.window_plan(longest, 33, 32, 32, 16384)[1] == "nodes"
+    assert window.window_plan(longest + 1, 33, 32, 32, 16384)[1] == "wide"
 
 
 def _cu_layout_words(fn: str, **dims) -> int:
     """The word count of csrc/window_kernel.cu's ``fn`` (``layout``,
-    ``layout_wide``, ``layout_step`` or ``layout_step1``) at ``dims``,
+    ``layout_wide``, ``layout_step``, ``layout_step1`` or
+    ``layout_nodes``) at ``dims``,
     evaluated from the source text: each ``o += <expr>;`` of the
     function, its casts dropped and its integer divisions made Python's
     (the helpers it calls written out again here)."""
@@ -336,16 +375,18 @@ def _cu_layout_words(fn: str, **dims) -> int:
 
 @pytest.mark.parametrize("shape", [(12, 33, 32, 32, 4096),
                                    (3, 6, 7, 5, 12), (6, 33, 32, 32, 8192),
-                                   (12, 33, 32, 32, 2050), (64, 9, 8, 8, 100)])
+                                   (12, 33, 32, 32, 2050), (64, 9, 8, 8, 100),
+                                   (12, 33, 32, 32, 16384)])
 @pytest.mark.parametrize("s,wc", [(16, 128), (16, 64), (3, 64), (1, 128)])
 def test_window_smem_bytes_mirror_the_kernel_layouts(shape, s, wc):
     """window_wide_smem_bytes is struct WideLayout's layout_wide,
     window_step_smem_bytes struct StepLayout's layout_step,
-    window_step1_smem_bytes struct Step1Layout's layout_step1 and
-    window_smem_bytes struct Layout's layout, term by term: each equals
-    the sum of csrc/window_kernel.cu's own expressions, read from the
-    source (on the card chip_smoke.py also holds them against the built
-    kernel's window_kernel_smem_bytes)."""
+    window_step1_smem_bytes struct Step1Layout's layout_step1,
+    window_nodes_smem_bytes struct NodesLayout's layout_nodes (tiles of
+    wc columns) and window_smem_bytes struct Layout's layout, term by
+    term: each equals the sum of csrc/window_kernel.cu's own
+    expressions, read from the source (on the card chip_smoke.py also
+    holds them against the built kernel's window_kernel_smem_bytes)."""
     t_win, b_cap, n_smpl, e_cap, k = shape
     kw = window.window_slice_width(k, s)
     dims = dict(T=t_win, B=b_cap, n=n_smpl, E=e_cap, kw=kw, S=s)
@@ -357,6 +398,8 @@ def test_window_smem_bytes_mirror_the_kernel_layouts(shape, s, wc):
         window.window_step_smem_bytes(*shape, s)
     assert 4 * _cu_layout_words("layout_step1", **dims) == \
         window.window_step1_smem_bytes(*shape, s)
+    assert 4 * _cu_layout_words("layout_nodes", wc=wc, **dims) == \
+        window.window_nodes_smem_bytes(*shape, s, wc)
 
 
 def test_window_core_cuda_rejects_cpu_tensors():
@@ -382,12 +425,14 @@ def cuda_device():
 @pytest.mark.parametrize("shape", [(12, 33, 32, 32, 256),
                                    (12, 33, 32, 32, 4096),
                                    (6, 33, 32, 32, 8192),
-                                   (3, 33, 32, 32, 16384)])
+                                   (3, 33, 32, 32, 16384),
+                                   (12, 33, 32, 32, 12288)])
 def test_window_core_cuda_matches_plain_on_gpu(cuda_device, shape):
     """On a GPU: the fused kernel against its plain version at the bench
-    shape (resident mode) and at the K = 4096, 8192 and 16384 windows
-    (the wide mode's step layout, its step layout with one set of rows
-    and its chunked layout), each on its own copy of the state
+    shape (resident mode) and at the K = 4096, 8192, 16384 and 12288
+    windows (the wide mode's step layout, its step layout with one set of
+    rows and, the last two, its node-resident layout), each on its own
+    copy of the state
     (the kernel writes pi in place): rtol 1e-5, atol 1e-8 normwise, as
     chip_smoke.py checks it."""
     case = testing.window_case(0, *shape)
