@@ -629,10 +629,12 @@ def heldout_perplexity_step(cfg: Config, heldout_set: EdgeSet,
                             ) -> Tuple[TrainState, ppx_ops.PpxResult]:
     """One perplexity evaluation; updates the running-average state."""
     count = state.ppx_count + 1
+    with stage("device_wait"):
+        c = ppx_ops.count_operand(count, state.ppx_per_edge)
     with stage("ppx"):
         res = ppx_ops.perplexity_step(cfg, state.pi, state.beta, heldout_set,
                                       heldout_u, heldout_v,
-                                      state.ppx_per_edge, count)
+                                      state.ppx_per_edge, c)
     return state._replace(ppx_per_edge=res.ppx_per_edge,
                           ppx_count=count), res
 
@@ -645,9 +647,11 @@ def training_perplexity_step(cfg: Config, training_set: EdgeSet,
     (``data.make_training_ppx_edges``): the labels come from the training
     set, the running averages live in their own state fields."""
     count = state.train_ppx_count + 1
+    with stage("device_wait"):
+        c = ppx_ops.count_operand(count, state.train_ppx_per_edge)
     res = ppx_ops.perplexity_step(cfg, state.pi, state.beta, training_set,
                                   edges_u, edges_v, state.train_ppx_per_edge,
-                                  count)
+                                  c)
     return state._replace(train_ppx_per_edge=res.ppx_per_edge,
                           train_ppx_count=count), res
 
@@ -781,7 +785,7 @@ class Learner(HostSamplingPipeline):
             torch.as_tensor(graph.offsets, device=self.device),
             torch.as_tensor(graph.cols, dtype=torch.int32,
                             device=self.device))
-        self.timers = StageTimers()
+        self.timers = StageTimers(self.device)
         self.last_ppx_stats = {}
 
     @property
@@ -796,8 +800,9 @@ class Learner(HostSamplingPipeline):
         rng.seed_streams(self.streams, rng.stream_pairs(self.cfg), step)
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with stage("device_wait"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     # -- the model ---------------------------------------------------------
 
@@ -846,7 +851,7 @@ class Learner(HostSamplingPipeline):
         steps_per_call; host-sampled one ``train_step`` per step at
         steps_per_call == 1, else in scanned chunks."""
         spc = max(1, self.cfg.steps_per_call)
-        with self.timers.stage("total"):
+        with stage("call"), self.timers.stage("total"):
             if self.cfg.device_sampling:
                 self._run_fused(max_iters)
             elif spc == 1:
@@ -859,7 +864,7 @@ class Learner(HostSamplingPipeline):
         done = 0
         while done < max_iters:
             take = min(spc, max_iters - done)
-            with self.timers.stage("device_step"):
+            with stage("chunk", take), self.timers.stage("device_step"):
                 self.state = self._train_chunk(self.state, take)
             done += take
         self._sync()
@@ -871,7 +876,7 @@ class Learner(HostSamplingPipeline):
                 hb = (self._next_pending(MiniBatch)
                       or (src.get() if src else self.sampler.sample()))
                 batch = DeviceBatch.from_host(hb, self.device)
-            with self.timers.stage("device_step"):
+            with stage("chunk", 1), self.timers.stage("device_step"):
                 ops, self.state = step_operands(self.cfg, self.streams,
                                                 self.state, batch)
                 self.state = train_step(self.cfg, self.training_set,
@@ -899,7 +904,7 @@ class Learner(HostSamplingPipeline):
                             stacked.edge_mask, stacked.nodes,
                             stacked.node_mask, stacked.weight)))
                 batches = DeviceBatch.from_stacked(stacked, self.device)
-            with self.timers.stage("device_step"):
+            with stage("chunk", take), self.timers.stage("device_step"):
                 self.state = self._scan_chunk(self.state, batches)
             done += take
         self._sync()
@@ -921,20 +926,23 @@ class Learner(HostSamplingPipeline):
         group = max(1, self.cfg.steps_per_call // max(1, interval))
         series = []
         evals_left = max_iters // interval
-        with self.timers.stage("total"):
+        with stage("call"), self.timers.stage("total"):
             while evals_left:
                 take = min(group, evals_left)
                 with self.timers.stage("device_step"):
                     results = []
                     for _ in range(take):
-                        self.state = self._train_chunk(self.state, interval)
+                        with stage("chunk", interval):
+                            self.state = self._train_chunk(self.state,
+                                                           interval)
                         self.state, res = self._evaluate(self.state)
                         self.state, tneg = self._evaluate_train(self.state)
                         results.append((res, tneg))
-                    stats = [self._read_stats(r) if t is None else
-                             dict(self._read_stats(r),
-                                  train_ppx=float(torch.exp(t)))
-                             for r, t in results]
+                    with stage("readback"):
+                        stats = [self._read_stats(r) if t is None else
+                                 dict(self._read_stats(r),
+                                      train_ppx=float(torch.exp(t)))
+                                 for r, t in results]
                     self._sync()
                 now = time.perf_counter()
                 first = self.state.step_count - take * interval
@@ -953,9 +961,10 @@ class Learner(HostSamplingPipeline):
         if self.heldout_u.shape[0] == 0:
             raise RuntimeError("no held-out edges: heldout_ratio too "
                                "small for this graph")
-        with self.timers.stage("ppx"):
+        with stage("call"), self.timers.stage("ppx"):
             self.state, res = self._evaluate(self.state)
-            stats = self._read_stats(res)
+            with stage("readback"):
+                stats = self._read_stats(res)
         self.last_ppx_stats = {k: v for k, v in stats.items() if k != "ppx"}
         return stats["ppx"]
 
@@ -964,9 +973,10 @@ class Learner(HostSamplingPipeline):
         training-perplexity population; requires cfg.calc_train_ppx."""
         if self.train_ppx_u is None:
             raise RuntimeError("enable cfg.calc_train_ppx")
-        with self.timers.stage("train_ppx"):
+        with stage("call"), self.timers.stage("train_ppx"):
             self.state, neg = self._evaluate_train(self.state)
-            return float(torch.exp(neg))
+            with stage("readback"):
+                return float(torch.exp(neg))
 
     # -- reporting ---------------------------------------------------------
 

@@ -46,6 +46,7 @@ from mcmc_ammsb_tpu_torch.ops.neighbor import sample_neighbors
 from mcmc_ammsb_tpu_torch.ops.phi import step_size
 from mcmc_ammsb_tpu_torch.ops.rowops import row_normalize
 from mcmc_ammsb_tpu_torch.ops.window import _chain_flat_ids, index_operands
+from mcmc_ammsb_tpu_torch.utils.profiling import stage
 
 log = logging.getLogger("mcmc_ammsb_tpu_torch")
 
@@ -397,7 +398,7 @@ class FullMMSBLearner(learner.Learner):
         (the JAX learner's ``sample_many`` then ``mmsb_steps_scan``; it
         has no step-at-a-time loop)."""
         spc = max(1, self.cfg.steps_per_call)
-        with self.timers.stage("total"):
+        with stage("call"), self.timers.stage("total"):
             if self.cfg.device_sampling:
                 self._run_fused(max_iters)
             else:

@@ -20,6 +20,7 @@ import torch
 
 from mcmc_ammsb_tpu_torch.config import Config
 from mcmc_ammsb_tpu_torch.ops.phi import step_size
+from mcmc_ammsb_tpu_torch.utils.profiling import stage
 
 _THETA_FLOOR = 1e-24
 
@@ -66,8 +67,10 @@ def theta_step(cfg: Config, theta: torch.Tensor, grads: torch.Tensor,
     """SGRLD step on theta [K, 2] + pairwise normalization into beta.
     ``count_calls`` is the beta updater's own (1-based) step counter."""
     eps_t = step_size(cfg, count_calls, theta.device)
-    eta = torch.tensor([cfg.eta0, cfg.eta1], dtype=theta.dtype,
-                       device=theta.device)
+    with stage("device_wait"):
+        # a copy from pageable memory: the host waits for the card
+        eta = torch.tensor([cfg.eta0, cfg.eta1], dtype=theta.dtype,
+                           device=theta.device)
     theta_new = torch.abs(
         theta
         + eps_t / 2.0 * (eta - theta + scale * grads)

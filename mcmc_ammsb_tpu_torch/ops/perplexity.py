@@ -87,11 +87,11 @@ def blocked_likelihood(cfg: Config, pi: torch.Tensor, beta: torch.Tensor,
 def perplexity_step(cfg: Config, pi: torch.Tensor, beta: torch.Tensor,
                     heldout_set: EdgeSet, edges_u: torch.Tensor,
                     edges_v: torch.Tensor, ppx_per_edge: torch.Tensor,
-                    avg_count: int) -> PpxResult:
+                    avg_count) -> PpxResult:
     """One evaluation over the population (edges_u, edges_v): the
     likelihoods in blocks of rows (``blocked_likelihood``), then the
     running averages and the sums of ``fold_likelihood`` over all of
-    them."""
+    them. ``avg_count``: an integer, or its ``count_operand``."""
     if edges_u.shape[0] == 0:
         raise ValueError(_EMPTY)
     y = heldout_set.has_edges(edges_u, edges_v)
@@ -112,11 +112,23 @@ def perplexity_core(cfg: Config, pi_u: torch.Tensor, pi_v: torch.Tensor,
                            mask, ppx_per_edge, avg_count)
 
 
+def count_operand(avg_count: int, like: torch.Tensor) -> torch.Tensor:
+    """The running averages' count as a 0-d tensor of ``like``'s dtype and
+    device. Its copy to a card leaves from pageable memory, so the host
+    waits there for the card's queue to drain: a caller that opens a
+    ``device_wait`` span around it, outside the ``ppx`` stage, passes it
+    to ``perplexity_step`` in place of the integer."""
+    return torch.tensor(float(avg_count), dtype=like.dtype,
+                        device=like.device)
+
+
 def fold_likelihood(lik: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
-                    ppx_per_edge: torch.Tensor, avg_count: int) -> PpxResult:
+                    ppx_per_edge: torch.Tensor, avg_count) -> PpxResult:
     """Fold each pair's likelihood into its running average and sum the
-    link and non-link log averages and counts over the unmasked pairs."""
-    c = torch.tensor(float(avg_count), dtype=lik.dtype, device=lik.device)
+    link and non-link log averages and counts over the unmasked pairs.
+    ``avg_count``: an integer, or its ``count_operand``."""
+    c = (avg_count if isinstance(avg_count, torch.Tensor)
+         else count_operand(avg_count, lik))
     ppx_new = (ppx_per_edge * (c - 1.0) + lik) / c
     ppx_new = torch.where(mask, ppx_new, ppx_per_edge)
     # select, not a multiply: log of a zero padding lane is -inf

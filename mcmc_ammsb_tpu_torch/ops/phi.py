@@ -19,14 +19,20 @@ import torch
 
 from mcmc_ammsb_tpu_torch.config import Config
 from mcmc_ammsb_tpu_torch.ops.rowops import row_normalize
+from mcmc_ammsb_tpu_torch.utils.profiling import stage
 
 _PHI_FLOOR = 1e-24
 
 
 def step_size(cfg: Config, steps, device) -> torch.Tensor:
     """eps_t = a (1 + t/b)^(-c) in float32, from int32 step counters —
-    the dtype path the JAX package takes with its int32 counters."""
-    t = torch.as_tensor(steps, dtype=torch.int32, device=device)
+    the dtype path the JAX package takes with its int32 counters. A host
+    counter's copy to a card leaves from pageable memory, so the host
+    waits there for the card's queue to drain: a ``device_wait`` span."""
+    if isinstance(steps, torch.Tensor):
+        return cfg.eps_t(steps.to(device=device, dtype=torch.int32))
+    with stage("device_wait"):
+        t = torch.as_tensor(steps, dtype=torch.int32, device=device)
     return cfg.eps_t(t)
 
 

@@ -120,8 +120,11 @@ def windowed_scan(cfg: Config, state, xs, body):
         with stage("window_kernel"):
             state = apply(cfg, state, xs_t, mcode, keep)
     s_len = xs[1].shape[0]
-    for i in range(s_len - s_len % cfg.window, s_len):
-        state = body(state, index_operands(xs, i))
+    tail = s_len % cfg.window
+    if tail:
+        with stage("window_tail", tail):
+            for i in range(s_len - tail, s_len):
+                state = body(state, index_operands(xs, i))
     return state
 
 

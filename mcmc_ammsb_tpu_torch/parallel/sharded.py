@@ -635,7 +635,7 @@ class ShardedLearner(Learner):
             self.adjacency = Adjacency(
                 torch.as_tensor(graph.offsets, device=dev),
                 torch.as_tensor(graph.cols, dtype=torch.int32, device=dev))
-        self.timers = StageTimers()
+        self.timers = StageTimers(dev)
         self.last_ppx_stats = {}
 
     @classmethod

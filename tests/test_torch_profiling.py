@@ -33,10 +33,14 @@ def tiny(**kw):
 
 
 def test_stage_names_are_the_jax_packages():
-    """JAX's list, and the two BF sub-stages its device sampler opens
-    (``ds_bf_link``, ``ds_bf_nonlink``) but its list lacks."""
-    assert profiling.STAGE_NAMES == jax_profiling.STAGE_NAMES + (
-        "ds_bf_link", "ds_bf_nonlink")
+    """JAX's list first, then the port's additions: the two BF
+    sub-stages its device sampler opens (``ds_bf_link``,
+    ``ds_bf_nonlink``) but its list lacks, and the port's own spans."""
+    jax_names = jax_profiling.STAGE_NAMES
+    assert profiling.STAGE_NAMES[:len(jax_names)] == jax_names
+    assert profiling.STAGE_NAMES[len(jax_names):] == (
+        "ds_bf_link", "ds_bf_nonlink", "call", "chunk", "window_tail",
+        "readback", "device_wait")
 
 
 def test_stage_is_free_without_a_trace():
@@ -103,8 +107,7 @@ def test_learner_stage_profile_and_fallback(monkeypatch):
     assert any(x.startswith("WINDOW_KERNEL") for x in lines)
     assert lrn.step_count == 1 + 8 + 16
 
-    empty = dict(stages={}, total_op_seconds=0.0, module_seconds=None,
-                 source="none")
+    empty = dict(stages={}, total_op_seconds=0.0, source="none")
     monkeypatch.setattr(profiling, "profile_trace", lambda run: dict(empty))
     lines = _lines(lambda log: lrn.print_stage_profile(log, iters=8))
     assert lines[0].startswith("trace captured no attributable device ops")
