@@ -14,10 +14,11 @@ One training chunk is
      and the phi/theta noise;
   3. ``run_hoisted`` runs the S steps: in windows of ``cfg.window``
      through ``ops/window.windowed_scan`` (one gather, one window-kernel
-     launch, one scatter per window), the remainder through
-     ``_hoisted_step_body``. With ``--phi-impl pallas`` (private draws,
-     no windows) every step's phi update is one launch of the by-index
-     phi kernel (``ops/phi_pallas``).
+     launch, one scatter per window; the remainder as one short window,
+     or with bf16 pi step by step), unwindowed through
+     ``_hoisted_step_body``. With ``--phi-impl
+     pallas`` (private draws, no windows) every step's phi update is one
+     launch of the by-index phi kernel (``ops/phi_pallas``).
 
 Host-sampled at ``steps_per_call == 1`` every step is one ``train_step``
 (the reference-exact slow path): its own batch, its own draws, phi

@@ -8,6 +8,12 @@ with ``window_correction="always"``:
   2. the T sequential phi/beta/theta updates;
   3. ONE last-write-wins scatter of the T*B staged rows.
 
+The S % T steps after a chunk's last whole window, which the JAX package
+runs one at a time through its step body, run here as one window of
+S % T steps (``windowed_scan``): a launch instead of ~60 torch ops a
+step, and no copy from host memory. With bf16 pi storage they keep the
+step body, which rounds the rows after every step.
+
 On a CUDA tensor the three are one launch of the hand-written Hopper
 kernel ``csrc/window_kernel.cu`` (``window_apply_cuda``): it reads its
 rows from pi by index, runs the steps on a thread-block cluster that
@@ -110,7 +116,14 @@ def plain_or(cfg: Config, state, kernel, plain):
 
 def windowed_scan(cfg: Config, state, xs, body):
     """Run the hoisted steps ``xs`` in windows of ``cfg.window``; the
-    steps left over at the end go through ``body(state, x) -> state``.
+    ``S % T`` steps after the last whole window run as one short window
+    of that many steps, through the same launch (the kernel reads T from
+    the operands' shape), and count in ``windowed_scan.tail_launches``.
+    With bf16 pi storage they go through ``body(state, x) -> state`` one
+    at a time, as in the JAX package: a window rounds the rows it writes
+    to bf16 only at its end, so a later step of a short window would
+    read an earlier step's rows unrounded where the step body reads them
+    rounded.
 
     ``xs`` is the operand tuple of ``learner.hoist_operands``:
     (batches, neighbors [S,1,n], y_phi, phi_noise, beta_noise,
@@ -122,10 +135,28 @@ def windowed_scan(cfg: Config, state, xs, body):
     s_len = xs[1].shape[0]
     tail = s_len % cfg.window
     if tail:
+        # under window_tail, not window_kernel: the readers of that stage
+        # count whole windows
         with stage("window_tail", tail):
-            for i in range(s_len - tail, s_len):
-                state = body(state, index_operands(xs, i))
+            if state.pi.dtype == torch.bfloat16:
+                for i in range(s_len - tail, s_len):
+                    state = body(state, index_operands(xs, i))
+                return state
+            xs_t = index_operands(xs, slice(s_len - tail, s_len))
+            batch, nbrs = xs_t[0], xs_t[1][:, 0, :]
+            with stage("window_correct"):
+                mcode = _correction_codes(cfg, batch.nodes,
+                                          batch.node_mask, nbrs)
+            with stage("window_prep"):
+                keep = _last_write_wins(batch.nodes, batch.node_mask, tail)
+            state = apply(cfg, state, xs_t, mcode, keep)
+            windowed_scan.tail_launches += 1
     return state
+
+
+#: Chunk tails run as one short window in this process (reset by callers
+#: that check a run went through it).
+windowed_scan.tail_launches = 0
 
 
 def _dirty_windows(nodes, mask, nbrs, t_win):

@@ -15,7 +15,7 @@ learner), ``chunk`` (a chunk of steps, with its step count),
 ``window_tail`` (the steps after a chunk's last window, with their
 count), ``readback`` (an evaluation's device-to-host copy) and
 ``device_wait`` (where the host waits for the card: the learner's fence,
-and a tail step's copies from pageable memory). None of them opens
+and an unwindowed step's copies from pageable memory). None of them opens
 inside a stage whose device time is read, so each only takes the device
 work that fell under no stage before.
 
