@@ -53,6 +53,7 @@ chain) and its plain version ``window_chain_apply_torch``.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -63,6 +64,7 @@ from mcmc_ammsb_tpu_torch import kernels
 from mcmc_ammsb_tpu_torch.config import Config
 from mcmc_ammsb_tpu_torch.ops import beta as beta_ops
 from mcmc_ammsb_tpu_torch.ops import phi as phi_ops
+from mcmc_ammsb_tpu_torch.utils import profiling
 from mcmc_ammsb_tpu_torch.utils.profiling import stage
 
 
@@ -329,7 +331,8 @@ def window_apply_torch(cfg: Config, s, xs_t, mcode, keep):
     """One whole window with the stock torch ops: ``_window_gather``,
     ``window_core_torch``, ``_window_scatter`` (JAX's gather, kernel and
     scatter). ``s.pi`` and ``s.phi_sum`` are updated in place; returns
-    the state after the window."""
+    the state after the window. Tags the open span ``torch``."""
+    profiling.tag("torch")
     batch = xs_t[0]
     g, sums_g = _window_gather(cfg, s, batch, xs_t[1][:, 0, :])
     rows, sums, theta, beta = window_core_torch(cfg, s, xs_t, g, sums_g,
@@ -791,19 +794,24 @@ def window_apply_cuda(cfg: Config, s, xs_t, mcode, keep,
     ``s.pi`` is float32 or bfloat16 (the kernel's bf16 row mode).
     CUDA tensors only: the kernel is launched or this raises — there is
     no fallback. The mode (resident or wide, in one of its four
-    layouts) is ``window_plan``'s."""
+    layouts) is ``window_plan``'s; the open span is tagged with its
+    layout (``profiling.tag``: ``resident``, ``step``, ``step1``,
+    ``wide`` or ``nodes``)."""
     out, mode = _launch(cfg, s, xs_t, mcode, keep, chained=False,
                         table_rows=table_rows)
+    profiling.tag(mode)
     window_apply_cuda.launches += 1
     window_apply_cuda.wide_launches += mode != "resident"
+    window_apply_cuda.layouts[mode] += 1
     return out
 
 
-#: Launches of the single-chain entry in this process, and those of them
-#: in the wide mode, any layout (reset by callers that check a run went
-#: through it).
+#: Launches of the single-chain entry in this process, those of them in
+#: the wide mode, any layout, and those of each layout (reset by callers
+#: that check a run went through it).
 window_apply_cuda.launches = 0
 window_apply_cuda.wide_launches = 0
+window_apply_cuda.layouts = collections.Counter()
 
 
 def window_chain_apply_cuda(cfg: Config, s, xs_t, mcode, keep):

@@ -21,13 +21,16 @@ work that fell under no stage before.
 
 While ``tracing()`` (or ``profile_trace``) is open, ``stage`` opens the
 profiler range and keeps one span in memory: its name, the index of the
-span it opened in, its host start and end (``time.perf_counter_ns``)
-and its count; ``recorded()`` returns them. ``tracing()`` opens a few
-zero-length ranges (``ANCHOR``) and reads the clock inside each, which
-maps the spans onto the profiler's clock (``profiler_offset_us``).
+span it opened in, its host start and end (``time.perf_counter_ns``),
+its count and its tag; ``recorded()`` returns them. ``tag(label)``
+labels the innermost open span (the window engine: the kernel layout
+that ran a window, ``torch`` for the plain version); it opens no range.
+``tracing()`` opens a few zero-length ranges (``ANCHOR``) and reads the
+clock inside each, which maps the spans onto the profiler's clock
+(``profiler_offset_us``).
 While no trace runs ``stage`` returns a shared null context and records
-nothing, at the cost of one integer test: every path of the port is
-bound by the host's 11-19 us per launch.
+nothing, and ``tag`` does nothing, each at the cost of one integer test:
+every path of the port is bound by the host's 11-19 us per launch.
 """
 
 from __future__ import annotations
@@ -92,11 +95,12 @@ class Span(NamedTuple):
     start_ns: int             # time.perf_counter_ns()
     end_ns: Optional[int]     # None while the span is open
     count: Optional[int]      # steps of a ``chunk`` or ``window_tail``
+    tag: Optional[str] = None  # ``tag()``'s label, e.g. a window's layout
 
 
 _NULL = contextlib.nullcontext()
 _active = 0
-_spans: List[list] = []       # [name, parent, start_ns, end_ns, count]
+_spans: List[list] = []       # [name, parent, start_ns, end_ns, count, tag]
 _open: List[int] = []         # indices of the open spans, innermost last
 _anchors: List[int] = []      # perf_counter_ns read in each ANCHOR range
 
@@ -113,7 +117,7 @@ class _Span(torch.profiler.record_function):
     def __enter__(self):
         super().__enter__()
         self.row = [self.name, _open[-1] if _open else -1,
-                    time.perf_counter_ns(), None, self.count]
+                    time.perf_counter_ns(), None, self.count, None]
         _open.append(len(_spans))
         _spans.append(self.row)
         return self
@@ -131,6 +135,13 @@ def stage(name: str, steps: Optional[int] = None):
     if _active:
         return _Span(name, steps)
     return _NULL
+
+
+def tag(label: str) -> None:
+    """Label the innermost open span while a trace runs; else, or with
+    no span open, nothing."""
+    if _active and _open:
+        _spans[_open[-1]][5] = label
 
 
 def reset() -> None:
@@ -190,6 +201,15 @@ def host_self_seconds(spans: List[Span]) -> dict:
         if s.parent >= 0:
             out[spans[s.parent].name] -= d
     return dict(out)
+
+
+def tags_by_name(spans: List[Span]) -> dict:
+    """How many spans of each name carry each tag: {name: {tag: n}}."""
+    out = collections.defaultdict(collections.Counter)
+    for s in spans:
+        if s.tag is not None:
+            out[s.name][s.tag] += 1
+    return {name: dict(tags) for name, tags in out.items()}
 
 
 def innermost_pieces(intervals):
@@ -341,7 +361,8 @@ def profile_trace(run: Callable[[], None],
 
       {"stages": {stage: seconds}, "total_op_seconds": s,
        "source": "cuda" | "cpu" | "none", "unlinked_seconds": s,
-       "host_self_s": {span: seconds}, "idle_s": {span: seconds}}
+       "host_self_s": {span: seconds}, "idle_s": {span: seconds},
+       "tags": {span: {tag: count}}}
 
     "cuda": device time of the kernels, copies and fills (the card's,
     when one was traced), each in the innermost stage open at its
@@ -352,7 +373,8 @@ def profile_trace(run: Callable[[], None],
     ``host_self_s`` is each span's host self time from the recorder
     (``host_self_seconds``), ``idle_s`` the device's idle time while it
     was the innermost span open (``idle_by_span``; empty without a
-    card)."""
+    card), ``tags`` the recorded spans' tags by name
+    (``tags_by_name``: the window layouts that ran)."""
     stages = frozenset(stages)
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
@@ -371,14 +393,16 @@ def profile_trace(run: Callable[[], None],
             "source": source, "unlinked_seconds": unlinked,
             "host_self_s": host_self_seconds(spans),
             "idle_s": (idle_by_span(events, spans, stages)
-                       if source == "cuda" else {})}
+                       if source == "cuda" else {}),
+            "tags": tags_by_name(spans)}
 
 
 def format_stage_table(prof: dict, steps: int, log=print) -> None:
     """PrintStats-style table (learner.cc:252-299) from a trace profile:
     per stage or span, per-step microseconds and share of the traced
     time of its work, its host self time, and the device's idle time
-    while it was the innermost span open ("-" without a card)."""
+    while it was the innermost span open ("-" without a card); then, per
+    span name, the tags its spans carried (the window layouts)."""
     total = prof["total_op_seconds"]
     if total <= 0:
         log("stage profile: no device ops captured")
@@ -404,3 +428,6 @@ def format_stage_table(prof: dict, steps: int, log=print) -> None:
     if prof.get("unlinked_seconds"):
         log(f"(of OTHER, {prof['unlinked_seconds'] / per:.2f} us/step "
             f"of device work had no launch call in the trace)")
+    for name, tags in sorted(prof.get("tags", {}).items()):
+        log(f"{name} layouts: " + ", ".join(
+            f"{t} x{n}" for t, n in sorted(tags.items())))

@@ -19,6 +19,7 @@ import torch
 
 from mcmc_ammsb_tpu_torch import config, learner
 from mcmc_ammsb_tpu_torch.data import Graph, generate_sets, synthetic_edges
+from mcmc_ammsb_tpu_torch.ops import window
 from mcmc_ammsb_tpu_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -97,6 +98,45 @@ def test_windowed_learner_span_tree(steps):
         lrn.heldout_perplexity()
     assert [(s.name, s.parent) for s in profiling.recorded()] == [
         ("call", -1), ("device_wait", 0), ("ppx", 0), ("readback", 0)]
+
+
+@pytest.mark.parametrize("steps", [10, 12])
+def test_window_spans_carry_their_layout(steps):
+    """Traced, every window_kernel span (S // T of them) and the
+    window_tail span (count S % T) of a tiny windowed learner on the CPU
+    carries the tag ``torch`` (the plain window ran it), and no other
+    span a tag; ``profile_trace`` counts them and the stage table names
+    the layouts. Untraced, neither the learner nor ``tag`` records
+    anything."""
+    cfg, graph, split = tiny(steps_per_call=steps)
+    lrn = learner.Learner(cfg, graph, split, "cpu")
+    lrn.run(steps)
+    with profiling.tracing():
+        lrn.run(steps)
+    spans = profiling.recorded()
+    windows = [s for s in spans if s.name == "window_kernel"]
+    tails = [s for s in spans if s.name == "window_tail"]
+    tail = steps % cfg.window
+    assert len(windows) == steps // cfg.window
+    assert [s.count for s in tails] == ([tail] if tail else [])
+    assert [s.tag for s in windows + tails] == ["torch"] * (
+        len(windows) + len(tails))
+    assert all(s.tag is None for s in spans
+               if s.name not in ("window_kernel", "window_tail"))
+    want = {"window_kernel": {"torch": steps // cfg.window}}
+    if tail:
+        want["window_tail"] = {"torch": 1}
+    assert profiling.tags_by_name(spans) == want
+    prof = profiling.profile_trace(lambda: lrn.run(steps))
+    assert prof["tags"] == want
+    lines = []
+    profiling.format_stage_table(prof, steps, lines.append)
+    assert f"window_kernel layouts: torch x{steps // cfg.window}" in lines
+
+    profiling.reset()
+    lrn.run(steps)
+    profiling.tag("resident")
+    assert profiling.recorded() == []
 
 
 def test_stage_records_nothing_without_tracing():
@@ -184,6 +224,43 @@ def test_host_self_and_idle_by_span():
         {"call": 10, "chunk": 15, "window_tail": 5, "device_wait": 10})
 
 
+def _window_host_reader():
+    from ammsb_bench import run
+
+    return run.reader(run.HERE, "window_kernel.host_us_per_step")
+
+
+def test_window_kernel_host_reader(monkeypatch):
+    """``window_kernel.host_us_per_step`` on hand-made spans: the
+    window_kernel spans' host time less the device_wait and readback
+    spans inside them (a wait inside a wait once), over the chunk's
+    steps; None where a window_kernel span has no tag, where the tags
+    name two layouts, or where the steps are not the stretch's."""
+    span = profiling.Span
+    spans = [span("call", -1, 0, 1_000_000, None),
+             span("chunk", 0, 0, 900_000, 24),
+             span("window_kernel", 1, 100_000, 200_000, None, "resident"),
+             span("device_wait", 2, 150_000, 170_000, None),
+             span("readback", 3, 160_000, 165_000, None),
+             span("window_kernel", 1, 300_000, 360_000, None, "resident"),
+             span("readback", 5, 310_000, 315_000, None),
+             span("window_tail", 1, 400_000, 420_000, 4, "resident"),
+             span("device_wait", 0, 900_000, 1_000_000, None)]
+    read = _window_host_reader()
+    rec = {"trace": {"steps": 24}}
+    monkeypatch.setattr(profiling, "recorded", lambda: list(spans))
+    assert read(rec) == pytest.approx((100 - 20 + 60 - 5) / 24)
+    assert read({"trace": {"steps": 12}}) is None
+    good = list(spans)
+    spans[5] = spans[5]._replace(tag=None)
+    assert read(rec) is None
+    spans[:] = good
+    spans[7] = spans[7]._replace(tag="nodes")
+    assert read(rec) is None
+    spans[:] = good[:2] + good[8:]
+    assert read(rec) is None
+
+
 def test_stage_table_columns():
     """Each row: device us/step and share, then host self and device
     idle us/step; '-' where no card was traced."""
@@ -207,10 +284,11 @@ def test_stage_table_columns():
 
 
 def test_tiny_cell_reports_the_host_metrics():
-    """A traced run of the benchmark's tiny cell reports the learner's
-    and the chunk tail's host microseconds per step, read from the spans
-    of the traced stretch alone. In a process of its own: the command
-    refuses its result where JAX is loaded, as it is in this one."""
+    """A traced run of the benchmark's tiny cell reports the learner's,
+    the chunk tail's and the whole windows' host microseconds per step,
+    read from the spans of the traced stretch alone. In a process of its
+    own: the command refuses its result where JAX is loaded, as it is in
+    this one."""
     code = ("import json; from ammsb_bench.tests.conftest import run_tiny; "
             "rc, line, err = run_tiny('tiny.ppx200', 2 ** 31 + 61, trace=1); "
             "print(json.dumps([rc, line, err[-2000:]]))")
@@ -223,10 +301,13 @@ def test_tiny_cell_reports_the_host_metrics():
     got = {k: v["value"] for k, v in line["metrics"].items()}
     for name in ("learner.host_us_per_step", "learner.host_us_per_step"
                  ".ppx100", "window_tail.host_us_per_step",
-                 "window_tail.host_us_per_step.ppx100"):
+                 "window_tail.host_us_per_step.ppx100",
+                 "window_kernel.host_us_per_step"):
         assert got[name] > 0, name
         assert line["metrics"][name]["unit"] == "us/step"
     assert got["window_tail.host_us_per_step"] \
+        < got["learner.host_us_per_step"]
+    assert got["window_kernel.host_us_per_step"] \
         < got["learner.host_us_per_step"]
 
 
@@ -282,6 +363,26 @@ def test_host_waits_only_in_readback_and_device_wait(cuda_device):
                if not any(s.name in WAITS and s.start_ns <= t <= s.end_ns
                           for s in spans)]
     assert not outside, (len(outside), outside[:5])
+
+
+@pytest.mark.cuda
+def test_k1024_windows_are_tagged_resident(cuda_device):
+    """At youtube-k1024's K = 1024, T = 12, one traced 1000-step chunk on
+    a card: 83 window_kernel spans and one window_tail span (count 4),
+    each tagged ``resident``, and 84 resident launches counted."""
+    cfg, graph, split = tiny(n_nodes=2000, K=1024, mini_batch_size=32,
+                             num_node_sample=32, steps_per_call=1000,
+                             window=12, ds_link_cap=32)
+    lrn = learner.Learner(cfg, graph, split, cuda_device)
+    lrn.run(1000)
+    window.window_apply_cuda.layouts.clear()
+    with profiling.tracing():
+        lrn.run(1000)
+    spans = profiling.recorded()
+    assert [s.count for s in spans if s.name == "window_tail"] == [4]
+    assert profiling.tags_by_name(spans) == {
+        "window_kernel": {"resident": 83}, "window_tail": {"resident": 1}}
+    assert window.window_apply_cuda.layouts == {"resident": 84}
 
 
 @pytest.mark.cuda

@@ -2,10 +2,11 @@
 ``windowed_scan``): the S % T steps after a chunk's last whole window run
 as one short window through the window launch, not step by step through
 the step body (``learner._hoisted_step_body``), which bf16 pi storage
-keeps. On the CPU the plain window against the step body and the tail
-counter; on a card (``-m cuda``) the kernel's tail launch against the
-body, the launches of a 1000-step chunk, and chip_smoke.py's five-draw
-float64 check at the benchmark cells' tail shape. This file imports no
+keeps. On the CPU the plain window against the step body, the tail
+counter and the layouts the tails take; on a card (``-m cuda``) the
+kernel's tail launch against the body, the launches of a 1000-step
+chunk, and chip_smoke.py's five-draw float64 check at the benchmark
+cells' tail shapes. This file imports no
 JAX, so its ``cuda`` tests run on the card with ``python -m pytest
 --noconftest -m cuda tests/test_torch_window_tail.py``."""
 
@@ -19,6 +20,9 @@ from mcmc_ammsb_tpu_torch.ops import window
 FIELDS = ("pi", "phi_sum", "theta", "beta")
 #: (T', B, n, E, K) of the benchmark cells' tail: 1000 % 12 = 100 % 12 = 4
 TAIL_SHAPE = (4, 33, 32, 32, 16384)
+#: the tail shapes of the cells and the layout each takes: K = 16384 the
+#: node-resident layout, K = 1024 (youtube-k1024) the resident mode
+TAIL_LAYOUTS = [(TAIL_SHAPE, "nodes"), ((4, 33, 32, 32, 1024), "resident")]
 
 
 def _fresh(state):
@@ -134,6 +138,15 @@ def test_tail_launches_one_per_chunk(t_win, want):
     assert tuple(got) == want
 
 
+@pytest.mark.parametrize("t_win", [12, 4])
+def test_k1024_windows_take_the_resident_mode(t_win):
+    """At youtube-k1024's shape (B = 33, n = E = 32, K = 1024) a whole
+    window of T = 12 and the chunk's 4-step tail both fit the resident
+    mode on an H100's shared memory."""
+    cluster, mode, wc = window.window_plan(t_win, 33, 32, 32, 1024)
+    assert mode == "resident" and wc == 0 and 1 <= cluster <= 16
+
+
 # ---------------------------------------------------------------------------
 # on a card
 # ---------------------------------------------------------------------------
@@ -148,28 +161,32 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,layout", TAIL_LAYOUTS)
 @pytest.mark.parametrize("seed", [11, 12])
-def test_tail_launch_matches_steps_on_gpu(cuda_device, seed):
-    """At the cells' tail shape on a collision-heavy case (later steps
+def test_tail_launch_matches_steps_on_gpu(cuda_device, seed, shape, layout):
+    """At each cell's tail shape on a collision-heavy case (later steps
     read rows that earlier ones wrote), a 4-step chunk at T = 12 is one
-    launch of the kernel (the node-resident layout) and ends where four
-    steps of the body end from the same state on the card, within the
+    launch of the kernel (the node-resident layout at K = 16384, the
+    resident mode at K = 1024, counted under that layout) and ends where
+    four steps of the body end from the same state on the card, within the
     window contract of the benchmark's check (ammsb_bench/check.py): the
     largest L1 distance of a row 2e-5 (the float32 cells' window_pi_gap
     limit), theta's gap over its change 3e-3 (window_theta_gap), phi_sum
     normwise rtol 1e-5."""
-    case = testing.window_case(seed, *TAIL_SHAPE)
+    case = testing.window_case(seed, *shape)
     cfg = testing.window_case_config(case).replace(window=12)
     state, xs = testing.window_case_torch(case, cuda_device)
     codes = window._correction_codes(cfg, xs[0].nodes, xs[0].node_mask,
                                      xs[1][:, 0, :])
     assert bool((codes > 0).any())
-    assert window.window_plan(*TAIL_SHAPE)[1] == "nodes"
+    assert window.window_plan(*shape)[1] == layout
     want = _steps(cfg, _fresh(state), xs)
     window.window_apply_cuda.launches = 0
+    window.window_apply_cuda.layouts.clear()
     window.windowed_scan.tail_launches = 0
     got = window.windowed_scan(cfg, _fresh(state), xs, _never)
     assert window.window_apply_cuda.launches == 1
+    assert window.window_apply_cuda.layouts == {layout: 1}
     assert window.windowed_scan.tail_launches == 1
     pi_gap = float((got.pi.float() - want.pi.float()).abs().sum(-1).max())
     theta_gap = float(torch.linalg.vector_norm(got.theta - want.theta)
@@ -209,13 +226,14 @@ def test_chunk_launches_on_gpu(cuda_device, pi_dtype, want):
 
 
 @pytest.mark.cuda
-def test_tail_shape_float64_draws(cuda_device):
+@pytest.mark.parametrize("shape", [s for s, _ in TAIL_LAYOUTS])
+def test_tail_shape_float64_draws(cuda_device, shape):
     """chip_smoke.py's five-draw float64 check (check_window_f64_draws)
-    at the tail shape: on five draws the kernel's window of 4 steps is
-    no farther from a float64 evaluation than 2x the plain version, per
-    field, on most draws."""
+    at each cell's tail shape: on five draws the kernel's window of 4
+    steps is no farther from a float64 evaluation than 2x the plain
+    version, per field, on most draws."""
     import chip_smoke
     from mcmc_ammsb_tpu_torch.ops import phi as phi_ops
 
     assert chip_smoke.TAIL_SHAPE == TAIL_SHAPE
-    chip_smoke.check_window_f64_draws(window, phi_ops, testing, TAIL_SHAPE)
+    chip_smoke.check_window_f64_draws(window, phi_ops, testing, shape)
