@@ -44,14 +44,21 @@ Phases, one line each; any failure raises and the exit code is not 0:
                and the -k 8192 path's (12, 33, 32, 32, 8192) in its step
                layout with one set of rows, at (3, 33, 32, 32, 16384),
                the -k 16384 path's (12, 33, 32, 32, 16384) and (12, 33,
-               32, 32, 12288) in its node-resident layout (node rows in
-               shared memory, neighbor rows streamed in tiles; each of
-               these six also on five more draws against float64: the
-               kernel within 2x the plain version on most draws, per
-               field; the ragged (12, 33, 32, 32, 10242), 4-byte copies,
-               and the benchmark cells' chunk tail (4, 33, 32, 32,
-               16384), one short window, on those five draws only: see
-               RAGGED_NODES_SHAPE and TAIL_SHAPE) and at
+               32, 32, 12288) in its grid layout (one chain's columns
+               over the clusters the card holds at once, a step's rows
+               in shared memory, the sums exchanged across clusters
+               through L2; each of these six also on five more draws
+               against float64: the kernel within 2x the plain version
+               on most draws, per field; the ragged (12, 33, 32, 32,
+               10242), 4-byte copies, the benchmark cells' chunk tail
+               (4, 33, 32, 32, 16384), one short window, and (12, 33,
+               32, 32, 10240) on those five draws only: see
+               RAGGED_GRID_SHAPE, TAIL_SHAPE and GRID_SHAPES);
+               the grid layout at GRID_SHAPES also run twice (the same
+               bits), timed in turns against the node-resident layout
+               (node rows in shared memory, neighbor rows streamed in
+               tiles; the plan forced, each against the plain version),
+               its bf16 launch the float32 one rounded; and at
                (23, 33, 32, 32, 16384) in its chunked layout, with its
                mode, layout,
                cluster size, chunk width, shared memory per CTA (equal to
@@ -60,7 +67,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
                32, 256), the bench chain shape, (3, 4, 9, 8, 8, 16), (2,
                3, 6, 7, 5, 12) and, wide, (2, 12, 33, 32, 32, 2048), (2,
                12, 33, 32, 32, 8192) and (2, 12, 33, 32, 32, 16384), also
-               bit-equal to C single-chain launches — both no farther
+               bit-equal to C single-chain launches in the chain
+               launch's layout — both no farther
                from float64 than 2x the plain version; the resident mode,
                both step layouts and the chunked layout bit-equal to the
                build of PARENT_SRC at every shape above they run, float32
@@ -68,7 +76,8 @@ Phases, one line each; any failure raises and the exit code is not 0:
                at the main and the chain shapes, and the wide mode timed
                in turns against PARENT_SRC's (at the plan of its own
                rule: its chunked layout where this build takes the
-               node-resident layout) at the ten wide shapes and the three
+               grid or the node-resident layout) at the ten wide shapes
+               and the three
                wide chain shapes, with the layout each took; both
                phi entries
                (pre-gathered, by index) at (B, n, K) = (33, 32, 256),
@@ -112,8 +121,9 @@ Phases, one line each; any failure raises and the exit code is not 0:
                the main path's, the chain path's and the com-youtube
                rung's shapes and in the wide mode at the -k 4096 path's
                (its step layout), the -k 8192 path's (its step layout
-               with one set of rows) and the -k 16384 path's (its
-               node-resident layout): the bf16 launch equals the float32
+               with one set of rows) and the -k 16384 path's (its grid
+               layout, and its node-resident layout with the plan
+               forced): the bf16 launch equals the float32
                launch on the upcast rows, rounded to nearest-even, bit
                for bit; against the plain
                version at bf16 the stored values are equal or 1 ulp
@@ -157,8 +167,7 @@ Phases, one line each; any failure raises and the exit code is not 0:
                memory; the same at -k 8192 (pi 10.4 GB) and at -k 8192
                --pi-dtype bfloat16, every launch in the step layout with
                one set of rows, and at -k 16384 (pi 20.8 GB) and -k 16384
-               --pi-dtype bfloat16, every launch in the node-resident
-               layout;
+               --pi-dtype bfloat16, every launch in the grid layout;
      sharded — the multi-GPU paths on the one card, through NCCL process
                groups of size 1 and the sharded code (row fetch over the
                model ranks, write-back, collectives): the CLI at --mesh
@@ -542,7 +551,7 @@ WIDE_ARGS = ["--synthetic", "317080,7", "-k", "4096", "-x", "2000", "-i",
 STEP1_ARGS = ["--synthetic", "317080,7", "-k", "8192", "-x", "2000", "-i",
               "500", "--device", "cuda"]
 # the main path at K = 16384 (pi 20.8 GB), every window in the wide mode's
-# node-resident layout, in float32 and with bf16 pi
+# grid layout, in float32 and with bf16 pi
 NODES_ARGS = ["--synthetic", "317080,7", "-k", "16384", "-x", "2000", "-i",
               "500", "--device", "cuda"]
 # (T, B, n, E, K) of the fused window kernel's checks; the first is the
@@ -565,27 +574,34 @@ WIDE_MAIN_SHAPE = WINDOW_SHAPES[4]
 LADDER_SHAPE = WINDOW_SHAPES[8]
 STEP1_MAIN_SHAPE = WINDOW_SHAPES[10]
 NODES_MAIN_SHAPE = WINDOW_SHAPES[11]
-# the node-resident layout's ragged slices (K not a multiple of 4: 4-byte
-# copies), held on five draws against float64 only (check_window_f64_
-# draws): on the draw its place in WINDOW_SHAPES would give it (seed 13)
-# the plain version's beta is 1.39e-5 from float64 and the kernel's
+# the grid layout's ragged slices (K not a multiple of 4: 4-byte copies),
+# held on five draws against float64 only (check_window_f64_draws): on
+# the draw its place in WINDOW_SHAPES would give it (seed 13) the plain
+# version's beta is 1.39e-5 from float64 and the node-resident layout's
 # 1.22e-6 (the chunked layout's 1.25e-6), so kernel and plain are 1.48e-5
 # apart, past the normwise bound (NVIDIA H100)
-RAGGED_NODES_SHAPE = (12, 33, 32, 32, 10242)
+RAGGED_GRID_SHAPE = (12, 33, 32, 32, 10242)
 # the benchmark cells' chunk tail (1000 % 12 = 100 % 12 = 4 steps at
-# K = 16384), which windowed_scan runs as one short window in the
-# node-resident layout: held on five draws against float64
+# K = 16384), which windowed_scan runs as one short window in the grid
+# layout: held on five draws against float64
 TAIL_SHAPE = (4, 33, 32, 32, 16384)
+# the grid layout's shapes run twice and timed in turns against the
+# node-resident layout (the plan forced): the -k 16384 path's window and
+# tail, the shortest window, T = 12 at K = 12288 and 10240
+GRID_SHAPES = [NODES_MAIN_SHAPE, TAIL_SHAPE, (3, 33, 32, 32, 16384),
+               (12, 33, 32, 32, 12288), (12, 33, 32, 32, 10240)]
 # the shape of each layout whose times the kernels line carries: the main
-# path's, the -k 4096 path's, the -k 8192 path's, the -k 16384 path's and
-# the shortest window the node-resident layout does not hold at K = 16384
+# path's, the -k 4096 path's, the -k 8192 path's, the -k 16384 path's (the
+# grid layout, and the node-resident layout with the plan forced) and the
+# shortest window the node-resident layout does not hold at K = 16384
 LAYOUT_SHAPES = {"resident": WINDOW_SHAPES[0], "step": WIDE_MAIN_SHAPE,
-                 "step1": STEP1_MAIN_SHAPE, "nodes": NODES_MAIN_SHAPE,
-                 "wide": WINDOW_SHAPES[13]}
+                 "step1": STEP1_MAIN_SHAPE, "grid": NODES_MAIN_SHAPE,
+                 "nodes": NODES_MAIN_SHAPE, "wide": WINDOW_SHAPES[13]}
 # the phase lines' names of the plan's layouts
 LAYOUT_TEXT = {"resident": "resident mode", "step": "wide mode, step layout",
                "step1": "wide mode, step layout with one set of rows",
                "nodes": "wide mode, node-resident layout",
+               "grid": "wide mode, grid layout",
                "wide": "wide mode, chunked layout"}
 # the ladder phase: every rung of ladder.RUNGS at full size, 2000 steps
 # each (two 1000-step calls), an evaluation after each call; the window
@@ -748,8 +764,8 @@ class ParentWindowLib:
     parent's own window_kernel_smem_bytes, else the widest chunk of
     WIDE_CHUNKS narrower than the slice that fits. So the resident mode,
     both step layouts and the chunked layout run as in this build, and
-    the shapes this build takes in its node-resident layout in the
-    parent's chunked layout."""
+    the shapes this build takes in its node-resident or grid layout in
+    the parent's chunked layout."""
 
     #: positions of T..K, the cluster size, the chunk width and the layout
     #: among the arguments of this build's window_kernel_launch
@@ -1072,11 +1088,12 @@ def bf16_agree(testing, cfg, state, args, cuda, plain, what):
     return gaps, err
 
 
-def _plan_line(window, lib, shape, limit):
-    """(the plan (S, mode, wc) of a per-chain shape, shared bytes per CTA,
-    and its words for a phase line); the kernel's own layout must give
-    the rule's byte count."""
-    plan = window.window_plan(*shape, limit)
+def _plan_line(window, lib, shape, limit, chained=False):
+    """(the plan (S, mode, wc) a launch of a per-chain shape takes on the
+    card (``launch_plan``; ``chained``: the chain entry's), shared bytes
+    per CTA, and its words for a phase line); the kernel's own layout
+    must give the rule's byte count."""
+    plan = window.launch_plan(shape, torch.device("cuda"), chained)
     s_cl, mode, wc = plan
     smem = window.plan_smem_bytes(shape, plan)
     got = lib.window_kernel_smem_bytes(*shape, s_cl, wc,
@@ -1087,8 +1104,13 @@ def _plan_line(window, lib, shape, limit):
     if (mode != "resident") != (shape[4] >= 1536):
         raise AssertionError(f"{shape}: the {mode} mode, expected the "
                              f"{'wide' if shape[4] >= 1536 else 'resident'}")
+    if smem > limit:
+        raise AssertionError(f"{shape}: {smem} B of shared memory per CTA, "
+                             f"the card allows {limit} B")
     text = (LAYOUT_TEXT[mode] + f", cluster of {s_cl} CTAs"
             + (f", chunks of {wc} columns" if mode == "wide" else "")
+            + (f", {-(-shape[4] // wc) // s_cl} clusters of {wc}-column "
+               f"slices" if mode == "grid" else "")
             + f", {smem} B shared per CTA")
     return plan, smem, text
 
@@ -1130,8 +1152,10 @@ def check_resident_parent(window, chains_flat, testing, kernels, parent,
     old = ParentWindowLib(parent, window, limit)
     real = window._window_lib
     new = real()
+    dev = torch.device("cuda")
     shapes = [sh for sh in WINDOW_SHAPES + CHAIN_SHAPES
-              if window.window_plan(*sh[-5:], limit)[1] != "nodes"]
+              if window.launch_plan(sh[-5:], dev, len(sh) == 6)[1]
+              not in ("nodes", "grid")]
     out = {}
     try:
         for shape in shapes:
@@ -1145,7 +1169,8 @@ def check_resident_parent(window, chains_flat, testing, kernels, parent,
                     outs.append(_outs(cuda(cfg, _fresh(st), *args)))
                 torch.cuda.synchronize()
                 if not all(torch.equal(a, b) for a, b in zip(*outs)):
-                    layout = window.window_plan(*shape[-5:], limit)[1]
+                    layout = window.launch_plan(shape[-5:], dev,
+                                                len(shape) == 6)[1]
                     raise AssertionError(f"{shape} {dtype}: the {layout} "
                                          f"layout differs from {PARENT_SRC}")
             if shape in (WINDOW_SHAPES[0], CHAIN_SHAPES[0]):
@@ -1182,8 +1207,10 @@ def check_wide_parent(window, chains_flat, testing, kernels, parent,
     old = ParentWindowLib(parent, window, limit)
     real = window._window_lib
     new = real()
+    dev = torch.device("cuda")
     shapes = [sh for sh in WINDOW_SHAPES + CHAIN_SHAPES
-              if window.window_plan(*sh[-5:], limit)[1] != "resident"]
+              if window.launch_plan(sh[-5:], dev, len(sh) == 6)[1]
+              != "resident"]
     out = {}
     try:
         for shape in shapes:
@@ -1201,7 +1228,8 @@ def check_wide_parent(window, chains_flat, testing, kernels, parent,
                 window._window_lib = lambda lib=lib: lib
                 t.append(time_ms(lambda: cuda(cfg, scratch, *args), reps,
                                  hold=True))
-            s_cl, mode, wc = window.window_plan(*shape[-5:], limit)
+            s_cl, mode, wc = window.launch_plan(shape[-5:], dev,
+                                                len(shape) == 6)
             out[shape] = ((t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t,
                           f"{mode} S={s_cl} wc={wc}",
                           old.plan(*shape[-5:]), diff)
@@ -1269,8 +1297,11 @@ def check_window_kernel(window, kernels, testing, phi_ops, smi):
     ms, plain ms, bound ms and what sets it at the layout's shape of
     LAYOUT_SHAPES)}. Each shape of the step layout with one set of rows
     and of the node-resident layout also takes the five-draw float64
-    check (check_window_f64_draws), and so do RAGGED_NODES_SHAPE and
-    TAIL_SHAPE."""
+    check (check_window_f64_draws), and so do RAGGED_GRID_SHAPE,
+    TAIL_SHAPE and T = 12 at K = 10240; then the grid layout against the
+    node-resident layout at
+    GRID_SHAPES (check_grid_against_nodes), which gives the node-resident
+    layout's entry."""
     lib = window._window_lib()
     limit = kernels.smem_limit(torch.device("cuda"))
     worst, main = {mode: None for mode in LAYOUT_SHAPES}, {}
@@ -1311,25 +1342,116 @@ def check_window_kernel(window, kernels, testing, phi_ops, smi):
               f"back to back with the host, {plain_ms:.4f} ms/window "
               f"plain; bound {b_ms * 1e3:.3f} us ({b_by}), "
               f"{100 * b_ms / ms:.2f}% of it; {smi}")
-        if mode in ("step1", "nodes"):
+        if mode in ("step1", "nodes", "grid"):
             check_window_f64_draws(window, phi_ops, testing, shape)
-    (_, mode, _), _, plan_text = _plan_line(window, lib, RAGGED_NODES_SHAPE,
+    (_, mode, _), _, plan_text = _plan_line(window, lib, RAGGED_GRID_SHAPE,
                                             limit)
-    if mode != "nodes":
-        raise AssertionError(f"{RAGGED_NODES_SHAPE}: the {mode} layout, "
-                             f"expected the node-resident one")
+    if mode != "grid":
+        raise AssertionError(f"{RAGGED_GRID_SHAPE}: the {mode} layout, "
+                             f"expected the grid layout")
     phase("kernel", f"window T,B,n,E,K="
-          f"{','.join(map(str, RAGGED_NODES_SHAPE))}: {plan_text}")
-    check_window_f64_draws(window, phi_ops, testing, RAGGED_NODES_SHAPE)
-    check_window_f64_draws(window, phi_ops, testing, TAIL_SHAPE)
+          f"{','.join(map(str, RAGGED_GRID_SHAPE))}: {plan_text}")
+    for shape in (RAGGED_GRID_SHAPE, TAIL_SHAPE, GRID_SHAPES[4]):
+        check_window_f64_draws(window, phi_ops, testing, shape)
+    worst["nodes"], main["nodes"] = check_grid_against_nodes(
+        window, kernels, testing, phi_ops, smi)
     return {mode: (worst[mode], main[mode]) for mode in worst}
+
+
+@contextlib.contextmanager
+def forced_plan(window, plan):
+    """Every launch in the block takes ``plan`` (S, mode, wc), whatever
+    the rule gives its shape."""
+    real = window.window_plan
+    window.window_plan = lambda *a, **kw: plan
+    try:
+        yield
+    finally:
+        window.window_plan = real
+
+
+def check_grid_against_nodes(window, kernels, testing, phi_ops, smi,
+                             reps=30):
+    """Phase 3, the grid layout at every shape of GRID_SHAPES: the plan
+    takes it; two launches give the same bits; its bf16 launch is its
+    float32 launch on the upcast rows, rounded; it and the node-resident
+    layout (the plan forced to (16, "nodes", NODES_TILE)) each against the
+    plain version, timed in turns (grid, nodes, nodes, grid). A shape of
+    WINDOW_SHAPES takes the draw check_window_kernel gives it, and both
+    layouts are held there as that check holds the grid (``_agree``:
+    normwise, and no farther from float64 than 2x the plain version);
+    elsewhere (the tail, K = 10240: their five-draw float64 checks hold
+    the grid) the differences are printed, not held: on some draws two
+    float32 evaluations drift apart past the normwise bound. Returns the
+    node-resident layout's (max abs err, and its ms, the plain ms, bound
+    ms and what sets it at NODES_MAIN_SHAPE)."""
+    dev = torch.device("cuda")
+    nodes = (16, "nodes", window.NODES_TILE)
+    worst, main, lines = 0.0, None, []
+    for i, shape in enumerate(GRID_SHAPES):
+        held = shape in WINDOW_SHAPES
+        seed = WINDOW_SHAPES.index(shape) if held else 20 + i
+        plan = window.launch_plan(shape, dev, False)
+        if plan[1] != "grid":
+            raise AssertionError(f"{shape}: the plan {plan}, expected the "
+                                 f"grid layout")
+        cfg, state, args, cuda, plain = window_operands(
+            window, None, testing, shape, seed=seed)
+        runs = [_outs(cuda(cfg, _fresh(state), *args)) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"{shape}: two grid launches differ")
+        gaps, _ = bf16_agree(testing, cfg, state, args, cuda, plain,
+                             f"grid layout at {shape}")
+        if held:
+            _, err_g, f64_g = _agree(window, phi_ops, cfg, state, *args,
+                                     False, f"grid layout at {shape}")
+            with forced_plan(window, nodes):
+                _, err_n, f64_n = _agree(window, phi_ops, cfg, state, *args,
+                                         False, f"node-resident layout at "
+                                         f"{shape}")
+            worst = max(worst, err_n)
+            vs = (f"max abs err grid {err_g:.3e}, nodes {err_n:.3e} (vs "
+                  f"float64: grid {f64_g[0]:.3e}, nodes {f64_n[0]:.3e}, "
+                  f"plain {f64_g[1]:.3e})")
+        else:
+            want = _outs(plain(cfg, _fresh(state), *args))
+            with forced_plan(window, nodes):
+                got_n = _outs(cuda(cfg, _fresh(state), *args))
+            diff = [max(float((a - b).abs().max()) for a, b in zip(got, want))
+                    for got in (runs[0], got_n)]
+            vs = (f"max abs diff from the plain version (not held) grid "
+                  f"{diff[0]:.3e}, nodes {diff[1]:.3e}")
+        scratch = _fresh(state)
+        t = []
+        for p in (plan, nodes, nodes, plan):
+            with forced_plan(window, p):
+                t.append(time_ms(lambda: cuda(cfg, scratch, *args), reps,
+                                 hold=True))
+        grid_ms, nodes_ms = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        if shape == NODES_MAIN_SHAPE:
+            b_ms, b_by = window_bound(*args, shape[4], cfg.N)
+            plain_ms = time_ms(lambda: plain(cfg, _fresh(state), *args),
+                               reps=5)
+            main = (nodes_ms, plain_ms, b_ms, b_by)
+        lines.append(
+            f"{','.join(map(str, shape))} {plan}: two launches bit-equal; "
+            f"bf16 = float32 rounded ({gaps['one_ulp']} values 1 ulp from "
+            f"the plain version); {vs}; ms/window grid, nodes, nodes, grid "
+            f"{' '.join(f'{x:.4f}' for x in t)} (grid/nodes "
+            f"{grid_ms / nodes_ms:.3f}; {1e3 * grid_ms / shape[0]:.2f} vs "
+            f"{1e3 * nodes_ms / shape[0]:.2f} us/step)")
+    phase("kernel", "grid layout against the node-resident layout (the "
+          "plan forced): " + "; ".join(lines) + f"; {smi}")
+    return worst, main
 
 
 def check_chain_kernel(window, kernels, chains_flat, testing, phi_ops, smi):
     """Phase 3, the fused window's chain mode: (max abs err, and the
     kernel ms, plain ms, bound ms and what sets it at the chain path's
     shape). One launch runs C clusters; it must give the same bits as C
-    single-chain launches on the chains' blocks."""
+    single-chain launches on the chains' blocks in its layout (the plan
+    forced where the single-chain entry would take the grid layout)."""
     lib = window._window_lib()
     limit = kernels.smem_limit(torch.device("cuda"))
     worst, main = 0.0, None
@@ -1341,7 +1463,8 @@ def check_chain_kernel(window, kernels, chains_flat, testing, phi_ops, smi):
         win = chains_flat.chain_windows(cfg, c, xw).at(0)
         if not all((win.mcode[i] > 0).any() for i in range(c)):
             raise AssertionError("a chain of the case has no collision")
-        _, _, plan_text = _plan_line(window, lib, shape[1:], limit)
+        chain_plan, _, plan_text = _plan_line(window, lib, shape[1:], limit,
+                                              chained=True)
         args = (win.xs_t, win.mcode, win.keep)
         got, err, f64 = _agree(window, phi_ops, cfg, state, *args, True,
                                f"chain window at {shape}")
@@ -1349,13 +1472,16 @@ def check_chain_kernel(window, kernels, chains_flat, testing, phi_ops, smi):
         n = cfg.N
         for ci in range(c):
             rows = slice(ci * n, (ci + 1) * n)
-            one = window.window_apply_cuda(
-                cfg, state._replace(pi=state.pi[rows].clone(),
-                                    phi_sum=state.phi_sum[rows].clone(),
-                                    theta=state.theta[ci],
-                                    beta=state.beta[ci]),
-                window.index_operands(win.xs_t, ci), win.mcode[ci],
-                win.keep[ci])
+            # the single-chain entry would take the grid layout where the
+            # chain entry keeps the node-resident one: in the chain's
+            with forced_plan(window, chain_plan):
+                one = window.window_apply_cuda(
+                    cfg, state._replace(pi=state.pi[rows].clone(),
+                                        phi_sum=state.phi_sum[rows].clone(),
+                                        theta=state.theta[ci],
+                                        beta=state.beta[ci]),
+                    window.index_operands(win.xs_t, ci), win.mcode[ci],
+                    win.keep[ci])
             part = (got.pi[rows], got.phi_sum[rows], got.theta[ci],
                     got.beta[ci])
             if not all(torch.equal(a, b) for a, b in zip(_outs(one), part)):
@@ -1995,8 +2121,7 @@ def run_wide_main(cli, kmods, main_l, args, shape, smi, beside=""):
     k = args[args.index("-k") + 1]
     dtype = (args[args.index("--pi-dtype") + 1] if "--pi-dtype" in args
              else "float32")
-    s_cl, layout, wc = win.window_plan(
-        *shape, win.kernels.smem_limit(torch.device("cuda")))
+    s_cl, layout, wc = win.launch_plan(shape, torch.device("cuda"), False)
     layouts, dtypes = [], set()
     real = win._launch
 
@@ -3034,21 +3159,31 @@ def check_cli_resume(cli, kmods, tmp):
 def check_bf16_kernels(window, chains_flat, testing, smi):
     """Phase bf16, the window kernel's bf16 row mode at the main path's,
     the chain path's and the com-youtube rung's shapes, and in the wide
-    mode at the K = 4096 path's (its step layout) and the K = 8192 path's
-    (its step layout with one set of rows) (``bf16_agree``), timed
+    mode at the K = 4096 path's (its step layout), the K = 8192 path's
+    (its step layout with one set of rows) and the K = 16384 path's (its
+    grid layout, and its node-resident layout with the plan forced)
+    (``bf16_agree``), timed
     against the float32 launches on the same operands in this call
     (turns: f32, bf16, bf16, f32). Returns {kernel: (gaps, max abs err,
     bf16 ms, f32 ms, bound ms with pi's row bytes halved, what sets
     it)}."""
     out = {}
+    nodes = (16, "nodes", window.NODES_TILE)
     for name, shape in (("window_kernel", WINDOW_SHAPES[0]),
                         ("window_kernel_chains", CHAIN_SHAPES[0]),
                         ("window_kernel_wide", WIDE_MAIN_SHAPE),
                         ("window_kernel_ladder", LADDER_SHAPE),
                         ("window_kernel_step1", STEP1_MAIN_SHAPE),
+                        ("window_kernel_grid", NODES_MAIN_SHAPE),
                         ("window_kernel_nodes", NODES_MAIN_SHAPE)):
         cfg, state, args, cuda, plain = window_operands(
             window, chains_flat, testing, shape)
+        if name == "window_kernel_nodes":
+            real_cuda = cuda
+
+            def cuda(*a, _f=real_cuda):
+                with forced_plan(window, nodes):
+                    return _f(*a)
         gaps, err = bf16_agree(testing, cfg, state, args, cuda, plain,
                                f"{name} at {shape}")
         s32 = _fresh(state)
@@ -3771,13 +3906,13 @@ def main() -> int:
                       for dtype, extra in (("float32", []),
                                            ("bfloat16", ["--pi-dtype",
                                                          "bfloat16"]))}
-        nodes_runs = {dtype: run_wide_main(cli, kmods, main_l,
-                                           NODES_ARGS + extra,
-                                           NODES_MAIN_SHAPE, smi)
-                      for dtype, extra in (("float32", []),
-                                           ("bfloat16", ["--pi-dtype",
-                                                         "bfloat16"]))}
-        for dtype, run in nodes_runs.items():
+        grid_runs = {dtype: run_wide_main(cli, kmods, main_l,
+                                          NODES_ARGS + extra,
+                                          NODES_MAIN_SHAPE, smi)
+                     for dtype, extra in (("float32", []),
+                                          ("bfloat16", ["--pi-dtype",
+                                                        "bfloat16"]))}
+        for dtype, run in grid_runs.items():
             # the peak stays within pi plus 3 GB of working set
             pi_bytes = 317080 * 16384 * (4 if dtype == "float32" else 2)
             if run[3] > pi_bytes + 3e9:
@@ -3954,26 +4089,39 @@ def main() -> int:
          "bf16_max_abs_err": bf16_k["window_kernel_step1"][1],
          "bf16_ms": bf16_k["window_kernel_step1"][2],
          "bf16_f32_ms": bf16_k["window_kernel_step1"][3]},
-        # the wide mode's node-resident layout (window_kernel_nodes) on
-        # its own: the -k 16384 main path's launches, its times at that
-        # path's window (T = 12), against the build of PARENT_SRC (its
-        # chunked layout) in turns at every shape it takes, and the path's
-        # bf16 run
-        {"name": "window_kernel_nodes", "route": "cuda",
+        # the wide mode's grid layout (window_kernel_grid) on its own: the
+        # -k 16384 main path's launches, its times at that path's window
+        # (T = 12), against the build of PARENT_SRC (its chunked layout) in
+        # turns at every shape it takes, and the path's bf16 run
+        {"name": "window_kernel_grid", "route": "cuda",
          "source": src + "window_kernel.cu",
          "replaces": "mcmc_ammsb_tpu/ops/window.py:321 (K = 10240-16384)",
-         "launches": nodes_runs["float32"][0]["window_wide"],
-         "max_abs_err": w["nodes"][0], **times(w["nodes"][1]),
+         "launches": grid_runs["float32"][0]["window_wide"],
+         "max_abs_err": w["grid"][0], **times(w["grid"][1]),
          "parent_ms": wide_t[NODES_MAIN_SHAPE][0],
          "change_ms": wide_t[NODES_MAIN_SHAPE][1],
          "turns_ms": {",".join(map(str, sh)): v[2]
                       for sh, v in wide_t.items()
-                      if v[3].startswith("nodes")},
-         "updates_per_s": nodes_runs["float32"][2],
-         "peak_bytes": nodes_runs["float32"][3],
-         "bf16_launches": nodes_runs["bfloat16"][0]["window_wide"],
-         "bf16_updates_per_s": nodes_runs["bfloat16"][2],
-         "bf16_peak_bytes": nodes_runs["bfloat16"][3],
+                      if v[3].startswith("grid")},
+         "updates_per_s": grid_runs["float32"][2],
+         "peak_bytes": grid_runs["float32"][3],
+         "bf16_launches": grid_runs["bfloat16"][0]["window_wide"],
+         "bf16_updates_per_s": grid_runs["bfloat16"][2],
+         "bf16_peak_bytes": grid_runs["bfloat16"][3],
+         "bf16_one_ulp": bf16_k["window_kernel_grid"][0]["one_ulp"],
+         "bf16_more_ulps": bf16_k["window_kernel_grid"][0]["more_ulps"],
+         "bf16_max_abs_err": bf16_k["window_kernel_grid"][1],
+         "bf16_ms": bf16_k["window_kernel_grid"][2],
+         "bf16_f32_ms": bf16_k["window_kernel_grid"][3]},
+        # the wide mode's node-resident layout (window_kernel_nodes): the
+        # chain engine's at K = 10240-16384, and the single-chain entry's
+        # on a card that holds too few clusters at once for the grid; its
+        # times at the -k 16384 path's window with the plan forced
+        {"name": "window_kernel_nodes", "route": "cuda",
+         "source": src + "window_kernel.cu",
+         "replaces": "mcmc_ammsb_tpu/ops/window.py:321 (K = 10240-16384, "
+                     "chains)",
+         "max_abs_err": w["nodes"][0], **times(w["nodes"][1]),
          "bf16_one_ulp": bf16_k["window_kernel_nodes"][0]["one_ulp"],
          "bf16_more_ulps": bf16_k["window_kernel_nodes"][0]["more_ulps"],
          "bf16_max_abs_err": bf16_k["window_kernel_nodes"][1],

@@ -20,12 +20,14 @@
 // card's shared memory (ops/window.py::window_plan: the resident mode at
 // S = 4 at K = 256, the wide mode at S = 16 from K = 1536 at T = 12),
 // never from C, so one C-chain launch gives the same bits as C
-// single-chain launches.
+// single-chain launches. The one exception is the grid layout, which only
+// the single-chain entry takes: one chain's columns over as many clusters
+// as the card holds at once (window_kernel_grid).
 //
 // Two modes, one function. The resident mode (window_kernel) keeps a
 // CTA's whole slice of the step rows and of the window's staged rows in
 // shared memory; it is chosen wherever that fits. The wide mode stages
-// the rows in a global scratch, in one of four layouts, each described
+// the rows in a global scratch, in one of five layouts, each described
 // above its kernel: the step layout (window_kernel_step) keeps a step's
 // rows in shared memory through all its stages, with the next step's rows
 // in flight by bulk copies in a second set of buffers, wherever that fits
@@ -33,7 +35,11 @@
 // rows (window_kernel_step1) gathers the next step's rows into the one
 // set as its regions free up (T = 12 at K = 6144-8192); the node-resident
 // layout (window_kernel_nodes) keeps a step's node rows and streams its
-// neighbor rows in tiles (T = 12 at K = 10240-16384); the chunked layout
+// neighbor rows in tiles (K = 10240-16384 at T = 12 in the flat chain
+// engine, and where the card holds too few CTAs at once for the grid
+// layout); the grid layout (window_kernel_grid) spreads one chain's
+// window over the whole card, its sums exchanged across clusters through
+// L2 (one chain at T = 12, K = 10240-16384); the chunked layout
 // (window_kernel_wide) takes the slice in column chunks, so its shared
 // memory hardly grows with K (where none of the others fits: T >= 23 at
 // K = 16384). What follows describes the resident mode.
@@ -470,6 +476,66 @@ __host__ __device__ inline NodesLayout layout_nodes(int T, int B, int n,
   return L;
 }
 
+// Offsets (in 4-byte words) of the shared arrays of one CTA in the grid
+// layout (window_kernel_grid), whose launch spreads a window's columns
+// over G clusters of S CTAs: the step layout's arrays (two sets of a
+// step's rows, the next step's in flight; the phi noise buffer, earlier
+// in the step x * (beta - eps)), where the region of the q partials of
+// the splits and of the fan-in partials also takes the G clusters' row
+// and edge sums [G, B + 2E] read back from L2; mirrored by
+// ops/window.py::window_grid_smem_bytes. Every array of 16-byte copies
+// and float4 loads starts at a multiple of 16 bytes.
+struct GridLayout {
+  size_t rows0, rows1, nz, bz, bme, coef, part, th0, th1, bet, ssum, phis0,
+      phis1, ce, nval, scale, invphi, rsv, epr, qin, rin, ein, smc, snodes,
+      snbrs, slanes, ybits, mbits, yebits, embits, total;
+};
+
+__host__ __device__ inline GridLayout layout_grid(int T, int B, int n, int E,
+                                                  int kw, int S, int G) {
+  const size_t R = (size_t)B + n, ld = row_stride(kw);
+  const size_t TB = (size_t)T * B, TE = (size_t)T * E, Bn = (size_t)B * n;
+  const size_t nl = (B + S - 1) / S;
+  const size_t ks = q_splits(B), Gf = fan_groups(kw), V = (size_t)B + 2 * E;
+  GridLayout L;
+  size_t o = 0;
+  L.rows0 = o;  o += R * ld;          // step rows, even steps [R, ld]
+  L.rows1 = o;  o += R * ld;          // step rows, odd steps
+  L.nz = o;     o += (size_t)B * ld;   // the phi noise [B, kw]; before it
+                                      // x * (beta - eps) [B, ld]
+  L.bz = o;     o += up4(2 * (size_t)kw);  // theta noise [kw, 2]
+  L.bme = o;    o += up4(kw);         // beta - eps, zero-padded
+  L.coef = o;   o += up4(Bn);         // s/p * mask [B, n], from the owners
+  // stage a's q partials of the splits [ks, B, n], stage d's row and edge
+  // sums of the clusters [G, V], stage e's fan-in partials [Gf, kw, 2]
+  L.part = o;   o += up4(larger(larger(ks * Bn, 2 * Gf * kw), G * V));
+  L.th0 = o;    o += up4(kw);
+  L.th1 = o;    o += up4(kw);
+  L.bet = o;    o += up4(kw);
+  L.ssum = o;   o += TB;              // the staged rows' sums
+  L.phis0 = o;  o += B;               // the step's phi sums, even steps
+  L.phis1 = o;  o += B;               // odd steps
+  L.ce = o;     o += B;
+  L.nval = o;   o += B;
+  L.scale = o;  o += B;
+  L.invphi = o; o += B;
+  L.rsv = o;    o += B;               // the step's row sums
+  L.epr = o;    o += E;               // per-edge prsum
+  L.qin = o;    o += S * nl * n;
+  L.rin = o;    o += (size_t)S * B;
+  L.ein = o;    o += (size_t)S * 2 * E;
+  L.smc = o;    o += (size_t)T * R;
+  L.snodes = o; o += TB;
+  L.snbrs = o;  o += (size_t)T * n;
+  L.slanes = o; o += TE;
+  L.ybits = o;  o += words_of_bits(TB * n);
+  L.mbits = o;  o += words_of_bits(TB);
+  L.yebits = o; o += words_of_bits(TE);
+  L.embits = o; o += words_of_bits(TE);
+  L.total = o;
+  return L;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -556,9 +622,10 @@ __device__ __forceinline__ void prefetch_l2(const void* p) {
 
 // The kernel's layouts, as the launch names them (ops/window.py::LAYOUTS):
 // the resident mode, and the wide mode's step layout, its step layout with
-// one set of rows, its chunked layout and its node-resident layout.
+// one set of rows, its chunked layout, its node-resident layout and its
+// grid layout.
 enum Mode : int {
-  kResident = 0, kStep = 1, kStep1 = 2, kChunked = 3, kNodes = 4
+  kResident = 0, kStep = 1, kStep1 = 2, kChunked = 3, kNodes = 4, kGrid = 5
 };
 
 template <typename PiT>
@@ -584,10 +651,11 @@ struct Params {
   const float* beta_in;    // [K]
   float* theta_out;        // [K, 2]
   float* beta_out;         // [K]
-  float* staged;           // [T*B, K] wide mode's staged rows; else unused
+  float* staged;           // [T*B, K] wide mode's staged rows (the grid
+                           // layout's L2 exchange after them); else unused
   int T, B, n, E, K, N, kw;
-  int wc;                  // wide mode's chunk or tile width; 0 in the
-                           // resident mode
+  int wc;                  // wide mode's chunk or tile width (the grid
+                           // layout's slice width); 0 in the resident mode
   int mode;                // the layout (Mode)
   float eps, one_minus_eps, alpha, n_nodes, eta0, eta1, inv_k;
   float eps_phi[kMaxWindow];    // phi step sizes of the T steps
@@ -736,30 +804,24 @@ __device__ __forceinline__ void scatter_kept(PiT* pi_k0, const float* stg,
   }
 }
 
-// Both modes, stage 2b of step t: each CTA finishes its own nodes (b mod
-// S == rank, one warp per node): q summed over the ranks from qin [S,
-// ceil(B/S), n] (in order; pairwise with kPairwise, the wide mode), the
-// pair coefficients, the e/p sum, the mask count, 1/phi and N/n_valid,
-// pushed to every CTA of the cluster (the arrays are this CTA's; the
-// peers' copies sit at the same offsets).
-template <bool kPairwise>
-__device__ __forceinline__ void node_coefficients(
-    cg::cluster_group& cluster, const float* qin, const unsigned* ybits,
+// Every mode, stage 2b of step t: each CTA finishes its own nodes (b mod
+// S == rank, one warp per node): q of its lb-th node and neighbor j from
+// qsum(lb, j), the pair coefficients, the e/p sum, the mask count, 1/phi
+// and N/n_valid, pushed to every CTA of the cluster (the arrays are this
+// CTA's; the peers' copies sit at the same offsets).
+template <typename QSum>
+__device__ __forceinline__ void node_coefficients_of(
+    cg::cluster_group& cluster, QSum qsum, const unsigned* ybits,
     const int* nd, const int* nb, const float* phis, float* coef, float* ce,
     float* nval, float* scale, float* invphi, int t, int B, int n, int S,
     int rank, int warp, int lane, float eps, float one_minus_eps,
     float n_nodes) {
   const size_t ybase = (size_t)t * B * n;
-  const int nl = (B + S - 1) / S;
   for (int lb = warp; lb * S + rank < B; lb += kWarps) {
     const int b = lb * S + rank;
     float s_ce = 0.f, s_n = 0.f;
     for (int j = lane; j < n; j += 32) {
-      float q = 0.f;
-      if (kPairwise)
-        q = rank_sum(qin + lb * n + j, nl * n, S);
-      else
-        for (int r = 0; r < S; ++r) q += qin[(r * nl + lb) * n + j];
+      const float q = qsum(lb, j);
       const int pair = b * n + j;
       const float y = bit(ybits, ybase + pair) ? 1.f : 0.f;
       // a shared neighbor that is the node itself is excluded
@@ -783,6 +845,31 @@ __device__ __forceinline__ void node_coefficients(
       cluster.map_shared_rank(invphi, lane)[b] = 1.f / phis[b];
     }
   }
+}
+
+// The cluster modes' stage 2b: node_coefficients_of with q summed over
+// the ranks from qin [S, ceil(B/S), n] (in order; pairwise with
+// kPairwise, the wide mode).
+template <bool kPairwise>
+__device__ __forceinline__ void node_coefficients(
+    cg::cluster_group& cluster, const float* qin, const unsigned* ybits,
+    const int* nd, const int* nb, const float* phis, float* coef, float* ce,
+    float* nval, float* scale, float* invphi, int t, int B, int n, int S,
+    int rank, int warp, int lane, float eps, float one_minus_eps,
+    float n_nodes) {
+  const int nl = (B + S - 1) / S;
+  node_coefficients_of(
+      cluster,
+      [&](int lb, int j) {
+        float q = 0.f;
+        if (kPairwise)
+          q = rank_sum(qin + lb * n + j, nl * n, S);
+        else
+          for (int r = 0; r < S; ++r) q += qin[(r * nl + lb) * n + j];
+        return q;
+      },
+      ybits, nd, nb, phis, coef, ce, nval, scale, invphi, t, B, n, S, rank,
+      warp, lane, eps, one_minus_eps, n_nodes);
 }
 
 // Both modes: the theta SGRLD step of one column (abs, floor) from its
@@ -1942,20 +2029,33 @@ __device__ __forceinline__ void step_partials(
   }
 }
 
-// Stage d: the row sums (ranks pairwise) into rsv and ssum_t; per edge
-// the sums over the ranks (pairwise) divided by the endpoints' row sums
-// (a masked endpoint's by 1), and prsum into epr; the rows normalized in
+// The cluster layouts' sum over the S ranks' slots (rank_sum), as
+// step_normalize takes it.
+struct RankSum {
+  int S;
+  __device__ __forceinline__ float operator()(const float* x,
+                                              int stride) const {
+    return rank_sum(x, stride, S);
+  }
+};
+
+// Stage d: the row sums (sum over the slots rin[b], rin[b + rstride],
+// ...) into rsv and ssum_t; per edge the sums of its slots (ein[2e] and
+// ein[2e + 1], estride apart) divided by the endpoints' row sums (a
+// masked endpoint's by 1), and prsum into epr; the rows normalized in
 // shared memory and written to the scratch stg_t (this CTA's columns of
 // the step's staged rows; plain coalesced stores), masked lanes as 1/K
-// in shared memory. Ends without a barrier.
+// in shared memory. The cluster layouts sum the S ranks' slots pairwise
+// (RankSum; rin [S, B], ein [S, E, 2]). Ends without a barrier.
+template <typename Sum>
 __device__ __forceinline__ void step_normalize(
     float* rows, int ld, int kw, int B, int E, int K, int t, bool vec,
-    const float* rin, const float* ein, const unsigned* slanes,
-    const unsigned* mbits, const unsigned* yebits, float* rsv,
-    float* ssum_t, float* epr, float* stg_t, float eps, float one_minus_eps,
-    float inv_k, int S, int tid) {
+    const float* rin, int rstride, const float* ein, int estride, Sum sum,
+    const unsigned* slanes, const unsigned* mbits, const unsigned* yebits,
+    float* rsv, float* ssum_t, float* epr, float* stg_t, float eps,
+    float one_minus_eps, float inv_k, int tid) {
   for (int b = tid; b < B; b += kThreads) {
-    const float rs = rank_sum(rin + b, B, S);
+    const float rs = sum(rin + b, rstride);
     rsv[b] = rs;
     ssum_t[b] = rs;
   }
@@ -1965,8 +2065,8 @@ __device__ __forceinline__ void step_normalize(
     const int u = pk & 0xffffu, v = pk >> 16;
     const float du = bit(mbits, (size_t)t * B + u) ? rsv[u] : 1.f;
     const float dv = bit(mbits, (size_t)t * B + v) ? rsv[v] : 1.f;
-    const float s_pp = rank_sum(ein + 2 * e, 2 * E, S) / (du * dv);
-    const float s_pr = rank_sum(ein + 2 * e + 1, 2 * E, S) / (du * dv);
+    const float s_pp = sum(ein + 2 * e, estride) / (du * dv);
+    const float s_pr = sum(ein + 2 * e + 1, estride) / (du * dv);
     const bool link = bit(yebits, (size_t)t * E + e);
     epr[e] = s_pr + (link ? eps : one_minus_eps) * (1.f - s_pp);
   }
@@ -2413,9 +2513,10 @@ __global__ void __launch_bounds__(kThreads) window_kernel_step(Params<PiT> P) {
     // ---- d. the row sums, prsum, the rows normalized and written to the
     //         scratch (step_normalize) -------------------------------------
     float* const stg_t = stg + (size_t)t * B * K;
-    step_normalize(rows, ld, kw, B, E, K, t, vec, TM(rin), TM(ein), slanes,
-                   mbits, yebits, TM(rsv), TM(ssum) + t * B, TM(epr), stg_t,
-                   eps, P.one_minus_eps, P.inv_k, S, tid);
+    step_normalize(rows, ld, kw, B, E, K, t, vec, TM(rin), B, TM(ein),
+                   2 * E, RankSum{S}, slanes, mbits, yebits, TM(rsv),
+                   TM(ssum) + t * B, TM(epr), stg_t, eps, P.one_minus_eps,
+                   P.inv_k, tid);
     __syncthreads();
     PHASE(6);
 
@@ -2767,9 +2868,10 @@ __global__ void __launch_bounds__(kThreads) window_kernel_step1(Params<PiT> P) {
     // ---- d. the row sums, prsum, the rows normalized and written to the
     //         scratch (step_normalize) -------------------------------------
     float* const stg_t = stg + (size_t)t * B * K;
-    step_normalize(rows, ld, kw, B, E, K, t, vec, OM(rin), OM(ein), slanes,
-                   mbits, yebits, OM(rsv), OM(ssum) + t * B, OM(epr), stg_t,
-                   eps, P.one_minus_eps, P.inv_k, S, tid);
+    step_normalize(rows, ld, kw, B, E, K, t, vec, OM(rin), B, OM(ein),
+                   2 * E, RankSum{S}, slanes, mbits, yebits, OM(rsv),
+                   OM(ssum) + t * B, OM(epr), stg_t, eps, P.one_minus_eps,
+                   P.inv_k, tid);
     __syncthreads();
     PHASE(6);
 
@@ -3173,9 +3275,10 @@ __global__ void __launch_bounds__(kThreads) window_kernel_nodes(Params<PiT> P) {
     //         scratch (step_normalize); step t+1's first two tiles, which
     //         may read those scratch rows ---------------------------------
     float* const stg_t = stg + (size_t)t * B * K;
-    step_normalize(rows, ld, kw, B, E, K, t, vec, NM(rin), NM(ein), slanes,
-                   mbits, yebits, NM(rsv), NM(ssum) + t * B, NM(epr), stg_t,
-                   eps, P.one_minus_eps, P.inv_k, S, tid);
+    step_normalize(rows, ld, kw, B, E, K, t, vec, NM(rin), B, NM(ein),
+                   2 * E, RankSum{S}, slanes, mbits, yebits, NM(rsv),
+                   NM(ssum) + t * B, NM(epr), stg_t, eps, P.one_minus_eps,
+                   P.inv_k, tid);
     __syncthreads();
     PHASE(6);
     if (t + 1 < T) {
@@ -3215,6 +3318,515 @@ __global__ void __launch_bounds__(kThreads) window_kernel_nodes(Params<PiT> P) {
 #undef NU
 #undef NI
 
+// ---------------------------------------------------------------------------
+// The grid layout (window_kernel_grid)
+// ---------------------------------------------------------------------------
+
+// Most clusters of a grid launch: a sum over the clusters holds their
+// partials in registers (grid_sum).
+constexpr int kMaxGrid = 32;
+
+// The grid layout's barrier word: device memory that lives as long as the
+// module, zero when it loads and never reset. At each barrier every CTA
+// but CTA 0 adds 1 and CTA 0 adds 2^31 - (nblocks - 1), so the top bit
+// flips exactly when the last CTA arrives and the low bits come back to
+// zero: every launch finds it in the same state, whatever its grid, with
+// no memset. One grid launch at a time on a device (the port issues its
+// windows on one stream).
+__device__ unsigned g_grid_bar;
+
+__device__ __forceinline__ unsigned ld_acquire_gpu(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// The barrier over every CTA of the launch, in two halves so that work
+// that needs no other CTA runs between them: grid_arrive (a block
+// barrier, thread 0's release fence and arrival; returns the word it
+// found) and grid_wait (thread 0's acquire loads until the top bit flips,
+// a block barrier). The writes of every CTA before its arrival are
+// visible to the loads of every CTA after its wait. The launch is
+// cooperative, so the CTAs are co-resident.
+__device__ __forceinline__ unsigned grid_arrive() {
+  __syncthreads();
+  unsigned old = 0;
+  if (threadIdx.x == 0) {
+    const unsigned nb = gridDim.x;
+    const unsigned add = blockIdx.x == 0 ? 0x80000000u - (nb - 1) : 1u;
+    __threadfence();
+    old = atomicAdd(&g_grid_bar, add);
+  }
+  return old;
+}
+
+__device__ __forceinline__ void grid_wait(unsigned old) {
+  if (threadIdx.x == 0)
+    while (((old ^ ld_acquire_gpu(&g_grid_bar)) & 0x80000000u) == 0) {
+    }
+  __syncthreads();
+}
+
+// The cluster barrier (cluster.sync) in two halves: the arrival releases
+// this CTA's earlier writes, the wait acquires the peers'.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The sum over the G clusters of x[0], x[stride], ..., x[(G-1)*stride]:
+// pairwise in a fixed order, as rank_sum, so every CTA gets the same bits;
+// with kL2 the values are read from L2 (ld.global.cg: another SM wrote
+// them), else from shared memory.
+template <bool kL2>
+__device__ __forceinline__ float grid_sum(const float* x, size_t stride,
+                                          int G) {
+  float v[kMaxGrid];
+#pragma unroll
+  for (int r = 0; r < kMaxGrid; ++r)
+    v[r] = r < G ? (kL2 ? __ldcg(x + r * stride) : x[r * stride]) : 0.f;
+#pragma unroll
+  for (int w = 1; w < kMaxGrid; w *= 2)
+#pragma unroll
+    for (int r = 0; r + w < kMaxGrid; r += 2 * w) v[r] += v[r + w];
+  return v[0];
+}
+
+// The grid layout's sum over the clusters' slots, as step_normalize takes
+// it (the slots in shared memory).
+struct GridSum {
+  int G;
+  __device__ __forceinline__ float operator()(const float* x,
+                                              int stride) const {
+    return grid_sum<false>(x, stride, G);
+  }
+};
+
+// The grid layout's shared arrays, as SM / SU / SI.
+constexpr int kGridFields = sizeof(GridLayout) / sizeof(size_t);
+#define GM(name) (smem + s_off[offsetof(GridLayout, name) / sizeof(size_t)])
+#define GU(name) reinterpret_cast<unsigned*>(GM(name))
+#define GI(name) reinterpret_cast<int*>(GM(name))
+
+// The wide mode of one chain spread over the whole card (K = 10240-16384
+// at T = 12 on an H100, where the node-resident layout ran a window on
+// the 16 SMs of one cluster, every stage growing with its 1024-column
+// slices). Like every layout it replaces _window_gather, the Pallas
+// kernel _window_kernel and _window_scatter of the JAX package's
+// windowed_scan. Its bound at (T, B, n, E, K) = (12, 33, 32, 32, 16384)
+// is the bytes a window moves, ~12 us at 3.35 TB/s (PERF.md's kernel
+// table); like the others it is latency-bound, T steps of dependent
+// stages, and what the grid does about that is spread every stage over
+// six to seven times the SMs. The launch is cooperative: G clusters of S
+// CTAs, as many as the card holds at once (ops/window.py::window_plan: 27
+// clusters of 4 at K = 16384 on an H100, slices of 152 columns), CTA i
+// owning the columns [i*kw, min(K, (i+1)*kw)). A slice that narrow keeps
+// a step's rows in shared memory, two sets as in the step layout, so its
+// stages are the step layout's (step_contrib, step_partials,
+// node_coefficients_of, the fan-in, the theta step, finish_wide) on a
+// slice a sixth as wide. The
+// staged rows stay in the global scratch, each CTA reading and writing
+// its own columns. What changes is the exchange of the three sums that
+// need every column, q [B, n], the row sums and the edge sums [E, 2]:
+//   - inside a cluster, as in the other layouts, by remote stores into
+//     distributed shared memory and a cluster barrier (q to the node's
+//     owner, b mod S; the row and edge partials to every CTA);
+//   - across clusters through L2: each cluster's sums, the ranks added
+//     pairwise (the owner of node b its q, rank r the row and edge values
+//     v = r mod S), are stored with st.global.cg into the cluster's slot
+//     of the exchange after the scratch ([G, B, n] and [G, B + 2E]); after
+//     a barrier over the grid (grid_arrive, grid_wait) the owner of node
+//     b adds the G slots of its q pairwise in cluster order (grid_sum),
+//     computes its coefficients and pushes them to its cluster (every CTA
+//     adding all B x n of q itself took 26% longer on an H100), and every
+//     CTA adds the G slots of each row and edge sum the same way, so
+//     every CTA holds the same bits whatever the scheduling.
+// Per step: three cluster barriers and two grid barriers; the noise and
+// the next step's gather are issued between the halves of the first two,
+// so that their issue waits there and not on a stage. Each exchange
+// slot is written again only after a grid barrier that follows its last
+// read: q's after the next grid barrier of stage c, the row and edge sums'
+// after that of the next stage a. The gather is the step layout's with
+// 16-byte cp.async copies for every row (the copy engine takes bulk copies
+// one row at a time) and the noise by cp.async too. Sums over columns are
+// taken in another order than the other layouts' (their bits are not
+// these): per lane, over the warp, the splits in order, the ranks
+// pairwise, then the clusters pairwise. Ragged slices copy 4 bytes at a
+// time; bf16 rows are loaded and widened synchronously, as elsewhere.
+template <typename PiT>
+__global__ void __launch_bounds__(kThreads) window_kernel_grid(Params<PiT> P) {
+  constexpr bool kF32 = std::is_same<PiT, float>::value;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ unsigned s_off[kGridFields];
+#ifdef WINDOW_PHASES
+  __shared__ unsigned long long s_phase[kPhases];
+  long long t_last = clock64();
+#endif
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int G = static_cast<int>(gridDim.x) / S;     // the clusters
+  const int gi = static_cast<int>(blockIdx.x) / S;   // this CTA's
+  const int B = P.B, n = P.n, E = P.E, K = P.K, T = P.T, R = P.B + P.n;
+  const int V = B + 2 * E;    // the row and edge sums a step exchanges
+  const int KW = P.kw;
+  const int k0 = blockIdx.x * KW;
+  const int kw = min(K, k0 + KW) - k0;
+  const int ld = row_stride(KW);
+  const int nl = (B + S - 1) / S;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const float eps = P.eps;
+  if (tid == 0) {
+    const GridLayout L = layout_grid(T, B, n, E, KW, S, G);
+    const size_t* f = reinterpret_cast<const size_t*>(&L);
+    for (int i = 0; i < kGridFields; ++i) s_off[i] = (unsigned)f[i];
+#ifdef WINDOW_PHASES
+    for (int i = 0; i < kPhases; ++i) s_phase[i] = 0;
+#endif
+  }
+  const size_t TB = (size_t)T * B;
+  PiT* const pi_c = P.pi;
+  float* const sum_c = P.phi_sum;
+  float* const stg = P.staged + k0;
+  // the L2 exchange after the scratch: the clusters' q [G, B, n], their
+  // row and edge sums [G, V]
+  float* const gq = P.staged + TB * K;
+  float* const gre = gq + (size_t)G * B * n;
+  __syncthreads();
+  stage_window(P, 0, k0, kw, GI(smc), GI(snodes), GI(snbrs), GU(slanes),
+               GU(ybits), GU(mbits), GU(yebits), GU(embits), GM(th0),
+               GM(th1), GM(bet), tid, warp, lane);
+  for (int kk = tid; kk < (KW + 3) / 4 * 4; kk += kThreads)
+    GM(bme)[kk] = kk < kw ? P.beta_in[k0 + kk] - eps : 0.f;
+  // the columns past the slice, zeroed once in both row buffers: the
+  // float4 loads of stage a read them
+  for (int i = tid; i < 2 * R * (ld - kw); i += kThreads)
+    GM(rows0)[(i / (ld - kw)) * ld + kw + i % (ld - kw)] = 0.f;
+  __syncthreads();
+
+  // 16-byte copies where K and KW are multiples of 4, 4-byte ones else;
+  // bf16 rows of pi: 16-byte loads of 8 values where K and KW are
+  // multiples of 8
+  const bool vec = (K % 4 == 0) && (KW % 4 == 0);
+  const bool vec8 = (K % 8 == 0) && (KW % 8 == 0);
+  const int nq = kw / 4, nq8 = kw / 8;
+  // The gather of step u into the buffers of parity p (all threads; one
+  // cp.async group): its pre-window rows from pi (the bf16 rows loaded
+  // and widened), the rows steps <= u-2 wrote from the scratch (the rows
+  // step u-1 wrote are copied at step u's start), the pre-window phi
+  // sums. Called after a block barrier, so nothing reads the buffers any
+  // more.
+  auto gather = [&](int u, int p) {
+    const int* mct = GI(smc) + u * R;
+    const int* nd = GI(snodes) + u * B;
+    const int* nb = GI(snbrs) + u * n;
+    float* rbuf = p ? GM(rows1) : GM(rows0);
+    // the row's source: the scratch, pi (-1 for a bf16 row of pi), or
+    // none (step u-1's row)
+    auto src_of = [&](int r, const float*& src) {
+      const int m = mct[r];
+      if (m > 0) {
+        if ((m - 1) / B > u - 2) return false;
+        src = stg + (size_t)(m - 1) * K;
+        return true;
+      }
+      src = nullptr;
+      return true;
+    };
+    auto row_id = [&](int r) { return r < B ? min(nd[r], P.N - 1) : nb[r - B]; };
+    if (vec) {
+      for (int i = tid; i < R * nq; i += kThreads) {
+        const int r = i / nq, q = i - r * nq;
+        const float* src;
+        if (!src_of(r, src)) continue;
+        float* dst = rbuf + r * ld + 4 * q;
+        if (src) {
+          cp_async16(dst, src + 4 * q);
+        } else if constexpr (kF32) {
+          cp_async16(dst, pi_c + (size_t)row_id(r) * K + k0 + 4 * q);
+        } else if (!vec8) {
+          const PiT* b16 = pi_c + (size_t)row_id(r) * K + k0 + 4 * q;
+          for (int x = 0; x < 4; ++x) dst[x] = __bfloat162float(b16[x]);
+        }
+      }
+      if constexpr (!kF32) {
+        if (vec8)
+          for (int i = tid; i < R * nq8; i += kThreads) {
+            const int r = i / nq8, q = i - r * nq8;
+            if (mct[r] == 0)
+              widen8(rbuf + r * ld + 8 * q,
+                     pi_c + (size_t)row_id(r) * K + k0 + 8 * q);
+          }
+      }
+    } else {
+      for (int r = warp; r < R; r += kWarps) {
+        const float* src;
+        if (!src_of(r, src)) continue;
+        float* dst = rbuf + r * ld;
+        if (src) {
+          for (int x = lane; x < kw; x += 32) cp_async4(dst + x, src + x);
+        } else if constexpr (kF32) {
+          const float* s32 = pi_c + (size_t)row_id(r) * K + k0;
+          for (int x = lane; x < kw; x += 32) cp_async4(dst + x, s32 + x);
+        } else {
+          const PiT* b16 = pi_c + (size_t)row_id(r) * K + k0;
+          for (int x = lane; x < kw; x += 32) dst[x] = __bfloat162float(b16[x]);
+        }
+      }
+    }
+    float* sbuf = p ? GM(phis1) : GM(phis0);
+    for (int b = tid; b < B; b += kThreads)
+      if (mct[b] == 0) cp_async4(sbuf + b, sum_c + min(nd[b], P.N - 1));
+    cp_async_commit();
+  };
+  // The phi noise of step u into nz and its theta noise into bz (one
+  // cp.async group).
+  auto load_noise = [&](int u) {
+    float* const nz = GM(nz);
+    float* const bzb = GM(bz);
+    const float* noise_u = P.noise + (size_t)u * B * K + k0;
+    const float* bnoise_u = P.bnoise + (size_t)u * K * 2 + 2 * k0;
+    if (vec) {
+      for (int i = tid; i < B * nq; i += kThreads) {
+        const int b = i / nq, q = i - b * nq;
+        cp_async16(nz + b * ld + 4 * q, noise_u + (size_t)b * K + 4 * q);
+      }
+      for (int i = tid; i < kw / 2; i += kThreads)
+        cp_async16(bzb + 4 * i, bnoise_u + 4 * i);
+    } else {
+      for (int b = warp; b < B; b += kWarps)
+        for (int x = lane; x < kw; x += 32)
+          cp_async4(nz + b * ld + x, noise_u + (size_t)b * K + x);
+      for (int i = tid; i < 2 * kw; i += kThreads) cp_async4(bzb + i, bnoise_u + i);
+    }
+    cp_async_commit();
+  };
+  gather(0, 0);
+  PHASE(0);
+
+  for (int t = 0; t < T; ++t) {
+    const int par = t & 1;
+    const int* mct = GI(smc) + t * R;
+    const unsigned* mbits = GU(mbits);
+    float* const rows = par ? GM(rows1) : GM(rows0);
+    float* const phis = par ? GM(phis1) : GM(phis0);
+    // ---- 0. wait for step t's gather; the rows step t-1 wrote from the
+    //         other buffer's node rows, the redirected phi sums ---------
+    cp_async_wait_all();
+    {
+      const float* prev = par ? GM(rows0) : GM(rows1);
+      for (int r = warp; r < R; r += kWarps) {
+        const int m = mct[r];
+        if (m == 0 || (m - 1) / B != t - 1) continue;
+        const float* src = prev + ((m - 1) - (t - 1) * B) * ld;
+        for (int kk = lane; kk < kw; kk += 32) rows[r * ld + kk] = src[kk];
+      }
+      for (int b = tid; b < B; b += kThreads)
+        if (mct[b] > 0) phis[b] = GM(ssum)[mct[b] - 1];
+    }
+    __syncthreads();
+    PHASE(1);
+
+    // ---- a. q partials: x * (beta - eps) once into nz; each split's
+    //         partials; the splits summed in order and pushed to the
+    //         nodes' owners; the step's noise started into nz ------------
+    {
+      const int nk4 = (kw + 3) / 4;
+      const int ld4 = ld / 4;
+      const float4* bm4 = reinterpret_cast<const float4*>(GM(bme));
+      float4* const xb4 = reinterpret_cast<float4*>(GM(nz));
+      for (int i = tid; i < B * nk4; i += kThreads) {
+        const int b = i / nk4, k4 = i - b * nk4;
+        const float4 x = reinterpret_cast<const float4*>(rows)[b * ld4 + k4];
+        const float4 bm = bm4[k4];
+        xb4[b * ld4 + k4] = make_float4(x.x * bm.x, x.y * bm.y, x.z * bm.z,
+                                        x.w * bm.w);
+      }
+      __syncthreads();
+      // a warp takes kQNodes nodes over a split's columns; lane l holds
+      // neighbors l % 16 and l % 16 + 16 over the split's float4 columns
+      // of parity l / 16, one sum per (node, neighbor)
+      float* const qpart = GM(part);
+      const int ks = q_splits(B);
+      const int groups = (B + kQNodes - 1) / kQNodes;
+      const int jn = lane & 15, kp = lane >> 4;
+      const float4* pv0 =
+          reinterpret_cast<const float4*>(rows + (B + min(jn, n - 1)) * ld);
+      const float4* pv1 =
+          reinterpret_cast<const float4*>(rows + (B + min(jn + 16, n - 1)) * ld);
+      for (int task = warp; task < groups * ks; task += kWarps) {
+        const int g = task / ks, sp = task - g * ks;
+        const int b0 = g * kQNodes;
+        const int nb = min(kQNodes, B - b0);
+        const float4* px = xb4 + b0 * ld4;
+        float acc0[kQNodes] = {}, acc1[kQNodes] = {};
+        for (int k4 = sp * nk4 / ks + kp; k4 < (sp + 1) * nk4 / ks; k4 += 2) {
+          const float4 v0 = pv0[k4];
+          const float4 v1 = pv1[k4];
+          // no branch between the loads: a short group repeats its last
+          // node, whose sums are not stored
+#pragma unroll
+          for (int q = 0; q < kQNodes; ++q) {
+            const float4 x = px[min(q, nb - 1) * ld4 + k4];
+            acc0[q] += x.x * v0.x;
+            acc1[q] += x.x * v1.x;
+            acc0[q] += x.y * v0.y;
+            acc1[q] += x.y * v1.y;
+            acc0[q] += x.z * v0.z;
+            acc1[q] += x.z * v1.z;
+            acc0[q] += x.w * v0.w;
+            acc1[q] += x.w * v1.w;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kQNodes; ++q) {
+          // the even columns' sums, then the odd ones'
+          acc0[q] += __shfl_down_sync(0xffffffffu, acc0[q], 16);
+          acc1[q] += __shfl_down_sync(0xffffffffu, acc1[q], 16);
+          if (kp == 0 && q < nb) {
+            float* out = qpart + (sp * B + b0 + q) * n;
+            if (jn < n) out[jn] = acc0[q];
+            if (jn + 16 < n) out[jn + 16] = acc1[q];
+          }
+        }
+      }
+      __syncthreads();
+      PHASE(2);
+      float* const qin = GM(qin);
+      for (int i = tid; i < B * n; i += kThreads) {
+        const int b = i / n, jj = i - b * n;
+        float q = 0.f;
+        for (int sp = 0; sp < ks; ++sp) q += qpart[sp * B * n + i];
+        cluster.map_shared_rank(qin, b % S)[(rank * nl + b / S) * n + jj] = q;
+      }
+    }
+    // the step's noise into the buffer x * (beta - eps) held, issued
+    // between the halves of the cluster barrier
+    cluster_arrive();
+    load_noise(t);
+    cluster_wait();
+    PHASE(3);
+    // the cluster's q of this CTA's nodes (the ranks pairwise) into its
+    // slot of the exchange
+    for (int i = tid; i < nl * n; i += kThreads) {
+      const int lb = i / n, j = i - lb * n, b = lb * S + rank;
+      if (b < B)
+        __stcg(gq + ((size_t)gi * B + b) * n + j,
+               rank_sum(GM(qin) + lb * n + j, nl * n, S));
+    }
+    PHASE(4);
+    {
+      // step t+1's gather into the other buffers (free since this step's
+      // start), issued between the halves of the grid barrier
+      const unsigned old = grid_arrive();
+      if (t + 1 < T)
+        gather(t + 1, par ^ 1);
+      else
+        cp_async_commit();
+      grid_wait(old);
+    }
+    PHASE(5);
+
+    // ---- b. the coefficients of this CTA's nodes, q summed over the
+    //         clusters from L2, to every CTA of the cluster ---------------
+    node_coefficients_of(
+        cluster,
+        [&](int lb, int j) {
+          return grid_sum<true>(gq + (size_t)(lb * S + rank) * n + j,
+                                (size_t)B * n, G);
+        },
+        GU(ybits), GI(snodes) + t * B, GI(snbrs) + t * n, phis, GM(coef),
+        GM(ce), GM(nval), GM(scale), GM(invphi), t, B, n, S, rank, warp, lane,
+        eps, P.one_minus_eps, P.n_nodes);
+    // the noise's group lands before the gather's, which may not
+    cp_async_wait_older();
+    cluster.sync();
+    PHASE(6);
+
+    // ---- c. contrib and the phi step (step_contrib; two lanes an item
+    //         where that takes one pass), the noise from the noise buffer -
+    {
+      const float4* nz4 = reinterpret_cast<const float4*>(GM(nz));
+      const int ld4 = ld / 4;
+      auto noise = [&](int b, int q4) { return nz4[b * ld4 + q4]; };
+      const int items = (B + kCNodes - 1) / kCNodes * ((KW + 3) / 4);
+      if (2 * items <= kThreads)
+        step_contrib<2>(rows, ld, rows + B * ld, ld, 0, kw, kw, B, n,
+                        GM(coef), GM(ce), GM(nval), GM(scale), GM(invphi),
+                        phis, GM(bme), P.eps_phi[t], P.alpha, tid, noise);
+      else
+        step_contrib<1>(rows, ld, rows + B * ld, ld, 0, kw, kw, B, n,
+                        GM(coef), GM(ce), GM(nval), GM(scale), GM(invphi),
+                        phis, GM(bme), P.eps_phi[t], P.alpha, tid, noise);
+    }
+    __syncthreads();
+    PHASE(7);
+
+    // ---- the row and edge partials of phi' to every CTA of the cluster
+    //         (step_partials); the cluster's sums into its slot ----------
+    const unsigned* const slanes = GU(slanes) + t * E;
+    const unsigned* const yebits = GU(yebits);
+    step_partials(cluster, rows, ld, kw, B, E, t, slanes, mbits, yebits,
+                  GM(bet), P.inv_k, GM(rin), GM(ein), S, rank, warp, lane);
+    cluster.sync();
+    PHASE(8);
+    for (int v = rank + S * tid; v < V; v += S * kThreads)
+      __stcg(gre + (size_t)gi * V + v,
+             v < B ? rank_sum(GM(rin) + v, B, S)
+                   : rank_sum(GM(ein) + (v - B), 2 * E, S));
+    PHASE(9);
+    grid_wait(grid_arrive());
+    PHASE(10);
+
+    // ---- d. the clusters' row and edge sums from L2; the row sums, prsum,
+    //         the rows normalized and written to the scratch
+    //         (step_normalize, the clusters pairwise) ---------------------
+    float* const sums = GM(part);
+    for (int i = tid; i < G * V; i += kThreads) sums[i] = __ldcg(gre + i);
+    __syncthreads();
+    PHASE(11);
+    float* const stg_t = stg + (size_t)t * B * K;
+    step_normalize(rows, ld, kw, B, E, K, t, vec, sums, V, sums + B, V,
+                   GridSum{G}, slanes, mbits, yebits, GM(rsv),
+                   GM(ssum) + t * B, GM(epr), stg_t, eps, P.one_minus_eps,
+                   P.inv_k, tid);
+    __syncthreads();
+    PHASE(12);
+
+    // ---- e. the gradient fan-in and the theta step (step_fan_in,
+    //         step_theta) --------------------------------------------------
+    step_fan_in(rows, ld, kw, KW, E, t, slanes, yebits, GU(embits), GM(epr),
+                GM(th0), GM(th1), GM(bet), GM(part), tid);
+    __syncthreads();
+    PHASE(13);
+    step_theta(GM(part), GM(bz), kw, KW, P.eps_theta[t], P.wts[t], P.eta0,
+               P.eta1, eps, GM(th0), GM(th1), GM(bet), GM(bme), tid);
+    __syncthreads();
+    PHASE(14);
+  }
+
+  // ---- the scatter, theta and beta (finish_wide; phi_sum by CTA 0). No
+  //      CTA touches a peer's shared memory after the last cluster
+  //      barrier, so none waits for its peers before it exits -------------
+  finish_wide(P, 0, pi_c, sum_c, stg, GI(snodes), GM(ssum), GM(th0),
+              GM(th1), GM(bet), k0, kw, vec, blockIdx.x, tid, warp, lane);
+  PHASE(15);
+#ifdef WINDOW_PHASES
+  if (tid == 0 && blockIdx.x == 0)
+    for (int i = 0; i < kPhases; ++i) g_phase_cycles[i] += s_phase[i];
+#endif
+}
+
+#undef GM
+#undef GU
+#undef GI
+
 // The kernel of a layout (Mode).
 template <typename PiT>
 using KernelFn = void (*)(Params<PiT>);
@@ -3226,6 +3838,7 @@ KernelFn<PiT> kernel_of(int mode) {
     case kStep: return window_kernel_step<PiT>;
     case kStep1: return window_kernel_step1<PiT>;
     case kNodes: return window_kernel_nodes<PiT>;
+    case kGrid: return window_kernel_grid<PiT>;
     default: return window_kernel_wide<PiT>;
   }
 }
@@ -3242,25 +3855,30 @@ cudaError_t set_attributes(KernelFn<PiT> fn, int S, size_t smem) {
   return err;
 }
 
-// Launches C clusters of S CTAs of the mode's kernel.
+// Launches C clusters of S CTAs of the mode's kernel; the grid layout's
+// ceil(K / kw) CTAs in clusters of S, cooperatively: a grid the card
+// cannot hold at once is refused, never started.
 template <typename PiT>
 cudaError_t launch(const Params<PiT>& P, int C, int S, size_t smem,
                    cudaStream_t stream) {
   const KernelFn<PiT> fn = kernel_of<PiT>(P.mode);
   cudaError_t err = set_attributes<PiT>(fn, S, smem);
   if (err != cudaSuccess) return err;
+  const bool grid = P.mode == kGrid;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C * S);
+  cfg.gridDim = dim3(grid ? (P.K + P.kw - 1) / P.kw : C * S);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = S;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = grid ? 2 : 1;
   err = cudaLaunchKernelEx(&cfg, fn, P);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -3295,15 +3913,22 @@ Params<PiT> make_params(void* pi, float* phi_sum, const bool* y,
 
 }  // namespace
 
+// The grid layout's CTAs: ceil(K / wc), slices of wc columns.
+static int grid_ctas(int K, int wc) { return (K + wc - 1) / wc; }
+
 // Bytes of shared memory per CTA with a cluster of S CTAs (either storage
 // type) in the layout `mode` (Mode): the resident mode's, or the wide
 // mode's step layout, its step layout with one set of rows, its chunked
-// layout with chunks of wc columns, or its node-resident layout with
-// tiles of wc columns.
+// layout with chunks of wc columns, its node-resident layout with tiles
+// of wc columns, or its grid layout with slices of wc columns.
 extern "C" size_t window_kernel_smem_bytes(int T, int B, int n, int E, int K,
                                            int S, int wc, int mode) {
   const int kw = slice_width(K, S);
   size_t words;
+  if (mode == kGrid)
+    return wc > 0 ? layout_grid(T, B, n, E, wc, S, grid_ctas(K, wc) / S).total
+                        * sizeof(float)
+                  : 0;
   switch (mode) {
     case kResident: words = layout(T, B, n, E, kw, S).total; break;
     case kStep: words = layout_step(T, B, n, E, kw, S).total; break;
@@ -3317,26 +3942,30 @@ extern "C" size_t window_kernel_smem_bytes(int T, int B, int n, int E, int K,
 // The launch's layout and chunk width agree: the resident mode takes wc =
 // 0; the step layouts a chunk that covers the slice (wc >= kw), the
 // chunked one a narrower chunk (0 < wc < kw), the node-resident one any
-// tile (wc > 0), a multiple of 8.
+// tile (wc > 0), the grid layout any slice (wc > 0), a multiple of 8.
 static bool mode_fits(int mode, int wc, int kw) {
-  if (mode < kResident || mode > kNodes || wc < 0 || wc % 8 != 0)
+  if (mode < kResident || mode > kGrid || wc < 0 || wc % 8 != 0)
     return false;
   if (mode == kResident) return wc == 0;
-  if (mode == kNodes) return wc > 0;
+  if (mode == kNodes || mode == kGrid) return wc > 0;
   return mode == kChunked ? wc > 0 && wc < kw : wc >= kw;
 }
 
-// Launches C clusters of S CTAs (one cluster per chain) on `stream`;
-// returns the launch's CUDA error (0 on success). pi [C*N, K] (float32,
+// Launches C clusters of S CTAs (one cluster per chain) on `stream`, or in
+// the grid layout (one chain, C = 1) ceil(K / wc) CTAs in clusters of S,
+// cooperatively; returns the launch's CUDA error (0 on success). pi [C*N, K] (float32,
 // or bfloat16 when pi_bf16 is 1) and phi_sum [C*N] (float32) are updated
 // in place; every operand holds the C chains' slices one after another
 // (chain-major); `eps_phi` and `eps_theta` are host arrays of T floats,
 // shared by the chains. `mode` (Mode) names the layout and wc its chunk
 // width (mode_fits): the resident mode, or the wide mode in its step
 // layout, its step layout with one set of rows, its chunked layout or its
-// node-resident layout (wc its tiles' width);
-// the wide mode's staged rows go to `staged`, a float32 scratch [C, T*B,
-// K] (unused and may be null in the resident mode).
+// node-resident layout (wc its tiles' width) or its grid layout (wc the
+// slice width: ceil(K / wc) CTAs, a whole number of clusters of S, at
+// most kMaxGrid clusters); the wide mode's staged rows go to `staged`, a
+// float32 scratch [C, T*B, K] (unused and may be null in the resident
+// mode), which in the grid layout holds the exchange after them: G * (B *
+// n + B + 2 * E) floats more, G = ceil(K / wc) / S.
 extern "C" int window_kernel_launch(
     void* pi, float* phi_sum, const bool* y, const int* nodes,
     const int* nbrs, const bool* node_mask, const bool* keep,
@@ -3353,9 +3982,15 @@ extern "C" int window_kernel_launch(
       || S > kMaxCluster || B > 0xffff || (pi_bf16 != 0 && pi_bf16 != 1)
       || (mode != kResident && staged == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int kw = slice_width(K, S);
-  if ((S - 1) * kw >= K) return (int)cudaErrorInvalidValue;  // empty slice
+  const int kw = mode == kGrid ? wc : slice_width(K, S);
   if (!mode_fits(mode, wc, kw)) return (int)cudaErrorInvalidValue;
+  if (mode == kGrid) {
+    if (C != 1 || S > 8 || grid_ctas(K, wc) % S != 0
+        || grid_ctas(K, wc) / S > kMaxGrid)
+      return (int)cudaErrorInvalidValue;
+  } else if ((S - 1) * kw >= K) {
+    return (int)cudaErrorInvalidValue;  // empty slice
+  }
   // the node-resident layout's q keeps one (nodes, split) task a warp
   if (mode == kNodes && (B + kQNodes - 1) / kQNodes > kWarps)
     return (int)cudaErrorInvalidValue;
@@ -3375,8 +4010,8 @@ extern "C" int window_kernel_launch(
 }
 
 // The most clusters of S CTAs (with their shared memory) that the card
-// runs at once in the layout `mode`, or a negative CUDA error (the
-// float32 instantiation).
+// runs at once in the layout `mode` (the grid layout's with slices of wc
+// columns), or a negative CUDA error (the float32 instantiation).
 extern "C" int window_kernel_max_clusters(int T, int B, int n, int E, int K,
                                           int S, int wc, int mode) {
   if (!mode_fits(mode, wc, slice_width(K, S)))

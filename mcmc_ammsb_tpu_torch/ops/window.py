@@ -22,13 +22,17 @@ picks its mode from the per-chain shape and the card's shared memory:
 the resident mode (the window's rows in shared memory,
 ``window_cluster_size``) wherever it fits, else the wide mode (the
 staged rows in a global scratch; K = 1536-16384 at the main path's
-shape) in one of its four layouts: "step" (a step's rows in shared
+shape) in one of its five layouts: "step" (a step's rows in shared
 memory through the step, the next step's in flight in a second set;
 up to K = 4096 at T = 12), "step1" (the same with one set of rows,
 the next step's gathered into it as its regions free up; K = 6144-8192
-at T = 12), "nodes" (a step's node rows in shared memory, its neighbor
-rows streamed through two tiles; K = 10240-16384 at T = 12) or "wide"
-(the rows taken in column chunks; the fallback). With bfloat16 pi
+at T = 12), "grid" (one chain's columns over as many clusters as the
+card holds at once, a step's rows in shared memory, the sums exchanged
+across clusters through L2; K = 10240-16384 at T = 12), "nodes" (a
+step's node rows in shared memory, its neighbor rows streamed through
+two tiles; where the grid does not run: the chain engine, a card that
+holds too few CTAs at once) or "wide" (the rows taken in column chunks;
+the fallback). With bfloat16 pi
 storage (``cfg.pi_dtype``) both versions gather the rows upcast to float32,
 compute and stage in float32, and round the kept rows to nearest-even
 only at the write-back, as the JAX package's bf16 window does; the
@@ -607,6 +611,100 @@ def window_nodes_smem_bytes(t_win: int, b_cap: int, n_smpl: int,
     return 4 * words
 
 
+#: The grid layout's cluster: its CTAs add their partials through
+#: distributed shared memory before the clusters exchange theirs in L2.
+GRID_CLUSTER = 4
+#: Clusters of GRID_CLUSTER CTAs, one an SM, that an H100 runs at once
+#: (120 of its 132 SMs); on a card ``window_apply_cuda`` asks the card
+#: (``window_kernel_max_clusters``).
+H100_GRID_CLUSTERS = 30
+#: kMaxGrid of csrc/window_kernel.cu: a sum over the clusters holds their
+#: partials in registers.
+MAX_GRID_CLUSTERS = 32
+#: The grid layout runs where it spreads a window over at least this many
+#: CTAs, four times the node-resident layout's cluster of 16; on fewer
+#: its grid barriers would buy little.
+MIN_GRID_CTAS = 64
+
+
+def window_grid_width(k: int, clusters: int,
+                      s: int = GRID_CLUSTER):
+    """The grid layout's slice width at K with ``clusters`` co-resident
+    clusters of ``s`` CTAs: the narrowest multiple of 8 columns (16-byte
+    rows of bf16 storage) whose ceil(K / w) slices are a whole number of
+    clusters, at most ``clusters`` and MAX_GRID_CLUSTERS of them, so that
+    the slices tile K with none empty; None where that gives fewer than
+    MIN_GRID_CTAS slices."""
+    g_max = min(clusters, MAX_GRID_CLUSTERS)
+    if g_max <= 0:
+        return None
+    w = 8 * -(-k // (8 * s * g_max))
+    while True:
+        ctas = -(-k // w)
+        if ctas < MIN_GRID_CTAS:
+            return None
+        if ctas % s == 0 and ctas // s <= g_max:
+            return w
+        w += 8
+
+
+def window_grid_smem_bytes(t_win: int, b_cap: int, n_smpl: int,
+                           e_cap: int, k: int, w: int,
+                           s: int = GRID_CLUSTER) -> int:
+    """Shared memory per CTA of the wide mode's grid layout with slices of
+    ``w`` columns in clusters of ``s`` (``layout_grid``, struct
+    ``GridLayout`` of csrc/window_kernel.cu, term by term): two sets of
+    the step rows [B+n, ld(w)]; the phi noise, earlier in the step x *
+    (beta - eps), [B, ld(w)]; the theta noise [w, 2], beta - eps and the
+    coefficients [B, n] (each padded to 4); one region (padded to 4) for
+    the q partials of the splits [ks, B, n], the G clusters' row and edge
+    sums [G, B + 2E] (G = ceil(K / w) / s) and the fan-in partials [512 //
+    w, w, 2]; theta0, theta1 and beta [w] (padded to 4); the staged rows'
+    sums [T*B]; the node vectors [B] x 7 and prsum [E]; the partials
+    pushed by the cluster, the window's codes, ids, lane maps and bits
+    (as the other layouts')."""
+    g = -(-k // w) // s
+    q4 = -(-w // 4)
+    ld = 4 * (q4 + 1 + q4 % 2)
+    n_read = b_cap + n_smpl
+    tb, te = t_win * b_cap, t_win * e_cap
+    bits = (-(-tb * n_smpl // 32) + -(-tb // 32) + 2 * -(-te // 32))
+    groups = -(-b_cap // _Q_NODES)
+    splits = 1 if groups >= 16 else 16 // groups
+    fan = 512 // w if w <= 512 else 1
+
+    def up4(x):
+        return 4 * -(-x // 4)
+
+    words = (2 * n_read * ld + b_cap * ld + up4(2 * w) + up4(w)
+             + up4(b_cap * n_smpl)
+             + up4(max(splits * b_cap * n_smpl, 2 * fan * w,
+                       g * (b_cap + 2 * e_cap)))
+             + 3 * up4(w) + tb + 7 * b_cap + e_cap
+             + s * (-(-b_cap // s) * n_smpl + b_cap + 2 * e_cap)
+             + t_win * (n_read + b_cap + n_smpl + e_cap) + bits)
+    return 4 * words
+
+
+def window_grid_exchange_words(b_cap: int, n_smpl: int, e_cap: int, k: int,
+                               w: int, s: int = GRID_CLUSTER) -> int:
+    """Floats of the grid layout's L2 exchange, after the staged rows in
+    the scratch: each cluster's q [B, n] and its row and edge sums [B +
+    2E]."""
+    return -(-k // w) // s * (b_cap * n_smpl + b_cap + 2 * e_cap)
+
+
+def _grid_plan(t_win, b_cap, n_smpl, e_cap, k, smem_limit, clusters):
+    """The grid layout's plan ``(GRID_CLUSTER, "grid", w)`` with
+    ``clusters`` co-resident clusters, or None where it takes too few
+    CTAs or its shared memory does not fit."""
+    w = window_grid_width(k, clusters)
+    if w is None or window_grid_smem_bytes(t_win, b_cap, n_smpl, e_cap, k,
+                                           w) > smem_limit:
+        return None
+    return GRID_CLUSTER, "grid", w
+
+
 def step_chunk(k: int, s: int) -> int:
     """The chunk width the launch passes for either step layout: the
     slice width rounded up to a multiple of 8, one chunk that covers the
@@ -616,7 +714,8 @@ def step_chunk(k: int, s: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def window_plan(t_win: int, b_cap: int, n_smpl: int, e_cap: int, k: int,
-                smem_limit: int = H100_SMEM):
+                smem_limit: int = H100_SMEM,
+                grid_clusters: int = H100_GRID_CLUSTERS):
     """How one chain's window runs on the card: ``(S, mode, wc)``. The
     resident mode (``window_cluster_size``'s S, ``wc`` 0) wherever its
     layout fits; else the wide mode at the first S of 16, 8, 4, 2, 1,
@@ -627,10 +726,19 @@ def window_plan(t_win: int, b_cap: int, n_smpl: int, e_cap: int, k: int,
     the node-resident layout (``"nodes"``, ``wc`` = ``NODES_TILE``, the
     tiles' width; B <= 176, one q task a warp), the chunked one
     (``"wide"``) with the widest chunk of ``WIDE_CHUNKS`` narrower than
-    the slice. From the per-chain shape only, never from the number of
-    chains. Raises ValueError past the kernel's limits (n, T) or when no
-    layout fits; the launch and the CLI's window resolution both go
-    through it."""
+    the slice. Where the node-resident layout fits, the grid layout
+    takes its place (``(GRID_CLUSTER, "grid", w)``, ``w`` the slice width
+    of ``window_grid_width``) if ``grid_clusters`` co-resident clusters
+    of GRID_CLUSTER CTAs give it MIN_GRID_CTAS CTAs and its shared memory
+    fits: so the shapes that fit are the same with or without it. The
+    single-chain entry passes the card's count; the chain entry passes 0
+    (``window_chain_apply_cuda``: its launch puts the chains side by side
+    as clusters, which the grid's spread over columns would compete with
+    for the same SMs). Otherwise from the per-chain shape only, never
+    from the number of chains: one C-chain launch gives the bits of C
+    single-chain launches in any layout it takes. Raises ValueError past
+    the kernel's limits (n, T) or when no layout fits; the launch and the
+    CLI's window resolution both go through it."""
     if n_smpl > MAX_NEIGHBORS or t_win > MAX_WINDOW:
         raise ValueError(
             f"window kernel takes n <= {MAX_NEIGHBORS} neighbors and "
@@ -651,7 +759,9 @@ def window_plan(t_win: int, b_cap: int, n_smpl: int, e_cap: int, k: int,
         if (-(-b_cap // _Q_NODES) <= _MAX_Q_GROUPS
                 and window_nodes_smem_bytes(t_win, b_cap, n_smpl, e_cap, k,
                                             s) <= smem_limit):
-            return s, "nodes", NODES_TILE
+            return (_grid_plan(t_win, b_cap, n_smpl, e_cap, k, smem_limit,
+                               grid_clusters)
+                    or (s, "nodes", NODES_TILE))
         for wc in WIDE_CHUNKS:
             if wc < window_slice_width(k, s) and window_wide_smem_bytes(
                     t_win, b_cap, n_smpl, e_cap, k, s, wc) <= smem_limit:
@@ -672,6 +782,8 @@ def plan_smem_bytes(shape, plan) -> int:
         return window_step1_smem_bytes(*shape, s)
     if mode == "nodes":
         return window_nodes_smem_bytes(*shape, s, wc)
+    if mode == "grid":
+        return window_grid_smem_bytes(*shape, wc, s)
     if mode == "wide":
         return window_wide_smem_bytes(*shape, s, wc)
     return window_smem_bytes(*shape, s)
@@ -679,7 +791,8 @@ def plan_smem_bytes(shape, plan) -> int:
 
 #: The kernel's code of each layout of the plan (``Mode`` of
 #: csrc/window_kernel.cu).
-LAYOUTS = {"resident": 0, "step": 1, "step1": 2, "wide": 3, "nodes": 4}
+LAYOUTS = {"resident": 0, "step": 1, "step1": 2, "wide": 3, "nodes": 4,
+           "grid": 5}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -703,6 +816,41 @@ def bind_window_lib(lib):
 @functools.cache
 def _window_lib():
     return bind_window_lib(kernels.load("window_kernel"))
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_clusters(dev_index: int, shape, plan) -> int:
+    """Clusters of a grid plan's CTAs (with their shared memory) that the
+    card ``dev_index`` runs at once, as it reports them
+    (``window_kernel_max_clusters``)."""
+    s, mode, wc = plan
+    with torch.cuda.device(dev_index):
+        got = _window_lib().window_kernel_max_clusters(*shape, s, wc,
+                                                       LAYOUTS[mode])
+    if got < 0:
+        raise RuntimeError(f"window kernel: occupancy query of {plan} at "
+                           f"{shape} failed: CUDA error {-got}")
+    return got
+
+
+def launch_plan(shape, dev, chained: bool):
+    """The plan a launch of the per-chain ``shape`` takes on the card
+    ``dev``: ``window_plan`` at its shared memory per block, for a chain
+    launch with no grid layout, for one chain with the card's own count
+    of co-resident grid clusters. That count is read at the plan the
+    H100's count gives and again at the plan it leads to, which must fit
+    it, else the node-resident layout runs."""
+    limit = kernels.smem_limit(dev)
+    if chained:
+        return window_plan(*shape, limit, 0)
+    plan = window_plan(*shape, limit)
+    if plan[1] != "grid":
+        return plan
+    plan = window_plan(*shape, limit, _grid_clusters(dev.index, shape, plan))
+    if plan[1] == "grid" and (_grid_clusters(dev.index, shape, plan)
+                              * plan[0] < -(-shape[4] // plan[2])):
+        plan = window_plan(*shape, limit, 0)
+    return plan
 
 
 def _step_sizes(cfg: Config, first: int, t_win: int) -> np.ndarray:
@@ -746,8 +894,8 @@ def _launch(cfg: Config, s, xs_t, mcode, keep, chained: bool,
             f"chain(s): nodes {tuple(batch.nodes.shape)}, pi "
             f"{tuple(s.pi.shape)}, theta {tuple(s.theta.shape)}, beta "
             f"{tuple(s.beta.shape)}, keep {tuple(keep.shape)}")
-    cluster, mode, wc = window_plan(t_win, b_cap, n_smpl, e_cap, k,
-                                    kernels.smem_limit(dev))
+    cluster, mode, wc = launch_plan((t_win, b_cap, n_smpl, e_cap, k), dev,
+                                    chained)
     lib = _window_lib()
 
     def arg(x, dtype):
@@ -760,8 +908,11 @@ def _launch(cfg: Config, s, xs_t, mcode, keep, chained: bool,
     theta = torch.empty_like(s.theta)
     beta = torch.empty_like(s.beta)
     # the wide mode's staged rows: [C, T*B, K] float32 (6.5 MB at the main
-    # path's T = 12, B = 33, K = 4096)
-    staged = (torch.empty((n_chains, t_win * b_cap, k), dtype=f32,
+    # path's T = 12, B = 33, K = 4096); the grid layout's L2 exchange after
+    # them (138 KB at K = 16384)
+    extra = (window_grid_exchange_words(b_cap, n_smpl, e_cap, k, wc, cluster)
+             if mode == "grid" else 0)
+    staged = (torch.empty(n_chains * t_win * b_cap * k + extra, dtype=f32,
                           device=dev) if mode != "resident" else None)
     ptrs = [arg(s.pi, s.pi.dtype), arg(s.phi_sum, f32), arg(y_w, b8),
             arg(batch.nodes, i32), arg(nbrs_s[..., 0, :], i32),
@@ -793,10 +944,11 @@ def window_apply_cuda(cfg: Config, s, xs_t, mcode, keep,
     index it (``parallel/sharded.py``'s fetched rows), not pi [N, K].
     ``s.pi`` is float32 or bfloat16 (the kernel's bf16 row mode).
     CUDA tensors only: the kernel is launched or this raises — there is
-    no fallback. The mode (resident or wide, in one of its four
-    layouts) is ``window_plan``'s; the open span is tagged with its
-    layout (``profiling.tag``: ``resident``, ``step``, ``step1``,
-    ``wide`` or ``nodes``)."""
+    no fallback. The mode (resident or wide, in one of its five
+    layouts) is ``launch_plan``'s, with the card's count of co-resident
+    grid clusters; the open span is tagged with its layout
+    (``profiling.tag``: ``resident``, ``step``, ``step1``, ``wide``,
+    ``nodes`` or ``grid``)."""
     out, mode = _launch(cfg, s, xs_t, mcode, keep, chained=False,
                         table_rows=table_rows)
     profiling.tag(mode)
@@ -819,7 +971,9 @@ def window_chain_apply_cuda(cfg: Config, s, xs_t, mcode, keep):
     launch of ``csrc/window_kernel.cu``, one cluster per chain (the JAX
     kernel's blocked ``n_chains = C`` mode with its gather and scatter,
     C >= 1); ``s.pi`` [C*N, K] and ``s.phi_sum`` are updated IN PLACE.
-    CUDA tensors only: the kernel is launched or this raises."""
+    Never the grid layout (``launch_plan``): the node-resident one where a
+    single chain would take it. CUDA tensors only: the kernel is launched
+    or this raises."""
     out, mode = _launch(cfg, s, xs_t, mcode, keep, chained=True)
     window_chain_apply_cuda.launches += 1
     window_chain_apply_cuda.wide_launches += mode != "resident"

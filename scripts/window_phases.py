@@ -14,9 +14,10 @@ mode, and in the wide mode at the K = 4096 path's (12, 33, 32, 32, 4096)
 (in the plan's layout: the step layout, whose chunk covers the slice),
 at (6, 33, 32, 32, 8192) and the K = 8192 path's (12, 33, 32, 32, 8192)
 (the step layout with one set of rows), at (3, 33, 32, 32, 16384) and
-the K = 16384 path's (12, 33, 32, 32, 16384) (the node-resident layout),
-and at (12, 33, 32, 32, 4096) also in the step layout with one set of
-rows, for each cluster size S that fits: the clusters the card runs at
+the K = 16384 path's (12, 33, 32, 32, 16384) in the plan's grid layout
+(its one plan: clusters of 4 over the card) and in the node-resident
+layout beside it, and at (12, 33, 32, 32, 4096) also in the step layout
+with one set of rows, for each cluster size S that fits: the clusters the card runs at
 once, the device time per window (CUDA events; the device sleeps while
 the host queues 50 windows, so the host's launch cost is not in it), and
 the clock cycles per step of each stage, from a second build of the
@@ -121,11 +122,29 @@ NODES_STAGES = ["init + first node rows + first tiles",
                 "wait for the step's node rows",
                 "a: q partials by tile (register-tiled) + next tiles issue",
                 "a and c: waits for the tiles"]
+# the wide mode's stages in its grid layout (window_kernel_grid's PHASE
+# slots): the grid barriers and the L2 exchange in slots of their own
+GRID_STAGES = ["init + first gather",
+               "wait for the step's rows + rows of step t-1",
+               "a: q partials (register-tiled)",
+               "a: q partials pushed + noise issue + cluster barrier",
+               "a: the cluster's q of its nodes to L2",
+               "a: grid barrier",
+               "b: q over the clusters from L2 + owners' coefficients "
+               "pushed + next gather issue + cluster barrier",
+               "c: contrib + phi step",
+               "row and edge partials pushed + cluster barrier",
+               "c: the cluster's row and edge sums to L2",
+               "c: grid barrier",
+               "d: the clusters' row and edge sums from L2",
+               "d: row sums, prsum, normalize + scratch stores",
+               "e: fan-in partials", "e: theta step", "scatter"]
 # the slots of a step's stages, for each kind of stage list (calibration,
 # init and scatter left out)
 STEP_SLOTS = {"resident": range(1, 10), "step": [*range(1, 10), 13, 14, 15],
               "step1": [*range(1, 10), 13, 14, 15],
-              "nodes": [*range(1, 10), 13, 14, 15], "wide": range(1, 10)}
+              "nodes": [*range(1, 10), 13, 14, 15], "wide": range(1, 10),
+              "grid": range(1, 15)}
 # its chunked layout's stages (window_kernel_wide's PHASE slots; the same
 # in the build of chip_smoke.PARENT_SRC)
 CHUNKED_STAGES = ["init", "(unused)",
@@ -138,7 +157,7 @@ CHUNKED_STAGES = ["init", "(unused)",
 # the stage list of each layout
 LAYOUT_STAGES = {"resident": STAGES, "step": WIDE_STAGES,
                  "step1": STEP1_STAGES, "nodes": NODES_STAGES,
-                 "wide": CHUNKED_STAGES}
+                 "wide": CHUNKED_STAGES, "grid": GRID_STAGES}
 REPS = 50
 
 
@@ -234,10 +253,15 @@ def run_window(sizes, kernels, result):
                                     st12, lib, plib),
         "wide (3,33,32,32,16384)": ((3, 33, 32, 32, 16384), 3, wide16,
                                     st16, lib, plib),
+        "wide (3,33,32,32,16384), node-resident layout": (
+            (3, 33, 32, 32, 16384), 3, wide16, st16, lib, plib, "nodes"),
         "wide (3,33,32,32,16384), parent build": (
             (3, 33, 32, 32, 16384), 3, wide16, st16, old_lib, old_plib),
         "wide (12,33,32,32,16384)": ((12, 33, 32, 32, 16384), 12, wide16l,
                                      st16l, lib, plib),
+        "wide (12,33,32,32,16384), node-resident layout": (
+            (12, 33, 32, 32, 16384), 12, wide16l, st16l, lib, plib,
+            "nodes"),
         "wide (12,33,32,32,16384), parent build": (
             (12, 33, 32, 32, 16384), 12, wide16l, st16l, old_lib,
             old_plib),
@@ -249,9 +273,10 @@ def run_window(sizes, kernels, result):
         mode = forced[0] if forced else real_plan(*shape, limit)[1]
         if tlib is old_lib:
             mode = old_lib.plan(*shape)[2]      # at its own plan
-        for s in sizes:
+        grid = real_plan(*shape, limit) if mode == "grid" else None
+        for s in ([grid[0]] if grid else sizes):
             w = window.window_slice_width(k, s)
-            if (s - 1) * w >= k:
+            if not grid and (s - 1) * w >= k:
                 continue
             if tlib is old_lib:
                 if s != old_lib.plan(*shape)[0]:
@@ -261,6 +286,7 @@ def run_window(sizes, kernels, result):
                     *shape, s, wc, window.LAYOUTS[mode])
             else:
                 wc = (window.step_chunk(k, s) if mode in ("step", "step1")
+                      else window.NODES_TILE if mode == "nodes"
                       else real_plan(*shape, limit)[2])
                 smem = window.plan_smem_bytes(shape, (s, mode, wc))
             if smem > limit:

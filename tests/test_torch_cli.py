@@ -205,14 +205,42 @@ def test_fit_window_rule():
 def test_fit_window_keeps_t12_at_wide_k(k):
     """On an H100 the CLI's automatic T = 12 stays 12 at K = 6144-16384
     (no clamp): the window plan takes it at a cluster of 16 in the wide
-    mode's step layout with one set of rows up to K = 8192, in its
-    node-resident layout (tiles of NODES_TILE columns) past it."""
+    mode's step layout with one set of rows up to K = 8192, in its grid
+    layout (clusters of 4 over the card, where the node-resident layout
+    with tiles of NODES_TILE columns fits) past it."""
     from mcmc_ammsb_tpu_torch.ops import window
     h100 = window.H100_SMEM
     assert cli.fit_window(12, True, 33, 32, 32, k, h100) == 12
     want = ((16, "step1", window.step_chunk(k, 16)) if k <= 8192
-            else (16, "nodes", window.NODES_TILE))
+            else (window.GRID_CLUSTER, "grid",
+                  window.window_grid_width(k, window.H100_GRID_CLUSTERS)))
     assert window.window_plan(12, 33, 32, 32, k, h100) == want
+
+
+@pytest.mark.parametrize("k", [6144, 8192, 10240, 12288, 16384])
+def test_fit_window_unmoved_by_the_grid(k, monkeypatch):
+    """The grid layout only takes the node-resident layout's place, so
+    fit_window resolves the same T at K = 6144-16384 with it as without
+    it (no co-resident clusters), automatic or explicit, for every T the
+    kernel takes, on an H100 and on a card with less shared memory."""
+    from mcmc_ammsb_tpu_torch.ops import window
+    for limit in (window.H100_SMEM, 160_000):
+        got = {}
+        for clusters in (window.H100_GRID_CLUSTERS, 0):
+            monkeypatch.setattr(
+                cli, "window_plan",
+                lambda *a, c=clusters: window.window_plan(*a, c))
+            row = []
+            for t_win in range(1, window.MAX_WINDOW + 1):
+                for auto in (True, False):
+                    try:
+                        row.append(cli.fit_window(t_win, auto, 33, 32, 32, k,
+                                                  limit))
+                    except ValueError:
+                        row.append(None)
+            got[clusters] = row
+        assert got[window.H100_GRID_CLUSTERS] == got[0]
+        assert 12 in got[0]
 
 
 def test_auto_window_clamped_and_logged(monkeypatch, caplog):

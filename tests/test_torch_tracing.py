@@ -326,7 +326,7 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_host_waits_only_in_readback_and_device_wait(cuda_device):
-    """At K = 16384 (the node-resident window kernel), one 100-step chunk
+    """At K = 16384 (the grid layout of the window kernel), one 100-step chunk
     and one evaluation under the sync debug mode: every call that makes
     the host wait for the card lies inside a readback or device_wait
     span, which ``learner.host_us_per_step`` leaves out."""
@@ -383,6 +383,27 @@ def test_k1024_windows_are_tagged_resident(cuda_device):
     assert profiling.tags_by_name(spans) == {
         "window_kernel": {"resident": 83}, "window_tail": {"resident": 1}}
     assert window.window_apply_cuda.layouts == {"resident": 84}
+
+
+@pytest.mark.cuda
+def test_k16384_windows_are_tagged_grid(cuda_device):
+    """At the benchmark cells' K = 16384, T = 12, one traced 1000-step
+    chunk on a card: 83 window_kernel spans and one window_tail span
+    (count 4), each tagged ``grid``, and 84 grid launches counted: the
+    main path runs all its windows and its tail in the grid layout."""
+    cfg, graph, split = tiny(n_nodes=2000, K=16384, mini_batch_size=32,
+                             num_node_sample=32, steps_per_call=1000,
+                             window=12, ds_link_cap=32)
+    lrn = learner.Learner(cfg, graph, split, cuda_device)
+    lrn.run(1000)
+    window.window_apply_cuda.layouts.clear()
+    with profiling.tracing():
+        lrn.run(1000)
+    spans = profiling.recorded()
+    assert [s.count for s in spans if s.name == "window_tail"] == [4]
+    assert profiling.tags_by_name(spans) == {
+        "window_kernel": {"grid": 83}, "window_tail": {"grid": 1}}
+    assert window.window_apply_cuda.layouts == {"grid": 84}
 
 
 @pytest.mark.cuda

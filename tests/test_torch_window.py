@@ -195,13 +195,16 @@ def test_window_cluster_size_bench_shapes():
 # the ragged K = 2050 (not a multiple of 4: 4-byte copies) and the CLI's
 # T = 12 on the card at K = 6144-16384; the step layout (a step's rows
 # in shared memory, two sets) up to K = 4096, the step layout with one set
-# of rows at K = 6144-8192, the node-resident layout (node rows in shared
-# memory, neighbor rows streamed in tiles) at K = 10240-16384
+# of rows at K = 6144-8192, the grid layout (one chain's columns over the
+# clusters an H100 holds at once, a step's rows in shared memory) where the
+# node-resident layout (node rows in shared memory, neighbor rows streamed
+# in tiles) fits, at K = 10240-16384, the benchmark cells' 4-step chunk
+# tail at K = 16384 too
 WIDE_PLANS = [(12, 1536, "step"), (12, 2048, "step"), (12, 2050, "step"),
               (12, 3072, "step"), (12, 4096, "step"), (8, 6144, "step1"),
-              (6, 8192, "step1"), (3, 16384, "nodes"), (12, 6144, "step1"),
-              (12, 8192, "step1"), (12, 10240, "nodes"),
-              (12, 12288, "nodes"), (12, 16384, "nodes")]
+              (6, 8192, "step1"), (3, 16384, "grid"), (12, 6144, "step1"),
+              (12, 8192, "step1"), (12, 10240, "grid"),
+              (12, 12288, "grid"), (12, 16384, "grid"), (4, 16384, "grid")]
 
 
 @pytest.mark.parametrize("shape", [
@@ -230,14 +233,33 @@ def test_window_plan_wide_covers_jax_windows(t_win, k, layout):
     does not fit), the node-resident one with tiles of NODES_TILE
     columns (only where neither step layout fits), or the chunked one
     with a chunk of WIDE_CHUNKS narrower than the slice (only where none
-    of those fits); its layout fits 232,448 B, its column slices tile K
-    with none empty; every shorter window runs in one mode or another."""
+    of those fits); where the node-resident layout fits, the grid layout
+    in its place, clusters of GRID_CLUSTER over the H100's 30 (the
+    node-resident layout at S = 16 with no co-resident count); its layout
+    fits 232,448 B, its column slices tile K with none empty; every
+    shorter window runs in one mode or another."""
     shape = (t_win, 33, 32, 32, k)
     with pytest.raises(ValueError):
         window.window_cluster_size(*shape)
     s, mode, wc = window.window_plan(*shape)
+    if mode == "grid":
+        assert s == window.GRID_CLUSTER
+        assert wc == window.window_grid_width(k, window.H100_GRID_CLUSTERS)
+        assert wc % 8 == 0
+        ctas = -(-k // wc)
+        assert ctas % s == 0
+        assert window.MIN_GRID_CTAS <= ctas <= s * window.H100_GRID_CLUSTERS
+        smem = window.window_grid_smem_bytes(*shape, wc)
+        assert window.plan_smem_bytes(shape, (s, mode, wc)) == smem
+        cols = [c for r in range(ctas)
+                for c in range(r * wc, min(k, (r + 1) * wc))]
+        assert cols == list(range(k))
+        assert all(min(k, (r + 1) * wc) > r * wc for r in range(ctas))
+        assert window.window_plan(*shape, window.H100_SMEM, 0) == (
+            16, "nodes", window.NODES_TILE)
+        s, mode, wc = 16, "nodes", window.NODES_TILE
     w = window.window_slice_width(k, s)
-    assert (s, mode) == (16, layout)
+    assert (s, mode) == (16, "nodes" if layout == "grid" else layout)
     if mode in ("step", "step1"):
         assert wc == window.step_chunk(k, s) and w <= wc < w + 8
         assert wc % 8 == 0
@@ -258,6 +280,9 @@ def test_window_plan_wide_covers_jax_windows(t_win, k, layout):
         smem = window.window_wide_smem_bytes(*shape, s, wc)
     assert smem <= window.H100_SMEM
     assert window.plan_smem_bytes(shape, (s, mode, wc)) == smem
+    if layout == "grid":
+        assert window.window_grid_smem_bytes(
+            *shape, window.window_plan(*shape)[2]) <= window.H100_SMEM
     cols = [c for r in range(s) for c in range(r * w, min(k, (r + 1) * w))]
     assert cols == list(range(k))
     assert all(min(k, (r + 1) * w) > r * w for r in range(s))
@@ -269,9 +294,10 @@ def test_window_plan_limits():
     """The plan refuses what the kernel refuses (n > 32 neighbors, T >
     64) and a limit that fits neither mode, naming the shape; with a
     smaller card the wide mode takes the step layout with one set of
-    rows, then the node-resident layout, then the chunked layout,
-    narrower chunks and clusters; each plan's bytes fit its limit and
-    232,448 B."""
+    rows, then the node-resident layout (the grid layout in its place
+    where the card holds enough clusters at once), then the chunked
+    layout, narrower chunks and clusters; each plan's bytes fit its limit
+    and 232,448 B."""
     with pytest.raises(ValueError, match="n <= 32"):
         window.window_plan(12, 33, 64, 32, 256)
     with pytest.raises(ValueError, match="<= 64 steps"):
@@ -291,15 +317,19 @@ def test_window_plan_limits():
     assert window.window_plan(*shape, one_set) == (16, "step1", 256)
     nodes = window.window_nodes_smem_bytes(*shape, 16)
     assert nodes < one_set
-    assert window.window_plan(*shape, one_set - 1) == (
+    assert window.window_plan(*shape, one_set - 1, 0) == (
         16, "nodes", window.NODES_TILE)
-    assert window.window_plan(*shape, nodes) == (16, "nodes",
-                                                 window.NODES_TILE)
+    assert window.window_plan(*shape, nodes, 0) == (16, "nodes",
+                                                    window.NODES_TILE)
+    grid = (window.GRID_CLUSTER, "grid", 64)
+    assert window.window_plan(*shape, one_set - 1) == grid
+    assert window.window_plan(*shape, nodes) == grid
     for limit in (nodes, one_set - 1, one_set, step - 1, step,
                   window.H100_SMEM):
-        plan = window.window_plan(*shape, limit)
-        assert window.plan_smem_bytes(shape, plan) <= min(limit,
-                                                          window.H100_SMEM)
+        for clusters in (0, window.H100_GRID_CLUSTERS):
+            plan = window.window_plan(*shape, limit, clusters)
+            assert window.plan_smem_bytes(shape, plan) <= min(
+                limit, window.H100_SMEM)
     # at K = 16384: the node-resident layout one byte under the step layout
     # with one set of rows, the chunked layout one byte under the
     # node-resident layout, its narrower chunk one byte under its chunk of
@@ -308,15 +338,23 @@ def test_window_plan_limits():
     nodes = window.window_nodes_smem_bytes(*big, 16)
     wide = window.window_wide_smem_bytes(*big, 16, 128)
     assert narrow < wide < nodes <= window.H100_SMEM < one_set
-    assert window.window_plan(*big, one_set - 1) == (16, "nodes",
-                                                     window.NODES_TILE)
-    assert window.window_plan(*big) == (16, "nodes", window.NODES_TILE)
+    assert window.window_plan(*big, one_set - 1, 0) == (16, "nodes",
+                                                        window.NODES_TILE)
+    assert window.window_plan(*big, window.H100_SMEM, 0) == (
+        16, "nodes", window.NODES_TILE)
+    grid = (window.GRID_CLUSTER, "grid", 152)
+    assert window.window_plan(*big, one_set - 1) == grid
+    assert window.window_plan(*big) == grid
+    # the grid only where the node-resident layout fits: one byte under
+    # it the chunked layout, though the grid's own bytes would fit
+    assert window.window_grid_smem_bytes(*big, 152) < nodes - 1
     assert window.window_plan(*big, nodes - 1) == (16, "wide", 128)
     assert window.window_plan(*big, wide - 1) == (16, "wide", 64)
     for limit in (narrow, wide - 1, wide, nodes - 1, nodes, one_set - 1):
-        plan = window.window_plan(*big, limit)
-        assert window.plan_smem_bytes(big, plan) <= min(limit,
-                                                        window.H100_SMEM)
+        for clusters in (0, window.H100_GRID_CLUSTERS):
+            plan = window.window_plan(*big, limit, clusters)
+            assert window.plan_smem_bytes(big, plan) <= min(
+                limit, window.H100_SMEM)
     # the longest window the step layout holds at K = 4096 takes it; one
     # more step takes the layout with one set of rows; at K = 8192 the
     # longest window that layout holds takes it, one more step the chunked
@@ -330,20 +368,109 @@ def test_window_plan_limits():
         t, 33, 32, 32, 8192, 16) <= window.H100_SMEM)
     assert longest >= 12
     assert window.window_plan(longest, 33, 32, 32, 8192)[1] == "step1"
-    assert window.window_plan(longest + 1, 33, 32, 32, 8192)[1] == "nodes"
+    assert window.window_plan(longest + 1, 33, 32, 32, 8192)[1] == "grid"
+    assert window.window_plan(longest + 1, 33, 32, 32, 8192,
+                              window.H100_SMEM, 0)[1] == "nodes"
     # at K = 16384 the longest window the node-resident layout holds takes
-    # it, one more step the chunked layout
+    # it (the grid layout in its place), one more step the chunked layout
     longest = max(t for t in range(1, 65) if window.window_nodes_smem_bytes(
         t, 33, 32, 32, 16384, 16) <= window.H100_SMEM)
     assert longest >= 12
-    assert window.window_plan(longest, 33, 32, 32, 16384)[1] == "nodes"
+    assert window.window_plan(longest, 33, 32, 32, 16384)[1] == "grid"
+    assert window.window_plan(longest, 33, 32, 32, 16384,
+                              window.H100_SMEM, 0)[1] == "nodes"
     assert window.window_plan(longest + 1, 33, 32, 32, 16384)[1] == "wide"
+
+
+@pytest.mark.parametrize("k", [8192, 10240, 10242, 12288, 14336, 16000,
+                               16384])
+@pytest.mark.parametrize("clusters", [16, 20, 27, 30, 32, 40, 66])
+def test_grid_slices_tile_k(k, clusters):
+    """The grid layout's slices: a multiple of 8 columns, ceil(K / w) of
+    them a whole number of clusters of GRID_CLUSTER, no more clusters
+    than the card holds or kMaxGrid allows, at least MIN_GRID_CTAS
+    slices, tiling K with none empty; the narrowest such width."""
+    w = window.window_grid_width(k, clusters)
+    s = window.GRID_CLUSTER
+    g_max = min(clusters, window.MAX_GRID_CLUSTERS)
+    fits = [x for x in range(8, k + 8, 8)
+            if -(-k // x) % s == 0 and -(-k // x) // s <= g_max
+            and -(-k // x) >= window.MIN_GRID_CTAS]
+    if w is None:
+        assert fits == []
+        return
+    assert w == fits[0]
+    ctas = -(-k // w)
+    assert w % 8 == 0 and ctas % s == 0
+    assert window.MIN_GRID_CTAS <= ctas
+    assert ctas // s <= min(clusters, window.MAX_GRID_CLUSTERS)
+    assert (ctas - 1) * w < k <= ctas * w
+
+
+def test_grid_plan_needs_the_clusters():
+    """The grid layout takes the node-resident layout's place only with
+    enough co-resident clusters: none (0, the chain entry) or too few for
+    MIN_GRID_CTAS slices (15 of 4 at K = 16384) keep the node-resident
+    layout at S = 16, with the window and its 4-step tail in the same
+    layout; 16 clusters give 64 slices of 256 columns."""
+    for t_win in (12, 4):
+        shape = (t_win, 33, 32, 32, 16384)
+        for clusters in (0, 1, 15):
+            assert window.window_plan(*shape, window.H100_SMEM, clusters) == \
+                (16, "nodes", window.NODES_TILE)
+        assert window.window_plan(*shape, window.H100_SMEM, 16) == (
+            window.GRID_CLUSTER, "grid", 256)
+        assert window.window_plan(*shape) == (window.GRID_CLUSTER, "grid",
+                                              152)
+    assert window.window_grid_exchange_words(33, 32, 32, 16384, 152) == \
+        27 * (33 * 32 + 33 + 64)
+
+
+def test_launch_plan_separates_the_entries(monkeypatch):
+    """launch_plan on a (faked) card: the chain entry never takes the
+    grid layout, the single-chain entry takes it at the card's count of
+    co-resident clusters (read at the H100's plan and again at the plan
+    that count gives), and falls back to the node-resident layout when
+    the card holds too few, or fewer at the final plan than it needs."""
+    monkeypatch.setattr(window.kernels, "smem_limit",
+                        lambda dev: window.H100_SMEM)
+    dev = torch.device("cpu")
+    shape = (12, 33, 32, 32, 16384)
+    nodes = (16, "nodes", window.NODES_TILE)
+    asked = []
+
+    def fake(counts):
+        def clusters(dev_index, shape, plan):
+            asked.append(plan)
+            return counts[plan[2]]
+        monkeypatch.setattr(window, "_grid_clusters", clusters)
+
+    fake({152: 30})
+    assert window.launch_plan(shape, dev, True) == nodes
+    assert asked == []
+    assert window.launch_plan(shape, dev, False) == (4, "grid", 152)
+    fake({152: 10})
+    assert window.launch_plan(shape, dev, False) == nodes
+    # a card that reports more clusters at the H100's plan than at the
+    # narrower plan they lead to
+    fake({152: 33, 128: 20})
+    assert window.launch_plan(shape, dev, False) == nodes
+    fake({152: 33, 128: 32})
+    asked.clear()
+    assert window.launch_plan(shape, dev, False) == (4, "grid", 128)
+    assert [p[2] for p in asked] == [152, 128]
+    # the resident mode and the step layouts ask nothing
+    asked.clear()
+    assert window.launch_plan((12, 33, 32, 32, 1024), dev, False)[1] == \
+        "resident"
+    assert window.launch_plan((12, 33, 32, 32, 4096), dev, False)[1] == "step"
+    assert asked == []
 
 
 def _cu_layout_words(fn: str, **dims) -> int:
     """The word count of csrc/window_kernel.cu's ``fn`` (``layout``,
-    ``layout_wide``, ``layout_step``, ``layout_step1`` or
-    ``layout_nodes``) at ``dims``,
+    ``layout_wide``, ``layout_step``, ``layout_step1``, ``layout_nodes``
+    or ``layout_grid``) at ``dims``,
     evaluated from the source text: each ``o += <expr>;`` of the
     function, its casts dropped and its integer divisions made Python's
     (the helpers it calls written out again here)."""
@@ -383,8 +510,9 @@ def test_window_smem_bytes_mirror_the_kernel_layouts(shape, s, wc):
     window_step_smem_bytes struct StepLayout's layout_step,
     window_step1_smem_bytes struct Step1Layout's layout_step1,
     window_nodes_smem_bytes struct NodesLayout's layout_nodes (tiles of
-    wc columns) and window_smem_bytes struct Layout's layout, term by
-    term: each equals the sum of csrc/window_kernel.cu's own
+    wc columns), window_grid_smem_bytes struct GridLayout's layout_grid
+    (slices of wc columns) and window_smem_bytes struct Layout's layout,
+    term by term: each equals the sum of csrc/window_kernel.cu's own
     expressions, read from the source (on the card chip_smoke.py also
     holds them against the built kernel's window_kernel_smem_bytes)."""
     t_win, b_cap, n_smpl, e_cap, k = shape
@@ -400,6 +528,10 @@ def test_window_smem_bytes_mirror_the_kernel_layouts(shape, s, wc):
         window.window_step1_smem_bytes(*shape, s)
     assert 4 * _cu_layout_words("layout_nodes", wc=wc, **dims) == \
         window.window_nodes_smem_bytes(*shape, s, wc)
+    # the grid layout: slices of wc columns, ceil(K / wc) // s clusters
+    grid = dict(dims, kw=wc, G=-(-k // wc) // s)
+    assert 4 * _cu_layout_words("layout_grid", **grid) == \
+        window.window_grid_smem_bytes(*shape, wc, s)
 
 
 def test_window_core_cuda_rejects_cpu_tensors():
@@ -431,8 +563,8 @@ def test_window_core_cuda_matches_plain_on_gpu(cuda_device, shape):
     """On a GPU: the fused kernel against its plain version at the bench
     shape (resident mode) and at the K = 4096, 8192, 16384 and 12288
     windows (the wide mode's step layout, its step layout with one set of
-    rows and, the last two, its node-resident layout), each on its own
-    copy of the state
+    rows and, the last two, its grid layout), each on its own copy of the
+    state
     (the kernel writes pi in place): rtol 1e-5, atol 1e-8 normwise, as
     chip_smoke.py checks it."""
     case = testing.window_case(0, *shape)

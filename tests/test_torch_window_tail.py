@@ -21,8 +21,9 @@ FIELDS = ("pi", "phi_sum", "theta", "beta")
 #: (T', B, n, E, K) of the benchmark cells' tail: 1000 % 12 = 100 % 12 = 4
 TAIL_SHAPE = (4, 33, 32, 32, 16384)
 #: the tail shapes of the cells and the layout each takes: K = 16384 the
-#: node-resident layout, K = 1024 (youtube-k1024) the resident mode
-TAIL_LAYOUTS = [(TAIL_SHAPE, "nodes"), ((4, 33, 32, 32, 1024), "resident")]
+#: grid layout, as its whole windows, K = 1024 (youtube-k1024) the
+#: resident mode
+TAIL_LAYOUTS = [(TAIL_SHAPE, "grid"), ((4, 33, 32, 32, 1024), "resident")]
 
 
 def _fresh(state):
@@ -166,8 +167,8 @@ def cuda_device():
 def test_tail_launch_matches_steps_on_gpu(cuda_device, seed, shape, layout):
     """At each cell's tail shape on a collision-heavy case (later steps
     read rows that earlier ones wrote), a 4-step chunk at T = 12 is one
-    launch of the kernel (the node-resident layout at K = 16384, the
-    resident mode at K = 1024, counted under that layout) and ends where
+    launch of the kernel (the grid layout at K = 16384, the resident mode
+    at K = 1024, counted under that layout) and ends where
     four steps of the body end from the same state on the card, within the
     window contract of the benchmark's check (ammsb_bench/check.py): the
     largest L1 distance of a row 2e-5 (the float32 cells' window_pi_gap
