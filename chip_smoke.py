@@ -1091,16 +1091,18 @@ def bf16_agree(testing, cfg, state, args, cuda, plain, what):
 def _plan_line(window, lib, shape, limit, chained=False):
     """(the plan (S, mode, wc) a launch of a per-chain shape takes on the
     card (``launch_plan``; ``chained``: the chain entry's), shared bytes
-    per CTA, and its words for a phase line); the kernel's own layout
-    must give the rule's byte count."""
+    per CTA, and its words for a phase line); the card build of the
+    kernel's layouts must give the host build's byte count, which the
+    plan read."""
     plan = window.launch_plan(shape, torch.device("cuda"), chained)
     s_cl, mode, wc = plan
-    smem = window.plan_smem_bytes(shape, plan)
+    smem = window.window_layout_bytes(shape, plan)
     got = lib.window_kernel_smem_bytes(*shape, s_cl, wc,
                                        window.LAYOUTS[mode])
     if got != smem:
         raise AssertionError(f"shared memory of {shape} in the {mode} "
-                             f"mode: kernel {got} B, rule {smem} B")
+                             f"mode: card build {got} B, host build "
+                             f"{smem} B")
     if (mode != "resident") != (shape[4] >= 1536):
         raise AssertionError(f"{shape}: the {mode} mode, expected the "
                              f"{'wide' if shape[4] >= 1536 else 'resident'}")

@@ -18,21 +18,12 @@ On a CUDA tensor the three are one launch of the hand-written Hopper
 kernel ``csrc/window_kernel.cu`` (``window_apply_cuda``): it reads its
 rows from pi by index, runs the steps on a thread-block cluster that
 splits K, and writes the surviving rows back itself. ``window_plan``
-picks its mode from the per-chain shape and the card's shared memory:
-the resident mode (the window's rows in shared memory,
-``window_cluster_size``) wherever it fits, else the wide mode (the
-staged rows in a global scratch; K = 1536-16384 at the main path's
-shape) in one of its five layouts: "step" (a step's rows in shared
-memory through the step, the next step's in flight in a second set;
-up to K = 4096 at T = 12), "step1" (the same with one set of rows,
-the next step's gathered into it as its regions free up; K = 6144-8192
-at T = 12), "grid" (one chain's columns over as many clusters as the
-card holds at once, a step's rows in shared memory, the sums exchanged
-across clusters through L2; K = 10240-16384 at T = 12), "nodes" (a
-step's node rows in shared memory, its neighbor rows streamed through
-two tiles; where the grid does not run: the chain engine, a card that
-holds too few CTAs at once) or "wide" (the rows taken in column chunks;
-the fallback). With bfloat16 pi
+picks its mode from the per-chain shape and the card's shared memory,
+which it reads for each layout from the kernel's own
+``csrc/window_layout.h`` (``window_layout_bytes``): the resident mode
+(the window's rows in shared memory) wherever it fits, else one of the
+wide mode's five layouts (the staged rows in a global scratch), which
+the head of ``csrc/window_kernel.cu`` describes. With bfloat16 pi
 storage (``cfg.pi_dtype``) both versions gather the rows upcast to float32,
 compute and stage in float32, and round the kept rows to nearest-even
 only at the write-back, as the JAX package's bf16 window does; the
@@ -367,13 +358,13 @@ def window_chain_apply_torch(cfg: Config, s, xs_t, mcode, keep):
 # The window: the Hopper kernel
 # ---------------------------------------------------------------------------
 
-#: kMaxNeighbors of csrc/window_kernel.cu: the contrib loop keeps a
+#: kMaxNeighbors of csrc/window_layout.h: the contrib loop keeps a
 #: thread's column of the n neighbor rows in registers.
 MAX_NEIGHBORS = 32
-#: kMaxWindow of csrc/window_kernel.cu: the step sizes of a window
-#: travel in the kernel's parameters.
+#: kMaxWindow of csrc/window_layout.h: the step sizes of a window travel
+#: in the kernel's parameters.
 MAX_WINDOW = 64
-#: kMaxCluster of csrc/window_kernel.cu: the largest thread-block cluster.
+#: kMaxCluster of csrc/window_layout.h: the largest thread-block cluster.
 MAX_CLUSTER = 16
 #: Shared memory one thread block may use on an H100 (bytes).
 H100_SMEM = 232448
@@ -382,39 +373,41 @@ H100_SMEM = 232448
 #: chains fit in one wave.
 _COLUMNS_PER_CTA = 64
 
+#: The kernel's code of each layout (``Mode`` of csrc/window_layout.h).
+LAYOUTS = {"resident": 0, "step": 1, "step1": 2, "wide": 3, "nodes": 4,
+           "grid": 5}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+@functools.cache
+def _layout_lib():
+    """The host build of the kernel's layouts, csrc/window_layout.h
+    (csrc/window_layout.cpp): built with g++ at the first plan."""
+    lib = kernels.load("window_layout.cpp")
+    lib.window_layout_bytes.argtypes = [_I] * 8
+    lib.window_layout_bytes.restype = ctypes.c_size_t
+    lib.window_layout_slice_width.argtypes = [_I] * 2
+    lib.window_layout_slice_width.restype = _I
+    lib.window_layout_grid_exchange_words.argtypes = [_I] * 6
+    lib.window_layout_grid_exchange_words.restype = ctypes.c_size_t
+    return lib
+
+
+def window_layout_bytes(shape, plan) -> int:
+    """Shared memory per CTA of a launch of the per-chain ``shape`` (T, B,
+    n, E, K) in ``plan`` (S, mode, wc): ``layout_bytes`` of
+    csrc/window_layout.h (``wc``: the chunk, tile or slice width)."""
+    s, mode, wc = plan
+    return _layout_lib().window_layout_bytes(*shape, s, wc, LAYOUTS[mode])
+
 
 def window_slice_width(k: int, s: int) -> int:
     """Columns per CTA with a cluster of ``s`` (``slice_width`` of
-    csrc/window_kernel.cu): ceil(K / S), rounded up to a multiple of 4
-    when K is one (16-byte copies). CTA r owns [r*w, min(K, (r+1)*w))."""
-    w = -(-k // s)
-    if k % 4 == 0:
-        w = -(-w // 4) * 4
-    return w
-
-
-def window_smem_bytes(t_win: int, b_cap: int, n_smpl: int, e_cap: int,
-                      k: int, s: int) -> int:
-    """Shared memory per CTA (``layout`` of csrc/window_kernel.cu): two
-    step row buffers [B+n, ld] and beta - eps [w, padded to 4]; two phi noise
-    slices [B, w]; the coefficients [B, n]; the staged slice [T*B, w]
-    and its sums [T*B]; theta and beta [w] x 3, two theta noise slices
-    [w, 2] and the 16 warps' fan-in partials [w, 2]; the node vectors
-    [B] x 6; the partials pushed by the cluster: q of the owned nodes
-    [S, ceil(B/S), n], row sums [S, B], edge sums [S, E, 2]; the
-    window's read codes [T, B+n], node ids [T, B], neighbor ids [T, n]
-    and lane maps [T, E]; its labels and masks as bits."""
-    w = window_slice_width(k, s)
-    q4 = -(-w // 4)
-    ld = 4 * (q4 + 1 + q4 % 2)
-    n_read = b_cap + n_smpl
-    tb, te = t_win * b_cap, t_win * e_cap
-    bits = (-(-tb * n_smpl // 32) + -(-tb // 32) + 2 * -(-te // 32))
-    words = (2 * n_read * ld + 4 * q4 + 2 * b_cap * w + 39 * w
-             + tb * (w + 1) + b_cap * n_smpl + 6 * b_cap
-             + s * (-(-b_cap // s) * n_smpl + b_cap + 2 * e_cap)
-             + t_win * (n_read + b_cap + n_smpl + e_cap) + bits)
-    return 4 * words
+    csrc/window_layout.h); CTA r owns [r*w, min(K, (r+1)*w))."""
+    return _layout_lib().window_layout_slice_width(k, s)
 
 
 def _tiles(k: int, s: int) -> bool:
@@ -423,14 +416,15 @@ def _tiles(k: int, s: int) -> bool:
     return s <= k and (s - 1) * window_slice_width(k, s) < k
 
 
-def _resident_cluster(t_win, b_cap, n_smpl, e_cap, k, smem_limit):
+def _resident_cluster(shape, smem_limit):
     """The resident mode's cluster size (``window_cluster_size``), or None
     when its layout fits no S <= 16."""
+    k = shape[4]
     s0 = min(8, max(1, -(-k // _COLUMNS_PER_CTA)))
     pow2 = [s for s in (1, 2, 4, 8, 16) if s >= s0]
     for s in pow2 + [s for s in range(1, MAX_CLUSTER + 1) if s not in pow2]:
-        if (_tiles(k, s) and window_smem_bytes(t_win, b_cap, n_smpl, e_cap,
-                                                k, s) <= smem_limit):
+        if (_tiles(k, s) and window_layout_bytes(shape, (s, "resident", 0))
+                <= smem_limit):
             return s
     return None
 
@@ -446,7 +440,7 @@ def window_cluster_size(t_win: int, b_cap: int, n_smpl: int, e_cap: int,
     are all non-empty and whose per-CTA shared memory (the window's
     staged slice above all) fits. Raises when none does (``window_plan``
     then takes the wide mode)."""
-    s = _resident_cluster(t_win, b_cap, n_smpl, e_cap, k, smem_limit)
+    s = _resident_cluster((t_win, b_cap, n_smpl, e_cap, k), smem_limit)
     if s is None:
         raise ValueError(
             f"window kernel: (T, B, n, E, K) = ({t_win}, {b_cap}, "
@@ -459,158 +453,19 @@ def window_cluster_size(t_win: int, b_cap: int, n_smpl: int, e_cap: int,
 #: Column chunk widths of the wide mode's chunked layout, widest first
 #: (multiples of 8: 16-byte copies of float32 and of bf16 rows).
 WIDE_CHUNKS = (128, 64)
-#: kQNodes of csrc/window_kernel.cu: the nodes of a warp's q tile in the
+#: kQNodes of csrc/window_layout.h: the nodes of a warp's q tile in the
 #: step layout.
 _Q_NODES = 11
 #: Cluster sizes the wide mode tries, in order: the most SMs per window
 #: first, powers of two (even slices) before the rest.
 _WIDE_CLUSTERS = (16, 8, 4, 2, 1) + tuple(s for s in range(15, 2, -1)
                                           if s & (s - 1))
-
-
-def window_wide_smem_bytes(t_win: int, b_cap: int, n_smpl: int, e_cap: int,
-                           k: int, s: int, wc: int) -> int:
-    """Shared memory per CTA of the wide mode with chunks of ``wc``
-    columns (``layout_wide``, struct ``WideLayout`` of
-    csrc/window_kernel.cu, term by term): two chunks of the step rows
-    [B+n, ld(wc)] and of the phi noise [B, wc]; beta - eps, theta0,
-    theta1 and beta [w] (padded to 4); the coefficients and the q
-    accumulators [B, n] (padded to 4); the 16 warps' fan-in partials of
-    a chunk [wc, 2]; the staged rows' sums [T*B]; the node vectors [B]
-    x 6; each lane's row and edge partials over the chunks [B, 32] and
-    [E, 32, 2]; prsum [E]; the partials pushed by the cluster (as the
-    resident mode's); the window's codes, ids, lane maps and bits."""
-    w = window_slice_width(k, s)
-    q4 = -(-wc // 4)
-    ldc = 4 * (q4 + 1 + q4 % 2)
-    n_read = b_cap + n_smpl
-    tb, te = t_win * b_cap, t_win * e_cap
-    bits = (-(-tb * n_smpl // 32) + -(-tb // 32) + 2 * -(-te // 32))
-    up4 = 4 * -(-w // 4)
-    bn4 = 4 * -(-(b_cap * n_smpl) // 4)
-    words = (2 * n_read * ldc + 2 * b_cap * wc + 4 * up4 + 2 * bn4
-             + 16 * wc * 2 + tb + 6 * b_cap + 32 * b_cap + 65 * e_cap
-             + s * (-(-b_cap // s) * n_smpl + b_cap + 2 * e_cap)
-             + t_win * (n_read + b_cap + n_smpl + e_cap) + bits)
-    return 4 * words
-
-
-def window_step_smem_bytes(t_win: int, b_cap: int, n_smpl: int,
-                           e_cap: int, k: int, s: int) -> int:
-    """Shared memory per CTA of the wide mode's step layout
-    (``layout_step``, struct ``StepLayout`` of csrc/window_kernel.cu, term
-    by term): three mbarriers (32 B); two sets of the step rows [B+n,
-    ld(w)]; the phi noise, earlier in the step x * (beta - eps), [B,
-    ld(w)]; the theta noise [w, 2] (padded to 4); beta - eps, theta0,
-    theta1 and beta [w] and the coefficients [B, n] (padded to 4); one
-    region (padded to 4) for the q partials of the splits [ks, B, n] (ks
-    = 16 // ceil(B / 11)) and later the fan-in partials [G, w, 2] (G =
-    512 // w); the staged rows' sums [T*B]; the node vectors [B] x 7 and
-    prsum [E]; the partials pushed by the cluster, the window's codes,
-    ids, lane maps and bits (as the other layouts')."""
-    w = window_slice_width(k, s)
-    q4 = -(-w // 4)
-    ld = 4 * (q4 + 1 + q4 % 2)
-    n_read = b_cap + n_smpl
-    tb, te = t_win * b_cap, t_win * e_cap
-    bits = (-(-tb * n_smpl // 32) + -(-tb // 32) + 2 * -(-te // 32))
-    groups = -(-b_cap // _Q_NODES)
-    splits = 1 if groups >= 16 else 16 // groups
-    fan = 512 // w if w <= 512 else 1
-
-    def up4(x):
-        return 4 * -(-x // 4)
-
-    words = (8 + 2 * n_read * ld + b_cap * ld + up4(2 * w)
-             + 4 * up4(w) + up4(b_cap * n_smpl)
-             + up4(max(splits * b_cap * n_smpl, 2 * fan * w))
-             + tb + 7 * b_cap + e_cap
-             + s * (-(-b_cap // s) * n_smpl + b_cap + 2 * e_cap)
-             + t_win * (n_read + b_cap + n_smpl + e_cap) + bits)
-    return 4 * words
-
-
-def window_step1_smem_bytes(t_win: int, b_cap: int, n_smpl: int,
-                            e_cap: int, k: int, s: int) -> int:
-    """Shared memory per CTA of the wide mode's step layout with one set
-    of rows (``layout_step1``, struct ``Step1Layout`` of
-    csrc/window_kernel.cu, term by term): three mbarriers (32 B); one set
-    of the step rows [B+n, ld(w)]; the theta noise [w, 2], beta - eps,
-    theta0, theta1 and beta [w] and the coefficients [B, n] (each padded
-    to 4); the q partials of the splits and later the fan-in partials, as
-    the step layout's; the staged rows' sums [T*B]; the node vectors [B]
-    x 6 and prsum [E]; the partials pushed by the cluster, the window's
-    codes, ids, lane maps and bits (as the other layouts'). No phi noise
-    buffer: the kernel reads the noise where it uses it."""
-    w = window_slice_width(k, s)
-    q4 = -(-w // 4)
-    ld = 4 * (q4 + 1 + q4 % 2)
-    n_read = b_cap + n_smpl
-    tb, te = t_win * b_cap, t_win * e_cap
-    bits = (-(-tb * n_smpl // 32) + -(-tb // 32) + 2 * -(-te // 32))
-    groups = -(-b_cap // _Q_NODES)
-    splits = 1 if groups >= 16 else 16 // groups
-    fan = 512 // w if w <= 512 else 1
-
-    def up4(x):
-        return 4 * -(-x // 4)
-
-    words = (8 + n_read * ld + up4(2 * w) + 4 * up4(w)
-             + up4(b_cap * n_smpl)
-             + up4(max(splits * b_cap * n_smpl, 2 * fan * w))
-             + tb + 6 * b_cap + e_cap
-             + s * (-(-b_cap // s) * n_smpl + b_cap + 2 * e_cap)
-             + t_win * (n_read + b_cap + n_smpl + e_cap) + bits)
-    return 4 * words
-
-
 #: The node-resident layout's tile width: columns of the neighbor rows a
 #: tile holds (a multiple of 8).
 NODES_TILE = 128
 #: The node-resident layout's q gives each warp one task of kQNodes nodes
 #: (csrc/window_kernel.cu refuses more groups than its 16 warps).
 _MAX_Q_GROUPS = 16
-
-
-def window_nodes_smem_bytes(t_win: int, b_cap: int, n_smpl: int,
-                            e_cap: int, k: int, s: int,
-                            wc: int = NODES_TILE) -> int:
-    """Shared memory per CTA of the wide mode's node-resident layout with
-    tiles of ``wc`` columns (``layout_nodes``, struct ``NodesLayout`` of
-    csrc/window_kernel.cu, term by term): the step's node rows [B,
-    ld(w)]; one region (padded to 4) for two tiles of the neighbor rows
-    [2, n, ld(wc)] and, at stage a's end, the q partials of the splits
-    [ks, B, n]; beta - eps [w] and the coefficients [B, n] (padded to
-    4); the fan-in partials [G, w, 2] (G = 512 // w, padded to 4);
-    theta0, theta1 and beta [w] (padded to 4); the staged rows' sums
-    [T*B]; the node vectors [B] x 6 and prsum [E]; the partials pushed by
-    the cluster, the window's codes, ids, lane maps and bits (as the other
-    layouts'). No phi or theta noise buffer: the kernel reads both where
-    it uses them."""
-    w = window_slice_width(k, s)
-    q4 = -(-w // 4)
-    ld = 4 * (q4 + 1 + q4 % 2)
-    t4 = -(-wc // 4)
-    ldt = 4 * (t4 + 1 + t4 % 2)
-    n_read = b_cap + n_smpl
-    tb, te = t_win * b_cap, t_win * e_cap
-    bits = (-(-tb * n_smpl // 32) + -(-tb // 32) + 2 * -(-te // 32))
-    groups = -(-b_cap // _Q_NODES)
-    splits = 1 if groups >= 16 else 16 // groups
-    fan = 512 // w if w <= 512 else 1
-
-    def up4(x):
-        return 4 * -(-x // 4)
-
-    words = (b_cap * ld
-             + up4(max(2 * n_smpl * ldt, splits * b_cap * n_smpl))
-             + 4 * up4(w) + up4(b_cap * n_smpl) + up4(2 * fan * w)
-             + tb + 6 * b_cap + e_cap
-             + s * (-(-b_cap // s) * n_smpl + b_cap + 2 * e_cap)
-             + t_win * (n_read + b_cap + n_smpl + e_cap) + bits)
-    return 4 * words
-
-
 #: The grid layout's cluster: its CTAs add their partials through
 #: distributed shared memory before the clusters exchange theirs in L2.
 GRID_CLUSTER = 4
@@ -618,7 +473,7 @@ GRID_CLUSTER = 4
 #: (120 of its 132 SMs); on a card ``window_apply_cuda`` asks the card
 #: (``window_kernel_max_clusters``).
 H100_GRID_CLUSTERS = 30
-#: kMaxGrid of csrc/window_kernel.cu: a sum over the clusters holds their
+#: kMaxGrid of csrc/window_layout.h: a sum over the clusters holds their
 #: partials in registers.
 MAX_GRID_CLUSTERS = 32
 #: The grid layout runs where it spreads a window over at least this many
@@ -648,61 +503,23 @@ def window_grid_width(k: int, clusters: int,
         w += 8
 
 
-def window_grid_smem_bytes(t_win: int, b_cap: int, n_smpl: int,
-                           e_cap: int, k: int, w: int,
-                           s: int = GRID_CLUSTER) -> int:
-    """Shared memory per CTA of the wide mode's grid layout with slices of
-    ``w`` columns in clusters of ``s`` (``layout_grid``, struct
-    ``GridLayout`` of csrc/window_kernel.cu, term by term): two sets of
-    the step rows [B+n, ld(w)]; the phi noise, earlier in the step x *
-    (beta - eps), [B, ld(w)]; the theta noise [w, 2], beta - eps and the
-    coefficients [B, n] (each padded to 4); one region (padded to 4) for
-    the q partials of the splits [ks, B, n], the G clusters' row and edge
-    sums [G, B + 2E] (G = ceil(K / w) / s) and the fan-in partials [512 //
-    w, w, 2]; theta0, theta1 and beta [w] (padded to 4); the staged rows'
-    sums [T*B]; the node vectors [B] x 7 and prsum [E]; the partials
-    pushed by the cluster, the window's codes, ids, lane maps and bits
-    (as the other layouts')."""
-    g = -(-k // w) // s
-    q4 = -(-w // 4)
-    ld = 4 * (q4 + 1 + q4 % 2)
-    n_read = b_cap + n_smpl
-    tb, te = t_win * b_cap, t_win * e_cap
-    bits = (-(-tb * n_smpl // 32) + -(-tb // 32) + 2 * -(-te // 32))
-    groups = -(-b_cap // _Q_NODES)
-    splits = 1 if groups >= 16 else 16 // groups
-    fan = 512 // w if w <= 512 else 1
-
-    def up4(x):
-        return 4 * -(-x // 4)
-
-    words = (2 * n_read * ld + b_cap * ld + up4(2 * w) + up4(w)
-             + up4(b_cap * n_smpl)
-             + up4(max(splits * b_cap * n_smpl, 2 * fan * w,
-                       g * (b_cap + 2 * e_cap)))
-             + 3 * up4(w) + tb + 7 * b_cap + e_cap
-             + s * (-(-b_cap // s) * n_smpl + b_cap + 2 * e_cap)
-             + t_win * (n_read + b_cap + n_smpl + e_cap) + bits)
-    return 4 * words
-
-
+@functools.lru_cache(maxsize=None)
 def window_grid_exchange_words(b_cap: int, n_smpl: int, e_cap: int, k: int,
                                w: int, s: int = GRID_CLUSTER) -> int:
-    """Floats of the grid layout's L2 exchange, after the staged rows in
-    the scratch: each cluster's q [B, n] and its row and edge sums [B +
-    2E]."""
-    return -(-k // w) // s * (b_cap * n_smpl + b_cap + 2 * e_cap)
+    """Floats of the grid layout's L2 exchange after the staged rows in the
+    scratch (``grid_exchange_words`` of csrc/window_layout.h); cached."""
+    return _layout_lib().window_layout_grid_exchange_words(
+        b_cap, n_smpl, e_cap, k, w, s)
 
 
-def _grid_plan(t_win, b_cap, n_smpl, e_cap, k, smem_limit, clusters):
+def _grid_plan(shape, smem_limit, clusters):
     """The grid layout's plan ``(GRID_CLUSTER, "grid", w)`` with
     ``clusters`` co-resident clusters, or None where it takes too few
     CTAs or its shared memory does not fit."""
-    w = window_grid_width(k, clusters)
-    if w is None or window_grid_smem_bytes(t_win, b_cap, n_smpl, e_cap, k,
-                                           w) > smem_limit:
+    plan = GRID_CLUSTER, "grid", window_grid_width(shape[4], clusters)
+    if plan[2] is None or window_layout_bytes(shape, plan) > smem_limit:
         return None
-    return GRID_CLUSTER, "grid", w
+    return plan
 
 
 def step_chunk(k: int, s: int) -> int:
@@ -736,7 +553,8 @@ def window_plan(t_win: int, b_cap: int, n_smpl: int, e_cap: int, k: int,
     as clusters, which the grid's spread over columns would compete with
     for the same SMs). Otherwise from the per-chain shape only, never
     from the number of chains: one C-chain launch gives the bits of C
-    single-chain launches in any layout it takes. Raises ValueError past
+    single-chain launches in any layout it takes. Each layout's bytes are
+    the kernel's own (``window_layout_bytes``). Raises ValueError past
     the kernel's limits (n, T) or when no layout fits; the launch and the
     CLI's window resolution both go through it."""
     if n_smpl > MAX_NEIGHBORS or t_win > MAX_WINDOW:
@@ -744,59 +562,33 @@ def window_plan(t_win: int, b_cap: int, n_smpl: int, e_cap: int, k: int,
             f"window kernel takes n <= {MAX_NEIGHBORS} neighbors and "
             f"windows of <= {MAX_WINDOW} steps, got n={n_smpl}, "
             f"T={t_win}; use a smaller --window or --window -1")
-    s = _resident_cluster(t_win, b_cap, n_smpl, e_cap, k, smem_limit)
+    shape = (t_win, b_cap, n_smpl, e_cap, k)
+
+    def fits(plan):
+        return window_layout_bytes(shape, plan) <= smem_limit
+
+    s = _resident_cluster(shape, smem_limit)
     if s is not None:
         return s, "resident", 0
     for s in _WIDE_CLUSTERS:
         if not _tiles(k, s):
             continue
-        if window_step_smem_bytes(t_win, b_cap, n_smpl, e_cap, k,
-                                  s) <= smem_limit:
-            return s, "step", step_chunk(k, s)
-        if window_step1_smem_bytes(t_win, b_cap, n_smpl, e_cap, k,
-                                   s) <= smem_limit:
-            return s, "step1", step_chunk(k, s)
+        wc = step_chunk(k, s)
+        for plan in ((s, "step", wc), (s, "step1", wc)):
+            if fits(plan):
+                return plan
         if (-(-b_cap // _Q_NODES) <= _MAX_Q_GROUPS
-                and window_nodes_smem_bytes(t_win, b_cap, n_smpl, e_cap, k,
-                                            s) <= smem_limit):
-            return (_grid_plan(t_win, b_cap, n_smpl, e_cap, k, smem_limit,
-                               grid_clusters)
+                and fits((s, "nodes", NODES_TILE))):
+            return (_grid_plan(shape, smem_limit, grid_clusters)
                     or (s, "nodes", NODES_TILE))
         for wc in WIDE_CHUNKS:
-            if wc < window_slice_width(k, s) and window_wide_smem_bytes(
-                    t_win, b_cap, n_smpl, e_cap, k, s, wc) <= smem_limit:
+            if wc < window_slice_width(k, s) and fits((s, "wide", wc)):
                 return s, "wide", wc
     raise ValueError(
         f"window kernel: (T, B, n, E, K) = ({t_win}, {b_cap}, {n_smpl}, "
         f"{e_cap}, {k}) fits {smem_limit} B of shared memory per CTA in "
         f"neither mode at any cluster size <= {MAX_CLUSTER}; use a "
         f"smaller --window")
-
-
-def plan_smem_bytes(shape, plan) -> int:
-    """Shared memory per CTA of ``window_plan(*shape)``'s layout."""
-    s, mode, wc = plan
-    if mode == "step":
-        return window_step_smem_bytes(*shape, s)
-    if mode == "step1":
-        return window_step1_smem_bytes(*shape, s)
-    if mode == "nodes":
-        return window_nodes_smem_bytes(*shape, s, wc)
-    if mode == "grid":
-        return window_grid_smem_bytes(*shape, wc, s)
-    if mode == "wide":
-        return window_wide_smem_bytes(*shape, s, wc)
-    return window_smem_bytes(*shape, s)
-
-
-#: The kernel's code of each layout of the plan (``Mode`` of
-#: csrc/window_kernel.cu).
-LAYOUTS = {"resident": 0, "step": 1, "step1": 2, "wide": 3, "nodes": 4,
-           "grid": 5}
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
 
 
 def bind_window_lib(lib):

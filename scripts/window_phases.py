@@ -288,7 +288,7 @@ def run_window(sizes, kernels, result):
                 wc = (window.step_chunk(k, s) if mode in ("step", "step1")
                       else window.NODES_TILE if mode == "nodes"
                       else real_plan(*shape, limit)[2])
-                smem = window.plan_smem_bytes(shape, (s, mode, wc))
+                smem = window.window_layout_bytes(shape, (s, mode, wc))
             if smem > limit:
                 continue
             window.window_plan = lambda *args, _p=(s, mode, wc): _p

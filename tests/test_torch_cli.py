@@ -170,14 +170,12 @@ def _fit_limit(t_win, b_cap, n_smpl, e_cap, k):
     grow with T do not depend on S)."""
     from mcmc_ammsb_tpu_torch.ops import window
     shape = (t_win, b_cap, n_smpl, e_cap, k)
-    return min(min(window.window_smem_bytes(*shape, s),
-                   window.window_step_smem_bytes(*shape, s),
-                   window.window_step1_smem_bytes(*shape, s),
-                   window.window_nodes_smem_bytes(*shape, s),
-                   *(window.window_wide_smem_bytes(*shape, s, wc)
-                     for wc in window.WIDE_CHUNKS))
+    plans = [(mode, 0) for mode in ("resident", "step", "step1")]
+    plans += [("nodes", window.NODES_TILE)]
+    plans += [("wide", wc) for wc in window.WIDE_CHUNKS]
+    return min(window.window_layout_bytes(shape, (s, mode, wc))
                for s in range(1, window.MAX_CLUSTER + 1)
-               if window._tiles(k, s))
+               if window._tiles(k, s) for mode, wc in plans)
 
 
 def test_fit_window_rule():

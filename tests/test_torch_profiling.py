@@ -151,9 +151,9 @@ def test_window_candidates_filtering():
     # layout (the wide mode's step layout with one set of rows at the
     # largest cluster): the longer windows fit in no layout at any cluster
     # size
-    limit = window.window_step1_smem_bytes(8, big.max_batch_nodes,
-                                           big.num_node_sample,
-                                           big.max_batch_edges, 256, 16)
+    limit = window.window_layout_bytes(
+        (8, big.max_batch_nodes, big.num_node_sample, big.max_batch_edges,
+         256), (16, "step1", 0))
     assert autotune.window_candidates(big, smem_limit=limit) == [0, 6, 8]
 
 

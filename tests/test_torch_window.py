@@ -7,6 +7,10 @@ version (gather, core, scatter) against JAX's three, and the kernel's
 cluster-size rule. The CUDA kernel itself is checked against the plain
 version on the card by chip_smoke.py."""
 
+import functools
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +20,7 @@ from mcmc_ammsb_tpu.ops import window as jax_window
 from mcmc_ammsb_tpu_torch import testing
 from mcmc_ammsb_tpu_torch.ops import window
 
+from test_torch_window_layout import LAYOUT_BYTES, LAYOUT_MODES
 from torch_parity import assert_close, jax_config, jax_window_case
 
 # (T, B, n, E, K): a collision-heavy tiny window, the odd shape
@@ -167,7 +172,8 @@ def test_window_cluster_size_rule(shape):
     cols = [c for r in range(s) for c in range(r * w, min(k, (r + 1) * w))]
     assert cols == list(range(k))
     assert all(min(k, (r + 1) * w) > r * w for r in range(s))
-    assert window.window_smem_bytes(*shape, s) <= window.H100_SMEM
+    assert window.window_layout_bytes(shape, (s, "resident", 0)) <= \
+        window.H100_SMEM
     if k <= 16:
         assert s == 1
     if k == 256:
@@ -249,8 +255,8 @@ def test_window_plan_wide_covers_jax_windows(t_win, k, layout):
         ctas = -(-k // wc)
         assert ctas % s == 0
         assert window.MIN_GRID_CTAS <= ctas <= s * window.H100_GRID_CLUSTERS
-        smem = window.window_grid_smem_bytes(*shape, wc)
-        assert window.plan_smem_bytes(shape, (s, mode, wc)) == smem
+        smem = window.window_layout_bytes(shape, (s, mode, wc))
+        assert smem <= window.H100_SMEM
         cols = [c for r in range(ctas)
                 for c in range(r * wc, min(k, (r + 1) * wc))]
         assert cols == list(range(k))
@@ -260,29 +266,23 @@ def test_window_plan_wide_covers_jax_windows(t_win, k, layout):
         s, mode, wc = 16, "nodes", window.NODES_TILE
     w = window.window_slice_width(k, s)
     assert (s, mode) == (16, "nodes" if layout == "grid" else layout)
+
+    def smem(mode, wc=0):
+        return window.window_layout_bytes(shape, (s, mode, wc))
+
     if mode in ("step", "step1"):
         assert wc == window.step_chunk(k, s) and w <= wc < w + 8
         assert wc % 8 == 0
-    if mode == "step":
-        smem = window.window_step_smem_bytes(*shape, s)
-    else:
-        assert window.window_step_smem_bytes(*shape, s) > window.H100_SMEM
-    if mode == "step1":
-        smem = window.window_step1_smem_bytes(*shape, s)
+    if mode != "step":
+        assert smem("step") > window.H100_SMEM
     if mode in ("nodes", "wide"):
-        assert window.window_step1_smem_bytes(*shape, s) > window.H100_SMEM
+        assert smem("step1") > window.H100_SMEM
     if mode == "nodes":
         assert wc == window.NODES_TILE and wc % 8 == 0
-        smem = window.window_nodes_smem_bytes(*shape, s, wc)
     if mode == "wide":
         assert wc in window.WIDE_CHUNKS and wc < w
-        assert window.window_nodes_smem_bytes(*shape, s) > window.H100_SMEM
-        smem = window.window_wide_smem_bytes(*shape, s, wc)
-    assert smem <= window.H100_SMEM
-    assert window.plan_smem_bytes(shape, (s, mode, wc)) == smem
-    if layout == "grid":
-        assert window.window_grid_smem_bytes(
-            *shape, window.window_plan(*shape)[2]) <= window.H100_SMEM
+        assert smem("nodes", window.NODES_TILE) > window.H100_SMEM
+    assert smem(mode, wc) <= window.H100_SMEM
     cols = [c for r in range(s) for c in range(r * w, min(k, (r + 1) * w))]
     assert cols == list(range(k))
     assert all(min(k, (r + 1) * w) > r * w for r in range(s))
@@ -304,18 +304,22 @@ def test_window_plan_limits():
         window.window_plan(65, 33, 32, 32, 256)
     with pytest.raises(ValueError, match=r"\(12, 33, 32, 32, 4096\)"):
         window.window_plan(12, 33, 32, 32, 4096, 50_000)
+    def smem(shape, mode, wc=0, s=16):
+        return window.window_layout_bytes(shape, (s, mode, wc))
+
+    tile = window.NODES_TILE
     big = (12, 33, 32, 32, 16384)
-    narrow = window.window_wide_smem_bytes(*big, 16, 64)
+    narrow = smem(big, "wide", 64)
     assert window.window_plan(*big, narrow) == (16, "wide", 64)
     shape = (12, 33, 32, 32, 4096)
-    step = window.window_step_smem_bytes(*shape, 16)
+    step = smem(shape, "step")
     assert step <= window.H100_SMEM
     assert window.window_plan(*shape, step) == (16, "step", 256)
-    one_set = window.window_step1_smem_bytes(*shape, 16)
+    one_set = smem(shape, "step1")
     assert one_set < step
     assert window.window_plan(*shape, step - 1) == (16, "step1", 256)
     assert window.window_plan(*shape, one_set) == (16, "step1", 256)
-    nodes = window.window_nodes_smem_bytes(*shape, 16)
+    nodes = smem(shape, "nodes", tile)
     assert nodes < one_set
     assert window.window_plan(*shape, one_set - 1, 0) == (
         16, "nodes", window.NODES_TILE)
@@ -328,15 +332,15 @@ def test_window_plan_limits():
                   window.H100_SMEM):
         for clusters in (0, window.H100_GRID_CLUSTERS):
             plan = window.window_plan(*shape, limit, clusters)
-            assert window.plan_smem_bytes(shape, plan) <= min(
+            assert window.window_layout_bytes(shape, plan) <= min(
                 limit, window.H100_SMEM)
     # at K = 16384: the node-resident layout one byte under the step layout
     # with one set of rows, the chunked layout one byte under the
     # node-resident layout, its narrower chunk one byte under its chunk of
     # 128
-    one_set = window.window_step1_smem_bytes(*big, 16)
-    nodes = window.window_nodes_smem_bytes(*big, 16)
-    wide = window.window_wide_smem_bytes(*big, 16, 128)
+    one_set = smem(big, "step1")
+    nodes = smem(big, "nodes", tile)
+    wide = smem(big, "wide", 128)
     assert narrow < wide < nodes <= window.H100_SMEM < one_set
     assert window.window_plan(*big, one_set - 1, 0) == (16, "nodes",
                                                         window.NODES_TILE)
@@ -347,25 +351,25 @@ def test_window_plan_limits():
     assert window.window_plan(*big) == grid
     # the grid only where the node-resident layout fits: one byte under
     # it the chunked layout, though the grid's own bytes would fit
-    assert window.window_grid_smem_bytes(*big, 152) < nodes - 1
+    assert smem(big, "grid", 152, window.GRID_CLUSTER) < nodes - 1
     assert window.window_plan(*big, nodes - 1) == (16, "wide", 128)
     assert window.window_plan(*big, wide - 1) == (16, "wide", 64)
     for limit in (narrow, wide - 1, wide, nodes - 1, nodes, one_set - 1):
         for clusters in (0, window.H100_GRID_CLUSTERS):
             plan = window.window_plan(*big, limit, clusters)
-            assert window.plan_smem_bytes(big, plan) <= min(
+            assert window.window_layout_bytes(big, plan) <= min(
                 limit, window.H100_SMEM)
     # the longest window the step layout holds at K = 4096 takes it; one
     # more step takes the layout with one set of rows; at K = 8192 the
     # longest window that layout holds takes it, one more step the chunked
     # layout
-    longest = max(t for t in range(1, 65) if window.window_step_smem_bytes(
-        t, 33, 32, 32, 4096, 16) <= window.H100_SMEM)
+    longest = max(t for t in range(1, 65) if smem(
+        (t, 33, 32, 32, 4096), "step") <= window.H100_SMEM)
     assert longest >= 12
     assert window.window_plan(longest, 33, 32, 32, 4096)[1] == "step"
     assert window.window_plan(longest + 1, 33, 32, 32, 4096)[1] == "step1"
-    longest = max(t for t in range(1, 65) if window.window_step1_smem_bytes(
-        t, 33, 32, 32, 8192, 16) <= window.H100_SMEM)
+    longest = max(t for t in range(1, 65) if smem(
+        (t, 33, 32, 32, 8192), "step1") <= window.H100_SMEM)
     assert longest >= 12
     assert window.window_plan(longest, 33, 32, 32, 8192)[1] == "step1"
     assert window.window_plan(longest + 1, 33, 32, 32, 8192)[1] == "grid"
@@ -373,8 +377,8 @@ def test_window_plan_limits():
                               window.H100_SMEM, 0)[1] == "nodes"
     # at K = 16384 the longest window the node-resident layout holds takes
     # it (the grid layout in its place), one more step the chunked layout
-    longest = max(t for t in range(1, 65) if window.window_nodes_smem_bytes(
-        t, 33, 32, 32, 16384, 16) <= window.H100_SMEM)
+    longest = max(t for t in range(1, 65) if smem(
+        (t, 33, 32, 32, 16384), "nodes", tile) <= window.H100_SMEM)
     assert longest >= 12
     assert window.window_plan(longest, 33, 32, 32, 16384)[1] == "grid"
     assert window.window_plan(longest, 33, 32, 32, 16384,
@@ -467,37 +471,54 @@ def test_launch_plan_separates_the_entries(monkeypatch):
     assert asked == []
 
 
-def _cu_layout_words(fn: str, **dims) -> int:
-    """The word count of csrc/window_kernel.cu's ``fn`` (``layout``,
-    ``layout_wide``, ``layout_step``, ``layout_step1``, ``layout_nodes``
-    or ``layout_grid``) at ``dims``,
-    evaluated from the source text: each ``o += <expr>;`` of the
-    function, its casts dropped and its integer divisions made Python's
-    (the helpers it calls written out again here)."""
-    import re
-    from pathlib import Path
+@functools.cache
+def _pinned_plans():
+    """{(B, n, E, limit): [(T, K, grid_clusters, plan or error)]} of
+    tests/fixtures/window_plans.txt."""
+    table = {}
+    path = Path(__file__).resolve().parent / "fixtures" / "window_plans.txt"
+    for line in path.read_text().splitlines():
+        if line.startswith("#"):
+            continue
+        key, *runs = line.split()
+        b, n, e, k, limit, clusters = map(int, key.split(","))
+        rows = table.setdefault((b, n, e, limit), [])
+        first = 1
+        for run in runs:
+            last, plan = run.split(":")
+            if "/" in plan:
+                s, mode, wc = plan.split("/")
+                plan = (int(s), mode, int(wc))
+            rows += [(t, k, clusters, plan)
+                     for t in range(first, int(last) + 1)]
+            first = int(last) + 1
+    return table
 
-    src = (Path(window.__file__).resolve().parent.parent / "csrc"
-           / "window_kernel.cu").read_text()
-    body = re.search(rf"inline \w+ {fn}\(.*?\n}}\n", src, re.S).group(0)
-    env = dict(dims, kWarps=16,
-               up4=lambda x: -(-x // 4) * 4, larger=max,
-               q_splits=lambda b: (1 if -(-b // 11) >= 16
-                                   else 16 // -(-b // 11)),
-               fan_groups=lambda kw: 512 // kw if kw <= 512 else 1,
-               words_of_bits=lambda x: -(-x // 32),
-               row_stride=lambda w: 4 * (-(-w // 4) + 1 + (-(-w // 4)) % 2))
 
-    def py(expr):
-        return re.sub(r"\(size_t\)", "", expr).replace("/", "//")
-
-    for name, expr in re.findall(r"const size_t (\w+) = ([^,;]+)", body):
-        env[name] = eval(py(expr), {}, env)
-    for decl in re.findall(r"const size_t ([^;]+);", body):
-        for name, expr in re.findall(r"(\w+) = ([^,]+)", decl):
-            env[name] = eval(py(expr), {}, env)
-    return sum(eval(py(e), {}, env)
-               for e in re.findall(r"o \+= ([^;]+);", body))
+@pytest.mark.parametrize("limit", [232448, 160000, 100000])
+@pytest.mark.parametrize("bne", [(33, 32, 32), (65, 32, 64), (9, 8, 8),
+                                 (6, 7, 5)])
+def test_window_plan_pinned(bne, limit):
+    """window_plan at (B, n, E) and a card's shared memory per block, at
+    every T = 1..65, K from 12 to 16384 (ragged, past the step layouts,
+    between the grid's clusters) and 30, 16 or 0 co-resident grid
+    clusters, gives the pinned plan, or raises the pinned error: the
+    plans from before the planner read its bytes from the kernel's
+    header."""
+    rows = _pinned_plans()[(*bne, limit)]
+    assert len(rows) == 65 * 21 * 3
+    for t_win, k, clusters, want in rows:
+        shape = (t_win, *bne, k)
+        if want == "steps":
+            with pytest.raises(ValueError, match="<= 64 steps"):
+                window.window_plan(*shape, limit, clusters)
+        elif want == "fits":
+            with pytest.raises(ValueError,
+                               match=re.escape(f"{shape} fits {limit} B")):
+                window.window_plan(*shape, limit, clusters)
+        else:
+            assert window.window_plan(*shape, limit, clusters) == want, \
+                (shape, limit, clusters)
 
 
 @pytest.mark.parametrize("shape", [(12, 33, 32, 32, 4096),
@@ -506,32 +527,25 @@ def _cu_layout_words(fn: str, **dims) -> int:
                                    (12, 33, 32, 32, 16384)])
 @pytest.mark.parametrize("s,wc", [(16, 128), (16, 64), (3, 64), (1, 128)])
 def test_window_smem_bytes_mirror_the_kernel_layouts(shape, s, wc):
-    """window_wide_smem_bytes is struct WideLayout's layout_wide,
-    window_step_smem_bytes struct StepLayout's layout_step,
-    window_step1_smem_bytes struct Step1Layout's layout_step1,
-    window_nodes_smem_bytes struct NodesLayout's layout_nodes (tiles of
-    wc columns), window_grid_smem_bytes struct GridLayout's layout_grid
-    (slices of wc columns) and window_smem_bytes struct Layout's layout,
-    term by term: each equals the sum of csrc/window_kernel.cu's own
-    expressions, read from the source (on the card chip_smoke.py also
-    holds them against the built kernel's window_kernel_smem_bytes)."""
+    """The host build of csrc/window_layout.h (window_layout_bytes) gives
+    each of the kernel's six layouts (LAYOUT_MODES: the resident mode's
+    Layout, StepLayout, Step1Layout, WideLayout with chunks of wc columns,
+    NodesLayout with tiles of wc columns, GridLayout with slices of wc
+    columns) the bytes LAYOUT_BYTES pins at (shape, S, wc); its slice
+    width is ceil(K / S) rounded up to 4 where K is a multiple of 4, its
+    grid exchange ceil(K / wc) / S clusters of B * n + B + 2E floats. On
+    the card tests/test_torch_window_layout.py holds it against the
+    kernel's build."""
     t_win, b_cap, n_smpl, e_cap, k = shape
-    kw = window.window_slice_width(k, s)
-    dims = dict(T=t_win, B=b_cap, n=n_smpl, E=e_cap, kw=kw, S=s)
-    assert 4 * _cu_layout_words("layout_wide", wc=wc, **dims) == \
-        window.window_wide_smem_bytes(*shape, s, wc)
-    assert 4 * _cu_layout_words("layout", **dims) == \
-        window.window_smem_bytes(*shape, s)
-    assert 4 * _cu_layout_words("layout_step", **dims) == \
-        window.window_step_smem_bytes(*shape, s)
-    assert 4 * _cu_layout_words("layout_step1", **dims) == \
-        window.window_step1_smem_bytes(*shape, s)
-    assert 4 * _cu_layout_words("layout_nodes", wc=wc, **dims) == \
-        window.window_nodes_smem_bytes(*shape, s, wc)
-    # the grid layout: slices of wc columns, ceil(K / wc) // s clusters
-    grid = dict(dims, kw=wc, G=-(-k // wc) // s)
-    assert 4 * _cu_layout_words("layout_grid", **grid) == \
-        window.window_grid_smem_bytes(*shape, wc, s)
+    got = tuple(window.window_layout_bytes(shape, (s, mode, wc))
+                for mode in LAYOUT_MODES)
+    assert got == LAYOUT_BYTES[shape, s, wc]
+    w = -(-k // s)
+    assert window.window_slice_width(k, s) == (
+        -(-w // 4) * 4 if k % 4 == 0 else w)
+    assert window.window_grid_exchange_words(b_cap, n_smpl, e_cap, k, wc,
+                                             s) == \
+        -(-k // wc) // s * (b_cap * n_smpl + b_cap + 2 * e_cap)
 
 
 def test_window_core_cuda_rejects_cpu_tensors():
