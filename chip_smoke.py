@@ -132,6 +132,16 @@ Phases, one line each; any failure raises and the exit code is not 0:
                the float32 launch's in the same call and its bound with
                pi's row bytes halved;
      sort    — ops/sort.bitonic_sort_rows on the card equals torch.sort;
+     ppx     — the held-out evaluation's kernel (csrc/ppx_kernel.cu)
+               against its plain version (blocked_likelihood then
+               fold_likelihood) at the benchmark cells' shapes
+               (PPX_SHAPES): two successive evaluations, each pair's
+               running average within rtol 2e-5 and neg_avg_log within
+               1e-6 relative, the counts exact; two launches bit-equal;
+               the launch counter one per evaluation; the kernel's and
+               the plain version's ms and the bound of the cell's
+               evaluation bytes (2 H K stored values, the ids and the
+               averages) over 3.35 TB/s;
   4. slice   — hoisted loops on the GPU against the same loops on the
                CPU from one state and one operand tuple, N=300 (the
                states' pi drawn by the numpy host law, host_law_pi): the
@@ -360,7 +370,7 @@ import torch
 
 RTOL, ATOL = 1e-5, 1e-8
 SOURCES = ("window_kernel", "phi_kernel", "mmsb_window_kernel",
-           "ref_rng_kernel")
+           "ref_rng_kernel", "ppx_kernel")
 MAIN_ARGS = ["--synthetic", "317080,7", "-k", "256", "-x", "2000",
              "-i", "500", "--device", "cuda"]
 MMSB_ARGS = ["--model", "mmsb", "--synthetic", "317080,7", "-k", "64",
@@ -639,6 +649,13 @@ MMSB_SHAPES = [(1, 33, 32, 32, 64), (12, 33, 32, 32, 64), (3, 6, 7, 5, 12),
 PHI_SHAPES = [(33, 32, 256), (64, 32, 256), (5, 7, 12), (33, 32, 100),
               (33, 32, 4096)]
 PHI_MAIN_SHAPE = {"pre-gathered": (64, 32, 256), "by-index": (33, 32, 256)}
+# (H, K, pi dtype, cell) of the held-out evaluation in the benchmark's
+# cells, and the rows of pi the phase draws the pairs from (many more than
+# the 2 H rows read, so the reads come from HBM, not L2)
+PPX_SHAPES = [(10226, 16384, torch.float32, "dblp-k16384"),
+              (29610, 16384, torch.bfloat16, "youtube-k16384-bf16"),
+              (29610, 1024, torch.float32, "youtube-k1024")]
+PPX_PI_BYTES = 8 << 30
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, fp32 FLOP/s outside
 # the tensor cores
 HBM_RATE, FP32_RATE = 3.35e12, 67e12
@@ -1586,6 +1603,87 @@ def check_phi_kernel(phi_pallas, kernels, testing):
     return {e: (errs[e], *times[e]) for e in errs}
 
 
+def check_ppx_kernel(perplexity):
+    """Phase 3, the held-out evaluation: {cell: (ms, plain ms, bound ms,
+    what sets it, largest relative gap of a pair's average, relative gap
+    of neg_avg_log)}. Pi holds PPX_PI_BYTES // 4K normalized rows, and
+    the pairs draw their two rows from it."""
+    from mcmc_ammsb_tpu_torch.config import Config
+
+    dev = torch.device("cuda")
+    out = {}
+    for seed, (h, k, dtype, cell) in enumerate(PPX_SHAPES):
+        n = PPX_PI_BYTES // (4 * k)
+        cfg = Config(K=k).finalize(n, 10 * n, 8)
+        g = torch.Generator(dev).manual_seed(seed)
+        pi = torch.empty(n, k, dtype=dtype, device=dev)
+        for a in range(0, n, 4096):
+            blk = torch.rand(min(4096, n - a), k, device=dev,
+                             generator=g) + 0.05
+            pi[a:a + 4096] = (blk / blk.sum(-1, keepdim=True)).to(dtype)
+        beta = torch.rand(k, device=dev, generator=g) * 0.9 + 0.05
+        y = torch.rand(h, device=dev, generator=g) < 0.5
+        u, v = (torch.randint(0, n, (h,), device=dev, generator=g,
+                              dtype=torch.int32) for _ in range(2))
+        ones = torch.ones_like(y)
+
+        def kernel(avg, c):
+            """The kernel on the one chain's operands, in its [1, ...]
+            layout, returned without the chain axis."""
+            return perplexity._one_chain(perplexity.likelihood_cuda(
+                cfg, pi, pi, beta[None], u, v, y[None], avg[None], c))
+
+        got_avg = want_avg = torch.zeros(h, device=dev)
+        gaps = [0.0, 0.0]
+        for count in (1, 2):
+            c = perplexity.count_operand(count, got_avg)
+            before = perplexity.likelihood_cuda.launches
+            got = kernel(got_avg, c)
+            again = kernel(got_avg, c)
+            if perplexity.likelihood_cuda.launches != before + 2:
+                raise AssertionError(f"ppx {cell}: the counter read "
+                                     f"{perplexity.likelihood_cuda.launches}"
+                                     f" after {before} and two launches")
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"ppx {cell}: two launches differ")
+            want = perplexity.fold_likelihood(
+                perplexity.blocked_likelihood(cfg, pi, beta, u, v, y), y,
+                ones, want_avg, c)
+            within(got.ppx_per_edge, want.ppx_per_edge,
+                   f"ppx {cell} count {count}: averages", rtol=2e-5)
+            for a, b, what in zip(got[1:4], want[1:4],
+                                  ("neg_avg_log", "link", "non-link")):
+                within(a, b, f"ppx {cell} count {count}: {what}", rtol=1e-6)
+            if not (torch.equal(got.link_count, want.link_count)
+                    and torch.equal(got.non_link_count, want.non_link_count)):
+                raise AssertionError(f"ppx {cell}: counts differ")
+            gaps = [max(gaps[0], float(((got.ppx_per_edge.double()
+                                         - want.ppx_per_edge.double()).abs()
+                                        / want.ppx_per_edge.double()).max())),
+                    max(gaps[1], abs(float(got.neg_avg_log)
+                                     / float(want.neg_avg_log) - 1))]
+            got_avg, want_avg = got.ppx_per_edge, want.ppx_per_edge
+        c = perplexity.count_operand(3, got_avg)
+        ms = time_ms(lambda: kernel(got_avg, c), hold=True)
+        plain_ms = time_ms(lambda: perplexity.fold_likelihood(
+            perplexity.blocked_likelihood(cfg, pi, beta, u, v, y), y, ones,
+            want_avg, c), reps=10)
+        # as ammsb_bench/counts.eval_bytes counts an evaluation: two rows
+        # of every pair, its ids and its average read, the average written
+        moved = h * (2 * k * pi.element_size() + 2 * 4 + 2 * 4)
+        b_ms, b_by = bound(moved, 6 * h * k)
+        vec, tpp = perplexity.ppx_plan(k, pi.element_size())
+        out[cell] = (ms, plain_ms, b_ms, b_by, *gaps)
+        phase("kernel", f"ppx {cell} (H, K)=({h}, {k}) {dtype}: {tpp} "
+              f"threads a pair, {vec} values a load; kernel vs plain: "
+              f"largest relative gap of an average {gaps[0]:.3e}, "
+              f"neg_avg_log {gaps[1]:.3e}; two launches bit-equal; "
+              f"{ms:.4f} ms/call kernel, {plain_ms:.4f} ms/call plain; "
+              f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.1f}% of it")
+        del pi
+    return out
+
+
 def _mmsb_outs(st):
     return (st.pi, st.phi_sum, st.theta_b)
 
@@ -2059,8 +2157,11 @@ def _counts(mods, what):
     """Reset every kernel's launch count (``what`` None), or read them:
     {kernel: launches}, and "chains", the chains the chain-mode launches
     ran in all."""
+    from mcmc_ammsb_tpu_torch.ops import perplexity
+
     window, window_mmsb, phi_pallas, refblock = mods
-    counters = {"window": (window.window_apply_cuda, "launches"),
+    counters = {"ppx": (perplexity.likelihood_cuda, "launches"),
+                "window": (window.window_apply_cuda, "launches"),
                 "window_wide": (window.window_apply_cuda, "wide_launches"),
                 "window_chain": (window.window_chain_apply_cuda, "launches"),
                 "window_chain_wide": (window.window_chain_apply_cuda,
@@ -2097,6 +2198,11 @@ def run_main(cli, kmods):
     if launches["window"] != expected:
         raise AssertionError(f"window kernel launched {launches['window']} "
                              f"times, expected {expected}")
+    # every evaluation one launch pair of the evaluation kernel
+    if launches["ppx"] != len(series):
+        raise AssertionError(f"evaluation kernel launched "
+                             f"{launches['ppx']} times for {len(series)} "
+                             f"evaluations")
     # steady state: the second 1000-step call, whose numbers reach the
     # host only after the device finished it
     t1000 = next(c for s, _, c in series if s == 1000)
@@ -2104,6 +2210,7 @@ def run_main(cli, kmods):
     rate = 1000 / (t2000 - t1000)
     phase("main", f"a-MMSB: rc 0, ppx {ppx}, window-kernel launches "
           f"{launches['window']} (= {expected} windows, short ones in), "
+          f"evaluation-kernel launches {launches['ppx']}, "
           f"steady state "
           f"{rate:.1f} updates/s")
     return launches, ppx, rate
@@ -2157,7 +2264,7 @@ def run_wide_main(cli, kmods, main_l, args, shape, smi, beside=""):
     # the K = 256 main path's launches; bf16 tails keep the step body
     n_win = main_l["window"] - (4 if dtype == "bfloat16" else 0)
     want = {name: 0 for name in launches}
-    want.update(window=n_win, window_wide=n_win)
+    want.update(window=n_win, window_wide=n_win, ppx=len(series))
     if (launches != want or layouts != [layout] * n_win
             or dtypes != {f"torch.{dtype}"}):
         raise AssertionError(f"-k {k} {dtype}: launches {launches}, "
@@ -2271,7 +2378,9 @@ def run_host_main(cli, kmods, name, smi):
     ppx = [p for _, p, _ in series]
     if not ppx[-1] < ppx[0]:
         raise AssertionError(f"{name}: ppx does not fall: {ppx}")
+    # one evaluation-kernel launch pair a point of the series
     want = {k: expected.get(k, 0) for k in launches}
+    want["ppx"] = len(series)
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, expected {want}")
     for needle in needles:
@@ -2376,7 +2485,9 @@ def check_mmsb_engine_slices(mods, testing_mod):
 
 
 def run_new_main(cli, kmods, name, smi):
-    """Phase 5, one of NEW_RUNS: an engine that launches no kernel."""
+    """Phase 5, one of NEW_RUNS: an engine that launches no kernel but
+    the a-MMSB evaluation's (the vmap chains: one launch pair a chain and
+    evaluation; the MMSB model evaluates in torch ops)."""
     args, steps, interval, chains, falls = NEW_RUNS[name]
     _counts(kmods, None)
     series, messages = _run_cli(cli, args)
@@ -2392,11 +2503,16 @@ def run_new_main(cli, kmods, name, smi):
                              for p in ppx for q, q0 in zip(p, ppx[0])):
         # the structure-free plateau at 2 (see run_mmsb_main)
         raise AssertionError(f"{name}: ppx leaves the plateau: {ppx}")
-    if any(launches.values()):
-        raise AssertionError(f"{name}: launches {launches}, expected none")
+    evals = 0 if "mmsb" in args else chains * len(series)
+    if launches["ppx"] != evals or any(v for k, v in launches.items()
+                                       if k != "ppx"):
+        raise AssertionError(f"{name}: launches {launches}, expected "
+                             f"{evals} evaluation launches and no other")
     rate = chains * steps / (series[-1][2] - series[0][2])
     phase("main", f"{name}: rc 0, ppx[0] {ppx[0]}, ppx[{steps}] {ppx[-1]}; no "
-          f"kernel launch (torch ops); {rate:.1f} updates/s"
+          f"kernel launch but {evals} of the evaluation kernel (the rest "
+          f"torch ops); "
+          f"{rate:.1f} updates/s"
           f"{' aggregate' if chains > 1 else ''} over the {steps} steps "
           f"after ppx[0], evaluations included; {smi}")
 
@@ -2731,8 +2847,9 @@ def run_ref_main(cli, kmods, name, smi):
     ppx = [p if isinstance(p, list) else [p] for _, p, _ in series]
     if falls and not all(q < q0 for q, q0 in zip(ppx[-1], ppx[0])):
         raise AssertionError(f"{name}: ppx does not fall: {ppx}")
+    # the flat chains evaluate every chain in one launch pair
     want = {k: expected.get(k, 0) for k in launches}
-    want["chains"] = launches["chains"]
+    want.update(chains=launches["chains"], ppx=len(series))
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, expected {want}")
     for needle in needles:
@@ -2900,11 +3017,13 @@ def run_sharded_phases(cli, kmods, main_l, main_rate, testing, bench, smi):
     # the main path's whole windows: the sharded engine runs each chunk's
     # tail steps one at a time, the single-GPU one as a short window
     whole = 4 * (500 // 12)
-    if (launches["window"] != whole
-            or any(v for k, v in launches.items() if k != "window")):
+    if (launches["window"] != whole or launches["ppx"] != len(series)
+            or any(v for k, v in launches.items()
+                   if k not in ("window", "ppx"))):
         raise AssertionError(f"--mesh 1,1 launches {launches}, expected "
-                             f"{whole} (the single-GPU main path "
-                             f"{main_l['window']})")
+                             f"{whole} windows (the single-GPU main path "
+                             f"{main_l['window']}) and {len(series)} "
+                             f"evaluations")
     t = {st: c for st, _, c in series}
     rate = 1000 / (t[2000] - t[1000])
     out["mesh"] = launches
@@ -3538,7 +3657,7 @@ def run_ladder_phase(ladder, window, kernels, kmods, jobs, smi):
             expect = {k: 0 for k in launches}
             expect.update(window=n_win,
                           window_wide=n_win if want and want[0] != "resident"
-                          else 0)
+                          else 0, ppx=len(series))
             over = art["peak_memory_bytes"] - art["pi_bytes"]
             rule = art["k_rule"]
             work = rule["working_bytes"]
@@ -3647,7 +3766,8 @@ def _carry_fixture(cli, learner_mod, testing, kmods, tmp, name):
             bad.append(f"ppx[10] {ppx[10]} vs JAX {side['ppx']['10']}")
         # one chunk of 10 steps: its phi and theta noise, its neighbors
         # (and the init's gamma draws before the restore)
-        drawn = {k: v for k, v in launches.items() if v and k != "gamma"}
+        drawn = {k: v for k, v in launches.items()
+                 if v and k not in ("gamma", "ppx")}
         if (drawn != {"randn": 2, "neighbors": 1} or reseeded
                 or "reference RNG: the kernel" not in " ".join(messages)):
             bad.append(f"launches {launches}, re-seed lines {reseeded}")
@@ -3851,8 +3971,8 @@ def main() -> int:
     from mcmc_ammsb_tpu_torch import learner as learner_mod
     from mcmc_ammsb_tpu_torch.models import mmsb
     from mcmc_ammsb_tpu_torch.ops import (device_sampling, edgeset, neighbor,
-                                          phi_pallas, sort, window,
-                                          window_mmsb)
+                                          perplexity, phi_pallas, sort,
+                                          window, window_mmsb)
     from mcmc_ammsb_tpu_torch.ops import phi as phi_ops
     from mcmc_ammsb_tpu_torch.rng import reference as ref_rng
     from mcmc_ammsb_tpu_torch.rng import refblock
@@ -3884,6 +4004,7 @@ def main() -> int:
         bf16_k = check_bf16_kernels(window, chains_flat, testing, smi)
         check_sort(sort)
         phi = check_phi_kernel(phi_pallas, kernels, testing)
+        ppx_k = check_ppx_kernel(perplexity)
         m_err, m_t = check_mmsb_kernel(window, window_mmsb, kernels, testing,
                                        phi_ops, smi)
         rr, rr_turns, rr_layouts = check_ref_rng_kernel(
@@ -4158,6 +4279,19 @@ def main() -> int:
          "replaces": "mcmc_ammsb_tpu/ops/phi_pallas.py:84",
          "launches": phi_l["phi_gather"],
          "max_abs_err": phi["by-index"][0], **times(phi["by-index"][1:])},
+        # the held-out evaluation: replaces no Pallas kernel (the JAX
+        # package leaves it to XLA); one launch pair per evaluation, the
+        # main path's evaluations counted, times at the three cells'
+        # shapes
+        {"name": "ppx_kernel", "route": "cuda",
+         "source": src + "ppx_kernel.cu",
+         "replaces": "none (mcmc_ammsb_tpu/ops/perplexity.py:56-99 is "
+                     "plain jnp)",
+         "launches": main_l["ppx"],
+         "cells": {cell: {"ms": t[0], "plain_ms": t[1], "bound_ms": t[2],
+                          "bound_by": t[3], "max_rel_gap": t[4],
+                          "neg_avg_log_rel_gap": t[5]}
+                   for cell, t in ppx_k.items()}},
         # the reference RNG: streams split across a warp or a block (the
         # Gamma draws: one thread per stream), a chunk per launch;
         # launches are the --rng reference run's (400 steps, chunks of 200:

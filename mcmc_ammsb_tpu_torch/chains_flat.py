@@ -326,9 +326,17 @@ def chain_perplexity(cfg: Config, c: int, heldout_set, eu, ev,
     """Per-chain held-out perplexity over the shared held-out population:
     (state, -mean log running-averaged likelihood [C] on the device). The
     rows are gathered in blocks of pairs (``ppx_ops.blocked_likelihood``),
-    so the transient memory is bounded whatever C x H x K is."""
+    so the transient memory is bounded whatever C x H x K is; on a card
+    the evaluation kernel takes the C chains in one launch pair, each
+    with its beta row (``ppx_ops.likelihood_cuda``)."""
     count = state.ppx_count + 1
     y = heldout_set.has_edges(eu, ev)                          # [H]
+    if state.pi.is_cuda:
+        res = ppx_ops.likelihood_cuda(cfg, state.pi, state.pi,
+                                      state.beta.contiguous(), eu, ev,
+                                      y[None, :], state.ppx_per_edge, count)
+        return (state._replace(ppx_per_edge=res.ppx_per_edge,
+                               ppx_count=count), res.neg_avg_log)
     lik = ppx_ops.blocked_likelihood(cfg, state.pi, state.beta[:, None, :],
                                      eu, ev, y[None, :], lead=c)  # [C, H]
     cnt = float(count)
